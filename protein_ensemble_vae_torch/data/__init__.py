@@ -1,0 +1,11 @@
+from protein_ensemble_vae_torch.data.dataset import (  # noqa: F401
+    Conformer,
+    EnsembleDataset,
+    SingleConformerView,
+)
+from protein_ensemble_vae_torch.data.collate import bucket_for  # noqa: F401
+from protein_ensemble_vae_torch.data.synthetic import (  # noqa: F401
+    make_synthetic_dataset,
+    nerf_ensemble,
+    write_synthetic_h5,
+)

@@ -1,0 +1,83 @@
+"""Weight carry-over from the JAX package's Flax parameter tree.
+
+``params_from_flax(tree, model)`` takes ``variables["params"]`` of the JAX
+``HierCVAE`` as a nested dict of numpy arrays and returns this package's
+``state_dict``. Module names match the Flax tree, so a parameter's path
+carries over as it is; only leaf layouts change:
+
+- Dense ``kernel [in, out]`` -> ``weight [out, in]``; ``bias`` as is;
+- attention ``query/key/value`` kernels ``[d, heads, head_dim]`` ->
+  ``weight [heads*head_dim, d]``, bias ``[heads, head_dim]`` flattened;
+  ``out`` kernel ``[heads, head_dim, d]`` -> ``weight [d, heads*head_dim]``;
+- LayerNorm ``scale`` -> ``weight``;
+- raw parameters (the EGNN edge weights, ``geom_res_scale``,
+  ``global_query``) are copied as they are.
+
+It raises on any key left over on either side, and on a shape mismatch.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _convert(path: tuple[str, ...], node: Mapping, out: dict) -> None:
+    keys = set(node)
+    leaves = {k for k in keys if not isinstance(node[k], Mapping)}
+    prefix = ".".join(path)
+    if "kernel" in leaves:                         # Dense or attention block
+        extra = leaves - {"kernel", "bias"}
+        if extra:
+            raise KeyError(f"unexpected leaves {sorted(extra)} under {prefix}")
+        k = np.asarray(node["kernel"])
+        if k.ndim == 2:
+            w = k.T
+        elif k.ndim == 3 and path[-1] == "out":    # [heads, head_dim, d]
+            w = k.reshape(-1, k.shape[-1]).T
+        elif k.ndim == 3:                          # [d, heads, head_dim]
+            w = k.reshape(k.shape[0], -1).T
+        else:
+            raise ValueError(f"kernel of rank {k.ndim} at {prefix}")
+        out[f"{prefix}.weight"] = w
+        if "bias" in leaves:
+            out[f"{prefix}.bias"] = np.asarray(node["bias"]).reshape(-1)
+        leaves = set()
+    elif "scale" in leaves:                        # LayerNorm
+        extra = leaves - {"scale", "bias"}
+        if extra:
+            raise KeyError(f"unexpected leaves {sorted(extra)} under {prefix}")
+        out[f"{prefix}.weight"] = np.asarray(node["scale"])
+        out[f"{prefix}.bias"] = np.asarray(node["bias"])
+        leaves = set()
+    for k in sorted(keys):
+        if k in leaves:                            # raw parameter
+            out[".".join(path + (k,))] = np.asarray(node[k])
+        elif isinstance(node[k], Mapping):
+            _convert(path + (k,), node[k], out)
+
+
+def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """Flax ``params`` (nested dict of arrays) -> ``model``'s state_dict.
+
+    Raises ``KeyError`` on a key that only one side has and ``ValueError``
+    on a shape mismatch."""
+    flat: dict[str, np.ndarray] = {}
+    _convert((), tree, flat)
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        raise KeyError(f"Flax tree and model disagree: missing {missing}, "
+                       f"left over {extra}")
+    sd = {}
+    for name, ref in expected.items():
+        arr = flat[name]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: Flax shape {tuple(arr.shape)} -> "
+                             f"model shape {tuple(ref.shape)}")
+        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return sd

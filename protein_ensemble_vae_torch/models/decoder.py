@@ -1,0 +1,185 @@
+"""E(n)-equivariant GNN decoder over a dense neighbor band (counterpart of
+the JAX package's ``models/decoder.py``).
+
+The |i-j| <= W window graph over valid residues is a dense [B, L, 2W+1]
+band over mask-compacted sequences:
+
+1. ``compact_valid`` permutes each row valid-first (stable), so the window
+   graph on compacted indices is the graph over valid residues.
+2. Message passing runs in ``ops.kernels.egnn_band``: the CUDA kernel for
+   CUDA tensors, the plain band-gather version otherwise (``ops/routing.py``).
+3. The edge MLP's first layer is split algebraically:
+   ``W.[h_i, h_j, d^2] = W_i.h_i + W_j.h_j + w_d.d^2``.
+4. Results scatter back through the inverse permutation; padded positions
+   emit zeros.
+
+The EGNN edge weights stay raw parameters in the JAX package's [in, out]
+layout, the layout the kernel reads. ``l2c_out``, ``seq_out``, ``n_off2``,
+``c_off2`` and the coordinates are fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from protein_ensemble_vae_torch.models.encoder import layer_norm
+from protein_ensemble_vae_torch.models.init import linear, uniform_
+from protein_ensemble_vae_torch.ops.geometry import (compact_valid, safe_norm,
+                                                     safe_normalize,
+                                                     scatter_compact)
+from protein_ensemble_vae_torch.ops.kernels.egnn_band import (band_indices,
+                                                              egnn_band_fused)
+
+Tensor = torch.Tensor
+
+BOND_N_CA = 1.46
+BOND_CA_C = 1.52
+BOND_C_N = 1.33
+
+
+def _param(shape, fan_in: int) -> nn.Parameter:
+    return nn.Parameter(uniform_(torch.empty(shape), fan_in))
+
+
+class EGNNBandLayer(nn.Module):
+    """One EGNN layer over a dense neighbor band.
+
+    phi_e: [h_i, h_j, |x_i-x_j|^2] -> message (2-layer SiLU MLP, split first layer)
+    phi_h: [h_i, sum_j m_ij] -> residual node update + LayerNorm
+    phi_x: m_ij -> scalar w_ij; x_i += 0.2 * deg^-1 * sum_j w_ij (x_i - x_j)
+    """
+
+    def __init__(self, hidden_in: int, hidden: int, use_pallas: object = False):
+        super().__init__()
+        Hin, Hd = hidden_in, hidden
+        self.use_pallas = use_pallas
+        # The split first layer is one matrix W[2H+1, Hd]: all three pieces
+        # and the bias use the JOINT fan-in.
+        fan_e1 = 2 * Hin + 1
+        self.phi_e1_hi_kernel = _param((Hin, Hd), fan_e1)
+        self.phi_e1_hi_bias = _param((Hd,), fan_e1)
+        self.phi_e1_hj_kernel = _param((Hin, Hd), fan_e1)
+        self.phi_e1_d2_kernel = _param((1, Hd), fan_e1)
+        self.phi_e2_kernel = _param((Hd, Hd), Hd)
+        self.phi_e2_bias = _param((Hd,), Hd)
+        self.phi_x1_kernel = _param((Hd, Hd), Hd)
+        self.phi_x1_bias = _param((Hd,), Hd)
+        self.phi_x2_kernel = _param((Hd, 1), Hd)
+        self.phi_x2_bias = _param((1,), Hd)
+        self.phi_h1 = linear(Hin + Hd, Hd)
+        self.phi_h2 = linear(Hd, Hin)
+        self.norm_h = layer_norm(Hin)
+
+    def forward(self, h: Tensor, x: Tensor, deg_inv: Tensor, cmask: Tensor,
+                W: int) -> tuple[Tensor, Tensor]:
+        a_i = h @ self.phi_e1_hi_kernel + self.phi_e1_hi_bias
+        b_j = h @ self.phi_e1_hj_kernel
+        agg, raw_delta = egnn_band_fused(
+            a_i, b_j, x, cmask, self.phi_e1_d2_kernel, self.phi_e2_kernel,
+            self.phi_e2_bias, self.phi_x1_kernel, self.phi_x1_bias,
+            self.phi_x2_kernel, self.phi_x2_bias, W, self.use_pallas)
+        hu = F.silu(self.phi_h1(torch.cat([h, agg], dim=-1)))
+        hu = self.phi_h2(hu)
+        h = self.norm_h(h + hu)
+        x = x + raw_delta * deg_inv[..., None] * 0.2
+        return h, x
+
+
+class EGNNDecoder(nn.Module):
+    """Latent -> initial CA coords -> EGNN refinement -> backbone + sequence
+    logits (hidden 256, 8 layers, max_neighbors 40 by default)."""
+
+    def __init__(self, z_g: int, z_l: int, hidden: int = 256,
+                 num_layers: int = 8, max_neighbors: int = 40,
+                 dropout: float = 0.1, degree_normalize: bool = True,
+                 use_pallas: object = False):
+        super().__init__()
+        self.num_layers = num_layers
+        self.max_neighbors = max_neighbors
+        self.degree_normalize = degree_normalize
+        zc = z_g + z_l
+        self.l2c_dense1 = linear(zc, hidden)
+        self.l2c_norm = layer_norm(hidden)
+        self.l2c_dense2 = linear(hidden, hidden // 2)
+        self.l2c_out = linear(hidden // 2, 3, kernel_scale=0.1, zero_bias=True)
+        self.input_embedding = linear(zc, hidden)
+        # named egnn_{i}, as in the Flax tree, so parameter paths match
+        for i in range(num_layers):
+            self.add_module(f"egnn_{i}",
+                            EGNNBandLayer(hidden, hidden, use_pallas))
+        self.seq_dense1 = linear(hidden, hidden * 2)
+        self.seq_norm1 = layer_norm(hidden * 2)
+        self.seq_dense2 = linear(hidden * 2, hidden)
+        self.seq_norm2 = layer_norm(hidden)
+        self.seq_out = linear(hidden, 20)
+        self.n_off1 = linear(hidden, hidden // 2)
+        self.n_off2 = linear(hidden // 2, 4)
+        self.c_off1 = linear(hidden, hidden // 2)
+        self.c_off2 = linear(hidden // 2, 4)
+        self.drop = nn.Dropout(dropout)
+        self.drop_half = nn.Dropout(dropout * 0.5)
+
+    def forward(self, z_g: Tensor, z_l: Tensor, mask: Optional[Tensor] = None
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+        B, L, _ = z_l.shape
+        if mask is None:
+            mask = torch.ones((B, L), dtype=torch.float32, device=z_l.device)
+        mask = mask.to(torch.float32)
+
+        pos, inv_pos, cmask = compact_valid(mask)
+        zl_c = torch.gather(z_l, 1, pos[..., None].expand(-1, -1, z_l.shape[-1]))
+        zg_rep = z_g[:, None, :].expand(B, L, z_g.shape[-1])
+        zc = torch.cat([zg_rep, zl_c], dim=-1)
+
+        t = F.relu(self.l2c_norm(self.l2c_dense1(zc)))
+        t = self.drop_half(t)
+        t = F.relu(self.l2c_dense2(t))
+        x = self.l2c_out(t).to(torch.float32)                   # [B, L, 3]
+
+        h = self.input_embedding(zc)
+
+        W = self.max_neighbors
+        nbr_idx, in_range = band_indices(L, W, z_l.device)
+        cm = cmask > 0.5
+        nbr_valid = in_range[None] & cm[:, :, None] & cm[:, nbr_idx]
+        deg = nbr_valid.sum(-1).to(torch.float32)
+        if self.degree_normalize:
+            deg_inv = 1.0 / torch.clamp(deg, min=1.0)
+        else:
+            deg_inv = torch.ones_like(deg)
+
+        for i in range(self.num_layers):
+            h, x = getattr(self, f"egnn_{i}")(h, x, deg_inv, cmask, W)
+            h = self.drop(h)
+
+        s = F.relu(self.seq_norm1(self.seq_dense1(h)))
+        s = self.drop_half(s)
+        s = F.relu(self.seq_norm2(self.seq_dense2(s)))
+        s = self.drop_half(s)
+        seq_logits = self.seq_out(s)
+
+        n_head = self.n_off2(F.relu(self.n_off1(h)))
+        c_head = self.c_off2(F.relu(self.c_off1(h)))
+        x_n = x + safe_normalize(n_head[..., :3]) * BOND_N_CA
+        x_c = x + safe_normalize(c_head[..., :3]) * BOND_CA_C
+
+        # Soft peptide-bond projection: 3 iterations pulling N(i+1) toward
+        # 1.33 A from C(i), 15 %/iter, clamp [0.90, 1.10] — over consecutive
+        # *valid* residues (compacted arrays).
+        if L > 1:
+            for _ in range(3):
+                vec = x_n[:, 1:] - x_c[:, :-1]
+                dist = safe_norm(vec, keepdim=True)
+                scale = 1.0 + 0.15 * (BOND_C_N / (dist + 1e-8) - 1.0)
+                scale = torch.clamp(scale, 0.90, 1.10)
+                x_n = torch.cat([x_n[:, :1], x_c[:, :-1] + vec * scale], dim=1)
+
+        out_n = scatter_compact(x_n, inv_pos, mask)
+        out_ca = scatter_compact(x, inv_pos, mask)
+        out_c = scatter_compact(x_c, inv_pos, mask)
+        out_seq = scatter_compact(seq_logits, inv_pos, mask)
+        return out_n, out_ca, out_c, out_seq

@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
+process: a wrapper adds one where it launches its kernel, and nowhere else.
+A run resets the counts with ``reset_launches()`` and reads them afterwards
+to show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

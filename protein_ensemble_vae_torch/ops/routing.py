@@ -1,0 +1,40 @@
+"""Single kernel-routing policy (counterpart of the JAX package's
+``ops/routing.py``).
+
+``ModelConfig.use_pallas_egnn`` keeps its name and its values, since it is
+part of the checkpoint sidecar; here it chooses between a hand-written CUDA
+kernel and its plain PyTorch version over the same parameters:
+
+- ``"auto"`` or ``"interpret"``: the kernel for a CUDA tensor, the plain
+  version for a CPU tensor (a CUDA kernel has no interpret mode);
+- ``True``: the kernel; raises for a CPU tensor, as the JAX side raises
+  off-TPU rather than run a slow stand-in;
+- ``False`` / ``None``: the plain version everywhere.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def set_full_fp32() -> None:
+    """Turn TF32 off for matrix products and convolutions. The port's fp32
+    path runs in full fp32, as the JAX side calls its kernel with
+    ``Precision.HIGHEST`` for fp32 models; generation sets this on entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def pallas_policy(t: torch.Tensor, use_pallas: object = "auto") -> bool:
+    """Decide whether the hand-written kernel runs on tensor ``t``."""
+    on_cuda = t.is_cuda
+    if use_pallas in ("auto", "interpret"):
+        return on_cuda
+    if use_pallas:
+        if not on_cuda:
+            raise RuntimeError(
+                "use_pallas_egnn=True forces the CUDA kernel, but the tensor "
+                f"lies on {t.device}. Use \"auto\" (the plain version off the "
+                "GPU) or False.")
+        return True
+    return False
