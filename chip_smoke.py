@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile TRACE.json]
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
@@ -9,21 +9,40 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel,
    with ``-Xptxas -v``'s register / shared-memory / spill report.
 3. kernels: each kernel's wrapper against its plain PyTorch version, on the
-   card, at the shapes the main path gives it (TF32 off), with the stated
+   card, at the shapes the main paths give it (TF32 off), with the stated
    tolerance; CUDA-event times (median over runs, after warm-up) of kernel
    and plain version, and the least time the card could take (bound).
-4. main path: ``generate_ensembles`` with a fresh seeded ``HierCVAE`` at the
-   default ``ModelConfig`` widths on two synthetic NeRF proteins (buckets
-   256 and 640), ``num_samples=10``. Launch counts are reset just before and
-   read just after: each structure makes 2 decodes x 8 EGNN layers = 16
-   launches. Outputs must be finite and the PDB files written; the kernel
-   decode of one latent is held against the plain decode of it.
-5. one ``kernels`` JSON line, then, as the last line,
+   Kernel 1 (band forward) at B1/B10 x L256/L640; kernels 2-4 (band
+   backward, clash forward / backward) at the training shapes B4/L256 and
+   B2/L640; kernel 2 must give bitwise-identical output over two launches.
+4. generation main path: ``generate_ensembles`` with a fresh seeded
+   ``HierCVAE`` at the default ``ModelConfig`` widths on two synthetic NeRF
+   proteins (buckets 256 and 640), ``num_samples=10``. Launch counts are
+   reset just before and read just after: each structure makes 2 decodes x
+   8 EGNN layers = 16 launches. Outputs must be finite and the PDB files
+   written; the kernel decode of one latent is held against the plain
+   decode of it.
+5. training main path: ``train_model`` for 2 epochs at the default widths,
+   fp32, batch 4, on an in-memory pair dataset of NeRF conformers (L = 230,
+   K = 5, 10 pairs: 8 train / 2 val), checkpointing into a temporary
+   directory. Launch counts are reset just before and read after each
+   epoch: 8 band forward + 8 band backward + 1 clash forward + 1 clash
+   backward per train step, 8 + 1 per eval step. Losses finite, parameters
+   changed.
+6. timed train steps: ``make_train_step`` at B4/L256 and at B2/L640 with
+   ``decoder_remat`` (16 band forwards per step), kernel path and plain
+   path (``use_pallas_egnn=False``): median step ms over 5 steps after 2
+   warm-ups (host clock, synchronised) and peak device memory; on one
+   B4/L256 batch the kernel path's loss dict and gradients are held
+   against the plain path's (``_compare_paths`` states what is held and
+   what is only reported).
+7. one ``kernels`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
-``--profile TRACE.json`` adds, after the checks, a torch.profiler pass over
-the main path (device busy share, top operators by device time) and writes
-its Chrome trace to ``TRACE.json``. It is not needed for the smoke run.
+``--profile TRACE.json`` adds, after the checks, torch.profiler passes over
+the generation path and over the B4/L256 timed train steps (device busy
+share, top operators by device time) and writes their Chrome traces to
+``TRACE.json`` and ``TRACE.train.json``. It is not needed for the smoke run.
 
 Imports nothing of JAX; builds from the repository's sources only.
 """
@@ -42,6 +61,7 @@ import types
 import numpy as np
 
 SEED = 0
+DEVICE = "cuda"
 HD, W = 256, 40                       # ModelConfig decoder_hidden, max_neighbors
 NUM_SAMPLES = 10
 PROTEINS = (("synA", 230, 1), ("synB", 600, 2))   # id, length, fold seed
@@ -58,6 +78,18 @@ RTOL, ATOL_REL = 1e-4, 1e-4
 # Kernel-path vs plain-path decode of one latent: 8 layers of the above,
 # then the heads; 1e-3 A is the precision PDB files are written at.
 COORD_ATOL = 1e-3
+
+# Kernel 2-4 vs plain version: gradients are sums over up to ~1e5 edges
+# (weight grads) or ~1e3 atom pairs in another order, so the absolute
+# tolerance scales with each output's magnitude.
+G_RTOL, G_ATOL_REL = 2e-3, 1e-4
+# Training shapes (B, L) of kernels 2-4, and the timed train steps.
+TRAIN_SHAPES = ((4, 256), (2, 640))
+TRAIN_HEADLINE = (4, 256)
+TRAIN_PROTEIN = ("synT", 230, 3, 5)   # id, length, fold seed, conformers
+TIMED_STEPS = (dict(B=4, L=256, L_real=230, remat=False),
+               dict(B=2, L=640, L_real=600, remat=True))
+STEP_WARMUP, STEP_REPS = 2, 5
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA data
 # sheet): fp32 outside the tensor cores, and HBM3 bandwidth.
@@ -111,10 +143,10 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
-    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, build
+    from protein_ensemble_vae_torch.ops.kernels import SOURCES, build
 
     t0 = time.perf_counter()
-    report = build.build(sorted(LAUNCHES), verbose=True)
+    report = build.build(sorted(set(SOURCES.values())), verbose=True)
     log(f"[build] {len(report)} source(s) in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -206,8 +238,132 @@ def phase_kernels() -> list[dict]:
     return rows
 
 
+def _close_scaled(name: str, got, ref) -> float:
+    """Raise unless ``got`` matches ``ref`` at rtol G_RTOL, atol
+    G_ATOL_REL * max|ref|; return the max abs error."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: not finite")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not torch.allclose(got, ref, rtol=G_RTOL, atol=G_ATOL_REL * scale):
+        raise RuntimeError(f"{name} disagrees with its plain version: max abs "
+                           f"err {err:.3e}, max|plain| {scale:.3e}")
+    return err
+
+
+def _band_bwd_bound(B: int, L: int, cmask) -> tuple[float, str]:
+    """Least time for one backward launch: per valid edge 6 Hd x Hd products
+    (12 Hd^2 FLOP) plus the elementwise chain, over the fp32 peak, against
+    the inputs (a, bs, x, cmask, weights, g_agg, g_delta) read once and the
+    gradients written once over the HBM rate."""
+    _, _, edges = _egnn_bound(B, L, cmask)
+    flops = edges * (12 * HD * HD + 20 * HD)
+    nbytes = 4 * (3 * B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # in
+                  + 2 * B * L * HD + B * L * 3 + 2 * HD * HD + 4 * HD + 1)          # out
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _clash_bound(amask, pairs_per_atom_pair: int, flop_per_pair: int,
+                 out_floats: int) -> tuple[float, str]:
+    """Least time for one clash launch over this run's atoms: the atom pairs
+    the function visits (upper triangle forward, both orders backward) x
+    FLOP per pair over the fp32 peak, against atoms + mask read once and the
+    output written once over the HBM rate."""
+    B, A = amask.shape
+    pairs = B * A * (A - 1) // 2 * pairs_per_atom_pair
+    t_ops = pairs * flop_per_pair / PEAK_FP32_FLOPS
+    t_bytes = 4 * (B * A * 4 + out_floats) / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _clash_inputs(B: int, L: int, seed: int):
+    """Backbones of NeRF folds with a masked tail on row 0 and a hole on the
+    last row; the folds are squeezed by 10 % so that some pairs clash."""
+    import torch
+
+    from protein_ensemble_vae_torch.data.synthetic import nerf_ensemble
+    from protein_ensemble_vae_torch.ops.kernels.clash import backbone_atoms
+
+    n, ca, c = (torch.from_numpy(0.9 * v[:B]) for v in
+                nerf_ensemble(L, max(B, 2), seed=seed, max_tries=16))
+    mask = torch.ones(B, L)
+    mask[0, L - L // 8:] = 0.0
+    mask[-1, L // 2] = 0.0
+    atoms, amask = backbone_atoms(n, ca, c, mask)
+    return atoms.float().cuda().contiguous(), amask.cuda().contiguous()
+
+
+def phase_train_kernels() -> dict[str, list[dict]]:
+    """Kernels 2-4 against their plain versions at the training shapes."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.clash import (
+        clash_bwd, clash_bwd_reference, clash_fwd, clash_fwd_reference)
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        egnn_band_bwd, egnn_band_bwd_reference)
+
+    rows = {"egnn_band_bwd": [], "clash_fwd": [], "clash_bwd": []}
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    for k, (B, L) in enumerate(TRAIN_SHAPES):
+        args = _egnn_inputs(B, L, SEED + 10 + k)
+        g = torch.Generator(device="cuda").manual_seed(SEED + k)
+        g_agg = torch.randn(B, L, HD, generator=g, device="cuda")
+        g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+        got = egnn_band_bwd(*args, g_agg, g_delta, W)
+        again = egnn_band_bwd(*args, g_agg, g_delta, W)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"egnn_band_bwd B{B}/L{L}: two launches differ")
+        ref = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+        errs = {n: _close_scaled(f"egnn_band_bwd B{B}/L{L} {n}", a, b)
+                for n, a, b in zip(names, got, ref)}
+        rel = {n: errs[n] / max(float(r.abs().max()), 1e-30) for n, r in zip(names, ref)}
+        worst = max(rel, key=rel.get)
+        ms = _median_ms(lambda: egnn_band_bwd(*args, g_agg, g_delta, W))
+        plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W))
+        bound_ms, bound_by = _band_bwd_bound(B, L, args[3])
+        log(f"[kernels] egnn_band_bwd B{B}/L{L}: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+            f"bound {bound_ms:.3f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of "
+            f"bound; max abs err {max(errs.values()):.3e}, largest err / max|plain| "
+            f"{rel[worst]:.2e} ({worst}); bitwise identical over two launches")
+        rows["egnn_band_bwd"].append(dict(B=B, L=L, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by,
+                                          max_abs_err=max(errs.values()),
+                                          errors=errs))
+        del args, got, again, ref
+
+        atoms, amask = _clash_inputs(B, L, SEED + 20 + k)
+        tot = clash_fwd(atoms, amask)
+        ref_tot = clash_fwd_reference(atoms, amask)
+        if float(ref_tot.min()) <= 0:
+            raise RuntimeError("clash inputs have no clashing pair")
+        e_fwd = _close_scaled(f"clash_fwd B{B}/L{L}", tot, ref_tot)
+        scale = torch.rand(B, generator=g, device="cuda") + 0.5
+        grad = clash_bwd(atoms, amask, scale)
+        e_bwd = _close_scaled(f"clash_bwd B{B}/L{L}", grad,
+                              clash_bwd_reference(atoms, amask, scale))
+        for name, err, fn, plain, bound in (
+                ("clash_fwd", e_fwd, lambda: clash_fwd(atoms, amask),
+                 lambda: clash_fwd_reference(atoms, amask),
+                 _clash_bound(amask, 1, 20, B)),
+                ("clash_bwd", e_bwd, lambda: clash_bwd(atoms, amask, scale),
+                 lambda: clash_bwd_reference(atoms, amask, scale),
+                 _clash_bound(amask, 2, 30, 3 * amask.numel()))):
+            ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            log(f"[kernels] {name} B{B}/L{L}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+                f"bound {bound[0]:.4f} ms by {bound[1]} (launch-bound: a launch "
+                f"costs more); max abs err {err:.3e}")
+            rows[name].append(dict(B=B, L=L, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound[0], bound_by=bound[1],
+                                   max_abs_err=err))
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# 4. main path
+# 4. generation main path
 # ---------------------------------------------------------------------------
 
 def _protein_view(pid: str, L: int, seed: int, seqemb_dim: int):
@@ -334,28 +490,330 @@ def phase_main_path(model, views, out_dir: str) -> dict:
     return dict(launches=launches, per_structure=per_structure, peak=peak)
 
 
-def phase_profile(model, views, out_dir: str, trace_path: str) -> None:
-    """Where the time of one main-path pass goes: torch.profiler over both
-    structures; device busy share, and the top operators by device time.
-    The Chrome trace is written to ``trace_path``."""
+# ---------------------------------------------------------------------------
+# 5. training main path
+# ---------------------------------------------------------------------------
+
+class PairSet:
+    """An in-memory pair dataset, duck-typed like ``EnsembleDataset``: every
+    unordered pair of ``pairs`` over ``conformers``."""
+
+    def __init__(self, conformers, pairs, seqemb_dim: int):
+        self.conformers, self.pairs = conformers, pairs
+        self.use_seqemb, self.seqemb_dim = True, seqemb_dim
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def __getitem__(self, idx: int):
+        from protein_ensemble_vae_torch.data.dataset import process_conformer
+
+        i, j = self.pairs[idx]
+        return (process_conformer(self.conformers[i]),
+                process_conformer(self.conformers[j]))
+
+    def pair_length(self, idx: int) -> int:
+        return self.conformers[self.pairs[idx][0]].length
+
+
+def _nerf_conformers(pid: str, L: int, seed: int, K: int, seqemb_dim: int):
+    """K NeRF conformers of one fold, sharing one sequence and embedding."""
+    from protein_ensemble_vae_torch.config import AA_ORDER
+    from protein_ensemble_vae_torch.data.dataset import Conformer
+    from protein_ensemble_vae_torch.data.synthetic import (_torsions_np,
+                                                           nerf_ensemble)
+
+    n, ca, c = nerf_ensemble(L, K, seed=seed, max_tries=16)
+    rng = np.random.default_rng(seed)
+    mask = np.ones(L, np.float32)
+    emb = rng.normal(0, 1, (L, seqemb_dim)).astype(np.float32)
+    seq = "".join(rng.choice(list(AA_ORDER), L))
+    return [Conformer(n=n[k], ca=ca[k], c=c[k], mask=mask, seq_emb=emb,
+                      dihedrals=_torsions_np(n[k], ca[k], c[k], mask).astype(np.float32),
+                      sequence=seq, protein_id=pid, h5_path="") for k in range(K)]
+
+
+class EpochLaunches:
+    """A MetricLogger stand-in for ``train_model``: it records the launch
+    counts and the statistics at the end of every epoch."""
+
+    def __init__(self):
+        self.epochs = []
+
+    def log_epoch(self, epoch, train, val, **kw):
+        from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
+
+        self.epochs.append(dict(epoch=epoch, launches=dict(LAUNCHES),
+                                train=train, val=val, **kw))
+
+    def info(self, msg: str) -> None:
+        log(f"[train] {msg}")
+
+
+def phase_train_path(out_dir: str) -> dict:
+    """``train_model`` for 2 epochs at the default widths, with the launch
+    counts of every epoch checked."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import (LossWeights, ModelConfig,
+                                                   RunConfig, TrainConfig)
+    from protein_ensemble_vae_torch.data.collate import make_prepadded_factory
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.ops.kernels import reset_launches
+    from protein_ensemble_vae_torch.train.checkpoint import save_checkpoint
+    from protein_ensemble_vae_torch.train.training import train_model
+
+    pid, L, seed, K = TRAIN_PROTEIN
+    cfg = RunConfig(model=ModelConfig(), loss=LossWeights(),
+                    train=TrainConfig(batch_size=4, epochs=2, seed=SEED))
+    t0 = time.perf_counter()
+    confs = _nerf_conformers(pid, L, seed, K, cfg.model.seqemb_dim)
+    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+    train_ds = PairSet(confs, pairs[:8], cfg.model.seqemb_dim)
+    val_ds = PairSet(confs, pairs[8:], cfg.model.seqemb_dim)
+    torch.manual_seed(SEED)
+    model = HierCVAE(cfg.model).to(DEVICE)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    log(f"[train] {len(train_ds)} train / {len(val_ds)} val pairs of a NeRF "
+        f"fold (L={L}, K={K}) and the model built in "
+        f"{time.perf_counter() - t0:.1f}s (set-up)")
+    saved = []
+
+    def checkpoint_fn(state, epoch, loss_history, meta):
+        tag = "best" if meta.get("best") else f"epoch{epoch:05d}"
+        saved.append(save_checkpoint(os.path.join(out_dir, "train", tag), model,
+                                     cfg, epoch, loss_history, meta,
+                                     train_state=state))
+
+    logger = EpochLaunches()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = train_model(model, train_ds, val_ds, cfg, logger=logger,
+                                 checkpoint_fn=checkpoint_fn,
+                                 make_batches=make_prepadded_factory())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+
+    n_layers = cfg.model.decoder_layers
+    tr_steps = -(-len(train_ds) // cfg.train.batch_size)
+    va_steps = -(-len(val_ds) // cfg.train.batch_size)
+    want = {"egnn_band_fwd": n_layers * (tr_steps + va_steps),
+            "egnn_band_bwd": n_layers * tr_steps,
+            "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps}
+    prev = {k: 0 for k in want}
+    for rec in logger.epochs:
+        got = {k: rec["launches"][k] - prev[k] for k in want}
+        prev = {k: rec["launches"][k] for k in want}
+        log(f"[train] epoch {rec['epoch']}: launches {got} (expected {want}); "
+            f"train loss {rec['train']['loss']:.3f} rec {rec['train']['rec']:.3f}, "
+            f"val loss {rec['val']['loss']:.3f}; skipped steps "
+            f"{rec['train']['nonfinite_frac']:.2f}")
+        if got != want:
+            raise RuntimeError(f"epoch {rec['epoch']} launched {got}, expected {want}")
+    if len(logger.epochs) != cfg.train.epochs:
+        raise RuntimeError(f"{len(logger.epochs)} epochs ran, expected {cfg.train.epochs}")
+    for split in ("train", "val"):
+        for k, vals in history[split].items():
+            if not np.isfinite(vals).all():
+                raise RuntimeError(f"{split} {k} not finite: {vals}")
+    moved = sum(not torch.equal(v, p0[k]) for k, v in model.state_dict().items())
+    if moved == 0 or state.step != cfg.train.epochs * tr_steps:
+        raise RuntimeError(f"parameters unchanged or wrong step count ({state.step})")
+    if not saved or not all(os.path.exists(os.path.join(p, "state.pt")) for p in saved):
+        raise RuntimeError("no checkpoint written")
+    log(f"[train] 2 epochs in {secs:.2f} s ({cfg.train.epochs * (tr_steps + va_steps)} "
+        f"steps, host clock, synchronised, first-use set-up included); "
+        f"{moved}/{len(p0)} parameter tensors changed; {len(saved)} checkpoints")
+    return dict(launches={k: v for k, v in logger.epochs[-1]["launches"].items()},
+                seconds=secs, history=history)
+
+
+# ---------------------------------------------------------------------------
+# 6. timed train steps
+# ---------------------------------------------------------------------------
+
+def _step_batch(B: int, L: int, L_real: int, seed: int, seqemb_dim: int) -> dict:
+    """One pair batch on the card: conformers 0 -> 1 of a NeRF fold of
+    ``L_real`` residues, padded to L, repeated B times."""
+    import torch
+
+    from protein_ensemble_vae_torch.data.collate import PairBatch, pad_conformers
+    from protein_ensemble_vae_torch.data.dataset import process_conformer
+    from protein_ensemble_vae_torch.train.training import batch_to_arrays
+
+    confs = _nerf_conformers("synS", L_real, seed, 2, seqemb_dim)
+    items = [process_conformer(c) for c in confs]
+    pb = PairBatch(inp=pad_conformers([items[0]] * B, L, seqemb_dim),
+                   tgt=pad_conformers([items[1]] * B, L, seqemb_dim))
+    arrays = batch_to_arrays(pb, seqemb_dim)
+    return {s: {k: torch.from_numpy(v).to(DEVICE) for k, v in d.items()}
+            for s, d in arrays.items()}
+
+
+# Smooth part of the objective: reconstruction, KL and sequence terms only.
+SMOOTH_WEIGHTS = dict(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
+                      w_angle=0.0, w_clash=0.0)
+
+
+def _path_grads(model, batch, weights, eps) -> tuple[dict, dict]:
+    from protein_ensemble_vae_torch.train.training import make_loss_fn
+
+    model.eval().zero_grad(set_to_none=True)
+    total, (d, _) = make_loss_fn(model, weights)(batch, 0.5, 0.25, eps=eps)
+    total.backward()
+    return ({k: v.detach() for k, v in d.items()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def _grad_gap(kg: dict, pg: dict) -> tuple[list, float, str]:
+    """Tensors whose kernel-path gradient leaves rtol 1e-3 / atol 1e-5 *
+    max|g| (floored at 1e-6) of the plain path's, and the worst ratio of
+    error to that tolerance."""
+    import torch
+
+    bad, worst, worst_name = [], 0.0, ""
+    for n, want in pg.items():
+        got = kg[n]
+        if got is None or not torch.isfinite(got).all():
+            raise RuntimeError(f"kernel-path gradient of {n} missing or not finite")
+        atol = max(1e-5 * float(want.abs().max()), 1e-6)
+        ratio = float(((got - want).abs() / (atol + 1e-3 * want.abs())).max())
+        if ratio > 1.0:
+            bad.append(n)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    return bad, worst, worst_name
+
+
+def _compare_paths(kmodel, pmodel, batch) -> dict:
+    """Kernel path vs plain path on one batch, same injected noise, dropout
+    off. Held: the full default loss dict to rtol 1e-4, and, for the smooth
+    part of the objective (reconstruction, KL, sequence terms), every
+    parameter gradient within rtol 1e-3 / atol 1e-5 * max|g| per tensor
+    (the CPU parity tests' tolerance). Reported, not held: the full loss's
+    gradients against the same tolerance. At random initialisation the
+    decoder emits a near-collapsed backbone, where the clash gradient's
+    direction (a_i - a_j) / d_ij of nearly coincident atoms and the other
+    terms' validity switches and kinks amplify the kernels' fp32
+    summation-order differences (~3e-7 of the forward's scale) into
+    per-mille differences of a few whole-model sums (PERF.md, section 6)."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import LossWeights
+
+    cfg = kmodel.config
+    B, L = batch["tgt"]["mask"].shape
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    eps = (torch.randn(B, cfg.z_global, generator=g, device=DEVICE),
+           torch.randn(B, L, cfg.z_local, generator=g, device=DEVICE))
+    out = {}
+    for label, weights in (("smooth", LossWeights(**SMOOTH_WEIGHTS)),
+                           ("full", LossWeights())):
+        (kd, kg), (pd, pg) = (_path_grads(m, batch, weights, eps) for m in (kmodel, pmodel))
+        loss_err = max(float(((kd[k] - pd[k]) / pd[k].abs().clamp(min=1e-30)).abs())
+                       for k in pd)
+        if loss_err > 1e-4:
+            raise RuntimeError(f"{label} loss: kernel-path loss dict differs, rel err {loss_err:.3e}")
+        bad, worst, worst_name = _grad_gap(kg, pg)
+        if bad and label == "smooth":
+            raise RuntimeError(f"{label} loss: kernel-path gradients of {bad} differ "
+                               f"(worst {worst:.2f}x the tolerance, {worst_name})")
+        log(f"[steps] kernel vs plain path, B{B}/L{L}, {label} loss: loss dict max "
+            f"rel err {loss_err:.2e}; gradients within rtol 1e-3 / atol 1e-5 max|g|: "
+            f"{len(pg) - len(bad)}/{len(pg)} tensors (worst {worst:.2f}x the "
+            f"tolerance, {worst_name})" + (" [reported, not held]" if label == "full" else ""))
+        out[label] = dict(loss_rel_err=loss_err, worst=worst, worst_name=worst_name,
+                          within=len(pg) - len(bad), n=len(pg))
+    return out
+
+
+def phase_timed_steps(trace_path=None) -> list[dict]:
+    import torch
+
+    from protein_ensemble_vae_torch.config import LossWeights, ModelConfig
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+    from protein_ensemble_vae_torch.train.training import (TrainState,
+                                                           make_train_step)
+
+    rows = []
+    for spec in TIMED_STEPS:
+        B, L = spec["B"], spec["L"]
+        mcfg = ModelConfig(decoder_remat=spec["remat"])
+        torch.manual_seed(SEED)
+        kmodel = HierCVAE(mcfg).to(DEVICE)
+        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False)).to(DEVICE)
+        pmodel.load_state_dict(kmodel.state_dict())
+        batch = _step_batch(B, L, spec["L_real"], SEED + 8, mcfg.seqemb_dim)
+        if (B, L) == TRAIN_HEADLINE:
+            rows.append(dict(compare=_compare_paths(kmodel, pmodel, batch)))
+        consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
+        tag = f"B{B}/L{L}" + ("+remat" if spec["remat"] else "")
+        for path, model in (("kernel", kmodel), ("plain", pmodel)):
+            state = TrainState.create(model)
+            step = make_train_step(model, LossWeights(), train=True)
+            for i in range(STEP_WARMUP):
+                step(state, batch, i, *consts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            times = []
+            for i in range(STEP_REPS):
+                t0 = time.perf_counter()
+                _, metrics = step(state, batch, i, *consts)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            launches = {k: v // STEP_REPS for k, v in LAUNCHES.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+                raise RuntimeError(f"{path} step {tag}: non-finite metrics")
+            per_layer = 2 if spec["remat"] else 1
+            want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
+                     "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
+                     "clash_bwd": 1} if path == "kernel"
+                    else {k: 0 for k in LAUNCHES})
+            if launches != want:
+                raise RuntimeError(f"{path} step {tag} launched {launches}, expected {want}")
+            ms = float(np.median(times))
+            log(f"[steps] {tag} {path} path: {ms:.2f} ms per train step (median of "
+                f"{STEP_REPS} after {STEP_WARMUP} warm-ups, host clock, synchronised; "
+                f"min {min(times):.2f}), peak device memory {peak:.1f} MiB, "
+                f"launches per step {launches}")
+            rows.append(dict(shape=tag, path=path, ms=ms, peak_mib=peak,
+                             launches=launches))
+            if trace_path and path == "kernel" and (B, L) == TRAIN_HEADLINE:
+                _profile(lambda: step(state, batch, 0, *consts),
+                         f"train step {tag}", trace_path.replace(".json", ".train.json"))
+            del state, step
+        del kmodel, pmodel, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# profile
+# ---------------------------------------------------------------------------
+
+def _profile(run_once, label: str, trace_path: str, active: int = 1) -> None:
+    """torch.profiler over ``active`` calls of ``run_once`` after one warm-up
+    call: device busy share (union of device intervals over the wall time),
+    the top operators by device time, and the Chrome trace at
+    ``trace_path``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from protein_ensemble_vae_torch.infer.generate import generate_ensembles
-
-    # one pass to warm the profiler up, one recorded pass
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=active, repeat=1)
+    wall_ms = 0.0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=sched) as prof:
-        for _ in range(2):
+        for k in range(1 + active):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for view in views:
-                generate_ensembles(model, view, os.path.join(out_dir, "profile"),
-                                   num_samples=NUM_SAMPLES, seed=SEED,
-                                   buckets=BUCKETS, verbose=False)
+            run_once()
             torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
+            if k:
+                wall_ms += 1e3 * (time.perf_counter() - t0)
             prof.step()
     # device-side kernels and copies (the step marker spans the whole pass)
     events = [e for e in prof.events()
@@ -367,14 +825,36 @@ def phase_profile(model, views, out_dir: str, trace_path: str) -> None:
         if b > end:
             busy += b - max(a, end)
             end = b
-    log(f"[profile] {len(views)} structures: wall {wall_ms:.1f} ms (profiled), "
+    log(f"[profile] {label} x{active}: wall {wall_ms:.1f} ms (profiled), "
         f"device busy {busy / 1e3:.1f} ms = {100 * busy / 1e3 / wall_ms:.1f}% "
         f"(idle {100 - 100 * busy / 1e3 / wall_ms:.1f}%), {len(events)} device events")
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=18)
-    log(table)
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18))
     os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
     prof.export_chrome_trace(trace_path)
+
+
+def profile_generation(model, views, out_dir: str, trace_path: str) -> None:
+    from protein_ensemble_vae_torch.infer.generate import generate_ensembles
+
+    def run_once():
+        for view in views:
+            generate_ensembles(model, view, os.path.join(out_dir, "profile"),
+                               num_samples=NUM_SAMPLES, seed=SEED,
+                               buckets=BUCKETS, verbose=False)
+
+    _profile(run_once, f"generation, {len(views)} structures", trace_path)
+
+
+KERNEL_INFO = {
+    "egnn_band_fwd": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd.cu",
+                      "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
+    "egnn_band_bwd": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd.cu",
+                      "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
+    "clash_fwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
+                  "protein_ensemble_vae_tpu/ops/pallas/clash.py:54"),
+    "clash_bwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
+                  "protein_ensemble_vae_tpu/ops/pallas/clash.py:79"),
+}
 
 
 def main(argv=None) -> None:
@@ -382,30 +862,41 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
-                    help="after the checks, profile one more main-path pass "
-                         "with torch.profiler and write its trace here")
+                    help="after the checks, profile the generation path and "
+                         "the B4/L256 train step with torch.profiler and "
+                         "write their traces (TRACE.json, TRACE.train.json)")
     args = ap.parse_args(argv)
 
     device = phase_device()
     phase_build()
-    rows = phase_kernels()
+    shapes = {"egnn_band_fwd": phase_kernels()}
+    shapes.update(phase_train_kernels())
     model, views = setup_main_path()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
-        main_path = phase_main_path(model, views, out_dir)
+        gen = phase_main_path(model, views, out_dir)
         if args.profile:
-            phase_profile(model, views, out_dir, args.profile)
+            profile_generation(model, views, out_dir, args.profile)
+        del model
+        train = phase_train_path(out_dir)
+    steps = phase_timed_steps(args.profile)
 
-    head = next(r for r in rows if (r["B"], r["L"]) == HEADLINE_SHAPE)
-    kernels = [dict(
-        name="egnn_band_fwd", route="cuda",
-        source="protein_ensemble_vae_torch/csrc/egnn_band_fwd.cu",
-        replaces="protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107",
-        launches=main_path["launches"]["egnn_band_fwd"],
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None,
-        shape=f"B{head['B']}/L{head['L']}/Hd{HD}/W{W}",
-        shapes=rows)]
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        rows = shapes[name]
+        want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
+        head = next(r for r in rows if (r["B"], r["L"]) == want)
+        by_path = {"generate": gen["launches"][name], "train": train["launches"][name]}
+        if by_path["train"] == 0 or (name == "egnn_band_fwd" and by_path["generate"] == 0):
+            raise RuntimeError(f"{name} was not launched on its main path: {by_path}")
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None,
+            shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
+            shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
+    log(json.dumps({"train_steps": steps}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}),

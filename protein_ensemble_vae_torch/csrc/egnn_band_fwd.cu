@@ -43,104 +43,11 @@
 // Later work: tensor cores (wgmma) in a TF32 or bf16 mode, TMA for the
 // weight ring, and skipping fully-masked offset steps.
 
-#include <cuda_runtime.h>
+#include "egnn_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int T = 8;          // receivers per block
-constexpr int OPS = 8;        // band offsets per step
-constexpr int M = T * OPS;    // edge rows per step
-constexpr int MP = M + 4;     // row stride of the transposed activation tile
-constexpr int BK = 16;        // weight rows per streamed chunk
-constexpr int RPT = 8;        // rows per thread (8 row groups of 8 rows)
-
-constexpr int RECV = RPT / OPS;   // receivers per thread
-
-static_assert(M == RPT * (THREADS / 32), "one warp per 8-row group");
-static_assert(RPT % OPS == 0, "a thread's rows cover whole receivers");
-
-__device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-template <int HD>
-struct Cols {
-    static constexpr int CPT = HD / 32;            // columns per thread
-    static constexpr int V = CPT < 4 ? CPT : 4;    // contiguous columns per group
-    // column of the thread's j-th value: groups of V contiguous columns,
-    // neighbouring lanes on neighbouring groups (conflict-free smem reads).
-    __device__ static __forceinline__ int col(int lane, int j) {
-        return (j / V) * (32 * V) + lane * V + (j % V);
-    }
-};
-
-// Issue the cp.async copies of weight rows [kc*BK, kc*BK + BK) into `dst`.
-template <int HD>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ w, int kc,
-                                           float* dst, int tid) {
-    constexpr int F4 = BK * HD / 4;
-    const float* src = w + (size_t)kc * BK * HD;
-    for (int v = tid; v < F4; v += THREADS) cp_async16(dst + 4 * v, src + 4 * v);
-    cp_async_commit();
-}
-
-// acc[8][CPT] = act^T[rows of this thread, :] @ w[:, cols of this thread].
-// `act` is the transposed activation tile [HD][MP]; `w` is [HD][HD] (in, out).
-// Ends with a block barrier, so `act` may be overwritten afterwards.
-template <int HD>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ w, const float* act,
-                                          float* wbuf, float (&acc)[RPT][HD / 32],
-                                          int tid, int rg, int lane) {
-    using C = Cols<HD>;
-    constexpr int NCHUNK = HD / BK;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < C::CPT; ++j) acc[i][j] = 0.f;
-
-    load_chunk<HD>(w, 0, wbuf, tid);
-    for (int kc = 0; kc < NCHUNK; ++kc) {
-        if (kc + 1 < NCHUNK) {
-            load_chunk<HD>(w, kc + 1, wbuf + ((kc + 1) & 1) * BK * HD, tid);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* wb = wbuf + (kc & 1) * BK * HD;
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float* arow = act + (kc * BK + kk) * MP + rg * RPT;
-            const float4 a0 = *reinterpret_cast<const float4*>(arow);
-            const float4 a1 = *reinterpret_cast<const float4*>(arow + 4);
-            const float av[RPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            float bv[C::CPT];
-            const float* brow = wb + kk * HD;
-            if constexpr (C::V == 4) {
-#pragma unroll
-                for (int g = 0; g < C::CPT / 4; ++g) {
-                    const float4 t = *reinterpret_cast<const float4*>(brow + C::col(lane, 4 * g));
-                    bv[4 * g] = t.x; bv[4 * g + 1] = t.y; bv[4 * g + 2] = t.z; bv[4 * g + 3] = t.w;
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < C::CPT; ++j) bv[j] = brow[C::col(lane, j)];
-            }
-#pragma unroll
-            for (int i = 0; i < RPT; ++i)
-#pragma unroll
-                for (int j = 0; j < C::CPT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();   // buffer (kc & 1) is refilled two chunks later
-    }
-}
+using namespace egnn;
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS)

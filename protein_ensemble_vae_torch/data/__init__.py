@@ -3,7 +3,13 @@ from protein_ensemble_vae_torch.data.dataset import (  # noqa: F401
     EnsembleDataset,
     SingleConformerView,
 )
-from protein_ensemble_vae_torch.data.collate import bucket_for  # noqa: F401
+from protein_ensemble_vae_torch.data.collate import (  # noqa: F401
+    ConformerBatch,
+    PairBatch,
+    bucket_for,
+    make_epoch_batches,
+    make_prepadded_factory,
+)
 from protein_ensemble_vae_torch.data.synthetic import (  # noqa: F401
     make_synthetic_dataset,
     nerf_ensemble,

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from protein_ensemble_vae_torch.models.encoder import layer_norm
 from protein_ensemble_vae_torch.models.init import linear, uniform_
@@ -96,9 +97,10 @@ class EGNNDecoder(nn.Module):
     def __init__(self, z_g: int, z_l: int, hidden: int = 256,
                  num_layers: int = 8, max_neighbors: int = 40,
                  dropout: float = 0.1, degree_normalize: bool = True,
-                 use_pallas: object = False):
+                 remat: bool = False, use_pallas: object = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         self.max_neighbors = max_neighbors
         self.degree_normalize = degree_normalize
         zc = z_g + z_l
@@ -153,7 +155,15 @@ class EGNNDecoder(nn.Module):
             deg_inv = torch.ones_like(deg)
 
         for i in range(self.num_layers):
-            h, x = getattr(self, f"egnn_{i}")(h, x, deg_inv, cmask, W)
+            layer = getattr(self, f"egnn_{i}")
+            if self.remat and torch.is_grad_enabled():
+                # Remat (ModelConfig.decoder_remat): keep only the layer's
+                # inputs and recompute it in the backward. The band kernel's
+                # forward then runs twice per layer per training step.
+                h, x = checkpoint(layer, h, x, deg_inv, cmask, W,
+                                  use_reentrant=False)
+            else:
+                h, x = layer(h, x, deg_inv, cmask, W)
             h = self.drop(h)
 
         s = F.relu(self.seq_norm1(self.seq_dense1(h)))

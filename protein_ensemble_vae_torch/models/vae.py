@@ -3,7 +3,8 @@ package's ``models/vae.py``).
 
 ``forward`` returns ``(pred_N, pred_CA, pred_C, pred_seq, mu_g, lv_g,
 mu_l, lv_l)``. Random draws come from an explicit ``torch.Generator``;
-``model.eval()`` turns dropout off (Flax's ``deterministic=True``).
+``model.eval()`` turns dropout off (Flax's ``deterministic=True``);
+``ModelConfig.decoder_remat`` recomputes each EGNN layer in the backward.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class HierCVAE(nn.Module):
             z_g=cfg.z_global, z_l=cfg.z_local, hidden=cfg.decoder_hidden,
             num_layers=cfg.decoder_layers, max_neighbors=cfg.max_neighbors,
             dropout=cfg.dropout, degree_normalize=cfg.degree_normalize,
-            use_pallas=cfg.use_pallas_egnn)
+            remat=cfg.decoder_remat, use_pallas=cfg.use_pallas_egnn)
 
     def forward(self, seqemb: Tensor, n_coords: Tensor, ca_coords: Tensor,
                 c_coords: Tensor, dihedrals: Tensor, mask: Tensor,

@@ -1,10 +1,12 @@
 """Geometry substrate in PyTorch (counterpart of the JAX package's
 ``ops/geometry.py``).
 
-Only what generation needs: NaN-safe norms, backbone dihedrals (with the
-same degeneracy floors and self-normalised (sin, cos) pair), Kabsch
-superposition, and the valid-first mask compaction the banded decoder runs
-on. Every function is mask-aware and works on any device.
+NaN-safe norms, masked means, pairwise distances, angles, backbone
+dihedrals (with the same degeneracy floors and self-normalised (sin, cos)
+pair), Kabsch superposition, and the valid-first mask compaction the banded
+decoder runs on. Every function is mask-aware and works on any device, and
+keeps the JAX side's epsilon guards so that gradients stay finite at
+coincident and collinear atoms.
 """
 
 from __future__ import annotations
@@ -33,6 +35,50 @@ def safe_normalize(x: Tensor, dim: int = -1, eps: float = 1e-4) -> Tensor:
     """``x / max(||x||, eps)``; eps 1e-4 bounds the backward at 1e4."""
     n = safe_norm(x, dim=dim, keepdim=True)
     return x / torch.clamp(n, min=eps)
+
+
+def masked_mean(x: Tensor, mask: Tensor, dim=None, eps: float = 0.0) -> Tensor:
+    """sum(x * mask) / sum(mask), the denominator floored at 1, or
+    ``+ eps`` where the reference uses an eps."""
+    kw = {} if dim is None else dict(dim=dim)
+    num = torch.sum(x * mask, **kw)
+    den = torch.sum(mask, **kw)
+    if eps:
+        return num / (den + eps)
+    return num / torch.clamp(den, min=1.0)
+
+
+def pairwise_distances(a: Tensor, b: Tensor) -> Tensor:
+    """Euclidean distances a [..., M, 3], b [..., N, 3] -> [..., M, N]:
+    the direct difference, with 1e-12 under the sqrt for a finite gradient
+    at d = 0."""
+    diff = a[..., :, None, :] - b[..., None, :, :]
+    return torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+
+
+def angle_cos(a: Tensor, b: Tensor, c: Tensor, eps: float = _EPS) -> Tensor:
+    """cos of the angle A-B-C at vertex B, clipped to [-1, 1];
+    denominators floored at ``_DEGEN``."""
+    ba = a - b
+    bc = c - b
+    ba = ba / torch.clamp(safe_norm(ba, keepdim=True) + eps, min=_DEGEN)
+    bc = bc / torch.clamp(safe_norm(bc, keepdim=True) + eps, min=_DEGEN)
+    return torch.clamp(torch.sum(ba * bc, dim=-1), -1.0, 1.0)
+
+
+def wrap_angle(x: Tensor) -> Tensor:
+    """Wrap to (-pi, pi]."""
+    return torch.atan2(torch.sin(x), torch.cos(x))
+
+
+def safe_atan2(y: Tensor, x: Tensor) -> Tensor:
+    """atan2 with a finite gradient at (0, 0): there x = 1 and y = 0 are
+    substituted (same value 0, zero gradient). Undefined torsions are
+    stored as (sin, cos) = (0, 0)."""
+    both_zero = (torch.abs(x) + torch.abs(y)) < 1e-12
+    x_safe = torch.where(both_zero, torch.ones_like(x), x)
+    y_safe = torch.where(both_zero, torch.zeros_like(y), y)
+    return torch.atan2(y_safe, x_safe)
 
 
 # ---------------------------------------------------------------------------

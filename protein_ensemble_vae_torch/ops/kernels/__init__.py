@@ -9,7 +9,13 @@ to show that its path went through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0}
+LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
+                            "clash_fwd": 0, "clash_bwd": 0}
+
+# kernel -> its CUDA source, ``csrc/<source>.cu`` (one library per source)
+SOURCES: dict[str, str] = {"egnn_band_fwd": "egnn_band_fwd",
+                           "egnn_band_bwd": "egnn_band_bwd",
+                           "clash_fwd": "clash", "clash_bwd": "clash"}
 
 
 def reset_launches() -> None:

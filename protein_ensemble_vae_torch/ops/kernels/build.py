@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
-own, into ``_build/lib<name>-<hash>.so`` inside the package (a directory
-that ``.gitignore`` lists). The hash covers the source and the flags, so an
-edited source rebuilds and a stale library is never loaded. The build runs
+own (with the shared ``csrc/*.cuh`` headers), into
+``_build/lib<name>-<hash>.so`` inside the package (a directory that
+``.gitignore`` lists). The hash covers the source, the headers and the
+flags, so an edited source rebuilds and a stale library is never loaded. The build runs
 at first use, from the repository's sources alone; ``build`` starts one
 ``nvcc`` per source, all together.
 """
@@ -47,9 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, every shared header
+    in ``csrc/`` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

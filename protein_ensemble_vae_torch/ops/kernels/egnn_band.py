@@ -1,8 +1,10 @@
-"""EGNN band forward: the CUDA kernel ``csrc/egnn_band_fwd.cu``, its wrapper
-and its plain PyTorch version.
+"""EGNN band message passing: the CUDA kernels ``csrc/egnn_band_fwd.cu`` and
+``csrc/egnn_band_bwd.cu``, their wrappers, their plain PyTorch versions, and
+``EGNNBandFunction``, the autograd function that joins them.
 
-Counterpart of the JAX package's ``ops/pallas/egnn_band.py`` forward
-(``egnn_band_fused``). Algebra, for receiver i and offset k (j = i+k-W):
+Counterpart of the JAX package's ``ops/pallas/egnn_band.py``
+(``egnn_band_fused`` with its custom VJP). Algebra, for receiver i and
+offset k (j = i+k-W):
 
     pre[i,k] = a[i] + bs[j] + |x_i - x_j|^2 * w_d
     m  = silu(silu(pre) @ W_e2 + b_e2)
@@ -10,8 +12,8 @@ Counterpart of the JAX package's ``ops/pallas/egnn_band.py`` forward
     raw_delta[i] = sum_k (silu(m @ W_x1 + b_x1) @ w_x2 + b_x2) * valid * rel
 
 valid(i,k) = in-range & k != W & cmask_i & cmask_j; callers apply
-deg_inv * 0.2 to raw_delta. Only the forward is here: generation takes no
-gradient.
+deg_inv * 0.2 to raw_delta. The gradient takes no derivative through
+``cmask`` (a mask) and ``W``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
@@ -27,10 +30,12 @@ from protein_ensemble_vae_torch.ops.routing import pallas_policy
 Tensor = torch.Tensor
 
 KERNEL = "egnn_band_fwd"
+BWD_KERNEL = "egnn_band_bwd"
 SUPPORTED_HIDDEN = (32, 64, 128, 256)
 MAX_SMEM_BYTES = 232448   # what one Hopper block may use (227 KB)
 
 _FN = None
+_BWD_FN = None
 
 
 def band_indices(L: int, W: int, device=None) -> tuple[Tensor, Tensor]:
@@ -102,6 +107,24 @@ def _check(name: str, t: Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                  W: int) -> None:
+    """Raise unless the band inputs are what both kernels take."""
+    B, L, Hd = a.shape
+    if Hd not in SUPPORTED_HIDDEN:
+        raise ValueError(f"hidden width {Hd} not supported by the kernel "
+                         f"(one of {SUPPORTED_HIDDEN})")
+    if W < 1:
+        raise ValueError(f"band half-width W={W} must be >= 1")
+    for name, t, shape in (
+            ("a", a, (B, L, Hd)), ("bs", bs, (B, L, Hd)), ("x", x, (B, L, 3)),
+            ("cmask", cmask, (B, L)), ("w_d", w_d, (Hd,)),
+            ("w_e2", w_e2, (Hd, Hd)), ("b_e2", b_e2, (Hd,)),
+            ("w_x1", w_x1, (Hd, Hd)), ("b_x1", b_x1, (Hd,)),
+            ("w_x2", w_x2, (Hd,)), ("b_x2", b_x2, (1,))):
+        _check(name, t, shape, a.device)
+
+
 def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                   W: int) -> tuple[Tensor, Tensor]:
     """The kernel's wrapper. For CPU tensors it is the plain version; for
@@ -115,19 +138,8 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
         return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                    b_x1, w_x2, b_x2, W)
     B, L, Hd = a.shape
-    if Hd not in SUPPORTED_HIDDEN:
-        raise ValueError(f"hidden width {Hd} not supported by the kernel "
-                         f"(one of {SUPPORTED_HIDDEN})")
-    if W < 1:
-        raise ValueError(f"band half-width W={W} must be >= 1")
     dev = a.device
-    for name, t, shape in (
-            ("a", a, (B, L, Hd)), ("bs", bs, (B, L, Hd)), ("x", x, (B, L, 3)),
-            ("cmask", cmask, (B, L)), ("w_d", w_d, (Hd,)),
-            ("w_e2", w_e2, (Hd, Hd)), ("b_e2", b_e2, (Hd,)),
-            ("w_x1", w_x1, (Hd, Hd)), ("b_x1", b_x1, (Hd,)),
-            ("w_x2", w_x2, (Hd,)), ("b_x2", b_x2, (1,))):
-        _check(name, t, shape, dev)
+    _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
     fn, lib = _kernel_fn()
     smem = lib.egnn_band_fwd_smem_bytes(Hd, W)
     if smem > MAX_SMEM_BYTES:
@@ -151,13 +163,127 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     return agg, delta
 
 
+def egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+                            w_x2, b_x2, g_agg, g_delta, W: int
+                            ) -> tuple[Tensor, ...]:
+    """Plain version of the backward: torch autograd through
+    ``egnn_band_reference``. Returns the gradients of (a, bs, x, w_d, w_e2,
+    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input."""
+    diff = [t.detach().requires_grad_(True)
+            for t in (a, bs, x, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)]
+    with torch.enable_grad():
+        a_, bs_, x_, *p = diff
+        outs = egnn_band_reference(a_, bs_, x_, cmask, *p, W)
+        return torch.autograd.grad(outs, diff, (g_agg, g_delta))
+
+
+def _bwd_kernel_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(BWD_KERNEL)
+        fn = lib.egnn_band_bwd_f32
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_error_string.restype = ctypes.c_char_p
+        lib.egnn_band_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.egnn_band_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.egnn_band_bwd_scratch_floats.restype = ctypes.c_size_t
+        _BWD_FN = (fn, lib)
+    return _BWD_FN
+
+
+def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                  g_agg, g_delta, W: int) -> tuple[Tensor, ...]:
+    """The backward kernel's wrapper. For CPU tensors it is the plain
+    version; for CUDA tensors it launches the kernel (four passes, one
+    count) on the current stream or raises.
+
+    Inputs as ``egnn_band_fwd`` plus the output cotangents g_agg [B, L, Hd]
+    and g_delta [B, L, 3]. Returns the gradients of (a, bs, x, w_d, w_e2,
+    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input, fp32. The
+    kernel is deterministic: it sums across blocks in fixed order.
+    """
+    if not a.is_cuda:
+        return egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
+                                       b_x1, w_x2, b_x2, g_agg, g_delta, W)
+    B, L, Hd = a.shape
+    dev = a.device
+    _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
+    _check("g_agg", g_agg, (B, L, Hd), dev)
+    _check("g_delta", g_delta, (B, L, 3), dev)
+    fn, lib = _bwd_kernel_fn()
+    smem = lib.egnn_band_bwd_smem_bytes(Hd, W)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"W={W} at Hd={Hd} needs {smem} B of shared memory "
+                         f"per block, more than {MAX_SMEM_BYTES}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    alloc = torch.empty if B and L else torch.zeros
+    da = alloc((B, L, Hd), **f32)
+    dbs = alloc((B, L, Hd), **f32)
+    dx = alloc((B, L, 3), **f32)
+    dw_e2 = alloc((Hd, Hd), **f32)
+    dw_x1 = alloc((Hd, Hd), **f32)
+    dvec = alloc((4 * Hd + 1,), **f32)
+    if B and L:
+        scratch = torch.empty((lib.egnn_band_bwd_scratch_floats(B, L, Hd, W),), **f32)
+        # the transposed products of the cotangent chain stream W^T row-major
+        w_e2t = w_e2.t().contiguous()
+        w_x1t = w_x1.t().contiguous()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(*(t.data_ptr() for t in (
+                a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                w_e2t, w_x1t, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
+                scratch)), B, L, Hd, W, stream)
+        if err != 0:
+            raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err} "
+                               f"({lib.egnn_band_bwd_error_string(err).decode()})")
+        LAUNCHES[BWD_KERNEL] += 1
+    dw_d, db_e2, db_x1, dw_x2 = dvec[:4 * Hd].view(4, Hd)
+    return (da, dbs, dx, dw_d.reshape(w_d.shape), dw_e2,
+            db_e2.reshape(b_e2.shape), dw_x1, db_x1.reshape(b_x1.shape),
+            dw_x2.reshape(w_x2.shape), dvec[4 * Hd:].reshape(b_x2.shape))
+
+
+class EGNNBandFunction(torch.autograd.Function):
+    """Kernel 1 forward, kernel 2 backward. Like the JAX custom VJP it saves
+    only the inputs (nothing of size K = 2W+1): the backward recomputes
+    the edge chain."""
+
+    @staticmethod
+    def forward(ctx, a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
+                b_x2, W):
+        ctx.W = W
+        ctx.save_for_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+                              w_x2, b_x2)
+        return egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+                             w_x2, b_x2, W)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_agg, g_delta):
+        a, bs, x, cmask, *params = ctx.saved_tensors
+        g_agg = (torch.zeros_like(a) if g_agg is None
+                 else g_agg.to(torch.float32).contiguous())
+        g_delta = (torch.zeros_like(x) if g_delta is None
+                   else g_delta.to(torch.float32).contiguous())
+        da, dbs, dx, *dparams = egnn_band_bwd(a, bs, x, cmask, *params,
+                                              g_agg, g_delta, ctx.W)
+        return (da, dbs, dx, None, *dparams, None)
+
+
 def egnn_band_fused(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                     W: int, use_pallas: object = "auto"
                     ) -> tuple[Tensor, Tensor]:
-    """Routed entry of the decoder: the kernel where ``pallas_policy`` says
-    so (``ops/routing.py``), else the plain version."""
+    """Routed entry of the decoder: ``EGNNBandFunction`` (kernel forward and
+    backward) where ``pallas_policy`` says so (``ops/routing.py``), else the
+    plain version, whose gradient is torch autograd."""
     if pallas_policy(a, use_pallas):
-        return egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
-                             w_x2, b_x2, W)
+        return EGNNBandFunction.apply(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
+                                      b_x1, w_x2, b_x2, W)
     return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                                w_x2, b_x2, W)

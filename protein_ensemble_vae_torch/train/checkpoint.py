@@ -1,22 +1,28 @@
-"""Checkpoints of the port: ``state.pt`` + ``meta.json``.
+"""Checkpoints of the port: ``state.pt`` + ``meta.json`` + ``history.json``
+(counterpart of the JAX package's ``train/checkpoint.py``).
 
 Layout on disk:
-    <path>/state.pt     the model's ``state_dict`` (``torch.save``)
-    <path>/meta.json    {"epoch", "config": RunConfig, "format_version"} —
-                        the same ``config`` block as the JAX package's
-                        checkpoints ("architecture travels with the
-                        checkpoint")
+    <path>/state.pt      {"model": the model's state_dict,
+                          "train": the TrainState's optimizer moments,
+                                   counters and step, or None}
+    <path>/meta.json     {"epoch", "config": RunConfig, "format_version",
+                          + scheduler / LR / early-stop state} -- the same
+                          ``config`` block as the JAX package's checkpoints
+                          ("architecture travels with the checkpoint")
+    <path>/history.json  loss_history (the reference's metric names)
 
-Only what generation needs: ``save_checkpoint`` (used to carry bridged
-weights over, and by the tests), ``load_run_config`` and
-``load_checkpoint``.
+``record_artifact`` appends each saved checkpoint to
+``<root>/artifacts.jsonl``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
+from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -24,19 +30,56 @@ from protein_ensemble_vae_torch.config import RunConfig
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
+HISTORY_FILE = "history.json"
+
+
+def _to_jsonable(obj):
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, dict):
+        return {k: _to_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(v) for v in obj]
+    return obj
 
 
 def save_checkpoint(path: str, model: nn.Module, run_config: RunConfig,
-                    epoch: int = 0) -> str:
+                    epoch: int = 0, loss_history: Optional[dict] = None,
+                    extra_meta: Optional[dict] = None, train_state=None) -> str:
+    """Write ``state.pt`` (model weights, and the optimizer state when
+    ``train_state`` is given), ``meta.json`` and, with ``loss_history``,
+    ``history.json``."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+             "train": (train_state.optimizer_state()
+                       if train_state is not None else None)}
     torch.save(state, os.path.join(path, STATE_FILE))
     meta = {"epoch": int(epoch), "config": json.loads(run_config.to_json()),
             "format_version": 1}
+    if extra_meta:
+        meta.update(_to_jsonable(extra_meta))
     with open(os.path.join(path, META_FILE), "w") as f:
         json.dump(meta, f, indent=2)
+    if loss_history is not None:
+        with open(os.path.join(path, HISTORY_FILE), "w") as f:
+            json.dump(_to_jsonable(loss_history), f)
     return path
+
+
+def record_artifact(root: str, name: str, path: str, epoch: int,
+                    metrics: Optional[dict] = None) -> str:
+    """Append a checkpoint record (name, path, epoch, time, headline
+    metrics) to ``<root>/artifacts.jsonl``."""
+    os.makedirs(root, exist_ok=True)
+    rec = {"name": name, "path": os.path.abspath(path), "epoch": int(epoch),
+           "time": time.time(), "metrics": _to_jsonable(metrics or {})}
+    manifest = os.path.join(root, "artifacts.jsonl")
+    with open(manifest, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    return manifest
 
 
 def load_meta(path: str) -> dict:
@@ -44,15 +87,35 @@ def load_meta(path: str) -> dict:
         return json.load(f)
 
 
+def load_history(path: str) -> Optional[dict]:
+    p = os.path.join(os.path.abspath(path), HISTORY_FILE)
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        return json.load(f)
+
+
 def load_run_config(path: str) -> RunConfig:
     return RunConfig.from_json(json.dumps(load_meta(path)["config"]))
 
 
+def _load_state(path: str, device) -> dict:
+    return torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
+                      map_location=device, weights_only=True)
+
+
 def load_checkpoint(path: str, model: nn.Module) -> nn.Module:
-    """Load ``<path>/state.pt`` into ``model`` (strict: every key must
-    match) on the device the model lies on."""
+    """Load the weights of ``<path>/state.pt`` into ``model`` (strict: every
+    key must match) on the device the model lies on."""
     device = next(model.parameters()).device
-    state = torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
-                       map_location=device, weights_only=True)
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(_load_state(path, device)["model"], strict=True)
     return model
+
+
+def load_train_state(path: str, train_state) -> None:
+    """Load the optimizer state of ``<path>/state.pt`` into ``train_state``
+    (a ``TrainState``); raises if the checkpoint holds none."""
+    saved = _load_state(path, train_state.flat.device)["train"]
+    if saved is None:
+        raise ValueError(f"{path} holds model weights only, no optimizer state")
+    train_state.load_optimizer_state(saved)

@@ -1,7 +1,8 @@
-"""EGNN band forward: the port's plain version against the JAX package's
-Pallas kernel (interpret mode on the CPU), and the port's kernel routing on
-CPU tensors. The CUDA kernel itself is held against the plain version on
-the GPU by tests/test_torch_gpu.py and chip_smoke.py."""
+"""EGNN band forward and backward: the port's plain version against the JAX
+package's Pallas kernels (interpret mode on the CPU) and its XLA band path,
+values and gradients, and the port's kernel routing and autograd function
+on CPU tensors. The CUDA kernels themselves are held against the plain
+versions on the GPU by tests/test_torch_gpu.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from protein_ensemble_vae_torch.ops.kernels import LAUNCHES  # noqa: E402
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (  # noqa: E402
-    egnn_band_fused, egnn_band_fwd, egnn_band_reference)
+    EGNNBandFunction, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fused,
+    egnn_band_fwd, egnn_band_reference)
 from protein_ensemble_vae_tpu.models.decoder import (band_gather,  # noqa: E402
                                                      band_indices)
 from protein_ensemble_vae_tpu.ops.pallas.egnn_band import (  # noqa: E402
@@ -118,3 +120,80 @@ def test_masked_receivers_and_senders_contribute_nothing():
     bs2[0, -10:] += 100.0
     agg2, _ = egnn_band_reference(*_torch(a, bs2, x, cmask, p), 4)
     assert torch.equal(agg, agg2)
+
+
+# Gradients: the JAX package's own tolerance for its band backward
+# (tests/test_pallas.py:test_egnn_fused_grad_parity).
+G_RTOL, G_ATOL = 2e-3, 1e-4
+DIFF_NAMES = ("a", "bs", "x") + PARAM_ORDER
+
+
+def _jax_grads(fn, a, bs, x, cmask, p, g_agg, g_delta):
+    """Gradients of sum(agg * g_agg) + sum(delta * g_delta) w.r.t. (a, bs,
+    x, params) through ``fn(a, bs, x, cmask, *params)``."""
+    def loss(*d):
+        agg, delta = fn(d[0], d[1], d[2], jnp.asarray(cmask), *d[3:])
+        return jnp.sum(agg * g_agg) + jnp.sum(delta * g_delta)
+
+    args = [jnp.asarray(v) for v in (a, bs, x)] + [jnp.asarray(p[k]) for k in PARAM_ORDER]
+    return [np.asarray(g) for g in jax.grad(loss, argnums=tuple(range(10)))(*args)]
+
+
+def _port_grads_all(a, bs, x, cmask, p, g_agg, g_delta, W):
+    """The port's gradients three ways: the plain backward, autograd through
+    the routed entry on CPU tensors, and EGNNBandFunction (whose wrappers
+    run their plain versions on CPU tensors)."""
+    args = _torch(a, bs, x, cmask, p)
+    ga, gd = torch.from_numpy(g_agg), torch.from_numpy(g_delta)
+    out = {"bwd_reference": egnn_band_bwd_reference(*args, ga, gd, W),
+           "bwd_wrapper": egnn_band_bwd(*args, ga, gd, W)}
+    for name, fn in (("fused_auto", lambda *t: egnn_band_fused(*t, W)),
+                     ("function", lambda *t: EGNNBandFunction.apply(*t, W))):
+        diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
+        agg, delta = fn(*diff[:3], args[3], *diff[3:])
+        out[name] = torch.autograd.grad(
+            (agg * ga).sum() + (delta * gd).sum(), diff)
+    return out
+
+
+def _cotangents(seed, a, x):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, a.shape).astype(np.float32),
+            rng.normal(0, 1, x.shape).astype(np.float32))
+
+
+def _assert_grads(port, want):
+    for how, grads in port.items():
+        assert len(grads) == len(want)
+        for name, g, w in zip(DIFF_NAMES, grads, want):
+            assert torch.isfinite(g).all(), (how, name)
+            np.testing.assert_allclose(g.numpy(), w, rtol=G_RTOL, atol=G_ATOL,
+                                       err_msg=f"{how}: grad {name}")
+
+
+@pytest.mark.parametrize("W", [4, 8])
+def test_grads_match_pallas_backward_interpret(W):
+    a, bs, x, cmask, p = _inputs(seed=31 + W)
+    g_agg, g_delta = _cotangents(W, a, x)
+    want = _jax_grads(lambda *t: jax_egnn_band_fused(*t, W, jax.lax.Precision.HIGHEST),
+                      a, bs, x, cmask, p, g_agg, g_delta)
+    _assert_grads(_port_grads_all(a, bs, x, cmask, p, g_agg, g_delta, W), want)
+
+
+@pytest.mark.parametrize("L", [37, 70])
+def test_grads_match_jax_band_at_unaligned_length(L):
+    a, bs, x, cmask, p = _inputs(seed=L + 1, L=L)
+    W = 4
+    g_agg, g_delta = _cotangents(L, a, x)
+    want = _jax_grads(lambda *t: _jax_band_plain(*t, W), a, bs, x, cmask, p,
+                      g_agg, g_delta)
+    _assert_grads(_port_grads_all(a, bs, x, cmask, p, g_agg, g_delta, W), want)
+
+
+def test_backward_routing_on_cpu_counts_no_launch():
+    a, bs, x, cmask, p = _inputs(seed=6)
+    before = dict(LAUNCHES)
+    args = _torch(a, bs, x, cmask, p)
+    g = egnn_band_bwd(*args, torch.ones(a.shape), torch.ones(x.shape), 4)
+    assert [tuple(t.shape) for t in g] == [tuple(t.shape) for t in args[:3] + args[4:]]
+    assert LAUNCHES == before

@@ -1,5 +1,7 @@
 """Tests of the port that need an NVIDIA GPU (marker ``gpu``): the CUDA
-kernels against their plain PyTorch versions, at small and full widths.
+kernels against their plain PyTorch versions, at small and full widths, the
+autograd functions that join them, and a train step with no host
+synchronisation.
 
 They skip where no CUDA device is present. This file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
@@ -16,8 +18,12 @@ torch = pytest.importorskip("torch")
 from protein_ensemble_vae_torch.config import ModelConfig  # noqa: E402
 from protein_ensemble_vae_torch.models import HierCVAE  # noqa: E402
 from protein_ensemble_vae_torch.ops.kernels import LAUNCHES  # noqa: E402
+from protein_ensemble_vae_torch.ops.kernels.clash import (  # noqa: E402
+    backbone_atoms, clash_bwd, clash_bwd_reference, clash_fwd,
+    clash_fwd_reference, clash_loss_kernel)
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (  # noqa: E402
-    egnn_band_fused, egnn_band_fwd, egnn_band_reference)
+    egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fused, egnn_band_fwd,
+    egnn_band_reference)
 from protein_ensemble_vae_torch.ops.routing import set_full_fp32  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -119,3 +125,154 @@ def test_decoder_kernel_path_matches_plain_path(cuda):
     assert LAUNCHES["egnn_band_fwd"] == before + cfg.decoder_layers
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+# Gradients: sums over up to ~1e5 edges in another order, so the absolute
+# tolerance scales with each output's magnitude (as in chip_smoke.py).
+G_RTOL, G_ATOL_REL = 2e-3, 1e-4
+
+
+def _close_scaled(got, want, name):
+    atol = G_ATOL_REL * float(want.abs().max()) + 1e-30
+    torch.testing.assert_close(got, want, rtol=G_RTOL, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("B,L,Hd,W", [
+    (2, 37, 32, 4), (3, 70, 64, 4), (1, 50, 128, 8), (2, 19, 64, 12),
+    (2, 256, 256, 40), (1, 129, 256, 40),
+])
+def test_band_backward_matches_plain_version(cuda, B, L, Hd, W):
+    args = _inputs(B, L, Hd, cuda, seed=B * 1000 + L + 1)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    before = LAUNCHES["egnn_band_bwd"]
+    got = egnn_band_bwd(*args, g_agg, g_delta, W)
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_bwd"] == before + 1
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        _close_scaled(a, b, name)
+    # deterministic: a second launch is bitwise identical
+    again = egnn_band_bwd(*args, g_agg, g_delta, W)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_band_function_gradients_on_cuda(cuda):
+    """egnn_band_fused on CUDA tensors backpropagates through the kernels
+    (the forward used to return tensors with no grad_fn)."""
+    args = _inputs(2, 64, 32, cuda, seed=4)
+    diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
+    plain = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
+    cm = args[3]
+
+    def run(ts, mode):
+        a, bs, x, *p = ts
+        agg, delta = egnn_band_fused(a, bs, x, cm, *p, 4, use_pallas=mode)
+        assert agg.requires_grad and delta.requires_grad
+        return (agg.square().sum() + delta.square().sum())
+
+    before = LAUNCHES["egnn_band_bwd"]
+    run(diff, "auto").backward()
+    assert LAUNCHES["egnn_band_bwd"] == before + 1
+    run(plain, False).backward()
+    for a, b in zip(diff, plain):
+        assert a.grad is not None
+        _close_scaled(a.grad, b.grad, "grad")
+
+
+def _clash_inputs(B, L, device, seed=0, scale=1.2):
+    g = torch.Generator().manual_seed(seed)
+    n, ca, c = (torch.randn(B, L, 3, generator=g) * scale * L ** (1 / 3)
+                for _ in range(3))
+    mask = torch.ones(B, L)
+    mask[0, L - L // 6:] = 0.0
+    mask[-1, L // 2] = 0.0
+    return [t.to(device) for t in (n, ca, c, mask)]
+
+
+@pytest.mark.parametrize("B,L", [(1, 37), (2, 64), (4, 230), (2, 640)])
+def test_clash_kernels_match_plain_versions(cuda, B, L):
+    n, ca, c, mask = _clash_inputs(B, L, cuda, seed=L)
+    atoms, amask = backbone_atoms(n, ca, c, mask)
+    atoms, amask = atoms.contiguous(), amask.contiguous()
+    before = (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"])
+    tot = clash_fwd(atoms, amask)
+    ref = clash_fwd_reference(atoms, amask)
+    assert float(ref.min()) > 0          # the inputs do clash
+    torch.testing.assert_close(tot, ref, rtol=1e-3, atol=1e-6)
+    scale = torch.rand(B, device=cuda) + 0.5
+    grad = clash_bwd(atoms, amask, scale)
+    want = clash_bwd_reference(atoms, amask, scale)
+    _close_scaled(grad, want, "clash grad")
+    assert (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"]) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(clash_fwd(atoms, amask), tot)
+
+
+def test_clash_function_gradients_on_cuda(cuda):
+    from protein_ensemble_vae_torch.losses import clash_loss
+
+    n, ca, c, mask = _clash_inputs(2, 50, cuda, seed=2)
+    k = [t.clone().requires_grad_(True) for t in (n, ca, c)]
+    d = [t.clone().requires_grad_(True) for t in (n, ca, c)]
+    lk = clash_loss_kernel(*k, mask)
+    ld = clash_loss(*d, mask)
+    torch.testing.assert_close(lk, ld, rtol=1e-3, atol=0.0)
+    lk.backward()
+    ld.backward()
+    for a, b in zip(k, d):
+        _close_scaled(a.grad, b.grad, "clash loss grad")
+
+
+def test_train_step_has_no_host_sync(cuda):
+    """A B4/L256 train step at small widths under sync-debug "error": any
+    host synchronisation inside the step raises."""
+    from protein_ensemble_vae_torch.config import LossWeights
+    from protein_ensemble_vae_torch.train.training import (TrainState,
+                                                           make_train_step)
+
+    cfg = ModelConfig(seqemb_dim=16, d_model=64, nhead=4, ff=128, nlayers=1,
+                      z_global=32, z_local=16, decoder_hidden=64,
+                      decoder_layers=2, max_neighbors=8)
+    torch.manual_seed(0)
+    model = HierCVAE(cfg).to(cuda)
+    state = TrainState.create(model)
+    step = make_train_step(model, LossWeights(), train=True)
+    batch = _train_batch(4, 256, cfg.seqemb_dim, cuda)
+    consts = [torch.tensor(v, device=cuda) for v in (0.5, 0.25, 1e-4)]
+    step(state, batch, 0, *consts)          # warm-up: kernel builds, handles
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = step(state, batch, 1, *consts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 2
+    assert LAUNCHES["clash_bwd"] == before["clash_bwd"] + 1
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _train_batch(B, L, seqemb_dim, device, seed=0):
+    from protein_ensemble_vae_torch.data.synthetic import nerf_ensemble
+
+    n, ca, c = (torch.from_numpy(v[:2]) for v in nerf_ensemble(L - 20, 2, seed=seed))
+    g = torch.Generator().manual_seed(seed)
+
+    def conf(k):
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 20))  # noqa: E731
+        mask = torch.zeros(B, L)
+        mask[:, :L - 20] = 1.0
+        return dict(n=pad(n[k]).expand(B, L, 3), ca=pad(ca[k]).expand(B, L, 3),
+                    c=pad(c[k]).expand(B, L, 3), mask=mask,
+                    seq_emb=torch.randn(B, L, seqemb_dim, generator=g),
+                    dihedrals=torch.zeros(B, L, 6),
+                    seq_labels=torch.randint(0, 20, (B, L), generator=g))
+
+    return {side: {k: v.contiguous().to(device) for k, v in conf(i).items()}
+            for i, side in enumerate(("inp", "tgt"))}

@@ -1,0 +1,97 @@
+"""The port's train CLI (``protein_ensemble_vae_torch.cli.train``, the
+``pev-train`` counterpart) end to end on the CPU at tiny widths: the
+checkpoint file set, the history's metric names (the JAX package's
+``EPOCH_METRICS``), ``--resume``, the generation CLI on the trained
+checkpoint, and the features that raise instead of running."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from protein_ensemble_vae_torch.cli import generate as gen_cli  # noqa: E402
+from protein_ensemble_vae_torch.cli import train as train_cli  # noqa: E402
+from protein_ensemble_vae_torch.data import make_synthetic_dataset  # noqa: E402
+from protein_ensemble_vae_tpu.config import RunConfig as JRunConfig  # noqa: E402
+from protein_ensemble_vae_tpu.train.training import EPOCH_METRICS  # noqa: E402
+
+TINY = ["--use_seqemb", "--batch_size", "4", "--lr", "1e-4", "--d_model", "32",
+        "--nhead", "4", "--ff", "64", "--nlayers", "1", "--z_global", "16",
+        "--z_local", "8", "--decoder_hidden", "16", "--decoder_layers", "2",
+        "--max_neighbors", "4"]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_cli")
+    tr, va = make_synthetic_dataset(str(root / "data"), n_proteins=2, K=3,
+                                    lengths=(24,), seqemb_dim=16, seed=7)
+    base = ["--manifest_train", tr, "--manifest_val", va, *TINY,
+            "--save", str(root / "ckpt"), "--device", "cpu"]
+    train_cli.main(base + ["--epochs", "2"])
+    return root, base
+
+
+def test_writes_checkpoint_with_jax_metric_names(run):
+    root, _ = run
+    final = root / "ckpt" / "final"
+    assert sorted(os.listdir(final)) == ["history.json", "meta.json", "state.pt"]
+    hist = json.loads((final / "history.json").read_text())
+    for split in ("train", "val"):
+        assert set(hist[split]) == set(EPOCH_METRICS)
+        for k, vals in hist[split].items():
+            assert len(vals) == 2 and np.isfinite(vals).all(), (split, k)
+    meta = json.loads((final / "meta.json").read_text())
+    assert meta["epoch"] == 2
+    # the config block is the JAX sidecar's contract
+    jcfg = JRunConfig.from_json(json.dumps(meta["config"]))
+    assert json.loads(jcfg.to_json()) == meta["config"]
+    state = torch.load(final / "state.pt", weights_only=True)
+    assert state["train"]["step"] > 0 and int(state["train"]["count"]) > 0
+    assert (root / "ckpt" / "artifacts.jsonl").exists()
+
+
+def test_resume_continues_at_next_epoch(run, capsys):
+    root, base = run
+    best = json.loads((root / "ckpt" / "best" / "meta.json").read_text())
+    capsys.readouterr()
+    train_cli.main(base + ["--epochs", str(best["epoch"] + 1), "--resume"])
+    out = capsys.readouterr().out
+    assert f"at epoch {best['epoch'] + 1}" in out
+    assert f"[epoch {best['epoch'] + 1:4d}]" in out
+    assert "[epoch    1]" not in out
+
+
+def test_generate_loads_trained_checkpoint(run):
+    root, base = run
+    va = base[base.index("--manifest_val") + 1]
+    out_dir = root / "generated"
+    gen_cli.main(["--checkpoint", str(root / "ckpt" / "final"), "--manifest", va,
+                  "--output_dir", str(out_dir), "--num_samples", "3",
+                  "--max_structures", "1", "--device", "cpu"])
+    pdbs = sorted(p for p in os.listdir(out_dir) if p.endswith(".pdb"))
+    assert len(pdbs) == 3 and any(p.endswith("_ensemble.pdb") for p in pdbs)
+
+
+@pytest.mark.parametrize("extra,err", [
+    (["--dp", "2"], NotImplementedError),
+    (["--tp", "2"], NotImplementedError),
+    (["--multihost"], NotImplementedError),
+    (["--watch_every", "1"], NotImplementedError),
+    (["--compute_dtype", "bfloat16"], NotImplementedError),
+])
+def test_unported_features_raise(run, extra, err):
+    _, base = run
+    with pytest.raises(err, match="ROADMAP"):
+        train_cli.main(base + ["--epochs", "1"] + extra)
+
+
+def test_default_device_without_gpu_raises(run, monkeypatch):
+    _, base = run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in base if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(argv + ["--epochs", "1"])
