@@ -9,12 +9,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 2. build: every CUDA source of the port, one ``nvcc`` each, in parallel,
    with ``-Xptxas -v``'s register / shared-memory / spill report.
 3. kernels: each kernel's wrapper against its plain PyTorch version, on the
-   card, at the shapes the main paths give it (TF32 off), with the stated
-   tolerance; CUDA-event times (median over runs, after warm-up) of kernel
-   and plain version, and the least time the card could take (bound).
-   Kernel 1 (band forward) at B1/B10 x L256/L640; kernels 2-4 (band
-   backward, clash forward / backward) at the training shapes B4/L256 and
-   B2/L640; kernel 2 must give bitwise-identical output over two launches.
+   card, at the shapes the main paths give it (TF32 off for PyTorch; kernels
+   1-2 run their products in 3xTF32), with the stated tolerance; CUDA-event
+   times (median over runs, after warm-up) of kernel and plain version, the
+   least time the card could take (bound, fp32 peak) and, for kernels 1-2,
+   the tensor-core bound (3 x the FLOP at the TF32 peak). Kernel 1 (band
+   forward) at generation's B1/B10 x L256/L640 and the training shapes
+   B4/L256 and B2/L640; kernels 2-4 (band backward, clash forward /
+   backward) at the training shapes; kernels 1 and 2 must give
+   bitwise-identical output over two launches.
 4. generation main path: ``generate_ensembles`` with a fresh seeded
    ``HierCVAE`` at the default ``ModelConfig`` widths on two synthetic NeRF
    proteins (buckets 256 and 640), ``num_samples=10``. Launch counts are
@@ -66,8 +69,10 @@ HD, W = 256, 40                       # ModelConfig decoder_hidden, max_neighbor
 NUM_SAMPLES = 10
 PROTEINS = (("synA", 230, 1), ("synB", 600, 2))   # id, length, fold seed
 BUCKETS = (64, 128, 192, 256, 320, 384, 448, 512, 576, 640)
-# Main-path kernel shapes: (B, L) = (1 | NUM_SAMPLES, bucket).
-KERNEL_SHAPES = ((1, 256), (NUM_SAMPLES, 256), (1, 640), (NUM_SAMPLES, 640))
+# Main-path shapes of kernel 1: generation's (B, L) = (1 | NUM_SAMPLES,
+# bucket), then the training shapes (TRAIN_SHAPES below).
+KERNEL_SHAPES = ((1, 256), (NUM_SAMPLES, 256), (1, 640), (NUM_SAMPLES, 640),
+                 (4, 256), (2, 640))
 HEADLINE_SHAPE = (NUM_SAMPLES, 640)   # the shape reported in the kernels line
 
 # Kernel vs plain version, both fp32 with sums in another order. agg and
@@ -92,8 +97,11 @@ TIMED_STEPS = (dict(B=4, L=256, L_real=230, remat=False),
 STEP_WARMUP, STEP_REPS = 2, 5
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA data
-# sheet): fp32 outside the tensor cores, and HBM3 bandwidth.
+# sheet): fp32 outside the tensor cores, TF32 on the tensor cores, and HBM3
+# bandwidth. Kernels 1-2 run their products in 3xTF32 (three TF32 passes per
+# fp32 product), so their tensor-core bound is 3 x the FLOP at the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -177,10 +185,17 @@ def _egnn_inputs(B: int, L: int, seed: int):
     return [t.cuda().contiguous() for t in (a, bs, x, cmask) + params]
 
 
-def _egnn_bound(B: int, L: int, cmask) -> tuple[float, str, int]:
+def _tc_ms(flops: float) -> float:
+    """Tensor-core bound in ms: 3 x ``flops`` (three TF32 passes) over the
+    TF32 peak."""
+    return 1e3 * 3 * flops / PEAK_TF32_FLOPS
+
+
+def _egnn_bound(B: int, L: int, cmask) -> tuple[float, str, int, float]:
     """Least time for one launch on this run's inputs: exact valid edges
     x (4 Hd^2 + 2 Hd) FLOP over the fp32 peak, against each input read and
-    each output written once over the HBM rate."""
+    each output written once over the HBM rate. Also the valid edges and
+    the tensor-core bound (the same FLOP, ``_tc_ms``)."""
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_indices
 
     idx, in_range = band_indices(L, W, cmask.device)
@@ -192,14 +207,14 @@ def _egnn_bound(B: int, L: int, cmask) -> tuple[float, str, int]:
                   + B * L * HD + B * L * 3)                    # agg, raw_delta
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return 1e3 * max(t_ops, t_bytes), by, edges
+    return 1e3 * max(t_ops, t_bytes), by, edges, _tc_ms(flops)
 
 
 def phase_kernels() -> list[dict]:
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        egnn_band_fwd, egnn_band_reference)
+        band_work, egnn_band_fwd, egnn_band_reference, fwd_plan)
     from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 
     set_full_fp32()
@@ -207,7 +222,10 @@ def phase_kernels() -> list[dict]:
     for k, (B, L) in enumerate(KERNEL_SHAPES):
         args = _egnn_inputs(B, L, SEED + k)
         agg, delta = egnn_band_fwd(*args, W)
+        again = egnn_band_fwd(*args, W)
         torch.cuda.synchronize()
+        if not (torch.equal(agg, again[0]) and torch.equal(delta, again[1])):
+            raise RuntimeError(f"egnn_band_fwd B{B}/L{L}: two launches differ")
         ragg, rdelta = egnn_band_reference(*args, W)
         errs = []
         for name, got, ref in (("agg", agg, ragg), ("raw_delta", delta, rdelta)):
@@ -228,13 +246,18 @@ def phase_kernels() -> list[dict]:
             errs.append(err)
         ms = _median_ms(lambda: egnn_band_fwd(*args, W))
         plain_ms = _median_ms(lambda: egnn_band_reference(*args, W))
-        bound_ms, bound_by, edges = _egnn_bound(B, L, args[3])
+        bound_ms, bound_by, edges, tc_ms = _egnn_bound(B, L, args[3])
+        S = fwd_plan(B, L, W, HD, args[0].device)
+        blocks = B * band_work(B, L, W)[0] * S
         log(f"[kernels] egnn_band_fwd B{B}/L{L}: {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms), bound {bound_ms:.3f} ms by {bound_by} "
-            f"({edges} valid edges), {100 * bound_ms / ms:.1f}% of bound")
+            f"({edges} valid edges), {100 * bound_ms / ms:.1f}% of bound; "
+            f"tensor-core bound {tc_ms:.3f} ms; {S} offset slice(s), {blocks} "
+            f"blocks; bitwise identical over two launches")
         rows.append(dict(B=B, L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=max(errs)))
-        del args, agg, delta, ragg, rdelta
+                         bound_by=bound_by, tc_bound_ms=tc_ms, slices=S,
+                         blocks=blocks, max_abs_err=max(errs)))
+        del args, agg, delta, again, ragg, rdelta
     return rows
 
 
@@ -253,17 +276,19 @@ def _close_scaled(name: str, got, ref) -> float:
     return err
 
 
-def _band_bwd_bound(B: int, L: int, cmask) -> tuple[float, str]:
+def _band_bwd_bound(B: int, L: int, cmask) -> tuple[float, str, float]:
     """Least time for one backward launch: per valid edge 6 Hd x Hd products
     (12 Hd^2 FLOP) plus the elementwise chain, over the fp32 peak, against
     the inputs (a, bs, x, cmask, weights, g_agg, g_delta) read once and the
-    gradients written once over the HBM rate."""
-    _, _, edges = _egnn_bound(B, L, cmask)
+    gradients written once over the HBM rate. Also the tensor-core bound
+    (the same FLOP, ``_tc_ms``)."""
+    edges = _egnn_bound(B, L, cmask)[2]
     flops = edges * (12 * HD * HD + 20 * HD)
     nbytes = 4 * (3 * B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # in
                   + 2 * B * L * HD + B * L * 3 + 2 * HD * HD + 4 * HD + 1)          # out
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            _tc_ms(flops))
 
 
 def _clash_bound(amask, pairs_per_atom_pair: int, flop_per_pair: int,
@@ -303,7 +328,7 @@ def phase_train_kernels() -> dict[str, list[dict]]:
     from protein_ensemble_vae_torch.ops.kernels.clash import (
         clash_bwd, clash_bwd_reference, clash_fwd, clash_fwd_reference)
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        egnn_band_bwd, egnn_band_bwd_reference)
+        band_work, bwd_plan, egnn_band_bwd, egnn_band_bwd_reference)
 
     rows = {"egnn_band_bwd": [], "clash_fwd": [], "clash_bwd": []}
     names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
@@ -324,13 +349,18 @@ def phase_train_kernels() -> dict[str, list[dict]]:
         worst = max(rel, key=rel.get)
         ms = _median_ms(lambda: egnn_band_bwd(*args, g_agg, g_delta, W))
         plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W))
-        bound_ms, bound_by = _band_bwd_bound(B, L, args[3])
+        bound_ms, bound_by, tc_ms = _band_bwd_bound(B, L, args[3])
+        G, nsplit = bwd_plan(B, L, W, HD, args[0].device)
         log(f"[kernels] egnn_band_bwd B{B}/L{L}: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
             f"bound {bound_ms:.3f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of "
-            f"bound; max abs err {max(errs.values()):.3e}, largest err / max|plain| "
+            f"bound; tensor-core bound {tc_ms:.3f} ms; {G} edge-pass blocks over "
+            f"{band_work(B, L, W)[2]} work items, {nsplit} weight-grad slices; max abs "
+            f"err {max(errs.values()):.3e}, largest err / max|plain| "
             f"{rel[worst]:.2e} ({worst}); bitwise identical over two launches")
         rows["egnn_band_bwd"].append(dict(B=B, L=L, ms=ms, plain_ms=plain_ms,
                                           bound_ms=bound_ms, bound_by=bound_by,
+                                          tc_bound_ms=tc_ms, edge_blocks=G,
+                                          wgrad_slices=nsplit,
                                           max_abs_err=max(errs.values()),
                                           errors=errs))
         del args, got, again, ref
@@ -894,6 +924,7 @@ def main(argv=None) -> None:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=None,
+            tc_bound_ms=head.get("tc_bound_ms"),
             shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
     log(json.dumps({"train_steps": steps}))

@@ -7,8 +7,9 @@ plus ``--device``).
 
 It runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises rather than fall back to the CPU. fp32
-runs in full fp32 (TF32 off), as the JAX side runs fp32 models at
-``Precision.HIGHEST``. Not ported yet, and raising ``NotImplementedError``
+runs at fp32 accuracy, as the JAX side runs fp32 models at
+``Precision.HIGHEST``: PyTorch's products with TF32 off, the EGNN band
+kernels' in 3-pass TF32. Not ported yet, and raising ``NotImplementedError``
 rather than running something else: ``--dp``/``--tp`` > 1 and
 ``--multihost`` (ROADMAP.md queue A, parallelism), ``--watch_every`` > 0
 (queue A, utils/watch) and ``--compute_dtype bfloat16`` (queue A, the bf16

@@ -14,36 +14,52 @@
 // dW_e2 = sum m1^T cot_u, dW_x1 = sum m^T cot_v, and the bias / vector grads.
 //
 // What bounds it: operations. Six Hd x Hd products per edge (two recomputed,
-// two cotangent, two weight-grad outer products): 12 Hd^2 FLOP per edge.
+// two cotangent, two weight-grad outer products): 12 Hd^2 FLOP per edge. All
+// six run on the tensor cores in 3xTF32 (egnn_tile.cuh), which reaches fp32
+// accuracy as the JAX side's Precision.HIGHEST does through multi-pass
+// products on the TPU; the tensor-core floor is 3 x the FLOP at the TF32
+// rate. The gradients' sums do not need kernel 1's per-step rounding
+// (STEP_SUM off: a whole-model gradient check passes either way, and it
+// would cost a fifth of the time). What holds the kernel above its floor:
+// mma.sync latency at 16 warps per SM, 128 registers with spills, and the
+// per-edge scratch round trip (see PERF.md).
 //
 // Design. The TPU kernel relied on its grid running in order: it added the
 // sender cotangents into padded windows and the weight grads into shared
 // outputs. GPU blocks run in parallel and in no order, so every sum across
 // blocks here is a separate pass in a fixed order, with no atomics: two
 // launches on the same inputs give bitwise-identical outputs.
-//   1. edge pass (one block per batch row x 8 receivers, 256 threads, the
-//      forward kernel's 64-edge tiles and weight-streaming ring): the four
-//      products of the chain per tile (W_e2^T and W_x1^T arrive transposed,
-//      so all four stream row-major). It writes, per edge, m1, m, cot_u,
-//      cot_v, cot_pre [E, Hd] and d_rel [E, 3] (E = B * L * 2W, invalid
-//      edges hold zero cotangents) to a scratch buffer, and per block its
-//      column sums of the vector grads (w_d, b_e2, b_x1, w_x2, b_x2).
-//      Shared memory: the transposed activation tile (68 KB at Hd = 256),
-//      silu'(u) of the tile (64 KB) and the ring (32 KB). Keeping the
-//      [Hd, Hd] weight-grad sums in the block (256 KB each) would not fit;
-//      the per-edge activations are what makes them one large product.
+//   1. edge pass, a persistent grid of G blocks, one per resident slot (two
+//      per SM; the caller picks G). The work items are (batch row, tile of 8
+//      receivers, step of 8 band offsets), step fastest; block g takes items
+//      g, g + G, ..., so each block's vector-grad partial is a fixed sum.
+//      Per item: the four products of the chain on the 64-edge tile (W_e2^T
+//      and W_x1^T arrive transposed, so all four stream row-major through
+//      the cp.async ring). It writes m1, m, cot_u, cot_v, cot_pre [64, Hd]
+//      and d_rel [64, 3] of the item to its 64 scratch rows (item-major),
+//      and a flag per item. An item with no valid edge (padding, a masked
+//      tile or window) writes nothing but its flag 0, and the later passes
+//      skip it. Invalid edges of a valid item hold zero cotangents and m1.
+//      silu'(u) waits in the item's own cot_u rows until cot_u overwrites
+//      it, so shared memory holds only the 66 KB activation tile, a 4-stage
+//      ring of 8-row chunks (33 KB) and the row / column sums: ~108 KB, two
+//      blocks (16 warps) per SM.
 //   2. node pass (one block per residue): d_a_i = sum over i's 2W edges of
 //      cot_pre, d_bs_j = sum over the 2W edges that reach j (a gather, not
-//      a scatter), d_x likewise from d_rel. Fixed order, each row written once.
-//   3. weight-grad pass: dW_e2 = M1^T @ COT_U and dW_x1 = MM^T @ COT_V as
-//      split-K products (64 x 64 output tiles, NSPLIT slices of E), each
-//      slice written to its own partial.
-//   4. reduce pass: the NSPLIT weight-grad partials and the per-block
-//      vector partials summed in index order.
-// Scratch: 5 E Hd + 3 E floats of edge data, 2 NSPLIT Hd^2 of weight-grad
-// partials, (L/8) B (4 Hd + 1) of vector partials: 420 MB at B4/L256/Hd256/W40.
-// Later work: tensor cores (wgmma), the weight grads without the per-edge
-// round trip, skipping fully masked offset steps.
+//      a scatter), d_x likewise from d_rel; rows of flag-0 items are skipped.
+//   3. weight-grad pass: dW_e2 = M1^T @ COT_U and dW_x1 = M^T @ COT_V as
+//      split-K 3xTF32 products: 128 x 128 output tiles (64 x 32 per warp),
+//      NSPLIT slices of the items (the caller sizes NSPLIT so the grid fills
+//      two slots per SM), flag-0 items skipped; each slice writes its own
+//      partial.
+//   4. reduce pass: the NSPLIT weight-grad partials and the G vector
+//      partials summed in index order.
+// Scratch: 5 R Hd + 3 R floats of edge data (R = 64 x items, = B L 2W when
+// 8 divides L and 2W), the flags, G (4 Hd + 1) of vector partials; the
+// weight-grad partials (2 NSPLIT Hd^2) reuse cot_pre's rows, which the node
+// pass has consumed by then: ~421 MB at B4/L256/Hd256/W40.
+// Left for later: wgmma for the products, TMA for the ring, the weight
+// grads without the per-edge scratch round trip.
 
 #include "egnn_tile.cuh"
 
@@ -51,83 +67,105 @@ namespace {
 
 using namespace egnn;
 
-constexpr int NSPLIT = 16;   // slices of the edge dimension in the weight-grad pass
+constexpr int BK = 8;        // weight rows per ring chunk
+constexpr int STAGES = 4;    // ring depth
+constexpr bool STEP_SUM = false;  // round-to-nearest sum of each k8 step (egnn_tile.cuh)
 constexpr int NVEC = 4;      // vector grads summed per column: w_d, b_e2, b_x1, w_x2
 
 __host__ __device__ inline size_t align4(size_t n) { return (n + 3) & ~size_t(3); }
+__host__ __device__ inline size_t vpart_stride(int hd) { return align4((size_t)NVEC * hd + 1); }
+inline int n_items(int B, int L, int W) {
+    return B * ((L + T - 1) / T) * ((2 * W + OPS - 1) / OPS);
+}
 
 struct Scratch {
     float *m1, *mm, *cotu, *cotv, *cotpre, *drel, *vpart, *wpart;
+    int* flags;
 };
 
-__host__ __device__ inline size_t vpart_stride(int hd) { return align4((size_t)NVEC * hd + 1); }
-
-inline size_t scratch_floats(int B, int L, int hd, int W, Scratch* s, float* base) {
-    const size_t E = (size_t)B * L * 2 * W;
-    const size_t nblk = (size_t)B * ((L + T - 1) / T);
+inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, Scratch* s,
+                             float* base) {
+    const size_t R = (size_t)n_items(B, L, W) * M;
     size_t off = 0;
+    Scratch tmp;
+    Scratch* t = s ? s : &tmp;
     auto take = [&](float** p, size_t n) {
         if (s) *p = base + off;
         off += align4(n);
     };
-    Scratch tmp;
-    Scratch* t = s ? s : &tmp;
-    take(&t->m1, E * hd);
-    take(&t->mm, E * hd);
-    take(&t->cotu, E * hd);
-    take(&t->cotv, E * hd);
-    take(&t->cotpre, E * hd);
-    take(&t->drel, E * 3);
-    take(&t->vpart, nblk * vpart_stride(hd));
-    take(&t->wpart, (size_t)2 * NSPLIT * hd * hd);
+    take(&t->m1, R * hd);
+    take(&t->mm, R * hd);
+    take(&t->cotu, R * hd);
+    take(&t->cotv, R * hd);
+    take(&t->cotpre, R * hd);
+    take(&t->drel, R * 3);
+    float* flags = nullptr;
+    take(&flags, (size_t)n_items(B, L, W));
+    if (s) s->flags = reinterpret_cast<int*>(flags);
+    take(&t->vpart, (size_t)G * vpart_stride(hd));
+    const size_t n_wpart = (size_t)2 * nsplit * hd * hd;
+    if (n_wpart <= R * hd) {
+        if (s) s->wpart = s->cotpre;   // cot_pre is consumed before the weight-grad pass
+    } else {
+        take(&t->wpart, n_wpart);
+    }
     return off;
 }
 
-// Sum the thread's per-column values s[j] over the 8 row groups of the block
-// (fixed order) and add them into colacc[q * HD + c]. Begins and ends with a
-// block barrier.
 template <int HD>
-__device__ __forceinline__ void col_reduce(const float (&s)[HD / 32], float* red, float* colacc,
-                                           int q, int tid, int rg, int lane) {
-    using C = Cols<HD>;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < C::CPT; ++j) red[rg * HD + C::col(lane, j)] = s[j];
-    __syncthreads();
-    for (int c = tid; c < HD; c += THREADS) {
-        float t = 0.f;
-#pragma unroll
-        for (int g = 0; g < THREADS / 32; ++g) t += red[g * HD + c];
-        colacc[q * HD + c] += t;
-    }
-    __syncthreads();
-}
+struct BwdSmem {
+    using TL = Tile<HD>;
+    static constexpr int A = 0;                                       // [M][AS]
+    static constexpr int RING = A + M * TL::AS;                       // ring
+    static constexpr int RED1 = RING + Ring<HD, BK, STAGES>::FLOATS;  // [WN][M] wsc partials
+    static constexpr int RED2 = RED1 + TL::WN * M;                    // [WN][M] cot_d2 partials
+    static constexpr int COLACC = RED2 + TL::WN * M;                  // [WM][NVEC][HD]
+    static constexpr int VALID = COLACC + TL::WM * NVEC * HD;         // [M]
+    static constexpr int D2 = VALID + M;                              // [M]
+    static constexpr int CW = D2 + M;                                 // [M] cot_wsc
+    static constexpr int REL = CW + M;                                // [M][3]
+    static constexpr int J = REL + 3 * M;                             // [M] (int)
+    static constexpr int FLOATS = J + M;
+};
 
-// Store the thread's 8 rows x CPT columns of `acc` into an [E, HD] array at
-// the rows' edge indices (row_out < 0: the row is outside the band).
+// Add the lane's per-column sums v[nt][c] (over its rows) into colacc[q],
+// summed first over the 8 lane groups of the warp (fixed shuffle order);
+// lanes of group 0 own the warp's columns, so no two lanes add to one word.
 template <int HD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&acc)[RPT][HD / 32],
-                                           const int* row_out, int rg, int lane) {
-    using C = Cols<HD>;
+__device__ __forceinline__ void flush_cols(float* colacc, float (&v)[Tile<HD>::NT][2],
+                                           const Lane& ln) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int er = row_out[rg * RPT + i];
-        if (er < 0) continue;
-        float* d = dst + (size_t)er * HD;
-        if constexpr (C::V == 4) {
+    for (int nt = 0; nt < Tile<HD>::NT; ++nt)
 #pragma unroll
-            for (int g = 0; g < C::CPT / 4; ++g)
-                *reinterpret_cast<float4*>(d + C::col(lane, 4 * g)) =
-                    make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
-        } else {
-#pragma unroll
-            for (int j = 0; j < C::CPT; ++j) d[C::col(lane, j)] = acc[i][j];
+        for (int c = 0; c < 2; ++c) {
+            float s = v[nt][c];
+            s += __shfl_xor_sync(0xffffffffu, s, 4);
+            s += __shfl_xor_sync(0xffffffffu, s, 8);
+            s += __shfl_xor_sync(0xffffffffu, s, 16);
+            if (ln.g == 0) colacc[ln.col0 + nt * 8 + c] += s;
+            v[nt][c] = 0.f;
         }
-    }
+}
+
+// Store the lane's fragments of `acc` to rows [0, M) of an [.., HD] array
+// (a warp writes whole 32-byte sectors).
+template <int HD>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[Tile<HD>::MT][Tile<HD>::NT][4],
+                                           const Lane& ln) {
+    using TL = Tile<HD>;
+#pragma unroll
+    for (int mt = 0; mt < TL::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < TL::NT; ++nt)
+                *reinterpret_cast<float2*>(dst + (size_t)(ln.row0 + mt * 16 + 8 * h) * HD + ln.col0 + nt * 8) =
+                    make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
                const float* __restrict__ x, const float* __restrict__ cmask,
                const float* __restrict__ w_d, const float* __restrict__ w_e2,
@@ -135,68 +173,66 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
                const float* __restrict__ b_x1, const float* __restrict__ w_x2,
                const float* __restrict__ b_x2, const float* __restrict__ w_e2t,
                const float* __restrict__ w_x1t, const float* __restrict__ g_agg,
-               const float* __restrict__ g_delta, Scratch s, int L, int W) {
-    using C = Cols<HD>;
-    constexpr int CPT = C::CPT;
+               const float* __restrict__ g_delta, Scratch s, int L, int W, int items) {
+    using TL = Tile<HD>;
+    using SM = BwdSmem<HD>;
+    constexpr int MT = TL::MT, NT = TL::NT, AS = TL::AS;
     extern __shared__ float4 smem4[];
-    float* act = reinterpret_cast<float*>(smem4);      // [HD][MP]
-    float* dsu = act + HD * MP;                        // [M][HD]  silu'(u)
-    float* wbuf = dsu + M * HD;                        // [2][BK][HD]
-    float* red = wbuf + 2 * BK * HD;                   // [8][HD]
-    float* colacc = red + 8 * HD;                      // [NVEC * HD + 1]
-    float* row_valid = colacc + align4(NVEC * HD + 1); // [M]
-    float* row_d2 = row_valid + M;                     // [M]
-    float* row_cw = row_d2 + M;                        // [M] cot_wsc
-    float* row_wsc = row_cw + M;                       // [M]
-    float* row_rel = row_wsc + M;                      // [M][3]
-    int* row_j = reinterpret_cast<int*>(row_rel + 3 * M);  // [M]
-    int* row_out = row_j + M;                              // [M] edge index or -1
-    float* halo_cm = reinterpret_cast<float*>(row_out + M);  // [T + 2W]
-    float* halo_x = halo_cm + (T + 2 * W);                   // [T + 2W][3]
+    float* sm = reinterpret_cast<float*>(smem4);
+    float* A = sm + SM::A;
+    float* ring = sm + SM::RING;
+    float* red1 = sm + SM::RED1;
+    float* red2 = sm + SM::RED2;
+    float* row_valid = sm + SM::VALID;
+    float* row_d2 = sm + SM::D2;
+    float* row_cw = sm + SM::CW;
+    float* row_rel = sm + SM::REL;
+    int* row_j = reinterpret_cast<int*>(sm + SM::J);
 
-    const int b = blockIdx.y;
-    const int i0 = blockIdx.x * T;
     const int tid = threadIdx.x;
-    const int rg = tid / 32;     // row group = the receiver of the thread's rows
-    const int lane = tid % 32;
-    const size_t row0 = (size_t)b * L;
-    const float* a_b = a + row0 * HD;
-    const float* bs_b = bs + row0 * HD;
+    const Lane ln = Lane::of<HD>(tid);
+    const int warp = tid / 32;
+    const int wm = warp / TL::WN, wn = warp % TL::WN;
     const int n_off = 2 * W;
-    const int my_i = i0 + rg;    // RPT == OPS: a thread's 8 rows share one receiver
-
-    const int H = T + 2 * W;
-    for (int h = tid; h < H; h += THREADS) {
-        const int sq = i0 - W + h;
-        const bool in = sq >= 0 && sq < L;
-        halo_cm[h] = in ? cmask[row0 + sq] : 0.f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) halo_x[h * 3 + d] = in ? x[(row0 + sq) * 3 + d] : 0.f;
-    }
-    for (int q = tid; q < NVEC * HD + 1; q += THREADS) colacc[q] = 0.f;
-
-    float acc[RPT][CPT];
-    float cs[CPT];           // per-column sums over the thread's rows
-    float part[RPT];         // per-row sums over the columns (warp-reduced)
-    float gagg[CPT];         // g_agg of the thread's receiver
-
     const int n_steps = (n_off + OPS - 1) / OPS;
-    for (int step = 0; step < n_steps; ++step) {
-        __syncthreads();
+    const int n_tiles = (L + T - 1) / T;
+    const float bx2 = b_x2[0];
+
+    // column sums of the vector grads (w_d, b_e2, b_x1, w_x2), per row-warp
+    float* colacc = sm + SM::COLACC + wm * NVEC * HD;
+    for (int k = tid; k < TL::WM * NVEC * HD; k += THREADS) sm[SM::COLACC + k] = 0.f;
+    float cs[2][NT][2];      // the lane's column sums of one epilogue
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) cs[q][nt][0] = cs[q][nt][1] = 0.f;
+    float cw_sum = 0.f;      // tid < M: b_x2 grad
+    float acc[MT][NT][4];
+
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int step = item % n_steps;
+        const int i0 = ((item / n_steps) % n_tiles) * T;
+        const int b = item / (n_steps * n_tiles);
+        const size_t row0 = (size_t)b * L;
+        const float* a_b = a + row0 * HD;
+        const float* bs_b = bs + row0 * HD;
+        const size_t erow = (size_t)item * M;   // the item's first scratch row
+        const int my_i = i0 + ln.g;              // the receiver of the lane's rows
+        float* cotu_rows = s.cotu + erow * HD;
+
+        __syncthreads();   // last item's row arrays and reductions are consumed
+        float v = 0.f;
         if (tid < M) {
-            const int rr = tid / OPS, e = step * OPS + tid % OPS;
-            const int i = i0 + rr;
-            float v = 0.f, d2 = 0.f, cw = 0.f, rel[3] = {0.f, 0.f, 0.f};
-            int j = 0, out = -1;
+            const int o = tid / T, rr = tid % T;
+            const int e = step * OPS + o, i = i0 + rr;
+            float d2 = 0.f, cw = 0.f, rel[3] = {0.f, 0.f, 0.f};
+            int j = 0;
             if (e < n_off && i < L) {
-                const int d = band_offset(e, W);
-                const int hi = rr + W, hj = hi + d;
-                j = i + d;
-                out = (int)((row0 + i) * n_off + e);
-                if (halo_cm[hi] > 0.5f && halo_cm[hj] > 0.5f) {
+                j = i + band_offset(e, W);
+                if (j >= 0 && j < L && cmask[row0 + i] > 0.5f && cmask[row0 + j] > 0.5f) {
                     v = 1.f;
 #pragma unroll
-                    for (int c = 0; c < 3; ++c) rel[c] = halo_x[hi * 3 + c] - halo_x[hj * 3 + c];
+                    for (int c = 0; c < 3; ++c) rel[c] = x[(row0 + i) * 3 + c] - x[(row0 + j) * 3 + c];
                     d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
                     const float* gd = g_delta + (row0 + i) * 3;
                     cw = gd[0] * rel[0] + gd[1] * rel[1] + gd[2] * rel[2];
@@ -206,184 +242,225 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
             row_d2[tid] = d2;
             row_cw[tid] = cw;
             row_j[tid] = j;
-            row_out[tid] = out;
 #pragma unroll
             for (int c = 0; c < 3; ++c) row_rel[tid * 3 + c] = rel[c];
         }
-        __syncthreads();
+        const int any = __syncthreads_or(v > 0.f);
+        if (tid == 0) s.flags[item] = any;
+        if (!any) continue;   // no valid edge: the later passes skip the item
 
-        // m1 = silu(pre) into act^T and to the scratch; rows of invalid edges are 0.
+        // m1 = silu(pre) into A and to the scratch; rows of invalid edges are 0.
         constexpr int HD4 = HD / 4;
+#pragma unroll 4
         for (int idx = tid; idx < M * HD4; idx += THREADS) {
             const int r = idx / HD4, c4 = idx % HD4;
-            float p[4] = {0.f, 0.f, 0.f, 0.f};
+            float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
             if (row_valid[r] > 0.f) {
-                const int i = i0 + r / OPS;
+                const int i = i0 + r % T;
                 const float4 av = __ldg(reinterpret_cast<const float4*>(a_b + (size_t)i * HD) + c4);
                 const float4 bv = __ldg(reinterpret_cast<const float4*>(bs_b + (size_t)row_j[r] * HD) + c4);
                 const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d) + c4);
                 const float d2 = row_d2[r];
-                p[0] = silu(av.x + bv.x + d2 * wd.x);
-                p[1] = silu(av.y + bv.y + d2 * wd.y);
-                p[2] = silu(av.z + bv.z + d2 * wd.z);
-                p[3] = silu(av.w + bv.w + d2 * wd.w);
+                p.x = silu(av.x + bv.x + d2 * wd.x);
+                p.y = silu(av.y + bv.y + d2 * wd.y);
+                p.z = silu(av.z + bv.z + d2 * wd.z);
+                p.w = silu(av.w + bv.w + d2 * wd.w);
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) act[(4 * c4 + q) * MP + r] = p[q];
-            if (row_out[r] >= 0)
-                *reinterpret_cast<float4*>(s.m1 + (size_t)row_out[r] * HD + 4 * c4) =
-                    make_float4(p[0], p[1], p[2], p[3]);
-        }
-        if (my_i < L) {
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) gagg[j] = __ldg(g_agg + (row0 + my_i) * HD + C::col(lane, j));
-        } else {
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) gagg[j] = 0.f;
+            *reinterpret_cast<float4*>(A + r * AS + 4 * c4) = p;
+            *reinterpret_cast<float4*>(s.m1 + (erow + r) * HD + 4 * c4) = p;
         }
         __syncthreads();
 
-        // u = m1 @ W_e2 + b_e2; m = silu(u) -> act^T and scratch; keep silu'(u).
-        gemm_tile<HD>(w_e2, act, wbuf, acc, tid, rg, lane);
+        // u = m1 @ W_e2 + b_e2; m = silu(u) -> A and scratch. silu'(u) waits
+        // for the cotangent in the item's cot_u rows (each lane rereads and
+        // overwrites its own fragments), which keeps shared memory for two
+        // blocks per SM.
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2, A, ring, acc, tid);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const int c = C::col(lane, j);
-                const float u = acc[i][j] + __ldg(b_e2 + c);
-                dsu[(rg * RPT + i) * HD + c] = dsilu(u);
-                acc[i][j] = silu(u);
-            }
-        store_rows<HD>(s.mm, acc, row_out, rg, lane);
-        store_tile_t<HD>(act, acc, rg, lane);
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + ln.col0 + nt * 8));
+                    const float u0 = acc[mt][nt][2 * h] + be.x, u1 = acc[mt][nt][2 * h + 1] + be.y;
+                    *reinterpret_cast<float2*>(cotu_rows + (size_t)(ln.row0 + mt * 16 + 8 * h) * HD +
+                                               ln.col0 + nt * 8) = make_float2(dsilu(u0), dsilu(u1));
+                    acc[mt][nt][2 * h] = silu(u0);
+                    acc[mt][nt][2 * h + 1] = silu(u1);
+                }
+        store_rows<HD>(s.mm + erow * HD, acc, ln);
+        store_tile<HD>(A, acc, ln);
         __syncthreads();
 
-        // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2; cot_v.
-        gemm_tile<HD>(w_x1, act, wbuf, acc, tid, rg, lane);
+        // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 (per row); cot_v.
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1, A, ring, acc, tid);
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) cs[j] = 0.f;
-        float cs2[CPT];
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) cs2[j] = 0.f;
+            for (int h = 0; h < 2; ++h) {
+                const int r = ln.row0 + mt * 16 + 8 * h;
+                const float cw = row_cw[r];
+                float sw = 0.f;
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const float cw = row_cw[rg * RPT + i];
-            float sw = 0.f;
+                for (int nt = 0; nt < NT; ++nt) {
+                    const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + ln.col0 + nt * 8));
+                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + ln.col0 + nt * 8));
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const int c = C::col(lane, j);
-                const float v = acc[i][j] + __ldg(b_x1 + c);
-                const float wx2 = __ldg(w_x2 + c);
-                const float w1 = silu(v);
-                sw = fmaf(w1, wx2, sw);
-                const float cot_v = cw * wx2 * dsilu(v);
-                cs[j] += w1 * cw;          // w_x2 grad
-                cs2[j] += cot_v;           // b_x1 grad
-                acc[i][j] = cot_v;
+                    for (int c = 0; c < 2; ++c) {
+                        const float vv = acc[mt][nt][2 * h + c] + (c ? bx.y : bx.x);
+                        const float wx2 = c ? wx.y : wx.x;
+                        const float w1 = silu(vv);
+                        sw = fmaf(w1, wx2, sw);
+                        const float cot_v = cw * wx2 * dsilu(vv);
+                        cs[0][nt][c] += w1 * cw;   // w_x2 grad
+                        cs[1][nt][c] += cot_v;     // b_x1 grad
+                        acc[mt][nt][2 * h + c] = cot_v;
+                    }
+                }
+                sw = quad_sum(sw);
+                if (ln.t == 0) red1[wn * M + r] = sw;
             }
-            part[i] = sw;
-        }
-        warp_sum_rows(part);
-        if (lane == 0) {
-            const float bx2 = b_x2[0];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) row_wsc[rg * RPT + i] = part[i] + bx2;
-        }
-        store_rows<HD>(s.cotv, acc, row_out, rg, lane);
-        store_tile_t<HD>(act, acc, rg, lane);
-        col_reduce<HD>(cs, red, colacc, 3, tid, rg, lane);
-        col_reduce<HD>(cs2, red, colacc, 2, tid, rg, lane);
+        store_rows<HD>(s.cotv + erow * HD, acc, ln);
+        store_tile<HD>(A, acc, ln);
+        flush_cols<HD>(colacc + 3 * HD, cs[0], ln);
+        flush_cols<HD>(colacc + 2 * HD, cs[1], ln);
+        __syncthreads();
 
         // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u).
-        gemm_tile<HD>(w_x1t, act, wbuf, acc, tid, rg, lane);
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1t, A, ring, acc, tid);
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) cs[j] = 0.f;
+        for (int nt = 0; nt < NT; ++nt) {
+            const float2 gv = my_i < L
+                ? __ldg(reinterpret_cast<const float2*>(g_agg + (row0 + my_i) * HD + ln.col0 + nt * 8))
+                : make_float2(0.f, 0.f);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = rg * RPT + i;
-            const float valid = row_valid[r];
+            for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const int c = C::col(lane, j);
-                const float cot_u = (valid * gagg[j] + acc[i][j]) * dsu[r * HD + c];
-                cs[j] += cot_u;
-                acc[i][j] = cot_u;
-            }
-        }
-        store_rows<HD>(s.cotu, acc, row_out, rg, lane);
-        store_tile_t<HD>(act, acc, rg, lane);
-        col_reduce<HD>(cs, red, colacc, 1, tid, rg, lane);
-
-        // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d.
-        gemm_tile<HD>(w_e2t, act, wbuf, acc, tid, rg, lane);
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) cs[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = rg * RPT + i;
-            float sd = 0.f;
-            if (row_valid[r] > 0.f) {
-                const float d2 = row_d2[r];
-                const float* bs_j = bs_b + (size_t)row_j[r] * HD;
-                const float* a_i = a_b + (size_t)my_i * HD;
-#pragma unroll
-                for (int j = 0; j < CPT; ++j) {
-                    const int c = C::col(lane, j);
-                    const float wd = __ldg(w_d + c);
-                    const float pre = __ldg(a_i + c) + __ldg(bs_j + c) + d2 * wd;
-                    const float cp = acc[i][j] * dsilu(pre);
-                    acc[i][j] = cp;
-                    sd = fmaf(cp, wd, sd);
-                    cs[j] += cp * d2;      // w_d grad
+                for (int h = 0; h < 2; ++h) {
+                    const float valid = row_valid[ln.row0 + mt * 16 + 8 * h];
+                    float* p = cotu_rows + (size_t)(ln.row0 + mt * 16 + 8 * h) * HD + ln.col0 + nt * 8;
+                    const float2 ds = *reinterpret_cast<const float2*>(p);
+                    const float cu0 = (valid * gv.x + acc[mt][nt][2 * h]) * ds.x;
+                    const float cu1 = (valid * gv.y + acc[mt][nt][2 * h + 1]) * ds.y;
+                    *reinterpret_cast<float2*>(p) = make_float2(cu0, cu1);
+                    cs[0][nt][0] += cu0;   // b_e2 grad
+                    cs[0][nt][1] += cu1;
+                    acc[mt][nt][2 * h] = cu0;
+                    acc[mt][nt][2 * h + 1] = cu1;
                 }
-            } else {
-#pragma unroll
-                for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-            }
-            part[i] = sd;
         }
-        warp_sum_rows(part);
-        store_rows<HD>(s.cotpre, acc, row_out, rg, lane);
-        if (lane == 0) {
-            const float* gd = g_delta + (row0 + (my_i < L ? my_i : 0)) * 3;
+        store_tile<HD>(A, acc, ln);
+        flush_cols<HD>(colacc + 1 * HD, cs[0], ln);
+        __syncthreads();
+
+        // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d (per row).
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2t, A, ring, acc, tid);
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const int r = rg * RPT + i;
-                const int er = row_out[r];
-                if (er < 0) continue;
-                const float vw = row_valid[r] * row_wsc[r];
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-                for (int d = 0; d < 3; ++d)
-                    s.drel[(size_t)er * 3 + d] = vw * gd[d] + 2.f * row_rel[r * 3 + d] * part[i];
+            for (int h = 0; h < 2; ++h) {
+                const int r = ln.row0 + mt * 16 + 8 * h;
+                float sd = 0.f;
+                if (row_valid[r] > 0.f) {
+                    const float d2 = row_d2[r];
+                    const float* a_i = a_b + (size_t)my_i * HD + ln.col0;
+                    const float* bs_j = bs_b + (size_t)row_j[r] * HD + ln.col0;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        const float2 av = __ldg(reinterpret_cast<const float2*>(a_i + nt * 8));
+                        const float2 bv = __ldg(reinterpret_cast<const float2*>(bs_j + nt * 8));
+                        const float2 wd = __ldg(reinterpret_cast<const float2*>(w_d + ln.col0 + nt * 8));
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const float wdc = c ? wd.y : wd.x;
+                            const float pre = (c ? av.y : av.x) + (c ? bv.y : bv.x) + d2 * wdc;
+                            const float cp = acc[mt][nt][2 * h + c] * dsilu(pre);
+                            acc[mt][nt][2 * h + c] = cp;
+                            sd = fmaf(cp, wdc, sd);
+                            cs[0][nt][c] += cp * d2;   // w_d grad
+                        }
+                    }
+                } else {
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+                }
+                sd = quad_sum(sd);
+                if (ln.t == 0) red2[wn * M + r] = sd;
             }
-        }
-        col_reduce<HD>(cs, red, colacc, 0, tid, rg, lane);
-        if (tid == 0) {
-            float t = 0.f;
-            for (int r = 0; r < M; ++r) t += row_cw[r];
-            colacc[NVEC * HD] += t;   // b_x2 grad
+        store_rows<HD>(s.cotpre + erow * HD, acc, ln);
+        flush_cols<HD>(colacc + 0 * HD, cs[0], ln);
+        __syncthreads();
+
+        // d_rel = valid * wsc * g_delta_i + 2 * rel * cot_d2, per row.
+        if (tid < M) {
+            const int r = tid;
+            float wsc = 0.f, cd2 = 0.f;
+#pragma unroll
+            for (int q = 0; q < TL::WN; ++q) {
+                wsc += red1[q * M + r];
+                cd2 += red2[q * M + r];
+            }
+            const float vw = row_valid[r] * (wsc + bx2);
+            float gd[3] = {0.f, 0.f, 0.f};
+            if (row_valid[r] > 0.f) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) gd[c] = g_delta[(row0 + i0 + r % T) * 3 + c];
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                s.drel[(erow + r) * 3 + c] = vw * gd[c] + 2.f * row_rel[r * 3 + c] * cd2;
+            cw_sum += row_cw[r];   // b_x2 grad
         }
     }
+
+    // The block's vector-grad partial: the column sums of the WM row-warps
+    // added in warp order, and the b_x2 grad summed over the rows in order.
     __syncthreads();
-    float* vp = s.vpart + ((size_t)b * gridDim.x + blockIdx.x) * vpart_stride(HD);
-    for (int q = tid; q < NVEC * HD + 1; q += THREADS) vp[q] = colacc[q];
+    float* stage_cw = A;   // [M]
+    if (tid < M) stage_cw[tid] = cw_sum;
+    __syncthreads();
+    float* vp = s.vpart + (size_t)blockIdx.x * vpart_stride(HD);
+    for (int k = tid; k < NVEC * HD; k += THREADS) {
+        float t = 0.f;
+        for (int q = 0; q < TL::WM; ++q) t += sm[SM::COLACC + q * NVEC * HD + k];
+        vp[k] = t;
+    }
+    if (tid == 0) {
+        float t = 0.f;
+        for (int r = 0; r < M; ++r) t += stage_cw[r];
+        vp[NVEC * HD] = t;
+    }
 }
 
 // d_a, d_bs, d_x of residue (b, i): gathers over the 2W edges of i as a
-// receiver (d_a, d_x += d_rel) and as a sender (d_bs, d_x -= d_rel).
+// receiver (d_a, d_x += d_rel) and as a sender (d_bs, d_x -= d_rel), in
+// offset order, skipping the rows of items with no valid edge.
 __global__ void __launch_bounds__(THREADS)
 egnn_bwd_nodes(const float* __restrict__ cotpre, const float* __restrict__ drel,
-               float* __restrict__ da, float* __restrict__ dbs, float* __restrict__ dx,
-               int L, int hd, int W) {
+               const int* __restrict__ flags, float* __restrict__ da, float* __restrict__ dbs,
+               float* __restrict__ dx, int L, int hd, int W) {
+    extern __shared__ int erows[];   // [2][2W]: scratch row of (i, e) and of (i - d(e), e), or -1
     const int i = blockIdx.x, b = blockIdx.y;
     const int n_off = 2 * W;
+    const int n_steps = (n_off + OPS - 1) / OPS;
+    const int n_tiles = (L + T - 1) / T;
     const size_t row = (size_t)b * L + i;
-    for (int c = threadIdx.x; c < hd; c += THREADS) {
+    auto erow = [&](int r, int e) -> int {
+        const int item = (b * n_tiles + r / T) * n_steps + e / OPS;
+        return flags[item] ? item * M + (e % OPS) * T + r % T : -1;
+    };
+    for (int e = threadIdx.x; e < n_off; e += blockDim.x) {
+        erows[e] = erow(i, e);
+        const int r = i - band_offset(e, W);   // receiver whose edge e reaches i
+        erows[n_off + e] = (r >= 0 && r < L) ? erow(r, e) : -1;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < hd; c += blockDim.x) {
         float sa = 0.f, sb = 0.f;
         for (int e = 0; e < n_off; ++e) {
-            sa += cotpre[(row * n_off + e) * hd + c];
-            const int r = i - band_offset(e, W);     // receiver whose edge e reaches i
-            if (r >= 0 && r < L) sb += cotpre[(((size_t)b * L + r) * n_off + e) * hd + c];
+            if (erows[e] >= 0) sa += cotpre[(size_t)erows[e] * hd + c];
+            if (erows[n_off + e] >= 0) sb += cotpre[(size_t)erows[n_off + e] * hd + c];
         }
         da[row * hd + c] = sa;
         dbs[row * hd + c] = sb;
@@ -392,77 +469,131 @@ egnn_bwd_nodes(const float* __restrict__ cotpre, const float* __restrict__ drel,
         const int d = threadIdx.x;
         float sx = 0.f;
         for (int e = 0; e < n_off; ++e) {
-            sx += drel[(row * n_off + e) * 3 + d];
-            const int r = i - band_offset(e, W);
-            if (r >= 0 && r < L) sx -= drel[(((size_t)b * L + r) * n_off + e) * 3 + d];
+            if (erows[e] >= 0) sx += drel[(size_t)erows[e] * 3 + d];
+            if (erows[n_off + e] >= 0) sx -= drel[(size_t)erows[n_off + e] * 3 + d];
         }
         dx[row * 3 + d] = sx;
     }
 }
 
-// Split-K weight grads: part[z][s] = X_z[rows of slice s]^T @ Y_z[same rows],
-// z = 0: (m1, cot_u) -> dW_e2, z = 1: (m, cot_v) -> dW_x1. One block per
-// TW x TW output tile, 256 threads as 16 x 16, each R x R outputs.
+// Split-K weight grads on the tensor cores (3xTF32):
+// part[z][sl] = X_z[rows of slice sl]^T @ Y_z[same rows], z = 0: (m1, cot_u)
+// -> dW_e2, z = 1: (m, cot_v) -> dW_x1. One block per TW x TW output tile
+// and slice; 8 warps as 2 x 4, each (TW/2) x (TW/4). The slice's valid
+// items (in order) stream through a cp.async ring of KC-row chunks of both
+// operands, stored [k][TW + 8] (conflict-free fragment loads).
+template <int TW>
+struct Wgrad {
+    static constexpr int KC = 16, STG = 3, XS = TW + 8;
+    static constexpr int MT = TW / 32, NT = TW / 32;
+    static constexpr int STAGE = 2 * KC * XS;   // X chunk, then Y chunk
+    static constexpr size_t smem(int per) { return sizeof(float) * STG * STAGE + sizeof(int) * per; }
+};
+
 template <int TW>
 __global__ void __launch_bounds__(THREADS)
 egnn_bwd_wgrad(const float* __restrict__ x0, const float* __restrict__ y0,
                const float* __restrict__ x1, const float* __restrict__ y1,
-               float* __restrict__ part, size_t E, int hd) {
-    constexpr int KB = 16, R = TW / 16;
-    __shared__ __align__(16) float xs[KB][TW];
-    __shared__ __align__(16) float ys[KB][TW];
+               const int* __restrict__ flags, float* __restrict__ part, int items, int hd,
+               int nsplit) {
+    using C = Wgrad<TW>;
+    constexpr int CPI = M / C::KC;   // chunks per item
+    extern __shared__ float4 smem4[];
+    float* stages = reinterpret_cast<float*>(smem4);
+    int* list = reinterpret_cast<int*>(stages + C::STG * C::STAGE);
+    __shared__ int n_valid;
     const int tiles_n = hd / TW;
     const int m0 = (blockIdx.x / tiles_n) * TW, n0 = (blockIdx.x % tiles_n) * TW;
     const int sl = blockIdx.y, z = blockIdx.z;
     const float* X = z ? x1 : x0;
     const float* Y = z ? y1 : y0;
-    const size_t per = (E + NSPLIT - 1) / NSPLIT;
-    const size_t k0 = sl * per, k1 = k0 + per < E ? k0 + per : E;
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    float acc[R][R];
-#pragma unroll
-    for (int p = 0; p < R; ++p)
-#pragma unroll
-        for (int q = 0; q < R; ++q) acc[p][q] = 0.f;
-    constexpr int F4 = KB * TW / 4;   // float4s per staged operand
-    for (size_t k = k0; k < k1; k += KB) {
-        for (int v = threadIdx.x; v < F4; v += THREADS) {
-            const int kk = v / (TW / 4), c4 = v % (TW / 4);
-            float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), yv = xv;
-            if (k + kk < k1) {
-                xv = *reinterpret_cast<const float4*>(X + (k + kk) * hd + m0 + 4 * c4);
-                yv = *reinterpret_cast<const float4*>(Y + (k + kk) * hd + n0 + 4 * c4);
-            }
-            *reinterpret_cast<float4*>(&xs[kk][4 * c4]) = xv;
-            *reinterpret_cast<float4*>(&ys[kk][4 * c4]) = yv;
+    const int per = (items + nsplit - 1) / nsplit;
+    const int it0 = sl * per, it1 = min(items, it0 + per);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+
+    if (warp == 0) {   // the slice's valid items, in order
+        int cnt = 0;
+        for (int base = it0; base < it1; base += 32) {
+            const int it = base + lane;
+            const bool f = it < it1 && flags[it] != 0;
+            const unsigned mask = __ballot_sync(0xffffffffu, f);
+            if (f) list[cnt + __popc(mask & ((1u << lane) - 1u))] = it;
+            cnt += __popc(mask);
         }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk) {
-            float xv[R], yv[R];
-#pragma unroll
-            for (int p = 0; p < R; ++p) xv[p] = xs[kk][ty * R + p];
-#pragma unroll
-            for (int q = 0; q < R; ++q) yv[q] = ys[kk][tx * R + q];
-#pragma unroll
-            for (int p = 0; p < R; ++p)
-#pragma unroll
-                for (int q = 0; q < R; ++q) acc[p][q] = fmaf(xv[p], yv[q], acc[p][q]);
-        }
-        __syncthreads();
+        if (lane == 0) n_valid = cnt;
     }
-    float* out = part + ((size_t)z * NSPLIT + sl) * hd * hd;
+    __syncthreads();
+    const int nchunk = n_valid * CPI;
+    auto load = [&](int q, int slot) {
+        const size_t r0 = (size_t)list[q / CPI] * M + (q % CPI) * C::KC;
+        float* xs = stages + slot * C::STAGE;
+        float* ys = xs + C::KC * C::XS;
+        for (int v = tid; v < C::KC * TW / 4; v += THREADS) {
+            const int kk = v / (TW / 4), c4 = v % (TW / 4);
+            cp_async16(xs + kk * C::XS + 4 * c4, X + (r0 + kk) * hd + m0 + 4 * c4);
+            cp_async16(ys + kk * C::XS + 4 * c4, Y + (r0 + kk) * hd + n0 + 4 * c4);
+        }
+    };
+
+    float acc[C::MT][C::NT][4];
 #pragma unroll
-    for (int p = 0; p < R; ++p)
+    for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
-        for (int q = 0; q < R; ++q) out[(size_t)(m0 + ty * R + p) * hd + n0 + tx * R + q] = acc[p][q];
+        for (int nt = 0; nt < C::NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    const int am = (warp / 4) * (TW / 2) + g;   // the lane's output row in the tile
+    const int bn = (warp % 4) * (TW / 4) + g;   // the lane's B column in the tile
+
+#pragma unroll
+    for (int s = 0; s < C::STG - 1; ++s) {
+        if (s < nchunk) load(s, s);
+        cp_async_commit();
+    }
+    for (int q = 0; q < nchunk; ++q) {
+        cp_async_wait<C::STG - 2>();
+        __syncthreads();
+        const int nq = q + C::STG - 1;
+        if (nq < nchunk) load(nq, nq % C::STG);
+        cp_async_commit();
+        const float* xs = stages + (q % C::STG) * C::STAGE;
+        const float* ys = xs + C::KC * C::XS;
+#pragma unroll
+        for (int k8 = 0; k8 < C::KC; k8 += 8) {
+            const float* xp = xs + (k8 + t) * C::XS + am;
+            const float* yp = ys + (k8 + t) * C::XS + bn;
+            mma3_k8<C::MT, C::NT, STEP_SUM>(
+                acc,
+                [&](int mt, float2& lo, float2& hi) {
+                    lo = make_float2(xp[mt * 16], xp[4 * C::XS + mt * 16]);
+                    hi = make_float2(xp[mt * 16 + 8], xp[4 * C::XS + mt * 16 + 8]);
+                },
+                [&](int nt, float& b0, float& b1) {
+                    b0 = yp[nt * 8];
+                    b1 = yp[4 * C::XS + nt * 8];
+                });
+        }
+    }
+    cp_async_wait<0>();
+
+    float* out = part + ((size_t)z * nsplit + sl) * hd * hd;
+    const int orow = m0 + am, ocol = n0 + (warp % 4) * (TW / 4) + 2 * t;
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < C::NT; ++nt)
+                *reinterpret_cast<float2*>(out + (size_t)(orow + mt * 16 + 8 * h) * hd + ocol + nt * 8) =
+                    make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
-// Sum the partials in index order: the NSPLIT weight-grad slices into
-// dw_e2 / dw_x1, the per-block vector partials into dvec.
+// Sum the partials in index order: the nsplit weight-grad slices into
+// dw_e2 / dw_x1, the nblk per-block vector partials into dvec.
 __global__ void egnn_bwd_reduce(const float* __restrict__ wpart, const float* __restrict__ vpart,
                                 float* __restrict__ dw_e2, float* __restrict__ dw_x1,
-                                float* __restrict__ dvec, int hd, int nblk) {
+                                float* __restrict__ dvec, int hd, int nblk, int nsplit) {
     const size_t n_w = (size_t)hd * hd;
     const size_t n_v = (size_t)NVEC * hd + 1;
     const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -470,7 +601,7 @@ __global__ void egnn_bwd_reduce(const float* __restrict__ wpart, const float* __
         const int z = idx >= n_w;
         const size_t k = idx - z * n_w;
         float t = 0.f;
-        for (int sl = 0; sl < NSPLIT; ++sl) t += wpart[((size_t)z * NSPLIT + sl) * n_w + k];
+        for (int sl = 0; sl < nsplit; ++sl) t += wpart[((size_t)z * nsplit + sl) * n_w + k];
         (z ? dw_x1 : dw_e2)[k] = t;
     } else if (idx < 2 * n_w + n_v) {
         const size_t q = idx - 2 * n_w;
@@ -480,50 +611,72 @@ __global__ void egnn_bwd_reduce(const float* __restrict__ wpart, const float* __
     }
 }
 
-size_t edge_smem_bytes(int hd, int W) {
-    return sizeof(float) * ((size_t)hd * MP + (size_t)M * hd + 2 * BK * hd + 8 * hd
-                            + align4(NVEC * hd + 1) + 9 * M + 4 * (T + 2 * W));
-}
-
 template <int HD>
 cudaError_t launch(const float* const* in, float* da, float* dbs, float* dx, float* dw_e2,
-                   float* dw_x1, float* dvec, float* scratch, int B, int L, int W,
-                   cudaStream_t stream) {
+                   float* dw_x1, float* dvec, float* scratch, int B, int L, int W, int G,
+                   int nsplit, cudaStream_t stream) {
+    if (G < 1 || nsplit < 1) return cudaErrorInvalidValue;
     Scratch s;
-    scratch_floats(B, L, HD, W, &s, scratch);
-    const size_t smem = edge_smem_bytes(HD, W);
+    scratch_floats(B, L, HD, W, G, nsplit, &s, scratch);
+    const int items = n_items(B, L, W);
+    constexpr size_t smem = sizeof(float) * BwdSmem<HD>::FLOATS;
     cudaError_t err = cudaFuncSetAttribute(egnn_bwd_edges<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const int n_tiles = (L + T - 1) / T;
-    egnn_bwd_edges<HD><<<dim3(n_tiles, B), THREADS, smem, stream>>>(
+    egnn_bwd_edges<HD><<<G, THREADS, smem, stream>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-        in[11], in[12], in[13], in[14], s, L, W);
+        in[11], in[12], in[13], in[14], s, L, W, items);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    egnn_bwd_nodes<<<dim3(L, B), THREADS, 0, stream>>>(s.cotpre, s.drel, da, dbs, dx, L, HD, W);
+    egnn_bwd_nodes<<<dim3(L, B), THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+        s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    constexpr int TW = HD < 64 ? HD : 64;
-    const size_t E = (size_t)B * L * 2 * W;
-    egnn_bwd_wgrad<TW><<<dim3((HD / TW) * (HD / TW), NSPLIT, 2), THREADS, 0, stream>>>(
-        s.m1, s.cotu, s.mm, s.cotv, s.wpart, E, HD);
+    constexpr int TW = HD < 128 ? HD : 128;
+    const int per = (items + nsplit - 1) / nsplit;
+    const size_t wsmem = Wgrad<TW>::smem(per);
+    err = cudaFuncSetAttribute(egnn_bwd_wgrad<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)wsmem);
+    if (err != cudaSuccess) return err;
+    egnn_bwd_wgrad<TW><<<dim3((HD / TW) * (HD / TW), nsplit, 2), THREADS, wsmem, stream>>>(
+        s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart, items, HD, nsplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const size_t n_out = 2 * (size_t)HD * HD + NVEC * HD + 1;
     egnn_bwd_reduce<<<(unsigned)((n_out + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-        s.wpart, s.vpart, dw_e2, dw_x1, dvec, HD, B * n_tiles);
+        s.wpart, s.vpart, dw_e2, dw_x1, dvec, HD, G, nsplit);
     return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t occupancy(int* n) {
+    constexpr size_t smem = sizeof(float) * BwdSmem<HD>::FLOATS;
+    cudaError_t err = cudaFuncSetAttribute(egnn_bwd_edges<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, egnn_bwd_edges<HD>, THREADS, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch one call needs (the caller allocates it).
-size_t egnn_band_bwd_scratch_floats(int B, int L, int hd, int W) {
-    return scratch_floats(B, L, hd, W, nullptr, nullptr);
+// Floats of scratch one call needs (the caller allocates it), for a grid of
+// G edge-pass blocks and nsplit weight-grad slices.
+size_t egnn_band_bwd_scratch_floats(int B, int L, int hd, int W, int G, int nsplit) {
+    return scratch_floats(B, L, hd, W, G, nsplit, nullptr, nullptr);
 }
 
-// Shared memory one block of the edge pass needs.
-size_t egnn_band_bwd_smem_bytes(int hd, int W) { return edge_smem_bytes(hd, W); }
+// Edge-pass blocks one SM holds at once (its persistent grid's slots per
+// SM), or a negative CUDA error code.
+int egnn_band_bwd_blocks_per_sm(int hd) {
+    int n = 0;
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (hd) {
+        case 32:  err = occupancy<32>(&n); break;
+        case 64:  err = occupancy<64>(&n); break;
+        case 128: err = occupancy<128>(&n); break;
+        case 256: err = occupancy<256>(&n); break;
+    }
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+}
 
 // Launch the four passes on `stream`; returns the CUDA error code (0 = success).
 // Device pointers to contiguous fp32 arrays, 16-byte aligned:
@@ -531,21 +684,22 @@ size_t egnn_band_bwd_smem_bytes(int hd, int W) { return edge_smem_bytes(hd, W); 
 // w_x2 [hd]; w_e2, w_x1 and their transposes w_e2t, w_x1t [hd, hd]; b_x2 [1].
 // Outputs: da, dbs [B, L, hd]; dx [B, L, 3]; dw_e2, dw_x1 [hd, hd] (in, out);
 // dvec [4 hd + 1] = (dw_d, db_e2, db_x1, dw_x2, db_x2); scratch as sized above.
+// G: blocks of the persistent edge pass; nsplit: slices of the weight grads.
 int egnn_band_bwd_f32(const float* a, const float* bs, const float* x, const float* cmask,
                       const float* w_d, const float* w_e2, const float* b_e2,
                       const float* w_x1, const float* b_x1, const float* w_x2,
                       const float* b_x2, const float* w_e2t, const float* w_x1t,
                       const float* g_agg, const float* g_delta, float* da, float* dbs,
                       float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
-                      int B, int L, int hd, int W, void* stream) {
+                      int B, int L, int hd, int W, int G, int nsplit, void* stream) {
     const float* in[15] = {a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                            w_e2t, w_x1t, g_agg, g_delta};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
-        case 32:  return launch<32>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, s);
-        case 64:  return launch<64>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, s);
-        case 128: return launch<128>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, s);
-        case 256: return launch<256>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, s);
+        case 32:  return launch<32>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
+        case 64:  return launch<64>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
+        case 128: return launch<128>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
+        case 256: return launch<256>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
         default:  return cudaErrorInvalidValue;
     }
 }

@@ -8,40 +8,45 @@
 //     agg_i       = sum_d valid * m
 //     raw_delta_i = sum_d valid * (silu(m @ W_x1 + b_x1) . w_x2 + b_x2) * (x_i - x_j)
 // valid = 0 <= j < L and cmask_i > 0.5 and cmask_j > 0.5. Nothing of size
-// K = 2W+1 reaches device memory: each output row is written once.
+// K = 2W+1 reaches device memory.
 //
 // What bounds it: operations. Per edge the two Hd x Hd products cost
-// 4*Hd^2 FLOP (262,144 at Hd=256) against ~2*Hd*4 bytes of fresh input, so
-// the kernel sits far above the card's fp32 ridge. It runs in full fp32 FMA
-// (no TF32): the JAX side calls its kernel with Precision.HIGHEST for fp32
-// models.
+// 4*Hd^2 FLOP (262,144 at Hd=256) against ~2*Hd*4 bytes of fresh input, far
+// above the card's ridge. The products run on the tensor cores in 3xTF32
+// (egnn_tile.cuh), which reaches fp32 accuracy the way the JAX side's
+// Precision.HIGHEST does through multi-pass products on the TPU, with each
+// k8 step summed in round-to-nearest fp32 (STEP_SUM): without it the tensor
+// cores' round-toward-zero accumulation left errors of ~1e-6 of the output
+// that a whole model summed coherently. The rest of the chain is fp32 FMA.
+// The tensor-core floor is 3 x the FLOP at the TF32 rate; what holds the
+// kernel well above it is the latency of mma.sync's register-fed 3-pass
+// chains at 16 warps per SM (see PERF.md).
 //
 // Design:
-// - One block per (batch row, tile of T = 8 receivers), 256 threads. The
-//   block walks the 2W non-self offsets OPS = 8 at a time, so one step is a
-//   64-row edge tile (row r = receiver (r / 8), offset slot (r % 8)).
-//   Small tiles matter at one block per SM: 16 receivers per block would
-//   leave B=1 decodes on 16-40 of the 132 SMs, 8 use twice as many blocks,
-//   each living half as long.
-// - The x / cmask halo of the tile (T + 2W rows) is staged in shared memory
-//   once; out-of-range senders read cmask 0 from the halo, so the ragged
-//   ends of the sequence need no padded copy of bs or x. The bs and a rows
-//   (1 KB each at Hd=256) are read through L1/L2 only for valid edges: a
-//   shared bs halo would take (T + 2W) KB, the binding resource below.
-// - Shared memory shapes the design: W_e2 and W_x1 together are 512 KB and
-//   cannot stay resident (227 KB per block). Each 64 x Hd activation tile
-//   lives in shared memory (transposed, 68 KB at Hd=256) and each weight
-//   streams through a double-buffered ring of BK = 16 rows (32 KB) with
-//   cp.async, once per GEMM per step: ~105 KB per block. Registers are what
-//   limits residency (171 per thread at Hd=256, no spills: one block
-//   per SM).
-// - Each thread owns an 8-row x (Hd/32)-column register tile of both
-//   products. Its 8 rows are 1 receiver x 8 offsets, so `agg` accumulates
-//   in the thread's registers across all steps with no cross-thread
-//   reduction; the per-row w_x2 dot product is reduced across the warp
-//   (one warp = one row group) with shuffles.
-// Later work: tensor cores (wgmma) in a TF32 or bf16 mode, TMA for the
-// weight ring, and skipping fully-masked offset steps.
+// - A block owns (batch row, tile of T = 8 receivers, slice of the band
+//   offsets) and walks its slice OPS = 8 offsets at a time: one step is a
+//   64-row edge tile, row r = (offset slot r / 8, receiver r % 8), so each
+//   lane's accumulator rows belong to one receiver and `agg` sums in the
+//   lane's registers across the steps with no cross-thread reduction.
+// - Filling the card: one block per (batch row, tile) gives 32 blocks at
+//   B1/L256 and 320 (1.2 waves of the 264 resident blocks) at B10/L256.
+//   The caller splits the 2W offsets into S slices so that the grid spans
+//   several waves (ops/kernels/egnn_band.py: fwd_slices); with S > 1 each
+//   block writes its partial agg / raw_delta and a second kernel of the
+//   same call sums the S partials in slice order (bitwise reproducible).
+// - A step with no valid edge (the receiver tile or its whole sender window
+//   masked, e.g. the padding of a length bucket) is skipped: it would add
+//   exact zeros.
+// - Shared memory: W_e2 and W_x1 (512 KB at Hd = 256) cannot stay resident,
+//   so each streams through a 4-stage cp.async ring of 8-row chunks (33 KB)
+//   once per product per step; with the 66 KB activation tile a block needs
+//   ~102 KB, and two blocks share an SM (launch bounds cap the registers
+//   at 128 per thread, with a few hundred bytes of spills).
+// - Per-row reductions (the w_x2 dot product) sum each lane's columns, then
+//   the four lanes of a quad with shuffles, then the warps that own the
+//   row's other columns through shared memory, always in the same order.
+// Left for later: wgmma for the products (it needs split operand copies in
+// shared memory), TMA for the ring.
 
 #include "egnn_tile.cuh"
 
@@ -49,83 +54,84 @@ namespace {
 
 using namespace egnn;
 
+constexpr int BK = 8;        // weight rows per ring chunk
+constexpr int STAGES = 4;    // ring depth
+constexpr bool STEP_SUM = true;   // round-to-nearest sum of each k8 step (egnn_tile.cuh)
+
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+struct FwdSmem {
+    using TL = Tile<HD>;
+    static constexpr int A = 0;                                      // [M][AS]
+    static constexpr int RING = A + M * TL::AS;                      // ring
+    static constexpr int RED = RING + Ring<HD, BK, STAGES>::FLOATS;  // [WN][M]
+    static constexpr int VALID = RED + TL::WN * M;                   // [M]
+    static constexpr int D2 = VALID + M;                             // [M]
+    static constexpr int REL = D2 + M;                               // [M][3]
+    static constexpr int J = REL + 3 * M;                            // [M] (int)
+    static constexpr int FLOATS = J + M;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)
 egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
                      const float* __restrict__ x, const float* __restrict__ cmask,
                      const float* __restrict__ w_d, const float* __restrict__ w_e2,
                      const float* __restrict__ b_e2, const float* __restrict__ w_x1,
                      const float* __restrict__ b_x1, const float* __restrict__ w_x2,
                      const float* __restrict__ b_x2, float* __restrict__ agg,
-                     float* __restrict__ delta, int L, int W) {
-    using C = Cols<HD>;
-    constexpr int CPT = C::CPT;
+                     float* __restrict__ delta, int L, int W, int steps_per_slice) {
+    using TL = Tile<HD>;
+    using SM = FwdSmem<HD>;
+    constexpr int MT = TL::MT, NT = TL::NT, AS = TL::AS;
     extern __shared__ float4 smem4[];
-    float* act = reinterpret_cast<float*>(smem4);      // [HD][MP]
-    float* wbuf = act + HD * MP;                       // [2][BK][HD]
-    float* row_valid = wbuf + 2 * BK * HD;             // [M]
-    float* row_d2 = row_valid + M;                     // [M]
-    float* row_rel = row_d2 + M;                       // [M][3]
-    int* row_j = reinterpret_cast<int*>(row_rel + 3 * M);  // [M]
-    float* halo_cm = reinterpret_cast<float*>(row_j + M);  // [T + 2W]
-    float* halo_x = halo_cm + (T + 2 * W);                 // [T + 2W][3]
+    float* sm = reinterpret_cast<float*>(smem4);
+    float* A = sm + SM::A;
+    float* ring = sm + SM::RING;
+    float* red = sm + SM::RED;
+    float* row_valid = sm + SM::VALID;
+    float* row_d2 = sm + SM::D2;
+    float* row_rel = sm + SM::REL;
+    int* row_j = reinterpret_cast<int*>(sm + SM::J);
 
+    const int B = gridDim.y;
     const int b = blockIdx.y;
     const int i0 = blockIdx.x * T;
     const int tid = threadIdx.x;
-    const int rg = tid / 32;     // row group: rows rg*8 .. rg*8+7
-    const int lane = tid % 32;   // column group
+    const Lane ln = Lane::of<HD>(tid);
+    const int wn = (tid / 32) % TL::WN;
     const size_t row0 = (size_t)b * L;
     const float* a_b = a + row0 * HD;
     const float* bs_b = bs + row0 * HD;
-
-    // Halo row h holds sequence position i0 - W + h (cmask 0 outside [0, L)).
-    const int H = T + 2 * W;
-    for (int h = tid; h < H; h += THREADS) {
-        const int s = i0 - W + h;
-        const bool in = s >= 0 && s < L;
-        halo_cm[h] = in ? cmask[row0 + s] : 0.f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) halo_x[h * 3 + d] = in ? x[(row0 + s) * 3 + d] : 0.f;
-    }
-
-    float acc[RPT][CPT];
-    float agg_r[RECV][CPT];  // this thread's receivers x CPT columns
-    float delta_r[RECV][3];  // kept by lane 0 of each warp
-#pragma unroll
-    for (int u = 0; u < RECV; ++u) {
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) agg_r[u][j] = 0.f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) delta_r[u][d] = 0.f;
-    }
-
-    float be2[CPT], bx1[CPT], wx2[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-        be2[j] = b_e2[C::col(lane, j)];
-        bx1[j] = b_x1[C::col(lane, j)];
-        wx2[j] = w_x2[C::col(lane, j)];
-    }
-    const float bx2 = b_x2[0];
+    // with S > 1 slices, block z writes the z-th partial [S][B][L][...]
+    agg += (size_t)blockIdx.z * B * L * HD;
+    delta += (size_t)blockIdx.z * B * L * 3;
 
     const int n_off = 2 * W;
     const int n_steps = (n_off + OPS - 1) / OPS;
-    for (int step = 0; step < n_steps; ++step) {
-        __syncthreads();   // halo written / last step's row arrays read
+    const int s0 = blockIdx.z * steps_per_slice;
+    const int s1 = min(n_steps, s0 + steps_per_slice);
+
+    float agg_r[NT][2];   // receiver g, the lane's columns (summed over its rows)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) agg_r[nt][0] = agg_r[nt][1] = 0.f;
+    float delta_r = 0.f;  // tid < 3T: receiver tid / 3, coordinate tid % 3
+    const float bx2 = b_x2[0];
+    float acc[MT][NT][4];
+
+    for (int step = s0; step < s1; ++step) {
+        __syncthreads();   // last step's row arrays and red are consumed
+        float v = 0.f;
         if (tid < M) {
-            const int rr = tid / OPS, e = step * OPS + tid % OPS;
-            const int i = i0 + rr;
-            float v = 0.f, d2 = 0.f, rel[3] = {0.f, 0.f, 0.f};
+            const int o = tid / T, rr = tid % T;
+            const int e = step * OPS + o, i = i0 + rr;
+            float d2 = 0.f, rel[3] = {0.f, 0.f, 0.f};
             int j = 0;
             if (e < n_off && i < L) {
-                const int d = e < W ? e - W : e - W + 1;   // skip the self edge
-                const int hi = rr + W, hj = hi + d;
-                j = i + d;
-                if (halo_cm[hi] > 0.5f && halo_cm[hj] > 0.5f) {
+                j = i + band_offset(e, W);
+                if (j >= 0 && j < L && cmask[row0 + i] > 0.5f && cmask[row0 + j] > 0.5f) {
                     v = 1.f;
 #pragma unroll
-                    for (int c = 0; c < 3; ++c) rel[c] = halo_x[hi * 3 + c] - halo_x[hj * 3 + c];
+                    for (int c = 0; c < 3; ++c) rel[c] = x[(row0 + i) * 3 + c] - x[(row0 + j) * 3 + c];
                     d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
                 }
             }
@@ -135,135 +141,214 @@ egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
 #pragma unroll
             for (int c = 0; c < 3; ++c) row_rel[tid * 3 + c] = rel[c];
         }
-        __syncthreads();
+        if (!__syncthreads_or(v > 0.f)) continue;   // no valid edge: adds exact zeros
 
-        // act^T = silu(a_i + bs_j + d2 * w_d); rows of invalid edges are 0.
+        // A = silu(a_i + bs_j + d2 * w_d); rows of invalid edges are 0.
         constexpr int HD4 = HD / 4;
+#pragma unroll 4
         for (int idx = tid; idx < M * HD4; idx += THREADS) {
             const int r = idx / HD4, c4 = idx % HD4;
-            float p[4] = {0.f, 0.f, 0.f, 0.f};
+            float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
             if (row_valid[r] > 0.f) {
-                const int i = i0 + r / OPS;
+                const int i = i0 + r % T;
                 const float4 av = __ldg(reinterpret_cast<const float4*>(a_b + (size_t)i * HD) + c4);
                 const float4 bv = __ldg(reinterpret_cast<const float4*>(bs_b + (size_t)row_j[r] * HD) + c4);
                 const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d) + c4);
                 const float d2 = row_d2[r];
-                p[0] = silu(av.x + bv.x + d2 * wd.x);
-                p[1] = silu(av.y + bv.y + d2 * wd.y);
-                p[2] = silu(av.z + bv.z + d2 * wd.z);
-                p[3] = silu(av.w + bv.w + d2 * wd.w);
+                p.x = silu(av.x + bv.x + d2 * wd.x);
+                p.y = silu(av.y + bv.y + d2 * wd.y);
+                p.z = silu(av.z + bv.z + d2 * wd.z);
+                p.w = silu(av.w + bv.w + d2 * wd.w);
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) act[(4 * c4 + q) * MP + r] = p[q];
+            *reinterpret_cast<float4*>(A + r * AS + 4 * c4) = p;
         }
         __syncthreads();
 
-        // m = silu(act @ W_e2 + b_e2); agg += valid * m
-        gemm_tile<HD>(w_e2, act, wbuf, acc, tid, rg, lane);
-        float valid[RPT];
+        // m = silu(A @ W_e2 + b_e2); agg += valid * m; A = m.
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2, A, ring, acc, tid);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) valid[i] = row_valid[rg * RPT + i];
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int i = 0; i < RPT; ++i)
+            for (int h = 0; h < 2; ++h) {
+                const bool ok = row_valid[ln.row0 + mt * 16 + 8 * h] > 0.f;
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-                const float m = silu(acc[i][j] + be2[j]);
-                acc[i][j] = m;
-                if (valid[i] > 0.f) agg_r[i / OPS][j] += m;
+                for (int nt = 0; nt < NT; ++nt) {
+                    const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + ln.col0 + nt * 8));
+                    const float m0 = silu(acc[mt][nt][2 * h] + be.x);
+                    const float m1 = silu(acc[mt][nt][2 * h + 1] + be.y);
+                    acc[mt][nt][2 * h] = m0;
+                    acc[mt][nt][2 * h + 1] = m1;
+                    if (ok) {
+                        agg_r[nt][0] += m0;
+                        agg_r[nt][1] += m1;
+                    }
+                }
             }
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-            float* dst = act + C::col(lane, j) * MP + rg * RPT;
-            *reinterpret_cast<float4*>(dst) = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-            *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
-        }
+        store_tile<HD>(A, acc, ln);
         __syncthreads();
 
-        // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2; delta += valid * wsc * rel
-        gemm_tile<HD>(w_x1, act, wbuf, acc, tid, rg, lane);
-        float part[RPT];
+        // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2, reduced per row.
+        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1, A, ring, acc, tid);
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            float s = 0.f;
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int j = 0; j < CPT; ++j) s = fmaf(silu(acc[i][j] + bx1[j]), wx2[j], s);
-            part[i] = s;
-        }
+            for (int h = 0; h < 2; ++h) {
+                float s = 0.f;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+                for (int nt = 0; nt < NT; ++nt) {
+                    const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + ln.col0 + nt * 8));
+                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + ln.col0 + nt * 8));
+                    s = fmaf(silu(acc[mt][nt][2 * h] + bx.x), wx.x, s);
+                    s = fmaf(silu(acc[mt][nt][2 * h + 1] + bx.y), wx.y, s);
+                }
+                s = quad_sum(s);
+                if (ln.t == 0) red[wn * M + ln.row0 + mt * 16 + 8 * h] = s;
+            }
+        __syncthreads();
+        // delta_i += sum over the step's offsets of valid * wsc * rel
+        if (tid < 3 * T) {
+            const int rr = tid / 3, c = tid % 3;
+            for (int o = 0; o < OPS; ++o) {
+                const int r = o * T + rr;
+                if (row_valid[r] > 0.f) {
+                    float wsc = 0.f;
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
-        if (lane == 0) {
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const int r = rg * RPT + i;
-                if (valid[i] > 0.f) {
-                    const float wsc = part[i] + bx2;
-#pragma unroll
-                    for (int d = 0; d < 3; ++d) delta_r[i / OPS][d] += wsc * row_rel[r * 3 + d];
+                    for (int q = 0; q < TL::WN; ++q) wsc += red[q * M + r];
+                    delta_r += (wsc + bx2) * row_rel[r * 3 + c];
                 }
             }
         }
     }
 
-    // Each output row is written once, by the threads that own it.
+    // Each output row is written once. With WM > 1 warps per column, the
+    // row-tile halves are summed in warp order through shared memory.
+    const int i = i0 + ln.g;
+    if constexpr (TL::WM > 1) {
+        __syncthreads();
+        const int wm = (tid / 32) / TL::WN;
+        float* part = A;   // [WM][T][HD]
 #pragma unroll
-    for (int u = 0; u < RECV; ++u) {
-        const int i = i0 + rg * RECV + u;
-        if (i >= L) continue;
-        float* dst = agg + (row0 + i) * HD;
+        for (int nt = 0; nt < NT; ++nt)
+            *reinterpret_cast<float2*>(part + (wm * T + ln.g) * HD + ln.col0 + nt * 8) =
+                make_float2(agg_r[nt][0], agg_r[nt][1]);
+        __syncthreads();
+        if (wm == 0) {
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) dst[C::col(lane, j)] = agg_r[u][j];
-        if (lane == 0) {
+            for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int d = 0; d < 3; ++d) delta[(row0 + i) * 3 + d] = delta_r[u][d];
+                for (int c = 0; c < 2; ++c) {
+                    float s = 0.f;
+                    for (int q = 0; q < TL::WM; ++q) s += part[(q * T + ln.g) * HD + ln.col0 + nt * 8 + c];
+                    agg_r[nt][c] = s;
+                }
+        }
+        if (wm == 0 && i < L) {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+                *reinterpret_cast<float2*>(agg + (row0 + i) * HD + ln.col0 + nt * 8) =
+                    make_float2(agg_r[nt][0], agg_r[nt][1]);
+        }
+    } else if (i < L) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+            *reinterpret_cast<float2*>(agg + (row0 + i) * HD + ln.col0 + nt * 8) =
+                make_float2(agg_r[nt][0], agg_r[nt][1]);
+    }
+    if (tid < 3 * T && i0 + tid / 3 < L) delta[(row0 + i0 + tid / 3) * 3 + tid % 3] = delta_r;
+}
+
+// out[k] = sum over s of part[s][k], in slice order (float4 over agg).
+__global__ void __launch_bounds__(THREADS)
+egnn_band_fwd_sum(const float* __restrict__ part_agg, const float* __restrict__ part_delta,
+                  float* __restrict__ agg, float* __restrict__ delta, size_t n_agg4,
+                  size_t n_delta, int S) {
+    const size_t stride = (size_t)gridDim.x * blockDim.x;
+    for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n_agg4 + n_delta; k += stride) {
+        if (k < n_agg4) {
+            const float4* p = reinterpret_cast<const float4*>(part_agg) + k;
+            float4 t = p[0];
+            for (int s = 1; s < S; ++s) {
+                const float4 q = p[(size_t)s * n_agg4];
+                t.x += q.x; t.y += q.y; t.z += q.z; t.w += q.w;
+            }
+            reinterpret_cast<float4*>(agg)[k] = t;
+        } else {
+            const size_t q = k - n_agg4;
+            float t = part_delta[q];
+            for (int s = 1; s < S; ++s) t += part_delta[(size_t)s * n_delta + q];
+            delta[q] = t;
         }
     }
 }
 
-size_t smem_bytes(int hd, int W) {
-    return sizeof(float) * ((size_t)hd * MP + 2 * BK * hd + 6 * M + 4 * (T + 2 * W));
+template <int HD>
+cudaError_t launch(const float* const* in, float* agg, float* delta, float* part_agg,
+                   float* part_delta, int B, int L, int W, int S, cudaStream_t stream) {
+    constexpr size_t smem = sizeof(float) * FwdSmem<HD>::FLOATS;
+    cudaError_t err = cudaFuncSetAttribute(egnn_band_fwd_kernel<HD>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int n_steps = (2 * W + OPS - 1) / OPS;
+    const int per = (n_steps + S - 1) / S;
+    if (S < 1 || (S - 1) * per >= n_steps || (S > 1 && (!part_agg || !part_delta)))
+        return cudaErrorInvalidValue;   // every slice must own at least one step
+    dim3 grid((L + T - 1) / T, B, S);
+    egnn_band_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+        S > 1 ? part_agg : agg, S > 1 ? part_delta : delta, L, W, per);
+    if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
+    const size_t n_agg4 = (size_t)B * L * HD / 4, n_delta = (size_t)B * L * 3;
+    const size_t blocks = (n_agg4 + n_delta + THREADS - 1) / THREADS;
+    egnn_band_fwd_sum<<<(unsigned)(blocks < 4096 ? blocks : 4096), THREADS, 0, stream>>>(
+        part_agg, part_delta, agg, delta, n_agg4, n_delta, S);
+    return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch(const float* a, const float* bs, const float* x, const float* cmask,
-                   const float* w_d, const float* w_e2, const float* b_e2,
-                   const float* w_x1, const float* b_x1, const float* w_x2,
-                   const float* b_x2, float* agg, float* delta, int B, int L, int W,
-                   cudaStream_t stream) {
-    const size_t smem = smem_bytes(HD, W);
+cudaError_t occupancy(int* n) {
+    constexpr size_t smem = sizeof(float) * FwdSmem<HD>::FLOATS;
     cudaError_t err = cudaFuncSetAttribute(egnn_band_fwd_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((L + T - 1) / T, B);
-    egnn_band_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
-        a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, agg, delta, L, W);
-    return cudaGetLastError();
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, egnn_band_fwd_kernel<HD>, THREADS, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs at hidden width `hd` and band half-width W.
-size_t egnn_band_fwd_smem_bytes(int hd, int W) { return smem_bytes(hd, W); }
+// Blocks one SM holds at once, or a negative CUDA error code.
+int egnn_band_fwd_blocks_per_sm(int hd) {
+    int n = 0;
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (hd) {
+        case 32:  err = occupancy<32>(&n); break;
+        case 64:  err = occupancy<64>(&n); break;
+        case 128: err = occupancy<128>(&n); break;
+        case 256: err = occupancy<256>(&n); break;
+    }
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+}
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = success).
 // All pointers are device pointers to contiguous fp32 arrays, 16-byte aligned:
 // a, bs [B, L, hd]; x [B, L, 3]; cmask [B, L]; w_d, b_e2, b_x1, w_x2 [hd];
 // w_e2, w_x1 [hd, hd] (in, out); b_x2 [1]; agg [B, L, hd]; delta [B, L, 3].
+// S: slices of the 2W band offsets (1 = one block per (batch row, tile));
+// S > 1 needs part_agg [S, B, L, hd] and part_delta [S, B, L, 3] and runs a
+// second kernel that sums them in slice order.
 int egnn_band_fwd_f32(const float* a, const float* bs, const float* x, const float* cmask,
                       const float* w_d, const float* w_e2, const float* b_e2,
                       const float* w_x1, const float* b_x1, const float* w_x2,
-                      const float* b_x2, float* agg, float* delta, int B, int L, int hd,
-                      int W, void* stream) {
+                      const float* b_x2, float* agg, float* delta, float* part_agg,
+                      float* part_delta, int B, int L, int hd, int W, int S, void* stream) {
+    const float* in[11] = {a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
-        case 32:  return launch<32>(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, agg, delta, B, L, W, s);
-        case 64:  return launch<64>(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, agg, delta, B, L, W, s);
-        case 128: return launch<128>(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, agg, delta, B, L, W, s);
-        case 256: return launch<256>(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, agg, delta, B, L, W, s);
+        case 32:  return launch<32>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
+        case 64:  return launch<64>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
+        case 128: return launch<128>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
+        case 256: return launch<256>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
         default:  return cudaErrorInvalidValue;
     }
 }

@@ -1,30 +1,76 @@
 // Shared pieces of the EGNN band kernels (egnn_band_fwd.cu, egnn_band_bwd.cu):
-// a 64-row edge tile times an Hd x Hd weight streamed through shared memory.
+// a 64-edge-row x Hd tile times an Hd x Hd weight on the tensor cores, at
+// fp32 accuracy.
 //
-// Layout: 256 threads = 8 warps; warp rg owns edge rows rg*8 .. rg*8+7, and
-// lane `lane` owns the Hd/32 columns Cols<HD>::col(lane, j). The activation
-// tile is stored transposed, [HD][MP], so one float4 read gives a thread its
-// 8 rows of one input feature; the weight [HD][HD] (in, out) streams through
-// a double-buffered ring of BK rows with cp.async.
+// Products: 3xTF32 with mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
+// Each fp32 operand is split in registers as it is loaded,
+//     big = rna_tf32(x),  small = rna_tf32(x - big)
+// (rna_tf32: cvt.rna.tf32.f32's rounding, in integer operations), and the
+// tile accumulates small*big + big*small + big*big in fp32. That
+// keeps ~22 of fp32's 24 significant bits per product (one TF32 pass keeps
+// ~11): it is how the JAX side's Precision.HIGHEST reaches fp32 accuracy
+// through multi-pass products on the TPU. mma.sync takes its fragments from
+// registers, so the split costs no shared memory (wgmma would need split
+// copies of both operands in swizzled shared memory).
+//
+// Layout: 256 threads = 8 warps as WM x WN; warp (wm, wn) owns MT m16 row
+// tiles and NT n8 column tiles. A lane (group g = lane / 4, t = lane % 4)
+// holds, in m16n8k8 terms, rows mt*16 + g and mt*16 + 8 + g of each of its
+// row tiles and columns nt*8 + 2t, +1 of each of its column tiles:
+// acc[mt][nt][2*h + c] is row mt*16 + 8h + g, column nt*8 + 2t + c (plus the
+// warp's offsets). Edge row r of a step is (offset slot r / T, receiver
+// r % T), so every row a lane holds belongs to receiver g.
+//
+// Shared memory: the activation tile A is row-major [M][AS], AS = HD + 8
+// (AS = 8 mod 32), so the float2 fragment loads and stores of a half-warp
+// touch 32 distinct banks. Inside each 8-wide k step the k order is
+// permuted (mma slot t <-> column 2t, slot t + 4 <-> column 2t + 1), so a
+// lane reads its two A values of a row as one float2; B is read with the
+// same permutation. The weight W [HD][HD] (in, out) streams through a ring
+// of STAGES chunks of BK rows with cp.async; ring rows have the stride
+// BS = HD + 4 (= 4 mod 32), so the B fragment loads (rows 2t and 2t + 1,
+// column g) are conflict-free too.
 
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace egnn {
 
 constexpr int THREADS = 256;
-constexpr int T = 8;          // receivers per block
+constexpr int NWARPS = THREADS / 32;
+constexpr int T = 8;          // receivers per tile
 constexpr int OPS = 8;        // band offsets per step
 constexpr int M = T * OPS;    // edge rows per step
-constexpr int MP = M + 4;     // row stride of the transposed activation tile
-constexpr int BK = 16;        // weight rows per streamed chunk
-constexpr int RPT = 8;        // rows per thread (8 row groups of 8 rows)
 
-constexpr int RECV = RPT / OPS;   // receivers per thread
+template <int HD>
+struct Tile {
+    static constexpr int WN = HD / 8 < NWARPS ? HD / 8 : NWARPS;   // warps across columns
+    static constexpr int WM = NWARPS / WN;                          // warps across rows
+    static constexpr int MT = M / 16 / WM;                          // m16 tiles per warp
+    static constexpr int NT = HD / 8 / WN;                          // n8 tiles per warp
+    static constexpr int AS = HD + 8;                               // A row stride
+    static constexpr int BS = HD + 4;                               // ring row stride
+    static_assert(WM * WN == NWARPS && MT >= 1 && NT >= 1, "tile does not divide");
+};
 
-static_assert(M == RPT * (THREADS / 32), "one warp per 8-row group");
-static_assert(RPT % OPS == 0, "a thread's rows cover whole receivers");
+// Lane coordinates in the tile: first row (add mt*16 + 8h) and first column
+// (add nt*8 + c) of the lane's fragments.
+struct Lane {
+    int g, t, row0, col0;
+    template <int HD>
+    __device__ __forceinline__ static Lane of(int tid) {
+        using TL = Tile<HD>;
+        const int warp = tid / 32, lane = tid % 32;
+        Lane l;
+        l.g = lane / 4;
+        l.t = lane % 4;
+        l.row0 = (warp / TL::WN) * TL::MT * 16 + l.g;
+        l.col0 = (warp % TL::WN) * TL::NT * 8 + 2 * l.t;
+        return l;
+    }
+};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
@@ -42,97 +88,184 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-template <int HD>
-struct Cols {
-    static constexpr int CPT = HD / 32;            // columns per thread
-    static constexpr int V = CPT < 4 ? CPT : 4;    // contiguous columns per group
-    // column of the thread's j-th value: groups of V contiguous columns,
-    // neighbouring lanes on neighbouring groups (conflict-free smem reads).
-    __device__ static __forceinline__ int col(int lane, int j) {
-        return (j / V) * (32 * V) + lane * V + (j % V);
+// cvt.rna.tf32.f32's rounding of a finite x (to nearest, ties away from
+// zero: add half of the 13 dropped bits to the magnitude, then clear them),
+// done with two integer operations. The conversion instruction issues at a
+// fraction of the integer rate, and with 48 of them per lane and k8 step it
+// held the tile back (PERF.md, PR 3).
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+    big = rna_tf32(x);
+    small = rna_tf32(x - __uint_as_float(big));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 inputs, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One 3xTF32 k8 step of an MT x NT warp tile. afrag(mt, lo, hi) loads the
+// lane's A values (rows g and g + 8 of row tile mt: lo = (slot t, slot t+4)
+// of row g, hi = the same of row g + 8); bfrag(nt, b0, b1) its B values
+// (slots t and t + 4 of column g of column tile nt).
+//
+// STEP_SUM: the tensor cores round their fp32 accumulation toward zero, so
+// a K = 256 product accumulated in one mma accumulator (96 truncating adds)
+// drifts by ~1e-6 of its value, always in the same direction, and a model
+// sums that drift coherently. With STEP_SUM each k8 step's three products
+// start from zero and the step's sum is added to acc with an ordinary
+// (round-to-nearest) fp32 add: the error correction of Ootomo and Yokota's
+// 3xTF32 scheme, for 4 adds per mma tile and step.
+template <int MT, int NT, bool STEP_SUM, class AF, class BF>
+__device__ __forceinline__ void mma3_k8(float (&acc)[MT][NT][4], AF afrag, BF bfrag) {
+    uint32_t bb[NT][2], bl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+        float b0, b1;
+        bfrag(nt, b0, b1);
+        split_tf32(b0, bb[nt][0], bl[nt][0]);
+        split_tf32(b1, bb[nt][1], bl[nt][1]);
     }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+        float2 lo, hi;
+        afrag(mt, lo, hi);
+        uint32_t ab[4], al[4];
+        split_tf32(lo.x, ab[0], al[0]);   // a0: row g,     slot t
+        split_tf32(hi.x, ab[1], al[1]);   // a1: row g + 8, slot t
+        split_tf32(lo.y, ab[2], al[2]);   // a2: row g,     slot t + 4
+        split_tf32(hi.y, ab[3], al[3]);   // a3: row g + 8, slot t + 4
+        // small terms first; the three passes of one accumulator are
+        // interleaved with the other column tiles' for latency.
+        if constexpr (STEP_SUM) {
+            float step[NT][4];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) step[nt][q] = 0.f;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], al, bb[nt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], ab, bl[nt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], ab, bb[nt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[mt][nt][q] += step[nt][q];
+        } else {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], al, bb[nt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], ab, bl[nt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], ab, bb[nt]);
+        }
+    }
+}
+
+// Issue the cp.async copies of weight rows [kc*BK, kc*BK + BK) into `dst`
+// (row stride BS). The caller commits the group.
+template <int HD, int BK>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ w, int kc, float* dst,
+                                           int tid) {
+    constexpr int F4R = HD / 4;
+    const float* src = w + (size_t)kc * BK * HD;
+    for (int v = tid; v < BK * F4R; v += THREADS) {
+        const int r = v / F4R, c4 = v % F4R;
+        cp_async16(dst + r * Tile<HD>::BS + 4 * c4, src + (size_t)r * HD + 4 * c4);
+    }
+}
+
+template <int HD, int BK, int STAGES>
+struct Ring {
+    static_assert(BK % 8 == 0 && HD % BK == 0 && STAGES >= 2, "ring shape");
+    static constexpr int FLOATS = STAGES * BK * Tile<HD>::BS;
 };
 
-// Issue the cp.async copies of weight rows [kc*BK, kc*BK + BK) into `dst`.
-template <int HD>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ w, int kc,
-                                           float* dst, int tid) {
-    constexpr int F4 = BK * HD / 4;
-    const float* src = w + (size_t)kc * BK * HD;
-    for (int v = tid; v < F4; v += THREADS) cp_async16(dst + 4 * v, src + 4 * v);
-    cp_async_commit();
-}
-
-// acc[8][CPT] = act^T[rows of this thread, :] @ w[:, cols of this thread].
-// `act` is the transposed activation tile [HD][MP]; `w` is [HD][HD] (in, out).
-// Ends with a block barrier, so `act` may be overwritten afterwards.
-template <int HD>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ w, const float* act,
-                                          float* wbuf, float (&acc)[RPT][HD / 32],
-                                          int tid, int rg, int lane) {
-    using C = Cols<HD>;
+// acc = A @ W: A is the [M][AS] tile in shared memory, w [HD][HD] in device
+// memory, streamed through `ring` (Ring<HD, BK, STAGES>::FLOATS floats);
+// STEP_SUM as in mma3_k8. The caller has synchronised after writing A. Ends
+// with a block barrier, after which A and the ring may be overwritten.
+template <int HD, int BK, int STAGES, bool STEP_SUM>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ w, const float* A,
+                                          float* ring,
+                                          float (&acc)[Tile<HD>::MT][Tile<HD>::NT][4],
+                                          int tid) {
+    using TL = Tile<HD>;
     constexpr int NCHUNK = HD / BK;
+    constexpr int AS = TL::AS, BS = TL::BS;
+    const Lane ln = Lane::of<HD>(tid);
+    const float* a_lane = A + ln.row0 * AS + 2 * ln.t;
+    const int bcol = ln.col0 - 2 * ln.t + ln.g;   // column g of the warp's first n8 tile
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int mt = 0; mt < TL::MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < C::CPT; ++j) acc[i][j] = 0.f;
+        for (int nt = 0; nt < TL::NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
 
-    load_chunk<HD>(w, 0, wbuf, tid);
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < NCHUNK) load_chunk<HD, BK>(w, s, ring + s * BK * BS, tid);
+        cp_async_commit();
+    }
     for (int kc = 0; kc < NCHUNK; ++kc) {
-        if (kc + 1 < NCHUNK) {
-            load_chunk<HD>(w, kc + 1, wbuf + ((kc + 1) & 1) * BK * HD, tid);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();   // chunk kc visible to all; chunk kc - 1's slot is free
+        const int nk = kc + STAGES - 1;
+        if (nk < NCHUNK) load_chunk<HD, BK>(w, nk, ring + (nk % STAGES) * BK * BS, tid);
+        cp_async_commit();
+        const float* wb = ring + (kc % STAGES) * BK * BS;
+#pragma unroll
+        for (int k8 = 0; k8 < BK; k8 += 8) {
+            const int k = kc * BK + k8;
+            const float* bp = wb + (k8 + 2 * ln.t) * BS + bcol;
+            mma3_k8<TL::MT, TL::NT, STEP_SUM>(
+                acc,
+                [&](int mt, float2& lo, float2& hi) {
+                    lo = *reinterpret_cast<const float2*>(a_lane + mt * 16 * AS + k);
+                    hi = *reinterpret_cast<const float2*>(a_lane + (mt * 16 + 8) * AS + k);
+                },
+                [&](int nt, float& b0, float& b1) {
+                    b0 = bp[nt * 8];
+                    b1 = bp[nt * 8 + BS];
+                });
         }
-        __syncthreads();
-        const float* wb = wbuf + (kc & 1) * BK * HD;
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float* arow = act + (kc * BK + kk) * MP + rg * RPT;
-            const float4 a0 = *reinterpret_cast<const float4*>(arow);
-            const float4 a1 = *reinterpret_cast<const float4*>(arow + 4);
-            const float av[RPT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            float bv[C::CPT];
-            const float* brow = wb + kk * HD;
-            if constexpr (C::V == 4) {
-#pragma unroll
-                for (int g = 0; g < C::CPT / 4; ++g) {
-                    const float4 t = *reinterpret_cast<const float4*>(brow + C::col(lane, 4 * g));
-                    bv[4 * g] = t.x; bv[4 * g + 1] = t.y; bv[4 * g + 2] = t.z; bv[4 * g + 3] = t.w;
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < C::CPT; ++j) bv[j] = brow[C::col(lane, j)];
-            }
-#pragma unroll
-            for (int i = 0; i < RPT; ++i)
-#pragma unroll
-                for (int j = 0; j < C::CPT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();   // buffer (kc & 1) is refilled two chunks later
     }
+    cp_async_wait<0>();   // only empty groups are left
+    __syncthreads();
 }
 
-// Write the thread's acc[8][CPT] into the transposed tile act[HD][MP].
+// Write the lane's fragments of `acc` into the [M][AS] tile A (float2 per
+// row and column pair; conflict-free). The caller synchronises afterwards.
 template <int HD>
-__device__ __forceinline__ void store_tile_t(float* act, const float (&acc)[RPT][HD / 32],
-                                             int rg, int lane) {
-    using C = Cols<HD>;
+__device__ __forceinline__ void store_tile(float* A, const float (&acc)[Tile<HD>::MT][Tile<HD>::NT][4],
+                                           const Lane& ln) {
+    using TL = Tile<HD>;
 #pragma unroll
-    for (int j = 0; j < C::CPT; ++j) {
-        float* dst = act + C::col(lane, j) * MP + rg * RPT;
-        *reinterpret_cast<float4*>(dst) = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-        *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
-    }
+    for (int mt = 0; mt < TL::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < TL::NT; ++nt)
+                *reinterpret_cast<float2*>(A + (ln.row0 + mt * 16 + 8 * h) * TL::AS + ln.col0 + nt * 8) =
+                    make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
-// Sum v over the 32 lanes of each warp, for each of the thread's 8 rows.
-__device__ __forceinline__ void warp_sum_rows(float (&v)[RPT]) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+// Sum v over the four lanes of a quad (the lanes that share a row).
+__device__ __forceinline__ float quad_sum(float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    return v;
 }
 
 // Band offset of non-self offset slot e in [0, 2W): -W..-1, 1..W.

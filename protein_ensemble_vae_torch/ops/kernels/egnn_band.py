@@ -32,10 +32,60 @@ Tensor = torch.Tensor
 KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
 SUPPORTED_HIDDEN = (32, 64, 128, 256)
-MAX_SMEM_BYTES = 232448   # what one Hopper block may use (227 KB)
+TILE = 8                  # receivers per tile (csrc/egnn_tile.cuh: T)
+OPS = 8                   # band offsets per step (csrc/egnn_tile.cuh: OPS)
+WGRAD_TILE = 128          # weight-grad output tile edge (csrc/egnn_band_bwd.cu)
+FWD_WAVES = 8             # waves of resident blocks kernel 1's grid should span
 
 _FN = None
 _BWD_FN = None
+_SM_COUNT: dict = {}
+_PER_SM: dict = {}
+
+
+def band_work(B: int, L: int, W: int) -> tuple[int, int, int]:
+    """(receiver tiles per batch row, offset steps, work items): a work item
+    of both kernels is one 64-edge step (batch row, tile of TILE receivers,
+    OPS of the 2W band offsets)."""
+    n_tiles = -(-L // TILE)
+    n_steps = -(-2 * W // OPS)
+    return n_tiles, n_steps, B * n_tiles * n_steps
+
+
+def fwd_slices(B: int, L: int, W: int, n_sm: int, per_sm: int = 2) -> int:
+    """Slices S of the band offsets for kernel 1: each of its B x tiles x S
+    blocks walks ceil(steps / S) steps, and a second pass sums the S
+    partial outputs in slice order. The grid should span FWD_WAVES waves of
+    the ``n_sm * per_sm`` resident blocks, so that the last, partly filled
+    wave costs little: S = 1 where B x tiles blocks already do; otherwise
+    the most steps per block that still give that many blocks (one step
+    per block at the least)."""
+    n_tiles, n_steps, _ = band_work(B, L, W)
+    blocks = B * n_tiles
+    want = FWD_WAVES * n_sm * max(1, per_sm)
+    if blocks >= want:
+        return 1
+    per = max(1, n_steps * blocks // want)
+    return -(-n_steps // per)
+
+
+def bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
+             per_sm: int = 2) -> tuple[int, int]:
+    """Kernel 2's grid: G persistent edge-pass blocks, one per resident slot
+    (``per_sm`` blocks on each of ``n_sm`` SMs; block g takes work items g,
+    g + G, ...), and the weight-grad pass's slices of the items, enough for
+    its 2 x (Hd / tile)^2 output tiles to fill two slots per SM (the pass
+    holds two blocks per SM)."""
+    _, _, items = band_work(B, L, W)
+    out_tiles = 2 * (Hd // min(Hd, WGRAD_TILE)) ** 2
+    return (max(1, min(items, n_sm * max(1, per_sm))),
+            max(1, min(items, -(-2 * n_sm // out_tiles))))
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SM_COUNT[dev]
 
 
 def band_indices(L: int, W: int, device=None) -> tuple[Tensor, Tensor]:
@@ -80,12 +130,12 @@ def _kernel_fn():
 
         lib = load_library(KERNEL)
         fn = lib.egnn_band_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_fwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_error_string.restype = ctypes.c_char_p
-        lib.egnn_band_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.egnn_band_fwd_smem_bytes.restype = ctypes.c_size_t
+        lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.egnn_band_fwd_blocks_per_sm.restype = ctypes.c_int
         _FN = (fn, lib)
     return _FN
 
@@ -141,21 +191,24 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
     fn, lib = _kernel_fn()
-    smem = lib.egnn_band_fwd_smem_bytes(Hd, W)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"W={W} at Hd={Hd} needs {smem} B of shared memory "
-                         f"per block, more than {MAX_SMEM_BYTES}")
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    S = fwd_plan(B, L, W, Hd, dev)
+    # S > 1: each slice's partial outputs, summed in slice order by the
+    # kernel's second pass
+    parts = ((torch.empty((S, B, L, Hd), dtype=torch.float32, device=dev),
+              torch.empty((S, B, L, 3), dtype=torch.float32, device=dev))
+             if S > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
                  w_d.data_ptr(), w_e2.data_ptr(), b_e2.data_ptr(),
                  w_x1.data_ptr(), b_x1.data_ptr(), w_x2.data_ptr(),
                  b_x2.data_ptr(), agg.data_ptr(), delta.data_ptr(),
-                 B, L, Hd, W, stream)
+                 *((p.data_ptr() for p in parts) if parts else (None, None)),
+                 B, L, Hd, W, S, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_error_string(err).decode()})")
@@ -184,16 +237,45 @@ def _bwd_kernel_fn():
 
         lib = load_library(BWD_KERNEL)
         fn = lib.egnn_band_bwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_bwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_bwd_error_string.restype = ctypes.c_char_p
-        lib.egnn_band_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.egnn_band_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
         lib.egnn_band_bwd_scratch_floats.restype = ctypes.c_size_t
+        lib.egnn_band_bwd_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_blocks_per_sm.restype = ctypes.c_int
         _BWD_FN = (fn, lib)
     return _BWD_FN
+
+
+def _blocks_per_sm(name: str, query, Hd: int, dev) -> int:
+    """Blocks of kernel ``name`` at width Hd that one SM of ``dev`` holds,
+    asked of its library once (``query``: its ``*_blocks_per_sm``)."""
+    key = (name, Hd, dev)
+    if key not in _PER_SM:
+        with torch.cuda.device(dev):
+            n = query(Hd)
+        if n < 1:
+            raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
+                               f"{-n}) or no block fits on an SM")
+        _PER_SM[key] = n
+    return _PER_SM[key]
+
+
+def fwd_plan(B: int, L: int, W: int, Hd: int, dev) -> int:
+    """``fwd_slices`` on CUDA device ``dev``: its SM count and the blocks
+    one SM holds."""
+    per_sm = _blocks_per_sm(KERNEL, _kernel_fn()[1].egnn_band_fwd_blocks_per_sm, Hd, dev)
+    return fwd_slices(B, L, W, _sm_count(dev), per_sm)
+
+
+def bwd_plan(B: int, L: int, W: int, Hd: int, dev) -> tuple[int, int]:
+    """``bwd_grid`` on CUDA device ``dev``: its SM count and the edge-pass
+    blocks one SM holds."""
+    per_sm = _blocks_per_sm(BWD_KERNEL, _bwd_kernel_fn()[1].egnn_band_bwd_blocks_per_sm,
+                            Hd, dev)
+    return bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
 
 
 def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
@@ -216,10 +298,6 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     _check("g_agg", g_agg, (B, L, Hd), dev)
     _check("g_delta", g_delta, (B, L, 3), dev)
     fn, lib = _bwd_kernel_fn()
-    smem = lib.egnn_band_bwd_smem_bytes(Hd, W)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"W={W} at Hd={Hd} needs {smem} B of shared memory "
-                         f"per block, more than {MAX_SMEM_BYTES}")
     f32 = dict(dtype=torch.float32, device=dev)
     alloc = torch.empty if B and L else torch.zeros
     da = alloc((B, L, Hd), **f32)
@@ -229,7 +307,9 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
     if B and L:
-        scratch = torch.empty((lib.egnn_band_bwd_scratch_floats(B, L, Hd, W),), **f32)
+        G, nsplit = bwd_plan(B, L, W, Hd, dev)
+        scratch = torch.empty(
+            (lib.egnn_band_bwd_scratch_floats(B, L, Hd, W, G, nsplit),), **f32)
         # the transposed products of the cotangent chain stream W^T row-major
         w_e2t = w_e2.t().contiguous()
         w_x1t = w_x1.t().contiguous()
@@ -238,7 +318,7 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
             err = fn(*(t.data_ptr() for t in (
                 a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                 w_e2t, w_x1t, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
-                scratch)), B, L, Hd, W, stream)
+                scratch)), B, L, Hd, W, G, nsplit, stream)
         if err != 0:
             raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err} "
                                f"({lib.egnn_band_bwd_error_string(err).decode()})")

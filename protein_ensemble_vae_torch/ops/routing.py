@@ -18,9 +18,12 @@ import torch
 
 
 def set_full_fp32() -> None:
-    """Turn TF32 off for matrix products and convolutions. The port's fp32
-    path runs in full fp32, as the JAX side calls its kernel with
-    ``Precision.HIGHEST`` for fp32 models; generation sets this on entry."""
+    """Turn TF32 off for PyTorch's matrix products and convolutions
+    (``torch.matmul`` and cuDNN then run in full fp32). The port's
+    hand-written EGNN band kernels reach fp32 accuracy another way: their
+    products run on the tensor cores in 3-pass TF32, as the JAX side's
+    ``Precision.HIGHEST`` does through multi-pass products on the TPU.
+    Generation and training set this on entry."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -162,6 +162,91 @@ def test_band_backward_matches_plain_version(cuda, B, L, Hd, W):
         assert torch.equal(a, b)
 
 
+_GRAD_NAMES = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+
+
+def _check_fwd_bwd(args, W, seed):
+    """Kernels 1 and 2 against their plain versions on ``args``; returns the
+    kernel outputs (agg, raw_delta, the ten gradients)."""
+    B, L, Hd = args[0].shape
+    agg, delta = egnn_band_fwd(*args, W)
+    ragg, rdelta = egnn_band_reference(*args, W)
+    torch.testing.assert_close(agg, ragg, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(delta, rdelta, rtol=RTOL, atol=ATOL)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(args[0].device)
+    g_delta = torch.randn(B, L, 3, generator=g).to(args[0].device)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W)
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert torch.isfinite(a).all(), name
+        _close_scaled(a, b, name)
+    return (agg, delta) + tuple(got)
+
+
+def test_fwd_offset_split_at_b1_l256(cuda):
+    """B1/L256 has 32 (batch row, tile) blocks: the wrapper splits the band
+    offsets so that kernel 1 launches >= 128 blocks, and the summed slices
+    match the plain version and repeat bitwise."""
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_work, fwd_plan
+
+    B, L, Hd, W = 1, 256, 256, 40
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S = fwd_plan(B, L, W, Hd, cuda)
+    assert S > 1 and B * band_work(B, L, W)[0] * S >= min(128, n_sm)
+    args = _inputs(B, L, Hd, cuda, seed=11)
+    agg, delta = egnn_band_fwd(*args, W)
+    ragg, rdelta = egnn_band_reference(*args, W)
+    torch.testing.assert_close(agg, ragg, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(delta, rdelta, rtol=RTOL, atol=ATOL)
+    again = egnn_band_fwd(*args, W)
+    assert torch.equal(agg, again[0]) and torch.equal(delta, again[1])
+
+
+@pytest.mark.parametrize("case", ["all_masked_sample", "padding_tile"])
+def test_masked_steps_are_skipped_exactly(cuda, case):
+    """Steps with no valid edge are skipped by both kernels: a wholly masked
+    sample, and a tile of 8 receivers that is all padding (as in a length
+    bucket), still match the plain versions, and their rows are exact
+    zeros."""
+    B, L, Hd, W = 2, 96, 256, 40
+    args = _inputs(B, L, Hd, cuda, seed=21)
+    cmask = args[3]
+    if case == "all_masked_sample":
+        cmask[1] = 0.0
+        rows = (1, slice(None))
+    else:
+        cmask[:, 40:48] = 0.0
+        rows = (slice(None), slice(40, 48))
+    agg, delta, da, dbs, dx, *_ = _check_fwd_bwd(args, W, seed=5)
+    for t in (agg, delta, da, dbs, dx):
+        assert float(t[rows].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("W", [4, 12, 40])
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+def test_odd_length_every_width(cuda, Hd, W):
+    """L = 37 (not a multiple of the 8-receiver tile) at every supported
+    hidden width and band half-widths 4-40."""
+    args = _inputs(2, 37, Hd, cuda, seed=Hd + W)
+    _check_fwd_bwd(args, W, seed=Hd * W)
+
+
+@pytest.mark.parametrize("B,L", [(1, 256), (4, 256), (2, 640)])
+def test_two_launches_are_bitwise_identical(cuda, B, L):
+    """Kernels 1 and 2 sum across blocks in a fixed order (offset slices,
+    persistent-grid partials, weight-grad slices): repeated launches give
+    bitwise-identical outputs."""
+    args = _inputs(B, L, 256, cuda, seed=B + L)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    g_agg = torch.randn(B, L, 256, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    first = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    second = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_band_function_gradients_on_cuda(cuda):
     """egnn_band_fused on CUDA tensors backpropagates through the kernels
     (the forward used to return tensors with no grad_fn)."""
