@@ -280,22 +280,154 @@ def _clash_inputs(B, L, device, seed=0, scale=1.2):
     return [t.to(device) for t in (n, ca, c, mask)]
 
 
-@pytest.mark.parametrize("B,L", [(1, 37), (2, 64), (4, 230), (2, 640)])
-def test_clash_kernels_match_plain_versions(cuda, B, L):
-    n, ca, c, mask = _clash_inputs(B, L, cuda, seed=L)
-    atoms, amask = backbone_atoms(n, ca, c, mask)
-    atoms, amask = atoms.contiguous(), amask.contiguous()
+def _clash_fold(B, L, device, seed=0):
+    """B NeRF conformers of one fold squeezed by 10 % (some pairs clash),
+    a masked tail on row 0 and a hole on the last row."""
+    from protein_ensemble_vae_torch.data.synthetic import nerf_ensemble
+
+    n, ca, c = (torch.from_numpy(0.9 * v) for v in nerf_ensemble(L, B, seed=seed))
+    mask = torch.ones(B, L)
+    mask[0, L - L // 8:] = 0.0
+    mask[-1, L // 2] = 0.0
+    return [t.float().to(device) for t in (n, ca, c, mask)]
+
+
+def _check_clash(n, ca, c, mask):
+    """Kernels 3-4 against their plain versions on one input: loss and
+    totals rtol 1e-3 / atol 1e-6, counts exactly ``pair_count``, gradients
+    by ``_close_scaled``, one launch each way, both bitwise repeatable.
+    Returns (loss, totals, counts, dn, dca, dc)."""
+    from protein_ensemble_vae_torch.ops.kernels.clash import pair_count
+
+    B, L = mask.shape
     before = (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"])
-    tot = clash_fwd(atoms, amask)
+    loss, tot, counts = clash_fwd(n, ca, c, mask)
+    atoms, amask = backbone_atoms(n, ca, c, mask)
     ref = clash_fwd_reference(atoms, amask)
-    assert float(ref.min()) > 0          # the inputs do clash
+    assert torch.equal(counts, pair_count(mask))
     torch.testing.assert_close(tot, ref, rtol=1e-3, atol=1e-6)
-    scale = torch.rand(B, device=cuda) + 0.5
-    grad = clash_bwd(atoms, amask, scale)
-    want = clash_bwd_reference(atoms, amask, scale)
-    _close_scaled(grad, want, "clash grad")
+    torch.testing.assert_close(loss, torch.mean(ref / (counts + 1e-8)), rtol=1e-3, atol=1e-6)
+    g = torch.tensor(0.6, device=mask.device)
+    grads = clash_bwd(n, ca, c, mask, g, counts)
+    scale = g / (B * (counts + 1e-8))
+    want = clash_bwd_reference(atoms, amask, scale).reshape(B, L, 3, 3)
+    for k, d in enumerate(grads):
+        assert d.shape == (B, L, 3) and torch.isfinite(d).all()
+        _close_scaled(d, want[:, :, k], f"clash grad {k}")
     assert (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"]) == (before[0] + 1, before[1] + 1)
-    assert torch.equal(clash_fwd(atoms, amask), tot)
+    again = clash_fwd(n, ca, c, mask) + clash_bwd(n, ca, c, mask, g, counts)
+    for a, b in zip((loss, tot, counts) + tuple(grads), again):
+        assert torch.equal(a, b)
+    return (loss, tot, counts) + tuple(grads)
+
+
+@pytest.mark.parametrize("B,L", [(1, 37), (2, 64), (4, 230), (2, 640), (10, 256), (10, 640)])
+def test_clash_kernels_match_plain_versions(cuda, B, L):
+    """A dense random cloud (nearly every group pair kept) with a masked
+    tail and, from B = 2, an all-masked sample (its total, count and
+    gradient are exact zeros)."""
+    n, ca, c, mask = _clash_inputs(B, L, cuda, seed=L)
+    if B >= 2:
+        mask[1] = 0.0
+    loss, tot, counts, *grads = _check_clash(n, ca, c, mask)
+    valid = mask.sum(1) > 0
+    assert float(tot[valid].min()) > 0          # the inputs do clash
+    if B >= 2:
+        assert float(tot[1]) == 0.0 and float(counts[1]) == 0.0
+        assert all(float(d[1].abs().max()) == 0.0 for d in grads)
+
+
+@pytest.mark.parametrize("B,L", [(4, 256), (2, 640), (10, 256), (10, 640)])
+def test_clash_kernels_on_folds(cuda, B, L):
+    """NeRF folds, where most group pairs are culled: still the plain
+    versions' values and gradients."""
+    n, ca, c, mask = _clash_fold(B, L, cuda, seed=L)
+    tot = _check_clash(n, ca, c, mask)[1]
+    assert float(tot.min()) > 0
+
+
+def test_clash_tickets_reset_across_shapes(cuda):
+    """Launches of other shapes in between leave the launch counters at
+    zero: each launch's last block sums, so results repeat bitwise."""
+    inputs = [_clash_inputs(B, L, cuda, seed=B + L) for B, L in ((3, 100), (1, 37), (5, 300))]
+    first = [clash_fwd(*x) for x in inputs]
+    for _ in range(3):
+        for x, want in zip(inputs, first):
+            got = clash_fwd(*x)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            clash_bwd(*x, torch.tensor(1.0, device=cuda), want[2])
+
+
+def test_clash_strided_inputs_and_checks(cuda):
+    """n, ca, c as slices of one [B, L, 3, 3] tensor (shared strides) and a
+    transposed mask give the contiguous inputs' results bitwise; a wrong
+    dtype, shape or set of strides raises."""
+    n, ca, c, mask = _clash_inputs(2, 90, cuda, seed=7)
+    both = torch.stack([n, ca, c], dim=2)
+    views = both.unbind(2)
+    mask_t = mask.t().contiguous().t()
+    want = clash_fwd(n, ca, c, mask)
+    got = clash_fwd(*views, mask_t)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    g = torch.tensor(1.0, device=cuda)
+    for a, b in zip(clash_bwd(*views, mask_t, g, want[2]), clash_bwd(n, ca, c, mask, g, want[2])):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="float32"):
+        clash_fwd(n.double(), ca, c, mask)
+    with pytest.raises(ValueError, match="shape"):
+        clash_fwd(n[:, :50], ca, c, mask)
+    with pytest.raises(ValueError, match="strides"):
+        clash_fwd(views[0], ca, c, mask)
+
+
+def test_clash_term_issues_one_kernel_each_way(cuda):
+    """One clash_loss_kernel forward and backward (upstream gradient given)
+    put exactly one kernel 3 and one kernel 4 on the device and nothing
+    else, by torch.profiler's records, and one wrapper launch each way. A
+    profiled call whose records lack a clash kernel is profiled again, up
+    to three calls; another kernel or a second clash kernel fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, ca, c, mask = _clash_fold(4, 230, cuda)
+    xs = [t.requires_grad_(True) for t in (n, ca, c)]
+    g = torch.ones((), device=cuda)
+    torch.autograd.grad(clash_loss_kernel(*xs, mask), xs, g)
+    torch.cuda.synchronize()
+    kinds = ("clash_fwd", "clash_bwd")
+    for _ in range(3):
+        before = (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(clash_loss_kernel(*xs, mask), xs, g)
+            torch.cuda.synchronize()
+        assert (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"]) == (before[0] + 1, before[1] + 1)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = [sum(f"{k}_kernel" in name for name in names) for k in kinds]
+        others = [k for k in names if not any(f"{kind}_kernel" in k for kind in kinds)]
+        assert others == [] and max(seen) <= 1, names
+        if seen == [1, 1]:
+            return
+    pytest.fail(f"the profiler did not record both clash kernels in 3 calls: {names}")
+
+
+def test_clash_nan_coordinate_propagates(cuda):
+    """A NaN coordinate of a valid atom reaches its sample's total, the
+    loss and that atom's gradient, as in the plain version; the other
+    samples keep the plain version's values and gradients."""
+    n, ca, c, mask = _clash_fold(3, 230, cuda, seed=3)
+    ca[0, 100, 1] = float("nan")
+    loss, tot, counts = clash_fwd(n, ca, c, mask)
+    atoms, amask = backbone_atoms(n, ca, c, mask)
+    ref = clash_fwd_reference(atoms, amask)
+    assert torch.isnan(loss) and torch.isnan(tot[0]) and torch.isnan(ref[0])
+    torch.testing.assert_close(tot[1:], ref[1:], rtol=1e-3, atol=1e-6)
+    g = torch.tensor(1.0, device=cuda)
+    scale = g / (3 * (counts + 1e-8))
+    want = clash_bwd_reference(atoms, amask, scale).reshape(3, 230, 3, 3)
+    grads = clash_bwd(n, ca, c, mask, g, counts)
+    assert torch.isnan(grads[1][0, 100]).all() and torch.isnan(want[0, 100, 1]).all()
+    for k, d in enumerate(grads):
+        _close_scaled(d[1:], want[1:, :, k], f"clash grad {k}")
 
 
 def test_clash_function_gradients_on_cuda(cuda):
