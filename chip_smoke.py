@@ -23,7 +23,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    generation's B1/B10 x L256/L640 and the training shapes B4/L256 and
    B2/L640; kernel 2 (band backward) at the training shapes; kernels 3-4
    (clash forward / backward) at the training shapes and refinement's
-   B10/L256 and B10/L640, with the counts equal to ``pair_count``; every
+   B10/L256, B10/L640 and B10/L230 (``cli.refine`` on an ensemble file read
+   back unpadded), with the counts equal to ``pair_count``; every
    kernel must give bitwise-identical output over two launches. A
    torch.profiler pass shows that one clash-term forward and backward
    issue exactly one kernel 3 and one kernel 4 on the device.
@@ -48,19 +49,44 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    B4/L256 batch the kernel path's loss dict and gradients are held
    against the plain path's (``_compare_paths`` states what is held and
    what is only reported).
-7. one ``kernels`` JSON line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+7. refinement, last (what it leaves allocated would count in the train
+   steps' peak memory): checks first, counted apart from the path: the
+   polish Cartesian energy and its gradient with the clash term through
+   kernels 3-4 against the plain clash at B10/L256 and B10/L640 (rtol 1e-3,
+   gradient atol 1e-4 * max|g|); 20 Adam steps replayed from a CUDA graph
+   against the same loop run eagerly on the card (1e-4 A); at B10/L640 the
+   torsion refiner's prefix-product rebuild against the sequential build in
+   float64 (1e-3 A), a torch.profiler pass over each stage (device busy
+   share, device ms per step, exactly one kernel 3 and one kernel 4 per
+   replayed Cartesian step) and the device us of the clash and dense vdW
+   terms against a step. Then the refine main path: ``generate_ensembles``
+   with ``refine_mode="polish"`` (600 Cartesian steps, then 300 torsion
+   steps) on both proteins and ``cli.refine`` (150 steps) on the bucket-256
+   ensemble it wrote, after a first uncounted pass that captures the
+   graphs. Counts reset just before and read just after: 32 band-forward
+   launches and 600 x 2 + 150 = 1,350 of kernels 3 and 4 each (a replayed
+   graph adds the launches its capture made; the counted ``cli.refine``
+   call runs under torch.profiler, whose records must hold 150 of each
+   clash kernel, profiled again uncounted if CUPTI dropped one). Each stage's
+   output is finite with its padded rows bitwise unchanged, and the torsion
+   stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
+   and ``cli.validate`` then score the files on the card.
+8. one ``kernels`` JSON line (launches by path: generate, refine, train),
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--profile TRACE.json`` adds, after the checks, torch.profiler passes over
 the generation path and over the B4/L256 timed train steps (device busy
 share, top operators by device time) and writes their Chrome traces to
-``TRACE.json`` and ``TRACE.train.json``. It is not needed for the smoke run.
+``TRACE.json`` and ``TRACE.train.json``, and the refine stages' traces to
+``TRACE.refine_cartesian.json`` and ``TRACE.refine_torsion.json``. It is
+not needed for the smoke run.
 
 Imports nothing of JAX; builds from the repository's sources only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -117,9 +143,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # Kernel timing windows: at least MIN_LAUNCHES back-to-back calls and at
 # least WINDOW_MS of device time between one pair of CUDA events.
 MIN_LAUNCHES, WINDOW_MS = 50, 1.0
-# Kernels 3-4 at the training shapes and at refinement's (B = num_samples
-# over the padded buckets, 600 Adam steps of one forward and one backward).
-CLASH_SHAPES = ((4, 256), (2, 640), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640))
+# Kernels 3-4 at the training shapes and at refinement's: B = num_samples
+# over the padded buckets (600 Adam steps of one forward and one backward),
+# and over the 230 residues of the ensemble file that cli.refine reads back
+# (unpadded, not a multiple of the 32-residue tile).
+CLASH_SHAPES = ((4, 256), (2, 640), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640),
+                (NUM_SAMPLES, 230))
 
 
 def log(msg: str) -> None:
@@ -627,21 +656,25 @@ def _pdb_coords(path: str) -> np.ndarray:
     return np.asarray(xyz, np.float64)
 
 
-def setup_main_path():
-    """A fresh seeded HierCVAE at the default widths on the card, and the
-    two proteins (set-up, not timed)."""
+def main_model():
+    """A fresh seeded HierCVAE at the default widths on the card."""
     import torch
 
     from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.models import HierCVAE
 
-    cfg = ModelConfig()
     torch.manual_seed(SEED)
-    model = HierCVAE(cfg).cuda().eval()
+    model = HierCVAE(ModelConfig()).cuda().eval()
     log(f"[main] HierCVAE at default widths: "
         f"{sum(p.numel() for p in model.parameters())} parameters")
+    return model
+
+
+def setup_main_path():
+    """``main_model()`` and the two proteins (set-up, not timed)."""
+    model = main_model()
     t0 = time.perf_counter()
-    views = [_protein_view(pid, L, seed, cfg.seqemb_dim)
+    views = [_protein_view(pid, L, seed, model.config.seqemb_dim)
              for pid, L, seed in PROTEINS]
     log(f"[main] built {len(views)} NeRF proteins in "
         f"{time.perf_counter() - t0:.1f}s (set-up)")
@@ -1026,14 +1059,459 @@ def phase_timed_steps(trace_path=None) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# 7. refinement
+# ---------------------------------------------------------------------------
+
+# generate_ensembles' polish pipeline: the fixed 600-step Cartesian stage
+# (infer/generate.py:POLISH_CARTESIAN), then the torsion stage at the first
+# polish row of runs/refine_sweep_polish.json (300 steps, lr 0.01, anchor
+# 0.01, w_rama 2, w_omega 1, w_clash_vdw 400, lr_decay), its vdW weight and
+# decay passed explicitly. Then cli.refine on one ensemble it wrote.
+REFINE = dict(refine_mode="polish", refine_steps=300, refine_lr=0.01,
+              refine_anchor=0.01, refine_w_rama=2.0,
+              refine_kwargs=dict(w_clash_vdw=400.0, lr_decay=True))
+CLI_REFINE_STEPS = 150
+REFINE_SHAPES = ((NUM_SAMPLES, 256), (NUM_SAMPLES, 640))
+# Kernels 3-4 vs the plain clash inside the whole Cartesian energy: the
+# energy at rtol 1e-3, its gradient at rtol 1e-3 / atol 1e-4 * max|g|.
+E_RTOL, E_G_ATOL_REL = 1e-3, 1e-4
+LOOP_STEPS, LOOP_ATOL = 20, 1e-4   # Adam loop from a CUDA graph vs eager, A
+BOND_ATOL = 1e-4                   # torsion stage's bonds vs config.BOND_*, A
+NERF_ATOL = 1e-3                   # prefix-product rebuild vs float64 sequential, A
+PROFILE_STEPS = 10                 # Adam steps of a profiled refine stage
+# The profiler at times drops a kernel's record (one clash_bwd of 20 in a
+# run of 20 steps): a call with fewer records than launches is profiled
+# again, one with more fails at once.
+PROFILE_ATTEMPTS = 3
+
+
+def _polish_weights() -> dict:
+    """The polish Cartesian stage's energy weights, ``refine_backbone``'s
+    defaults where POLISH_CARTESIAN names none."""
+    import inspect
+
+    from protein_ensemble_vae_torch.infer.generate import POLISH_CARTESIAN
+    from protein_ensemble_vae_torch.infer.refine import WEIGHTS, refine_backbone
+
+    params = inspect.signature(refine_backbone).parameters
+    return {k: float(POLISH_CARTESIAN.get(k, params[k].default)) for k in WEIGHTS}
+
+
+def _torsion_stage_kwargs() -> dict:
+    """``refine_torsions``' arguments in the polish pipeline under REFINE,
+    as generate_ensembles forms them."""
+    return dict(steps=REFINE["refine_steps"], lr=REFINE["refine_lr"],
+                anchor_weight=REFINE["refine_anchor"], w_rama=REFINE["refine_w_rama"],
+                w_omega=REFINE["refine_w_rama"] / 2.0, vdw_include_o=True,
+                **REFINE["refine_kwargs"])
+
+
+def _refine_energy_gate(B: int, L: int, n, ca, c, mask) -> float:
+    """The polish Cartesian energy and its gradient with the clash term
+    through kernels 3-4 against the same energy on the plain clash, at
+    coordinates moved 0.1 A (rms per axis) off the anchor; returns the
+    largest gradient error over max|g|."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer import refine as R
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
+
+    ref = dict(zip(R.ATOMS, (n, ca, c)))
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 30 + L)
+    moved = {k: v + 0.1 * torch.randn(v.shape, generator=g, device=DEVICE)
+             for k, v in ref.items()}
+    w = {k: torch.tensor(v, device=DEVICE) for k, v in _polish_weights().items()}
+    res = {}
+    for label, use in (("kernel", "auto"), ("plain", False)):
+        xs = {k: v.clone().requires_grad_(True) for k, v in moved.items()}
+        before = (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"])
+        e = R._energy(xs, ref, mask, w, rama_on=True, vdw_on=True, use_pallas=use)
+        grads = torch.autograd.grad(e, [xs[k] for k in R.ATOMS])
+        launched = (LAUNCHES["clash_fwd"] - before[0], LAUNCHES["clash_bwd"] - before[1])
+        if launched != ((1, 1) if use else (0, 0)):
+            raise RuntimeError(f"refine energy ({label}) launched kernels 3-4 {launched}")
+        res[label] = (e.detach(), grads)
+    (ek, gk), (ep, gp) = res["kernel"], res["plain"]
+    e_err = float((ek - ep).abs() / ep.abs())
+    if not bool(torch.isfinite(ek)) or e_err > E_RTOL:
+        raise RuntimeError(f"refine energy B{B}/L{L}: kernel path {float(ek)} vs plain "
+                           f"{float(ep)} (rel err {e_err:.2e})")
+    g_rel = 0.0
+    for k, a, b in zip(R.ATOMS, gk, gp):
+        scale = float(b.abs().max())
+        if not (bool(torch.isfinite(a).all())
+                and torch.allclose(a, b, rtol=E_RTOL, atol=E_G_ATOL_REL * scale)):
+            raise RuntimeError(f"refine energy gradient B{B}/L{L} ({k}): max abs err "
+                               f"{float((a - b).abs().max()):.3e}, max|g| {scale:.3e}")
+        g_rel = max(g_rel, float((a - b).abs().max()) / scale)
+    log(f"[refine] energy + gradient B{B}/L{L}, clash through kernels 3-4 vs plain: "
+        f"energy {float(ek):.6f} vs {float(ep):.6f} (rel err {e_err:.2e}, rtol {E_RTOL}); "
+        f"gradient max err / max|g| {g_rel:.2e} (rtol {E_RTOL}, atol {E_G_ATOL_REL} max|g|)")
+    return g_rel
+
+
+@contextlib.contextmanager
+def _eager_loops():
+    """Run the refiners' Adam loops eagerly, also on the card, inside the
+    block (``adam_descent`` with ``graph=False``)."""
+    import functools
+
+    from protein_ensemble_vae_torch.infer import refine as R
+    from protein_ensemble_vae_torch.infer import torsion_refine as T
+
+    orig = R.adam_descent
+    R.adam_descent = T.adam_descent = functools.partial(orig, graph=False)
+    try:
+        yield
+    finally:
+        R.adam_descent = T.adam_descent = orig
+
+
+def _refine_loop_gate(B: int, L: int, n, ca, c, mask) -> float:
+    """LOOP_STEPS steps of the polish Cartesian loop replayed from a CUDA
+    graph against the same loop run eagerly on the card: within LOOP_ATOL,
+    finite, padded rows bitwise equal to the input."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer import refine as R
+    from protein_ensemble_vae_torch.infer.generate import POLISH_CARTESIAN
+
+    def run():
+        return torch.stack(R._refine(n, ca, c, mask, _polish_weights(), POLISH_CARTESIAN["lr"],
+                                     steps=LOOP_STEPS, lr_decay=True, rama_on=True,
+                                     vdw_on=True))
+
+    x0 = torch.stack((n, ca, c))
+    got = run()
+    with _eager_loops():
+        want = run()
+    err, moved = float((got - want).abs().max()), float((got - x0).abs().max())
+    pad = mask == 0
+    if not bool(torch.isfinite(got).all()) or err > LOOP_ATOL:
+        raise RuntimeError(f"refine loop B{B}/L{L}: graph vs eager max abs err {err:.3e} A")
+    if not torch.equal(got[:, pad], x0[:, pad]):
+        raise RuntimeError(f"refine loop B{B}/L{L}: padded rows moved")
+    log(f"[refine] {LOOP_STEPS} Adam steps B{B}/L{L} from a CUDA graph vs eager on the "
+        f"card: max abs err {err:.3e} A (atol {LOOP_ATOL}); atoms moved up to "
+        f"{moved:.3f} A; {int(pad.sum())} padded rows bitwise unchanged")
+    return err
+
+
+def _nerf_gate(B: int, L: int, n, ca, c, mask) -> float:
+    """The torsion refiner's rebuild (a prefix product of rigid transforms,
+    fp32 in and out, float64 inside) against the sequential plain build in
+    float64 from the same torsions and seed: within NERF_ATOL."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer.torsion_refine import (
+        ideal_seed_frame, nerf_rebuild, nerf_rebuild_reference,
+        torsions_from_coords)
+
+    tors = torsions_from_coords(n, ca, c, mask)
+    seed = ideal_seed_frame(n[:, 0], ca[:, 0], c[:, 0])
+    got = torch.stack(nerf_rebuild(*tors, *seed)).double()
+    want = torch.stack(nerf_rebuild_reference(*(t.double() for t in tors + seed)))
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > NERF_ATOL:
+        raise RuntimeError(f"NeRF rebuild B{B}/L{L}: max abs err {err:.3e} A from the "
+                           f"float64 sequential build")
+    log(f"[refine] NeRF rebuild B{B}/L{L}, prefix product (fp32 out) vs the sequential "
+        f"build in float64: max abs err {err:.3e} A (atol {NERF_ATOL})")
+    return err
+
+
+def _refine_split(B: int, L: int, n, ca, c, mask, trace_path) -> dict:
+    """One profiled call of each refine stage (PROFILE_STEPS steps replayed
+    from its CUDA graph, captured before the profiler starts) at the polish
+    settings: device busy share and device ms per step; the Cartesian
+    stage's records must hold exactly one kernel 3 and one kernel 4 per
+    replayed step. Then the device us of the clash term and of the dense
+    vdW term (forward + gradient, replayed from a CUDA graph) against a
+    step."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer.generate import POLISH_CARTESIAN
+    from protein_ensemble_vae_torch.infer.refine import refine_backbone
+    from protein_ensemble_vae_torch.infer.torsion_refine import refine_torsions
+    from protein_ensemble_vae_torch.losses import vdw_clash_loss, vdw_pair_tables
+    from protein_ensemble_vae_torch.ops.kernels.clash import clash_loss_kernel
+
+    runs = {"cartesian": lambda: refine_backbone(
+                n, ca, c, mask, **dict(POLISH_CARTESIAN, steps=PROFILE_STEPS)),
+            "torsion": lambda: refine_torsions(
+                n, ca, c, mask, **dict(_torsion_stage_kwargs(), steps=PROFILE_STEPS))}
+    out = {}
+    for stage, run in runs.items():
+        run()                                 # captures the step's graph
+        trace = trace_path and trace_path.replace(".json", f".refine_{stage}.json")
+        want = PROFILE_STEPS if stage == "cartesian" else 0
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            prof = _profile(run, f"refine {stage} stage B{B}/L{L}, {PROFILE_STEPS} steps "
+                            f"replayed from a CUDA graph (profiled call {attempt})", trace)
+            seen = {k: sum(f"{k}_kernel" in name for name in prof["names"])
+                    for k in ("clash_fwd", "clash_bwd")}
+            log(f"[refine] {stage} stage: the profiler recorded {seen} clash kernels over "
+                f"{PROFILE_STEPS} replayed steps (expected {want} each), "
+                f"{len(prof['names'])} device events")
+            if max(seen.values()) > want:
+                raise RuntimeError(f"refine {stage} stage issued clash kernels {seen}, "
+                                   f"expected {want} of each")
+            if seen == {"clash_fwd": want, "clash_bwd": want}:
+                break
+        else:
+            raise RuntimeError(f"the profiler did not record {want} of each clash kernel "
+                               f"in {PROFILE_ATTEMPTS} profiled calls of the {stage} stage")
+        out[stage] = dict(busy_share=prof["busy_share"],
+                          step_ms=prof["wall_ms"] * prof["busy_share"] / PROFILE_STEPS)
+    xs = [t.clone().requires_grad_(True) for t in (n, ca, c)]
+    # the pair tables, as the refiners build them once per call
+    tabs = {o: vdw_pair_tables(L, o, device=n.device) for o in (False, True)}
+    terms = {"clash (kernels 3-4)": lambda: clash_loss_kernel(*xs, mask),
+             "vdW N/CA/C": lambda: vdw_clash_loss(*xs, mask, tables=tabs[False]),
+             "vdW N/CA/C/O": lambda: vdw_clash_loss(*xs, mask, include_o=True,
+                                                    tables=tabs[True])}
+    for name, term in terms.items():
+        us = _graph_us(lambda: torch.autograd.grad(term(), xs), n=10)
+        stage = "torsion" if name.endswith("/O") else "cartesian"
+        out[name] = us
+        log(f"[refine] {name} forward + gradient B{B}/L{L}: {us:.1f} us from a CUDA "
+            f"graph = {0.1 * us / out[stage]['step_ms']:.1f}% of a {stage} step's "
+            f"{out[stage]['step_ms']:.3f} device ms")
+    return out
+
+
+def refine_gates(trace_path=None) -> dict:
+    """Refinement's checks at REFINE_SHAPES, made before its main path and
+    counted apart from it: the energy with kernels 3-4 against the plain
+    clash (both shapes), the Adam loop from a CUDA graph against the eager
+    loop (B10/L256), the profiled stages and the split of a step
+    (B10/L640). Drops the graphs it captured."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer.refine import clear_graphs
+
+    out = {}
+    for B, L in REFINE_SHAPES:
+        bb = _clash_inputs(B, L)
+        out[f"B{B}/L{L}"] = dict(grad_rel_err=_refine_energy_gate(B, L, *bb))
+        if L == 256:
+            out["loop_err"] = _refine_loop_gate(B, L, *bb)
+        else:
+            out["nerf_err"] = _nerf_gate(B, L, *bb)
+            out["split"] = _refine_split(B, L, *bb, trace_path)
+    clear_graphs()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _recording_stages(calls: list):
+    """Let ``generate_ensembles`` call the refiners through wrappers that
+    keep each stage's input and output (what runs is unchanged)."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer import generate as G
+
+    orig = {"refine_backbone": G.refine_backbone, "refine_torsions": G.refine_torsions}
+
+    def wrap(stage, fn):
+        def run(n, ca, c, mask, **kw):
+            out = fn(n, ca, c, mask, **kw)
+            calls.append(dict(stage=stage, inp=torch.stack((n, ca, c)), mask=mask.clone(),
+                              out=torch.stack(out)))
+            return out
+        return run
+
+    G.refine_backbone = wrap("cartesian", orig["refine_backbone"])
+    G.refine_torsions = wrap("torsion", orig["refine_torsions"])
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(G, k, fn)
+
+
+def _check_stage(call: dict) -> str:
+    """A refine stage's output: finite, padded rows bitwise equal to its
+    input; after the torsion stage N-CA, CA-C and C-N within BOND_ATOL of
+    config.BOND_*. Returns a line for the log."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import BOND_C_N, BOND_CA_C, BOND_N_CA
+
+    x, x0, m = call["out"], call["inp"], call["mask"] > 0.5
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"{call['stage']} stage: non-finite coordinates")
+    if not torch.equal(x[:, ~m], x0[:, ~m]):
+        raise RuntimeError(f"{call['stage']} stage: padded rows differ from the input")
+    line = f"finite, {int((~m).sum())} padded rows bitwise unchanged"
+    if call["stage"] == "torsion":
+        n, ca, c = x.double()
+        errs = {"N-CA": ((ca - n).norm(dim=-1) - BOND_N_CA)[m],
+                "CA-C": ((c - ca).norm(dim=-1) - BOND_CA_C)[m],
+                "C-N": ((n[:, 1:] - c[:, :-1]).norm(dim=-1) - BOND_C_N)[m[:, 1:] & m[:, :-1]]}
+        worst = {k: float(v.abs().max()) for k, v in errs.items()}
+        if max(worst.values()) > BOND_ATOL:
+            raise RuntimeError(f"torsion stage bonds off config.BOND_*: {worst}")
+        line += "; bonds off config.BOND_* by " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items()) + f" A (atol {BOND_ATOL})"
+    return line
+
+
+def _quality(x, mask) -> dict:
+    """Gate passes, mean clash_score and mean molprobity_clashscore (carbonyl
+    O placed) over the samples of one structure [3, B, L, 3], host numpy."""
+    from protein_ensemble_vae_torch.eval.analyze import (clash_score,
+                                                         molprobity_clashscore)
+    from protein_ensemble_vae_torch.infer.gate import validate_protein_geometry
+    from protein_ensemble_vae_torch.infer.pdb_io import compute_backbone_oxygen
+
+    n, ca, c = x.double().cpu().numpy()
+    m = mask.cpu().numpy()
+    B = ca.shape[0]
+    return dict(
+        gate=sum(validate_protein_geometry(ca[k], m[k])[0] for k in range(B)),
+        clash=float(np.mean([clash_score(n[k], ca[k], c[k], m[k]) for k in range(B)])),
+        mp_clash=float(np.mean([molprobity_clashscore(
+            n[k], ca[k], c[k], compute_backbone_oxygen(n[k], ca[k], c[k], m[k]), m[k])
+            for k in range(B)])))
+
+
+def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
+    """The refine main path: ``generate_ensembles`` with REFINE on both
+    proteins, then ``cli.refine`` (CLI_REFINE_STEPS steps) on the first
+    one's ensemble; a first pass captures every step's CUDA graph, uncounted.
+    Counts reset just before the second pass and read just after: per
+    structure 16 band-forward launches and POLISH_CARTESIAN steps of kernels
+    3-4, plus CLI_REFINE_STEPS from the CLI. Then cli.analyze and
+    cli.validate score the files on the card."""
+    import torch
+
+    from protein_ensemble_vae_torch.cli import analyze as analyze_cli
+    from protein_ensemble_vae_torch.cli import refine as refine_cli
+    from protein_ensemble_vae_torch.cli import validate as validate_cli
+    from protein_ensemble_vae_torch.infer.generate import (POLISH_CARTESIAN,
+                                                           generate_ensembles)
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+
+    def run_cli(ens: str, dest: str, profiled: bool):
+        """cli.refine on ``ens``: its seconds and, when ``profiled`` (under
+        torch.profiler, device activity only), the clash kernels' records."""
+        from torch.profiler import ProfilerActivity, profile
+
+        argv = ["--input", ens, "--output", os.path.join(dest, "refined_cli.pdb"),
+                "--steps", str(CLI_REFINE_STEPS), "--device", DEVICE]
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            refine_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        if not profiled:
+            return secs, None
+        return secs, {k: sum(e.device_type == torch.autograd.DeviceType.CUDA
+                             and f"{k}_kernel" in e.name for e in prof.events())
+                      for k in ("clash_fwd", "clash_bwd")}
+
+    def run(dest: str, verbose: bool, profiled: bool):
+        secs, results = [], []
+        for view in views:
+            t0 = time.perf_counter()
+            out = generate_ensembles(model, view, dest, num_samples=NUM_SAMPLES, seed=SEED,
+                                     buckets=BUCKETS, verbose=verbose, **REFINE)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            results += out["results"]
+        ens = os.path.join(dest, f"{results[0]['structure']}_ensemble.pdb")
+        return (results, secs, ens) + run_cli(ens, dest, profiled)
+
+    t0 = time.perf_counter()
+    run(os.path.join(out_dir, "refine_first"), verbose=False, profiled=False)
+    first = time.perf_counter() - t0
+    dest = os.path.join(out_dir, "refine")
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _recording_stages(calls):
+        results, secs, ens, cli_secs, seen = run(dest, verbose=True, profiled=True)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+
+    n_clash = POLISH_CARTESIAN["steps"] * len(views) + CLI_REFINE_STEPS
+    want = {"egnn_band_fwd": len(views) * 2 * model.config.decoder_layers,
+            "egnn_band_bwd": 0, "clash_fwd": n_clash, "clash_bwd": n_clash}
+    log(f"[refine] launches {launches} (expected {want}; each replayed graph adds the "
+        f"launches its capture made)")
+    if launches != want:
+        raise RuntimeError(f"refine path launched {launches}, expected {want}")
+    # The replays as the device saw them: the profiler's records of the
+    # counted cli.refine call, one Cartesian stage of CLI_REFINE_STEPS
+    # replays, must hold CLI_REFINE_STEPS of each clash kernel. More fails
+    # at once. CUPTI has dropped a record (one of 20, PR 5 run 3), so a
+    # call short of records is profiled again, uncounted, up to
+    # PROFILE_ATTEMPTS calls in all.
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        log(f"[refine] cli.refine ({CLI_REFINE_STEPS} steps replayed from a CUDA graph, "
+            f"{'the counted call' if attempt == 1 else 'profiled again, uncounted'}): the "
+            f"profiler recorded {seen} clash kernels (expected {CLI_REFINE_STEPS} each)")
+        if max(seen.values()) > CLI_REFINE_STEPS:
+            raise RuntimeError(f"cli.refine issued clash kernels {seen}, expected "
+                               f"{CLI_REFINE_STEPS} of each")
+        if min(seen.values()) == CLI_REFINE_STEPS:
+            break
+        if attempt < PROFILE_ATTEMPTS:
+            seen = run_cli(ens, os.path.join(out_dir, "refine_first"), profiled=True)[1]
+    else:
+        raise RuntimeError(f"the profiler did not record {CLI_REFINE_STEPS} of each clash "
+                           f"kernel in {PROFILE_ATTEMPTS} profiled calls of cli.refine")
+    if [c["stage"] for c in calls] != ["cartesian", "torsion"] * len(views):
+        raise RuntimeError(f"refine stages ran as {[c['stage'] for c in calls]}")
+    for k, call in enumerate(calls):
+        log(f"[refine] {results[k // 2]['structure']} {call['stage']} stage: "
+            f"{_check_stage(call)}")
+    for k, (r, (pid, L, _)) in enumerate(zip(results, PROTEINS)):
+        st = r["refine_seconds"]
+        before = _quality(calls[2 * k]["inp"], calls[2 * k]["mask"])
+        after = _quality(calls[2 * k + 1]["out"], calls[2 * k + 1]["mask"])
+        log(f"[refine] {r['structure']} L={L}: {secs[k]:.3f} s per structure with polish "
+            f"refinement ({plain_seconds[k]:.3f} s without; host clock, synchronised): "
+            f"Cartesian stage {st['cartesian']:.3f} s ({POLISH_CARTESIAN['steps']} steps), "
+            f"torsion stage {st['torsion']:.3f} s ({REFINE['refine_steps']} steps); "
+            f"before -> after: gate {before['gate']} -> {after['gate']}/{NUM_SAMPLES}, "
+            f"clash_score {before['clash']:.1f} -> {after['clash']:.1f}, "
+            f"molprobity_clashscore {before['mp_clash']:.1f} -> {after['mp_clash']:.1f} "
+            f"(random weights: the numbers only show the path)")
+    log(f"[refine] cli.refine ({CLI_REFINE_STEPS} steps, under the profiler) "
+        f"{cli_secs:.3f} s; first pass "
+        f"(graph captures included) {first:.3f} s; peak device memory "
+        f"{peak / 2**20:.1f} MiB allocated (torch.cuda.max_memory_allocated), "
+        f"{reserved / 2**20:.1f} MiB reserved (max_memory_reserved: with the "
+        f"captured graphs' pools)")
+    for cli, argv in ((analyze_cli, ["--pdb_dir", dest]),
+                      (validate_cli, ["--ensemble", os.path.join(dest, "refined_cli.pdb")])):
+        t0 = time.perf_counter()
+        cli.main(argv + ["--device", DEVICE])
+        log(f"[refine] {cli.__name__.rsplit('.', 1)[1]} CLI on the card: "
+            f"{time.perf_counter() - t0:.3f} s")
+    if not os.path.exists(os.path.join(dest, "analysis_report.txt")):
+        raise RuntimeError("cli.analyze wrote no report")
+    return dict(launches=launches, seconds=secs, cli_seconds=cli_secs, peak=peak,
+                reserved=reserved, stages=[r["refine_seconds"] for r in results],
+                cli_records=dict(seen, profiled_calls=attempt))
+
+
+# ---------------------------------------------------------------------------
 # profile
 # ---------------------------------------------------------------------------
 
-def _profile(run_once, label: str, trace_path: str, active: int = 1) -> None:
+def _profile(run_once, label: str, trace_path, active: int = 1) -> dict:
     """torch.profiler over ``active`` calls of ``run_once`` after one warm-up
     call: device busy share (union of device intervals over the wall time),
     the top operators by device time, and the Chrome trace at
-    ``trace_path``."""
+    ``trace_path`` (none if it is None). Returns the busy share and the
+    device events' names in time order."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,8 +1541,11 @@ def _profile(run_once, label: str, trace_path: str, active: int = 1) -> None:
         f"device busy {busy / 1e3:.1f} ms = {100 * busy / 1e3 / wall_ms:.1f}% "
         f"(idle {100 - 100 * busy / 1e3 / wall_ms:.1f}%), {len(events)} device events")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18))
-    os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
-    prof.export_chrome_trace(trace_path)
+    if trace_path:
+        os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
+        prof.export_chrome_trace(trace_path)
+    return dict(busy_share=busy / 1e3 / wall_ms, wall_ms=wall_ms,
+                names=[e.name for e in sorted(events, key=lambda e: e.time_range.start)])
 
 
 def profile_generation(model, views, out_dir: str, trace_path: str) -> None:
@@ -1118,15 +1599,21 @@ def main(argv=None) -> None:
             profile_generation(model, views, out_dir, args.profile)
         del model
         train = phase_train_path(out_dir)
-    steps = phase_timed_steps(args.profile)
+        steps = phase_timed_steps(args.profile)
+        # refinement last: what it leaves allocated would count in the peak
+        # memory of the train steps
+        refine_gates(args.profile)
+        refine = phase_refine_path(main_model(), views, out_dir, gen["per_structure"])
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = shapes[name]
         want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
         head = next(r for r in rows if (r["B"], r["L"]) == want)
-        by_path = {"generate": gen["launches"][name], "train": train["launches"][name]}
-        if by_path["train"] == 0 or (name == "egnn_band_fwd" and by_path["generate"] == 0):
+        by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
+                   "train": train["launches"][name]}
+        if by_path["train"] == 0 or (name != "egnn_band_bwd" and by_path["refine"] == 0) or (
+                name == "egnn_band_fwd" and by_path["generate"] == 0):
             raise RuntimeError(f"{name} was not launched on its main path: {by_path}")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1137,6 +1624,14 @@ def main(argv=None) -> None:
             graph_ms=head.get("graph_ms"),
             **floor,
             tc_bound_ms=head.get("tc_bound_ms"),
+            # kernels 3-4 run on the refine path from replayed CUDA graphs:
+            # their count there is the capture's launches x the replays, and
+            # the profiler's records of the cli.refine call back it up
+            **({"refine_counted_as": "launches at capture x graph replays",
+                "refine_cli_records": {"steps": CLI_REFINE_STEPS,
+                                       "records": refine["cli_records"][name],
+                                       "profiled_calls": refine["cli_records"]["profiled_calls"]}}
+               if name.startswith("clash") else {}),
             shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
     log(json.dumps({"train_steps": steps}))

@@ -34,8 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--refine_steps", type=int, default=0,
                     help="generation-time geometric refinement steps "
-                         "(0 = off; refinement is not ported yet and "
-                         "raises NotImplementedError)")
+                         "(0 = off)")
     ap.add_argument("--refine_lr", type=float, default=0.05)
     ap.add_argument("--refine_anchor", type=float, default=0.05)
     ap.add_argument("--refine_w_rama", type=float, default=0.5)

@@ -15,6 +15,7 @@ Everything runs on the model's device; random draws come from one
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -24,7 +25,9 @@ from protein_ensemble_vae_torch.config import IDX_TO_AA
 from protein_ensemble_vae_torch.data.collate import bucket_for
 from protein_ensemble_vae_torch.infer.gate import validate_protein_geometry
 from protein_ensemble_vae_torch.infer.pdb_io import write_multi_model_pdb, write_pdb
+from protein_ensemble_vae_torch.infer.refine import refine_backbone
 from protein_ensemble_vae_torch.infer.sequence import logits_to_labels
+from protein_ensemble_vae_torch.infer.torsion_refine import refine_torsions
 from protein_ensemble_vae_torch.models.vae import HierCVAE
 from protein_ensemble_vae_torch.ops.geometry import kabsch_rmsd, pairwise_kabsch_rmsd
 from protein_ensemble_vae_torch.ops.routing import set_full_fp32
@@ -33,6 +36,52 @@ from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 def _pad(x: np.ndarray, L_pad: int) -> np.ndarray:
     pad = [(0, L_pad - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
     return np.pad(x, pad)
+
+
+def _timed(seconds: dict, stage: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its host-clock seconds (after the device
+    has finished it) stored under ``seconds[stage]``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if out[0].is_cuda:
+        torch.cuda.synchronize(out[0].device)
+    seconds[stage] = time.perf_counter() - t0
+    return out
+
+
+# The Cartesian stage of refine_mode "polish": fixed, exactly as measured
+# in the sweep (runs/refine_sweep_polish.json); the refine_* arguments only
+# shape the torsion stage that follows it.
+POLISH_CARTESIAN = dict(steps=600, lr=0.05, anchor_weight=0.003, w_bond=4.0,
+                        w_rama=2.0, w_omega=2.0, w_clash=5.0, w_angle=8.0,
+                        w_clash_vdw=400.0, lr_decay=True)
+
+
+def _refine_ensemble(n, ca, c, mask, seconds: dict, *, mode: str, steps: int,
+                     lr: float, anchor: float, w_rama: float,
+                     kwargs: Optional[dict]):
+    """Generation-time refinement of the decoded ensemble, dispatched as
+    the JAX package's ``generate_ensembles`` does; each stage's seconds go
+    into ``seconds`` ("cartesian", "torsion")."""
+    if mode in ("torsion", "polish"):
+        # NeRF-manifold refinement: exact covalent geometry by construction;
+        # the Cartesian kwargs (w_angle/w_bond/...) don't apply on the
+        # manifold. "polish" = the measured two-stage pipeline
+        # (runs/refine_sweep_polish.json): the Cartesian vdW relaxation
+        # first, then the manifold stage.
+        if mode == "polish":
+            n, ca, c = _timed(seconds, "cartesian", refine_backbone, n, ca, c, mask,
+                              **POLISH_CARTESIAN)
+        # As the reference has it: the generate CLI's defaults
+        # (w_clash_vdw 0.0, lr_decay False) are forwarded here too.
+        kw = {k: v for k, v in (kwargs or {}).items()
+              if k in ("w_clash_vdw", "lr_decay")}
+        return _timed(seconds, "torsion", refine_torsions, n, ca, c, mask,
+                      steps=steps, lr=lr, anchor_weight=anchor, w_rama=w_rama,
+                      w_omega=w_rama / 2.0, vdw_include_o=(mode == "polish"), **kw)
+    return _timed(seconds, "cartesian", refine_backbone, n, ca, c, mask,
+                  steps=steps, lr=lr, anchor_weight=anchor, w_rama=w_rama,
+                  w_omega=w_rama, **(kwargs or {}))
 
 
 @torch.no_grad()
@@ -52,15 +101,16 @@ def generate_ensembles(model: HierCVAE, view, output_dir: str,
                        verbose: bool = True) -> dict:
     """Generate for the first ``max_structures`` structures of ``view``
     (a ``SingleConformerView``) into ``output_dir``. Returns
-    ``dict(results=[...], summary_path=...)``."""
+    ``dict(results=[...], summary_path=...)``; each result also holds
+    ``refine_seconds``, the seconds of each refinement stage that ran.
+
+    With ``refine_steps > 0`` the decoded ensemble is refined before the
+    gate: ``refine_mode`` "cartesian" (``infer/refine.py``), "torsion"
+    (``infer/torsion_refine.py``) or "polish" (a fixed 600-step Cartesian
+    stage, then the torsion stage with the carbonyl O in the vdW term)."""
     if latent_source not in ("posterior", "prior"):
         raise ValueError(f"latent_source must be 'posterior' or 'prior', "
                          f"got {latent_source!r}")
-    if refine_steps > 0:
-        raise NotImplementedError(
-            "generation-time refinement (refine_steps > 0, refine_mode "
-            f"{refine_mode!r}) is not ported yet: it comes with the training "
-            "slice of the port, which brings the clash kernel and its backward")
     set_full_fp32()
     model.eval()
     device = next(model.parameters()).device
@@ -128,6 +178,13 @@ def generate_ensembles(model: HierCVAE, view, output_dir: str,
             zs_l = mu_l + temperature * eps_l * torch.exp(0.5 * lv_l)
         mask_rep = mask_t.expand(num_samples, L_pad)
         ens_n_t, ens_ca_t, ens_c_t, ens_seq = model.decode(zs_g, zs_l, mask_rep)
+        refine_seconds = {}
+        if refine_steps > 0:
+            ens_n_t, ens_ca_t, ens_c_t = _refine_ensemble(
+                ens_n_t, ens_ca_t, ens_c_t, mask_rep, refine_seconds,
+                mode=refine_mode, steps=refine_steps, lr=refine_lr,
+                anchor=refine_anchor, w_rama=refine_w_rama,
+                kwargs=refine_kwargs)
         ens_n, ens_ca, ens_c = (a.cpu().numpy()
                                 for a in (ens_n_t, ens_ca_t, ens_c_t))
 
@@ -161,7 +218,8 @@ def generate_ensembles(model: HierCVAE, view, output_dir: str,
             structure=sid, protein=conf.protein_id, length=L,
             reconstruction_rmsd=rec_rmsd, seq_recovery=seq_recovery,
             n_valid_samples=len(keep), n_samples=num_samples,
-            diversity=diversity, gate_failures=reasons[:3]))
+            diversity=diversity, gate_failures=reasons[:3],
+            refine_seconds=refine_seconds))
         if verbose:
             print(f"[generate] {sid}: L={L} rec_rmsd={rec_rmsd:.3f}A "
                   f"seq_rec={seq_recovery:.3f} "

@@ -6,8 +6,13 @@ parity with reference ``generate_ensemble_pdbs.py:107-288``. The carbonyl O
 is placed 1.23 Å from C in the sp² peptide plane
 (``compute_backbone_oxygen``).
 
-A numpy copy of the JAX package's writer: both packages write the same
-bytes for the same arrays (REMARK line included), which the tests check.
+Reader parses backbone atoms from (multi-model) PDB files for refinement
+and the analysis layer (reference ``analyze_ensemble.py:40-74``,
+``validation_metrics.py:356-426``).
+
+A numpy copy of the JAX package's writer and reader: both packages write
+the same bytes for the same arrays (REMARK line included) and read the
+same arrays back, which the tests check.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from protein_ensemble_vae_torch.config import AA_1TO3, BOND_C_O
+from protein_ensemble_vae_torch.config import AA_1TO3, AA_3TO1, BOND_C_O
 
 
 def compute_backbone_oxygen(n: np.ndarray, ca: np.ndarray, c: np.ndarray,
@@ -152,3 +157,89 @@ def write_multi_model_pdb(coords_n: np.ndarray, coords_ca: np.ndarray,
             f.writelines(_conect_lines(last_serials))
         f.write("END\n")
     return output_path
+
+
+def read_pdb_backbone(path: str) -> dict:
+    """Parse N/CA/C/O backbone atoms from a (multi-model) PDB.
+
+    Returns dict with ``n/ca/c/o`` [K, L, 3], ``mask`` [L], ``sequence`` str.
+
+    Handles real-world numbering like the reference analyzer
+    (analyze_ensemble.py:40-74): residues are identified by
+    (chain, resseq, insertion-code) and mapped to a compact 0-based index —
+    arbitrary start offsets, gaps, negative resseq, and insertion codes all
+    round-trip. Altloc duplicates keep the first occurrence.
+    """
+    ResKey = tuple  # (chain_id, resseq, icode)
+    models: list[dict[ResKey, dict[str, np.ndarray]]] = []
+    resnames: dict[ResKey, str] = {}
+    chain_order: dict[str, int] = {}
+    current: dict[ResKey, dict[str, np.ndarray]] = {}
+    started = False
+
+    with open(path) as f:
+        for line in f:
+            rec = line[:6]
+            if rec == "MODEL ":
+                if started and current:
+                    models.append(current)
+                current = {}
+                started = True
+            elif rec in ("ATOM  ", "HETATM"):
+                name = line[12:16].strip()
+                if name not in ("N", "CA", "C", "O"):
+                    continue
+                chain = line[21]
+                key = (chain, int(line[22:26]), line[26].strip())
+                if chain not in chain_order:
+                    chain_order[chain] = len(chain_order)
+                xyz = np.array([float(line[30:38]), float(line[38:46]),
+                                float(line[46:54])], np.float32)
+                current.setdefault(key, {}).setdefault(name, xyz)
+                resnames.setdefault(key, line[17:20].strip())
+            elif rec == "ENDMDL":
+                models.append(current)
+                current = {}
+    if current:
+        models.append(current)
+    models = [m for m in models if m]
+    if not models:
+        raise ValueError(f"no backbone atoms found in {path}")
+
+    # Residue index: chains in file order, then resseq, then icode ('' sorts
+    # before 'A' — insertion codes follow their base residue). The start
+    # offset is rebased to 0; *interior* numbering gaps are preserved as
+    # masked slots (missing residues); insertion codes get their own slot.
+    keys = sorted({r for m in models for r in m},
+                  key=lambda r: (chain_order[r[0]], r[1], r[2]))
+    index: dict[ResKey, int] = {}
+    idx = 0
+    prev = None
+    for r in keys:
+        if prev is not None:
+            if r[0] != prev[0]:
+                idx += 1                       # chain break: adjacent slots
+            else:
+                idx += max(r[1] - prev[1], 1)  # gap preserved; icode -> +1
+        index[r] = idx
+        prev = r
+    L = idx + 1
+    K = len(models)
+    out = {a: np.zeros((K, L, 3), np.float32) for a in ("n", "ca", "c", "o")}
+    mask = np.zeros(L, np.float32)            # union over models
+    model_mask = np.zeros((K, L), np.float32)  # per-model CA presence
+    for k, m in enumerate(models):
+        for r, atoms in m.items():
+            i = index[r]
+            if "CA" in atoms:
+                mask[i] = 1.0
+                model_mask[k, i] = 1.0
+            for a_file, a_key in (("N", "n"), ("CA", "ca"), ("C", "c"), ("O", "o")):
+                if a_file in atoms:
+                    out[a_key][k, i] = atoms[a_file]
+    seq = ["A"] * L
+    for r in keys:
+        seq[index[r]] = AA_3TO1.get(resnames.get(r, ""), "A")
+    sequence = "".join(seq)
+    return dict(n=out["n"], ca=out["ca"], c=out["c"], o=out["o"],
+                mask=mask, model_mask=model_mask, sequence=sequence)

@@ -277,25 +277,17 @@ def carbonyl_oxygen(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
     return (pred_c - bis * BOND_C_O) * mask[..., None]
 
 
-def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
-                   mask: Tensor, count_overlap: float = 0.4,
-                   buffer: float = 0.1, include_o: bool = False) -> Tensor:
-    """Differentiable surrogate of the MolProbity backbone clashscore (off
-    by default, ``LossWeights.w_clash_vdw``): relu(r_i + r_j - overlap +
-    buffer - d_ij)^2 over the pairs more than 3 covalent bonds apart,
-    normalised like ``clash_loss``. ``include_o`` adds the carbonyl O with
-    Probe's H-bond allowance for N...O pairs."""
-    B, L = pred_ca.shape[:2]
-    dev, dt = pred_ca.device, pred_ca.dtype
-    P = 4 if include_o else 3
-    parts = [pred_n, pred_ca, pred_c]
+def vdw_pair_tables(L: int, include_o: bool = False, count_overlap: float = 0.4,
+                    buffer: float = 0.1, device: Optional[torch.device] = None,
+                    dtype: torch.dtype = torch.float32) -> tuple[Tensor, Tensor]:
+    """The part of ``vdw_clash_loss`` that depends on the length alone:
+    the counted upper-triangle atom pairs and each pair's distance
+    threshold, both [LP, LP]. A caller that evaluates the loss many times
+    at one length (refinement's Adam loop, whose step is captured in a
+    CUDA graph that must not copy from the host) builds them once and
+    passes them as ``tables``."""
+    P, dev, dt = (4 if include_o else 3), device, dtype
     radii_t = _VDW_N_CA_C + ((_VDW_O,) if include_o else ())
-    if include_o:
-        parts.append(carbonyl_oxygen(pred_n, pred_ca, pred_c, mask))
-    atoms = torch.stack(parts, dim=2).reshape(B, L * P, 3)
-    atom_mask = torch.repeat_interleave(mask, P, dim=1)
-    dists = pairwise_distances(atoms, atoms)
-
     idx = torch.arange(L * P, device=dev)
     res_idx, atom_t = idx // P, idx % P
     sep = torch.abs(res_idx[:, None] - res_idx[None, :])
@@ -307,8 +299,6 @@ def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
     adj_bonds = s_to_c[earlier_t] + 1 + s_from_n[later_t]
     counted = ((sep >= 2) | ((sep == 1) & (adj_bonds >= 4))).to(dt)
     triu = torch.triu(torch.ones((L * P, L * P), dtype=dt, device=dev), diagonal=1)
-    pair_mask = (atom_mask[:, :, None] * atom_mask[:, None, :]
-                 * counted[None] * triu[None])
 
     radii = torch.tensor(radii_t, dtype=dt, device=dev).repeat(L)
     co = torch.full((L * P, L * P), count_overlap, dtype=dt, device=dev)
@@ -317,6 +307,34 @@ def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
         hb = (is_n[:, None] & is_o[None, :]) | (is_o[:, None] & is_n[None, :])
         co = torch.where(hb, torch.full_like(co, max(0.8, count_overlap)), co)
     thresh = radii[:, None] + radii[None, :] - co + buffer
+    return counted * triu, thresh
+
+
+def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
+                   mask: Tensor, count_overlap: float = 0.4,
+                   buffer: float = 0.1, include_o: bool = False,
+                   tables: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+    """Differentiable surrogate of the MolProbity backbone clashscore (off
+    by default, ``LossWeights.w_clash_vdw``): relu(r_i + r_j - overlap +
+    buffer - d_ij)^2 over the pairs more than 3 covalent bonds apart,
+    normalised like ``clash_loss``. ``include_o`` adds the carbonyl O with
+    Probe's H-bond allowance for N...O pairs. ``tables`` is
+    ``vdw_pair_tables`` of the same length and settings, built here when
+    not given."""
+    B, L = pred_ca.shape[:2]
+    P = 4 if include_o else 3
+    parts = [pred_n, pred_ca, pred_c]
+    if include_o:
+        parts.append(carbonyl_oxygen(pred_n, pred_ca, pred_c, mask))
+    atoms = torch.stack(parts, dim=2).reshape(B, L * P, 3)
+    # mask repeated per atom by a broadcast: no output size to read back
+    atom_mask = mask[:, :, None].expand(B, L, P).reshape(B, L * P)
+    dists = pairwise_distances(atoms, atoms)
+    if tables is None:
+        tables = vdw_pair_tables(L, include_o, count_overlap, buffer,
+                                 pred_ca.device, pred_ca.dtype)
+    pairs, thresh = tables
+    pair_mask = atom_mask[:, :, None] * atom_mask[:, None, :] * pairs[None]
     violation = torch.relu(thresh - dists)
     total = torch.sum(violation * violation * pair_mask, dim=(1, 2))
     num_pairs = torch.sum(pair_mask, dim=(1, 2))

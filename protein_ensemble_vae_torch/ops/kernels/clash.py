@@ -44,6 +44,9 @@ SPLIT_BUDGET = 1056  # blocks x split at most this (8 per SM on 132 SMs)
 
 _LIB = None
 _TICKETS: dict = {}
+# Counters that a larger launch outgrew: kept alive, because a CUDA graph
+# captured earlier holds their address and writes them at every replay.
+_OUTGROWN: list = []
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
@@ -176,6 +179,8 @@ def _tickets(device: int, stream: int, n: int) -> int:
     key = (device, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros((max(n, 256),), dtype=torch.int32, device=torch.device("cuda", device))
         _TICKETS[key] = t
     return t.data_ptr()

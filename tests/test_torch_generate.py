@@ -138,10 +138,20 @@ def test_pdb_writer_bytes_match_jax(tmp_path):
     assert (tmp_path / "t.pdb").read_bytes() == (tmp_path / "j.pdb").read_bytes()
 
 
-def test_refine_steps_raise_not_implemented(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="refine"):
-        tcli.main(_argv(setup, tmp_path / "r", "--device", "cpu",
-                        "--refine_steps", "5"))
+@pytest.mark.parametrize("mode", ["cartesian", "torsion", "polish"])
+def test_generate_cli_refines_in_each_mode(setup, tmp_path, mode):
+    """``--refine_steps 5`` in each ``--refine_mode`` runs on the CPU and
+    writes the whole file set with finite coordinates."""
+    out = tmp_path / mode
+    tcli.main(_argv(setup, out, "--device", "cpu", "--max_structures", "1",
+                    "--refine_steps", "5", "--refine_mode", mode))
+    sid = f"{setup['view'].conformer(0).protein_id}_0000"
+    assert (out / "generation_summary.txt").exists()
+    for suffix in ("true", "reconstruction", "ensemble"):
+        text = (out / f"{sid}_{suffix}.pdb").read_text()
+        xyz = np.array([[float(l[30:38]), float(l[38:46]), float(l[46:54])]
+                        for l in text.splitlines() if l.startswith("ATOM  ")])
+        assert xyz.size and np.isfinite(xyz).all(), suffix
 
 
 def test_cli_without_device_needs_a_gpu(setup, tmp_path):

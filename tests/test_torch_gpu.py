@@ -493,3 +493,103 @@ def _train_batch(B, L, seqemb_dim, device, seed=0):
 
     return {side: {k: v.contiguous().to(device) for k, v in conf(i).items()}
             for i, side in enumerate(("inp", "tgt"))}
+
+
+# ---------------------------------------------------------------------------
+# Refinement: the Adam loops replayed from a CUDA graph, kernels 3-4 inside
+# ---------------------------------------------------------------------------
+
+_POLISH_W = dict(anchor_weight=0.003, w_bond=4.0, bond_delta_scale=50.0,
+                 w_spacing=1.0, spacing_delta=3.0, w_angle=8.0, w_clash=5.0,
+                 w_rama=2.0, w_omega=2.0, w_clash_vdw=400.0)
+
+
+@pytest.mark.parametrize("B,L", [(2, 64), (10, 256)])
+def test_refine_energy_kernel_clash_matches_plain(cuda, B, L):
+    """The Cartesian refinement energy with the clash term through kernels
+    3-4 against the same energy on the plain clash: energy rtol 1e-3,
+    gradient rtol 1e-3 / atol 1e-4 * max|g|."""
+    from protein_ensemble_vae_torch.infer import refine as R
+
+    n, ca, c, mask = _clash_fold(B, L, cuda, seed=L)
+    ref = dict(zip(R.ATOMS, (n, ca, c)))
+    g = torch.Generator().manual_seed(B + L)
+    moved = {k: v + 0.1 * torch.randn(v.shape, generator=g).to(cuda) for k, v in ref.items()}
+    w = {k: torch.tensor(v, device=cuda) for k, v in _POLISH_W.items()}
+    out = []
+    for use in ("auto", False):
+        xs = {k: v.clone().requires_grad_(True) for k, v in moved.items()}
+        before = LAUNCHES["clash_bwd"]
+        e = R._energy(xs, ref, mask, w, rama_on=True, vdw_on=True, use_pallas=use)
+        out.append((e, torch.autograd.grad(e, [xs[k] for k in R.ATOMS])))
+        assert LAUNCHES["clash_bwd"] == before + (1 if use else 0)
+    (ek, gk), (ep, gp) = out
+    torch.testing.assert_close(ek, ep, rtol=1e-3, atol=0.0)
+    for a, b in zip(gk, gp):
+        atol = 1e-4 * float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=atol)
+
+
+def test_refine_loops_from_a_graph_match_eager(cuda, monkeypatch):
+    """refine_backbone and refine_torsions replayed from a CUDA graph give
+    the eager loop's coordinates on the card (1e-4 A), keep padded rows
+    bitwise, and count kernels 3-4 once per replayed Cartesian step."""
+    import functools
+
+    from protein_ensemble_vae_torch.infer import refine as R
+    from protein_ensemble_vae_torch.infer import torsion_refine as T
+
+    n, ca, c, mask = _clash_fold(3, 96, cuda, seed=9)
+    x0 = torch.stack((n, ca, c))
+    pad = mask == 0
+    steps = 12
+    R.clear_graphs()
+    for refine, kw in ((R.refine_backbone, dict(_POLISH_W, lr=0.05, lr_decay=True)),
+                       (T.refine_torsions, dict(lr=0.01, anchor_weight=0.01, w_rama=2.0,
+                                                w_omega=1.0, w_clash_vdw=400.0,
+                                                vdw_include_o=True))):
+        with monkeypatch.context() as m:        # the same loop, eager on the card
+            eager = functools.partial(R.adam_descent, graph=False)
+            m.setattr(R, "adam_descent", eager)
+            m.setattr(T, "adam_descent", eager)
+            want = torch.stack(refine(n, ca, c, mask, steps=steps, **kw))
+        got = torch.stack(refine(n, ca, c, mask, steps=steps, **kw))       # captures
+        before = LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"]
+        again = torch.stack(refine(n, ca, c, mask, steps=steps, **kw))     # replays
+        per_step = 1 if refine is R.refine_backbone else 0
+        assert (LAUNCHES["clash_fwd"], LAUNCHES["clash_bwd"]) == (
+            before[0] + per_step * steps, before[1] + per_step * steps)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=0.0, atol=1e-4)
+        assert torch.equal(got[:, pad], x0[:, pad])
+    R.clear_graphs()
+
+
+def test_refine_step_has_no_host_sync(cuda, monkeypatch):
+    """One Adam step of each refinement energy (energy, gradient, update)
+    under sync-debug "error": a host synchronisation, which a CUDA graph
+    cannot capture, raises."""
+    from protein_ensemble_vae_torch.infer import refine as R
+    from protein_ensemble_vae_torch.infer import torsion_refine as T
+
+    def one_step(energy, x0, consts, lr, *, steps, lr_decay, key, graph=None):
+        x, count = x0.clone(), torch.zeros((), device=x0.device)
+        m, v = torch.zeros_like(x), torch.zeros_like(x)
+        lr_t = torch.tensor(lr, device=x0.device)
+        R._adam_step(energy, x, consts, m, v, count, lr_t, steps, lr_decay)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            R._adam_step(energy, x, consts, m, v, count, lr_t, steps, lr_decay)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return x
+
+    monkeypatch.setattr(R, "adam_descent", one_step)
+    monkeypatch.setattr(T, "adam_descent", one_step)
+    n, ca, c, mask = _clash_fold(2, 64, cuda, seed=5)
+    before = LAUNCHES["clash_fwd"]
+    R.refine_backbone(n, ca, c, mask, steps=2, lr_decay=True, **_POLISH_W)
+    T.refine_torsions(n, ca, c, mask, steps=2, vdw_include_o=True)
+    assert LAUNCHES["clash_fwd"] == before + 2
