@@ -27,7 +27,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    back unpadded), with the counts equal to ``pair_count``; every
    kernel must give bitwise-identical output over two launches. A
    torch.profiler pass shows that one clash-term forward and backward
-   issue exactly one kernel 3 and one kernel 4 on the device.
+   issue exactly one kernel 3 and one kernel 4 on the device. Then the
+   bf16-model mode of kernels 1-2 (bf16 ``a`` / ``bs``, one-pass TF32
+   products, ``precision="default"``) against the plain version on the
+   same bf16-rounded inputs at the JAX package's bf16 tolerances (3 % of
+   max |value| forward, 5 % of max |grad| backward), with the error
+   printed beside the tolerance: kernel 1 at B1/L256, B10/L256 and
+   B10/L640, kernel 2 at B4/L256 and B2/L640; device ms of the mode beside
+   the same shape's 3xTF32 ms in the same call, the plain version's ms,
+   host us, the fp32 bound and the one-pass tensor-core bound (1 x the
+   FLOP at the TF32 peak). These are extra ``shapes`` rows of kernels 1-2
+   with ``mode`` "bfloat16/default".
 4. generation main path: ``generate_ensembles`` with a fresh seeded
    ``HierCVAE`` at the default ``ModelConfig`` widths on two synthetic NeRF
    proteins (buckets 256 and 640), ``num_samples=10``. Launch counts are
@@ -41,14 +51,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    directory. Launch counts are reset just before and read after each
    epoch: 8 band forward + 8 band backward + 1 clash forward + 1 clash
    backward per train step, 8 + 1 per eval step. Losses finite, parameters
-   changed.
-6. timed train steps: ``make_train_step`` at B4/L256 and at B2/L640 with
-   ``decoder_remat`` (16 band forwards per step), kernel path and plain
-   path (``use_pallas_egnn=False``): median step ms over 5 steps after 2
-   warm-ups (host clock, synchronised) and peak device memory; on one
-   B4/L256 batch the kernel path's loss dict and gradients are held
-   against the plain path's (``_compare_paths`` states what is held and
-   what is only reported).
+   changed. Then one ``cli.train --compute_dtype bfloat16`` run (1 epoch,
+   default widths, batch 4) on the same pairs, read through an in-memory
+   stand-in for ``EnsembleDataset`` (the H5 reader needs ``h5py``, which
+   the chip machine lacks): counts reset just before and read just after,
+   every band launch in the bf16 mode; losses finite, checkpoint written.
+6. timed train steps, fp32 then bf16 (``HierCVAE(dtype=bfloat16)``):
+   ``make_train_step`` at B4/L256 and at B2/L640 with ``decoder_remat``
+   (16 band forwards per step), kernel path and plain path
+   (``use_pallas_egnn=False``): median step ms over 5 steps after 2
+   warm-ups (host clock, synchronised), peak device memory and the band
+   launches by mode; on one B4/L256 batch of each dtype the kernel path's
+   loss dict and gradients are held against the plain path's
+   (``_compare_paths`` states what is held and what is only reported).
 7. refinement, last (what it leaves allocated would count in the train
    steps' peak memory): checks first, counted apart from the path: the
    polish Cartesian energy and its gradient with the clash term through
@@ -71,13 +86,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    output is finite with its padded rows bitwise unchanged, and the torsion
    stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
    and ``cli.validate`` then score the files on the card.
-8. one ``kernels`` JSON line (launches by path: generate, refine, train),
-   then, as the last line, ``{"ok": true, "device": {...}}``.
+8. one ``kernels`` JSON line (launches by path: generate, refine, train,
+   train_bf16), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--profile TRACE.json`` adds, after the checks, torch.profiler passes over
-the generation path and over the B4/L256 timed train steps (device busy
-share, top operators by device time) and writes their Chrome traces to
-``TRACE.json`` and ``TRACE.train.json``, and the refine stages' traces to
+the generation path and over the B4/L256 timed train steps, fp32 and bf16
+(device busy share, top operators by device time) and writes their Chrome
+traces to ``TRACE.json``, ``TRACE.train_fp32.json`` and
+``TRACE.train_bf16.json``, and the refine stages' traces to
 ``TRACE.refine_cartesian.json`` and ``TRACE.refine_torsion.json``. It is
 not needed for the smoke run.
 
@@ -135,7 +151,8 @@ STEP_WARMUP, STEP_REPS = 2, 5
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA data
 # sheet): fp32 outside the tensor cores, TF32 on the tensor cores, and HBM3
 # bandwidth. Kernels 1-2 run their products in 3xTF32 (three TF32 passes per
-# fp32 product), so their tensor-core bound is 3 x the FLOP at the TF32 rate.
+# fp32 product) for an fp32 model, so their tensor-core bound is 3 x the
+# FLOP at the TF32 rate; in the bf16-model mode one pass, 1 x the FLOP.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -143,12 +160,33 @@ PEAK_BYTES_PER_S = 3.35e12
 # Kernel timing windows: at least MIN_LAUNCHES back-to-back calls and at
 # least WINDOW_MS of device time between one pair of CUDA events.
 MIN_LAUNCHES, WINDOW_MS = 50, 1.0
+PROFILER_MARKERS = 8   # empty kernels that open a profiled window (_device_kernels)
 # Kernels 3-4 at the training shapes and at refinement's: B = num_samples
 # over the padded buckets (600 Adam steps of one forward and one backward),
 # and over the 230 residues of the ensemble file that cli.refine reads back
 # (unpadded, not a multiple of the 32-residue tile).
 CLASH_SHAPES = ((4, 256), (2, 640), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640),
                 (NUM_SAMPLES, 230))
+
+# The bf16-model mode of kernels 1-2: bf16 a / bs, precision "default"
+# (one TF32 pass per product), held against the plain version (fp32 chain,
+# full fp32 products) on the same bf16-rounded inputs at the JAX package's
+# bf16 tolerances (tests/test_pallas.py:203-218): 3 % of max |value| for
+# the forward, 5 % of max |grad| for the backward.
+BF16_MODE = "bfloat16/default"
+FP32_MODE = "float32/highest"
+BF16_VALUE_FRAC, BF16_GRAD_FRAC = 0.03, 0.05
+# a bf16 step's gradients, per tensor (_grad_gap): |g - w| / |w| at most
+# BF16_GRAD_REL, set from scripts/bf16_grad_spread.py (PERF.md, section 6);
+# the attention key biases (zero analytically) at most BF16_ZERO_GRAD_FRAC
+# of their query bias's gradient norm; BF16_NOISY, whose gradient bf16
+# noise outweighs, within BF16_GRAD_FRAC of the step's max |grad|
+BF16_GRAD_REL, BF16_ZERO_GRAD_FRAC = 0.5, 0.05
+BF16_NOISY = ("encoder.enc.geom_res_scale",)
+# kernel 1's bf16 mode at the generation shapes and at the training shapes,
+# where a bf16 model runs it
+BF16_FWD_SHAPES = ((1, 256), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640)) + TRAIN_SHAPES
+BF16_BWD_SHAPES = TRAIN_SHAPES
 
 
 def log(msg: str) -> None:
@@ -224,17 +262,29 @@ def _graph_us(fn, n: int = 100) -> float:
 
 def _device_kernels(run) -> list[str]:
     """Names of the device kernels (and copies) that one call of ``run``
-    issues, in order, by torch.profiler, after one warm-up call."""
+    issues, in order, by torch.profiler, after one warm-up call. The
+    profiled window opens with PROFILER_MARKERS launches of the empty
+    ``clash_noop`` kernel and a synchronise, so that the tracer records
+    before ``run`` starts: CUPTI has dropped the first records of a window
+    (the clash term's kernel 3 in three profiled calls in a row, my chip
+    run 4, PR 6). The names returned are those after the last marker."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from protein_ensemble_vae_torch.ops.kernels.clash import clash_noop
 
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_MARKERS):
+            clash_noop()
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
-    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [i for i, name in enumerate(names) if "clash_noop" in name]
+    return names[marks[-1] + 1:] if marks else names
 
 
 def _launch_floor() -> dict:
@@ -306,29 +356,32 @@ def _egnn_inputs(B: int, L: int, seed: int):
     return [t.cuda().contiguous() for t in (a, bs, x, cmask) + params]
 
 
-def _tc_ms(flops: float) -> float:
-    """Tensor-core bound in ms: 3 x ``flops`` (three TF32 passes) over the
-    TF32 peak."""
-    return 1e3 * 3 * flops / PEAK_TF32_FLOPS
+def _tc_ms(flops: float, passes: int = 3) -> float:
+    """Tensor-core bound in ms: ``passes`` x ``flops`` (TF32 passes per
+    product) over the TF32 peak."""
+    return 1e3 * passes * flops / PEAK_TF32_FLOPS
 
 
-def _egnn_bound(B: int, L: int, cmask) -> tuple[float, str, int, float]:
+def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4,
+                passes: int = 3) -> tuple[float, str, int, float]:
     """Least time for one launch on this run's inputs: exact valid edges
     x (4 Hd^2 + 2 Hd) FLOP over the fp32 peak, against each input read and
-    each output written once over the HBM rate. Also the valid edges and
-    the tensor-core bound (the same FLOP, ``_tc_ms``)."""
+    each output written once over the HBM rate (a and bs at ``in_bytes``
+    each). Also the valid edges and the tensor-core bound (the same FLOP in
+    ``passes`` TF32 passes, ``_tc_ms``)."""
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_indices
 
     idx, in_range = band_indices(L, W, cmask.device)
     cm = cmask > 0.5
     edges = int((in_range[None] & cm[:, :, None] & cm[:, idx]).sum())
     flops = edges * (4 * HD * HD + 2 * HD)
-    nbytes = 4 * (2 * B * L * HD + B * L * 3 + B * L          # a, bs, x, cmask
-                  + 2 * HD * HD + 4 * HD + 1                   # weights
-                  + B * L * HD + B * L * 3)                    # agg, raw_delta
+    nbytes = (in_bytes * 2 * B * L * HD                           # a, bs
+              + 4 * (B * L * 3 + B * L                            # x, cmask
+                     + 2 * HD * HD + 4 * HD + 1                   # weights
+                     + B * L * HD + B * L * 3))                   # agg, raw_delta
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return 1e3 * max(t_ops, t_bytes), by, edges, _tc_ms(flops)
+    return 1e3 * max(t_ops, t_bytes), by, edges, _tc_ms(flops, passes)
 
 
 def phase_kernels() -> list[dict]:
@@ -376,9 +429,9 @@ def phase_kernels() -> list[dict]:
             f"{bound_ms:.3f} ms by {bound_by} ({edges} valid edges), "
             f"{100 * bound_ms / ms:.1f}% of bound; tensor-core bound {tc_ms:.3f} ms; "
             f"{S} offset slice(s), {blocks} blocks; bitwise identical over two launches")
-        rows.append(dict(B=B, L=L, ms=ms, host_us=host_us, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
-                         slices=S, blocks=blocks, max_abs_err=max(errs)))
+        rows.append(dict(mode=FP32_MODE, B=B, L=L, ms=ms, host_us=host_us,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         tc_bound_ms=tc_ms, slices=S, blocks=blocks, max_abs_err=max(errs)))
         del args, agg, delta, again, ragg, rdelta
     return rows
 
@@ -398,19 +451,22 @@ def _close_scaled(name: str, got, ref) -> float:
     return err
 
 
-def _band_bwd_bound(B: int, L: int, cmask) -> tuple[float, str, float]:
+def _band_bwd_bound(B: int, L: int, cmask, in_bytes: int = 4,
+                    passes: int = 3) -> tuple[float, str, float]:
     """Least time for one backward launch: per valid edge 6 Hd x Hd products
     (12 Hd^2 FLOP) plus the elementwise chain, over the fp32 peak, against
     the inputs (a, bs, x, cmask, weights, g_agg, g_delta) read once and the
-    gradients written once over the HBM rate. Also the tensor-core bound
-    (the same FLOP, ``_tc_ms``)."""
+    gradients written once over the HBM rate (a, bs and their gradients at
+    ``in_bytes`` each). Also the tensor-core bound (the same FLOP in
+    ``passes`` TF32 passes, ``_tc_ms``)."""
     edges = _egnn_bound(B, L, cmask)[2]
     flops = edges * (12 * HD * HD + 20 * HD)
-    nbytes = 4 * (3 * B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # in
-                  + 2 * B * L * HD + B * L * 3 + 2 * HD * HD + 4 * HD + 1)          # out
+    nbytes = (in_bytes * 4 * B * L * HD                                        # a, bs, da, dbs
+              + 4 * (B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # g_agg, x, ...
+                     + B * L * 3 + 2 * HD * HD + 4 * HD + 1))                  # dx, weight grads
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            _tc_ms(flops))
+            _tc_ms(flops, passes))
 
 
 def _clash_near_pairs(atoms, amask, clash_dist: float = 3.2) -> int:
@@ -615,13 +671,108 @@ def phase_train_kernels() -> dict[str, list[dict]]:
             f"{band_work(B, L, W)[2]} work items, {nsplit} weight-grad slices; max abs "
             f"err {max(errs.values()):.3e}, largest err / max|plain| "
             f"{rel[worst]:.2e} ({worst}); bitwise identical over two launches")
-        rows["egnn_band_bwd"].append(dict(B=B, L=L, ms=ms, host_us=host_us,
+        rows["egnn_band_bwd"].append(dict(mode=FP32_MODE, B=B, L=L, ms=ms, host_us=host_us,
                                           plain_ms=plain_ms, bound_ms=bound_ms,
                                           bound_by=bound_by, tc_bound_ms=tc_ms,
                                           edge_blocks=G, wgrad_slices=nsplit,
                                           max_abs_err=max(errs.values()),
                                           errors=errs))
         del args, got, again, ref
+    return rows
+
+
+def _bf16_err(name: str, got, ref, frac: float) -> float:
+    """Raise unless ``got`` is finite and within ``frac`` x max|ref| of
+    ``ref``; log the error beside the tolerance; return err / max|ref|."""
+    import torch
+
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    ok = bool(torch.isfinite(got.float()).all()) and err <= frac * scale
+    log(f"[kernels] {name}: max abs err {err:.3e} = {err / max(scale, 1e-30):.2e} of "
+        f"max|plain| {scale:.3e} (tolerance {frac:.0%} of it) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return err / max(scale, 1e-30)
+
+
+def phase_bf16_kernels() -> dict[str, list[dict]]:
+    """The bf16-model mode of kernels 1-2 (BF16_MODE) against the plain
+    version on the same bf16-rounded inputs: kernel 1 at BF16_FWD_SHAPES,
+    kernel 2 at BF16_BWD_SHAPES; two launches bitwise identical; device ms
+    beside the same shape's 3xTF32 ms (fp32 inputs, ``precision="highest"``)
+    timed in this call, plain ms, host us, the fp32 bound and the one-pass
+    tensor-core bound."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference)
+
+    def bf16(args):
+        return [args[0].bfloat16().contiguous(), args[1].bfloat16().contiguous()] + args[2:]
+
+    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    for k, (B, L) in enumerate(BF16_FWD_SHAPES):
+        args = _egnn_inputs(B, L, SEED + 40 + k)
+        args16 = bf16(args)
+        tag = f"egnn_band_fwd {BF16_MODE} B{B}/L{L}"
+        out, again = egnn_band_fwd(*args16, W, "default"), egnn_band_fwd(*args16, W, "default")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise RuntimeError(f"{tag}: two launches differ")
+        ref = egnn_band_reference(*args16, W)
+        rel = max(_bf16_err(f"{tag} {n}", o, r, BF16_VALUE_FRAC)
+                  for n, o, r in zip(("agg", "raw_delta"), out, ref))
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        ms = _median_ms(lambda: egnn_band_fwd(*args16, W, "default"))
+        fp32_ms = _median_ms(lambda: egnn_band_fwd(*args, W))
+        host_us = _host_us(lambda: egnn_band_fwd(*args16, W, "default"), n=MIN_LAUNCHES)
+        plain_ms = _median_ms(lambda: egnn_band_reference(*args16, W), reps=3)
+        bound_ms, bound_by, _, tc_ms = _egnn_bound(B, L, args[3], in_bytes=2, passes=1)
+        log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
+            f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
+            f"{bound_ms:.3f} ms by {bound_by}, one-pass tensor-core bound {tc_ms:.3f} ms "
+            f"({100 * tc_ms / ms:.1f}% of it); bitwise identical over two launches")
+        rows["egnn_band_fwd"].append(dict(
+            mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
+            max_abs_err=err, max_rel_err=rel))
+        del args, args16, out, again, ref
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    for k, (B, L) in enumerate(BF16_BWD_SHAPES):
+        args = _egnn_inputs(B, L, SEED + 50 + k)
+        args16 = bf16(args)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 50 + k)
+        g_agg = torch.randn(B, L, HD, generator=g, device="cuda")
+        g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+        tag = f"egnn_band_bwd {BF16_MODE} B{B}/L{L}"
+        got = egnn_band_bwd(*args16, g_agg, g_delta, W, "default")
+        again = egnn_band_bwd(*args16, g_agg, g_delta, W, "default")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{tag}: two launches differ")
+        if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.bfloat16:
+            raise RuntimeError(f"{tag}: da / dbs are {got[0].dtype}, expected bf16")
+        ref = egnn_band_bwd_reference(*args16, g_agg, g_delta, W)
+        rel = max(_bf16_err(f"{tag} {n}", a, b, BF16_GRAD_FRAC)
+                  for n, a, b in zip(names, got, ref))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+        ms = _median_ms(lambda: egnn_band_bwd(*args16, g_agg, g_delta, W, "default"))
+        fp32_ms = _median_ms(lambda: egnn_band_bwd(*args, g_agg, g_delta, W))
+        host_us = _host_us(lambda: egnn_band_bwd(*args16, g_agg, g_delta, W, "default"),
+                           n=MIN_LAUNCHES)
+        plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args16, g_agg, g_delta, W),
+                              reps=3)
+        bound_ms, bound_by, tc_ms = _band_bwd_bound(B, L, args[3], in_bytes=2, passes=1)
+        log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
+            f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
+            f"{bound_ms:.3f} ms by {bound_by}, one-pass tensor-core bound {tc_ms:.3f} ms "
+            f"({100 * tc_ms / ms:.1f}% of it); bitwise identical over two launches")
+        rows["egnn_band_bwd"].append(dict(
+            mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
+            max_abs_err=err, max_rel_err=rel))
+        del args, args16, got, again, ref
     return rows
 
 
@@ -896,6 +1047,73 @@ def phase_train_path(out_dir: str) -> dict:
                 seconds=secs, history=history)
 
 
+def phase_train_cli_bf16(out_dir: str) -> dict:
+    """``cli.train --compute_dtype bfloat16`` for one epoch at the default
+    widths, batch 4, on TRAIN_PROTEIN's pairs (8 train / 2 val). The chip
+    machine has no ``h5py``, so the manifests name in-memory pair sets that
+    stand in for ``EnsembleDataset`` inside the call. Counts reset just
+    before and read just after: per train step 8 band forwards, 8 band
+    backwards, one of each clash kernel; per eval step 8 + 1; every band
+    launch in the bf16 mode."""
+    import torch
+
+    import protein_ensemble_vae_torch.data as data
+    from protein_ensemble_vae_torch.cli import train as train_cli
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
+
+    cfg = ModelConfig()
+    pid, L, seed, K = TRAIN_PROTEIN
+    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
+    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+    sets = {"train.csv": PairSet(confs, pairs[:8], cfg.seqemb_dim),
+            "val.csv": PairSet(confs, pairs[8:], cfg.seqemb_dim)}
+    save = os.path.join(out_dir, "train_cli_bf16")
+    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+            "--epochs", "1", "--batch_size", "4", "--compute_dtype", "bfloat16",
+            "--save", save, "--device", DEVICE]
+    orig = data.EnsembleDataset
+    data.EnsembleDataset = lambda manifest, **kw: sets[manifest]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        train_cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        data.EnsembleDataset = orig
+    launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+    tr_steps, va_steps = -(-8 // 4), -(-2 // 4)
+    want = {"egnn_band_fwd": cfg.decoder_layers * (tr_steps + va_steps),
+            "egnn_band_bwd": cfg.decoder_layers * tr_steps,
+            "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps}
+    want_modes = {f"egnn_band_fwd:{BF16_MODE}": want["egnn_band_fwd"],
+                  f"egnn_band_bwd:{BF16_MODE}": want["egnn_band_bwd"]}
+    log(f"[train] cli.train --compute_dtype bfloat16, 1 epoch: launches {launches} "
+        f"(expected {want}), band launches by mode {modes}")
+    if launches != want or modes != want_modes:
+        raise RuntimeError(f"cli.train bf16 launched {launches} / {modes}, expected "
+                           f"{want} / {want_modes}")
+    final = os.path.join(save, "final")
+    with open(os.path.join(final, "history.json")) as f:
+        history = json.load(f)
+    with open(os.path.join(final, "meta.json")) as f:
+        meta = json.load(f)
+    for split in ("train", "val"):
+        for k, vals in history[split].items():
+            if not np.isfinite(vals).all():
+                raise RuntimeError(f"cli.train bf16 {split} {k} not finite: {vals}")
+    if meta["config"]["train"]["compute_dtype"] != "bfloat16":
+        raise RuntimeError("cli.train bf16 checkpoint does not record bfloat16")
+    log(f"[train] cli.train bf16: {secs:.2f} s for 1 epoch ({tr_steps} train + {va_steps} "
+        f"val steps, host clock, synchronised, model set-up and first use included); train "
+        f"loss {history['train']['loss'][-1]:.3f}, val loss {history['val']['loss'][-1]:.3f}; "
+        f"checkpoint {final}")
+    return dict(launches=launches, modes=modes, seconds=secs)
+
+
 # ---------------------------------------------------------------------------
 # 6. timed train steps
 # ---------------------------------------------------------------------------
@@ -933,65 +1151,151 @@ def _path_grads(model, batch, weights, eps) -> tuple[dict, dict]:
             {n: p.grad for n, p in model.named_parameters()})
 
 
-def _grad_gap(kg: dict, pg: dict) -> tuple[list, float, str]:
-    """Tensors whose kernel-path gradient leaves rtol 1e-3 / atol 1e-5 *
-    max|g| (floored at 1e-6) of the plain path's, and the worst ratio of
-    error to that tolerance."""
+def bf16_rel_gaps(got: dict, want: dict) -> dict[str, float]:
+    """Per parameter tensor, |got - want| / |want| (Frobenius); for the
+    attention key biases, whose gradient is zero analytically, max(|got|,
+    |want|) / |want's query-bias gradient|."""
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        if n.endswith("key.bias"):
+            q = want[n[:-len("key.bias")] + "query.bias"]
+            out[n] = max(float(g.norm()), float(w.norm())) / max(float(q.norm()), 1e-30)
+        else:
+            out[n] = float((g - w).norm()) / max(float(w.norm()), 1e-30)
+    return out
+
+
+def _grad_gap(kg: dict, pg: dict, bf16: bool) -> tuple[list, float, str]:
+    """Tensors whose kernel-path gradient ``kg`` leaves the reference ``pg``
+    by more than the tolerance, and the worst ratio of error to it. fp32:
+    rtol 1e-3 / atol 1e-5 * max|g| per tensor (floored at 1e-6). bf16:
+    ``bf16_rel_gaps`` within BF16_GRAD_REL (key biases BF16_ZERO_GRAD_FRAC),
+    each tensor on its own scale; BF16_NOISY within BF16_GRAD_FRAC of the
+    step's max |grad|."""
     import torch
 
-    bad, worst, worst_name = [], 0.0, ""
-    for n, want in pg.items():
-        got = kg[n]
+    for n, got in kg.items():
         if got is None or not torch.isfinite(got).all():
             raise RuntimeError(f"kernel-path gradient of {n} missing or not finite")
-        atol = max(1e-5 * float(want.abs().max()), 1e-6)
-        ratio = float(((got - want).abs() / (atol + 1e-3 * want.abs())).max())
-        if ratio > 1.0:
-            bad.append(n)
-        if ratio > worst:
-            worst, worst_name = ratio, n
-    return bad, worst, worst_name
+    if bf16:
+        step_max = max(float(w.abs().max()) for w in pg.values())
+        ratios = {n: (float((kg[n] - pg[n]).abs().max()) / (BF16_GRAD_FRAC * step_max)
+                      if n in BF16_NOISY else
+                      r / (BF16_ZERO_GRAD_FRAC if n.endswith("key.bias") else BF16_GRAD_REL))
+                  for n, r in bf16_rel_gaps(kg, pg).items()}
+    else:
+        ratios = {}
+        for n, want in pg.items():
+            atol = max(1e-5 * float(want.abs().max()), 1e-6)
+            ratios[n] = float(((kg[n] - want).abs() / (atol + 1e-3 * want.abs())).max())
+    worst_name = max(ratios, key=ratios.get)
+    return [n for n, r in ratios.items() if r > 1.0], ratios[worst_name], worst_name
+
+
+@contextlib.contextmanager
+def _band_plain_version():
+    """Route ``egnn_band_fused`` to the kernels' plain version (fp32 chain,
+    full fp32 products) also for CUDA tensors, inside the block."""
+    from protein_ensemble_vae_torch.ops.kernels import egnn_band
+
+    orig = egnn_band.pallas_policy
+    egnn_band.pallas_policy = lambda t, use_pallas="auto": False
+    try:
+        yield
+    finally:
+        egnn_band.pallas_policy = orig
 
 
 def _compare_paths(kmodel, pmodel, batch) -> dict:
-    """Kernel path vs plain path on one batch, same injected noise, dropout
-    off. Held: the full default loss dict to rtol 1e-4, and, for the smooth
-    part of the objective (reconstruction, KL, sequence terms), every
-    parameter gradient within rtol 1e-3 / atol 1e-5 * max|g| per tensor
-    (the CPU parity tests' tolerance). Reported, not held: the full loss's
-    gradients against the same tolerance. At random initialisation the
-    decoder emits a near-collapsed backbone, where the clash gradient's
+    """Kernel path vs reference paths on one batch, same injected noise,
+    dropout off; the loss dict and every parameter gradient, for the smooth
+    part of the objective (reconstruction, KL, sequence terms) and the full
+    loss.
+
+    fp32: the reference is the plain path (the band's plain version, the
+    dense clash). Held: the full default loss dict to rtol 1e-4, and the
+    smooth part's gradients within rtol 1e-3 / atol 1e-5 * max|g| per
+    tensor (the CPU parity tests' tolerance). Reported, not held: the full
+    loss's gradients against the same tolerance. At random initialisation
+    the decoder emits a near-collapsed backbone, where the clash gradient's
     direction (a_i - a_j) / d_ij of nearly coincident atoms and the other
     terms' validity switches and kinks amplify the kernels' fp32
     summation-order differences (~3e-7 of the forward's scale) into
-    per-mille differences of a few whole-model sums (PERF.md, section 6)."""
+    per-mille differences of a few whole-model sums (PERF.md, section 6).
+
+    bf16: two references, the same bf16 model with kernels 1-2 routed to
+    their plain version (``_band_plain_version``: the fp32 chain in full
+    fp32, where the kernels make one-pass TF32 products) and the plain path
+    (its band in the bf16 edge chain, JAX's XLA path at bf16). Held: the
+    loss dict to 3 % of both; the smooth part's gradients against the
+    plain version per tensor, on each tensor's own scale (``_grad_gap``),
+    and that this check flags one zeroed decoder EGNN weight gradient.
+    Any difference in a bf16 model flips downstream bf16 roundings, so two
+    correct bf16 steps differ by bf16 noise: the two references' own
+    distance is logged beside it on the same scale. Reported: the full
+    loss's gradients, and the kernel path against the bf16-chain path."""
     import torch
 
     from protein_ensemble_vae_torch.config import LossWeights
 
     cfg = kmodel.config
+    bf16 = kmodel.dtype == torch.bfloat16
+    loss_tol = BF16_VALUE_FRAC if bf16 else 1e-4
     B, L = batch["tgt"]["mask"].shape
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     eps = (torch.randn(B, cfg.z_global, generator=g, device=DEVICE),
            torch.randn(B, L, cfg.z_local, generator=g, device=DEVICE))
+
+    def run(model, ctx=contextlib.nullcontext):
+        with ctx():
+            d, grads = _path_grads(model, batch, weights, eps)
+        return d, {n: t.clone() for n, t in grads.items()}
+
     out = {}
     for label, weights in (("smooth", LossWeights(**SMOOTH_WEIGHTS)),
                            ("full", LossWeights())):
-        (kd, kg), (pd, pg) = (_path_grads(m, batch, weights, eps) for m in (kmodel, pmodel))
-        loss_err = max(float(((kd[k] - pd[k]) / pd[k].abs().clamp(min=1e-30)).abs())
-                       for k in pd)
-        if loss_err > 1e-4:
-            raise RuntimeError(f"{label} loss: kernel-path loss dict differs, rel err {loss_err:.3e}")
-        bad, worst, worst_name = _grad_gap(kg, pg)
-        if bad and label == "smooth":
-            raise RuntimeError(f"{label} loss: kernel-path gradients of {bad} differ "
-                               f"(worst {worst:.2f}x the tolerance, {worst_name})")
-        log(f"[steps] kernel vs plain path, B{B}/L{L}, {label} loss: loss dict max "
-            f"rel err {loss_err:.2e}; gradients within rtol 1e-3 / atol 1e-5 max|g|: "
-            f"{len(pg) - len(bad)}/{len(pg)} tensors (worst {worst:.2f}x the "
-            f"tolerance, {worst_name})" + (" [reported, not held]" if label == "full" else ""))
-        out[label] = dict(loss_rel_err=loss_err, worst=worst, worst_name=worst_name,
-                          within=len(pg) - len(bad), n=len(pg))
+        kd, kg = run(kmodel)
+        if bf16:
+            vd, vg = run(kmodel, _band_plain_version)
+            cd, cg = run(pmodel)
+            _, rworst, rname = _grad_gap(cg, vg, True)
+            log(f"[steps] bf16-chain plain path vs kernels' plain version, B{B}/L{L}, "
+                f"{label} loss: worst gradient {rworst:.2f}x the per-tensor tolerance ({rname})")
+            out[f"{label} references"] = dict(worst=rworst, worst_name=rname)
+            refs = (("kernels' plain version", vd, vg, True),
+                    ("plain path, bf16 chain", cd, cg, False))
+        else:
+            pd, pg = run(pmodel)
+            refs = (("plain path", pd, pg, True),)
+        for ref, pd, pg, hold_grads in refs:
+            loss_err = max(float(((kd[k].float() - pd[k].float())
+                                  / pd[k].float().abs().clamp(min=1e-30)).abs()) for k in pd)
+            if loss_err > loss_tol:
+                raise RuntimeError(f"{label} loss: kernel-path loss dict differs from the "
+                                   f"{ref}, rel err {loss_err:.3e} (tolerance {loss_tol})")
+            bad, worst, worst_name = _grad_gap(kg, pg, bf16)
+            held = hold_grads and label == "smooth"
+            if bad and held:
+                raise RuntimeError(f"{label} loss: kernel-path gradients of {bad} differ from "
+                                   f"the {ref} (worst {worst:.2f}x the tolerance, {worst_name})")
+            if held:
+                # the check sees one wrong tensor, however small its gradients
+                zeroed = "decoder.egnn_1.phi_e2_kernel"
+                if zeroed not in _grad_gap({**kg, zeroed: 0 * kg[zeroed]}, pg, bf16)[0]:
+                    raise RuntimeError(f"the gradient check passes a zeroed {zeroed}")
+            tol = ("rtol 1e-3 / atol 1e-5 max|g|" if not bf16 else
+                   f"|g - w| <= {BF16_GRAD_REL} |w| per tensor (key biases: "
+                   f"|g|, |w| <= {BF16_ZERO_GRAD_FRAC} |query-bias grad|; {', '.join(BF16_NOISY)}: "
+                   f"{BF16_GRAD_FRAC} of the step's max |grad|)")
+            log(f"[steps] kernel path vs {ref}, B{B}/L{L} {'bf16' if bf16 else 'fp32'}, "
+                f"{label} loss: loss dict max rel err {loss_err:.2e} (tolerance {loss_tol}); "
+                f"gradients within {tol}: {len(pg) - len(bad)}/{len(pg)} tensors (worst "
+                f"{worst:.2f}x the tolerance, {worst_name})"
+                + ("" if held else " [gradients reported, not held]"))
+            out[f"{label} vs {ref}"] = dict(loss_rel_err=loss_err, worst=worst,
+                                            worst_name=worst_name,
+                                            within=len(pg) - len(bad), n=len(pg))
     return out
 
 
@@ -1000,61 +1304,73 @@ def phase_timed_steps(trace_path=None) -> list[dict]:
 
     from protein_ensemble_vae_torch.config import LossWeights, ModelConfig
     from protein_ensemble_vae_torch.models import HierCVAE
-    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
     from protein_ensemble_vae_torch.train.training import (TrainState,
                                                            make_train_step)
 
     rows = []
-    for spec in TIMED_STEPS:
-        B, L = spec["B"], spec["L"]
-        mcfg = ModelConfig(decoder_remat=spec["remat"])
-        torch.manual_seed(SEED)
-        kmodel = HierCVAE(mcfg).to(DEVICE)
-        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False)).to(DEVICE)
-        pmodel.load_state_dict(kmodel.state_dict())
-        batch = _step_batch(B, L, spec["L_real"], SEED + 8, mcfg.seqemb_dim)
-        if (B, L) == TRAIN_HEADLINE:
-            rows.append(dict(compare=_compare_paths(kmodel, pmodel, batch)))
-        consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
-        tag = f"B{B}/L{L}" + ("+remat" if spec["remat"] else "")
-        for path, model in (("kernel", kmodel), ("plain", pmodel)):
-            state = TrainState.create(model)
-            step = make_train_step(model, LossWeights(), train=True)
-            for i in range(STEP_WARMUP):
-                step(state, batch, i, *consts)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            times = []
-            for i in range(STEP_REPS):
-                t0 = time.perf_counter()
-                _, metrics = step(state, batch, i, *consts)
+    for dtype, mode in ((torch.float32, FP32_MODE), (torch.bfloat16, BF16_MODE)):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for spec in TIMED_STEPS:
+            B, L = spec["B"], spec["L"]
+            mcfg = ModelConfig(decoder_remat=spec["remat"])
+            torch.manual_seed(SEED)
+            kmodel = HierCVAE(mcfg, dtype=dtype).to(DEVICE)
+            pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False),
+                              dtype=dtype).to(DEVICE)
+            pmodel.load_state_dict(kmodel.state_dict())
+            batch = _step_batch(B, L, spec["L_real"], SEED + 8, mcfg.seqemb_dim)
+            if (B, L) == TRAIN_HEADLINE:
+                rows.append(dict(dtype=dname, compare=_compare_paths(kmodel, pmodel, batch)))
+            consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
+            tag = f"B{B}/L{L}" + ("+remat" if spec["remat"] else "") + f" {dname}"
+            for path, model in (("kernel", kmodel), ("plain", pmodel)):
+                state = TrainState.create(model)
+                step = make_train_step(model, LossWeights(), train=True)
+                for i in range(STEP_WARMUP):
+                    step(state, batch, i, *consts)
                 torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-            launches = {k: v // STEP_REPS for k, v in LAUNCHES.items()}
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            if not all(bool(torch.isfinite(v)) for v in metrics.values()):
-                raise RuntimeError(f"{path} step {tag}: non-finite metrics")
-            per_layer = 2 if spec["remat"] else 1
-            want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
-                     "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
-                     "clash_bwd": 1} if path == "kernel"
-                    else {k: 0 for k in LAUNCHES})
-            if launches != want:
-                raise RuntimeError(f"{path} step {tag} launched {launches}, expected {want}")
-            ms = float(np.median(times))
-            log(f"[steps] {tag} {path} path: {ms:.2f} ms per train step (median of "
-                f"{STEP_REPS} after {STEP_WARMUP} warm-ups, host clock, synchronised; "
-                f"min {min(times):.2f}), peak device memory {peak:.1f} MiB, "
-                f"launches per step {launches}")
-            rows.append(dict(shape=tag, path=path, ms=ms, peak_mib=peak,
-                             launches=launches))
-            if trace_path and path == "kernel" and (B, L) == TRAIN_HEADLINE:
-                _profile(lambda: step(state, batch, 0, *consts),
-                         f"train step {tag}", trace_path.replace(".json", ".train.json"))
-            del state, step
-        del kmodel, pmodel, batch
-        torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated() / 2**20
+                reset_launches()
+                times = []
+                for i in range(STEP_REPS):
+                    t0 = time.perf_counter()
+                    _, metrics = step(state, batch, i, *consts)
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                launches = {k: v // STEP_REPS for k, v in LAUNCHES.items()}
+                modes = {k: v // STEP_REPS for k, v in BAND_MODE_LAUNCHES.items()}
+                peak = torch.cuda.max_memory_allocated() / 2**20
+                if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+                    raise RuntimeError(f"{path} step {tag}: non-finite metrics")
+                per_layer = 2 if spec["remat"] else 1
+                want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
+                         "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
+                         "clash_bwd": 1} if path == "kernel"
+                        else {k: 0 for k in LAUNCHES})
+                want_modes = ({f"egnn_band_fwd:{mode}": want["egnn_band_fwd"],
+                               f"egnn_band_bwd:{mode}": want["egnn_band_bwd"]}
+                              if path == "kernel" else {})
+                if launches != want or modes != want_modes:
+                    raise RuntimeError(f"{path} step {tag} launched {launches} / {modes}, "
+                                       f"expected {want} / {want_modes}")
+                ms = float(np.median(times))
+                log(f"[steps] {tag} {path} path: {ms:.2f} ms per train step (median of "
+                    f"{STEP_REPS} after {STEP_WARMUP} warm-ups, host clock, synchronised; "
+                    f"min {min(times):.2f}), peak device memory {peak:.1f} MiB ({base:.1f} "
+                    f"allocated before the steps: both models, optimizer state, batch), "
+                    f"launches per step {launches}, band launches by mode {modes}")
+                rows.append(dict(shape=tag, dtype=dname, path=path, ms=ms,
+                                 min_ms=min(times), peak_mib=peak, base_mib=base,
+                                 launches=launches, modes=modes))
+                if trace_path and path == "kernel" and (B, L) == TRAIN_HEADLINE:
+                    _profile(lambda: step(state, batch, 0, *consts), f"train step {tag}",
+                             trace_path.replace(".json", f".train_{dname}.json"))
+                del state, step
+            del kmodel, pmodel, batch
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1578,8 +1894,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
                     help="after the checks, profile the generation path and "
-                         "the B4/L256 train step with torch.profiler and "
-                         "write their traces (TRACE.json, TRACE.train.json)")
+                         "the B4/L256 train steps with torch.profiler and "
+                         "write their traces (TRACE.json, "
+                         "TRACE.train_fp32.json, TRACE.train_bf16.json)")
     args = ap.parse_args(argv)
 
     device = phase_device()
@@ -1590,6 +1907,8 @@ def main(argv=None) -> None:
         f"{floor['floor_host_us']:.1f} us per call on the host")
     shapes = {"egnn_band_fwd": phase_kernels()}
     shapes.update(phase_train_kernels())
+    for name, rows in phase_bf16_kernels().items():
+        shapes[name] += rows
     shapes.update(phase_clash_kernels(floor))
     clash_term_kernels()
     model, views = setup_main_path()
@@ -1599,6 +1918,7 @@ def main(argv=None) -> None:
             profile_generation(model, views, out_dir, args.profile)
         del model
         train = phase_train_path(out_dir)
+        train_bf16 = phase_train_cli_bf16(out_dir)
         steps = phase_timed_steps(args.profile)
         # refinement last: what it leaves allocated would count in the peak
         # memory of the train steps
@@ -1609,11 +1929,14 @@ def main(argv=None) -> None:
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = shapes[name]
         want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
-        head = next(r for r in rows if (r["B"], r["L"]) == want)
+        head = next(r for r in rows if (r["B"], r["L"]) == want and r.get("mode", FP32_MODE)
+                    == FP32_MODE)
         by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
-                   "train": train["launches"][name]}
-        if by_path["train"] == 0 or (name != "egnn_band_bwd" and by_path["refine"] == 0) or (
-                name == "egnn_band_fwd" and by_path["generate"] == 0):
+                   "train": train["launches"][name],
+                   "train_bf16": train_bf16["launches"][name]}
+        if (by_path["train"] == 0 or by_path["train_bf16"] == 0
+                or (name != "egnn_band_bwd" and by_path["refine"] == 0)
+                or (name == "egnn_band_fwd" and by_path["generate"] == 0)):
             raise RuntimeError(f"{name} was not launched on its main path: {by_path}")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1624,6 +1947,11 @@ def main(argv=None) -> None:
             graph_ms=head.get("graph_ms"),
             **floor,
             tc_bound_ms=head.get("tc_bound_ms"),
+            # kernels 1-2: the train_bf16 path's launches by mode
+            **({"train_bf16_modes": {k.split(":", 1)[1]: v
+                                     for k, v in train_bf16["modes"].items()
+                                     if k.startswith(name + ":")}}
+               if name.startswith("egnn") else {}),
             # kernels 3-4 run on the refine path from replayed CUDA graphs:
             # their count there is the capture's launches x the replays, and
             # the profiler's records of the cli.refine call back it up

@@ -9,11 +9,13 @@ It runs on the GPU unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises rather than fall back to the CPU. fp32
 runs at fp32 accuracy, as the JAX side runs fp32 models at
 ``Precision.HIGHEST``: PyTorch's products with TF32 off, the EGNN band
-kernels' in 3-pass TF32. Not ported yet, and raising ``NotImplementedError``
+kernels' in 3-pass TF32. ``--compute_dtype bfloat16`` computes in bf16 with
+fp32 parameters, as the JAX side's ``HierCVAE(dtype=bfloat16)``: the EGNN
+band kernels read bf16 projections and make one-pass TF32 products, with
+the edge chain in fp32. Not ported yet, and raising ``NotImplementedError``
 rather than running something else: ``--dp``/``--tp`` > 1 and
-``--multihost`` (ROADMAP.md queue A, parallelism), ``--watch_every`` > 0
-(queue A, utils/watch) and ``--compute_dtype bfloat16`` (queue A, the bf16
-compute path).
+``--multihost`` (ROADMAP.md queue A, parallelism) and ``--watch_every`` > 0
+(queue A, utils/watch).
 """
 
 from __future__ import annotations
@@ -135,11 +137,6 @@ def check_supported(args) -> None:
             "--watch_every > 0: the param/grad histogram dumps (utils/watch, "
             "make_param_grad_fn) are not ported yet (ROADMAP.md, queue A, "
             "'Remainder')")
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute_dtype {args.compute_dtype}: the bf16 compute path is "
-            "not ported yet (ROADMAP.md, queue A, 'bf16 compute path'); "
-            "use float32")
 
 
 def main(argv=None):
@@ -215,7 +212,8 @@ def main(argv=None):
             dp=args.dp, tp=args.tp))
 
     torch.manual_seed(cfg.train.seed)
-    model = HierCVAE(cfg.model).to(device)
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    model = HierCVAE(cfg.model, dtype=dtype).to(device)
 
     logger = MetricLogger(jsonl_path=args.log_jsonl,
                           wandb_mode=args.wandb_mode,

@@ -1,4 +1,5 @@
-// EGNN band backward: the gradient of egnn_band_fwd.cu's function, fp32.
+// EGNN band backward: the gradient of egnn_band_fwd.cu's function, in its
+// modes (input type of a / bs, TF32 passes; egnn_tile.cuh).
 //
 // Replaces the TPU kernel `_bwd_merged_kernel` (with `_edge_chain_cotangents`)
 // of the JAX package's ops/pallas/egnn_band.py, entered through `_fused_bwd`.
@@ -12,13 +13,18 @@
 //     d_rel   = valid * wsc * g_delta_i + 2 * rel * cot_d2
 // and emits d_a_i += cot_pre, d_bs_j += cot_pre, d_x_i += d_rel, d_x_j -= d_rel,
 // dW_e2 = sum m1^T cot_u, dW_x1 = sum m^T cot_v, and the bias / vector grads.
+// The chain and every sum run in fp32 in every mode; d_a and d_bs are
+// written in the type of a and bs (rounded to nearest even from bf16's fp32
+// sums, as the JAX side's `_fused_bwd` casts them).
 //
 // What bounds it: operations. Six Hd x Hd products per edge (two recomputed,
 // two cotangent, two weight-grad outer products): 12 Hd^2 FLOP per edge. All
-// six run on the tensor cores in 3xTF32 (egnn_tile.cuh), which reaches fp32
+// six run on the tensor cores in the mode's passes: 3xTF32 reaches fp32
 // accuracy as the JAX side's Precision.HIGHEST does through multi-pass
-// products on the TPU; the tensor-core floor is 3 x the FLOP at the TF32
-// rate. The gradients' sums do not need kernel 1's per-step rounding
+// products on the TPU, one pass is its precision=None (the JAX side passes
+// `precision` to the cotangent and weight-grad products too,
+// `_edge_chain_cotangents`); the tensor-core floor is PASSES x the FLOP at
+// the TF32 rate. The gradients' sums do not need kernel 1's per-step rounding
 // (STEP_SUM off: a whole-model gradient check passes either way, and it
 // would cost a fifth of the time). What holds the kernel above its floor:
 // mma.sync latency at 16 warps per SM, 128 registers with spills, and the
@@ -164,9 +170,9 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
                     make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
-template <int HD>
+template <int HD, class In, int PASSES>
 __global__ void __launch_bounds__(THREADS, 2)
-egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
+egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
                const float* __restrict__ x, const float* __restrict__ cmask,
                const float* __restrict__ w_d, const float* __restrict__ w_e2,
                const float* __restrict__ b_e2, const float* __restrict__ w_x1,
@@ -214,8 +220,8 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         const int i0 = ((item / n_steps) % n_tiles) * T;
         const int b = item / (n_steps * n_tiles);
         const size_t row0 = (size_t)b * L;
-        const float* a_b = a + row0 * HD;
-        const float* bs_b = bs + row0 * HD;
+        const In* a_b = a + row0 * HD;
+        const In* bs_b = bs + row0 * HD;
         const size_t erow = (size_t)item * M;   // the item's first scratch row
         const int my_i = i0 + ln.g;              // the receiver of the lane's rows
         float* cotu_rows = s.cotu + erow * HD;
@@ -249,25 +255,36 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         if (tid == 0) s.flags[item] = any;
         if (!any) continue;   // no valid edge: the later passes skip the item
 
-        // m1 = silu(pre) into A and to the scratch; rows of invalid edges are 0.
-        constexpr int HD4 = HD / 4;
+        // m1 = silu(pre) into A and to the scratch; rows of invalid edges are
+        // 0. Each thread reads 16 bytes of a_i and of bs_j (NV values) at a time.
+        constexpr int NV = Vec<In>::N, HDV = HD / NV;
 #pragma unroll 4
-        for (int idx = tid; idx < M * HD4; idx += THREADS) {
-            const int r = idx / HD4, c4 = idx % HD4;
-            float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int idx = tid; idx < M * HDV; idx += THREADS) {
+            const int r = idx / HDV, c = NV * (idx % HDV);
+            float p[NV];
+#pragma unroll
+            for (int q = 0; q < NV; ++q) p[q] = 0.f;
             if (row_valid[r] > 0.f) {
                 const int i = i0 + r % T;
-                const float4 av = __ldg(reinterpret_cast<const float4*>(a_b + (size_t)i * HD) + c4);
-                const float4 bv = __ldg(reinterpret_cast<const float4*>(bs_b + (size_t)row_j[r] * HD) + c4);
-                const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d) + c4);
+                float av[NV], bv[NV];
+                load_vec(a_b + (size_t)i * HD + c, av);
+                load_vec(bs_b + (size_t)row_j[r] * HD + c, bv);
                 const float d2 = row_d2[r];
-                p.x = silu(av.x + bv.x + d2 * wd.x);
-                p.y = silu(av.y + bv.y + d2 * wd.y);
-                p.z = silu(av.z + bv.z + d2 * wd.z);
-                p.w = silu(av.w + bv.w + d2 * wd.w);
+#pragma unroll
+                for (int q4 = 0; q4 < NV / 4; ++q4) {
+                    const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d + c) + q4);
+                    p[4 * q4 + 0] = silu(av[4 * q4 + 0] + bv[4 * q4 + 0] + d2 * wd.x);
+                    p[4 * q4 + 1] = silu(av[4 * q4 + 1] + bv[4 * q4 + 1] + d2 * wd.y);
+                    p[4 * q4 + 2] = silu(av[4 * q4 + 2] + bv[4 * q4 + 2] + d2 * wd.z);
+                    p[4 * q4 + 3] = silu(av[4 * q4 + 3] + bv[4 * q4 + 3] + d2 * wd.w);
+                }
             }
-            *reinterpret_cast<float4*>(A + r * AS + 4 * c4) = p;
-            *reinterpret_cast<float4*>(s.m1 + (erow + r) * HD + 4 * c4) = p;
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4) {
+                const float4 pv = make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]);
+                *reinterpret_cast<float4*>(A + r * AS + c + 4 * q4) = pv;
+                *reinterpret_cast<float4*>(s.m1 + (erow + r) * HD + c + 4 * q4) = pv;
+            }
         }
         __syncthreads();
 
@@ -275,7 +292,7 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         // for the cotangent in the item's cot_u rows (each lane rereads and
         // overwrites its own fragments), which keeps shared memory for two
         // blocks per SM.
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_e2, A, ring, acc, tid);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -294,7 +311,7 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         __syncthreads();
 
         // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 (per row); cot_v.
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_x1, A, ring, acc, tid);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -328,7 +345,7 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         __syncthreads();
 
         // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u).
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1t, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_x1t, A, ring, acc, tid);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
             const float2 gv = my_i < L
@@ -355,7 +372,7 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
         __syncthreads();
 
         // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d (per row).
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2t, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_e2t, A, ring, acc, tid);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -364,12 +381,12 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
                 float sd = 0.f;
                 if (row_valid[r] > 0.f) {
                     const float d2 = row_d2[r];
-                    const float* a_i = a_b + (size_t)my_i * HD + ln.col0;
-                    const float* bs_j = bs_b + (size_t)row_j[r] * HD + ln.col0;
+                    const In* a_i = a_b + (size_t)my_i * HD + ln.col0;
+                    const In* bs_j = bs_b + (size_t)row_j[r] * HD + ln.col0;
 #pragma unroll
                     for (int nt = 0; nt < NT; ++nt) {
-                        const float2 av = __ldg(reinterpret_cast<const float2*>(a_i + nt * 8));
-                        const float2 bv = __ldg(reinterpret_cast<const float2*>(bs_j + nt * 8));
+                        const float2 av = load2(a_i + nt * 8);
+                        const float2 bv = load2(bs_j + nt * 8);
                         const float2 wd = __ldg(reinterpret_cast<const float2*>(w_d + ln.col0 + nt * 8));
 #pragma unroll
                         for (int c = 0; c < 2; ++c) {
@@ -435,10 +452,12 @@ egnn_bwd_edges(const float* __restrict__ a, const float* __restrict__ bs,
 
 // d_a, d_bs, d_x of residue (b, i): gathers over the 2W edges of i as a
 // receiver (d_a, d_x += d_rel) and as a sender (d_bs, d_x -= d_rel), in
-// offset order, skipping the rows of items with no valid edge.
+// offset order, skipping the rows of items with no valid edge. d_a, d_bs
+// are summed in fp32 and stored in Out, the type of a and bs.
+template <class Out>
 __global__ void __launch_bounds__(THREADS)
 egnn_bwd_nodes(const float* __restrict__ cotpre, const float* __restrict__ drel,
-               const int* __restrict__ flags, float* __restrict__ da, float* __restrict__ dbs,
+               const int* __restrict__ flags, Out* __restrict__ da, Out* __restrict__ dbs,
                float* __restrict__ dx, int L, int hd, int W) {
     extern __shared__ int erows[];   // [2][2W]: scratch row of (i, e) and of (i - d(e), e), or -1
     const int i = blockIdx.x, b = blockIdx.y;
@@ -462,8 +481,8 @@ egnn_bwd_nodes(const float* __restrict__ cotpre, const float* __restrict__ drel,
             if (erows[e] >= 0) sa += cotpre[(size_t)erows[e] * hd + c];
             if (erows[n_off + e] >= 0) sb += cotpre[(size_t)erows[n_off + e] * hd + c];
         }
-        da[row * hd + c] = sa;
-        dbs[row * hd + c] = sb;
+        store(da + row * hd + c, sa);
+        store(dbs + row * hd + c, sb);
     }
     if (threadIdx.x < 3) {
         const int d = threadIdx.x;
@@ -476,7 +495,7 @@ egnn_bwd_nodes(const float* __restrict__ cotpre, const float* __restrict__ drel,
     }
 }
 
-// Split-K weight grads on the tensor cores (3xTF32):
+// Split-K weight grads on the tensor cores (PASSES TF32 passes):
 // part[z][sl] = X_z[rows of slice sl]^T @ Y_z[same rows], z = 0: (m1, cot_u)
 // -> dW_e2, z = 1: (m, cot_v) -> dW_x1. One block per TW x TW output tile
 // and slice; 8 warps as 2 x 4, each (TW/2) x (TW/4). The slice's valid
@@ -490,7 +509,7 @@ struct Wgrad {
     static constexpr size_t smem(int per) { return sizeof(float) * STG * STAGE + sizeof(int) * per; }
 };
 
-template <int TW>
+template <int TW, int PASSES>
 __global__ void __launch_bounds__(THREADS)
 egnn_bwd_wgrad(const float* __restrict__ x0, const float* __restrict__ y0,
                const float* __restrict__ x1, const float* __restrict__ y1,
@@ -563,7 +582,7 @@ egnn_bwd_wgrad(const float* __restrict__ x0, const float* __restrict__ y0,
         for (int k8 = 0; k8 < C::KC; k8 += 8) {
             const float* xp = xs + (k8 + t) * C::XS + am;
             const float* yp = ys + (k8 + t) * C::XS + bn;
-            mma3_k8<C::MT, C::NT, STEP_SUM>(
+            mma_k8<C::MT, C::NT, PASSES, STEP_SUM>(
                 acc,
                 [&](int mt, float2& lo, float2& hi) {
                     lo = make_float2(xp[mt * 16], xp[4 * C::XS + mt * 16]);
@@ -611,32 +630,33 @@ __global__ void egnn_bwd_reduce(const float* __restrict__ wpart, const float* __
     }
 }
 
-template <int HD>
-cudaError_t launch(const float* const* in, float* da, float* dbs, float* dx, float* dw_e2,
-                   float* dw_x1, float* dvec, float* scratch, int B, int L, int W, int G,
-                   int nsplit, cudaStream_t stream) {
+template <int HD, class In, int PASSES>
+cudaError_t launch(const In* a, const In* bs, const float* const* in, In* da, In* dbs, float* dx,
+                   float* dw_e2, float* dw_x1, float* dvec, float* scratch, int B, int L, int W,
+                   int G, int nsplit, cudaStream_t stream) {
     if (G < 1 || nsplit < 1) return cudaErrorInvalidValue;
     Scratch s;
     scratch_floats(B, L, HD, W, G, nsplit, &s, scratch);
     const int items = n_items(B, L, W);
     constexpr size_t smem = sizeof(float) * BwdSmem<HD>::FLOATS;
-    cudaError_t err = cudaFuncSetAttribute(egnn_bwd_edges<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto edges = egnn_bwd_edges<HD, In, PASSES>;
+    cudaError_t err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
-    egnn_bwd_edges<HD><<<G, THREADS, smem, stream>>>(
-        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-        in[11], in[12], in[13], in[14], s, L, W, items);
+    edges<<<G, THREADS, smem, stream>>>(
+        a, bs, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
+        in[9], in[10], in[11], in[12], s, L, W, items);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    egnn_bwd_nodes<<<dim3(L, B), THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+    egnn_bwd_nodes<In><<<dim3(L, B), THREADS, 2 * 2 * W * sizeof(int), stream>>>(
         s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     constexpr int TW = HD < 128 ? HD : 128;
     const int per = (items + nsplit - 1) / nsplit;
     const size_t wsmem = Wgrad<TW>::smem(per);
-    err = cudaFuncSetAttribute(egnn_bwd_wgrad<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)wsmem);
+    auto wgrad = egnn_bwd_wgrad<TW, PASSES>;
+    err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
     if (err != cudaSuccess) return err;
-    egnn_bwd_wgrad<TW><<<dim3((HD / TW) * (HD / TW), nsplit, 2), THREADS, wsmem, stream>>>(
+    wgrad<<<dim3((HD / TW) * (HD / TW), nsplit, 2), THREADS, wsmem, stream>>>(
         s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart, items, HD, nsplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const size_t n_out = 2 * (size_t)HD * HD + NVEC * HD + 1;
@@ -645,63 +665,59 @@ cudaError_t launch(const float* const* in, float* da, float* dbs, float* dx, flo
     return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t occupancy(int* n) {
-    constexpr size_t smem = sizeof(float) * BwdSmem<HD>::FLOATS;
-    cudaError_t err = cudaFuncSetAttribute(egnn_bwd_edges<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, egnn_bwd_edges<HD>, THREADS, smem);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Floats of scratch one call needs (the caller allocates it), for a grid of
-// G edge-pass blocks and nsplit weight-grad slices.
+// G edge-pass blocks and nsplit weight-grad slices (the same in every mode).
 size_t egnn_band_bwd_scratch_floats(int B, int L, int hd, int W, int G, int nsplit) {
     return scratch_floats(B, L, hd, W, G, nsplit, nullptr, nullptr);
 }
 
-// Edge-pass blocks one SM holds at once (its persistent grid's slots per
-// SM), or a negative CUDA error code.
-int egnn_band_bwd_blocks_per_sm(int hd) {
+// Edge-pass blocks of the mode (bf16_in, passes) at width hd that one SM
+// holds at once (its persistent grid's slots per SM), or a negative CUDA
+// error code.
+int egnn_band_bwd_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    cudaError_t err = cudaErrorInvalidValue;
-    switch (hd) {
-        case 32:  err = occupancy<32>(&n); break;
-        case 64:  err = occupancy<64>(&n); break;
-        case 128: err = occupancy<128>(&n); break;
-        case 256: err = occupancy<256>(&n); break;
-    }
+    const cudaError_t err = dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
+        constexpr size_t smem = sizeof(float) * BwdSmem<decltype(hd_c)::value>::FLOATS;
+        auto edges = egnn_bwd_edges<decltype(hd_c)::value, typename decltype(in_c)::type,
+                                    decltype(p_c)::value>;
+        cudaError_t e = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edges, THREADS, smem);
+    });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch the four passes on `stream`; returns the CUDA error code (0 = success).
-// Device pointers to contiguous fp32 arrays, 16-byte aligned:
-// a, bs, g_agg [B, L, hd]; x, g_delta [B, L, 3]; cmask [B, L]; w_d, b_e2, b_x1,
-// w_x2 [hd]; w_e2, w_x1 and their transposes w_e2t, w_x1t [hd, hd]; b_x2 [1].
-// Outputs: da, dbs [B, L, hd]; dx [B, L, 3]; dw_e2, dw_x1 [hd, hd] (in, out);
-// dvec [4 hd + 1] = (dw_d, db_e2, db_x1, dw_x2, db_x2); scratch as sized above.
-// G: blocks of the persistent edge pass; nsplit: slices of the weight grads.
-int egnn_band_bwd_f32(const float* a, const float* bs, const float* x, const float* cmask,
-                      const float* w_d, const float* w_e2, const float* b_e2,
-                      const float* w_x1, const float* b_x1, const float* w_x2,
-                      const float* b_x2, const float* w_e2t, const float* w_x1t,
-                      const float* g_agg, const float* g_delta, float* da, float* dbs,
-                      float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
-                      int B, int L, int hd, int W, int G, int nsplit, void* stream) {
-    const float* in[15] = {a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+// Device pointers to contiguous arrays, 16-byte aligned: a, bs [B, L, hd] and
+// da, dbs [B, L, hd] in bf16 when bf16_in, else fp32; the rest fp32: g_agg
+// [B, L, hd]; x, g_delta [B, L, 3]; cmask [B, L]; w_d, b_e2, b_x1, w_x2 [hd];
+// w_e2, w_x1 and their transposes w_e2t, w_x1t [hd, hd]; b_x2 [1]; dx
+// [B, L, 3]; dw_e2, dw_x1 [hd, hd] (in, out); dvec [4 hd + 1] = (dw_d, db_e2,
+// db_x1, dw_x2, db_x2); scratch as sized above. passes: TF32 passes per
+// product (3 or 1). G: blocks of the persistent edge pass; nsplit: slices of
+// the weight grads.
+int egnn_band_bwd_launch(const void* a, const void* bs, const float* x, const float* cmask,
+                         const float* w_d, const float* w_e2, const float* b_e2,
+                         const float* w_x1, const float* b_x1, const float* w_x2,
+                         const float* b_x2, const float* w_e2t, const float* w_x1t,
+                         const float* g_agg, const float* g_delta, void* da, void* dbs,
+                         float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
+                         int B, int L, int hd, int W, int G, int nsplit, int bf16_in,
+                         int passes, void* stream) {
+    const float* in[13] = {x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                            w_e2t, w_x1t, g_agg, g_delta};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (hd) {
-        case 32:  return launch<32>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
-        case 64:  return launch<64>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
-        case 128: return launch<128>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
-        case 256: return launch<256>(in, da, dbs, dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
-        default:  return cudaErrorInvalidValue;
-    }
+    return dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
+        using In = typename decltype(in_c)::type;
+        return launch<decltype(hd_c)::value, In, decltype(p_c)::value>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), in, static_cast<In*>(da),
+            static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec, scratch, B, L, W, G, nsplit, s);
+    });
 }
 
 const char* egnn_band_bwd_error_string(int err) {

@@ -1,4 +1,5 @@
-// EGNN band forward: fused message passing of one banded EGNN layer, fp32.
+// EGNN band forward: fused message passing of one banded EGNN layer, fp32
+// chain, fp32 or bf16 inputs a / bs.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/egnn_band.py (entered through `egnn_band_fused`). For receiver i
@@ -10,17 +11,26 @@
 // valid = 0 <= j < L and cmask_i > 0.5 and cmask_j > 0.5. Nothing of size
 // K = 2W+1 reaches device memory.
 //
+// Modes (template arguments; egnn_tile.cuh): the input type In of a / bs,
+// fp32 or, from a bf16 model, bf16 (read as bf16 and widened in registers:
+// half the bytes), and the TF32 passes per product, the JAX side's
+// `precision`: 3 for Precision.HIGHEST (an fp32 model), 1 for
+// precision=None (a bf16 model). The chain and the outputs are fp32 in
+// every mode.
+//
 // What bounds it: operations. Per edge the two Hd x Hd products cost
 // 4*Hd^2 FLOP (262,144 at Hd=256) against ~2*Hd*4 bytes of fresh input, far
-// above the card's ridge. The products run on the tensor cores in 3xTF32
-// (egnn_tile.cuh), which reaches fp32 accuracy the way the JAX side's
-// Precision.HIGHEST does through multi-pass products on the TPU, with each
-// k8 step summed in round-to-nearest fp32 (STEP_SUM): without it the tensor
-// cores' round-toward-zero accumulation left errors of ~1e-6 of the output
-// that a whole model summed coherently. The rest of the chain is fp32 FMA.
-// The tensor-core floor is 3 x the FLOP at the TF32 rate; what holds the
-// kernel well above it is the latency of mma.sync's register-fed 3-pass
-// chains at 16 warps per SM (see PERF.md).
+// above the card's ridge. The products run on the tensor cores. In 3xTF32
+// they reach fp32 accuracy the way the JAX side's Precision.HIGHEST does
+// through multi-pass products on the TPU, with each k8 step summed in
+// round-to-nearest fp32 (STEP_SUM): without it the tensor cores'
+// round-toward-zero accumulation left errors of ~1e-6 of the output that a
+// whole model summed coherently. In one pass the operands' TF32 rounding
+// (~1e-3 relative) is three orders above that drift, so STEP_SUM is off.
+// The rest of the chain is fp32 FMA. The tensor-core floor is PASSES x the
+// FLOP at the TF32 rate; what holds the kernel well above it is the latency
+// of mma.sync's register-fed chains at 16 warps per SM and, in one pass,
+// the fp32 elementwise chain, which does not shrink (see PERF.md).
 //
 // Design:
 // - A block owns (batch row, tile of T = 8 receivers, slice of the band
@@ -56,7 +66,6 @@ using namespace egnn;
 
 constexpr int BK = 8;        // weight rows per ring chunk
 constexpr int STAGES = 4;    // ring depth
-constexpr bool STEP_SUM = true;   // round-to-nearest sum of each k8 step (egnn_tile.cuh)
 
 template <int HD>
 struct FwdSmem {
@@ -71,9 +80,9 @@ struct FwdSmem {
     static constexpr int FLOATS = J + M;
 };
 
-template <int HD>
+template <int HD, class In, int PASSES>
 __global__ void __launch_bounds__(THREADS, 2)
-egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
+egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                      const float* __restrict__ x, const float* __restrict__ cmask,
                      const float* __restrict__ w_d, const float* __restrict__ w_e2,
                      const float* __restrict__ b_e2, const float* __restrict__ w_x1,
@@ -83,6 +92,7 @@ egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
     using TL = Tile<HD>;
     using SM = FwdSmem<HD>;
     constexpr int MT = TL::MT, NT = TL::NT, AS = TL::AS;
+    constexpr bool STEP_SUM = PASSES == 3;   // round-to-nearest sum of each k8 step
     extern __shared__ float4 smem4[];
     float* sm = reinterpret_cast<float*>(smem4);
     float* A = sm + SM::A;
@@ -100,8 +110,8 @@ egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
     const Lane ln = Lane::of<HD>(tid);
     const int wn = (tid / 32) % TL::WN;
     const size_t row0 = (size_t)b * L;
-    const float* a_b = a + row0 * HD;
-    const float* bs_b = bs + row0 * HD;
+    const In* a_b = a + row0 * HD;
+    const In* bs_b = bs + row0 * HD;
     // with S > 1 slices, block z writes the z-th partial [S][B][L][...]
     agg += (size_t)blockIdx.z * B * L * HD;
     delta += (size_t)blockIdx.z * B * L * 3;
@@ -143,29 +153,39 @@ egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
         }
         if (!__syncthreads_or(v > 0.f)) continue;   // no valid edge: adds exact zeros
 
-        // A = silu(a_i + bs_j + d2 * w_d); rows of invalid edges are 0.
-        constexpr int HD4 = HD / 4;
+        // A = silu(a_i + bs_j + d2 * w_d); rows of invalid edges are 0. Each
+        // thread reads 16 bytes of a_i and of bs_j (NV values) at a time.
+        constexpr int NV = Vec<In>::N, HDV = HD / NV;
 #pragma unroll 4
-        for (int idx = tid; idx < M * HD4; idx += THREADS) {
-            const int r = idx / HD4, c4 = idx % HD4;
-            float4 p = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int idx = tid; idx < M * HDV; idx += THREADS) {
+            const int r = idx / HDV, c = NV * (idx % HDV);
+            float p[NV];
+#pragma unroll
+            for (int q = 0; q < NV; ++q) p[q] = 0.f;
             if (row_valid[r] > 0.f) {
                 const int i = i0 + r % T;
-                const float4 av = __ldg(reinterpret_cast<const float4*>(a_b + (size_t)i * HD) + c4);
-                const float4 bv = __ldg(reinterpret_cast<const float4*>(bs_b + (size_t)row_j[r] * HD) + c4);
-                const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d) + c4);
+                float av[NV], bv[NV];
+                load_vec(a_b + (size_t)i * HD + c, av);
+                load_vec(bs_b + (size_t)row_j[r] * HD + c, bv);
                 const float d2 = row_d2[r];
-                p.x = silu(av.x + bv.x + d2 * wd.x);
-                p.y = silu(av.y + bv.y + d2 * wd.y);
-                p.z = silu(av.z + bv.z + d2 * wd.z);
-                p.w = silu(av.w + bv.w + d2 * wd.w);
+#pragma unroll
+                for (int q4 = 0; q4 < NV / 4; ++q4) {
+                    const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d + c) + q4);
+                    p[4 * q4 + 0] = silu(av[4 * q4 + 0] + bv[4 * q4 + 0] + d2 * wd.x);
+                    p[4 * q4 + 1] = silu(av[4 * q4 + 1] + bv[4 * q4 + 1] + d2 * wd.y);
+                    p[4 * q4 + 2] = silu(av[4 * q4 + 2] + bv[4 * q4 + 2] + d2 * wd.z);
+                    p[4 * q4 + 3] = silu(av[4 * q4 + 3] + bv[4 * q4 + 3] + d2 * wd.w);
+                }
             }
-            *reinterpret_cast<float4*>(A + r * AS + 4 * c4) = p;
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4)
+                *reinterpret_cast<float4*>(A + r * AS + c + 4 * q4) =
+                    make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]);
         }
         __syncthreads();
 
         // m = silu(A @ W_e2 + b_e2); agg += valid * m; A = m.
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_e2, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_e2, A, ring, acc, tid);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -188,7 +208,7 @@ egnn_band_fwd_kernel(const float* __restrict__ a, const float* __restrict__ bs,
         __syncthreads();
 
         // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2, reduced per row.
-        gemm_tile<HD, BK, STAGES, STEP_SUM>(w_x1, A, ring, acc, tid);
+        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_x1, A, ring, acc, tid);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -281,20 +301,22 @@ egnn_band_fwd_sum(const float* __restrict__ part_agg, const float* __restrict__ 
     }
 }
 
-template <int HD>
-cudaError_t launch(const float* const* in, float* agg, float* delta, float* part_agg,
-                   float* part_delta, int B, int L, int W, int S, cudaStream_t stream) {
+template <int HD, class In, int PASSES>
+cudaError_t launch(const In* a, const In* bs, const float* const* in, float* agg, float* delta,
+                   float* part_agg, float* part_delta, int B, int L, int W, int S,
+                   cudaStream_t stream) {
     constexpr size_t smem = sizeof(float) * FwdSmem<HD>::FLOATS;
-    cudaError_t err = cudaFuncSetAttribute(egnn_band_fwd_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kernel = egnn_band_fwd_kernel<HD, In, PASSES>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return err;
     const int n_steps = (2 * W + OPS - 1) / OPS;
     const int per = (n_steps + S - 1) / S;
     if (S < 1 || (S - 1) * per >= n_steps || (S > 1 && (!part_agg || !part_delta)))
         return cudaErrorInvalidValue;   // every slice must own at least one step
     dim3 grid((L + T - 1) / T, B, S);
-    egnn_band_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
-        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+    kernel<<<grid, THREADS, smem, stream>>>(
+        a, bs, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
         S > 1 ? part_agg : agg, S > 1 ? part_delta : delta, L, W, per);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
     const size_t n_agg4 = (size_t)B * L * HD / 4, n_delta = (size_t)B * L * 3;
@@ -304,53 +326,49 @@ cudaError_t launch(const float* const* in, float* agg, float* delta, float* part
     return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t occupancy(int* n) {
-    constexpr size_t smem = sizeof(float) * FwdSmem<HD>::FLOATS;
-    cudaError_t err = cudaFuncSetAttribute(egnn_band_fwd_kernel<HD>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, egnn_band_fwd_kernel<HD>, THREADS, smem);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Blocks one SM holds at once, or a negative CUDA error code.
-int egnn_band_fwd_blocks_per_sm(int hd) {
+// Blocks of the mode (bf16_in, passes) at width hd that one SM holds at
+// once, or a negative CUDA error code.
+int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    cudaError_t err = cudaErrorInvalidValue;
-    switch (hd) {
-        case 32:  err = occupancy<32>(&n); break;
-        case 64:  err = occupancy<64>(&n); break;
-        case 128: err = occupancy<128>(&n); break;
-        case 256: err = occupancy<256>(&n); break;
-    }
+    const cudaError_t err = dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
+        constexpr size_t smem = sizeof(float) * FwdSmem<decltype(hd_c)::value>::FLOATS;
+        auto kernel = egnn_band_fwd_kernel<decltype(hd_c)::value, typename decltype(in_c)::type,
+                                           decltype(p_c)::value>;
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, smem);
+    });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = success).
-// All pointers are device pointers to contiguous fp32 arrays, 16-byte aligned:
-// a, bs [B, L, hd]; x [B, L, 3]; cmask [B, L]; w_d, b_e2, b_x1, w_x2 [hd];
-// w_e2, w_x1 [hd, hd] (in, out); b_x2 [1]; agg [B, L, hd]; delta [B, L, 3].
-// S: slices of the 2W band offsets (1 = one block per (batch row, tile));
-// S > 1 needs part_agg [S, B, L, hd] and part_delta [S, B, L, 3] and runs a
-// second kernel that sums them in slice order.
-int egnn_band_fwd_f32(const float* a, const float* bs, const float* x, const float* cmask,
-                      const float* w_d, const float* w_e2, const float* b_e2,
-                      const float* w_x1, const float* b_x1, const float* w_x2,
-                      const float* b_x2, float* agg, float* delta, float* part_agg,
-                      float* part_delta, int B, int L, int hd, int W, int S, void* stream) {
-    const float* in[11] = {a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
+// All pointers are device pointers to contiguous arrays, 16-byte aligned:
+// a, bs [B, L, hd], bf16 when bf16_in, else fp32; the rest fp32: x [B, L, 3];
+// cmask [B, L]; w_d, b_e2, b_x1, w_x2 [hd]; w_e2, w_x1 [hd, hd] (in, out);
+// b_x2 [1]; agg [B, L, hd]; delta [B, L, 3]. passes: TF32 passes per product
+// (3 = fp32 accuracy, 1 = one-pass TF32). S: slices of the 2W band offsets
+// (1 = one block per (batch row, tile)); S > 1 needs part_agg [S, B, L, hd]
+// and part_delta [S, B, L, 3] and runs a second kernel that sums them in
+// slice order.
+int egnn_band_fwd_launch(const void* a, const void* bs, const float* x, const float* cmask,
+                         const float* w_d, const float* w_e2, const float* b_e2,
+                         const float* w_x1, const float* b_x1, const float* w_x2,
+                         const float* b_x2, float* agg, float* delta, float* part_agg,
+                         float* part_delta, int B, int L, int hd, int W, int S, int bf16_in,
+                         int passes, void* stream) {
+    const float* in[9] = {x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (hd) {
-        case 32:  return launch<32>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
-        case 64:  return launch<64>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
-        case 128: return launch<128>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
-        case 256: return launch<256>(in, agg, delta, part_agg, part_delta, B, L, W, S, s);
-        default:  return cudaErrorInvalidValue;
-    }
+    return dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
+        using In = typename decltype(in_c)::type;
+        return launch<decltype(hd_c)::value, In, decltype(p_c)::value>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), in, agg, delta, part_agg,
+            part_delta, B, L, W, S, s);
+    });
 }
 
 const char* egnn_band_fwd_error_string(int err) {

@@ -1,17 +1,27 @@
 // Shared pieces of the EGNN band kernels (egnn_band_fwd.cu, egnn_band_bwd.cu):
-// a 64-edge-row x Hd tile times an Hd x Hd weight on the tensor cores, at
-// fp32 accuracy.
+// a 64-edge-row x Hd tile times an Hd x Hd weight on the tensor cores.
 //
-// Products: 3xTF32 with mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
-// Each fp32 operand is split in registers as it is loaded,
-//     big = rna_tf32(x),  small = rna_tf32(x - big)
-// (rna_tf32: cvt.rna.tf32.f32's rounding, in integer operations), and the
-// tile accumulates small*big + big*small + big*big in fp32. That
-// keeps ~22 of fp32's 24 significant bits per product (one TF32 pass keeps
-// ~11): it is how the JAX side's Precision.HIGHEST reaches fp32 accuracy
-// through multi-pass products on the TPU. mma.sync takes its fragments from
-// registers, so the split costs no shared memory (wgmma would need split
-// copies of both operands in swizzled shared memory).
+// Products: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, in one of
+// two modes (PASSES), the JAX side's `precision` argument:
+// - 3 passes (Precision.HIGHEST, an fp32 model): each fp32 operand is split
+//   in registers as it is loaded,
+//       big = rna_tf32(x),  small = rna_tf32(x - big)
+//   (rna_tf32: cvt.rna.tf32.f32's rounding, in integer operations), and the
+//   tile accumulates small*big + big*small + big*big in fp32. That keeps ~22
+//   of fp32's 24 significant bits per product: it is how Precision.HIGHEST
+//   reaches fp32 accuracy through multi-pass products on the TPU.
+// - 1 pass (precision=None, a bf16 model): each operand is rounded once,
+//   big*big, ~11 significant bits per product, fp32 accumulation. It is the
+//   backend's fast product on fp32 operands (XLA:GPU's TF32); the JAX side's
+//   bf16 model asks for it because its projections a, bs are bf16 already.
+// mma.sync takes its fragments from registers, so the split costs no shared
+// memory (wgmma would need split copies of both operands in swizzled shared
+// memory).
+//
+// Inputs a and bs arrive as fp32 or, from a bf16 model, as bf16. They are
+// read as they lie, 16 bytes per load (4 fp32 or 8 bf16 values), and
+// widened to fp32 in registers (exactly: a bf16 value is the top half of
+// an fp32 one); the edge chain runs in fp32 either way.
 //
 // Layout: 256 threads = 8 warps as WM x WN; warp (wm, wn) owns MT m16 row
 // tiles and NT n8 column tiles. A lane (group g = lane / 4, t = lane % 4)
@@ -34,6 +44,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace egnn {
@@ -88,6 +100,41 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// Values of input type In per 16-byte load.
+template <class In>
+struct Vec {
+    static_assert(std::is_same<In, float>::value || std::is_same<In, __nv_bfloat16>::value,
+                  "a and bs are fp32 or bf16");
+    static constexpr int N = 16 / sizeof(In);
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+// Vec<In>::N consecutive values at p (16-byte aligned), as fp32.
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x); v[2] = bf16_lo(q.y); v[3] = bf16_hi(q.y);
+    v[4] = bf16_lo(q.z); v[5] = bf16_hi(q.z); v[6] = bf16_lo(q.w); v[7] = bf16_hi(q.w);
+}
+
+// Two consecutive values at p (aligned to two values), as fp32.
+__device__ __forceinline__ float2 load2(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+    return make_float2(bf16_lo(u), bf16_hi(u));
+}
+
+// v rounded to the output type (to nearest even for bf16, as torch's and JAX's casts).
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // cvt.rna.tf32.f32's rounding of a finite x (to nearest, ties away from
 // zero: add half of the 13 dropped bits to the magnitude, then clear them),
 // done with two integer operations. The conversion instruction issues at a
@@ -112,62 +159,82 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 3xTF32 k8 step of an MT x NT warp tile. afrag(mt, lo, hi) loads the
-// lane's A values (rows g and g + 8 of row tile mt: lo = (slot t, slot t+4)
-// of row g, hi = the same of row g + 8); bfrag(nt, b0, b1) its B values
-// (slots t and t + 4 of column g of column tile nt).
+// d[nt] += A (16 x 8) * B[nt] (8 x 8) for the NT column tiles, in PASSES
+// passes over the split operands (big, small); small terms first, the
+// passes of one accumulator interleaved with the other column tiles' for
+// latency. With one pass only big * big (al, bl are not read).
+template <int NT, int PASSES>
+__device__ __forceinline__ void mma_passes(float (&d)[NT][4], const uint32_t (&ab)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bb)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+    if constexpr (PASSES == 3) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], al, bb[nt]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ab, bl[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ab, bb[nt]);
+}
+
+// One k8 step of an MT x NT warp tile in PASSES TF32 passes (3 or 1, see
+// the top of this file). afrag(mt, lo, hi) loads the lane's A values (rows g
+// and g + 8 of row tile mt: lo = (slot t, slot t+4) of row g, hi = the same
+// of row g + 8); bfrag(nt, b0, b1) its B values (slots t and t + 4 of
+// column g of column tile nt).
 //
 // STEP_SUM: the tensor cores round their fp32 accumulation toward zero, so
-// a K = 256 product accumulated in one mma accumulator (96 truncating adds)
-// drifts by ~1e-6 of its value, always in the same direction, and a model
-// sums that drift coherently. With STEP_SUM each k8 step's three products
-// start from zero and the step's sum is added to acc with an ordinary
-// (round-to-nearest) fp32 add: the error correction of Ootomo and Yokota's
-// 3xTF32 scheme, for 4 adds per mma tile and step.
-template <int MT, int NT, bool STEP_SUM, class AF, class BF>
-__device__ __forceinline__ void mma3_k8(float (&acc)[MT][NT][4], AF afrag, BF bfrag) {
+// a K = 256 product accumulated in one mma accumulator (96 truncating adds
+// in 3 passes) drifts by ~1e-6 of its value, always in the same direction,
+// and a model sums that drift coherently. With STEP_SUM each k8 step's
+// products start from zero and the step's sum is added to acc with an
+// ordinary (round-to-nearest) fp32 add: the error correction of Ootomo and
+// Yokota's 3xTF32 scheme, for 4 adds per mma tile and step.
+template <int MT, int NT, int PASSES, bool STEP_SUM, class AF, class BF>
+__device__ __forceinline__ void mma_k8(float (&acc)[MT][NT][4], AF afrag, BF bfrag) {
+    static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
     uint32_t bb[NT][2], bl[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
         float b0, b1;
         bfrag(nt, b0, b1);
-        split_tf32(b0, bb[nt][0], bl[nt][0]);
-        split_tf32(b1, bb[nt][1], bl[nt][1]);
+        if constexpr (PASSES == 3) {
+            split_tf32(b0, bb[nt][0], bl[nt][0]);
+            split_tf32(b1, bb[nt][1], bl[nt][1]);
+        } else {
+            bb[nt][0] = rna_tf32(b0);
+            bb[nt][1] = rna_tf32(b1);
+        }
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
         float2 lo, hi;
         afrag(mt, lo, hi);
         uint32_t ab[4], al[4];
-        split_tf32(lo.x, ab[0], al[0]);   // a0: row g,     slot t
-        split_tf32(hi.x, ab[1], al[1]);   // a1: row g + 8, slot t
-        split_tf32(lo.y, ab[2], al[2]);   // a2: row g,     slot t + 4
-        split_tf32(hi.y, ab[3], al[3]);   // a3: row g + 8, slot t + 4
-        // small terms first; the three passes of one accumulator are
-        // interleaved with the other column tiles' for latency.
+        if constexpr (PASSES == 3) {
+            split_tf32(lo.x, ab[0], al[0]);   // a0: row g,     slot t
+            split_tf32(hi.x, ab[1], al[1]);   // a1: row g + 8, slot t
+            split_tf32(lo.y, ab[2], al[2]);   // a2: row g,     slot t + 4
+            split_tf32(hi.y, ab[3], al[3]);   // a3: row g + 8, slot t + 4
+        } else {
+            ab[0] = rna_tf32(lo.x);
+            ab[1] = rna_tf32(hi.x);
+            ab[2] = rna_tf32(lo.y);
+            ab[3] = rna_tf32(hi.y);
+        }
         if constexpr (STEP_SUM) {
             float step[NT][4];
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
                 for (int q = 0; q < 4; ++q) step[nt][q] = 0.f;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], al, bb[nt]);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], ab, bl[nt]);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(step[nt], ab, bb[nt]);
+            mma_passes<NT, PASSES>(step, ab, al, bb, bl);
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
                 for (int q = 0; q < 4; ++q) acc[mt][nt][q] += step[nt][q];
         } else {
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], al, bb[nt]);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], ab, bl[nt]);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], ab, bb[nt]);
+            mma_passes<NT, PASSES>(acc[mt], ab, al, bb, bl);
         }
     }
 }
@@ -193,9 +260,9 @@ struct Ring {
 
 // acc = A @ W: A is the [M][AS] tile in shared memory, w [HD][HD] in device
 // memory, streamed through `ring` (Ring<HD, BK, STAGES>::FLOATS floats);
-// STEP_SUM as in mma3_k8. The caller has synchronised after writing A. Ends
+// PASSES and STEP_SUM as in mma_k8. The caller has synchronised after writing A. Ends
 // with a block barrier, after which A and the ring may be overwritten.
-template <int HD, int BK, int STAGES, bool STEP_SUM>
+template <int HD, int BK, int STAGES, int PASSES, bool STEP_SUM>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ w, const float* A,
                                           float* ring,
                                           float (&acc)[Tile<HD>::MT][Tile<HD>::NT][4],
@@ -229,7 +296,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ w, const flo
         for (int k8 = 0; k8 < BK; k8 += 8) {
             const int k = kc * BK + k8;
             const float* bp = wb + (k8 + 2 * ln.t) * BS + bcol;
-            mma3_k8<TL::MT, TL::NT, STEP_SUM>(
+            mma_k8<TL::MT, TL::NT, PASSES, STEP_SUM>(
                 acc,
                 [&](int mt, float2& lo, float2& hi) {
                     lo = *reinterpret_cast<const float2*>(a_lane + mt * 16 * AS + k);
@@ -270,5 +337,32 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // Band offset of non-self offset slot e in [0, 2W): -W..-1, 1..W.
 __device__ __forceinline__ int band_offset(int e, int W) { return e < W ? e - W : e - W + 1; }
+
+template <class In>
+struct Type { using type = In; };
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<HD>{}, Type<In>{}, Int<PASSES>{}) for the run-time hidden width hd
+// (32, 64, 128 or 256), input type In of a / bs (bf16 when bf16_in, else
+// fp32) and TF32 passes (1 or 3); cudaErrorInvalidValue for anything else.
+template <class F>
+cudaError_t dispatch(int hd, int bf16_in, int passes, F&& f) {
+    auto by_hd = [&](auto t, auto p) -> cudaError_t {
+        switch (hd) {
+            case 32:  return f(Int<32>{}, t, p);
+            case 64:  return f(Int<64>{}, t, p);
+            case 128: return f(Int<128>{}, t, p);
+            case 256: return f(Int<256>{}, t, p);
+            default:  return cudaErrorInvalidValue;
+        }
+    };
+    auto by_passes = [&](auto t) -> cudaError_t {
+        if (passes == 1) return by_hd(t, Int<1>{});
+        if (passes == 3) return by_hd(t, Int<3>{});
+        return cudaErrorInvalidValue;
+    };
+    return bf16_in ? by_passes(Type<__nv_bfloat16>{}) : by_passes(Type<float>{});
+}
 
 }  // namespace egnn

@@ -70,12 +70,15 @@ def _kl_unit_gauss(mu: Tensor, lv: Tensor) -> Tensor:
 
 
 def kl_global(mu: Tensor, lv: Tensor) -> Tensor:
-    """Mean over the batch of the per-sample summed KL."""
+    """Mean over the batch of the per-sample summed KL. In the dtype of
+    ``mu`` / ``lv`` (bf16 from a bf16 encoder, as in JAX; the sums
+    accumulate in fp32 and round once); the weighted total is fp32."""
     return torch.mean(torch.sum(_kl_unit_gauss(mu, lv), dim=1))
 
 
 def kl_local(mu: Tensor, lv: Tensor, mask: Tensor) -> Tensor:
-    """Masked mean over residues of the per-residue summed KL."""
+    """Masked mean over residues of the per-residue summed KL; the fp32
+    mask promotes a bf16 KL to fp32, as in JAX."""
     kl = torch.sum(_kl_unit_gauss(mu, lv), dim=-1)
     return torch.sum(kl * mask) / _floor1(torch.sum(mask))
 

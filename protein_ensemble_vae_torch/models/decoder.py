@@ -7,15 +7,22 @@ band over mask-compacted sequences:
 1. ``compact_valid`` permutes each row valid-first (stable), so the window
    graph on compacted indices is the graph over valid residues.
 2. Message passing runs in ``ops.kernels.egnn_band``: the CUDA kernel for
-   CUDA tensors, the plain band-gather version otherwise (``ops/routing.py``).
+   CUDA tensors, the kernel's plain version for CPU tensors
+   (``ops/routing.py``); with ``use_pallas=False``, in ``band_chain``
+   with the edge chain in the compute dtype, as the JAX package's XLA band
+   path runs it.
 3. The edge MLP's first layer is split algebraically:
    ``W.[h_i, h_j, d^2] = W_i.h_i + W_j.h_j + w_d.d^2``.
 4. Results scatter back through the inverse permutation; padded positions
    emit zeros.
 
 The EGNN edge weights stay raw parameters in the JAX package's [in, out]
-layout, the layout the kernel reads. ``l2c_out``, ``seq_out``, ``n_off2``,
-``c_off2`` and the coordinates are fp32.
+layout, the layout the kernel reads. ``dtype`` is the compute dtype
+(``models/init.py``): with bf16, ``zc``, ``h`` and the projections ``a_i`` /
+``b_j`` are bf16; ``l2c_out``, ``seq_out``, ``n_off2`` and ``c_off2``
+compute in fp32 from their bf16 input, and the coordinates stay fp32. The
+band kernels then read bf16 ``a_i`` / ``b_j`` and make one-pass TF32
+products (``precision="default"``, JAX ``None``), with the chain in fp32.
 """
 
 from __future__ import annotations
@@ -27,12 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from protein_ensemble_vae_torch.models.encoder import layer_norm
-from protein_ensemble_vae_torch.models.init import linear, uniform_
+from protein_ensemble_vae_torch.models.init import layer_norm, linear, uniform_
 from protein_ensemble_vae_torch.ops.geometry import (compact_valid, safe_norm,
                                                      safe_normalize,
                                                      scatter_compact)
-from protein_ensemble_vae_torch.ops.kernels.egnn_band import (band_indices,
+from protein_ensemble_vae_torch.ops.kernels.egnn_band import (band_chain,
+                                                              band_indices,
                                                               egnn_band_fused)
 
 Tensor = torch.Tensor
@@ -54,10 +61,12 @@ class EGNNBandLayer(nn.Module):
     phi_x: m_ij -> scalar w_ij; x_i += 0.2 * deg^-1 * sum_j w_ij (x_i - x_j)
     """
 
-    def __init__(self, hidden_in: int, hidden: int, use_pallas: object = False):
+    def __init__(self, hidden_in: int, hidden: int, use_pallas: object = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         Hin, Hd = hidden_in, hidden
         self.use_pallas = use_pallas
+        self.dtype = dtype
         # The split first layer is one matrix W[2H+1, Hd]: all three pieces
         # and the bias use the JOINT fan-in.
         fan_e1 = 2 * Hin + 1
@@ -71,22 +80,34 @@ class EGNNBandLayer(nn.Module):
         self.phi_x1_bias = _param((Hd,), Hd)
         self.phi_x2_kernel = _param((Hd, 1), Hd)
         self.phi_x2_bias = _param((1,), Hd)
-        self.phi_h1 = linear(Hin + Hd, Hd)
-        self.phi_h2 = linear(Hd, Hin)
-        self.norm_h = layer_norm(Hin)
+        self.phi_h1 = linear(Hin + Hd, Hd, dtype=dtype)
+        self.phi_h2 = linear(Hd, Hin, dtype=dtype)
+        self.norm_h = layer_norm(Hin, dtype)
 
-    def forward(self, h: Tensor, x: Tensor, deg_inv: Tensor, cmask: Tensor,
-                W: int) -> tuple[Tensor, Tensor]:
-        a_i = h @ self.phi_e1_hi_kernel + self.phi_e1_hi_bias
-        b_j = h @ self.phi_e1_hj_kernel
-        agg, raw_delta = egnn_band_fused(
-            a_i, b_j, x, cmask, self.phi_e1_d2_kernel, self.phi_e2_kernel,
-            self.phi_e2_bias, self.phi_x1_kernel, self.phi_x1_bias,
-            self.phi_x2_kernel, self.phi_x2_bias, W, self.use_pallas)
-        hu = F.silu(self.phi_h1(torch.cat([h, agg], dim=-1)))
+    def forward(self, h: Tensor, x: Tensor, nbr_idx: Tensor, nbr_valid: Tensor,
+                deg_inv: Tensor, cmask: Tensor) -> tuple[Tensor, Tensor]:
+        dt = self.dtype
+        hc = h.to(dt)
+        a_i = hc @ self.phi_e1_hi_kernel.to(dt) + self.phi_e1_hi_bias.to(dt)
+        b_j = hc @ self.phi_e1_hj_kernel.to(dt)
+        edge = (self.phi_e1_d2_kernel, self.phi_e2_kernel, self.phi_e2_bias,
+                self.phi_x1_kernel, self.phi_x1_bias, self.phi_x2_kernel,
+                self.phi_x2_bias)
+        if not self.use_pallas:
+            agg, raw_delta = band_chain(a_i, b_j, x, nbr_idx, nbr_valid, *edge, dt)
+        else:
+            # the kernel (or, for CPU tensors, its plain version): fp32
+            # chain; an fp32 model's products at fp32 accuracy, a bf16
+            # model's in one TF32 pass, as the JAX side's precision
+            W = (nbr_idx.shape[1] - 1) // 2
+            precision = "highest" if dt == torch.float32 else "default"
+            agg, raw_delta = egnn_band_fused(a_i, b_j, x, cmask, *edge, W,
+                                             self.use_pallas, precision)
+            agg = agg.to(dt)
+        hu = F.silu(self.phi_h1(torch.cat([hc, agg], dim=-1)))
         hu = self.phi_h2(hu)
         h = self.norm_h(h + hu)
-        x = x + raw_delta * deg_inv[..., None] * 0.2
+        x = x + raw_delta.to(x.dtype) * deg_inv[..., None] * 0.2
         return h, x
 
 
@@ -97,30 +118,32 @@ class EGNNDecoder(nn.Module):
     def __init__(self, z_g: int, z_l: int, hidden: int = 256,
                  num_layers: int = 8, max_neighbors: int = 40,
                  dropout: float = 0.1, degree_normalize: bool = True,
-                 remat: bool = False, use_pallas: object = False):
+                 remat: bool = False, use_pallas: object = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_layers = num_layers
         self.remat = remat
         self.max_neighbors = max_neighbors
         self.degree_normalize = degree_normalize
         zc = z_g + z_l
-        self.l2c_dense1 = linear(zc, hidden)
-        self.l2c_norm = layer_norm(hidden)
-        self.l2c_dense2 = linear(hidden, hidden // 2)
+        self.l2c_dense1 = linear(zc, hidden, dtype=dtype)
+        self.l2c_norm = layer_norm(hidden, dtype)
+        self.l2c_dense2 = linear(hidden, hidden // 2, dtype=dtype)
         self.l2c_out = linear(hidden // 2, 3, kernel_scale=0.1, zero_bias=True)
-        self.input_embedding = linear(zc, hidden)
+        self.input_embedding = linear(zc, hidden, dtype=dtype)
         # named egnn_{i}, as in the Flax tree, so parameter paths match
         for i in range(num_layers):
             self.add_module(f"egnn_{i}",
-                            EGNNBandLayer(hidden, hidden, use_pallas))
-        self.seq_dense1 = linear(hidden, hidden * 2)
-        self.seq_norm1 = layer_norm(hidden * 2)
-        self.seq_dense2 = linear(hidden * 2, hidden)
-        self.seq_norm2 = layer_norm(hidden)
+                            EGNNBandLayer(hidden, hidden, use_pallas, dtype))
+        self.seq_dense1 = linear(hidden, hidden * 2, dtype=dtype)
+        self.seq_norm1 = layer_norm(hidden * 2, dtype)
+        self.seq_dense2 = linear(hidden * 2, hidden, dtype=dtype)
+        self.seq_norm2 = layer_norm(hidden, dtype)
         self.seq_out = linear(hidden, 20)
-        self.n_off1 = linear(hidden, hidden // 2)
+        self.n_off1 = linear(hidden, hidden // 2, dtype=dtype)
         self.n_off2 = linear(hidden // 2, 4)
-        self.c_off1 = linear(hidden, hidden // 2)
+        self.c_off1 = linear(hidden, hidden // 2, dtype=dtype)
         self.c_off2 = linear(hidden // 2, 4)
         self.drop = nn.Dropout(dropout)
         self.drop_half = nn.Dropout(dropout * 0.5)
@@ -135,7 +158,7 @@ class EGNNDecoder(nn.Module):
         pos, inv_pos, cmask = compact_valid(mask)
         zl_c = torch.gather(z_l, 1, pos[..., None].expand(-1, -1, z_l.shape[-1]))
         zg_rep = z_g[:, None, :].expand(B, L, z_g.shape[-1])
-        zc = torch.cat([zg_rep, zl_c], dim=-1)
+        zc = torch.cat([zg_rep, zl_c], dim=-1).to(self.dtype)
 
         t = F.relu(self.l2c_norm(self.l2c_dense1(zc)))
         t = self.drop_half(t)
@@ -160,10 +183,10 @@ class EGNNDecoder(nn.Module):
                 # Remat (ModelConfig.decoder_remat): keep only the layer's
                 # inputs and recompute it in the backward. The band kernel's
                 # forward then runs twice per layer per training step.
-                h, x = checkpoint(layer, h, x, deg_inv, cmask, W,
-                                  use_reentrant=False)
+                h, x = checkpoint(layer, h, x, nbr_idx, nbr_valid, deg_inv,
+                                  cmask, use_reentrant=False)
             else:
-                h, x = layer(h, x, deg_inv, cmask, W)
+                h, x = layer(h, x, nbr_idx, nbr_valid, deg_inv, cmask)
             h = self.drop(h)
 
         s = F.relu(self.seq_norm1(self.seq_dense1(h)))

@@ -15,6 +15,9 @@ Parity details with Flax:
   logits filled with ``finfo.min`` (a row whose keys are all masked stays
   finite: uniform weights), softmax in fp32. ``scaled_dot_product_attention``
   is not used: it returns NaN on a fully masked row.
+- ``dtype`` is the compute dtype (``models/init.py``): with bf16 every
+  projection, attention product and LayerNorm output is bf16, parameters
+  stay fp32, and ``mu`` / ``logvar`` come out bf16, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,15 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from protein_ensemble_vae_torch.models.init import lecun_normal_, linear
+from protein_ensemble_vae_torch.models.init import (Linear, layer_norm,
+                                                    lecun_normal_, linear)
 
 Tensor = torch.Tensor
-
-LN_EPS = 1e-6   # Flax LayerNorm default
-
-
-def layer_norm(d: int) -> nn.LayerNorm:
-    return nn.LayerNorm(d, eps=LN_EPS)
 
 
 def sinusoidal_pe(length: int, d_model: int, device=None,
@@ -57,15 +55,16 @@ class MultiHeadDotProductAttention(nn.Module):
     them. Fresh weights follow Flax's init: lecun-normal, zero bias.
     """
 
-    def __init__(self, d: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d={d} not divisible by num_heads={num_heads}")
         self.num_heads = num_heads
-        self.query = nn.Linear(d, d)
-        self.key = nn.Linear(d, d)
-        self.value = nn.Linear(d, d)
-        self.out = nn.Linear(d, d)
+        self.query = Linear(d, d, dtype=dtype)
+        self.key = Linear(d, d, dtype=dtype)
+        self.value = Linear(d, d, dtype=dtype)
+        self.out = Linear(d, d, dtype=dtype)
         for lin in (self.query, self.key, self.value, self.out):
             lecun_normal_(lin.weight, d)
             nn.init.zeros_(lin.bias)
@@ -87,6 +86,10 @@ class MultiHeadDotProductAttention(nn.Module):
         if mask is not None:
             keep = mask.bool()[:, None, None, :]
             logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
+        # The softmax runs in fp32 also for bf16 logits (Flax's bf16 module
+        # takes it in bf16, force_fp32_for_softmax=False): the weights are
+        # rounded once, to bf16, instead of every step of the softmax, and a
+        # fully masked row (all finfo(bf16).min) stays uniform.
         weights = F.softmax(logits.float(), dim=-1).to(q.dtype)
         weights = self.dropout(weights)
         o = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Lq, d)
@@ -96,13 +99,14 @@ class MultiHeadDotProductAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm transformer layer, ReLU FFN: x += attn(LN(x)); x += ffn(LN(x))."""
 
-    def __init__(self, d_model: int, nhead: int, ff: int, dropout: float = 0.1):
+    def __init__(self, d_model: int, nhead: int, ff: int, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = layer_norm(d_model)
-        self.self_attn = MultiHeadDotProductAttention(d_model, nhead, dropout)
-        self.norm2 = layer_norm(d_model)
-        self.linear1 = linear(d_model, ff)
-        self.linear2 = linear(ff, d_model)
+        self.norm1 = layer_norm(d_model, dtype)
+        self.self_attn = MultiHeadDotProductAttention(d_model, nhead, dropout, dtype)
+        self.norm2 = layer_norm(d_model, dtype)
+        self.linear1 = linear(d_model, ff, dtype=dtype)
+        self.linear2 = linear(ff, d_model, dtype=dtype)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: Tensor, mask: Optional[Tensor]) -> Tensor:
@@ -119,26 +123,27 @@ class DihedralAwareEncoder(nn.Module):
     """Feature fusion + geometric attention + transformer stack."""
 
     def __init__(self, seq_dim: int, d_model: int = 512, nhead: int = 8,
-                 ff: int = 1024, nlayers: int = 6, dropout: float = 0.1):
+                 ff: int = 1024, nlayers: int = 6, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d = d_model
         self.d_model = d
-        self.coord_proj = linear(9, d // 4)
-        self.coord_norm = layer_norm(d // 4)
-        self.dihedral_proj = linear(6, d // 4)
-        self.dihedral_norm = layer_norm(d // 4)
-        self.seq_proj = linear(seq_dim, d // 2)
-        self.fusion_dense = linear(d // 2 + 2 * (d // 4), d)
-        self.fusion_norm = layer_norm(d)
+        self.coord_proj = linear(9, d // 4, dtype=dtype)
+        self.coord_norm = layer_norm(d // 4, dtype)
+        self.dihedral_proj = linear(6, d // 4, dtype=dtype)
+        self.dihedral_norm = layer_norm(d // 4, dtype)
+        self.seq_proj = linear(seq_dim, d // 2, dtype=dtype)
+        self.fusion_dense = linear(d // 2 + 2 * (d // 4), d, dtype=dtype)
+        self.fusion_norm = layer_norm(d, dtype)
         self.geom_res_scale = nn.Parameter(torch.tensor(0.1))
         self.geometric_attention = MultiHeadDotProductAttention(
-            d, max(nhead // 2, 1), dropout)
+            d, max(nhead // 2, 1), dropout, dtype)
         # named layer_{i}, as in the Flax tree, so parameter paths match
         self.nlayers = nlayers
         for i in range(nlayers):
             self.add_module(f"layer_{i}",
-                            TransformerEncoderLayer(d, nhead, ff, dropout))
-        self.final_norm = layer_norm(d)
+                            TransformerEncoderLayer(d, nhead, ff, dropout, dtype))
+        self.final_norm = layer_norm(d, dtype)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, seq_emb: Tensor, n_coords: Tensor, ca_coords: Tensor,
@@ -164,20 +169,21 @@ class HierLatent(nn.Module):
     local."""
 
     def __init__(self, d_model: int, z_g: int = 512, z_l: int = 256,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.z_g, self.z_l = z_g, z_l
+        self.dtype = dtype
         self.global_query = nn.Parameter(0.02 * torch.randn(1, 1, d_model))
-        self.global_attention = MultiHeadDotProductAttention(d_model, 4, dropout)
-        self.global_hidden = linear(d_model, 256)
-        self.global_out = linear(256, 2 * z_g, logvar_bias_z=z_g)
-        self.local_hidden = linear(d_model, 256)
-        self.local_out = linear(256, 2 * z_l, logvar_bias_z=z_l)
+        self.global_attention = MultiHeadDotProductAttention(d_model, 4, dropout, dtype)
+        self.global_hidden = linear(d_model, 256, dtype=dtype)
+        self.global_out = linear(256, 2 * z_g, logvar_bias_z=z_g, dtype=dtype)
+        self.local_hidden = linear(d_model, 256, dtype=dtype)
+        self.local_out = linear(256, 2 * z_l, logvar_bias_z=z_l, dtype=dtype)
 
     def forward(self, H: Tensor, mask: Tensor
                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
         B = H.shape[0]
-        q = self.global_query.expand(B, 1, -1).to(H.dtype)
+        q = self.global_query.expand(B, 1, -1).to(self.dtype)
         pooled = self.global_attention(q, H, mask)[:, 0]          # [B, d]
         g = self.global_out(F.relu(self.global_hidden(pooled)))
         mu_g, lv_g = torch.split(g, self.z_g, dim=-1)
@@ -189,7 +195,8 @@ class HierLatent(nn.Module):
 def reparam(mu: Tensor, lv: Tensor, generator: Optional[torch.Generator] = None,
             eps: Optional[Tensor] = None) -> Tensor:
     """z = mu + eps * exp(0.5 * clip(lv, +-10)); the clip acts inside the
-    exp only. ``eps`` ~ N(0, I) from ``generator`` unless given."""
+    exp only. ``eps`` ~ N(0, I) from ``generator`` in mu's dtype (the
+    compute dtype, as the JAX side draws it) unless given."""
     if eps is None:
         eps = torch.randn(mu.shape, generator=generator, device=mu.device,
                           dtype=mu.dtype)
@@ -201,11 +208,12 @@ class ProteinEncoder(nn.Module):
 
     def __init__(self, seqemb_dim: int, d_model: int = 512, nhead: int = 8,
                  ff: int = 1024, nlayers: int = 6, z_g: int = 512,
-                 z_l: int = 256, dropout: float = 0.1):
+                 z_l: int = 256, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.enc = DihedralAwareEncoder(seqemb_dim, d_model, nhead, ff,
-                                        nlayers, dropout)
-        self.latent = HierLatent(d_model, z_g, z_l, dropout)
+                                        nlayers, dropout, dtype)
+        self.latent = HierLatent(d_model, z_g, z_l, dropout, dtype)
 
     def forward(self, seqemb: Tensor, n_coords: Tensor, ca_coords: Tensor,
                 c_coords: Tensor, dihedrals: Tensor, mask: Tensor,

@@ -12,6 +12,16 @@ The JAX package re-creates PyTorch's ``nn.Linear`` default init in Flax
 
 Flax's attention blocks keep Flax's own init (``lecun_normal`` kernels,
 zero bias), see ``lecun_normal_``.
+
+Compute dtype: the parameters are fp32; ``Linear`` and ``LayerNorm`` compute
+in their ``dtype`` (bf16 for a bf16 model), as ``TorchLinear(dtype=...)``
+and Flax's ``LayerNorm(dtype=...)`` do:
+
+- ``Linear`` casts its input, weight and bias to ``dtype`` on every call;
+- ``LayerNorm`` takes its statistics and normalises in fp32 (Flax's
+  ``force_float32_reductions``), then casts the output to ``dtype``.
+
+With ``dtype`` fp32 both are ``nn.Linear`` / ``nn.LayerNorm`` as they are.
 """
 
 from __future__ import annotations
@@ -20,7 +30,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+LN_EPS = 1e-6   # Flax LayerNorm default
 
 
 def uniform_(t: torch.Tensor, fan_in: int, scale: float = 1.0) -> torch.Tensor:
@@ -38,12 +51,43 @@ def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` (fp32 parameters) that computes in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with Flax's eps (fp32 parameters): statistics and
+    normalisation in fp32, the output in ``dtype``."""
+
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32):
+        super().__init__(d, eps=LN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
+
+
+def layer_norm(d: int, dtype: torch.dtype = torch.float32) -> LayerNorm:
+    return LayerNorm(d, dtype)
+
+
 def linear(in_features: int, out_features: int, bias: bool = True,
            fan_in: Optional[int] = None, kernel_scale: float = 1.0,
-           zero_bias: bool = False,
-           logvar_bias_z: Optional[int] = None) -> nn.Linear:
-    """``nn.Linear`` with the JAX package's ``TorchLinear`` overrides."""
-    lin = nn.Linear(in_features, out_features, bias=bias)
+           zero_bias: bool = False, logvar_bias_z: Optional[int] = None,
+           dtype: torch.dtype = torch.float32) -> Linear:
+    """``Linear`` (computing in ``dtype``) with the JAX package's
+    ``TorchLinear`` overrides."""
+    lin = Linear(in_features, out_features, bias=bias, dtype=dtype)
     fi = fan_in if fan_in is not None else in_features
     if fan_in is not None or kernel_scale != 1.0:
         uniform_(lin.weight, fi, kernel_scale)

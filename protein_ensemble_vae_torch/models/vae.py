@@ -5,6 +5,8 @@ package's ``models/vae.py``).
 mu_l, lv_l)``. Random draws come from an explicit ``torch.Generator``;
 ``model.eval()`` turns dropout off (Flax's ``deterministic=True``);
 ``ModelConfig.decoder_remat`` recomputes each EGNN layer in the backward.
+``dtype`` is the compute dtype, as the JAX ``HierCVAE(config, dtype)``:
+fp32 or bf16, with fp32 parameters either way (``models/init.py``).
 """
 
 from __future__ import annotations
@@ -22,18 +24,19 @@ Tensor = torch.Tensor
 
 
 class HierCVAE(nn.Module):
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
+        self.dtype = dtype
         self.encoder = ProteinEncoder(
             seqemb_dim=cfg.seqemb_dim, d_model=cfg.d_model, nhead=cfg.nhead,
             ff=cfg.ff, nlayers=cfg.nlayers, z_g=cfg.z_global, z_l=cfg.z_local,
-            dropout=cfg.dropout)
+            dropout=cfg.dropout, dtype=dtype)
         self.decoder = EGNNDecoder(
             z_g=cfg.z_global, z_l=cfg.z_local, hidden=cfg.decoder_hidden,
             num_layers=cfg.decoder_layers, max_neighbors=cfg.max_neighbors,
             dropout=cfg.dropout, degree_normalize=cfg.degree_normalize,
-            remat=cfg.decoder_remat, use_pallas=cfg.use_pallas_egnn)
+            remat=cfg.decoder_remat, use_pallas=cfg.use_pallas_egnn, dtype=dtype)
 
     def forward(self, seqemb: Tensor, n_coords: Tensor, ca_coords: Tensor,
                 c_coords: Tensor, dihedrals: Tensor, mask: Tensor,

@@ -12,6 +12,11 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
                             "clash_fwd": 0, "clash_bwd": 0}
 
+# The launches of kernels 1-2 (counted in LAUNCHES too) by mode,
+# "<kernel>:<dtype of a / bs>/<precision>", e.g.
+# "egnn_band_fwd:bfloat16/default" (egnn_band.py: _count).
+BAND_MODE_LAUNCHES: dict[str, int] = {}
+
 # kernel -> its CUDA source, ``csrc/<source>.cu`` (one library per source)
 SOURCES: dict[str, str] = {"egnn_band_fwd": "egnn_band_fwd",
                            "egnn_band_bwd": "egnn_band_bwd",
@@ -21,3 +26,4 @@ SOURCES: dict[str, str] = {"egnn_band_fwd": "egnn_band_fwd",
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    BAND_MODE_LAUNCHES.clear()

@@ -14,6 +14,19 @@ offset k (j = i+k-W):
 valid(i,k) = in-range & k != W & cmask_i & cmask_j; callers apply
 deg_inv * 0.2 to raw_delta. The gradient takes no derivative through
 ``cmask`` (a mask) and ``W``.
+
+Modes, as the JAX function's arguments:
+- ``a`` / ``bs`` in fp32 or bf16 (a bf16 model's projections). The kernels
+  read bf16 as it lies and widen it in registers; the plain version upcasts
+  it. The chain, ``agg`` and ``raw_delta`` are fp32 either way, and the
+  gradients of ``a`` / ``bs`` come back in their dtype.
+- ``precision``: ``"highest"`` (JAX ``Precision.HIGHEST``, an fp32 model):
+  the kernels' products in 3xTF32, fp32 accuracy; ``"default"`` (JAX
+  ``None``, a bf16 model): one TF32 pass, the backend's fast product.
+  The plain version computes in full fp32 in both (as JAX's ``None`` does
+  on the CPU).
+- ``chain_dtype``: fp32. The bf16 chain (bf16 activations and cotangents,
+  fp32 accumulators) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -24,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
+from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES, LAUNCHES
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
 
 Tensor = torch.Tensor
@@ -32,6 +45,8 @@ Tensor = torch.Tensor
 KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
 SUPPORTED_HIDDEN = (32, 64, 128, 256)
+INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
+PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product
 TILE = 8                  # receivers per tile (csrc/egnn_tile.cuh: T)
 OPS = 8                   # band offsets per step (csrc/egnn_tile.cuh: OPS)
 WGRAD_TILE = 128          # weight-grad output tile edge (csrc/egnn_band_bwd.cu)
@@ -103,24 +118,49 @@ def band_gather(v: Tensor, idx: Tensor) -> Tensor:
     return v[:, idx]
 
 
+def check_mode(precision: str, chain_dtype=torch.float32) -> None:
+    """Raise unless (precision, chain_dtype) is a ported mode."""
+    if precision not in PASSES:
+        raise ValueError(f"precision {precision!r}: expected one of {tuple(PASSES)}")
+    if chain_dtype != torch.float32:
+        raise NotImplementedError(
+            f"chain_dtype={chain_dtype}: the bf16 edge chain of the band kernels "
+            "is not ported yet (ROADMAP.md, queue B item 5); use float32")
+
+
+def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
+               b_x2, dtype: torch.dtype) -> tuple[Tensor, Tensor]:
+    """The band-gather formulation, materialising the [B, L, K, Hd] edge
+    tensors, with the edge chain in ``dtype``: ``a``, ``bs``, the weights
+    and the squared distances (computed in fp32) are cast to it, and
+    ``raw_delta`` is summed in ``x``'s dtype. ``nbr_idx`` [L, K] and
+    ``valid`` [B, L, K] as ``band_indices`` and the caller's masks give
+    them. fp32 is the kernels' chain (``egnn_band_reference``); bf16 is a
+    bf16 model's plain path, the JAX package's XLA band path at bf16.
+    Returns (agg [B, L, Hd] in ``dtype``, raw_delta [B, L, 3])."""
+    c = lambda t: t.to(dtype)  # noqa: E731
+    mask_k = c(valid)[..., None]                                 # [B, L, K, 1]
+    rel = x[:, :, None, :] - band_gather(x, nbr_idx)             # [B, L, K, 3]
+    d2 = c(torch.sum(rel * rel, dim=-1, keepdim=True))
+    pre = c(a)[:, :, None, :] + band_gather(c(bs), nbr_idx) + d2 * c(w_d).reshape(-1)
+    m = F.silu(pre)
+    m = F.silu(m @ c(w_e2) + c(b_e2).reshape(-1))
+    agg = torch.sum(m * mask_k, dim=2)
+    w = F.silu(m @ c(w_x1) + c(b_x1).reshape(-1)) @ c(w_x2).reshape(-1, 1) + c(b_x2).reshape(1)
+    raw_delta = torch.sum((w * mask_k).to(x.dtype) * rel, dim=2)
+    return agg, raw_delta
+
+
 def egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
                         b_x2, W: int) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version: the band-gather formulation, materialising the
-    [B, L, K, Hd] edge tensors. Same arguments and outputs as the kernel."""
-    L = a.shape[1]
-    idx, in_range = band_indices(L, W, a.device)
+    """Plain PyTorch version: ``band_chain`` in fp32. Same arguments and
+    outputs as the kernel: bf16 ``a`` / ``bs`` are upcast, and the chain
+    runs in fp32."""
+    idx, in_range = band_indices(a.shape[1], W, a.device)
     cm = cmask > 0.5
     valid = in_range[None] & cm[:, :, None] & cm[:, idx]
-    mask_k = valid.to(a.dtype)[..., None]                    # [B, L, K, 1]
-    rel = x[:, :, None, :] - band_gather(x, idx)             # [B, L, K, 3]
-    d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
-    pre = a[:, :, None, :] + band_gather(bs, idx) + d2 * w_d.reshape(-1)
-    m = F.silu(pre)
-    m = F.silu(m @ w_e2 + b_e2.reshape(-1))
-    agg = torch.sum(m * mask_k, dim=2)
-    w = F.silu(m @ w_x1 + b_x1.reshape(-1)) @ w_x2.reshape(-1, 1) + b_x2.reshape(1)
-    raw_delta = torch.sum((w * mask_k) * rel, dim=2)
-    return agg, raw_delta
+    return band_chain(a, bs, x, idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
+                      b_x2, torch.float32)
 
 
 def _kernel_fn():
@@ -129,25 +169,27 @@ def _kernel_fn():
         from protein_ensemble_vae_torch.ops.kernels.build import load_library
 
         lib = load_library(KERNEL)
-        fn = lib.egnn_band_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn = lib.egnn_band_fwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_fwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_error_string.restype = ctypes.c_char_p
-        lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_fwd_blocks_per_sm.restype = ctypes.c_int
         _FN = (fn, lib)
     return _FN
 
 
-def _check(name: str, t: Tensor, shape: tuple, device) -> None:
-    """Raise unless ``t`` is what the kernel reads: fp32, contiguous,
-    16-byte aligned, on ``device``, of ``shape`` (a 1-D ``shape`` accepts
-    any layout of that many elements, e.g. [1, Hd] or [Hd, 1])."""
+def _check(name: str, t: Tensor, shape: tuple, device,
+           dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless ``t`` is what the kernel reads: of one of ``dtypes``,
+    contiguous, 16-byte aligned, on ``device``, of ``shape`` (a 1-D
+    ``shape`` accepts any layout of that many elements, e.g. [1, Hd] or
+    [Hd, 1]). Nothing is copied to make it so."""
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
     ok = (t.numel() == shape[0]) if len(shape) == 1 else tuple(t.shape) == shape
     if not ok:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -159,43 +201,59 @@ def _check(name: str, t: Tensor, shape: tuple, device) -> None:
 
 def _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                   W: int) -> None:
-    """Raise unless the band inputs are what both kernels take."""
+    """Raise unless the band inputs are what both kernels take: a and bs
+    of one dtype of INPUT_DTYPES, everything else fp32."""
     B, L, Hd = a.shape
     if Hd not in SUPPORTED_HIDDEN:
         raise ValueError(f"hidden width {Hd} not supported by the kernel "
                          f"(one of {SUPPORTED_HIDDEN})")
     if W < 1:
         raise ValueError(f"band half-width W={W} must be >= 1")
+    if bs.dtype != a.dtype:
+        raise ValueError(f"a and bs must share a dtype, got {a.dtype} and {bs.dtype}")
+    for name, t, shape in (("a", a, (B, L, Hd)), ("bs", bs, (B, L, Hd))):
+        _check(name, t, shape, a.device, INPUT_DTYPES)
     for name, t, shape in (
-            ("a", a, (B, L, Hd)), ("bs", bs, (B, L, Hd)), ("x", x, (B, L, 3)),
-            ("cmask", cmask, (B, L)), ("w_d", w_d, (Hd,)),
+            ("x", x, (B, L, 3)), ("cmask", cmask, (B, L)), ("w_d", w_d, (Hd,)),
             ("w_e2", w_e2, (Hd, Hd)), ("b_e2", b_e2, (Hd,)),
             ("w_x1", w_x1, (Hd, Hd)), ("b_x1", b_x1, (Hd,)),
             ("w_x2", w_x2, (Hd,)), ("b_x2", b_x2, (1,))):
         _check(name, t, shape, a.device)
 
 
+def _count(kernel: str, dtype: torch.dtype, precision: str) -> None:
+    """One launch of ``kernel`` in the mode (dtype of a / bs, precision)."""
+    LAUNCHES[kernel] += 1
+    key = f"{kernel}:{str(dtype).replace('torch.', '')}/{precision}"
+    BAND_MODE_LAUNCHES[key] = BAND_MODE_LAUNCHES.get(key, 0) + 1
+
+
 def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                  W: int) -> tuple[Tensor, Tensor]:
+                  W: int, precision: str = "highest",
+                  chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
     """The kernel's wrapper. For CPU tensors it is the plain version; for
     CUDA tensors it launches the kernel on the current stream or raises.
 
-    a, bs [B, L, Hd]; x [B, L, 3]; cmask [B, L]; w_d [1, Hd] or [Hd];
-    w_e2, w_x1 [Hd, Hd]; b_e2, b_x1 [Hd]; w_x2 [Hd, 1] or [Hd]; b_x2 [1].
-    All fp32. Returns (agg [B, L, Hd], raw_delta [B, L, 3]), fp32.
+    a, bs [B, L, Hd], both fp32 or both bf16; x [B, L, 3]; cmask [B, L];
+    w_d [1, Hd] or [Hd]; w_e2, w_x1 [Hd, Hd]; b_e2, b_x1 [Hd]; w_x2 [Hd, 1]
+    or [Hd]; b_x2 [1]; all but a, bs fp32. ``precision`` and
+    ``chain_dtype`` as in the module docstring. Returns (agg [B, L, Hd],
+    raw_delta [B, L, 3]), fp32.
     """
+    check_mode(precision, chain_dtype)
     if not a.is_cuda:
         return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                    b_x1, w_x2, b_x2, W)
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
+    bf16, passes = int(a.dtype == torch.bfloat16), PASSES[precision]
     fn, lib = _kernel_fn()
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
-    S = fwd_plan(B, L, W, Hd, dev)
+    S = fwd_plan(B, L, W, Hd, dev, a.dtype, precision)
     # S > 1: each slice's partial outputs, summed in slice order by the
     # kernel's second pass
     parts = ((torch.empty((S, B, L, Hd), dtype=torch.float32, device=dev),
@@ -208,11 +266,11 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                  w_x1.data_ptr(), b_x1.data_ptr(), w_x2.data_ptr(),
                  b_x2.data_ptr(), agg.data_ptr(), delta.data_ptr(),
                  *((p.data_ptr() for p in parts) if parts else (None, None)),
-                 B, L, Hd, W, S, stream)
+                 B, L, Hd, W, S, bf16, passes, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_error_string(err).decode()})")
-    LAUNCHES[KERNEL] += 1
+    _count(KERNEL, a.dtype, precision)
     return agg, delta
 
 
@@ -221,7 +279,8 @@ def egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                             ) -> tuple[Tensor, ...]:
     """Plain version of the backward: torch autograd through
     ``egnn_band_reference``. Returns the gradients of (a, bs, x, w_d, w_e2,
-    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input."""
+    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input and in its
+    dtype."""
     diff = [t.detach().requires_grad_(True)
             for t in (a, bs, x, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)]
     with torch.enable_grad():
@@ -236,26 +295,28 @@ def _bwd_kernel_fn():
         from protein_ensemble_vae_torch.ops.kernels.build import load_library
 
         lib = load_library(BWD_KERNEL)
-        fn = lib.egnn_band_bwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn = lib.egnn_band_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_bwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_bwd_error_string.restype = ctypes.c_char_p
         lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
         lib.egnn_band_bwd_scratch_floats.restype = ctypes.c_size_t
-        lib.egnn_band_bwd_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_bwd_blocks_per_sm.restype = ctypes.c_int
         _BWD_FN = (fn, lib)
     return _BWD_FN
 
 
-def _blocks_per_sm(name: str, query, Hd: int, dev) -> int:
-    """Blocks of kernel ``name`` at width Hd that one SM of ``dev`` holds,
-    asked of its library once (``query``: its ``*_blocks_per_sm``)."""
-    key = (name, Hd, dev)
+def _blocks_per_sm(name: str, query, Hd: int, dev, dtype: torch.dtype,
+                   precision: str) -> int:
+    """Blocks of kernel ``name`` in the mode (dtype of a / bs, precision) at
+    width Hd that one SM of ``dev`` holds, asked of its library once
+    (``query``: its ``*_blocks_per_sm``)."""
+    key = (name, Hd, dev, dtype, precision)
     if key not in _PER_SM:
         with torch.cuda.device(dev):
-            n = query(Hd)
+            n = query(Hd, int(dtype == torch.bfloat16), PASSES[precision])
         if n < 1:
             raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
                                f"{-n}) or no block fits on an SM")
@@ -263,32 +324,38 @@ def _blocks_per_sm(name: str, query, Hd: int, dev) -> int:
     return _PER_SM[key]
 
 
-def fwd_plan(B: int, L: int, W: int, Hd: int, dev) -> int:
+def fwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
+             precision: str = "highest") -> int:
     """``fwd_slices`` on CUDA device ``dev``: its SM count and the blocks
-    one SM holds."""
-    per_sm = _blocks_per_sm(KERNEL, _kernel_fn()[1].egnn_band_fwd_blocks_per_sm, Hd, dev)
+    of the mode that one SM holds."""
+    per_sm = _blocks_per_sm(KERNEL, _kernel_fn()[1].egnn_band_fwd_blocks_per_sm, Hd, dev,
+                            dtype, precision)
     return fwd_slices(B, L, W, _sm_count(dev), per_sm)
 
 
-def bwd_plan(B: int, L: int, W: int, Hd: int, dev) -> tuple[int, int]:
+def bwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
+             precision: str = "highest") -> tuple[int, int]:
     """``bwd_grid`` on CUDA device ``dev``: its SM count and the edge-pass
-    blocks one SM holds."""
+    blocks of the mode that one SM holds."""
     per_sm = _blocks_per_sm(BWD_KERNEL, _bwd_kernel_fn()[1].egnn_band_bwd_blocks_per_sm,
-                            Hd, dev)
+                            Hd, dev, dtype, precision)
     return bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
 
 
 def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                  g_agg, g_delta, W: int) -> tuple[Tensor, ...]:
+                  g_agg, g_delta, W: int, precision: str = "highest",
+                  chain_dtype=torch.float32) -> tuple[Tensor, ...]:
     """The backward kernel's wrapper. For CPU tensors it is the plain
     version; for CUDA tensors it launches the kernel (four passes, one
     count) on the current stream or raises.
 
     Inputs as ``egnn_band_fwd`` plus the output cotangents g_agg [B, L, Hd]
-    and g_delta [B, L, 3]. Returns the gradients of (a, bs, x, w_d, w_e2,
-    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input, fp32. The
-    kernel is deterministic: it sums across blocks in fixed order.
+    and g_delta [B, L, 3], fp32. Returns the gradients of (a, bs, x, w_d,
+    w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input: those
+    of a and bs in their dtype, the rest fp32. The kernel is deterministic:
+    it sums across blocks in fixed order.
     """
+    check_mode(precision, chain_dtype)
     if not a.is_cuda:
         return egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                        b_x1, w_x2, b_x2, g_agg, g_delta, W)
@@ -300,14 +367,14 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     fn, lib = _bwd_kernel_fn()
     f32 = dict(dtype=torch.float32, device=dev)
     alloc = torch.empty if B and L else torch.zeros
-    da = alloc((B, L, Hd), **f32)
-    dbs = alloc((B, L, Hd), **f32)
+    da = alloc((B, L, Hd), dtype=a.dtype, device=dev)
+    dbs = alloc((B, L, Hd), dtype=a.dtype, device=dev)
     dx = alloc((B, L, 3), **f32)
     dw_e2 = alloc((Hd, Hd), **f32)
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
     if B and L:
-        G, nsplit = bwd_plan(B, L, W, Hd, dev)
+        G, nsplit = bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
         scratch = torch.empty(
             (lib.egnn_band_bwd_scratch_floats(B, L, Hd, W, G, nsplit),), **f32)
         # the transposed products of the cotangent chain stream W^T row-major
@@ -318,11 +385,12 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
             err = fn(*(t.data_ptr() for t in (
                 a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                 w_e2t, w_x1t, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
-                scratch)), B, L, Hd, W, G, nsplit, stream)
+                scratch)), B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16),
+                PASSES[precision], stream)
         if err != 0:
             raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err} "
                                f"({lib.egnn_band_bwd_error_string(err).decode()})")
-        LAUNCHES[BWD_KERNEL] += 1
+        _count(BWD_KERNEL, a.dtype, precision)
     dw_d, db_e2, db_x1, dw_x2 = dvec[:4 * Hd].view(4, Hd)
     return (da, dbs, dx, dw_d.reshape(w_d.shape), dw_e2,
             db_e2.reshape(b_e2.shape), dw_x1, db_x1.reshape(b_x1.shape),
@@ -336,34 +404,38 @@ class EGNNBandFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
-                b_x2, W):
-        ctx.W = W
+                b_x2, W, precision="highest", chain_dtype=torch.float32):
+        ctx.W, ctx.precision, ctx.chain_dtype = W, precision, chain_dtype
         ctx.save_for_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                               w_x2, b_x2)
         return egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
-                             w_x2, b_x2, W)
+                             w_x2, b_x2, W, precision, chain_dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_agg, g_delta):
         a, bs, x, cmask, *params = ctx.saved_tensors
-        g_agg = (torch.zeros_like(a) if g_agg is None
-                 else g_agg.to(torch.float32).contiguous())
+        g_agg = (torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+                 if g_agg is None else g_agg.to(torch.float32).contiguous())
         g_delta = (torch.zeros_like(x) if g_delta is None
                    else g_delta.to(torch.float32).contiguous())
         da, dbs, dx, *dparams = egnn_band_bwd(a, bs, x, cmask, *params,
-                                              g_agg, g_delta, ctx.W)
-        return (da, dbs, dx, None, *dparams, None)
+                                              g_agg, g_delta, ctx.W,
+                                              ctx.precision, ctx.chain_dtype)
+        return (da, dbs, dx, None, *dparams, None, None, None)
 
 
 def egnn_band_fused(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                    W: int, use_pallas: object = "auto"
-                    ) -> tuple[Tensor, Tensor]:
+                    W: int, use_pallas: object = "auto", precision: str = "highest",
+                    chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
     """Routed entry of the decoder: ``EGNNBandFunction`` (kernel forward and
     backward) where ``pallas_policy`` says so (``ops/routing.py``), else the
-    plain version, whose gradient is torch autograd."""
+    plain version, whose gradient is torch autograd. ``precision`` and
+    ``chain_dtype`` as in the module docstring (JAX ``egnn_band_fused``'s
+    arguments of the same names)."""
+    check_mode(precision, chain_dtype)
     if pallas_policy(a, use_pallas):
         return EGNNBandFunction.apply(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
-                                      b_x1, w_x2, b_x2, W)
+                                      b_x1, w_x2, b_x2, W, precision, chain_dtype)
     return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                                w_x2, b_x2, W)

@@ -23,7 +23,11 @@ def set_full_fp32() -> None:
     hand-written EGNN band kernels reach fp32 accuracy another way: their
     products run on the tensor cores in 3-pass TF32, as the JAX side's
     ``Precision.HIGHEST`` does through multi-pass products on the TPU.
-    Generation and training set this on entry."""
+    Generation and training set this on entry, for fp32 and bf16 models
+    alike: the fp32 heads (``l2c_out``, ``seq_out``, ``n_off2``,
+    ``c_off2``) and every other fp32 product stay in full fp32. Only the
+    band kernels' products drop to one TF32 pass, and only in their
+    bf16-model mode (``precision="default"``, the JAX side's ``None``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

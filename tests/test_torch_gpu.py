@@ -247,6 +247,127 @@ def test_two_launches_are_bitwise_identical(cuda, B, L):
         assert torch.equal(a, b)
 
 
+# The bf16-model mode of kernels 1-2 (bf16 a / bs, one-pass TF32 products)
+# against the plain version (fp32 chain in full fp32) on the same
+# bf16-rounded inputs, at the JAX package's bf16 tolerances
+# (tests/test_pallas.py:test_egnn_fused_bf16_chain): 3 % of max |value| for
+# the forward, 5 % of max |grad| for the backward.
+BF16_VALUE_FRAC, BF16_GRAD_FRAC = 0.03, 0.05
+
+
+def _bf16_args(args):
+    return [args[0].bfloat16().contiguous(), args[1].bfloat16().contiguous()] + args[2:]
+
+
+def _within_frac(got, want, frac, name):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert torch.isfinite(got.float()).all() and err <= frac * scale, (
+        f"{name}: max abs err {err:.3e} > {frac} x {scale:.3e}")
+
+
+@pytest.mark.parametrize("B,L,Hd,W", [
+    (2, 37, 32, 4), (3, 70, 64, 12), (2, 256, 256, 40), (1, 640, 256, 40),
+])
+def test_bf16_mode_matches_plain_version(cuda, B, L, Hd, W):
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
+
+    args = _bf16_args(_inputs(B, L, Hd, cuda, seed=B * 100 + L))
+    before = dict(BAND_MODE_LAUNCHES)
+    agg, delta = egnn_band_fwd(*args, W, "default")
+    assert agg.dtype == delta.dtype == torch.float32
+    for name, got, want in zip(("agg", "raw_delta"), (agg, delta),
+                               egnn_band_reference(*args, W)):
+        _within_frac(got, want, BF16_VALUE_FRAC, name)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "default")
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert a.dtype == b.dtype == (torch.bfloat16 if name in ("a", "bs") else torch.float32)
+        _within_frac(a, b, BF16_GRAD_FRAC, name)
+    for k in ("egnn_band_fwd", "egnn_band_bwd"):
+        key = f"{k}:bfloat16/default"
+        assert BAND_MODE_LAUNCHES.get(key, 0) == before.get(key, 0) + 1
+
+
+def test_bf16_unaligned_inputs_raise(cuda):
+    """A bf16 a / bs that is not 16-byte aligned (here 2 bytes off) is
+    refused, not copied to an aligned buffer behind the caller's back;
+    so are mixed dtypes of a and bs."""
+    B, L, Hd, W = 2, 64, 32, 4
+    args = _bf16_args(_inputs(B, L, Hd, cuda, seed=7))
+    buf = torch.empty(B * L * Hd + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(B, L, Hd)
+    shifted.copy_(args[0])
+    g_agg = torch.zeros(B, L, Hd, device=cuda)
+    g_delta = torch.zeros(B, L, 3, device=cuda)
+    before = dict(LAUNCHES)
+    for pos in (0, 1):
+        bad = list(args)
+        bad[pos] = shifted
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            egnn_band_fwd(*bad, W, "default")
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            egnn_band_bwd(*bad, g_agg, g_delta, W, "default")
+    mixed = list(args)
+    mixed[1] = args[1].float()
+    with pytest.raises(ValueError, match="share a dtype"):
+        egnn_band_fwd(*mixed, W, "default")
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,L", [(1, 256), (4, 256), (2, 640)])
+def test_bf16_mode_two_launches_are_bitwise_identical(cuda, B, L):
+    args = _bf16_args(_inputs(B, L, 256, cuda, seed=B + L + 3))
+    g = torch.Generator(device="cpu").manual_seed(L + 1)
+    g_agg = torch.randn(B, L, 256, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+
+    def run():
+        return (egnn_band_fwd(*args, 40, "default")
+                + egnn_band_bwd(*args, g_agg, g_delta, 40, "default"))
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_bf16_kernel_runs_in_a_remat_layer(cuda):
+    """A bf16 decoder with ``decoder_remat``: each EGNN layer runs kernel 1
+    twice (forward, and again in the backward's recompute) and kernel 2
+    once, all in the bf16 mode; its gradients equal the same decoder's
+    without remat."""
+    from protein_ensemble_vae_torch.models.decoder import EGNNDecoder
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES, reset_launches
+
+    kw = dict(z_g=32, z_l=16, hidden=64, num_layers=3, max_neighbors=8, dropout=0.0,
+              use_pallas="auto", dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    remat = EGNNDecoder(**kw, remat=True).to(cuda)
+    flat = EGNNDecoder(**kw, remat=False).to(cuda)
+    flat.load_state_dict(remat.state_dict())
+    g = torch.Generator().manual_seed(5)
+    B, L = 2, 96
+    mask = torch.ones(B, L)
+    mask[0, 80:] = 0.0
+    z_g = torch.randn(B, 32, generator=g).to(cuda)
+    z_l = torch.randn(B, L, 16, generator=g).to(cuda)
+    grads = {}
+    for name, dec in (("remat", remat), ("flat", flat)):
+        reset_launches()
+        n, ca, c, seq = dec.train()(z_g, z_l, mask.to(cuda))
+        (n.square().sum() + ca.square().sum() + c.square().sum() + seq.square().sum()).backward()
+        torch.cuda.synchronize()
+        per_layer = 2 if name == "remat" else 1
+        assert BAND_MODE_LAUNCHES == {"egnn_band_fwd:bfloat16/default": per_layer * 3,
+                                      "egnn_band_bwd:bfloat16/default": 3}, name
+        grads[name] = {k: p.grad for k, p in dec.named_parameters()}
+    for k, a in grads["remat"].items():
+        assert a is not None and torch.isfinite(a).all(), k
+        torch.testing.assert_close(a, grads["flat"][k], msg=k)
+
+
 def test_band_function_gradients_on_cuda(cuda):
     """egnn_band_fused on CUDA tensors backpropagates through the kernels
     (the forward used to return tensors with no grad_fn)."""

@@ -2,7 +2,8 @@
 ``pev-train`` counterpart) end to end on the CPU at tiny widths: the
 checkpoint file set, the history's metric names (the JAX package's
 ``EPOCH_METRICS``), ``--resume``, the generation CLI on the trained
-checkpoint, and the features that raise instead of running."""
+checkpoint, the bf16 compute path (``--compute_dtype bfloat16``) trained
+and generated from, and the features that raise instead of running."""
 
 import json
 import os
@@ -81,12 +82,54 @@ def test_generate_loads_trained_checkpoint(run):
     (["--tp", "2"], NotImplementedError),
     (["--multihost"], NotImplementedError),
     (["--watch_every", "1"], NotImplementedError),
-    (["--compute_dtype", "bfloat16"], NotImplementedError),
 ])
 def test_unported_features_raise(run, extra, err):
     _, base = run
     with pytest.raises(err, match="ROADMAP"):
         train_cli.main(base + ["--epochs", "1"] + extra)
+
+
+def test_bf16_compute_path_trains_and_generates(run, monkeypatch):
+    """``--compute_dtype bfloat16``: the model computes in bf16 with fp32
+    parameters; 2 epochs with finite losses and a checkpoint that records
+    the dtype; ``cli.generate`` builds an fp32 model from it, as the JAX
+    side's generation does (it takes no dtype)."""
+    import protein_ensemble_vae_torch.models as models
+
+    root, base = run
+    save = root / "ckpt_bf16"
+    argv = [a for a in base if a != str(root / "ckpt")]
+    argv[argv.index("--save") + 1:argv.index("--save") + 1] = [str(save)]
+    built = []
+    orig = models.HierCVAE
+
+    def record(cfg, *a, **kw):
+        built.append(orig(cfg, *a, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(models, "HierCVAE", record)
+    train_cli.main(argv + ["--epochs", "2", "--compute_dtype", "bfloat16"])
+    assert built[0].dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in built[0].parameters())
+    final = save / "final"
+    hist = json.loads((final / "history.json").read_text())
+    for split in ("train", "val"):
+        for k, vals in hist[split].items():
+            assert len(vals) == 2 and np.isfinite(vals).all(), (split, k)
+    meta = json.loads((final / "meta.json").read_text())
+    assert meta["config"]["train"]["compute_dtype"] == "bfloat16"
+    state = torch.load(final / "state.pt", weights_only=True)
+    assert all(v.dtype == torch.float32 for v in state["model"].values()
+               if v.is_floating_point())
+
+    va = base[base.index("--manifest_val") + 1]
+    out_dir = root / "generated_bf16"
+    gen_cli.main(["--checkpoint", str(final), "--manifest", va, "--output_dir",
+                  str(out_dir), "--num_samples", "3", "--max_structures", "1",
+                  "--device", "cpu"])
+    assert built[-1].dtype == torch.float32
+    pdbs = sorted(p for p in os.listdir(out_dir) if p.endswith(".pdb"))
+    assert len(pdbs) == 3 and any(p.endswith("_ensemble.pdb") for p in pdbs)
 
 
 def test_default_device_without_gpu_raises(run, monkeypatch):
