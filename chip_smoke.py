@@ -35,9 +35,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    printed beside the tolerance: kernel 1 at B1/L256, B10/L256 and
    B10/L640, kernel 2 at B4/L256 and B2/L640; device ms of the mode beside
    the same shape's 3xTF32 ms in the same call, the plain version's ms,
-   host us, the fp32 bound and the one-pass tensor-core bound (1 x the
-   FLOP at the TF32 peak). These are extra ``shapes`` rows of kernels 1-2
-   with ``mode`` "bfloat16/default".
+   host us, the bound (the FLOP at the TF32 peak, the rate of one-pass
+   TF32 products, or the bytes) and the fp32-core time (the FLOP at the
+   fp32 peak). These are extra ``shapes`` rows of kernels 1-2
+   with ``mode`` "bfloat16/default". Then the bf16 chain of kernels 1-2
+   (``chain_dtype=bfloat16``) against its plain version (the JAX kernel's
+   rounding op by op), values within 0.1 % and gradients within 5 % of
+   max |plain|, and closer to it than to the one-pass fp32-chain kernel:
+   both kernels at B16/L256 (the JAX package's chain A/B shape), B10/L640,
+   B4/L256 and B2/L640 with bf16 ``a`` / ``bs``, and at B4/L256 with fp32
+   ``a`` / ``bs``; device ms beside the one-pass fp32-chain ms and the
+   3xTF32 ms of the same shape in the same call, plain ms, host us, the
+   bound (the FLOP at the bf16 tensor-core peak, or the bytes) and the
+   fp32-core time; ``shapes`` rows with ``mode`` "<dtype>/bfloat16_chain".
+   Its path follows:
+   ``scripts/chain_dtype_ab.py``'s ``run()`` (the bf16 chain against the
+   fp32 chain at B16/L256: value gaps and fwd + bwd ms), counts reset just
+   before and read just after.
 4. generation main path: ``generate_ensembles`` with a fresh seeded
    ``HierCVAE`` at the default ``ModelConfig`` widths on two synthetic NeRF
    proteins (buckets 256 and 640), ``num_samples=10``. Launch counts are
@@ -87,7 +101,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
    and ``cli.validate`` then score the files on the card.
 8. one ``kernels`` JSON line (launches by path: generate, refine, train,
-   train_bf16), then, as the last line, ``{"ok": true, "device": {...}}``.
+   train_bf16, and chain_dtype_ab's bf16-chain launches; kernels 1-2 also
+   by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
+   there only), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 ``--profile TRACE.json`` adds, after the checks, torch.profiler passes over
 the generation path and over the B4/L256 timed train steps, fp32 and bf16
@@ -149,12 +165,15 @@ TIMED_STEPS = (dict(B=4, L=256, L_real=230, remat=False),
 STEP_WARMUP, STEP_REPS = 2, 5
 
 # Published dense peaks of one H100 SXM at its full 700 W (NVIDIA data
-# sheet): fp32 outside the tensor cores, TF32 on the tensor cores, and HBM3
-# bandwidth. Kernels 1-2 run their products in 3xTF32 (three TF32 passes per
-# fp32 product) for an fp32 model, so their tensor-core bound is 3 x the
-# FLOP at the TF32 rate; in the bf16-model mode one pass, 1 x the FLOP.
+# sheet): fp32 outside the tensor cores, TF32 and bf16 on the tensor cores,
+# and HBM3 bandwidth. A kernel's bound takes the peak of the type its
+# products compute in (_ops_ms): fp32 for kernels 1-2's fp32 mode (3xTF32,
+# three TF32 passes per fp32 product, whose tensor-core time, 3 x the FLOP
+# at the TF32 rate, is logged beside it), TF32 for the bf16-model mode (one
+# pass) and bf16 for the bf16 chain (chain_dtype=bfloat16).
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel timing windows: at least MIN_LAUNCHES back-to-back calls and at
@@ -187,6 +206,24 @@ BF16_NOISY = ("encoder.enc.geom_res_scale",)
 # where a bf16 model runs it
 BF16_FWD_SHAPES = ((1, 256), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640)) + TRAIN_SHAPES
 BF16_BWD_SHAPES = TRAIN_SHAPES
+
+# The bf16 chain of kernels 1-2 (chain_dtype=bfloat16: bf16 activations and
+# cotangents, bf16 tensor-core products, fp32 sums; a mode no model path of
+# either package routes to), both kernels at the JAX package's A/B shape
+# (scripts/chain_dtype_onchip.py: B16/L256), HEADLINE_SHAPE and the training
+# shapes, with bf16 a / bs, and with fp32 a / bs at CHAIN_FP32_INPUTS; held
+# against the plain version (the JAX kernel's rounding op by op): values
+# within CHAIN_VALUE_FRAC of max |plain|, gradients within BF16_GRAD_FRAC,
+# and closer to the plain bf16 chain than to the one-pass fp32-chain kernel.
+# CHAIN_VALUE_FRAC lies between the kernel's reading (at most 2.0e-4) and
+# the two chains' distance (2.5e-3 on agg, 1.2e-2 on raw_delta at B16/L256;
+# PERF.md, section 6); the gradients' readings (up to 5.9e-3, mostly da / dbs
+# rounded to bf16) overlap the chains' distance per tensor (5.8e-3 on bs),
+# so the comparison with the fp32 chain tells the two modes apart there.
+# Its path is scripts/chain_dtype_ab.py's run().
+CHAIN_SHAPES = ((16, 256), HEADLINE_SHAPE) + TRAIN_SHAPES
+CHAIN_FP32_INPUTS = (4, 256)
+CHAIN_VALUE_FRAC = 1e-3
 
 
 def log(msg: str) -> None:
@@ -356,19 +393,29 @@ def _egnn_inputs(B: int, L: int, seed: int):
     return [t.cuda().contiguous() for t in (a, bs, x, cmask) + params]
 
 
-def _tc_ms(flops: float, passes: int = 3) -> float:
+def _tc_ms(flops: float, passes: int = 3, peak: float = PEAK_TF32_FLOPS) -> float:
     """Tensor-core bound in ms: ``passes`` x ``flops`` (TF32 passes per
-    product) over the TF32 peak."""
-    return 1e3 * passes * flops / PEAK_TF32_FLOPS
+    product) over ``peak``, the TF32 peak (or PEAK_BF16_FLOPS for the bf16
+    chain's one pass)."""
+    return 1e3 * passes * flops / peak
 
 
-def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4,
-                passes: int = 3) -> tuple[float, str, int, float]:
+def _ops_ms(flops: float, passes: int, peak: float) -> float:
+    """The FLOP over the peak of the type the products compute in: fp32 in
+    the 3xTF32 mode (``passes`` 3 stand in for an fp32 product, whose rate
+    is PEAK_FP32_FLOPS), else ``peak`` (TF32 for one pass, bf16 for the
+    bf16 chain)."""
+    return 1e3 * flops / (PEAK_FP32_FLOPS if passes == 3 else peak)
+
+
+def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4, passes: int = 3,
+                peak: float = PEAK_TF32_FLOPS) -> tuple[float, str, int, float, float]:
     """Least time for one launch on this run's inputs: exact valid edges
-    x (4 Hd^2 + 2 Hd) FLOP over the fp32 peak, against each input read and
-    each output written once over the HBM rate (a and bs at ``in_bytes``
-    each). Also the valid edges and the tensor-core bound (the same FLOP in
-    ``passes`` TF32 passes, ``_tc_ms``)."""
+    x (4 Hd^2 + 2 Hd) FLOP over the peak of the products' type (``_ops_ms``),
+    against each input read and each output written once over the HBM rate
+    (a and bs at ``in_bytes`` each). Also the valid edges, the tensor-core
+    time (the same FLOP in ``passes`` passes at ``peak``, ``_tc_ms``) and
+    the fp32-core time (the FLOP at PEAK_FP32_FLOPS)."""
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_indices
 
     idx, in_range = band_indices(L, W, cmask.device)
@@ -379,9 +426,10 @@ def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4,
               + 4 * (B * L * 3 + B * L                            # x, cmask
                      + 2 * HD * HD + 4 * HD + 1                   # weights
                      + B * L * HD + B * L * 3))                   # agg, raw_delta
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = _ops_ms(flops, passes, peak), 1e3 * nbytes / PEAK_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return 1e3 * max(t_ops, t_bytes), by, edges, _tc_ms(flops, passes)
+    return (max(t_ops, t_bytes), by, edges, _tc_ms(flops, passes, peak),
+            1e3 * flops / PEAK_FP32_FLOPS)
 
 
 def phase_kernels() -> list[dict]:
@@ -421,7 +469,7 @@ def phase_kernels() -> list[dict]:
         ms = _median_ms(lambda: egnn_band_fwd(*args, W))
         host_us = _host_us(lambda: egnn_band_fwd(*args, W), n=MIN_LAUNCHES)
         plain_ms = _median_ms(lambda: egnn_band_reference(*args, W), reps=3)
-        bound_ms, bound_by, edges, tc_ms = _egnn_bound(B, L, args[3])
+        bound_ms, bound_by, edges, tc_ms, _ = _egnn_bound(B, L, args[3])
         S = fwd_plan(B, L, W, HD, args[0].device)
         blocks = B * band_work(B, L, W)[0] * S
         log(f"[kernels] egnn_band_fwd B{B}/L{L}: {ms:.3f} ms (plain "
@@ -451,22 +499,23 @@ def _close_scaled(name: str, got, ref) -> float:
     return err
 
 
-def _band_bwd_bound(B: int, L: int, cmask, in_bytes: int = 4,
-                    passes: int = 3) -> tuple[float, str, float]:
+def _band_bwd_bound(B: int, L: int, cmask, in_bytes: int = 4, passes: int = 3,
+                    peak: float = PEAK_TF32_FLOPS) -> tuple[float, str, float, float]:
     """Least time for one backward launch: per valid edge 6 Hd x Hd products
-    (12 Hd^2 FLOP) plus the elementwise chain, over the fp32 peak, against
-    the inputs (a, bs, x, cmask, weights, g_agg, g_delta) read once and the
-    gradients written once over the HBM rate (a, bs and their gradients at
-    ``in_bytes`` each). Also the tensor-core bound (the same FLOP in
-    ``passes`` TF32 passes, ``_tc_ms``)."""
+    (12 Hd^2 FLOP) plus the elementwise chain, over the peak of the
+    products' type (``_ops_ms``), against the inputs (a, bs, x, cmask,
+    weights, g_agg, g_delta) read once and the gradients written once over
+    the HBM rate (a, bs and their gradients at ``in_bytes`` each). Also the
+    tensor-core time (the same FLOP in ``passes`` passes at ``peak``,
+    ``_tc_ms``) and the fp32-core time (the FLOP at PEAK_FP32_FLOPS)."""
     edges = _egnn_bound(B, L, cmask)[2]
     flops = edges * (12 * HD * HD + 20 * HD)
     nbytes = (in_bytes * 4 * B * L * HD                                        # a, bs, da, dbs
               + 4 * (B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # g_agg, x, ...
                      + B * L * 3 + 2 * HD * HD + 4 * HD + 1))                  # dx, weight grads
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            _tc_ms(flops, passes))
+    t_ops, t_bytes = _ops_ms(flops, passes, peak), 1e3 * nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            _tc_ms(flops, passes, peak), 1e3 * flops / PEAK_FP32_FLOPS)
 
 
 def _clash_near_pairs(atoms, amask, clash_dist: float = 3.2) -> int:
@@ -662,7 +711,7 @@ def phase_train_kernels() -> dict[str, list[dict]]:
         host_us = _host_us(lambda: egnn_band_bwd(*args, g_agg, g_delta, W), n=MIN_LAUNCHES)
         plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W),
                               reps=3)
-        bound_ms, bound_by, tc_ms = _band_bwd_bound(B, L, args[3])
+        bound_ms, bound_by, tc_ms, _ = _band_bwd_bound(B, L, args[3])
         G, nsplit = bwd_plan(B, L, W, HD, args[0].device)
         log(f"[kernels] egnn_band_bwd B{B}/L{L}: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
             f"host {host_us:.1f} us per call, "
@@ -701,8 +750,9 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
     version on the same bf16-rounded inputs: kernel 1 at BF16_FWD_SHAPES,
     kernel 2 at BF16_BWD_SHAPES; two launches bitwise identical; device ms
     beside the same shape's 3xTF32 ms (fp32 inputs, ``precision="highest"``)
-    timed in this call, plain ms, host us, the fp32 bound and the one-pass
-    tensor-core bound."""
+    timed in this call, plain ms, host us, the bound (one-pass TF32
+    products: the FLOP at the TF32 peak, or the bytes) and the fp32-core
+    time (the FLOP at the fp32 peak)."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
@@ -728,15 +778,17 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
         fp32_ms = _median_ms(lambda: egnn_band_fwd(*args, W))
         host_us = _host_us(lambda: egnn_band_fwd(*args16, W, "default"), n=MIN_LAUNCHES)
         plain_ms = _median_ms(lambda: egnn_band_reference(*args16, W), reps=3)
-        bound_ms, bound_by, _, tc_ms = _egnn_bound(B, L, args[3], in_bytes=2, passes=1)
+        bound_ms, bound_by, _, tc_ms, core_ms = _egnn_bound(B, L, args[3], in_bytes=2,
+                                                            passes=1)
         log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
             f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
-            f"{bound_ms:.3f} ms by {bound_by}, one-pass tensor-core bound {tc_ms:.3f} ms "
-            f"({100 * tc_ms / ms:.1f}% of it); bitwise identical over two launches")
+            f"{bound_ms:.4f} ms by {bound_by} (one-pass TF32 products, "
+            f"{100 * bound_ms / ms:.1f}% of it), fp32-core time {core_ms:.3f} ms; "
+            f"bitwise identical over two launches")
         rows["egnn_band_fwd"].append(dict(
             mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
-            max_abs_err=err, max_rel_err=rel))
+            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel))
         del args, args16, out, again, ref
     names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
     for k, (B, L) in enumerate(BF16_BWD_SHAPES):
@@ -763,17 +815,140 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
                            n=MIN_LAUNCHES)
         plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args16, g_agg, g_delta, W),
                               reps=3)
-        bound_ms, bound_by, tc_ms = _band_bwd_bound(B, L, args[3], in_bytes=2, passes=1)
+        bound_ms, bound_by, tc_ms, core_ms = _band_bwd_bound(B, L, args[3], in_bytes=2,
+                                                             passes=1)
         log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
             f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
-            f"{bound_ms:.3f} ms by {bound_by}, one-pass tensor-core bound {tc_ms:.3f} ms "
-            f"({100 * tc_ms / ms:.1f}% of it); bitwise identical over two launches")
+            f"{bound_ms:.4f} ms by {bound_by} (one-pass TF32 products, "
+            f"{100 * bound_ms / ms:.1f}% of it), fp32-core time {core_ms:.3f} ms; "
+            f"bitwise identical over two launches")
         rows["egnn_band_bwd"].append(dict(
             mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
-            max_abs_err=err, max_rel_err=rel))
+            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel))
         del args, args16, got, again, ref
     return rows
+
+
+def _chain_err(tag: str, names, got, plain, fp32_chain, frac: float) -> tuple[float, float]:
+    """The bf16-chain kernel's outputs against the plain bf16 chain (each
+    within ``frac`` x max|plain|, ``_bf16_err``) and against the one-pass
+    fp32-chain kernel on the same inputs: the largest error / max|ref| over
+    the outputs must be smaller to the plain bf16 chain than to the fp32
+    chain (a kernel that ran the fp32 chain would read 0 against it).
+    Returns both largest errors."""
+    to_plain = max(_bf16_err(f"{tag} {n}", a, b, frac) for n, a, b in zip(names, got, plain))
+    to_fp32 = max(float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30) for a, b in zip(got, fp32_chain))
+    ok = to_plain < to_fp32
+    log(f"[kernels] {tag}: largest err / max|ref| {to_plain:.2e} to the plain bf16 chain, "
+        f"{to_fp32:.2e} to the one-pass fp32-chain kernel {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{tag} lies no closer to the bf16 chain than to the fp32 chain")
+    return to_plain, to_fp32
+
+
+def phase_chain_kernels() -> dict[str, list[dict]]:
+    """The bf16 chain of kernels 1-2 against its plain version at
+    CHAIN_SHAPES (bf16 a / bs; also fp32 a / bs at CHAIN_FP32_INPUTS):
+    values within CHAIN_VALUE_FRAC, gradients within BF16_GRAD_FRAC of
+    max |plain|, and closer to the plain bf16 chain than to the one-pass
+    fp32-chain kernel (``_chain_err``); da / dbs in the input dtype, two
+    launches bitwise identical; device ms beside the same inputs' one-pass
+    fp32-chain ms and the fp32 inputs' 3xTF32 ms in this call, plain ms,
+    host us, the bound (bf16 tensor-core products: the FLOP at
+    PEAK_BF16_FLOPS, or the bytes) and the fp32-core time. Rows of mode
+    ``<dtype>/bfloat16_chain``."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference,
+        mode_key)
+
+    chain = torch.bfloat16
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    cases = [(B, L, torch.bfloat16) for B, L in CHAIN_SHAPES] + [(*CHAIN_FP32_INPUTS, torch.float32)]
+    for k, (B, L, in_dtype) in enumerate(cases):
+        args = _egnn_inputs(B, L, SEED + 60 + k)
+        xin = [args[0].to(in_dtype), args[1].to(in_dtype)] + args[2:]
+        mode = mode_key("", in_dtype, "default", chain)[1:]
+        in_bytes = 2 if in_dtype == torch.bfloat16 else 4
+        g = torch.Generator(device="cuda").manual_seed(SEED + 60 + k)
+        g_agg = torch.randn(B, L, HD, generator=g, device="cuda")
+        g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+        fwd = lambda: egnn_band_fwd(*xin, W, "default", chain)  # noqa: E731
+        bwd = lambda: egnn_band_bwd(*xin, g_agg, g_delta, W, "default", chain)  # noqa: E731
+        for name, call, plain, frac, outs in (
+                ("egnn_band_fwd", fwd, lambda: egnn_band_reference(*xin, W, chain),
+                 CHAIN_VALUE_FRAC, ("agg", "raw_delta")),
+                ("egnn_band_bwd", bwd,
+                 lambda: egnn_band_bwd_reference(*xin, g_agg, g_delta, W, chain),
+                 BF16_GRAD_FRAC, names)):
+            tag = f"{name} {mode} B{B}/L{L}"
+            fp32_args = (args, g_agg, g_delta) if name == "egnn_band_bwd" else (args,)
+            kernel = egnn_band_bwd if name == "egnn_band_bwd" else egnn_band_fwd
+            onepass = lambda: kernel(*xin, *fp32_args[1:], W, "default")  # noqa: E731
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError(f"{tag}: two launches differ")
+            if name == "egnn_band_bwd" and not (got[0].dtype == got[1].dtype == in_dtype):
+                raise RuntimeError(f"{tag}: da / dbs are {got[0].dtype}, expected {in_dtype}")
+            ref = plain()
+            rel, rel_fp32 = _chain_err(tag, outs, got, ref, onepass(), frac)
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+            del got, again, ref
+            ms = _median_ms(call)
+            onepass_ms = _median_ms(onepass)
+            tf32x3_ms = _median_ms(lambda: kernel(*args, *fp32_args[1:], W))
+            host_us = _host_us(call, n=MIN_LAUNCHES)
+            plain_ms = _median_ms(plain, reps=3)
+            bound = _egnn_bound if name == "egnn_band_fwd" else _band_bwd_bound
+            bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, 1,
+                                                           PEAK_BF16_FLOPS)
+            log(f"[kernels] {tag}: {ms:.3f} ms (one-pass fp32 chain {onepass_ms:.3f} ms, "
+                f"3xTF32 with fp32 inputs {tf32x3_ms:.3f} ms in this call, plain "
+                f"{plain_ms:.3f} ms), host {host_us:.1f} us per call; bound {bound_ms:.4f} ms "
+                f"by {bound_by} (bf16 tensor-core products, {100 * bound_ms / ms:.1f}% of it), "
+                f"fp32-core time {core_ms:.3f} ms; bitwise identical over two launches")
+            rows[name].append(dict(
+                mode=mode, B=B, L=L, ms=ms, onepass_fp32_chain_ms=onepass_ms,
+                fp32_ms=tf32x3_ms, host_us=host_us, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, tc_bound_ms=tc_ms, fp32_core_ms=core_ms,
+                max_abs_err=err, max_rel_err=rel, max_rel_err_to_fp32_chain=rel_fp32))
+        del args, xin, g_agg, g_delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_chain_path() -> dict:
+    """The bf16 chain's path: ``scripts/chain_dtype_ab.py``'s ``run()`` (the
+    counterpart of the JAX package's A/B of the knob), counts reset just
+    before and read just after; both kernels must have launched in the bf16
+    chain."""
+    import importlib.util
+
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                        reset_launches)
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "chain_dtype_ab.py")
+    spec = importlib.util.spec_from_file_location("chain_dtype_ab", path)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = ab.run()
+    secs = time.perf_counter() - t0
+    launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+    chain = {k: v for k, v in modes.items() if k.endswith("/bfloat16_chain")}
+    if not (any(k.startswith("egnn_band_fwd:") for k in chain)
+            and any(k.startswith("egnn_band_bwd:") for k in chain)):
+        raise RuntimeError(f"chain_dtype_ab launched no bf16-chain kernel: {modes}")
+    log(f"[chain_ab] {json.dumps(result)}")
+    log(f"[chain_ab] {secs:.1f}s; launches {launches}, by mode {modes}")
+    return dict(launches=launches, modes=modes, result=result, seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -1909,6 +2084,9 @@ def main(argv=None) -> None:
     shapes.update(phase_train_kernels())
     for name, rows in phase_bf16_kernels().items():
         shapes[name] += rows
+    for name, rows in phase_chain_kernels().items():
+        shapes[name] += rows
+    chain_ab = phase_chain_path()
     shapes.update(phase_clash_kernels(floor))
     clash_term_kernels()
     model, views = setup_main_path()
@@ -1931,13 +2109,21 @@ def main(argv=None) -> None:
         want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
         head = next(r for r in rows if (r["B"], r["L"]) == want and r.get("mode", FP32_MODE)
                     == FP32_MODE)
+        chain_modes = {k.split(":", 1)[1]: v for k, v in chain_ab["modes"].items()
+                       if k.startswith(name + ":")}
+        # chain_dtype_ab's path is the bf16 chain's: its fp32-chain launches
+        # (what it compares with) stand in chain_dtype_ab_modes only
         by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
                    "train": train["launches"][name],
-                   "train_bf16": train_bf16["launches"][name]}
+                   "train_bf16": train_bf16["launches"][name],
+                   "chain_dtype_ab": sum(v for k, v in chain_modes.items()
+                                         if k.endswith("/bfloat16_chain"))}
         if (by_path["train"] == 0 or by_path["train_bf16"] == 0
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
-                or (name == "egnn_band_fwd" and by_path["generate"] == 0)):
-            raise RuntimeError(f"{name} was not launched on its main path: {by_path}")
+                or (name == "egnn_band_fwd" and by_path["generate"] == 0)
+                or (name.startswith("egnn") and by_path["chain_dtype_ab"] == 0)):
+            raise RuntimeError(f"{name} was not launched on its main path: {by_path}, "
+                               f"chain_dtype_ab modes {chain_modes}")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1950,7 +2136,8 @@ def main(argv=None) -> None:
             # kernels 1-2: the train_bf16 path's launches by mode
             **({"train_bf16_modes": {k.split(":", 1)[1]: v
                                      for k, v in train_bf16["modes"].items()
-                                     if k.startswith(name + ":")}}
+                                     if k.startswith(name + ":")},
+                "chain_dtype_ab_modes": chain_modes}
                if name.startswith("egnn") else {}),
             # kernels 3-4 run on the refine path from replayed CUDA graphs:
             # their count there is the capture's launches x the replays, and

@@ -1,5 +1,5 @@
 // EGNN band forward: fused message passing of one banded EGNN layer, fp32
-// chain, fp32 or bf16 inputs a / bs.
+// or bf16 inputs a / bs, fp32 or bf16 edge chain.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/egnn_band.py (entered through `egnn_band_fused`). For receiver i
@@ -13,10 +13,14 @@
 //
 // Modes (template arguments; egnn_tile.cuh): the input type In of a / bs,
 // fp32 or, from a bf16 model, bf16 (read as bf16 and widened in registers:
-// half the bytes), and the TF32 passes per product, the JAX side's
-// `precision`: 3 for Precision.HIGHEST (an fp32 model), 1 for
-// precision=None (a bf16 model). The chain and the outputs are fp32 in
-// every mode.
+// half the bytes), and MODE: the TF32 passes per product of the fp32 chain,
+// the JAX side's `precision` (3 for Precision.HIGHEST, an fp32 model; 1 for
+// precision=None, a bf16 model), or CHAIN_BF16, its
+// chain_dtype=bfloat16: the chain in bf16, rounded where the JAX kernel
+// rounds it (d2 and the products rounded to bf16, every elementwise op in
+// bf16), bf16 weights (the caller casts them once per call), bf16
+// tensor-core products; the agg and raw_delta sums and d2 stay fp32. The
+// outputs are fp32 in every mode.
 //
 // What bounds it: operations. Per edge the two Hd x Hd products cost
 // 4*Hd^2 FLOP (262,144 at Hd=256) against ~2*Hd*4 bytes of fresh input, far
@@ -30,7 +34,10 @@
 // The rest of the chain is fp32 FMA. The tensor-core floor is PASSES x the
 // FLOP at the TF32 rate; what holds the kernel well above it is the latency
 // of mma.sync's register-fed chains at 16 warps per SM and, in one pass,
-// the fp32 elementwise chain, which does not shrink (see PERF.md).
+// the fp32 elementwise chain, which does not shrink (see PERF.md). In the
+// bf16 chain the floor is the FLOP at the bf16 rate, twice TF32's; its
+// elementwise chain costs more instructions than the fp32 one (a rounding
+// after every op), the A tile and the ring chunks half the bytes.
 //
 // Design:
 // - A block owns (batch row, tile of T = 8 receivers, slice of the band
@@ -51,7 +58,9 @@
 //   so each streams through a 4-stage cp.async ring of 8-row chunks (33 KB)
 //   once per product per step; with the 66 KB activation tile a block needs
 //   ~102 KB, and two blocks share an SM (launch bounds cap the registers
-//   at 128 per thread, with a few hundred bytes of spills).
+//   at 128 per thread, with a few hundred bytes of spills). The bf16 chain
+//   streams 16-row bf16 chunks (the same 8 KB each, 34 KB of ring) beside a
+//   34 KB bf16 tile: ~70 KB.
 // - Per-row reductions (the w_x2 dot product) sum each lane's columns, then
 //   the four lanes of a quad with shuffles, then the warps that own the
 //   row's other columns through shared memory, always in the same order.
@@ -64,44 +73,57 @@ namespace {
 
 using namespace egnn;
 
-constexpr int BK = 8;        // weight rows per ring chunk
+constexpr int BK = 8;        // weight rows per ring chunk (fp32 chain)
+constexpr int BKH = 16;      // weight rows per ring chunk (bf16 chain)
 constexpr int STAGES = 4;    // ring depth
 
-template <int HD>
+template <int HD, int MODE>
 struct FwdSmem {
     using TL = Tile<HD>;
-    static constexpr int A = 0;                                      // [M][AS]
-    static constexpr int RING = A + M * TL::AS;                      // ring
-    static constexpr int RED = RING + Ring<HD, BK, STAGES>::FLOATS;  // [WN][M]
-    static constexpr int VALID = RED + TL::WN * M;                   // [M]
-    static constexpr int D2 = VALID + M;                             // [M]
-    static constexpr int REL = D2 + M;                               // [M][3]
-    static constexpr int J = REL + 3 * M;                            // [M] (int)
+    static constexpr bool CB = Chain<MODE>::BF16;
+    static constexpr int A = 0;                                          // [M][AS] of Act
+    static constexpr int RING = A + (CB ? M * TL::AS / 2 : M * TL::AS);  // ring
+    static constexpr int RED = RING + (CB ? RingH<HD, BKH, STAGES>::FLOATS
+                                          : Ring<HD, BK, STAGES>::FLOATS);  // [WN][M]
+    static constexpr int VALID = RED + TL::WN * M;                       // [M]
+    static constexpr int D2 = VALID + M;                                 // [M]
+    static constexpr int REL = D2 + M;                                   // [M][3]
+    static constexpr int J = REL + 3 * M;                                // [M] (int)
     static constexpr int FLOATS = J + M;
 };
 
-template <int HD, class In, int PASSES>
+template <int HD, class In, int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                      const float* __restrict__ x, const float* __restrict__ cmask,
-                     const float* __restrict__ w_d, const float* __restrict__ w_e2,
-                     const float* __restrict__ b_e2, const float* __restrict__ w_x1,
-                     const float* __restrict__ b_x1, const float* __restrict__ w_x2,
-                     const float* __restrict__ b_x2, float* __restrict__ agg,
+                     const typename Chain<MODE>::Act* __restrict__ w_d,
+                     const typename Chain<MODE>::Act* __restrict__ w_e2,
+                     const typename Chain<MODE>::Act* __restrict__ b_e2,
+                     const typename Chain<MODE>::Act* __restrict__ w_x1,
+                     const typename Chain<MODE>::Act* __restrict__ b_x1,
+                     const typename Chain<MODE>::Act* __restrict__ w_x2,
+                     const typename Chain<MODE>::Act* __restrict__ b_x2, float* __restrict__ agg,
                      float* __restrict__ delta, int L, int W, int steps_per_slice) {
     using TL = Tile<HD>;
-    using SM = FwdSmem<HD>;
+    using SM = FwdSmem<HD, MODE>;
+    using Act = typename Chain<MODE>::Act;
+    constexpr bool CB = Chain<MODE>::BF16;
     constexpr int MT = TL::MT, NT = TL::NT, AS = TL::AS;
-    constexpr bool STEP_SUM = PASSES == 3;   // round-to-nearest sum of each k8 step
     extern __shared__ float4 smem4[];
     float* sm = reinterpret_cast<float*>(smem4);
-    float* A = sm + SM::A;
-    float* ring = sm + SM::RING;
+    Act* A = reinterpret_cast<Act*>(sm + SM::A);
+    Act* ring = reinterpret_cast<Act*>(sm + SM::RING);
     float* red = sm + SM::RED;
     float* row_valid = sm + SM::VALID;
     float* row_d2 = sm + SM::D2;
     float* row_rel = sm + SM::REL;
     int* row_j = reinterpret_cast<int*>(sm + SM::J);
+    // acc = A @ w in the mode's products; 3xTF32 sums each k8 step in
+    // round-to-nearest fp32 (STEP_SUM, egnn_tile.cuh)
+    auto gemm = [&](const Act* w, float (&acc)[MT][NT][4]) {
+        if constexpr (CB) gemm_tile<HD, BKH, STAGES>(w, A, ring, acc, threadIdx.x);
+        else gemm_tile<HD, BK, STAGES, MODE, MODE == 3>(w, A, ring, acc, threadIdx.x);
+    };
 
     const int B = gridDim.y;
     const int b = blockIdx.y;
@@ -125,7 +147,7 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) agg_r[nt][0] = agg_r[nt][1] = 0.f;
     float delta_r = 0.f;  // tid < 3T: receiver tid / 3, coordinate tid % 3
-    const float bx2 = b_x2[0];
+    const float bx2 = to_float(b_x2[0]);
     float acc[MT][NT][4];
 
     for (int step = s0; step < s1; ++step) {
@@ -170,22 +192,24 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                 const float d2 = row_d2[r];
 #pragma unroll
                 for (int q4 = 0; q4 < NV / 4; ++q4) {
-                    const float4 wd = __ldg(reinterpret_cast<const float4*>(w_d + c) + q4);
-                    p[4 * q4 + 0] = silu(av[4 * q4 + 0] + bv[4 * q4 + 0] + d2 * wd.x);
-                    p[4 * q4 + 1] = silu(av[4 * q4 + 1] + bv[4 * q4 + 1] + d2 * wd.y);
-                    p[4 * q4 + 2] = silu(av[4 * q4 + 2] + bv[4 * q4 + 2] + d2 * wd.z);
-                    p[4 * q4 + 3] = silu(av[4 * q4 + 3] + bv[4 * q4 + 3] + d2 * wd.w);
+                    const float4 wd = load4(w_d + c + 4 * q4);
+                    const float w4[4] = {wd.x, wd.y, wd.z, wd.w};
+#pragma unroll
+                    for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
+                        if constexpr (CB) p[q] = silu_bf16(pre_bf16(av[q], bv[q], rbf(d2), w4[q % 4]));
+                        else p[q] = silu(av[q] + bv[q] + d2 * w4[q % 4]);
+                    }
                 }
             }
 #pragma unroll
             for (int q4 = 0; q4 < NV / 4; ++q4)
-                *reinterpret_cast<float4*>(A + r * AS + c + 4 * q4) =
-                    make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]);
+                store4(A + r * AS + c + 4 * q4,
+                       make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]));
         }
         __syncthreads();
 
         // m = silu(A @ W_e2 + b_e2); agg += valid * m; A = m.
-        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_e2, A, ring, acc, tid);
+        gemm(w_e2, acc);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -193,9 +217,15 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                 const bool ok = row_valid[ln.row0 + mt * 16 + 8 * h] > 0.f;
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
-                    const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + ln.col0 + nt * 8));
-                    const float m0 = silu(acc[mt][nt][2 * h] + be.x);
-                    const float m1 = silu(acc[mt][nt][2 * h + 1] + be.y);
+                    const float2 be = load2(b_e2 + ln.col0 + nt * 8);
+                    float m0, m1;
+                    if constexpr (CB) {
+                        m0 = silu_bf16(rbf(rbf(acc[mt][nt][2 * h]) + be.x));
+                        m1 = silu_bf16(rbf(rbf(acc[mt][nt][2 * h + 1]) + be.y));
+                    } else {
+                        m0 = silu(acc[mt][nt][2 * h] + be.x);
+                        m1 = silu(acc[mt][nt][2 * h + 1] + be.y);
+                    }
                     acc[mt][nt][2 * h] = m0;
                     acc[mt][nt][2 * h + 1] = m1;
                     if (ok) {
@@ -207,8 +237,9 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
         store_tile<HD>(A, acc, ln);
         __syncthreads();
 
-        // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2, reduced per row.
-        gemm_tile<HD, BK, STAGES, PASSES, STEP_SUM>(w_x1, A, ring, acc, tid);
+        // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2, reduced per row (in
+        // the bf16 chain: fp32 sums of the bf16 products, rounded once).
+        gemm(w_x1, acc);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -216,10 +247,15 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                 float s = 0.f;
 #pragma unroll
                 for (int nt = 0; nt < NT; ++nt) {
-                    const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + ln.col0 + nt * 8));
-                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + ln.col0 + nt * 8));
-                    s = fmaf(silu(acc[mt][nt][2 * h] + bx.x), wx.x, s);
-                    s = fmaf(silu(acc[mt][nt][2 * h + 1] + bx.y), wx.y, s);
+                    const float2 bx = load2(b_x1 + ln.col0 + nt * 8);
+                    const float2 wx = load2(w_x2 + ln.col0 + nt * 8);
+                    if constexpr (CB) {
+                        s = fmaf(silu_bf16(rbf(rbf(acc[mt][nt][2 * h]) + bx.x)), wx.x, s);
+                        s = fmaf(silu_bf16(rbf(rbf(acc[mt][nt][2 * h + 1]) + bx.y)), wx.y, s);
+                    } else {
+                        s = fmaf(silu(acc[mt][nt][2 * h] + bx.x), wx.x, s);
+                        s = fmaf(silu(acc[mt][nt][2 * h + 1] + bx.y), wx.y, s);
+                    }
                 }
                 s = quad_sum(s);
                 if (ln.t == 0) red[wn * M + ln.row0 + mt * 16 + 8 * h] = s;
@@ -234,7 +270,8 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                     float wsc = 0.f;
 #pragma unroll
                     for (int q = 0; q < TL::WN; ++q) wsc += red[q * M + r];
-                    delta_r += (wsc + bx2) * row_rel[r * 3 + c];
+                    wsc = CB ? rbf(rbf(wsc) + bx2) : wsc + bx2;
+                    delta_r += wsc * row_rel[r * 3 + c];
                 }
             }
         }
@@ -246,7 +283,7 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
     if constexpr (TL::WM > 1) {
         __syncthreads();
         const int wm = (tid / 32) / TL::WN;
-        float* part = A;   // [WM][T][HD]
+        float* part = sm + SM::A;   // [WM][T][HD] (fits in either tile type)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
             *reinterpret_cast<float2*>(part + (wm * T + ln.g) * HD + ln.col0 + nt * 8) =
@@ -301,12 +338,13 @@ egnn_band_fwd_sum(const float* __restrict__ part_agg, const float* __restrict__ 
     }
 }
 
-template <int HD, class In, int PASSES>
-cudaError_t launch(const In* a, const In* bs, const float* const* in, float* agg, float* delta,
-                   float* part_agg, float* part_delta, int B, int L, int W, int S,
-                   cudaStream_t stream) {
-    constexpr size_t smem = sizeof(float) * FwdSmem<HD>::FLOATS;
-    auto kernel = egnn_band_fwd_kernel<HD, In, PASSES>;
+template <int HD, class In, int MODE>
+cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
+                   const void* const* wts, float* agg, float* delta, float* part_agg,
+                   float* part_delta, int B, int L, int W, int S, cudaStream_t stream) {
+    using Act = typename Chain<MODE>::Act;
+    constexpr size_t smem = sizeof(float) * FwdSmem<HD, MODE>::FLOATS;
+    auto kernel = egnn_band_fwd_kernel<HD, In, MODE>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
@@ -314,9 +352,11 @@ cudaError_t launch(const In* a, const In* bs, const float* const* in, float* agg
     const int per = (n_steps + S - 1) / S;
     if (S < 1 || (S - 1) * per >= n_steps || (S > 1 && (!part_agg || !part_delta)))
         return cudaErrorInvalidValue;   // every slice must own at least one step
+    const Act* w[7];
+    for (int k = 0; k < 7; ++k) w[k] = static_cast<const Act*>(wts[k]);
     dim3 grid((L + T - 1) / T, B, S);
     kernel<<<grid, THREADS, smem, stream>>>(
-        a, bs, in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8],
+        a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6],
         S > 1 ? part_agg : agg, S > 1 ? part_delta : delta, L, W, per);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
     const size_t n_agg4 = (size_t)B * L * HD / 4, n_delta = (size_t)B * L * 3;
@@ -330,14 +370,15 @@ cudaError_t launch(const In* a, const In* bs, const float* const* in, float* agg
 
 extern "C" {
 
-// Blocks of the mode (bf16_in, passes) at width hd that one SM holds at
-// once, or a negative CUDA error code.
-int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes) {
+// Blocks of the mode (bf16_in, passes, chain_bf16) at width hd that one SM
+// holds at once, or a negative CUDA error code.
+int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes, int chain_bf16) {
     int n = 0;
-    const cudaError_t err = dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
-        constexpr size_t smem = sizeof(float) * FwdSmem<decltype(hd_c)::value>::FLOATS;
-        auto kernel = egnn_band_fwd_kernel<decltype(hd_c)::value, typename decltype(in_c)::type,
-                                           decltype(p_c)::value>;
+    const cudaError_t err = dispatch(hd, bf16_in, passes, chain_bf16,
+                                     [&](auto hd_c, auto in_c, auto m_c) {
+        constexpr int HD = decltype(hd_c)::value, MODE = decltype(m_c)::value;
+        constexpr size_t smem = sizeof(float) * FwdSmem<HD, MODE>::FLOATS;
+        auto kernel = egnn_band_fwd_kernel<HD, typename decltype(in_c)::type, MODE>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
         if (e != cudaSuccess) return e;
@@ -348,26 +389,27 @@ int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes) {
 
 // Launch on `stream`; returns the CUDA error code of the launch (0 = success).
 // All pointers are device pointers to contiguous arrays, 16-byte aligned:
-// a, bs [B, L, hd], bf16 when bf16_in, else fp32; the rest fp32: x [B, L, 3];
-// cmask [B, L]; w_d, b_e2, b_x1, w_x2 [hd]; w_e2, w_x1 [hd, hd] (in, out);
-// b_x2 [1]; agg [B, L, hd]; delta [B, L, 3]. passes: TF32 passes per product
-// (3 = fp32 accuracy, 1 = one-pass TF32). S: slices of the 2W band offsets
-// (1 = one block per (batch row, tile)); S > 1 needs part_agg [S, B, L, hd]
-// and part_delta [S, B, L, 3] and runs a second kernel that sums them in
-// slice order.
+// a, bs [B, L, hd], bf16 when bf16_in, else fp32; x [B, L, 3], cmask [B, L]
+// fp32; the weights w_d, b_e2, b_x1, w_x2 [hd], w_e2, w_x1 [hd, hd] (in,
+// out), b_x2 [1], bf16 when chain_bf16, else fp32; agg [B, L, hd] and delta
+// [B, L, 3] fp32. passes: TF32 passes per product of the fp32 chain (3 =
+// fp32 accuracy, 1 = one-pass TF32; 1 or 3 with the bf16 chain, which
+// makes one bf16 pass). S: slices of the 2W band offsets (1 = one block
+// per (batch row, tile)); S > 1 needs part_agg [S, B, L, hd] and
+// part_delta [S, B, L, 3] and runs a second kernel that sums them in slice
+// order.
 int egnn_band_fwd_launch(const void* a, const void* bs, const float* x, const float* cmask,
-                         const float* w_d, const float* w_e2, const float* b_e2,
-                         const float* w_x1, const float* b_x1, const float* w_x2,
-                         const float* b_x2, float* agg, float* delta, float* part_agg,
-                         float* part_delta, int B, int L, int hd, int W, int S, int bf16_in,
-                         int passes, void* stream) {
-    const float* in[9] = {x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
+                         const void* w_d, const void* w_e2, const void* b_e2, const void* w_x1,
+                         const void* b_x1, const void* w_x2, const void* b_x2, float* agg,
+                         float* delta, float* part_agg, float* part_delta, int B, int L, int hd,
+                         int W, int S, int bf16_in, int passes, int chain_bf16, void* stream) {
+    const void* wts[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto p_c) {
+    return dispatch(hd, bf16_in, passes, chain_bf16, [&](auto hd_c, auto in_c, auto m_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(hd_c)::value, In, decltype(p_c)::value>(
-            static_cast<const In*>(a), static_cast<const In*>(bs), in, agg, delta, part_agg,
-            part_delta, B, L, W, S, s);
+        return launch<decltype(hd_c)::value, In, decltype(m_c)::value>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, wts, agg, delta,
+            part_agg, part_delta, B, L, W, S, s);
     });
 }
 

@@ -14,7 +14,8 @@ LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
 
 # The launches of kernels 1-2 (counted in LAUNCHES too) by mode,
 # "<kernel>:<dtype of a / bs>/<precision>", e.g.
-# "egnn_band_fwd:bfloat16/default" (egnn_band.py: _count).
+# "egnn_band_fwd:bfloat16/default", or "<kernel>:<dtype>/bfloat16_chain" in
+# the bf16 edge chain (egnn_band.py: mode_key, _count).
 BAND_MODE_LAUNCHES: dict[str, int] = {}
 
 # kernel -> its CUDA source, ``csrc/<source>.cu`` (one library per source)

@@ -18,15 +18,23 @@ deg_inv * 0.2 to raw_delta. The gradient takes no derivative through
 Modes, as the JAX function's arguments:
 - ``a`` / ``bs`` in fp32 or bf16 (a bf16 model's projections). The kernels
   read bf16 as it lies and widen it in registers; the plain version upcasts
-  it. The chain, ``agg`` and ``raw_delta`` are fp32 either way, and the
-  gradients of ``a`` / ``bs`` come back in their dtype.
+  it. ``agg`` and ``raw_delta`` are fp32 in every mode, and the gradients
+  of ``a`` / ``bs`` come back in their dtype.
 - ``precision``: ``"highest"`` (JAX ``Precision.HIGHEST``, an fp32 model):
   the kernels' products in 3xTF32, fp32 accuracy; ``"default"`` (JAX
   ``None``, a bf16 model): one TF32 pass, the backend's fast product.
   The plain version computes in full fp32 in both (as JAX's ``None`` does
   on the CPU).
-- ``chain_dtype``: fp32. The bf16 chain (bf16 activations and cotangents,
-  fp32 accumulators) is not ported yet and raises.
+- ``chain_dtype``: fp32, or bf16 (JAX ``chain_dtype=jnp.bfloat16``): the
+  edge MLP's activations and the cotangent chain in bf16, rounded where
+  the JAX kernel rounds them (after every elementwise op; each product's
+  fp32 sum rounded once), with bf16 weights (cast once per call) and bf16
+  tensor-core products on the card; ``d2``, ``agg`` / ``raw_delta`` and
+  every gradient sum stay fp32. ``precision`` selects nothing in this mode
+  (bf16 operands give JAX's ``HIGHEST`` and ``None`` the same product) but
+  must be one of the two. The plain version follows the JAX kernel op by
+  op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
+  uses this mode, and the port's decoder does not either.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
 SUPPORTED_HIDDEN = (32, 64, 128, 256)
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
-PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product
+CHAIN_DTYPES = (torch.float32, torch.bfloat16)   # of the edge chain
+PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product (fp32 chain)
 TILE = 8                  # receivers per tile (csrc/egnn_tile.cuh: T)
 OPS = 8                   # band offsets per step (csrc/egnn_tile.cuh: OPS)
 WGRAD_TILE = 128          # weight-grad output tile edge (csrc/egnn_band_bwd.cu)
@@ -119,13 +128,16 @@ def band_gather(v: Tensor, idx: Tensor) -> Tensor:
 
 
 def check_mode(precision: str, chain_dtype=torch.float32) -> None:
-    """Raise unless (precision, chain_dtype) is a ported mode."""
+    """Raise unless (precision, chain_dtype) is a mode of the kernels."""
     if precision not in PASSES:
         raise ValueError(f"precision {precision!r}: expected one of {tuple(PASSES)}")
-    if chain_dtype != torch.float32:
-        raise NotImplementedError(
-            f"chain_dtype={chain_dtype}: the bf16 edge chain of the band kernels "
-            "is not ported yet (ROADMAP.md, queue B item 5); use float32")
+    if chain_dtype not in CHAIN_DTYPES:
+        raise ValueError(f"chain_dtype={chain_dtype}: the band kernels' edge chain is "
+                         f"one of {CHAIN_DTYPES}")
+
+
+def _chain_bf16(chain_dtype) -> int:
+    return int(chain_dtype == torch.bfloat16)
 
 
 def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
@@ -152,15 +164,148 @@ def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
 
 
 def egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
-                        b_x2, W: int) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version: ``band_chain`` in fp32. Same arguments and
-    outputs as the kernel: bf16 ``a`` / ``bs`` are upcast, and the chain
-    runs in fp32."""
+                        b_x2, W: int, chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version, same arguments and outputs as the kernel. The
+    fp32 chain is ``band_chain`` in fp32 (bf16 ``a`` / ``bs`` upcast). The
+    bf16 chain is ``_bf16_chain_edges``, the JAX kernel's rounding op by op;
+    its gradient is ``_bf16_chain_backward`` (``_BF16ChainPlain``)."""
+    if _chain_bf16(chain_dtype):
+        return _BF16ChainPlain.apply(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+                                     w_x2, b_x2, W)
     idx, in_range = band_indices(a.shape[1], W, a.device)
     cm = cmask > 0.5
     valid = in_range[None] & cm[:, :, None] & cm[:, idx]
     return band_chain(a, bs, x, idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
                       b_x2, torch.float32)
+
+
+# ---- the bf16 chain's plain version --------------------------------------
+# JAX's `_fwd_kernel` / `_edge_chain_cotangents` with cdt = bf16: torch's bf16
+# ops compute in fp32 and round their result to bf16, as the JAX kernel's
+# ops on bf16 arrays do, so each expression below rounds where JAX rounds.
+
+def _bf16_sigmoid(x: Tensor) -> Tensor:
+    one = x.new_ones(())
+    return one / (one + torch.exp(-x))          # JAX `_sigmoid`
+
+
+def _bf16_silu(x: Tensor) -> Tensor:
+    return x * _bf16_sigmoid(x)                 # JAX `_silu`
+
+
+def _bf16_dsilu(x: Tensor) -> Tensor:
+    one = x.new_ones(())
+    s = _bf16_sigmoid(x)
+    return s * (one + x * (one - s))            # JAX `_dsilu`
+
+
+def _bf16_mm(a: Tensor, b: Tensor) -> Tensor:
+    """JAX `_mm` into bf16: bf16 operands, fp32 sums, rounded once."""
+    return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def _bf16_chain_edges(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                      W: int) -> dict:
+    """The bf16 chain's forward on every band edge [B, L, K] (K = 2W+1):
+    the weights cast to bf16 (JAX `_param_tuple`), a / bs cast to bf16,
+    d2 summed in fp32 then cast. Returns the edge tensors the forward and
+    the backward read: valid_f, rel, d2 (fp32), pre, m1, u, m, v, w1, wsc
+    (bf16), the bf16 weights and the band indices."""
+    bf = torch.bfloat16
+    idx, in_range = band_indices(a.shape[1], W, a.device)
+    cm = cmask > 0.5
+    valid_f = (in_range[None] & cm[:, :, None] & cm[:, idx]).float()[..., None]
+    w = dict(w_d=w_d.reshape(-1), w_e2=w_e2, b_e2=b_e2.reshape(-1), w_x1=w_x1,
+             b_x1=b_x1.reshape(-1), w_x2=w_x2.reshape(-1, 1), b_x2=b_x2.reshape(1))
+    w = {k: v.to(bf) for k, v in w.items()}
+    xf = x.float()
+    rel = xf[:, :, None, :] - band_gather(xf, idx)                # [B, L, K, 3]
+    d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
+    pre = (a.to(bf)[:, :, None, :] + band_gather(bs.to(bf), idx)) + d2.to(bf) * w["w_d"]
+    m1 = _bf16_silu(pre)
+    u = _bf16_mm(m1, w["w_e2"]) + w["b_e2"]
+    m = _bf16_silu(u)
+    v = _bf16_mm(m, w["w_x1"]) + w["b_x1"]
+    w1 = _bf16_silu(v)
+    wsc = _bf16_mm(w1, w["w_x2"]) + w["b_x2"]                     # [B, L, K, 1]
+    return dict(valid_f=valid_f, rel=rel, d2=d2, pre=pre, m1=m1, u=u, m=m, v=v,
+                w1=w1, wsc=wsc, w=w, idx=idx)
+
+
+def _bf16_chain_forward(e: dict) -> tuple[Tensor, Tensor]:
+    """(agg, raw_delta) from ``_bf16_chain_edges``: fp32 sums over the band
+    of the masked bf16 messages and of wsc * rel."""
+    valid = e["valid_f"].to(torch.bfloat16)
+    agg = (e["m"] * valid).float().sum(dim=2)
+    raw_delta = ((e["wsc"] * valid).float() * e["rel"]).sum(dim=2)
+    return agg, raw_delta
+
+
+def _bf16_chain_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                         g_agg, g_delta, W: int) -> tuple[Tensor, ...]:
+    """The bf16 chain's gradient as JAX's `_edge_chain_cotangents` rounds it:
+    g_agg and cot_wsc cast to bf16, the cotangent chain in bf16 ops and
+    products, cot_d2 and every sum over edges in fp32. Returns the gradients
+    of (a, bs, x, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like
+    its input, a / bs in their dtype, the rest fp32."""
+    bf = torch.bfloat16
+    e = _bf16_chain_edges(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
+    w, idx, valid_f, rel = e["w"], e["idx"], e["valid_f"], e["rel"]
+    valid = valid_f.to(bf)
+    B, L, K = valid_f.shape[:3]
+    gd = g_delta.float()[:, :, None, :]
+    cot_wsc_f = torch.sum(gd * rel, dim=-1, keepdim=True) * valid_f
+    cot_wsc = cot_wsc_f.to(bf)
+    cot_w1 = _bf16_mm(cot_wsc, w["w_x2"].t())
+    cot_v = cot_w1 * _bf16_dsilu(e["v"])
+    cot_m = g_agg.to(bf)[:, :, None, :] * valid + _bf16_mm(cot_v, w["w_x1"].t())
+    cot_u = cot_m * _bf16_dsilu(e["u"])
+    cot_pre = _bf16_mm(cot_u, w["w_e2"].t()) * _bf16_dsilu(e["pre"])
+    cot_d2 = torch.sum((cot_pre * w["w_d"]).float(), dim=-1, keepdim=True)
+    d_rel = gd * (e["wsc"].float() * valid_f) + 2.0 * rel * cot_d2
+    cp = cot_pre.float()
+
+    def to_senders(t: Tensor) -> Tensor:
+        """Sum edge values [B, L, K, D] onto their sender residues."""
+        out = t.new_zeros((B, L, t.shape[-1]))
+        return out.index_add_(1, idx.reshape(-1), t.reshape(B, L * K, -1))
+
+    def outer(p: Tensor, q: Tensor) -> Tensor:
+        """Sum over edges of p^T q (bf16 operands, fp32 sums)."""
+        return p.float().reshape(-1, p.shape[-1]).t() @ q.float().reshape(-1, q.shape[-1])
+
+    def vsum(t: Tensor) -> Tensor:
+        return t.float().reshape(-1, t.shape[-1]).sum(dim=0)
+
+    return (cp.sum(dim=2).to(a.dtype), to_senders(cp).to(bs.dtype),
+            (d_rel.sum(dim=2) - to_senders(d_rel)).to(x.dtype),
+            vsum(cp * e["d2"]).reshape(w_d.shape), outer(e["m1"], cot_u),
+            vsum(cot_u).reshape(b_e2.shape), outer(e["m"], cot_v),
+            vsum(cot_v).reshape(b_x1.shape), outer(e["w1"], cot_wsc).reshape(w_x2.shape),
+            cot_wsc_f.sum().reshape(b_x2.shape))
+
+
+class _BF16ChainPlain(torch.autograd.Function):
+    """The bf16 chain's plain version with its plain gradient: forward
+    ``_bf16_chain_edges``, backward ``_bf16_chain_backward`` (JAX's rounding
+    points, not autograd through the rounded forward)."""
+
+    @staticmethod
+    def forward(ctx, a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W):
+        ctx.W = W
+        ctx.save_for_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
+        return _bf16_chain_forward(_bf16_chain_edges(a, bs, x, cmask, w_d, w_e2, b_e2,
+                                                     w_x1, b_x1, w_x2, b_x2, W))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_agg, g_delta):
+        a, bs, x, cmask, *params = ctx.saved_tensors
+        g_agg = torch.zeros(a.shape, device=a.device) if g_agg is None else g_agg
+        g_delta = torch.zeros(x.shape, device=x.device) if g_delta is None else g_delta
+        da, dbs, dx, *dparams = _bf16_chain_backward(a, bs, x, cmask, *params, g_agg,
+                                                     g_delta, ctx.W)
+        return (da, dbs, dx, None, *dparams, None)
 
 
 def _kernel_fn():
@@ -170,11 +315,11 @@ def _kernel_fn():
 
         lib = load_library(KERNEL)
         fn = lib.egnn_band_fwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_fwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_error_string.restype = ctypes.c_char_p
-        lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 4
         lib.egnn_band_fwd_blocks_per_sm.restype = ctypes.c_int
         _FN = (fn, lib)
     return _FN
@@ -221,10 +366,20 @@ def _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
         _check(name, t, shape, a.device)
 
 
-def _count(kernel: str, dtype: torch.dtype, precision: str) -> None:
-    """One launch of ``kernel`` in the mode (dtype of a / bs, precision)."""
+def mode_key(kernel: str, dtype: torch.dtype, precision: str,
+             chain_dtype=torch.float32) -> str:
+    """Key of a mode in ``BAND_MODE_LAUNCHES``:
+    ``<kernel>:<dtype of a / bs>/<precision>`` in the fp32 chain,
+    ``<kernel>:<dtype of a / bs>/bfloat16_chain`` in the bf16 chain, where
+    ``precision`` selects nothing."""
+    mode = "bfloat16_chain" if _chain_bf16(chain_dtype) else precision
+    return f"{kernel}:{str(dtype).replace('torch.', '')}/{mode}"
+
+
+def _count(kernel: str, dtype: torch.dtype, precision: str, chain_dtype) -> None:
+    """One launch of ``kernel`` in the mode (dtype of a / bs, precision, chain)."""
     LAUNCHES[kernel] += 1
-    key = f"{kernel}:{str(dtype).replace('torch.', '')}/{precision}"
+    key = mode_key(kernel, dtype, precision, chain_dtype)
     BAND_MODE_LAUNCHES[key] = BAND_MODE_LAUNCHES.get(key, 0) + 1
 
 
@@ -243,17 +398,18 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     check_mode(precision, chain_dtype)
     if not a.is_cuda:
         return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
-                                   b_x1, w_x2, b_x2, W)
+                                   b_x1, w_x2, b_x2, W, chain_dtype)
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
-    bf16, passes = int(a.dtype == torch.bfloat16), PASSES[precision]
+    bf16, passes, cb = int(a.dtype == torch.bfloat16), PASSES[precision], _chain_bf16(chain_dtype)
+    wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
     fn, lib = _kernel_fn()
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
-    S = fwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    S = fwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
     # S > 1: each slice's partial outputs, summed in slice order by the
     # kernel's second pass
     parts = ((torch.empty((S, B, L, Hd), dtype=torch.float32, device=dev),
@@ -262,25 +418,45 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
-                 w_d.data_ptr(), w_e2.data_ptr(), b_e2.data_ptr(),
-                 w_x1.data_ptr(), b_x1.data_ptr(), w_x2.data_ptr(),
-                 b_x2.data_ptr(), agg.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in wts), agg.data_ptr(), delta.data_ptr(),
                  *((p.data_ptr() for p in parts) if parts else (None, None)),
-                 B, L, Hd, W, S, bf16, passes, stream)
+                 B, L, Hd, W, S, bf16, passes, cb, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_error_string(err).decode()})")
-    _count(KERNEL, a.dtype, precision)
+    _count(KERNEL, a.dtype, precision, chain_dtype)
     return agg, delta
 
 
+def _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                   transposed: bool = False) -> tuple[Tensor, ...]:
+    """The weights as the kernels read them, (w_d, w_e2, b_e2, w_x1, b_x1,
+    w_x2, b_x2) and with ``transposed`` also (W_e2^T, W_x1^T) row-major,
+    which the backward's cotangent products stream. The fp32 chain reads
+    them as given. The bf16 chain casts them to bf16 once per call (as
+    JAX's `_param_tuple` does) into one buffer, in two device kernels (four
+    with the transposes) rather than one per weight; each piece starts
+    16-byte aligned, as Hd is a multiple of 8 and b_x2 comes last."""
+    trans = (w_e2.t(), w_x1.t()) if transposed else ()
+    if not _chain_bf16(chain_dtype):
+        return (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2) + tuple(t.contiguous() for t in trans)
+    parts = (w_d, w_e2, b_e2, w_x1, b_x1, w_x2) + trans + (b_x2,)
+    flat = torch.cat([t.reshape(-1) for t in parts]).to(torch.bfloat16)
+    *pieces, b16 = flat.split([t.numel() for t in parts])
+    return tuple(pieces[:6]) + (b16,) + tuple(pieces[6:])
+
+
 def egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
-                            w_x2, b_x2, g_agg, g_delta, W: int
-                            ) -> tuple[Tensor, ...]:
-    """Plain version of the backward: torch autograd through
-    ``egnn_band_reference``. Returns the gradients of (a, bs, x, w_d, w_e2,
-    b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input and in its
-    dtype."""
+                            w_x2, b_x2, g_agg, g_delta, W: int,
+                            chain_dtype=torch.float32) -> tuple[Tensor, ...]:
+    """Plain version of the backward: in the fp32 chain torch autograd
+    through ``egnn_band_reference``, in the bf16 chain
+    ``_bf16_chain_backward``. Returns the gradients of (a, bs, x, w_d,
+    w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input and in
+    its dtype."""
+    if _chain_bf16(chain_dtype):
+        return _bf16_chain_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+                                    w_x2, b_x2, g_agg, g_delta, W)
     diff = [t.detach().requires_grad_(True)
             for t in (a, bs, x, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)]
     with torch.enable_grad():
@@ -296,27 +472,28 @@ def _bwd_kernel_fn():
 
         lib = load_library(BWD_KERNEL)
         fn = lib.egnn_band_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.egnn_band_bwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_bwd_error_string.restype = ctypes.c_char_p
-        lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.egnn_band_bwd_scratch_floats.argtypes = [ctypes.c_int] * 7
         lib.egnn_band_bwd_scratch_floats.restype = ctypes.c_size_t
-        lib.egnn_band_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.egnn_band_bwd_blocks_per_sm.argtypes = [ctypes.c_int] * 4
         lib.egnn_band_bwd_blocks_per_sm.restype = ctypes.c_int
         _BWD_FN = (fn, lib)
     return _BWD_FN
 
 
 def _blocks_per_sm(name: str, query, Hd: int, dev, dtype: torch.dtype,
-                   precision: str) -> int:
-    """Blocks of kernel ``name`` in the mode (dtype of a / bs, precision) at
-    width Hd that one SM of ``dev`` holds, asked of its library once
-    (``query``: its ``*_blocks_per_sm``)."""
-    key = (name, Hd, dev, dtype, precision)
+                   precision: str, chain_dtype) -> int:
+    """Blocks of kernel ``name`` in the mode (dtype of a / bs, precision,
+    chain) at width Hd that one SM of ``dev`` holds, asked of its library
+    once (``query``: its ``*_blocks_per_sm``)."""
+    key = (name, Hd, dev, dtype, precision, chain_dtype)
     if key not in _PER_SM:
         with torch.cuda.device(dev):
-            n = query(Hd, int(dtype == torch.bfloat16), PASSES[precision])
+            n = query(Hd, int(dtype == torch.bfloat16), PASSES[precision],
+                      _chain_bf16(chain_dtype))
         if n < 1:
             raise RuntimeError(f"{name}: occupancy query failed (CUDA error "
                                f"{-n}) or no block fits on an SM")
@@ -325,20 +502,20 @@ def _blocks_per_sm(name: str, query, Hd: int, dev, dtype: torch.dtype,
 
 
 def fwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
-             precision: str = "highest") -> int:
+             precision: str = "highest", chain_dtype=torch.float32) -> int:
     """``fwd_slices`` on CUDA device ``dev``: its SM count and the blocks
     of the mode that one SM holds."""
     per_sm = _blocks_per_sm(KERNEL, _kernel_fn()[1].egnn_band_fwd_blocks_per_sm, Hd, dev,
-                            dtype, precision)
+                            dtype, precision, chain_dtype)
     return fwd_slices(B, L, W, _sm_count(dev), per_sm)
 
 
 def bwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
-             precision: str = "highest") -> tuple[int, int]:
+             precision: str = "highest", chain_dtype=torch.float32) -> tuple[int, int]:
     """``bwd_grid`` on CUDA device ``dev``: its SM count and the edge-pass
     blocks of the mode that one SM holds."""
     per_sm = _blocks_per_sm(BWD_KERNEL, _bwd_kernel_fn()[1].egnn_band_bwd_blocks_per_sm,
-                            Hd, dev, dtype, precision)
+                            Hd, dev, dtype, precision, chain_dtype)
     return bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
 
 
@@ -358,7 +535,7 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     check_mode(precision, chain_dtype)
     if not a.is_cuda:
         return egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
-                                       b_x1, w_x2, b_x2, g_agg, g_delta, W)
+                                       b_x1, w_x2, b_x2, g_agg, g_delta, W, chain_dtype)
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
@@ -374,23 +551,22 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
     if B and L:
-        G, nsplit = bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+        cb = _chain_bf16(chain_dtype)
+        G, nsplit = bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
         scratch = torch.empty(
-            (lib.egnn_band_bwd_scratch_floats(B, L, Hd, W, G, nsplit),), **f32)
-        # the transposed products of the cotangent chain stream W^T row-major
-        w_e2t = w_e2.t().contiguous()
-        w_x1t = w_x1.t().contiguous()
+            (lib.egnn_band_bwd_scratch_floats(B, L, Hd, W, G, nsplit, cb),), **f32)
+        wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                             transposed=True)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*(t.data_ptr() for t in (
-                a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                w_e2t, w_x1t, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
+                a, bs, x, cmask, *wts, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
                 scratch)), B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16),
-                PASSES[precision], stream)
+                PASSES[precision], cb, stream)
         if err != 0:
             raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err} "
                                f"({lib.egnn_band_bwd_error_string(err).decode()})")
-        _count(BWD_KERNEL, a.dtype, precision)
+        _count(BWD_KERNEL, a.dtype, precision, chain_dtype)
     dw_d, db_e2, db_x1, dw_x2 = dvec[:4 * Hd].view(4, Hd)
     return (da, dbs, dx, dw_d.reshape(w_d.shape), dw_e2,
             db_e2.reshape(b_e2.shape), dw_x1, db_x1.reshape(b_x1.shape),
@@ -430,7 +606,8 @@ def egnn_band_fused(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                     chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
     """Routed entry of the decoder: ``EGNNBandFunction`` (kernel forward and
     backward) where ``pallas_policy`` says so (``ops/routing.py``), else the
-    plain version, whose gradient is torch autograd. ``precision`` and
+    plain version, whose gradient is torch autograd (in the bf16 chain
+    ``_bf16_chain_backward``, JAX's rounding points). ``precision`` and
     ``chain_dtype`` as in the module docstring (JAX ``egnn_band_fused``'s
     arguments of the same names)."""
     check_mode(precision, chain_dtype)
@@ -438,4 +615,4 @@ def egnn_band_fused(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
         return EGNNBandFunction.apply(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                       b_x1, w_x2, b_x2, W, precision, chain_dtype)
     return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
-                               w_x2, b_x2, W)
+                               w_x2, b_x2, W, chain_dtype)

@@ -10,7 +10,8 @@ small widths (Hd 32, W 4, L 64), inputs made with numpy from a seed.
     (rtol 2e-3, atol 1e-4); the gradients of ``a`` / ``bs`` come back in
     bf16 on both sides and are held after that rounding, at 1e-2 relative
     (one bf16 ulp is 2^-8 = 3.9e-3 relative).
-(b) ``chain_dtype=bfloat16`` raises, naming ROADMAP.md.
+(b) ``chain_dtype=bfloat16`` runs with bf16 inputs (it raised, naming
+    ROADMAP.md, until it was ported); ``float16`` raises.
 (c) The bf16 ``EGNNDecoder`` and ``HierCVAE`` forward with parameters
     carried over through ``params_from_flax``, on the two routing pairings:
     port ``False`` (its bf16-chain band path) against JAX ``False`` (its
@@ -172,14 +173,22 @@ def test_band_bf16_inputs_gradients_match_pallas_interpret():
 
 @pytest.mark.parametrize("entry", ["fused", "fwd", "bwd"])
 def test_band_bf16_chain_raises_naming_roadmap(entry):
+    """The bf16 chain was the mode that raised (naming ROADMAP.md) until it
+    was ported, whence the name; now every entry runs it with bf16 inputs
+    and finite results, and only a chain dtype the kernels lack, float16,
+    raises. tests/test_torch_chain_bf16.py holds the same behaviours in
+    depth: test_plain_bf16_chain_matches_pallas_interpret (every entry's
+    values against JAX) and test_check_mode_rejects_other_chain_dtypes."""
     a, bs, x, cmask, p = _band_inputs(seed=64)
     targs = _torch_args(a, bs, x, cmask, p)
     g = (torch.zeros(a.shape), torch.zeros(x.shape))
-    call = {"fused": lambda: egnn_band_fused(*targs, W, "auto", "default", torch.bfloat16),
-            "fwd": lambda: egnn_band_fwd(*targs, W, "default", torch.bfloat16),
-            "bwd": lambda: egnn_band_bwd(*targs, *g, W, "default", torch.bfloat16)}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+    call = {"fused": lambda c: egnn_band_fused(*targs, W, "auto", "default", c),
+            "fwd": lambda c: egnn_band_fwd(*targs, W, "default", c),
+            "bwd": lambda c: egnn_band_bwd(*targs, *g, W, "default", c)}[entry]
+    for out in call(torch.bfloat16):
+        assert torch.isfinite(out.float()).all()
+    with pytest.raises(ValueError, match="chain_dtype"):
+        call(torch.float16)
 
 
 # ---------------------------------------------------------------------------

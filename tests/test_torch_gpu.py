@@ -368,6 +368,151 @@ def test_bf16_kernel_runs_in_a_remat_layer(cuda):
         torch.testing.assert_close(a, grads["flat"][k], msg=k)
 
 
+# The bf16 chain (chain_dtype=bfloat16: bf16 activations and cotangents,
+# bf16 tensor-core products, fp32 sums) against its plain version, which
+# rounds where the JAX kernel rounds, on the same inputs: the kernel's sums
+# inside a product run in another order before their bf16 rounding, so a
+# value can land one bf16 step away. Values are held at CHAIN_VALUE_FRAC of
+# max |plain| (the card read at most 2.0e-4 at full width, the two chains lie
+# 2.5e-3 apart on agg; chip_smoke.py), gradients at the JAX package's 5 %
+# (tests/test_pallas.py:test_egnn_fused_bf16_chain), and all outputs must lie
+# closer to the plain bf16 chain than to the one-pass fp32-chain kernel.
+CHAIN = torch.bfloat16
+CHAIN_VALUE_FRAC = 1e-3
+
+
+def _worst_rel(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30) for a, b in zip(got, want))
+
+
+def _check_chain(args, W, seed):
+    """Kernels 1 and 2 in the bf16 chain against the plain version: values
+    within CHAIN_VALUE_FRAC, gradients within 5 % of max |plain|, all
+    outputs closer to it than to the one-pass fp32-chain kernel, da / dbs
+    in the input dtype, one launch each counted under the mode's key;
+    returns the outputs (agg, raw_delta, the ten gradients)."""
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import mode_key
+
+    B, L, Hd = args[0].shape
+    keys = [mode_key(k, args[0].dtype, "default", CHAIN)
+            for k in ("egnn_band_fwd", "egnn_band_bwd")]
+    before = [BAND_MODE_LAUNCHES.get(k, 0) for k in keys]
+    out = egnn_band_fwd(*args, W, "default", CHAIN)
+    assert out[0].dtype == out[1].dtype == torch.float32
+    ref = egnn_band_reference(*args, W, CHAIN)
+    for name, got, want in zip(("agg", "raw_delta"), out, ref):
+        _within_frac(got, want, CHAIN_VALUE_FRAC, name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(args[0].device)
+    g_delta = torch.randn(B, L, 3, generator=g).to(args[0].device)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "default", CHAIN)
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W, CHAIN)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert a.dtype == (args[0].dtype if name in ("a", "bs") else torch.float32), name
+        _within_frac(a, b, BF16_GRAD_FRAC, name)
+    assert [BAND_MODE_LAUNCHES.get(k, 0) for k in keys] == [n + 1 for n in before]
+    fp32_chain = (egnn_band_fwd(*args, W, "default")
+                  + egnn_band_bwd(*args, g_agg, g_delta, W, "default"))
+    for n, (mine, plain) in enumerate(((out, ref), (got, want))):
+        other = fp32_chain[:2] if n == 0 else fp32_chain[2:]
+        assert _worst_rel(mine, plain) < _worst_rel(mine, other), (
+            "closer to the fp32 chain than to the plain bf16 chain")
+    return out + tuple(got)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+def test_chain_bf16_matches_plain_version(cuda, Hd, in_dtype):
+    """Every supported width at an odd length (L = 37, not a multiple of
+    the 8-receiver tile), bf16 and fp32 inputs a / bs."""
+    args = _inputs(2, 37, Hd, cuda, seed=Hd + 7)
+    if in_dtype == torch.bfloat16:
+        args = _bf16_args(args)
+    _check_chain(args, 12, seed=Hd)
+
+
+@pytest.mark.parametrize("B,L", [(2, 256), (1, 640)])
+def test_chain_bf16_full_width(cuda, B, L):
+    _check_chain(_bf16_args(_inputs(B, L, 256, cuda, seed=B + L + 9)), 40, seed=L)
+
+
+def test_chain_bf16_fp32_inputs_round_as_bf16_inputs(cuda):
+    """fp32 a / bs in the bf16 chain are rounded to bf16 first: the result
+    equals the kernels' on the bf16-rounded inputs (da / dbs compared after
+    rounding to bf16) up to the order of the fp32 sums across blocks, which
+    follows each instantiation's occupancy (offset slices, edge-pass grid)."""
+    args = _inputs(2, 96, 256, cuda, seed=13)
+    args16 = _bf16_args(args)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    g_agg = torch.randn(2, 96, 256, generator=g).to(cuda)
+    g_delta = torch.randn(2, 96, 3, generator=g).to(cuda)
+    outs = [egnn_band_fwd(*t, 40, "default", CHAIN)
+            + egnn_band_bwd(*t, g_agg, g_delta, 40, "default", CHAIN) for t in (args, args16)]
+    for k, (a, b) in enumerate(zip(*outs)):
+        # da / dbs (outputs 2, 3) in bf16 may round one bf16 step apart
+        rtol = 2.0 ** -7 if k in (2, 3) else 1e-5
+        torch.testing.assert_close(a.to(b.dtype).float(), b.float(), rtol=rtol,
+                                   atol=1e-6 * float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("B,L", [(4, 256), (2, 640)])
+def test_chain_bf16_two_launches_are_bitwise_identical(cuda, B, L):
+    args = _bf16_args(_inputs(B, L, 256, cuda, seed=B + L + 5))
+    g = torch.Generator(device="cpu").manual_seed(L + 2)
+    g_agg = torch.randn(B, L, 256, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+
+    def run():
+        return (egnn_band_fwd(*args, 40, "default", CHAIN)
+                + egnn_band_bwd(*args, g_agg, g_delta, 40, "default", CHAIN))
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_chain_bf16_never_runs_the_plain_version_on_cuda(cuda, monkeypatch):
+    """A CUDA call in the bf16 chain launches its kernel (one count per
+    call) and never falls back: with the plain versions made to raise,
+    EGNNBandFunction's forward and backward still run."""
+    from protein_ensemble_vae_torch.ops.kernels import egnn_band
+
+    def refuse(*_, **__):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    for name in ("egnn_band_reference", "egnn_band_bwd_reference", "_bf16_chain_edges",
+                 "_bf16_chain_backward"):
+        monkeypatch.setattr(egnn_band, name, refuse)
+    args = _bf16_args(_inputs(2, 64, 64, cuda, seed=3))
+    diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
+    before = dict(LAUNCHES)
+    agg, delta = egnn_band_fused(diff[0], diff[1], diff[2], args[3], *diff[3:], 8,
+                                 "auto", "default", CHAIN)
+    (agg.square().sum() + delta.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + 1
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 1
+    assert all(t.grad is not None for t in diff)
+
+
+def test_chain_bf16_function_gradients_on_cuda(cuda):
+    """EGNNBandFunction in the bf16 chain (kernel forward and backward)
+    against the plain route's gradients (``_BF16ChainPlain``) within 5 %
+    of max |plain|."""
+    args = _inputs(2, 96, 128, cuda, seed=8)
+    grads = {}
+    for mode in ("auto", False):
+        diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
+        agg, delta = egnn_band_fused(diff[0], diff[1], diff[2], args[3], *diff[3:], 12,
+                                     mode, "highest", CHAIN)
+        (agg.square().sum() + delta.square().sum()).backward()
+        grads[mode] = [t.grad for t in diff]
+    for name, a, b in zip(_GRAD_NAMES, grads["auto"], grads[False]):
+        _within_frac(a, b, BF16_GRAD_FRAC, name)
+
+
 def test_band_function_gradients_on_cuda(cuda):
     """egnn_band_fused on CUDA tensors backpropagates through the kernels
     (the forward used to return tensors with no grad_fn)."""
