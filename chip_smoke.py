@@ -58,7 +58,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    reset just before and read just after: each structure makes 2 decodes x
    8 EGNN layers = 16 launches. Outputs must be finite and the PDB files
    written; the kernel decode of one latent is held against the plain
-   decode of it.
+   decode of it. Then data preparation (``phase_dataprep``): ESM-2 at the
+   published t33 width (hidden 1280, 33 layers, 20 heads, FFN 5120; seeded
+   random weights drawn as HF draws them, ``init_hf_``) on the card, its
+   forward on a ragged B2/T64 batch with one <mask> token held against the
+   port's CPU forward on the same weights (atol 5e-4), ``ESM2Embedder.embed``
+   against the unpadded forward (atol 1e-4), and ``embed`` timed at 254,
+   510 and 1022 residues (buckets of 256, 512, 1024 tokens; the stream
+   span from CUDA events, median of 5 after one warm-up; tokens/s, peak
+   memory) with one torch.profiler pass per length (device busy ms and
+   share, the fp32 FLOP bound against the busy time; at 1022 also device
+   time by kind); then
+   the path: ``tests/fixtures/messy_9xyz.cif`` -> ``parse_mmcif_backbone``
+   -> ``chain_to_arrays`` -> ``process_chain`` (torsions on the card) ->
+   the ESM-2 embedding of chain AA (58 residues) -> an in-memory conformer
+   view with the H5 layout -> ``generate_ensembles`` with the main model,
+   ``num_samples=10`` -> PDB files. Counts reset just before the path and
+   read just after: 3 structures x 16 launches of kernel 1, nothing else.
+   Its weights are freed before the later phases.
 5. training main path: ``train_model`` for 2 epochs at the default widths,
    fp32, batch 4, on an in-memory pair dataset of NeRF conformers (L = 230,
    K = 5, 10 pairs: 8 train / 2 val), checkpointing into a temporary
@@ -100,8 +117,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    output is finite with its padded rows bitwise unchanged, and the torsion
    stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
    and ``cli.validate`` then score the files on the card.
-8. one ``kernels`` JSON line (launches by path: generate, refine, train,
-   train_bf16, and chain_dtype_ab's bf16-chain launches; kernels 1-2 also
+8. one ``esm`` JSON line (the ESM-2 gates, timings and the path's stage
+   seconds), one ``kernels`` JSON line (launches by path: generate,
+   dataprep, refine, train, train_bf16, and chain_dtype_ab's bf16-chain
+   launches; kernels 1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
    there only), then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -110,8 +129,9 @@ the generation path and over the B4/L256 timed train steps, fp32 and bf16
 (device busy share, top operators by device time) and writes their Chrome
 traces to ``TRACE.json``, ``TRACE.train_fp32.json`` and
 ``TRACE.train_bf16.json``, and the refine stages' traces to
-``TRACE.refine_cartesian.json`` and ``TRACE.refine_torsion.json``. It is
-not needed for the smoke run.
+``TRACE.refine_cartesian.json`` and ``TRACE.refine_torsion.json``, and
+the 1022-residue ESM-2 profile pass's to ``TRACE.esm2.json``. It is not
+needed for the smoke run.
 
 Imports nothing of JAX; builds from the repository's sources only.
 """
@@ -1084,6 +1104,245 @@ def phase_main_path(model, views, out_dir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4b. data preparation: mmCIF -> aligned ensemble -> ESM-2 t33 -> generation
+# ---------------------------------------------------------------------------
+
+# ESM-2 at the published esm2_t33_650M_UR50D width (ESM2Config's defaults:
+# hidden 1280, 33 layers, 20 heads, FFN 5120), seeded random weights drawn
+# as HF draws them. The card's forward against the port's CPU forward on a
+# ragged B2/T64 batch with one <mask> token within ESM_CPU_ATOL (the JAX
+# package's tolerance for its t33 forward against HF); the bucketed embedder
+# against the unpadded forward on the card within ESM_BUCKET_ATOL.
+ESM_CPU_ATOL, ESM_BUCKET_ATOL = 5e-4, 1e-4
+ESM_BUCKET_RESIDUES = 100                  # bucket 128: 26 padded tokens
+ESM_TIMED_RESIDUES = (254, 510, 1022)      # buckets of 256, 512, 1024 tokens
+ESM_TIMED_REPS = 5
+DATAPREP_CIF = os.path.join("tests", "fixtures", "messy_9xyz.cif")
+DATAPREP_CHAIN = ("AA", 3, 58)             # chain id, conformers, residues
+
+
+def _esm2_flop(T: int, cfg) -> float:
+    """FLOP of one ESM-2 forward over T tokens: per layer the q/k/v/out and
+    FFN products, 2T(4D^2 + 2DF), and the two attention products, 4T^2 D."""
+    D, F_ = cfg.hidden, cfg.intermediate
+    return cfg.num_layers * (2 * T * (4 * D * D + 2 * D * F_) + 4 * T * T * D)
+
+
+def _esm2_t33():
+    """ESM2Embedder at the t33 width on the card, from init_hf_ with a
+    seeded CUDA generator (no weights are read)."""
+    import torch
+
+    from protein_ensemble_vae_torch.models.esm2 import (ESM2, ESM2Config,
+                                                        ESM2Embedder, init_hf_)
+
+    cfg = ESM2Config()
+    with torch.device("meta"):
+        model = ESM2(cfg)
+    model = init_hf_(model.to_empty(device=DEVICE),
+                     torch.Generator(device=DEVICE).manual_seed(SEED))
+    emb = ESM2Embedder(model.state_dict(), cfg, device=DEVICE)
+    del model
+    torch.cuda.empty_cache()
+    return emb
+
+
+def _esm_gates(emb) -> dict:
+    """(b) the card's forward against the CPU forward; (c) bucket invariance."""
+    import torch
+
+    from protein_ensemble_vae_torch.models.esm2 import (CLS_ID, EOS_ID, ESM2, MASK_ID,
+                                                        PAD_ID, tokenize)
+    from protein_ensemble_vae_torch.ops.routing import set_full_fp32
+
+    set_full_fp32()
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(4, 24, (2, 64)).astype(np.int64)
+    toks[:, 0] = CLS_ID
+    toks[0, -1] = EOS_ID
+    toks[0, 9] = MASK_ID
+    toks[1, 41:] = PAD_ID
+    toks[1, 40] = EOS_ID
+    toks = torch.from_numpy(toks)
+    amask = toks != PAD_ID
+    with torch.inference_mode():
+        got = emb.model(toks.to(DEVICE), amask.to(DEVICE)).cpu()
+    with torch.device("meta"):
+        cpu = ESM2(emb.config)
+    cpu = cpu.to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in emb.model.state_dict().items()})
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu.eval()(toks, amask)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    cpu_err = float((got[amask] - want[amask]).abs().max())
+    log(f"[dataprep] ESM-2 t33 B2/T64 (ragged, one <mask>), card vs CPU forward: "
+        f"max abs err {cpu_err:.3e} (atol {ESM_CPU_ATOL}); max |ref| "
+        f"{float(want[amask].abs().max()):.2f}; CPU forward {cpu_s:.1f} s")
+    if not torch.isfinite(got).all() or cpu_err > ESM_CPU_ATOL:
+        raise RuntimeError(f"ESM-2 on the card disagrees with the CPU forward: {cpu_err}")
+
+    seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), ESM_BUCKET_RESIDUES))
+    reps = emb.embed(seq)
+    ids = torch.from_numpy(tokenize(seq)[None].astype(np.int64)).to(DEVICE)
+    with torch.inference_mode():
+        direct = emb.model(ids)[0, 1:-1].cpu().numpy()
+    bucket_err = float(np.abs(reps - direct).max())
+    log(f"[dataprep] ESM2Embedder.embed ({ESM_BUCKET_RESIDUES} residues, bucket "
+        f"{emb._bucket(ESM_BUCKET_RESIDUES + 2)}) vs the unpadded forward on the card: "
+        f"max abs err {bucket_err:.3e} (atol {ESM_BUCKET_ATOL})")
+    if reps.shape != (ESM_BUCKET_RESIDUES, emb.config.hidden) or bucket_err > ESM_BUCKET_ATOL:
+        raise RuntimeError(f"bucketed embedding disagrees: {reps.shape}, {bucket_err}")
+    return dict(cpu_err=cpu_err, cpu_atol=ESM_CPU_ATOL, bucket_err=bucket_err,
+                bucket_atol=ESM_BUCKET_ATOL)
+
+
+def _esm_timing(emb, trace_path) -> list[dict]:
+    """(e) ``embed`` at ESM_TIMED_RESIDUES: the stream span (CUDA events
+    around one call, which take in tokenisation, the copies and the host's
+    dispatch; median of ESM_TIMED_REPS after one warm-up), host ms,
+    tokens/s over the span, peak device memory; then one torch.profiler
+    pass per length for the device's busy time (the union of its kernels'
+    intervals) and busy share. The fp32 FLOP bound is held against the
+    busy time, a device figure, and beside it against the span."""
+    import torch
+
+    weights = sum(p.numel() * p.element_size() for p in emb.model.parameters())
+    rng = np.random.default_rng(SEED + 7)
+    rows = []
+    for n in ESM_TIMED_RESIDUES:
+        seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n))
+        T = emb._bucket(n + 2)
+        emb.embed(seq)                                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        span, host = [], []
+        for _ in range(ESM_TIMED_REPS):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            out = emb.embed(seq)                            # ends in a copy to the host
+            e.record()
+            e.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+            span.append(s.elapsed_time(e))
+        if out.shape != (n, emb.config.hidden) or not np.isfinite(out).all():
+            raise RuntimeError(f"ESM-2 embedding at {n} residues: {out.shape}, non-finite")
+        span_ms = float(np.median(span))
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        longest = n == ESM_TIMED_RESIDUES[-1]
+        prof = _profile(lambda: emb.embed(seq), f"ESM-2 t33 embed {n} residues",
+                        longest and trace_path and trace_path.replace(".json", ".esm2.json"),
+                        table=longest)
+        busy_ms = prof["busy_ms"]
+        flop = _esm2_flop(T, emb.config)
+        # the weights are the bytes that must move (the activations of one
+        # sequence are a few MiB)
+        t_ops, t_bytes = 1e3 * flop / PEAK_FP32_FLOPS, 1e3 * weights / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes)
+        rows.append(dict(residues=n, tokens=T, span_ms=span_ms, host_ms=float(np.median(host)),
+                         device_busy_ms=busy_ms, busy_share=prof["busy_share"],
+                         tokens_per_s=T / (span_ms / 1e3), peak_mib=peak_mib,
+                         weights_mib=weights / 2**20, tflop=flop / 1e12, bound_ms=bound_ms,
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         bound_share_busy=bound_ms / busy_ms, bound_share_span=bound_ms / span_ms))
+        if longest:
+            rows[-1]["device_us_by_kind"] = prof["us_by_kind"]
+        log(f"[dataprep] ESM-2 t33 embed {n} residues ({T} tokens): stream span {span_ms:.2f} ms "
+            f"(median of {ESM_TIMED_REPS}), {rows[-1]['host_ms']:.2f} ms host, device busy "
+            f"{busy_ms:.2f} ms ({100 * prof['busy_share']:.1f}% of the profiled call), "
+            f"{rows[-1]['tokens_per_s']:.0f} tokens/s, peak {peak_mib:.0f} MiB "
+            f"(weights {weights / 2**20:.0f}); {flop / 1e12:.3f} TFLOP, fp32 bound "
+            f"{bound_ms:.2f} ms = {100 * bound_ms / busy_ms:.1f}% of the busy time, "
+            f"{100 * bound_ms / span_ms:.1f}% of the span")
+    return rows
+
+
+def phase_dataprep(model, out_dir: str, trace_path=None) -> dict:
+    """ESM-2 t33 on the card (gates and timing), then the path: the mmCIF
+    fixture through parse, gates, core-fit alignment and torsions on the
+    card, its chain's ESM-2 embedding, an in-memory conformer view with the
+    H5 layout (the chip machine has no h5py) and ``generate_ensembles`` with
+    the main model. Kernel 1's counts are reset just before the path and
+    read just after: 2 decodes x decoder_layers per structure."""
+    import torch
+
+    from protein_ensemble_vae_torch.data.dataset import (SingleConformerView,
+                                                         _conformers_from_group)
+    from protein_ensemble_vae_torch.dataprep.mmcif import (chain_to_arrays,
+                                                           parse_mmcif_backbone)
+    from protein_ensemble_vae_torch.dataprep.pipeline import process_chain
+    from protein_ensemble_vae_torch.infer.generate import generate_ensembles
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+
+    t_phase = t0 = time.perf_counter()
+    emb = _esm2_t33()
+    log(f"[dataprep] ESM-2 t33 (hidden {emb.config.hidden}, {emb.config.num_layers} layers, "
+        f"{emb.config.num_heads} heads, FFN {emb.config.intermediate}) on the card: "
+        f"{sum(p.numel() for p in emb.model.parameters())} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gates = _esm_gates(emb)
+    timed = _esm_timing(emb, trace_path)
+
+    cid, K, L = DATAPREP_CHAIN
+    gen_dir = os.path.join(out_dir, "dataprep")
+    torch.cuda.synchronize()
+    reset_launches()
+    stages = {}
+    t0 = time.perf_counter()
+    arrays = chain_to_arrays(parse_mmcif_backbone(DATAPREP_CIF)[cid])
+    stages["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain = process_chain(arrays, device=DEVICE)
+    stages["process_chain_s"] = time.perf_counter() - t0
+    if chain is None or chain["mask"].shape != (K, L):
+        raise RuntimeError(f"chain {cid} of {DATAPREP_CIF}: expected K={K}, L={L}")
+    t0 = time.perf_counter()
+    seq_emb = emb.embed(chain["sequence"])
+    stages["embed_s"] = time.perf_counter() - t0
+    if seq_emb.shape != (L, emb.config.hidden) or not np.isfinite(seq_emb).all():
+        raise RuntimeError(f"embedding of chain {cid}: {seq_emb.shape}, finite "
+                           f"{np.isfinite(seq_emb).all()}")
+    h5_like = {"coords_N": chain["coords_n"], "coords_ca": chain["coords_ca"],
+               "coords_C": chain["coords_c"], "mask_ca": chain["mask"]}
+    h5_like.update({k: chain[k] for k in ("torsion_phi_sincos", "torsion_psi_sincos",
+                                          "torsion_omega_sincos")})
+    pid = f"9xyz{cid}"
+    confs = _conformers_from_group(h5_like, pid, "", seq_emb, chain["sequence"])
+    view = SingleConformerView(types.SimpleNamespace(conformers=confs,
+                                                     proteins={pid: list(range(len(confs)))}))
+    t0 = time.perf_counter()
+    out = generate_ensembles(model, view, gen_dir, num_samples=NUM_SAMPLES, seed=SEED,
+                             buckets=BUCKETS, verbose=False)
+    torch.cuda.synchronize()
+    stages["generate_s"] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+
+    expected = K * 2 * model.config.decoder_layers
+    log(f"[dataprep] path launches {launches} (expected egnn_band_fwd = {expected}: "
+        f"{K} structures x 2 decodes x {model.config.decoder_layers} layers)")
+    if launches["egnn_band_fwd"] != expected or sum(launches.values()) != expected:
+        raise RuntimeError(f"dataprep path launched {launches}, expected "
+                           f"egnn_band_fwd = {expected} and nothing else")
+    for r in out["results"]:
+        for suffix in ("true", "reconstruction", "ensemble"):
+            path = os.path.join(gen_dir, f"{r['structure']}_{suffix}.pdb")
+            xyz = _pdb_coords(path) if os.path.exists(path) else np.zeros(0)
+            if xyz.size == 0 or not np.isfinite(xyz).all():
+                raise RuntimeError(f"missing, empty or non-finite {path}")
+    log(f"[dataprep] {DATAPREP_CIF} chain {cid} (K={K}, L={L}, bucket "
+        f"{min(b for b in BUCKETS if b >= L)}) -> {len(out['results'])} ensembles of "
+        f"{NUM_SAMPLES}: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + " (host clock)")
+    del emb
+    torch.cuda.empty_cache()
+    log(f"[dataprep] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, stages=stages, timed=timed, **gates)
+
+
+# ---------------------------------------------------------------------------
 # 5. training main path
 # ---------------------------------------------------------------------------
 
@@ -1997,12 +2256,12 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
 # profile
 # ---------------------------------------------------------------------------
 
-def _profile(run_once, label: str, trace_path, active: int = 1) -> dict:
+def _profile(run_once, label: str, trace_path, active: int = 1, table: bool = True) -> dict:
     """torch.profiler over ``active`` calls of ``run_once`` after one warm-up
     call: device busy share (union of device intervals over the wall time),
-    the top operators by device time, and the Chrome trace at
-    ``trace_path`` (none if it is None). Returns the busy share and the
-    device events' names in time order."""
+    the top operators by device time (logged if ``table``), and the Chrome
+    trace at ``trace_path`` (none if it is falsy). Returns the busy share,
+    the busy ms per call and the device events' names in time order."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2031,12 +2290,25 @@ def _profile(run_once, label: str, trace_path, active: int = 1) -> dict:
     log(f"[profile] {label} x{active}: wall {wall_ms:.1f} ms (profiled), "
         f"device busy {busy / 1e3:.1f} ms = {100 * busy / 1e3 / wall_ms:.1f}% "
         f"(idle {100 - 100 * busy / 1e3 / wall_ms:.1f}%), {len(events)} device events")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18))
+    if table:
+        log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=18))
     if trace_path:
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
-    return dict(busy_share=busy / 1e3 / wall_ms, wall_ms=wall_ms,
+    us_by_kind: dict[str, float] = {}
+    for e in events:
+        kind = next((k for k, words in DEVICE_KINDS if any(w in e.name.lower() for w in words)),
+                    "other")
+        us_by_kind[kind] = us_by_kind.get(kind, 0.0) + e.time_range.elapsed_us() / active
+    return dict(busy_share=busy / 1e3 / wall_ms, busy_ms=busy / 1e3 / active, wall_ms=wall_ms,
+                us_by_kind=us_by_kind,
                 names=[e.name for e in sorted(events, key=lambda e: e.time_range.start)])
+
+
+# Device kernels by kind (the first whose words a kernel's name holds).
+DEVICE_KINDS = (("gemm", ("gemm", "cutlass", "sm90_xmma", "ampere_", "gemv")),
+                ("softmax", ("softmax",)), ("layer_norm", ("layer_norm", "layernorm")),
+                ("copy", ("memcpy", "memset", "copy")))
 
 
 def profile_generation(model, views, out_dir: str, trace_path: str) -> None:
@@ -2094,6 +2366,7 @@ def main(argv=None) -> None:
         gen = phase_main_path(model, views, out_dir)
         if args.profile:
             profile_generation(model, views, out_dir, args.profile)
+        dataprep = phase_dataprep(model, out_dir, args.profile)
         del model
         train = phase_train_path(out_dir)
         train_bf16 = phase_train_cli_bf16(out_dir)
@@ -2116,11 +2389,13 @@ def main(argv=None) -> None:
         by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
                    "train": train["launches"][name],
                    "train_bf16": train_bf16["launches"][name],
+                   "dataprep": dataprep["launches"][name],
                    "chain_dtype_ab": sum(v for k, v in chain_modes.items()
                                          if k.endswith("/bfloat16_chain"))}
         if (by_path["train"] == 0 or by_path["train_bf16"] == 0
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
-                or (name == "egnn_band_fwd" and by_path["generate"] == 0)
+                or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
+                                                      by_path["dataprep"]))
                 or (name.startswith("egnn") and by_path["chain_dtype_ab"] == 0)):
             raise RuntimeError(f"{name} was not launched on its main path: {by_path}, "
                                f"chain_dtype_ab modes {chain_modes}")
@@ -2150,6 +2425,8 @@ def main(argv=None) -> None:
             shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
     log(json.dumps({"train_steps": steps}))
+    log(json.dumps({"esm": {k: dataprep[k] for k in ("timed", "stages", "cpu_err", "cpu_atol",
+                                                     "bucket_err", "bucket_atol")}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}),

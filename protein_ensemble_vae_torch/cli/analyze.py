@@ -23,7 +23,7 @@ def main(argv=None):
                          "to run on the CPU)")
     args = ap.parse_args(argv)
 
-    from protein_ensemble_vae_torch.cli.generate import resolve_device
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
     from protein_ensemble_vae_torch.eval.analyze import analyze_directory
     from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 

@@ -50,18 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def resolve_device(name: str):
-    """The requested device; a CUDA device without a GPU raises."""
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available. "
-                           "Pass --device cpu to run on the CPU.")
-    return device
-
-
 def main(argv=None):
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
+
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
 

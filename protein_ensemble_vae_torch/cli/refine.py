@@ -65,7 +65,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from protein_ensemble_vae_torch.cli.generate import resolve_device
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
     from protein_ensemble_vae_torch.eval.analyze import (bond_length_stats,
                                                          clash_score)
     from protein_ensemble_vae_torch.infer.gate import validate_protein_geometry

@@ -156,7 +156,7 @@ def main(argv=None):
 
     import torch
 
-    from protein_ensemble_vae_torch.cli.generate import resolve_device
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
     from protein_ensemble_vae_torch.config import (LossWeights, ModelConfig,
                                                    RunConfig, TrainConfig)
     from protein_ensemble_vae_torch.data import EnsembleDataset

@@ -28,7 +28,7 @@ def main(argv=None):
     if not ((args.pred and args.true_pdb) or args.ensemble):
         ap.error("provide --pred & --true, and/or --ensemble")
 
-    from protein_ensemble_vae_torch.cli.generate import resolve_device
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
     from protein_ensemble_vae_torch.eval.report import validate_files
     from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 

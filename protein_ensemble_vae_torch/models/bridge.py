@@ -14,6 +14,12 @@ carries over as it is; only leaf layouts change:
   ``global_query``) are copied as they are.
 
 It raises on any key left over on either side, and on a shape mismatch.
+
+``esm2_params_from_jax(tree, model)`` does the same for the JAX package's
+ESM-2 params tree (``word_embeddings``, a list of ``layers``, ``final_ln``)
+into ``models/esm2.ESM2``: each Linear ``kernel [in, out]`` becomes
+``weight [out, in]``; LayerNorm ``weight`` / ``bias`` and the embedding
+table carry over as they are.
 """
 
 from __future__ import annotations
@@ -60,6 +66,25 @@ def _convert(path: tuple[str, ...], node: Mapping, out: dict) -> None:
             _convert(path + (k,), node[k], out)
 
 
+def _match(flat: Mapping[str, np.ndarray], model: nn.Module,
+           source: str) -> dict[str, torch.Tensor]:
+    """``flat`` as ``model``'s state_dict: the same keys, the same shapes."""
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(flat))
+    extra = sorted(set(flat) - set(expected))
+    if missing or extra:
+        raise KeyError(f"{source} and model disagree: missing {missing}, "
+                       f"left over {extra}")
+    sd = {}
+    for name, ref in expected.items():
+        arr = flat[name]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: {source} shape {tuple(arr.shape)} -> "
+                             f"model shape {tuple(ref.shape)}")
+        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return sd
+
+
 def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
     """Flax ``params`` (nested dict of arrays) -> ``model``'s state_dict.
 
@@ -67,17 +92,33 @@ def params_from_flax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]
     on a shape mismatch."""
     flat: dict[str, np.ndarray] = {}
     _convert((), tree, flat)
-    expected = model.state_dict()
-    missing = sorted(set(expected) - set(flat))
-    extra = sorted(set(flat) - set(expected))
-    if missing or extra:
-        raise KeyError(f"Flax tree and model disagree: missing {missing}, "
-                       f"left over {extra}")
-    sd = {}
-    for name, ref in expected.items():
-        arr = flat[name]
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: Flax shape {tuple(arr.shape)} -> "
-                             f"model shape {tuple(ref.shape)}")
-        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
-    return sd
+    return _match(flat, model, "Flax tree")
+
+
+def esm2_params_from_jax(tree: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX package's ESM-2 params tree -> ``models/esm2.ESM2``'s
+    state_dict.
+
+    Raises ``KeyError`` on a key that only one side has and ``ValueError``
+    on a shape mismatch."""
+    flat: dict[str, np.ndarray] = {}
+    top = set(tree) - {"word_embeddings", "layers", "final_ln"}
+    if top:
+        raise KeyError(f"unexpected keys {sorted(top)} in the ESM-2 tree")
+    nodes = [("word_embeddings", {"weight": tree["word_embeddings"]}),
+             ("final_ln", tree["final_ln"])]
+    nodes += [(f"layers.{i}.{name}", node) for i, layer in enumerate(tree["layers"])
+              for name, node in layer.items()]
+    for prefix, node in nodes:
+        leaves = set(node)
+        if "kernel" in leaves:                     # Linear
+            extra = leaves - {"kernel", "bias"}
+            flat[f"{prefix}.weight"] = np.asarray(node["kernel"]).T
+        else:                                      # LayerNorm, embedding
+            extra = leaves - {"weight", "bias"}
+            flat[f"{prefix}.weight"] = np.asarray(node["weight"])
+        if extra:
+            raise KeyError(f"unexpected leaves {sorted(extra)} under {prefix}")
+        if "bias" in leaves:
+            flat[f"{prefix}.bias"] = np.asarray(node["bias"])
+    return _match(flat, model, "ESM-2 tree")

@@ -32,6 +32,16 @@ def set_full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def resolve_device(name: str) -> torch.device:
+    """The requested device; a CUDA device without a GPU raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r}: no CUDA device is available. "
+                           "Pass the device \"cpu\" (--device cpu on a "
+                           "command line) to run on the CPU.")
+    return device
+
+
 def pallas_policy(t: torch.Tensor, use_pallas: object = "auto") -> bool:
     """Decide whether the hand-written kernel runs on tensor ``t``."""
     on_cuda = t.is_cuda

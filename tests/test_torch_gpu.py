@@ -859,3 +859,66 @@ def test_refine_step_has_no_host_sync(cuda, monkeypatch):
     R.refine_backbone(n, ca, c, mask, steps=2, lr_decay=True, **_POLISH_W)
     T.refine_torsions(n, ca, c, mask, steps=2, vdw_include_o=True)
     assert LAUNCHES["clash_fwd"] == before + 2
+
+
+def _esm2_small(seed=0):
+    """A small ESM-2 (4 layers at hidden 320, 20 heads, FFN 1280) with
+    HF's seeded initialisation, on the CPU."""
+    from protein_ensemble_vae_torch.models.esm2 import ESM2, ESM2Config, init_hf_
+
+    cfg = ESM2Config(hidden=320, num_layers=4, num_heads=20, intermediate=1280)
+    return init_hf_(ESM2(cfg), torch.Generator().manual_seed(seed)).eval()
+
+
+def test_esm2_forward_on_card_matches_cpu(cuda):
+    """Ragged batch with a <mask> token: the card's forward (full fp32
+    products) against the CPU forward on the same weights, atol 1e-5."""
+    from protein_ensemble_vae_torch.models.esm2 import EOS_ID, MASK_ID, PAD_ID
+
+    model = _esm2_small()
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(4, 24, (2, 40), generator=g)
+    toks[:, 0] = 0
+    toks[0, -1] = EOS_ID
+    toks[0, 7] = MASK_ID
+    toks[1, 25:] = PAD_ID
+    toks[1, 24] = EOS_ID
+    amask = toks != PAD_ID
+    with torch.no_grad():
+        want = model(toks, amask)
+        got = model.to(cuda)(toks.to(cuda), amask.to(cuda)).cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[amask], want[amask], rtol=0.0, atol=1e-5)
+
+
+def test_esm2_embedder_bucket_invariance_on_card(cuda):
+    """``ESM2Embedder.embed`` on the card (padded to its 64-token bucket)
+    against the unpadded forward on the card, atol 1e-4."""
+    from protein_ensemble_vae_torch.models.esm2 import ESM2Embedder, tokenize
+
+    model = _esm2_small(seed=2)
+    emb = ESM2Embedder(model.state_dict(), model.config, device="cuda")
+    seq = "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQAPILSRVGDGTQDNLSGAEKAVQ"
+    reps = emb.embed(seq)
+    ids = torch.from_numpy(tokenize(seq)[None].astype("int64")).to(cuda)
+    with torch.no_grad():
+        direct = emb.model(ids)[0, 1:-1].cpu().numpy()
+    assert reps.shape == (len(seq), 320)
+    torch.testing.assert_close(torch.from_numpy(reps), torch.from_numpy(direct),
+                               rtol=0.0, atol=1e-4)
+
+
+def test_dataprep_torsions_on_card_match_cpu(cuda):
+    """``process_chain``'s torsions computed on the card against the CPU,
+    atol 1e-5; every other output is the same host-side numpy."""
+    import os
+
+    from protein_ensemble_vae_torch.dataprep import mmcif, pipeline
+
+    cif = os.path.join(os.path.dirname(__file__), "fixtures", "messy_9xyz.cif")
+    arrays = mmcif.chain_to_arrays(mmcif.parse_mmcif_backbone(cif)["AA"])
+    got = pipeline.process_chain(arrays, device="cuda")
+    want = pipeline.process_chain(arrays, device="cpu")
+    for k in ("torsion_phi_sincos", "torsion_psi_sincos", "torsion_omega_sincos"):
+        torch.testing.assert_close(torch.from_numpy(got[k]), torch.from_numpy(want[k]),
+                                   rtol=0.0, atol=1e-5)
