@@ -95,8 +95,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    launches by mode; on one B4/L256 batch of each dtype the kernel path's
    loss dict and gradients are held against the plain path's
    (``_compare_paths`` states what is held and what is only reported).
-7. refinement, last (what it leaves allocated would count in the train
-   steps' peak memory): checks first, counted apart from the path: the
+7. refinement, after the train steps (what it leaves allocated would count
+   in their peak memory): checks first, counted apart from the path: the
    polish Cartesian energy and its gradient with the clash term through
    kernels 3-4 against the plain clash at B10/L256 and B10/L640 (rtol 1e-3,
    gradient atol 1e-4 * max|g|); 20 Adam steps replayed from a CUDA graph
@@ -113,13 +113,39 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    launches and 600 x 2 + 150 = 1,350 of kernels 3 and 4 each (a replayed
    graph adds the launches its capture made; the counted ``cli.refine``
    call runs under torch.profiler, whose records must hold 150 of each
-   clash kernel, profiled again uncounted if CUPTI dropped one). Each stage's
+   clash kernel, profiled again uncounted if CUPTI dropped one; its window
+   opens with 8 launches of the empty ``clash_noop`` kernel and a
+   synchronise: without them CUPTI lost the window's first kernel-3
+   record in 4 of 6 windows, with them in none of 4). Each stage's
    output is finite with its padded rows bitwise unchanged, and the torsion
    stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
    and ``cli.validate`` then score the files on the card.
-8. one ``esm`` JSON line (the ESM-2 gates, timings and the path's stage
-   seconds), one ``kernels`` JSON line (launches by path: generate,
-   dataprep, refine, train, train_bf16, and chain_dtype_ab's bf16-chain
+8. parallelism (``phase_parallel``), run before the timed steps (phase
+   6), at the default widths, fp32,
+   the B4/L256 step (4 pairs of TRAIN_PROTEIN's fold, target masks cut to 230,
+   210, 190, 170 residues) with random weights from seed 0, through
+   ``parallel/dryrun.py``'s rank worker (``parallel.launch``: forkserver
+   ranks, each launch bounded by 600 s): (a) dp = 2, two ranks on the card
+   over gloo (NCCL when there is a card per rank), 2 rows each; each
+   rank's launch counts reset just before its step and read just after
+   (8 + 8 band, 1 + 1 clash launches); loss within rtol 1e-5 of the
+   single-process step on the same weights and batch, Adam's mu leaf by
+   leaf within 1e-3 of the leaf's max |mu| + 1e-5 of the global max, the
+   updated parameters within atol 1e-4; then one step in a
+   world-size-1 NCCL group (its dp all-reduce over NCCL), held likewise;
+   (b) tp = 2 on the plain path (no kernel), against the single-process
+   plain step; (c) ``cli.train --dp 2`` for one epoch on TRAIN_PROTEIN's
+   pairs (in-memory pair sets, pickled to the ranks), whose full checkpoint
+   the single-process ``cli.generate`` decodes; (d) CUDA-event times of
+   the single-process, dp = 2 and tp = 2 steps (median of 5 after 2
+   warm-ups) and of the dp all-reduce alone, printed with the card's name
+   and power limit: two ranks sharing one card over gloo, a record of
+   cost, not a scaling figure.
+9. one ``parallel`` JSON line (phase 8's checks, times and launches by
+   rank), one ``esm`` JSON line (the ESM-2 gates, timings and the path's
+   stage seconds), one ``kernels`` JSON line (launches by path: generate,
+   dataprep, refine, train, train_bf16, train_dp (both dp ranks' steps;
+   every kernel must launch in each rank), and chain_dtype_ab's bf16-chain
    launches; kernels 1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
    there only), then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -2146,22 +2172,48 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
 
     def run_cli(ens: str, dest: str, profiled: bool):
         """cli.refine on ``ens``: its seconds and, when ``profiled`` (under
-        torch.profiler, device activity only), the clash kernels' records."""
+        torch.profiler, device activity only), the clash kernels' records
+        and how many of the window's PROFILER_MARKERS empty kernels were
+        recorded. The window opens with those markers and a synchronise,
+        as ``_device_kernels``' windows do: CUPTI has dropped a window's
+        first records."""
         from torch.profiler import ProfilerActivity, profile
+
+        from protein_ensemble_vae_torch.ops.kernels.clash import clash_noop
 
         argv = ["--input", ens, "--output", os.path.join(dest, "refined_cli.pdb"),
                 "--steps", str(CLI_REFINE_STEPS), "--device", DEVICE]
         with (profile(activities=[ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof:
+            if profiled:
+                for _ in range(PROFILER_MARKERS):
+                    clash_noop()
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             refine_cli.main(argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         if not profiled:
-            return secs, None
-        return secs, {k: sum(e.device_type == torch.autograd.DeviceType.CUDA
-                             and f"{k}_kernel" in e.name for e in prof.events())
-                      for k in ("clash_fwd", "clash_bwd")}
+            return secs, None, None
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        seen = {k: sum(f"{k}_kernel" in e.name for e in events)
+                for k in ("clash_fwd", "clash_bwd")}
+        marks = sum("clash_noop" in e.name for e in events)
+        if min(seen.values()) < CLI_REFINE_STEPS:
+            # where the records fall short: the steps whose kernel-4 record
+            # has no kernel-3 record before it, and the device kernels by name
+            order = ["f" if "clash_fwd_kernel" in e.name else "b" for e in events
+                     if "clash_fwd_kernel" in e.name or "clash_bwd_kernel" in e.name]
+            gaps = [i for i, k in enumerate(order) if k == "b" and (i == 0 or order[i - 1] == "b")]
+            names: dict = {}
+            for e in events:
+                names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+            log(f"[refine] profiler records short: kernel-4 records without a kernel-3 "
+                f"record before them at clash records {gaps} of {len(order)}; "
+                f"{len(events)} device records by name: {sorted(names.items())}")
+        return secs, seen, marks
 
     def run(dest: str, verbose: bool, profiled: bool):
         secs, results = [], []
@@ -2184,7 +2236,7 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     with _recording_stages(calls):
-        results, secs, ens, cli_secs, seen = run(dest, verbose=True, profiled=True)
+        results, secs, ens, cli_secs, seen, marks = run(dest, verbose=True, profiled=True)
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.max_memory_reserved()
@@ -2205,14 +2257,15 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         log(f"[refine] cli.refine ({CLI_REFINE_STEPS} steps replayed from a CUDA graph, "
             f"{'the counted call' if attempt == 1 else 'profiled again, uncounted'}): the "
-            f"profiler recorded {seen} clash kernels (expected {CLI_REFINE_STEPS} each)")
+            f"profiler recorded {seen} clash kernels (expected {CLI_REFINE_STEPS} each) "
+            f"and {marks} of the {PROFILER_MARKERS} marker kernels that opened its window")
         if max(seen.values()) > CLI_REFINE_STEPS:
             raise RuntimeError(f"cli.refine issued clash kernels {seen}, expected "
                                f"{CLI_REFINE_STEPS} of each")
         if min(seen.values()) == CLI_REFINE_STEPS:
             break
         if attempt < PROFILE_ATTEMPTS:
-            seen = run_cli(ens, os.path.join(out_dir, "refine_first"), profiled=True)[1]
+            seen, marks = run_cli(ens, os.path.join(out_dir, "refine_first"), profiled=True)[1:]
     else:
         raise RuntimeError(f"the profiler did not record {CLI_REFINE_STEPS} of each clash "
                            f"kernel in {PROFILE_ATTEMPTS} profiled calls of cli.refine")
@@ -2250,6 +2303,198 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
     return dict(launches=launches, seconds=secs, cli_seconds=cli_secs, peak=peak,
                 reserved=reserved, stages=[r["refine_seconds"] for r in results],
                 cli_records=dict(seen, profiled_calls=attempt))
+
+
+# ---------------------------------------------------------------------------
+# 8. parallelism
+# ---------------------------------------------------------------------------
+
+# The B4/L256 fp32 train step at the default widths (2 rows per dp rank),
+# at the train CLI's default learning rate
+PARALLEL_B, PARALLEL_L = 4, 256
+PARALLEL_CONSTS = (0.5, 0.25, 3e-5)
+PARALLEL_WAIT_S = 600.0     # each launch's bound: a hung rank fails the run
+
+
+def _parallel_batch(seqemb_dim: int, B: int = PARALLEL_B) -> dict:
+    """B x L256 as arrays: row r pairs conformers r -> r + 1 of a NeRF fold
+    of TRAIN_PROTEIN's length and seed, its target mask cut to 230 - 20 r
+    residues, so the dp ranks hold different normalisers."""
+    from protein_ensemble_vae_torch.data.collate import PairBatch, pad_conformers
+    from protein_ensemble_vae_torch.data.dataset import process_conformer
+    from protein_ensemble_vae_torch.train.training import batch_to_arrays
+
+    pid, L_real, seed, _ = TRAIN_PROTEIN
+    items = [process_conformer(c)
+             for c in _nerf_conformers(pid, L_real, seed, B + 1, seqemb_dim)]
+    arrays = batch_to_arrays(
+        PairBatch(inp=pad_conformers(items[:B], PARALLEL_L, seqemb_dim),
+                  tgt=pad_conformers(items[1:B + 1], PARALLEL_L, seqemb_dim)), seqemb_dim)
+    for r in range(B):
+        arrays["tgt"]["mask"][r, L_real - 20 * r:L_real] = 0.0
+    return arrays
+
+
+def _mu_leaves(flat, names: list, params: dict) -> dict:
+    """``TrainState``'s flat ``mu`` as one vector per parameter (each
+    padded to 4 entries in the flat layout)."""
+    out, off = {}, 0
+    for n in names:
+        k = params[n].size
+        out[n] = flat[off:off + k]
+        off += -(-k // 4) * 4
+    return out
+
+
+def _parity(tag: str, ranks: list, ref: dict, want: dict, backend: str) -> dict:
+    """Every rank launched ``want`` over ``backend`` and reports the same
+    loss; the loss is within rtol 1e-5 of the single-process step's, and
+    Adam's mu after the step (0.1 x the clipped gradient) is, leaf by leaf,
+    within 1e-3 of that leaf's max |mu| plus 1e-5 of the global max |mu|,
+    so a leaf with a small gradient is held to its own scale. The updated
+    parameters are held to the JAX package's bound (tests/test_parallel.py,
+    atol 1e-4) as well, but Adam's first step moves an entry by at most
+    ~lr (3e-5 here), so only a non-finite or missing update fails that
+    bound: the gradient is checked through mu."""
+    for r in ranks:
+        if r["launches"] != want or r["backend"] != backend or r["loss"] != ranks[0]["loss"]:
+            raise RuntimeError(f"{tag}: rank {r['rank']} launched {r['launches']} (expected "
+                               f"{want}) over {r['backend']} (expected {backend}), loss "
+                               f"{r['loss']!r} (rank 0: {ranks[0]['loss']!r})")
+    loss, loss_1 = ranks[0]["loss"], ref["loss"]
+    rel = abs(loss - loss_1) / abs(loss_1)
+    p_err = max(float(np.abs(ranks[0]["params"][k] - v).max())
+                for k, v in ref["params"].items())
+    got_mu, want_mu = (_mu_leaves(m, ref["names"], ref["params"])
+                       for m in (ranks[0]["mu"], ref["mu"]))
+    floor = 1e-5 * float(np.abs(ref["mu"]).max())
+    mu_ratio, mu_leaf = max(
+        (float(np.abs(got_mu[n] - w).max()) / (1e-3 * float(np.abs(w).max()) + floor), n)
+        for n, w in want_mu.items())
+    mu_err = float(np.abs(ranks[0]["mu"] - ref["mu"]).max() / np.abs(ref["mu"]).max())
+    log(f"[parallel] {tag}: loss {loss:.6f} vs single-process {loss_1:.6f} (rel "
+        f"{rel:.2e}, rtol 1e-5); mu leaf by leaf at worst {mu_ratio:.3f} of its bound "
+        f"({mu_leaf}; max |diff| / max |mu| over all {mu_err:.2e}); updated parameters "
+        f"max |diff| {p_err:.2e} (atol 1e-4); launches per rank "
+        f"{[r['launches'] for r in ranks]} over {backend} on {[r['device'] for r in ranks]}")
+    if not (np.isfinite(loss) and rel <= 1e-5 and p_err <= 1e-4 and mu_ratio <= 1.0):
+        raise RuntimeError(f"{tag}: the sharded step is not the single-process step")
+    return dict(loss=loss, single_loss=loss_1, loss_rel=rel, param_err=p_err, mu_err=mu_err,
+                mu_leaf_ratio=mu_ratio, mu_worst_leaf=mu_leaf)
+
+
+def _parallel_cli(out_dir: str) -> dict:
+    """``cli.train --dp 2`` for one epoch at the default widths, batch 4, on
+    TRAIN_PROTEIN's pairs (8 train / 2 val; in-memory pair sets stand in
+    for the manifests' H5 datasets, as in phase 5, and go to the ranks
+    pickled), then the single-process ``cli.generate`` on its checkpoint."""
+    import torch
+
+    import protein_ensemble_vae_torch.data as data
+    from protein_ensemble_vae_torch.cli import generate as gen_cli
+    from protein_ensemble_vae_torch.cli import train as train_cli
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.models import HierCVAE
+
+    cfg = ModelConfig()
+    pid, L, seed, K = TRAIN_PROTEIN
+    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
+    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+    sets = (PairSet(confs, pairs[:8], cfg.seqemb_dim), PairSet(confs, pairs[8:], cfg.seqemb_dim))
+    save = os.path.join(out_dir, "train_cli_dp2")
+    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+            "--epochs", "1", "--batch_size", "4", "--dp", "2", "--save", save,
+            "--device", DEVICE]
+    t0 = time.perf_counter()
+    train_cli.main(argv, datasets=sets, timeout_s=PARALLEL_WAIT_S)
+    secs = time.perf_counter() - t0
+    final = os.path.join(save, "final")
+    with open(os.path.join(final, "history.json")) as f:
+        history = json.load(f)
+    for split in ("train", "val"):
+        for k, vals in history[split].items():
+            if len(vals) != 1 or not np.isfinite(vals).all():
+                raise RuntimeError(f"cli.train --dp 2 {split} {k}: {vals}")
+    saved = torch.load(os.path.join(final, "state.pt"), weights_only=True)["model"]
+    full = {k: v.shape for k, v in HierCVAE(cfg).state_dict().items()}
+    if {k: v.shape for k, v in saved.items()} != full:
+        raise RuntimeError("cli.train --dp 2 checkpoint does not hold the full parameters")
+    gen_dir = os.path.join(out_dir, "generate_dp2")
+    orig = data.EnsembleDataset
+    data.EnsembleDataset = lambda manifest, **kw: types.SimpleNamespace(
+        conformers=confs[:1], proteins={pid: [0]})
+    try:
+        gen_cli.main(["--checkpoint", final, "--manifest", "val.csv", "--output_dir",
+                      gen_dir, "--num_samples", "2", "--max_structures", "1",
+                      "--device", DEVICE])
+    finally:
+        data.EnsembleDataset = orig
+    pdbs = sorted(f for f in os.listdir(gen_dir) if f.endswith(".pdb"))
+    if not any(f.endswith("_ensemble.pdb") for f in pdbs):
+        raise RuntimeError(f"cli.generate on the dp=2 checkpoint wrote {pdbs}")
+    log(f"[parallel] cli.train --dp 2, 1 epoch: {secs:.2f} s (2 ranks launched, set-up "
+        f"included; host clock); train loss {history['train']['loss'][0]:.3f}, val loss "
+        f"{history['val']['loss'][0]:.3f}; full checkpoint {final}; single-process "
+        f"cli.generate wrote {pdbs}")
+    return dict(seconds=secs, history=history)
+
+
+def phase_parallel(out_dir: str, card: str) -> dict:
+    """``parallel/dryrun.py``'s rank worker at the default widths: (a) dp = 2
+    (two ranks on the card; kernels 1-4 in each) and one world-size-1 NCCL
+    step, (b) tp = 2 on the plain path, each against the single-process step
+    on the same weights and batch, (c) ``cli.train --dp 2``, (d) the steps'
+    times. Launch counts are reset just before each rank's checked step and
+    read just after."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.parallel.dryrun import parity_step, single_step
+    from protein_ensemble_vae_torch.parallel.mesh import launch
+
+    cfg = ModelConfig()
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    spec = dict(model=dataclasses.asdict(cfg), seed=SEED, rng=0, consts=PARALLEL_CONSTS,
+                dp=2, tp=1, device=DEVICE, batch=_parallel_batch(cfg.seqemb_dim),
+                warmup=STEP_WARMUP, reps=STEP_REPS)
+    want = {"egnn_band_fwd": cfg.decoder_layers, "egnn_band_bwd": cfg.decoder_layers,
+            "clash_fwd": 1, "clash_bwd": 1}
+
+    def ranks(n, s):
+        return launch(parity_step, n, (s,), device=DEVICE, timeout_s=PARALLEL_WAIT_S)
+
+    ref = single_step(spec)
+    torch.cuda.empty_cache()
+    if ref["launches"] != want:
+        raise RuntimeError(f"single-process step launched {ref['launches']}, expected {want}")
+    dp = ranks(2, spec)
+    checks = {"dp2": _parity("dp=2", dp, ref, want, backend)}
+    nccl = ranks(1, dict(spec, dp=1, warmup=0, reps=0))
+    checks["nccl_world1"] = _parity("world-size-1 NCCL group", nccl, ref, want, "nccl")
+    plain = dict(spec, model=dict(spec["model"], use_pallas_egnn=False), dp=1, tp=2)
+    ref_tp = single_step(plain)
+    torch.cuda.empty_cache()
+    tp = ranks(2, plain)
+    checks["tp2"] = _parity("tp=2 (plain path)", tp, ref_tp, {k: 0 for k in want}, backend)
+    cli = _parallel_cli(out_dir)
+
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    times = dict(single_ms=med(ref["step_ms"]), dp2_ms=med(dp[0]["step_ms"]),
+                 dp2_rank_ms=[med(r["step_ms"]) for r in dp],
+                 dp2_allreduce_ms=med(dp[0]["allreduce_ms"]),
+                 single_plain_ms=med(ref_tp["step_ms"]), tp2_ms=med(tp[0]["step_ms"]),
+                 tp2_rank_ms=[med(r["step_ms"]) for r in tp])
+    log(f"[parallel] times ({card}; CUDA events, median of {STEP_REPS} after "
+        f"{STEP_WARMUP} warm-ups; two ranks share one card over gloo, which stages "
+        f"every collective through the host: a record of cost, not a scaling figure): "
+        f"B4/L256 fp32 train step single-process {times['single_ms']:.2f} ms, dp=2 "
+        f"{times['dp2_ms']:.2f} ms (ranks {[round(t, 2) for t in times['dp2_rank_ms']]}; "
+        f"its all-reduce of the flat gradient + metrics alone {times['dp2_allreduce_ms']:.2f} "
+        f"ms); plain path single-process {times['single_plain_ms']:.2f} ms, tp=2 "
+        f"{times['tp2_ms']:.2f} ms (ranks {[round(t, 2) for t in times['tp2_rank_ms']]})")
+    return dict(launches={k: sum(r["launches"][k] for r in dp) for k in want},
+                launches_by_rank=[r["launches"] for r in dp], checks=checks, times=times,
+                cli_seconds=cli["seconds"])
 
 
 # ---------------------------------------------------------------------------
@@ -2335,6 +2580,51 @@ KERNEL_INFO = {
 }
 
 
+def _descendants() -> list[int]:
+    """The live processes descended from this one, from ``/proc``."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            parent[int(name)] = int(fields[1])
+    found, frontier = [], {os.getpid()}
+    while frontier:
+        frontier = {pid for pid, ppid in parent.items() if ppid in frontier}
+        found += sorted(frontier)
+    return found
+
+
+def stop_children(timeout_s: float = 30.0) -> None:
+    """Stop every process this run started: the rank server and resource
+    tracker that ``parallel.launch`` leaves for later launches (stopped and
+    waited for), then any other descendant still alive (killed, and named
+    in the log)."""
+    import signal
+
+    if "protein_ensemble_vae_torch.parallel.mesh" in sys.modules:
+        sys.modules["protein_ensemble_vae_torch.parallel.mesh"].stop_rank_servers()
+    left = _descendants()
+    if not left:
+        return
+    log(f"[exit] killing processes left running: {left}")
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + timeout_s
+    while _descendants() and time.monotonic() < deadline:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(-1, os.WNOHANG)
+        time.sleep(0.1)
+    if _descendants():
+        raise RuntimeError(f"processes still running at exit: {_descendants()}")
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -2370,9 +2660,10 @@ def main(argv=None) -> None:
         del model
         train = phase_train_path(out_dir)
         train_bf16 = phase_train_cli_bf16(out_dir)
+        parallel = phase_parallel(out_dir, device["smi"])
         steps = phase_timed_steps(args.profile)
-        # refinement last: what it leaves allocated would count in the peak
-        # memory of the train steps
+        # refinement after the train steps: what it leaves allocated would
+        # count in their peak memory
         refine_gates(args.profile)
         refine = phase_refine_path(main_model(), views, out_dir, gen["per_structure"])
 
@@ -2389,10 +2680,12 @@ def main(argv=None) -> None:
         by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
                    "train": train["launches"][name],
                    "train_bf16": train_bf16["launches"][name],
+                   "train_dp": parallel["launches"][name],
                    "dataprep": dataprep["launches"][name],
                    "chain_dtype_ab": sum(v for k, v in chain_modes.items()
                                          if k.endswith("/bfloat16_chain"))}
-        if (by_path["train"] == 0 or by_path["train_bf16"] == 0
+        if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_dp"])
+                or any(r[name] == 0 for r in parallel["launches_by_rank"])
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
                 or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
                                                       by_path["dataprep"]))
@@ -2425,8 +2718,12 @@ def main(argv=None) -> None:
             shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
     log(json.dumps({"train_steps": steps}))
+    log(json.dumps({"parallel": {k: parallel[k] for k in ("checks", "times",
+                                                           "launches_by_rank",
+                                                           "cli_seconds")}}))
     log(json.dumps({"esm": {k: dataprep[k] for k in ("timed", "stages", "cpu_err", "cpu_atol",
                                                      "bucket_err", "bucket_atol")}}))
+    stop_children()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}),
@@ -2434,4 +2731,7 @@ def main(argv=None) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

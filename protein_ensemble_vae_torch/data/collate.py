@@ -1,6 +1,5 @@
 """Length-bucketed padded batching (a numpy copy of the JAX package's
-``data/collate.py``; ``make_sharded_epoch_batches`` waits for the parallel
-slice).
+``data/collate.py``, ``make_sharded_epoch_batches`` included).
 
 Lengths are padded up to a small set of bucket sizes, so every step of a
 bucket runs at one shape and the batches are the JAX package's batches,
@@ -125,6 +124,49 @@ def make_epoch_batches(dataset, batch_size: int,
     chunks = _make_chunks(dataset, batch_size, buckets, shuffle, seed,
                           drop_remainder)
     return _emit_batches(dataset, chunks, seqemb_dim)
+
+
+def make_sharded_epoch_batches(dataset, batch_size: int,
+                               buckets: Sequence[int],
+                               shuffle: bool,
+                               seed: int,
+                               drop_remainder: bool = True,
+                               process_index: int = 0,
+                               process_count: int = 1,
+                               ) -> Iterator[PairBatch]:
+    """Per-process epoch batches for multi-host training (the JAX package's
+    chunk plan, stride and shared permutation).
+
+    Every process computes the same chunk plan and takes its stride of each
+    bucket's chunks, truncated so all processes hold the same number of
+    chunks per bucket in the same bucket order. Sample membership is
+    shuffled per bucket with a process-identical RNG before any remainder
+    is dropped, so with a per-epoch seed the dropped samples rotate across
+    epochs. After the stride one process-identical permutation reorders the
+    positions, so step i has the same padded shape on every process.
+
+    ``drop_remainder`` is accepted for the factory signature; remainders
+    are always dropped here, since equal chunk counts per bucket across
+    processes keep the step shapes aligned."""
+    seqemb_dim = dataset.seqemb_dim if dataset.use_seqemb else None
+    ids_by_bucket: dict[int, list[int]] = {}
+    for idx in range(len(dataset)):
+        b = bucket_for(dataset.pair_length(idx), buckets)
+        ids_by_bucket.setdefault(b, []).append(idx)
+    if shuffle:
+        rng = np.random.default_rng(seed)
+        for b in sorted(ids_by_bucket):
+            rng.shuffle(ids_by_bucket[b])
+    mine: list[tuple[int, list[int]]] = []
+    for b in sorted(ids_by_bucket):
+        ids = ids_by_bucket[b]
+        cs = [(b, ids[s:s + batch_size])
+              for s in range(0, len(ids) - batch_size + 1, batch_size)]
+        mine.extend(cs[process_index::process_count][:len(cs) // process_count])
+    if shuffle:
+        perm = np.random.default_rng(seed + 1).permutation(len(mine))
+        mine = [mine[i] for i in perm]
+    return _emit_batches(dataset, mine, seqemb_dim)
 
 
 class PrepaddedStore:

@@ -11,6 +11,12 @@ JAX side, so gradients stay finite there.
 The clash term routes by ``ops/routing.py:pallas_policy``, the knob of the
 band kernel: kernels 3 and 4 (``ops/kernels/clash.py``) for CUDA tensors
 under "auto" or True, the dense ``clash_loss`` otherwise.
+
+Data parallelism: every term normalises over the whole batch. A dp rank
+passes the global denominators (``batch_denominators`` summed over the dp
+group; they depend only on the masks and carry no gradient) as ``den`` /
+``rows``; its terms are then its share of the global loss, and the shares
+sum to it. Without them each term normalises over the rows it is given.
 """
 
 from __future__ import annotations
@@ -43,22 +49,37 @@ def _floor1(x: Tensor) -> Tensor:
 # Reconstruction
 # ---------------------------------------------------------------------------
 
-def rmsd_loss(pred: Tensor, target: Tensor, mask: Tensor) -> Tensor:
+def _batch_mean(per_sample: Tensor, rows: Optional[Tensor]) -> Tensor:
+    """The mean over the batch, or the sum over these rows / ``rows``."""
+    return torch.mean(per_sample) if rows is None else torch.sum(per_sample) / rows
+
+
+def _den(local: Tensor, den: Optional[Tensor]) -> Tensor:
+    return _floor1(local if den is None else den)
+
+
+def rmsd_loss(pred: Tensor, target: Tensor, mask: Tensor,
+              rows: Optional[Tensor] = None) -> Tensor:
     """Masked per-residue coordinate MSE in A^2 (MSE, not RMSD, despite
     the name; no alignment)."""
     diff = torch.sum((pred - target) ** 2, dim=-1)
     per_sample = torch.sum(diff * mask, dim=1) / _floor1(torch.sum(mask, dim=1))
-    return torch.mean(per_sample)
+    return _batch_mean(per_sample, rows)
+
+
+def _strided_pairs(mask: Tensor, stride: int) -> Tensor:
+    m = mask[:, ::stride]
+    return m[:, :, None] * m[:, None, :]
 
 
 def pair_distance_loss(pred: Tensor, target: Tensor, mask: Tensor,
-                       stride: int = 4) -> Tensor:
+                       stride: int = 4, den: Optional[Tensor] = None) -> Tensor:
     """Strided pairwise-distance consistency."""
-    P, T, m = pred[:, ::stride], target[:, ::stride], mask[:, ::stride]
-    M = m[:, :, None] * m[:, None, :]
+    P, T = pred[:, ::stride], target[:, ::stride]
+    M = _strided_pairs(mask, stride)
     dP = pairwise_distances(P, P)
     dT = pairwise_distances(T, T)
-    return torch.sum(torch.abs(dP - dT) * M) / _floor1(torch.sum(M))
+    return torch.sum(torch.abs(dP - dT) * M) / _den(torch.sum(M), den)
 
 
 # ---------------------------------------------------------------------------
@@ -69,18 +90,22 @@ def _kl_unit_gauss(mu: Tensor, lv: Tensor) -> Tensor:
     return 0.5 * (torch.exp(lv) + mu * mu - 1.0 - lv)
 
 
-def kl_global(mu: Tensor, lv: Tensor) -> Tensor:
+def kl_global(mu: Tensor, lv: Tensor, rows: Optional[Tensor] = None) -> Tensor:
     """Mean over the batch of the per-sample summed KL. In the dtype of
     ``mu`` / ``lv`` (bf16 from a bf16 encoder, as in JAX; the sums
     accumulate in fp32 and round once); the weighted total is fp32."""
-    return torch.mean(torch.sum(_kl_unit_gauss(mu, lv), dim=1))
+    per_sample = torch.sum(_kl_unit_gauss(mu, lv), dim=1)
+    if rows is None:
+        return torch.mean(per_sample)
+    return (torch.sum(per_sample) / rows).to(per_sample.dtype)
 
 
-def kl_local(mu: Tensor, lv: Tensor, mask: Tensor) -> Tensor:
+def kl_local(mu: Tensor, lv: Tensor, mask: Tensor,
+             den: Optional[Tensor] = None) -> Tensor:
     """Masked mean over residues of the per-residue summed KL; the fp32
     mask promotes a bf16 KL to fp32, as in JAX."""
     kl = torch.sum(_kl_unit_gauss(mu, lv), dim=-1)
-    return torch.sum(kl * mask) / _floor1(torch.sum(mask))
+    return torch.sum(kl * mask) / _den(torch.sum(mask), den)
 
 
 def free_bits_kl(mu: Tensor, lv: Tensor, mask: Optional[Tensor] = None,
@@ -108,18 +133,22 @@ def free_bits_kl(mu: Tensor, lv: Tensor, mask: Optional[Tensor] = None,
 # Torsion-space terms
 # ---------------------------------------------------------------------------
 
+def _valid_channels(pred_dih: Tensor, target_dih: Tensor, mask: Tensor) -> Tensor:
+    return (mask[..., None].bool() & torch.isfinite(pred_dih)
+            & torch.isfinite(target_dih))
+
+
 def dihedral_consistency_loss(pred_dih: Tensor, target_dih: Tensor,
-                              mask: Tensor) -> Tensor:
+                              mask: Tensor, den: Optional[Tensor] = None) -> Tensor:
     """Finite-guarded MSE over all sin/cos channels; the denominator is
     the count of valid elements (B * L * 6 scale)."""
-    valid = (mask[..., None].bool() & torch.isfinite(pred_dih)
-             & torch.isfinite(target_dih))
+    valid = _valid_channels(pred_dih, target_dih, mask)
     diff = torch.where(valid, pred_dih - target_dih, torch.zeros_like(pred_dih))
-    den = _floor1(torch.sum(valid.to(pred_dih.dtype)))
-    return torch.sum(diff * diff) / den
+    return torch.sum(diff * diff) / _den(torch.sum(valid.to(pred_dih.dtype)), den)
 
 
-def ramachandran_loss(dihedrals: Tensor, mask: Tensor) -> Tensor:
+def ramachandran_loss(dihedrals: Tensor, mask: Tensor,
+                      den: Optional[Tensor] = None) -> Tensor:
     """Four Gaussian allowed basins + forbidden-quadrant penalty."""
     phi = safe_atan2(dihedrals[..., 0], dihedrals[..., 1])
     psi = safe_atan2(dihedrals[..., 2], dihedrals[..., 3])
@@ -134,16 +163,17 @@ def ramachandran_loss(dihedrals: Tensor, mask: Tensor) -> Tensor:
     penalty = 1.0 - in_allowed
     forbidden = ((phi > 0) & (psi < 0)).to(phi.dtype)
     total = penalty + 5.0 * forbidden
-    return torch.sum(total * mask) / _floor1(torch.sum(mask))
+    return torch.sum(total * mask) / _den(torch.sum(mask), den)
 
 
-def omega_trans_loss(dihedrals: Tensor, mask: Tensor) -> Tensor:
+def omega_trans_loss(dihedrals: Tensor, mask: Tensor,
+                     den: Optional[Tensor] = None) -> Tensor:
     """Trans-peptide preference: 2 (1 - cos(omega - pi)) + 3 [|wrap(omega)| < 0.5]."""
     omega = safe_atan2(dihedrals[..., 4], dihedrals[..., 5])
     trans_pen = 1.0 - torch.cos(omega - math.pi)
     cis = (torch.abs(wrap_angle(omega)) < 0.5).to(omega.dtype)
     total = 2.0 * trans_pen + 3.0 * cis
-    return torch.sum(total * mask) / _floor1(torch.sum(mask))
+    return torch.sum(total * mask) / _den(torch.sum(mask), den)
 
 
 # ---------------------------------------------------------------------------
@@ -155,12 +185,19 @@ def huber(x: Tensor, delta: float = 0.2) -> Tensor:
     return torch.where(ax < delta, 0.5 * x * x, delta * (ax - 0.5 * delta))
 
 
+def _pair_mask(mask: Tensor) -> Tensor:
+    """Consecutive residue pairs, both valid."""
+    return mask[:, :-1] * mask[:, 1:]
+
+
 def bond_length_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
-                     mask: Tensor, delta_scale: float = 1.0) -> Tensor:
+                     mask: Tensor, delta_scale: float = 1.0,
+                     den: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
     """Huber penalties on N-CA (1.46, delta 0.02), CA-C (1.52, 0.02) and 2x
     the inter-residue C-N peptide bond (1.33, 0.01); ``delta_scale``
-    multiplies the deltas (1.0 = the reference)."""
-    msum = _floor1(torch.sum(mask))
+    multiplies the deltas (1.0 = the reference). ``den`` = (residues,
+    consecutive pairs) of the global batch."""
+    msum = _den(torch.sum(mask), None if den is None else den[0])
     ds = delta_scale
     n_ca = safe_norm(pred_ca - pred_n) - 1.46
     p_n_ca = torch.sum(huber(n_ca, 0.02 * ds) * mask) / msum
@@ -168,9 +205,9 @@ def bond_length_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
     p_ca_c = torch.sum(huber(ca_c, 0.02 * ds) * mask) / msum
     if pred_n.shape[1] > 1:
         c_n = safe_norm(pred_n[:, 1:] - pred_c[:, :-1]) - 1.33
-        pair_mask = mask[:, :-1] * mask[:, 1:]
+        pair_mask = _pair_mask(mask)
         p_c_n = (torch.sum(huber(c_n, 0.01 * ds) * pair_mask)
-                 / _floor1(torch.sum(pair_mask)))
+                 / _den(torch.sum(pair_mask), None if den is None else den[1]))
     else:
         p_c_n = torch.zeros((), dtype=pred_n.dtype, device=pred_n.device)
     return p_n_ca + p_ca_c + 2.0 * p_c_n
@@ -179,14 +216,15 @@ def bond_length_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
 CA_CA_VIRTUAL = 3.81
 
 
-def ca_spacing_loss(pred_ca: Tensor, mask: Tensor, delta: float = 0.5) -> Tensor:
+def ca_spacing_loss(pred_ca: Tensor, mask: Tensor, delta: float = 0.5,
+                    den: Optional[Tensor] = None) -> Tensor:
     """Virtual CA(i)-CA(i+1) bond at 3.81 A (off by default,
     ``LossWeights.w_ca_spacing``)."""
     if pred_ca.shape[1] < 2:
         return torch.zeros((), dtype=pred_ca.dtype, device=pred_ca.device)
     d = safe_norm(pred_ca[:, 1:] - pred_ca[:, :-1]) - CA_CA_VIRTUAL
-    pair_mask = mask[:, :-1] * mask[:, 1:]
-    return torch.sum(huber(d, delta) * pair_mask) / _floor1(torch.sum(pair_mask))
+    pair_mask = _pair_mask(mask)
+    return torch.sum(huber(d, delta) * pair_mask) / _den(torch.sum(pair_mask), den)
 
 
 _TARGET_NCAC = 110.0 * math.pi / 180.0
@@ -200,16 +238,17 @@ def _safe_acos(c: Tensor) -> Tensor:
 
 
 def bond_angle_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
-                    mask: Tensor) -> Tensor:
+                    mask: Tensor, den: Optional[tuple[Tensor, Tensor]] = None
+                    ) -> Tensor:
     """Huber in angle space on N-CA-C / C-N-CA / CA-C-N, inter-residue
-    terms x2."""
+    terms x2. ``den`` = (residues, consecutive pairs) of the global batch."""
     mask = mask.to(pred_ca.dtype)
-    msum = _floor1(torch.sum(mask))
+    msum = _den(torch.sum(mask), None if den is None else den[0])
     a_ncac = _safe_acos(angle_cos(pred_n, pred_ca, pred_c))
     l_ncac = torch.sum(huber(a_ncac - _TARGET_NCAC, 0.1) * mask) / msum
     if pred_n.shape[1] > 1:
-        pair = mask[:, :-1] * mask[:, 1:]
-        psum = _floor1(torch.sum(pair))
+        pair = _pair_mask(mask)
+        psum = _den(torch.sum(pair), None if den is None else den[1])
         a_cnca = _safe_acos(angle_cos(pred_c[:, :-1], pred_n[:, 1:], pred_ca[:, 1:]))
         l_cnca = torch.sum(huber(a_cnca - _TARGET_CNCA, 0.1) * pair) / psum
         a_cacn = _safe_acos(angle_cos(pred_ca[:, :-1], pred_c[:, :-1], pred_n[:, 1:]))
@@ -224,18 +263,18 @@ def bond_angle_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
 # ---------------------------------------------------------------------------
 
 def sequence_classification_loss(pred_logits: Tensor, target_labels: Tensor,
-                                 mask: Tensor) -> Tensor:
+                                 mask: Tensor, den: Optional[Tensor] = None) -> Tensor:
     """Masked 20-way cross-entropy (denominator + 1e-8)."""
     logp = F.log_softmax(pred_logits, dim=-1)
     nll = -torch.gather(logp, -1, target_labels[..., None].long())[..., 0]
-    return torch.sum(nll * mask) / (torch.sum(mask) + 1e-8)
+    return torch.sum(nll * mask) / ((torch.sum(mask) if den is None else den) + 1e-8)
 
 
 def sequence_accuracy(pred_logits: Tensor, target_labels: Tensor,
-                      mask: Tensor) -> Tensor:
+                      mask: Tensor, den: Optional[Tensor] = None) -> Tensor:
     """Masked argmax accuracy."""
     correct = (torch.argmax(pred_logits, dim=-1) == target_labels) & mask.bool()
-    return torch.sum(correct.to(torch.float32)) / _floor1(torch.sum(mask))
+    return torch.sum(correct.to(torch.float32)) / _den(torch.sum(mask), den)
 
 
 # ---------------------------------------------------------------------------
@@ -243,14 +282,15 @@ def sequence_accuracy(pred_logits: Tensor, target_labels: Tensor,
 # ---------------------------------------------------------------------------
 
 def clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor, mask: Tensor,
-               clash_dist: float = 3.2, soft_margin: float = 0.5) -> Tensor:
+               clash_dist: float = 3.2, soft_margin: float = 0.5,
+               rows: Optional[Tensor] = None) -> Tensor:
     """Steric-clash penalty over the full [B, 3L, 3L] distance matrix: pairs
     at least 2 residues apart, quadratic penalty on relu(clash_dist - d),
     per-sample normalisation by pair count + 1e-8. The plain version of
     kernels 3 and 4."""
     atoms, amask = backbone_atoms(pred_n, pred_ca, pred_c, mask.to(pred_ca.dtype))
     total, num_pairs = clash_pair_terms(atoms, amask, clash_dist, soft_margin)
-    return torch.mean(total / (num_pairs + 1e-8))
+    return _batch_mean(total / (num_pairs + 1e-8), rows)
 
 
 # Probe/MolProbity van der Waals radii (Word et al. 1999): amide N 1.55,
@@ -316,7 +356,8 @@ def vdw_pair_tables(L: int, include_o: bool = False, count_overlap: float = 0.4,
 def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
                    mask: Tensor, count_overlap: float = 0.4,
                    buffer: float = 0.1, include_o: bool = False,
-                   tables: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+                   tables: Optional[tuple[Tensor, Tensor]] = None,
+                   rows: Optional[Tensor] = None) -> Tensor:
     """Differentiable surrogate of the MolProbity backbone clashscore (off
     by default, ``LossWeights.w_clash_vdw``): relu(r_i + r_j - overlap +
     buffer - d_ij)^2 over the pairs more than 3 covalent bonds apart,
@@ -341,12 +382,29 @@ def vdw_clash_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
     violation = torch.relu(thresh - dists)
     total = torch.sum(violation * violation * pair_mask, dim=(1, 2))
     num_pairs = torch.sum(pair_mask, dim=(1, 2))
-    return torch.mean(total / (num_pairs + 1e-8))
+    return _batch_mean(total / (num_pairs + 1e-8), rows)
 
 
 # ---------------------------------------------------------------------------
 # Orchestrator
 # ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def batch_denominators(mask: Tensor, pred_n: Tensor, pred_ca: Tensor,
+                       pred_c: Tensor, target_dih: Tensor, pair_stride: int
+                       ) -> Tensor:
+    """This batch's sums that the terms normalise by, stacked in fp32:
+    rows, valid residues, consecutive valid pairs, strided residue pairs
+    (``pair_distance_loss``) and finite dihedral channels
+    (``dihedral_consistency_loss``). Summed over the dp group they are
+    ``compute_total_loss``'s ``den``."""
+    pred_dih = dihedrals_from_coords(pred_n, pred_ca, pred_c, mask)
+    parts = (torch.full_like(mask[0, 0], mask.shape[0]), torch.sum(mask),
+             torch.sum(_pair_mask(mask)),
+             torch.sum(_strided_pairs(mask, pair_stride)),
+             torch.sum(_valid_channels(pred_dih, target_dih, mask)))
+    return torch.stack([p.to(torch.float32) for p in parts])
+
 
 def compute_total_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
                        pred_seq: Tensor,
@@ -357,37 +415,44 @@ def compute_total_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
                        target_dihedrals: Tensor,
                        klw_g, klw_l,
                        weights: LossWeights,
-                       use_pallas: object = "auto") -> dict[str, Tensor]:
+                       use_pallas: object = "auto",
+                       den: Optional[Tensor] = None) -> dict[str, Tensor]:
     """Weighted sum of all terms, with the JAX package's 16 keys (plus
     ``ca_spacing`` / ``clash_vdw`` when their weights are non-zero).
     ``klw_g`` / ``klw_l`` are the scheduled KL weights (floats or device
     scalars). ``use_pallas`` is ``ModelConfig.use_pallas_egnn``: it routes
-    the clash term between kernels 3-4 and the dense version."""
-    loss_rec_ca = rmsd_loss(pred_ca, target_ca, mask)
-    loss_rec_n = rmsd_loss(pred_n, target_n, mask)
-    loss_rec_c = rmsd_loss(pred_c, target_c, mask)
+    the clash term between kernels 3-4 and the dense version. ``den``, the
+    global batch's ``batch_denominators``, makes every term this batch's
+    share of the global batch's term."""
+    rows, res, pairs, strided, dih = (None,) * 5 if den is None else den.unbind()
+    loss_rec_ca = rmsd_loss(pred_ca, target_ca, mask, rows)
+    loss_rec_n = rmsd_loss(pred_n, target_n, mask, rows)
+    loss_rec_c = rmsd_loss(pred_c, target_c, mask, rows)
     loss_rec = loss_rec_ca + 0.5 * (loss_rec_n + loss_rec_c)
 
     loss_pair = pair_distance_loss(pred_ca, target_ca, mask,
-                                   stride=weights.pair_stride)
-    loss_kg = kl_global(mu_g, lv_g)
-    loss_kl = kl_local(mu_l, lv_l, mask)
+                                   stride=weights.pair_stride, den=strided)
+    loss_kg = kl_global(mu_g, lv_g, rows)
+    loss_kl = kl_local(mu_l, lv_l, mask, res)
 
     pred_dih = dihedrals_from_coords(pred_n, pred_ca, pred_c, mask)
-    loss_dih_cons = dihedral_consistency_loss(pred_dih, target_dihedrals, mask)
-    loss_rama = ramachandran_loss(pred_dih, mask)
-    loss_omega = omega_trans_loss(pred_dih, mask)
+    loss_dih_cons = dihedral_consistency_loss(pred_dih, target_dihedrals, mask, dih)
+    loss_rama = ramachandran_loss(pred_dih, mask, res)
+    loss_omega = omega_trans_loss(pred_dih, mask, res)
     loss_dihedral = loss_dih_cons + loss_omega
 
+    both = None if den is None else (res, pairs)
     loss_bond = bond_length_loss(pred_n, pred_ca, pred_c, mask,
-                                 delta_scale=weights.bond_delta)
-    loss_angle = bond_angle_loss(pred_n, pred_ca, pred_c, mask)
-    loss_seq = sequence_classification_loss(pred_seq, target_seq_labels, mask)
+                                 delta_scale=weights.bond_delta, den=both)
+    loss_angle = bond_angle_loss(pred_n, pred_ca, pred_c, mask, both)
+    loss_seq = sequence_classification_loss(pred_seq, target_seq_labels, mask, res)
 
     if pallas_policy(mask, use_pallas):
         loss_clash = clash_loss_kernel(pred_n, pred_ca, pred_c, mask)
+        if rows is not None:        # the kernel gives the mean over these rows
+            loss_clash = loss_clash * (mask.shape[0] / rows)
     else:
-        loss_clash = clash_loss(pred_n, pred_ca, pred_c, mask)
+        loss_clash = clash_loss(pred_n, pred_ca, pred_c, mask, rows=rows)
 
     total = (weights.w_rec * loss_rec
              + weights.w_pair * loss_pair
@@ -402,11 +467,11 @@ def compute_total_loss(pred_n: Tensor, pred_ca: Tensor, pred_c: Tensor,
 
     extra = {}
     if weights.w_ca_spacing:
-        loss_ca_spacing = ca_spacing_loss(pred_ca, mask)
+        loss_ca_spacing = ca_spacing_loss(pred_ca, mask, den=pairs)
         total = total + weights.w_ca_spacing * loss_ca_spacing
         extra["ca_spacing"] = loss_ca_spacing
     if weights.w_clash_vdw:
-        loss_clash_vdw = vdw_clash_loss(pred_n, pred_ca, pred_c, mask)
+        loss_clash_vdw = vdw_clash_loss(pred_n, pred_ca, pred_c, mask, rows=rows)
         total = total + weights.w_clash_vdw * loss_clash_vdw
         extra["clash_vdw"] = loss_clash_vdw
 

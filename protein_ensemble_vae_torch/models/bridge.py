@@ -15,6 +15,12 @@ carries over as it is; only leaf layouts change:
 
 It raises on any key left over on either side, and on a shape mismatch.
 
+``shard_params(full_state, tp_rank, tp)`` cuts a full state_dict (the port's
+or one from ``params_from_flax``) to tp rank ``tp_rank``'s shards, by the tp
+layout of ``parallel/shard.py:tp_param_dim``; ``gather_params(local_state,
+tp)`` puts the shards of a tp group back together (a collective: every
+rank of the group calls it).
+
 ``esm2_params_from_jax(tree, model)`` does the same for the JAX package's
 ESM-2 params tree (``word_embeddings``, a list of ``layers``, ``final_ln``)
 into ``models/esm2.ESM2``: each Linear ``kernel [in, out]`` becomes
@@ -28,7 +34,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from protein_ensemble_vae_torch.parallel.shard import TP, tp_param_dim
 
 
 def _convert(path: tuple[str, ...], node: Mapping, out: dict) -> None:
@@ -122,3 +131,47 @@ def esm2_params_from_jax(tree: Mapping, model: nn.Module) -> dict[str, torch.Ten
         if "bias" in leaves:
             flat[f"{prefix}.bias"] = np.asarray(node["bias"])
     return _match(flat, model, "ESM-2 tree")
+
+
+def shard_params(full_state: Mapping, tp_rank: int, tp: int) -> dict:
+    """Rank ``tp_rank`` of ``tp``'s shard of each entry of ``full_state``
+    (name -> tensor or array): its contiguous 1/tp along the dim the tp
+    layout shards, the whole entry elsewhere. Views where the input allows."""
+    out = {}
+    for name, v in full_state.items():
+        d = tp_param_dim(name, v.ndim)
+        if d is None or tp == 1:
+            out[name] = v
+            continue
+        if v.shape[d] % tp:
+            raise ValueError(f"{name}: dim {d} of {tuple(v.shape)} does not split "
+                             f"into {tp} shards")
+        n = v.shape[d] // tp
+        out[name] = (v.narrow(d, tp_rank * n, n) if isinstance(v, torch.Tensor)
+                     else np.take(v, range(tp_rank * n, (tp_rank + 1) * n), axis=d))
+    return out
+
+
+def gather_params(local_state: Mapping[str, torch.Tensor], tp: TP
+                  ) -> dict[str, torch.Tensor]:
+    """The full tensors of a tp group's shards (``shard_params``'s inverse),
+    on every rank of the group, in one all-reduce: each rank writes its
+    shards into a zero buffer of the full sharded entries (an all-reduce
+    runs on CUDA tensors under gloo as under NCCL)."""
+    sharded = [(k, v, tp_param_dim(k, v.ndim)) for k, v in local_state.items()]
+    sharded = [(k, v, d) for k, v, d in sharded if d is not None]
+    out = dict(local_state)
+    if not sharded:
+        return out
+    full_shapes = [tuple(s * (tp.size if i == d else 1) for i, s in enumerate(v.shape))
+                   for _, v, d in sharded]
+    sizes = [int(np.prod(s)) for s in full_shapes]
+    ref = sharded[0][1]
+    buf = torch.zeros(sum(sizes), dtype=ref.dtype, device=ref.device)
+    fulls = [t.view(s) for t, s in zip(buf.split(sizes), full_shapes)]
+    for (_, v, d), full in zip(sharded, fulls):
+        tp.chunk(full, d).copy_(v)
+    dist.all_reduce(buf, group=tp.group)
+    for (k, _, _), full in zip(sharded, fulls):
+        out[k] = full
+    return out

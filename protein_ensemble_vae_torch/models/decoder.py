@@ -23,6 +23,13 @@ layout, the layout the kernel reads. ``dtype`` is the compute dtype
 compute in fp32 from their bf16 input, and the coordinates stay fp32. The
 band kernels then read bf16 ``a_i`` / ``b_j`` and make one-pass TF32
 products (``precision="default"``, JAX ``None``), with the chain in fp32.
+
+Tensor parallelism (``parallel/mesh.py:shard_model``, ``tp`` set on each
+layer): the edge chain splits as a Megatron MLP, the JAX package's layout.
+``phi_e1_{hi,hj,d2}``, ``phi_x1`` and ``phi_h1`` keep ``hidden / tp`` output
+columns, ``phi_e2``, ``phi_x2`` and ``phi_h2`` as many input rows, whose
+partial products are summed over the tp group (``band_chain``'s ``tp``).
+Only the plain band path shards: the band kernels are single-device.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from protein_ensemble_vae_torch.ops.geometry import (compact_valid, safe_norm,
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (band_chain,
                                                               band_indices,
                                                               egnn_band_fused)
+from protein_ensemble_vae_torch.parallel.shard import Dropout, copy_to_tp
 
 Tensor = torch.Tensor
 
@@ -60,6 +68,8 @@ class EGNNBandLayer(nn.Module):
     phi_h: [h_i, sum_j m_ij] -> residual node update + LayerNorm
     phi_x: m_ij -> scalar w_ij; x_i += 0.2 * deg^-1 * sum_j w_ij (x_i - x_j)
     """
+
+    tp = None
 
     def __init__(self, hidden_in: int, hidden: int, use_pallas: object = False,
                  dtype: torch.dtype = torch.float32):
@@ -86,15 +96,19 @@ class EGNNBandLayer(nn.Module):
 
     def forward(self, h: Tensor, x: Tensor, nbr_idx: Tensor, nbr_valid: Tensor,
                 deg_inv: Tensor, cmask: Tensor) -> tuple[Tensor, Tensor]:
-        dt = self.dtype
+        dt, tp = self.dtype, self.tp
         hc = h.to(dt)
-        a_i = hc @ self.phi_e1_hi_kernel.to(dt) + self.phi_e1_hi_bias.to(dt)
-        b_j = hc @ self.phi_e1_hj_kernel.to(dt)
+        b_hi, b_x1 = self.phi_e1_hi_bias, self.phi_x1_bias
+        if tp is not None:      # column-parallel: this rank's bias columns
+            b_hi, b_x1 = (tp.chunk(copy_to_tp(b, tp), 0) for b in (b_hi, b_x1))
+        hf = copy_to_tp(hc, tp)
+        a_i = hf @ self.phi_e1_hi_kernel.to(dt) + b_hi.to(dt)
+        b_j = hf @ self.phi_e1_hj_kernel.to(dt)
         edge = (self.phi_e1_d2_kernel, self.phi_e2_kernel, self.phi_e2_bias,
-                self.phi_x1_kernel, self.phi_x1_bias, self.phi_x2_kernel,
-                self.phi_x2_bias)
+                self.phi_x1_kernel, b_x1, self.phi_x2_kernel, self.phi_x2_bias)
         if not self.use_pallas:
-            agg, raw_delta = band_chain(a_i, b_j, x, nbr_idx, nbr_valid, *edge, dt)
+            agg, raw_delta = band_chain(a_i, b_j, x, nbr_idx, nbr_valid, *edge, dt,
+                                        tp)
         else:
             # the kernel (or, for CPU tensors, its plain version): fp32
             # chain; an fp32 model's products at fp32 accuracy, a bf16
@@ -145,8 +159,8 @@ class EGNNDecoder(nn.Module):
         self.n_off2 = linear(hidden // 2, 4)
         self.c_off1 = linear(hidden, hidden // 2, dtype=dtype)
         self.c_off2 = linear(hidden // 2, 4)
-        self.drop = nn.Dropout(dropout)
-        self.drop_half = nn.Dropout(dropout * 0.5)
+        self.drop = Dropout(dropout)
+        self.drop_half = Dropout(dropout * 0.5)
 
     def forward(self, z_g: Tensor, z_l: Tensor, mask: Optional[Tensor] = None
                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:

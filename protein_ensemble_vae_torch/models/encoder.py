@@ -18,6 +18,10 @@ Parity details with Flax:
 - ``dtype`` is the compute dtype (``models/init.py``): with bf16 every
   projection, attention product and LayerNorm output is bf16, parameters
   stay fp32, and ``mu`` / ``logvar`` come out bf16, as in the JAX package.
+- Tensor parallelism (``parallel/mesh.py:shard_model``): each attention
+  block keeps ``num_heads / tp`` heads (q/k/v column-parallel, ``out``
+  row-parallel) and each FFN ``ff / tp`` hidden columns; dropout and the
+  reparameterisation noise draw at the global shape (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch import nn
 
 from protein_ensemble_vae_torch.models.init import (Linear, layer_norm,
                                                     lecun_normal_, linear)
+from protein_ensemble_vae_torch.parallel.shard import Dropout, randn
 
 Tensor = torch.Tensor
 
@@ -52,8 +57,11 @@ class MultiHeadDotProductAttention(nn.Module):
 
     ``query/key/value/out`` are ``nn.Linear(d, d)``; the bridge reshapes
     Flax's ``[d, heads, head_dim]`` / ``[heads, head_dim, d]`` kernels into
-    them. Fresh weights follow Flax's init: lecun-normal, zero bias.
+    them. Fresh weights follow Flax's init: lecun-normal, zero bias. Under
+    tp (``tp`` set) it computes this rank's ``num_heads / tp`` heads.
     """
+
+    tp = None
 
     def __init__(self, d: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
@@ -68,7 +76,7 @@ class MultiHeadDotProductAttention(nn.Module):
         for lin in (self.query, self.key, self.value, self.out):
             lecun_normal_(lin.weight, d)
             nn.init.zeros_(lin.bias)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, inputs_q: Tensor, inputs_k: Tensor,
                 mask: Optional[Tensor] = None) -> Tensor:
@@ -76,8 +84,8 @@ class MultiHeadDotProductAttention(nn.Module):
         1 = attend) -> [B, Lq, d]."""
         B, Lq, d = inputs_q.shape
         Lk = inputs_k.shape[1]
-        H = self.num_heads
-        hd = d // H
+        hd = d // self.num_heads
+        H = self.num_heads // (self.tp.size if self.tp is not None else 1)
         q = self.query(inputs_q).view(B, Lq, H, hd)
         k = self.key(inputs_k).view(B, Lk, H, hd)
         v = self.value(inputs_k).view(B, Lk, H, hd)
@@ -91,8 +99,8 @@ class MultiHeadDotProductAttention(nn.Module):
         # rounded once, to bf16, instead of every step of the softmax, and a
         # fully masked row (all finfo(bf16).min) stays uniform.
         weights = F.softmax(logits.float(), dim=-1).to(q.dtype)
-        weights = self.dropout(weights)
-        o = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Lq, d)
+        weights = self.dropout(weights, self.tp, 1)
+        o = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Lq, H * hd)
         return self.out(o)
 
 
@@ -107,14 +115,14 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = layer_norm(d_model, dtype)
         self.linear1 = linear(d_model, ff, dtype=dtype)
         self.linear2 = linear(ff, d_model, dtype=dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: Tensor, mask: Optional[Tensor]) -> Tensor:
         h = self.norm1(x)
         h = self.self_attn(h, h, mask)
         x = x + self.drop(h)
         h = self.norm2(x)
-        h = self.drop(F.relu(self.linear1(h)))
+        h = self.drop(F.relu(self.linear1(h)), self.linear1.tp, -1)
         h = self.linear2(h)
         return x + self.drop(h)
 
@@ -144,7 +152,7 @@ class DihedralAwareEncoder(nn.Module):
             self.add_module(f"layer_{i}",
                             TransformerEncoderLayer(d, nhead, ff, dropout, dtype))
         self.final_norm = layer_norm(d, dtype)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, seq_emb: Tensor, n_coords: Tensor, ca_coords: Tensor,
                 c_coords: Tensor, dihedrals: Tensor, mask: Tensor) -> Tensor:
@@ -193,13 +201,14 @@ class HierLatent(nn.Module):
 
 
 def reparam(mu: Tensor, lv: Tensor, generator: Optional[torch.Generator] = None,
-            eps: Optional[Tensor] = None) -> Tensor:
+            eps: Optional[Tensor] = None, rows: tuple[int, int] = (0, 1)) -> Tensor:
     """z = mu + eps * exp(0.5 * clip(lv, +-10)); the clip acts inside the
     exp only. ``eps`` ~ N(0, I) from ``generator`` in mu's dtype (the
-    compute dtype, as the JAX side draws it) unless given."""
+    compute dtype, as the JAX side draws it) unless given: row shard
+    ``rows`` of the draw at the global batch (``parallel/shard.randn``)."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
+        eps = randn(mu.shape, rows, generator=generator, device=mu.device,
+                    dtype=mu.dtype)
     return mu + eps * torch.exp(0.5 * torch.clamp(lv, -10.0, 10.0))
 
 
@@ -214,6 +223,7 @@ class ProteinEncoder(nn.Module):
         self.enc = DihedralAwareEncoder(seqemb_dim, d_model, nhead, ff,
                                         nlayers, dropout, dtype)
         self.latent = HierLatent(d_model, z_g, z_l, dropout, dtype)
+        self.rows = (0, 1)      # row shard of the noise draws (draw_rows)
 
     def forward(self, seqemb: Tensor, n_coords: Tensor, ca_coords: Tensor,
                 c_coords: Tensor, dihedrals: Tensor, mask: Tensor,
@@ -224,6 +234,6 @@ class ProteinEncoder(nn.Module):
         H = self.enc(seqemb, n_coords, ca_coords, c_coords, dihedrals, mask)
         mu_g, lv_g, mu_l, lv_l = self.latent(H, mask)
         eps_g, eps_l = eps if eps is not None else (None, None)
-        z_g = reparam(mu_g, lv_g, generator, eps_g)
-        z_l = reparam(mu_l, lv_l, generator, eps_l)
+        z_g = reparam(mu_g, lv_g, generator, eps_g, self.rows)
+        z_l = reparam(mu_l, lv_l, generator, eps_l, self.rows)
         return z_g, z_l, mu_g, lv_g, mu_l, lv_l

@@ -22,6 +22,12 @@ and Flax's ``LayerNorm(dtype=...)`` do:
   ``force_float32_reductions``), then casts the output to ``dtype``.
 
 With ``dtype`` fp32 both are ``nn.Linear`` / ``nn.LayerNorm`` as they are.
+
+Tensor parallelism (``parallel/mesh.py:shard_model``): a ``Linear`` whose
+weight tp shards is column-parallel (weight ``[out / tp, in]``, output
+sharded) or row-parallel (weight ``[out, in / tp]``, input sharded, partial
+products summed over the tp group before the bias, which is added once).
+Its bias stays whole; a column-parallel layer adds its own slice of it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from protein_ensemble_vae_torch.parallel.shard import copy_to_tp, reduce_from_tp
 
 LN_EPS = 1e-6   # Flax LayerNorm default
 
@@ -52,7 +60,11 @@ def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` (fp32 parameters) that computes in ``dtype``."""
+    """``nn.Linear`` (fp32 parameters) that computes in ``dtype``; under tp
+    (``tp`` set, ``tp_mode`` "column" or "row") a Megatron shard."""
+
+    tp = None
+    tp_mode: Optional[str] = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -61,8 +73,15 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        tp = self.tp
+        if tp is None:
+            bias = None if self.bias is None else self.bias.to(dt)
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.tp_mode == "column":
+            bias = tp.chunk(copy_to_tp(self.bias, tp), 0).to(dt)
+            return F.linear(copy_to_tp(x, tp).to(dt), self.weight.to(dt), bias)
+        y = reduce_from_tp(F.linear(x.to(dt), self.weight.to(dt)), tp)
+        return y + self.bias.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):

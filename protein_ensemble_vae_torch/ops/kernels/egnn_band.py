@@ -47,6 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES, LAUNCHES
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
+from protein_ensemble_vae_torch.parallel.shard import copy_to_tp, reduce_from_tp
 
 Tensor = torch.Tensor
 
@@ -141,7 +142,7 @@ def _chain_bf16(chain_dtype) -> int:
 
 
 def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
-               b_x2, dtype: torch.dtype) -> tuple[Tensor, Tensor]:
+               b_x2, dtype: torch.dtype, tp=None) -> tuple[Tensor, Tensor]:
     """The band-gather formulation, materialising the [B, L, K, Hd] edge
     tensors, with the edge chain in ``dtype``: ``a``, ``bs``, the weights
     and the squared distances (computed in fp32) are cast to it, and
@@ -149,16 +150,21 @@ def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
     ``valid`` [B, L, K] as ``band_indices`` and the caller's masks give
     them. fp32 is the kernels' chain (``egnn_band_reference``); bf16 is a
     bf16 model's plain path, the JAX package's XLA band path at bf16.
+    Under tensor parallelism (``tp``, a ``parallel.shard.TP``) ``a``, ``bs``,
+    ``w_d``, ``w_x1`` and ``b_x1`` hold this rank's hidden columns and
+    ``w_e2``, ``w_x2`` its rows; the products through ``w_e2`` and ``w_x2``
+    are summed over the tp group before their biases.
     Returns (agg [B, L, Hd] in ``dtype``, raw_delta [B, L, 3])."""
     c = lambda t: t.to(dtype)  # noqa: E731
     mask_k = c(valid)[..., None]                                 # [B, L, K, 1]
     rel = x[:, :, None, :] - band_gather(x, nbr_idx)             # [B, L, K, 3]
-    d2 = c(torch.sum(rel * rel, dim=-1, keepdim=True))
+    d2 = copy_to_tp(c(torch.sum(rel * rel, dim=-1, keepdim=True)), tp)
     pre = c(a)[:, :, None, :] + band_gather(c(bs), nbr_idx) + d2 * c(w_d).reshape(-1)
     m = F.silu(pre)
-    m = F.silu(m @ c(w_e2) + c(b_e2).reshape(-1))
+    m = F.silu(reduce_from_tp(m @ c(w_e2), tp) + c(b_e2).reshape(-1))
     agg = torch.sum(m * mask_k, dim=2)
-    w = F.silu(m @ c(w_x1) + c(b_x1).reshape(-1)) @ c(w_x2).reshape(-1, 1) + c(b_x2).reshape(1)
+    w = reduce_from_tp(F.silu(copy_to_tp(m, tp) @ c(w_x1) + c(b_x1).reshape(-1))
+                       @ c(w_x2).reshape(-1, 1), tp) + c(b_x2).reshape(1)
     raw_delta = torch.sum((w * mask_k).to(x.dtype) * rel, dim=2)
     return agg, raw_delta
 

@@ -13,6 +13,12 @@ Layout on disk:
 
 ``record_artifact`` appends each saved checkpoint to
 ``<root>/artifacts.jsonl``.
+
+Under parallelism every rank calls ``save_checkpoint``: a tp-sharded
+model's shards and optimizer moments are gathered (a collective over the tp
+group) and rank 0 alone writes the full parameters, so a checkpoint of a
+dp x tp run loads into a single-process model. ``load_train_state`` gives
+a sharded ``TrainState`` its shards of the saved moments.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from protein_ensemble_vae_torch.config import RunConfig
@@ -50,12 +57,19 @@ def save_checkpoint(path: str, model: nn.Module, run_config: RunConfig,
                     extra_meta: Optional[dict] = None, train_state=None) -> str:
     """Write ``state.pt`` (model weights, and the optimizer state when
     ``train_state`` is given), ``meta.json`` and, with ``loss_history``,
-    ``history.json``."""
+    ``history.json``. In a process group every rank calls it and rank 0
+    writes (the module docstring)."""
+    from protein_ensemble_vae_torch.models.bridge import gather_params
+
     path = os.path.abspath(path)
+    weights = {k: v.detach() for k, v in model.state_dict().items()}
+    if getattr(model, "tp", None) is not None:
+        weights = gather_params(weights, model.tp)
+    train = train_state.optimizer_state() if train_state is not None else None
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
     os.makedirs(path, exist_ok=True)
-    state = {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-             "train": (train_state.optimizer_state()
-                       if train_state is not None else None)}
+    state = {"model": {k: v.cpu() for k, v in weights.items()}, "train": train}
     torch.save(state, os.path.join(path, STATE_FILE))
     meta = {"epoch": int(epoch), "config": json.loads(run_config.to_json()),
             "format_version": 1}
@@ -114,7 +128,8 @@ def load_checkpoint(path: str, model: nn.Module) -> nn.Module:
 
 def load_train_state(path: str, train_state) -> None:
     """Load the optimizer state of ``<path>/state.pt`` into ``train_state``
-    (a ``TrainState``); raises if the checkpoint holds none."""
+    (a ``TrainState``, sharded or not); raises if the checkpoint holds
+    none."""
     saved = _load_state(path, train_state.flat.device)["train"]
     if saved is None:
         raise ValueError(f"{path} holds model weights only, no optimizer state")

@@ -18,6 +18,12 @@
 - Randomness: reparameterisation noise and dropout come from torch's
   generators on the device, seeded per step from ``TrainConfig.seed``, the
   epoch, the batch index and the step count. Their bits differ from JAX's.
+- Parallelism (``parallel/mesh.py``): with a ``mesh`` a step is one rank's
+  part of the dp x tp step. Its draws are the global batch's, cut to its
+  rows; the loss normalisers are summed over the dp group, so its loss is
+  its share of the global loss; the flat gradient and the metrics are
+  summed over the dp group in one all-reduce (JAX's ``psum``); the clip's
+  global norm sums the tp-sharded entries over the tp group.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import torch
 from torch import nn
 
 from protein_ensemble_vae_torch.config import LossWeights, RunConfig
-from protein_ensemble_vae_torch.losses import (compute_total_loss,
+from protein_ensemble_vae_torch.losses import (batch_denominators,
+                                               compute_total_loss,
                                                sequence_accuracy)
+from protein_ensemble_vae_torch.parallel.shard import draw_rows, tp_param_dim
 from protein_ensemble_vae_torch.train.kl_schedulers import create_kl_scheduler
 from protein_ensemble_vae_torch.train.lr_schedule import ReduceLROnPlateau
 
@@ -49,6 +57,28 @@ def fold_seed(seed: int, *data: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
+def _pack(tensors, gap: Tensor) -> Tensor:
+    """One vector of ``tensors``, each padded with zeros (from ``gap``) to a
+    multiple of 4 elements: ``TrainState``'s flat layout."""
+    parts = []
+    for t in tensors:
+        parts.append(t.reshape(-1))
+        pad = -t.numel() % 4
+        if pad:
+            parts.append(gap[:pad])
+    return torch.cat(parts)
+
+
+def _unpack(vec: Tensor, shapes) -> list:
+    """``_pack``'s inverse: one view of ``vec`` per shape."""
+    out, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(vec[off:off + n].view(shape))
+        off += -(-n // 4) * 4
+    return out
+
+
 @dataclasses.dataclass
 class TrainState:
     """Model, Adam moments, step, and the ``apply_if_finite`` counters.
@@ -59,7 +89,8 @@ class TrainState:
     are the moments in the same layout, ``count`` the Adam count (advanced
     only by applied updates), ``step`` the step count (advanced by every
     train step, as ``TrainState.step`` in JAX; kept on the host, where it
-    seeds the step's randomness)."""
+    seeds the step's randomness). For a tp-sharded model ``flat`` holds
+    this rank's shards and ``sharded`` marks their entries."""
 
     model: nn.Module
     params: list
@@ -73,15 +104,24 @@ class TrainState:
     total_notfinite: Tensor
     gap: Tensor           # zeros for the alignment gaps of ``pack``
     step: int = 0
+    names: list = dataclasses.field(default_factory=list)
+    sharded: Optional[Tensor] = None   # bool, flat's entries tp shards
 
     @classmethod
     def create(cls, model: nn.Module) -> "TrainState":
-        params = list(model.parameters())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         offsets, off = [], 0
         for p in params:
             offsets.append(off)
             off += -(-p.numel() // 4) * 4
         dev = params[0].device
+        sharded = None
+        if getattr(model, "tp", None) is not None:
+            sharded = torch.zeros(off, dtype=torch.bool, device=dev)
+            for (name, p), o in zip(named, offsets):
+                if tp_param_dim(name, p.ndim) is not None:
+                    sharded[o:o + p.numel()] = True
         flat = torch.zeros(off, dtype=torch.float32, device=dev)
         for p, o in zip(params, offsets):
             flat[o:o + p.numel()] = p.detach().reshape(-1)
@@ -93,7 +133,8 @@ class TrainState:
                    notfinite_count=torch.zeros((), **i32),
                    last_finite=torch.ones((), dtype=torch.bool, device=dev),
                    total_notfinite=torch.zeros((), **i32),
-                   gap=torch.zeros(3, dtype=torch.float32, device=dev))
+                   gap=torch.zeros(3, dtype=torch.float32, device=dev),
+                   names=[name for name, _ in named], sharded=sharded)
 
     def views(self, vec: Tensor) -> list:
         """``vec`` (in ``flat``'s layout) as one view per parameter."""
@@ -102,13 +143,7 @@ class TrainState:
     def pack(self, tensors) -> Tensor:
         """One tensor per parameter -> a vector in ``flat``'s layout (one
         concatenation; the gaps are zero)."""
-        parts = []
-        for t, p in zip(tensors, self.params):
-            parts.append(t.reshape(-1))
-            pad = -p.numel() % 4
-            if pad:
-                parts.append(self.gap[:pad])
-        return torch.cat(parts)
+        return _pack(tensors, self.gap)
 
     def flat_grad(self) -> Tensor:
         """The gradients of all parameters in ``flat``'s layout (zeros
@@ -119,13 +154,40 @@ class TrainState:
     _OPT_KEYS = ("mu", "nu", "count", "notfinite_count", "last_finite",
                  "total_notfinite")
 
+    def _full_shapes(self) -> list:
+        tp = self.model.tp
+        return [tuple(s * (tp.size if i == tp_param_dim(n, p.ndim) else 1)
+                      for i, s in enumerate(p.shape))
+                for n, p in zip(self.names, self.params)]
+
     def optimizer_state(self) -> dict:
-        """Moments, counters and step, on the CPU (for ``state.pt``)."""
-        out = {k: getattr(self, k).detach().cpu() for k in self._OPT_KEYS}
+        """Moments, counters and step, on the CPU (for ``state.pt``), the
+        moments in the full model's layout: for a tp-sharded model the
+        shards of the tp group gathered (a collective over that group)."""
+        from protein_ensemble_vae_torch.models.bridge import gather_params
+
+        out = {k: getattr(self, k).detach() for k in self._OPT_KEYS}
+        if self.sharded is not None:
+            for k in ("mu", "nu"):
+                full = gather_params(dict(zip(self.names, self.views(out[k]))),
+                                     self.model.tp)
+                out[k] = _pack([full[n] for n in self.names], self.gap)
+        out = {k: v.cpu() for k, v in out.items()}
         out["step"] = self.step
         return out
 
     def load_optimizer_state(self, d: dict) -> None:
+        """``optimizer_state``'s inverse (moments in the full layout; a
+        tp-sharded model keeps its shards of them)."""
+        from protein_ensemble_vae_torch.models.bridge import shard_params
+
+        d = dict(d)
+        if self.sharded is not None:
+            tp = self.model.tp
+            for k in ("mu", "nu"):
+                full = dict(zip(self.names, _unpack(d[k], self._full_shapes())))
+                local = shard_params(full, tp.rank, tp.size)
+                d[k] = self.pack([local[n] for n in self.names])
         for k in self._OPT_KEYS:
             getattr(self, k).copy_(d[k])
         self.step = int(d["step"])
@@ -155,12 +217,26 @@ class Optimizer:
     max_consecutive_errors: int = 100
 
     @torch.no_grad()
-    def apply(self, state: TrainState, g: Tensor, lr) -> Tensor:
+    def apply(self, state: TrainState, g: Tensor, lr,
+              tp_sum: Optional[Callable] = None) -> Tensor:
         """Update ``state`` in place from the flat gradient ``g``; ``lr``
         multiplies the Adam update (params += -lr * update). Returns the
-        gradient's global norm (before clipping), on the device."""
-        g_norm = torch.sqrt(torch.dot(g, g))
-        finite = torch.isfinite(g).all()
+        gradient's global norm (before clipping), on the device. For a
+        tp-sharded state, ``tp_sum`` sums over the tp group: the norm's
+        square is the whole entries once plus the sharded entries' squares
+        summed over the group, and the non-finite check counts every shard,
+        so every rank of the group clips and skips alike."""
+        if tp_sum is None:
+            g_norm = torch.sqrt(torch.dot(g, g))
+            finite = torch.isfinite(g).all()
+        else:
+            sh, zero = state.sharded, torch.zeros_like(g)
+            sq = g * g
+            part = tp_sum(torch.stack([
+                torch.where(sh, sq, zero).sum(),
+                (sh & ~torch.isfinite(g)).sum().to(g.dtype)]))
+            g_norm = torch.sqrt(part[0] + torch.where(sh, zero, sq).sum())
+            finite = torch.isfinite(torch.where(sh, zero, g)).all() & (part[1] == 0)
         notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                 state.notfinite_count + 1)
         accept = finite | (notfinite > self.max_consecutive_errors)
@@ -201,10 +277,14 @@ def batch_to_arrays(pair_batch, seqemb_dim: int) -> dict:
     return {"inp": conv(pair_batch.inp), "tgt": conv(pair_batch.tgt)}
 
 
-def make_loss_fn(model: nn.Module, weights: LossWeights) -> Callable:
+def make_loss_fn(model: nn.Module, weights: LossWeights,
+                 dp_sum: Optional[Callable] = None) -> Callable:
     """``loss_fn(batch, klw_g, klw_l, eps=None) -> (total, (loss_dict,
     seq_acc))`` on the model's current parameters and mode. ``eps`` =
-    (eps_g, eps_l) replaces the reparameterisation draws."""
+    (eps_g, eps_l) replaces the reparameterisation draws. With ``dp_sum``
+    (a sum over the dp group) every term and ``seq_acc`` is normalised by
+    the global batch's denominators: this batch's share of the global
+    values."""
 
     def loss_fn(batch, klw_g, klw_l, eps=None):
         inp, tgt = batch["inp"], batch["tgt"]
@@ -212,20 +292,26 @@ def make_loss_fn(model: nn.Module, weights: LossWeights) -> Callable:
         pred_n, pred_ca, pred_c, pred_seq, mu_g, lv_g, mu_l, lv_l = model(
             inp["seq_emb"], inp["n"], inp["ca"], inp["c"], inp["dihedrals"],
             mask, eps=eps)
+        den = None
+        if dp_sum is not None:
+            den = dp_sum(batch_denominators(mask, pred_n, pred_ca, pred_c,
+                                            tgt["dihedrals"], weights.pair_stride))
         loss_dict = compute_total_loss(
             pred_n, pred_ca, pred_c, pred_seq,
             tgt["n"], tgt["ca"], tgt["c"], tgt["seq_labels"], mask,
             mu_g, lv_g, mu_l, lv_l, tgt["dihedrals"],
             klw_g=klw_g, klw_l=klw_l, weights=weights,
-            use_pallas=model.config.use_pallas_egnn)
-        seq_acc = sequence_accuracy(pred_seq, tgt["seq_labels"], mask)
+            use_pallas=model.config.use_pallas_egnn, den=den)
+        seq_acc = sequence_accuracy(pred_seq, tgt["seq_labels"], mask,
+                                    None if den is None else den[1])
         return loss_dict["total"], (loss_dict, seq_acc)
 
     return loss_fn
 
 
-def step_metrics(loss_dict: dict, seq_acc: Tensor, grad_norm: Tensor) -> dict:
-    """The 14 metrics of a step (device scalars, detached)."""
+def step_metrics(loss_dict: dict, seq_acc: Tensor) -> dict:
+    """The metrics of a step but its gradient norm (device scalars,
+    detached)."""
     m = {
         "loss": loss_dict["total"],
         "rec": loss_dict["reconstruction"],
@@ -239,55 +325,91 @@ def step_metrics(loss_dict: dict, seq_acc: Tensor, grad_norm: Tensor) -> dict:
         "seq": loss_dict["sequence"],
         "seq_acc": seq_acc,
         "clash": loss_dict["clash"],
-        "grad_norm": grad_norm,
         "rec_ca": loss_dict["reconstruction_ca"],
     }
     return {k: v.detach() for k, v in m.items()}
 
 
+def _dp_sum_with(g: Optional[Tensor], metrics: dict, dp_sum: Callable):
+    """``g`` (or nothing) and the metrics summed over the dp group in one
+    all-reduce; the metrics come back fp32."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    buf = dp_sum(vals if g is None else torch.cat([g, vals]))
+    vals = buf[buf.numel() - len(keys):]
+    return (None if g is None else buf[:g.numel()]), dict(zip(keys, vals.unbind()))
+
+
 def make_train_step(model: nn.Module, weights: LossWeights, train: bool,
-                    grad_clip: float = 10.0) -> Callable:
-    """``step(state, batch, rng, klw_g, klw_l, lr) -> (state, metrics)``.
+                    grad_clip: float = 10.0, mesh=None) -> Callable:
+    """``step(state, batch, rng, klw_g, klw_l, lr, eps=None) -> (state,
+    metrics)``.
 
     ``batch`` is a dict of device tensors (``batch_to_arrays`` layout);
     ``rng`` an int seed (the epoch's seed folded with the batch index);
-    ``klw_g``, ``klw_l``, ``lr`` device scalars. A train step updates
-    ``state`` in place and advances ``state.step``; an eval step
-    (``train=False``: dropout off, no gradient) leaves it as it is."""
-    opt = Optimizer(grad_clip=grad_clip)
-    loss_fn = make_loss_fn(model, weights)
+    ``klw_g``, ``klw_l``, ``lr`` device scalars; ``eps`` = (eps_g, eps_l) at
+    the global batch's shape replaces the reparameterisation draws. A train
+    step updates ``state`` in place and advances ``state.step``; an eval
+    step (``train=False``: dropout off, no gradient) leaves it as it is.
 
-    def step(state: TrainState, batch: dict, rng: int, klw_g, klw_l, lr):
+    ``mesh`` (``parallel.make_mesh``; the model ``shard_model``-ed by it):
+    the step is this rank's part of the dp x tp step, ``batch`` its rows of
+    the global batch (``make_parallel_step`` cuts them), and the metrics
+    are the global batch's on every rank. A mesh without a dp group
+    (``Mesh.without_dp``) runs the whole batch on every dp rank."""
+    opt = Optimizer(grad_clip=grad_clip)
+    dp_sum = mesh.dp_sum if mesh is not None and mesh.dp_group is not None else None
+    rows = (mesh.dp_rank, mesh.dp) if dp_sum is not None else (0, 1)
+    tp_sum = mesh.tp_sum if getattr(model, "tp", None) is not None else None
+    loss_fn = make_loss_fn(model, weights, dp_sum)
+
+    def step(state: TrainState, batch: dict, rng: int, klw_g, klw_l, lr, eps=None):
         model.train(train)
         dev = state.flat.device
-        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+        if eps is not None and rows[1] > 1:
+            eps = tuple(e.narrow(0, rows[0] * (e.shape[0] // rows[1]), e.shape[0] // rows[1])
+                        for e in eps)
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), \
+                draw_rows(model, *rows):
             torch.manual_seed(fold_seed(rng, state.step))
             if train:
                 for p in state.params:
                     p.grad = None
-                total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l)
+                total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l, eps)
                 total.backward()
             else:
                 with torch.no_grad():
-                    total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l)
+                    total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l, eps)
+        metrics = step_metrics(loss_dict, seq_acc)
         if train:
-            grad_norm = opt.apply(state, state.flat_grad(), lr)
+            g = state.flat_grad()
+            if dp_sum is not None:
+                g, metrics = _dp_sum_with(g, metrics, dp_sum)
+            metrics["grad_norm"] = opt.apply(state, g, lr, tp_sum)
             for p in state.params:
                 p.grad = None
             state.step += 1
         else:
-            grad_norm = torch.zeros((), device=dev)
-        return state, step_metrics(loss_dict, seq_acc, grad_norm)
+            if dp_sum is not None:
+                _, metrics = _dp_sum_with(None, metrics, dp_sum)
+            metrics["grad_norm"] = torch.zeros((), device=dev)
+        return state, metrics
 
     return step
 
 
 def run_epoch(state: TrainState, step_fn: Callable, batches: Iterable,
               rng: int, klw_g: float, klw_l: float, lr: float,
-              seqemb_dim: int) -> tuple[TrainState, dict[str, float]]:
+              seqemb_dim: int, dp: int = 1,
+              fallback_step_fn: Optional[Callable] = None
+              ) -> tuple[TrainState, dict[str, float]]:
     """One epoch. Metric sums stay on the device; one host read at the end.
     Non-finite steps (skipped by the optimizer) are left out of the
-    statistics; an epoch where most are non-finite raises."""
+    statistics; an epoch where most are non-finite raises.
+
+    Under dp (``dp > 1``) a batch whose size dp does not divide runs
+    through ``fallback_step_fn`` (the whole batch on every dp rank) instead
+    of being dropped, so eval statistics cover every sample."""
     from protein_ensemble_vae_torch.data.prefetch import prefetch_to_device
 
     dev = state.flat.device
@@ -299,8 +421,11 @@ def run_epoch(state: TrainState, step_fn: Callable, batches: Iterable,
     converted = (batch_to_arrays(pb, seqemb_dim) for pb in batches)
     for batch_idx, batch in enumerate(prefetch_to_device(converted, dev)):
         bs = batch["tgt"]["ca"].shape[0]
-        state, metrics = step_fn(state, batch, fold_seed(rng, batch_idx),
-                                 klw_g, klw_l, lr)
+        fn = step_fn
+        if dp > 1 and bs % dp != 0 and fallback_step_fn is not None:
+            fn = fallback_step_fn
+        state, metrics = fn(state, batch, fold_seed(rng, batch_idx),
+                            klw_g, klw_l, lr)
         w = torch.isfinite(metrics["loss"]).to(torch.float32) * bs
         weighted = {k: torch.where(torch.isfinite(m), m, torch.zeros_like(m)) * w
                     for k, m in metrics.items()}
@@ -325,13 +450,22 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
                 logger=None, start_epoch: int = 1,
                 init_state: Optional[TrainState] = None,
                 checkpoint_fn: Optional[Callable] = None,
-                make_batches: Optional[Callable] = None):
+                make_batches: Optional[Callable] = None,
+                mesh=None, local_batches: bool = False):
     """Full fit loop: KL annealing (the configured schedule), plateau LR,
     early stopping with best-parameter capture and restore, per-epoch
     logging. ``checkpoint_fn(state, epoch, loss_history, meta)`` is called
     on every validation improvement and every ``checkpoint_every`` epochs.
     ``make_batches`` replaces ``make_epoch_batches`` (same signature).
-    Returns (state, loss_history)."""
+    Returns (state, loss_history).
+
+    With a ``mesh`` (this rank's; ``model`` sharded by it) every rank runs
+    this loop: each gets the global batches and keeps its rows, or, with
+    ``local_batches`` (multi-host: ``make_batches`` feeds each process its
+    own shard), takes its batches as they come. Train remainders are
+    dropped when dp > 1; a val batch dp does not divide runs whole on every
+    rank (not with ``local_batches``). The statistics are the global
+    batch's on every rank, so every rank stops on the same epoch."""
     from protein_ensemble_vae_torch.data.collate import make_epoch_batches
 
     tcfg, lw = run_config.train, run_config.loss
@@ -339,8 +473,21 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
     batch_factory = make_batches if make_batches is not None else make_epoch_batches
     state = init_state if init_state is not None else TrainState.create(model)
 
-    train_step = make_train_step(model, lw, train=True, grad_clip=tcfg.grad_clip)
-    eval_step = make_train_step(model, lw, train=False, grad_clip=tcfg.grad_clip)
+    train_step = make_train_step(model, lw, train=True, grad_clip=tcfg.grad_clip,
+                                 mesh=mesh)
+    eval_step = make_train_step(model, lw, train=False, grad_clip=tcfg.grad_clip,
+                                mesh=mesh)
+    dp = mesh.dp if mesh is not None else 1
+    eval_fallback = None
+    if mesh is not None and not local_batches:
+        from protein_ensemble_vae_torch.parallel.mesh import make_parallel_step
+
+        wrap = make_parallel_step(mesh)
+        train_step, eval_step = wrap(train_step), wrap(eval_step)
+        if dp > 1:
+            eval_fallback = make_train_step(model, lw, train=False,
+                                            grad_clip=tcfg.grad_clip,
+                                            mesh=mesh.without_dp())
 
     sched_kwargs = dict(warmup_epochs=tcfg.kl_warmup_epochs,
                         n_cycles=tcfg.kl_cycles, ratio=tcfg.kl_ratio)
@@ -375,7 +522,7 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
         lr = plateau.lr
 
         tr_batches = batch_factory(train_ds, tcfg.batch_size, tcfg.bucket_sizes,
-                                   True, tcfg.seed + epoch, drop_remainder=False)
+                                   True, tcfg.seed + epoch, drop_remainder=dp > 1)
         state, tr = run_epoch(state, train_step, tr_batches,
                               fold_seed(tcfg.seed, epoch, 0), klw_g, klw_l, lr,
                               seqemb_dim)
@@ -383,7 +530,7 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
                                    False, tcfg.seed, drop_remainder=False)
         _, va = run_epoch(state, eval_step, va_batches,
                           fold_seed(tcfg.seed, epoch, 1), klw_g, klw_l, lr,
-                          seqemb_dim)
+                          seqemb_dim, dp=dp, fallback_step_fn=eval_fallback)
 
         for k in EPOCH_METRICS:
             loss_history["train"][k].append(tr[k])

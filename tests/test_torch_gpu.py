@@ -922,3 +922,37 @@ def test_dataprep_torsions_on_card_match_cpu(cuda):
     for k in ("torsion_phi_sincos", "torsion_psi_sincos", "torsion_omega_sincos"):
         torch.testing.assert_close(torch.from_numpy(got[k]), torch.from_numpy(want[k]),
                                    rtol=0.0, atol=1e-5)
+
+
+def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
+    """dp = 2 through ``parallel.launch``: with one card both ranks share it
+    over gloo (NCCL refuses two ranks on one device); kernels 1-4 launch in
+    each rank's step, and the step is the single-process step (loss rtol
+    1e-5, updated parameters atol 1e-4)."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.parallel.dryrun import (example_batch,
+                                                            parity_step,
+                                                            single_step)
+    from protein_ensemble_vae_torch.parallel.mesh import launch
+
+    model = dict(seqemb_dim=16, d_model=64, nhead=4, ff=128, nlayers=1,
+                 z_global=32, z_local=16, decoder_hidden=64, decoder_layers=2,
+                 max_neighbors=8)
+    batch = example_batch(16, 4, 64, seed=1)
+    batch["tgt"]["mask"][0, 50:] = 0.0
+    batch["tgt"]["mask"][3, 7] = 0.0
+    spec = dict(model=model, seed=0, rng=5, consts=(0.5, 0.25, 1e-4), dp=2, tp=1,
+                device="cuda", batch=batch)
+    ref = single_step(spec)
+    ranks = launch(parity_step, 2, (spec,), device="cuda", timeout_s=300,
+                   store_dir=str(tmp_path))
+    want = {"egnn_band_fwd": 2, "egnn_band_bwd": 2, "clash_fwd": 1, "clash_bwd": 1}
+    assert ref["launches"] == want
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for r in ranks:
+        assert r["launches"] == want and r["backend"] == backend, r
+        assert r["loss"] == ranks[0]["loss"]
+    np.testing.assert_allclose(ranks[0]["loss"], ref["loss"], rtol=1e-5)
+    for k, v in ref["params"].items():
+        np.testing.assert_allclose(ranks[0]["params"][k], v, rtol=0, atol=1e-4, err_msg=k)

@@ -41,7 +41,8 @@ def test_importing_every_module_pulls_no_jax():
         "        'train.training', 'train.checkpoint', 'train.kl_schedulers',\n"
         "        'train.lr_schedule', 'data.collate', 'data.prefetch',\n"
         "        'utils.logging', 'cli.train', 'cli.generate',\n"
-        "        'models.esm2', 'dataprep.esm', 'dataprep.pipeline'}\n"
+        "        'models.esm2', 'dataprep.esm', 'dataprep.pipeline',\n"
+        "        'parallel.mesh', 'parallel.shard', 'parallel.dryrun'}\n"
         "missing = {n for n in need if p.__name__ + '.' + n not in mods}\n"
         "assert len(mods) >= 30 and not missing, (mods, missing)\n"
         "print(len(mods), bad)\n"
