@@ -120,6 +120,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    output is finite with its padded rows bitwise unchanged, and the torsion
    stage's bonds lie within 1e-4 A of ``config.BOND_*``. ``cli.analyze``
    and ``cli.validate`` then score the files on the card.
+5b. grad-watch path (``phase_watch_path``): ``cli.train --watch_every 1``
+   for 2 epochs at the default widths, fp32, batch 4, on the same pairs;
+   counts reset just before and read just after: each epoch launches its
+   train and val steps' kernels plus 8 / 8 / 1 / 1 for the dump (one
+   gradient of the first batch through kernels 1-4). Two ``.npz`` dumps
+   with a ``param/`` and a ``grad/`` entry for every parameter, all
+   finite; the last dump's gradient statistics equal ``make_loss_fn``'s
+   gradient of the same batch and seed recomputed on the kernel path (rtol
+   1e-6 of each tensor's scale); two runs without the flag, the flagged run
+   no further from the first than the second is (both largest parameter
+   gaps logged). Then ``make_param_grad_fn`` on the kernel and the plain
+   path (dropout on, same seed: the same masks), the smooth loss's
+   gradients held per tensor at rtol 1e-3 / atol 1e-5 max|g|, the full
+   loss's reported; ``viz.parameters.main`` and ``viz.training_curves`` on
+   the run's checkpoint; the dump's cost (the gradient's CUDA-event ms, the
+   whole hook's host ms); ``utils.profiling.trace`` around 3 warm B4/L256
+   fp32 steps (its window opened with ``clash_noop`` markers; its records
+   must name all four kernels), and ``time_fn`` / ``scan_step_time``
+   beside a CUDA-event median of the same step, printed with phase 6's
+   median and the card's name and power limit (recorded, gating nothing).
 8. parallelism (``phase_parallel``), run before the timed steps (phase
    6), at the default widths, fp32,
    the B4/L256 step (4 pairs of TRAIN_PROTEIN's fold, target masks cut to 230,
@@ -143,8 +163,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    cost, not a scaling figure.
 9. one ``parallel`` JSON line (phase 8's checks, times and launches by
    rank), one ``esm`` JSON line (the ESM-2 gates, timings and the path's
-   stage seconds), one ``kernels`` JSON line (launches by path: generate,
-   dataprep, refine, train, train_bf16, train_dp (both dp ranks' steps;
+   stage seconds), one ``watch`` JSON line (phase 5b's gaps, checks and
+   times), one ``kernels`` JSON line (launches by path: generate,
+   dataprep, refine, train, train_bf16, train_watch (phase 5b's counted
+   run, dumps included), train_dp (both dp ranks' steps;
    every kernel must launch in each rank), and chain_dtype_ab's bf16-chain
    launches; kernels 1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
@@ -1575,6 +1597,310 @@ def phase_train_cli_bf16(out_dir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5b. grad-watch path
+# ---------------------------------------------------------------------------
+
+# kernel -> a substring of its device kernel's name in profiler records
+# (kernel 2's edge pass stands for its four passes)
+KERNEL_RECORDS = {"egnn_band_fwd": "egnn_band_fwd_kernel", "egnn_band_bwd": "egnn_bwd_edges",
+                  "clash_fwd": "clash_fwd_kernel", "clash_bwd": "clash_bwd_kernel"}
+WATCH_RTOL = 1e-6   # dump statistics vs the same gradient recomputed, of the tensor's scale
+
+
+def _max_gap(a: dict, b: dict) -> float:
+    """Largest |a - b| over the tensors of two state dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _watch_stats_gap(npz, want: dict) -> tuple[float, float]:
+    """Worst gap of the dump's grad statistics to ``want`` (histogram
+    summaries of the recomputed gradient) as a multiple of WATCH_RTOL times
+    the tensor's scale (max |g|; l2 for l2), and of its bin counts as a
+    multiple of ceil(WATCH_RTOL n) for a tensor of n values."""
+    worst, counts = 0.0, 0.0
+    for name, w in want.items():
+        scale = max(abs(w["min"]), abs(w["max"]), 1e-30)
+        for s in ("mean", "std", "min", "max", "l2"):
+            ref = w["l2"] if s == "l2" else scale
+            worst = max(worst, abs(float(npz[f"grad/{name}/{s}"]) - w[s])
+                        / (WATCH_RTOL * max(ref, 1e-30)))
+        n = int(w["counts"].sum())
+        counts = max(counts, float(np.abs(npz[f"grad/{name}/counts"] - w["counts"]).max())
+                     / np.ceil(WATCH_RTOL * n))
+    return worst, counts
+
+
+def phase_watch_path(out_dir: str, card: str) -> dict:
+    """``cli.train --watch_every 1`` for 2 epochs at the default widths, fp32,
+    batch 4, on TRAIN_PROTEIN's pairs (8 train / 2 val): counts reset just
+    before and read just after; each epoch launches its train and val
+    steps' kernels plus 8 / 8 / 1 / 1 for the dump. Two dumps, each with a
+    ``param/`` and a ``grad/`` entry for every parameter, all finite; the
+    last dump's gradient statistics against ``make_loss_fn``'s gradient of
+    the same batch and seed recomputed on the kernel path (rtol WATCH_RTOL of
+    the tensor's scale, counts within ceil(WATCH_RTOL n)); two runs without
+    the flag, the flagged run no further from the first than the second is.
+    Then ``make_param_grad_fn`` on the kernel and the plain path (smooth
+    loss held per tensor at rtol 1e-3 / atol 1e-5 max|g|, the full loss
+    reported), ``viz.parameters.main`` and ``viz.training_curves`` on the
+    run's checkpoint, and ``utils.profiling``: ``trace`` around 3 warm
+    B4/L256 steps (its records must name all four kernels), ``time_fn`` and
+    ``scan_step_time`` beside a CUDA-event median of the same step."""
+    import torch
+
+    import protein_ensemble_vae_torch.utils.watch as watch
+    from protein_ensemble_vae_torch.cli import train as train_cli
+    from protein_ensemble_vae_torch.config import LossWeights, ModelConfig
+    from protein_ensemble_vae_torch.data.collate import make_epoch_batches
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+    from protein_ensemble_vae_torch.ops.kernels.clash import clash_noop
+    from protein_ensemble_vae_torch.train.checkpoint import load_run_config
+    from protein_ensemble_vae_torch.train.training import (TrainState, batch_to_arrays,
+                                                           fold_seed, make_loss_fn,
+                                                           make_param_grad_fn,
+                                                           make_train_step)
+    from protein_ensemble_vae_torch.utils import profiling
+    from protein_ensemble_vae_torch.viz import parameters as viz_params
+    from protein_ensemble_vae_torch.viz import training_curves
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    pid, L, seed, K = TRAIN_PROTEIN
+    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
+    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+    sets = (PairSet(confs, pairs[:8], cfg.seqemb_dim), PairSet(confs, pairs[8:], cfg.seqemb_dim))
+    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+            "--epochs", "2", "--batch_size", "4", "--seed", str(SEED), "--device", DEVICE]
+    dumps = []
+    orig_dump = watch.dump_watch_npz
+
+    def recording_dump(path, params, grads=None, bins=64):
+        torch.cuda.synchronize()
+        d = dict(path=path, launches=dict(LAUNCHES), t_in=time.perf_counter(),
+                 params={k: v.detach().cpu().clone() for k, v in params.items()})
+        out = orig_dump(path, params, grads, bins)
+        dumps.append(dict(d, t_out=time.perf_counter()))
+        return out
+
+    runs = {}
+    for tag, extra in (("watched", ["--watch_every", "1"]), ("plain", []), ("plain2", [])):
+        save = os.path.join(out_dir, f"train_watch_{tag}")
+        watch.dump_watch_npz = recording_dump
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            train_cli.main(argv + ["--save", save] + extra, datasets=sets)
+            torch.cuda.synchronize()
+        finally:
+            watch.dump_watch_npz = orig_dump
+        runs[tag] = dict(save=save, seconds=time.perf_counter() - t0, launches=dict(LAUNCHES),
+                         model=torch.load(os.path.join(save, "final", "state.pt"),
+                                          weights_only=True)["model"])
+        if tag == "watched":
+            t_start = t0
+    launches = runs["watched"]["launches"]
+
+    # launches per epoch: the train and val steps' plus one gradient's
+    tr_steps, va_steps = -(-len(sets[0]) // 4), -(-len(sets[1]) // 4)
+    n = cfg.decoder_layers
+    want = {"egnn_band_fwd": n * (tr_steps + va_steps + 1),
+            "egnn_band_bwd": n * (tr_steps + 1),
+            "clash_fwd": tr_steps + va_steps + 1, "clash_bwd": tr_steps + 1}
+    if len(dumps) != 2:
+        raise RuntimeError(f"--watch_every 1 over 2 epochs dumped {len(dumps)} times")
+    prev = {k: 0 for k in want}
+    for epoch, d in enumerate(dumps, 1):
+        got = {k: d["launches"][k] - prev[k] for k in want}
+        prev = d["launches"]
+        log(f"[watch] epoch {epoch}: launches {got} (expected {want}: train + val steps "
+            f"+ {n} / {n} / 1 / 1 for the dump)")
+        if got != want:
+            raise RuntimeError(f"watch epoch {epoch} launched {got}, expected {want}")
+    if launches != dumps[-1]["launches"]:
+        raise RuntimeError(f"kernels launched after the last dump: {launches}")
+
+    # the files
+    names = list(runs["watched"]["model"])
+    files = sorted(os.listdir(os.path.join(runs["watched"]["save"], "watch")))
+    if files != ["epoch_00001.npz", "epoch_00002.npz"]:
+        raise RuntimeError(f"watch files {files}")
+    for f in files:
+        z = np.load(os.path.join(runs["watched"]["save"], "watch", f))
+        for prefix in ("param", "grad"):
+            for name in names:
+                if int(z[f"{prefix}/{name}/nonfinite"]) != 0 or \
+                        not np.isfinite(float(z[f"{prefix}/{name}/l2"])):
+                    raise RuntimeError(f"{f}: {prefix}/{name} not finite")
+
+    # the last dump's gradient, recomputed through make_loss_fn on the kernel path
+    run_cfg = load_run_config(os.path.join(runs["watched"]["save"], "final"))
+    model = HierCVAE(run_cfg.model).to(DEVICE)
+    model.load_state_dict(dumps[-1]["params"])
+    first = next(iter(make_epoch_batches(sets[0], run_cfg.train.batch_size,
+                                         run_cfg.train.bucket_sizes, False,
+                                         run_cfg.train.seed)))
+    batch = {s: {k: torch.as_tensor(v, device=DEVICE) for k, v in d.items()}
+             for s, d in batch_to_arrays(first, cfg.seqemb_dim).items()}
+    model.train()
+    with torch.random.fork_rng(devices=[torch.device(DEVICE)] if DEVICE == "cuda" else []):
+        torch.manual_seed(fold_seed(run_cfg.train.seed, 2))
+        total, _ = make_loss_fn(model, run_cfg.loss)(batch, run_cfg.loss.klw_global,
+                                                     run_cfg.loss.klw_local)
+        total.backward()
+    recomputed = watch.histogram_summaries({k: p.grad for k, p in model.named_parameters()})
+    z = np.load(dumps[-1]["path"])
+    worst, count_gap = _watch_stats_gap(z, recomputed)
+    log(f"[watch] epoch-2 dump vs make_loss_fn's gradient recomputed on the kernel path: "
+        f"worst statistic {worst:.3f}x rtol {WATCH_RTOL} of the tensor's scale, worst bin "
+        f"count {count_gap:.3f}x ceil({WATCH_RTOL} n)")
+    if worst > 1.0 or count_gap > 1.0:
+        raise RuntimeError(f"the dump's statistics leave the recomputed gradient's: worst "
+                           f"{worst:.3f}x, counts {count_gap:.3f}x")
+    del model
+
+    # the flag leaves the run as it was
+    gap_watch = _max_gap(runs["watched"]["model"], runs["plain"]["model"])
+    gap_twice = _max_gap(runs["plain2"]["model"], runs["plain"]["model"])
+    log(f"[watch] final parameters: run with --watch_every 1 vs without, largest gap "
+        f"{gap_watch:.3e}; two runs without it, largest gap {gap_twice:.3e}")
+    if not gap_watch <= gap_twice:
+        raise RuntimeError(f"--watch_every changed the run: gap {gap_watch:.3e} > the "
+                           f"gap between two runs without it {gap_twice:.3e}")
+    hists = {}
+    for tag in runs:
+        with open(os.path.join(runs[tag]["save"], "final", "history.json")) as f:
+            hists[tag] = json.load(f)
+    same_hist = hists["watched"] == hists["plain"]
+    log(f"[watch] history.json equal with and without the flag: {same_hist}; two runs "
+        f"without it equal: {hists['plain'] == hists['plain2']}")
+
+    # reading the run back
+    final = os.path.join(runs["watched"]["save"], "final")
+    viz_params.main(["--checkpoint", final, "--output_dir",
+                     os.path.join(out_dir, "watch_params"), "--device", DEVICE])
+    if not os.path.exists(os.path.join(out_dir, "watch_params", "parameter_summary.txt")):
+        raise RuntimeError("viz.parameters wrote no summary")
+    summary = training_curves.text_summary(training_curves.load_history_any(final))
+    if not summary.startswith("epochs trained: 2"):
+        raise RuntimeError(f"viz.training_curves read {summary!r}")
+    log(f"[watch] viz.training_curves: {summary.splitlines()[0]}; {summary.splitlines()[-1]}")
+
+    # kernel path vs plain path through make_param_grad_fn
+    torch.manual_seed(SEED)
+    kmodel = HierCVAE(cfg).to(DEVICE)
+    pmodel = HierCVAE(dataclasses.replace(cfg, use_pallas_egnn=False)).to(DEVICE)
+    pmodel.load_state_dict(kmodel.state_dict())
+    step_batch = _step_batch(*TRAIN_HEADLINE, TIMED_STEPS[0]["L_real"], SEED + 8,
+                             cfg.seqemb_dim)
+    compare = {}
+    for label, weights in (("smooth", LossWeights(**SMOOTH_WEIGHTS)), ("full", LossWeights())):
+        kg = make_param_grad_fn(kmodel, weights)(step_batch, SEED + 11, 0.5, 0.25)
+        pg = make_param_grad_fn(pmodel, weights)(step_batch, SEED + 11, 0.5, 0.25)
+        bad, worst_g, worst_name = _grad_gap(kg, pg, False)
+        held = label == "smooth"
+        log(f"[watch] make_param_grad_fn kernel path vs plain path, B4/L256 fp32, dropout "
+            f"on, {label} loss: {len(pg) - len(bad)}/{len(pg)} tensors within rtol 1e-3 / "
+            f"atol 1e-5 max|g| (worst {worst_g:.2f}x the tolerance, {worst_name})"
+            + ("" if held else " [reported, not held]"))
+        if held and bad:
+            raise RuntimeError(f"watch gradient: kernel path differs from the plain path in "
+                               f"{bad} (worst {worst_g:.2f}x, {worst_name})")
+        compare[label] = dict(worst=worst_g, worst_name=worst_name, within=len(pg) - len(bad),
+                              n=len(pg))
+    del pmodel, kg, pg
+
+    # the dump's own cost at the run's shape: gradient (CUDA events) and the whole hook
+    watch_fn = watch.make_watch_fn(kmodel, sets[0], run_cfg, os.path.join(out_dir, "watch_t"), 1)
+    grad_fn = make_param_grad_fn(kmodel, run_cfg.loss)
+    grad_fn(batch, 1, 1.0, 0.5)
+    grad_ms = float(np.median([_window_ms(lambda: grad_fn(batch, 1, 1.0, 0.5), 1)
+                               for _ in range(5)]))
+    hook_ms = []
+    for epoch in range(1, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        watch_fn(None, epoch)
+        torch.cuda.synchronize()
+        hook_ms.append(1e3 * (time.perf_counter() - t0))
+    # each epoch from the previous dump's end (the run's start) to this dump's
+    # histograms: its steps, checkpoints and this dump's gradient
+    epoch_s = (dumps[0]["t_in"] - t_start, dumps[1]["t_in"] - dumps[0]["t_out"])
+    histogram_s = [d["t_out"] - d["t_in"] for d in dumps]
+    log(f"[watch] dump cost ({card}): gradient of the B4/L256 first batch "
+        f"{grad_ms:.2f} ms (CUDA events, median of 5 calls); whole hook (batch, "
+        f"gradient, gather, histograms, .npz) {float(np.median(hook_ms)):.2f} ms (host clock, "
+        f"synchronised, median of 3); in the watched run, epochs 1 and 2 took "
+        f"{epoch_s[0]:.2f} s (first use included) and {epoch_s[1]:.2f} s up to their "
+        f"dump's histograms (steps, checkpoints and the dump's gradient), which then took "
+        f"{histogram_s[0]:.2f} / {histogram_s[1]:.2f} s (copies to the host, histograms, "
+        f".npz)")
+
+    # utils.profiling on the B4/L256 fp32 step
+    state = TrainState.create(kmodel)
+    step = make_train_step(kmodel, LossWeights(), train=True)
+    consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
+    for i in range(STEP_WARMUP):
+        step(state, step_batch, i, *consts)
+    torch.cuda.synchronize()
+    tdir = os.path.join(out_dir, "watch_trace")
+    with profiling.trace(tdir):
+        for _ in range(PROFILER_MARKERS):
+            clash_noop()
+        torch.cuda.synchronize()
+        for i in range(3):
+            step(state, step_batch, i, *consts)
+        torch.cuda.synchronize()
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    records = {k: sum(sub in name for name in kernels) for k, sub in KERNEL_RECORDS.items()}
+    log(f"[watch] utils.profiling.trace over 3 B4/L256 fp32 steps: {len(kernels)} kernel "
+        f"records, of the port's kernels {records} (3 steps launch {3 * n} / {3 * n} / 3 / 3)")
+    if 0 in records.values():
+        raise RuntimeError(f"the trace names no record of some kernel: {records}")
+
+    tf = profiling.time_fn(lambda: step(state, step_batch, 0, *consts)[1], warmup=1, iters=5)
+
+    def make_run(k):
+        def run():
+            for i in range(k):
+                _, m = step(state, step_batch, i, *consts)
+            return m["loss"]
+        return run
+
+    scan_s, scan_detail = profiling.scan_step_time(make_run, n1=2, n2=10, repeats=5,
+                                                   return_detail=True)
+    scan_med = float(np.median([r["per_step_ms"] for r in scan_detail["repeats"]]))
+    event_ms = []
+    for i in range(STEP_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step(state, step_batch, i, *consts)
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    times = dict(time_fn_ms=1e3 * tf["mean_s"], scan_step_ms=1e3 * scan_s,
+                 scan_median_ms=scan_med, scan_detail=scan_detail,
+                 event_median_ms=float(np.median(event_ms)), grad_ms=grad_ms,
+                 hook_ms=float(np.median(hook_ms)), epoch_s=epoch_s,
+                 histogram_s=histogram_s, phase_s=time.perf_counter() - t_phase)
+    log(f"[watch] B4/L256 fp32 kernel-path train step ({card}): utils.profiling.time_fn "
+        f"{times['time_fn_ms']:.2f} ms (mean of 5), scan_step_time {times['scan_step_ms']:.2f} "
+        f"ms (2 vs 10 steps, min of 5 repeats; their median {scan_med:.2f} ms), CUDA events "
+        f"{times['event_median_ms']:.2f} ms (median of {STEP_REPS}); phase 5b took "
+        f"{times['phase_s']:.1f} s")
+    del state, step, kmodel, watch_fn, grad_fn, batch, step_batch
+    torch.cuda.empty_cache()
+    return dict(launches=launches, dumps=len(dumps), gap_watch=gap_watch,
+                gap_twice=gap_twice, same_history=same_hist, stats_worst=worst,
+                counts_worst=count_gap,
+                compare=compare, records=records, times=times,
+                seconds=runs["watched"]["seconds"])
+
+
+# ---------------------------------------------------------------------------
 # 6. timed train steps
 # ---------------------------------------------------------------------------
 
@@ -2660,6 +2986,7 @@ def main(argv=None) -> None:
         del model
         train = phase_train_path(out_dir)
         train_bf16 = phase_train_cli_bf16(out_dir)
+        watch = phase_watch_path(out_dir, device["smi"])
         parallel = phase_parallel(out_dir, device["smi"])
         steps = phase_timed_steps(args.profile)
         # refinement after the train steps: what it leaves allocated would
@@ -2680,11 +3007,13 @@ def main(argv=None) -> None:
         by_path = {"generate": gen["launches"][name], "refine": refine["launches"][name],
                    "train": train["launches"][name],
                    "train_bf16": train_bf16["launches"][name],
+                   "train_watch": watch["launches"][name],
                    "train_dp": parallel["launches"][name],
                    "dataprep": dataprep["launches"][name],
                    "chain_dtype_ab": sum(v for k, v in chain_modes.items()
                                          if k.endswith("/bfloat16_chain"))}
-        if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_dp"])
+        if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_watch"],
+                  by_path["train_dp"])
                 or any(r[name] == 0 for r in parallel["launches_by_rank"])
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
                 or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
@@ -2717,6 +3046,17 @@ def main(argv=None) -> None:
                if name.startswith("clash") else {}),
             shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
+    fp32_step = next(r for r in steps if r.get("shape") == "B4/L256 fp32"
+                     and r.get("path") == "kernel")
+    wt = watch["times"]
+    log(f"[watch] the same B4/L256 fp32 kernel-path step ({device['smi']}): "
+        f"utils.profiling.time_fn {wt['time_fn_ms']:.2f} ms, scan_step_time "
+        f"{wt['scan_step_ms']:.2f} ms (median of its repeats {wt['scan_median_ms']:.2f}), "
+        f"CUDA events {wt['event_median_ms']:.2f} ms (phase 5b); "
+        f"phase 6's median {fp32_step['ms']:.2f} ms (host clock, synchronised)")
+    log(json.dumps({"watch": {k: watch[k] for k in ("gap_watch", "gap_twice", "same_history",
+                                                     "stats_worst", "counts_worst", "compare",
+                                                     "records", "times", "seconds")}}))
     log(json.dumps({"train_steps": steps}))
     log(json.dumps({"parallel": {k: parallel[k] for k in ("checks", "times",
                                                            "launches_by_rank",

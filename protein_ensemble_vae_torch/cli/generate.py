@@ -52,8 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from protein_ensemble_vae_torch.ops.routing import resolve_device
+    from protein_ensemble_vae_torch.utils import enable_compilation_cache
 
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
 
     from protein_ensemble_vae_torch.data import (EnsembleDataset,

@@ -60,7 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from protein_ensemble_vae_torch.utils import enable_compilation_cache
+
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
 
     import numpy as np
     import torch

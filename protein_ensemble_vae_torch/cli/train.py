@@ -12,9 +12,11 @@ runs at fp32 accuracy, as the JAX side runs fp32 models at
 kernels' in 3-pass TF32. ``--compute_dtype bfloat16`` computes in bf16 with
 fp32 parameters, as the JAX side's ``HierCVAE(dtype=bfloat16)``: the EGNN
 band kernels read bf16 projections and make one-pass TF32 products, with
-the edge chain in fp32. Not ported yet, and raising ``NotImplementedError``
-rather than running something else: ``--watch_every`` > 0 (ROADMAP.md queue
-A, utils/watch).
+the edge chain in fp32. ``--watch_every N`` writes parameter and gradient
+histograms of the first training batch every N epochs to
+``<save>/watch/epoch_NNNNN.npz`` (``utils/watch.py``, the JAX package's
+layout) and leaves the run as it was. ``PEV_COMPILE_CACHE`` moves the
+kernels' build directory (``utils/compile_cache.py``).
 
 Parallelism (``parallel/mesh.py``): ``--dp N --tp M`` on one host starts
 N x M rank processes itself, each building the same global batches and
@@ -127,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "augmentation) as extra training pair partners")
     ap.add_argument("--watch_every", type=int, default=0,
                     help="N>0: dump param/grad histograms every N epochs "
-                         "(not ported yet: raises)")
+                         "to <save>/watch/ (offline wandb.watch)")
     ap.add_argument("--wandb_project", type=str, default="Protein-VAE")
     ap.add_argument("--wandb_run_name", type=str, default=None)
     ap.add_argument("--wandb_mode", type=str, default="disabled",
@@ -137,16 +139,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to run on (default cuda; pass cpu "
                          "to run on the CPU)")
     return ap
-
-
-def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` for the features this port does not
-    have yet, naming the ROADMAP.md item."""
-    if args.watch_every > 0:
-        raise NotImplementedError(
-            "--watch_every > 0: the param/grad histogram dumps (utils/watch, "
-            "make_param_grad_fn) are not ported yet (ROADMAP.md, queue A, "
-            "'Remainder')")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -172,14 +164,15 @@ def main(argv=None, datasets=None, timeout_s=None):
     picklable when ranks are launched); ``timeout_s`` bounds the launched
     ranks' run (None: no bound)."""
     args = parse_args(argv)
-    check_supported(args)
 
     from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.parallel.mesh import (initialize_multihost,
                                                           launch,
                                                           validate_mesh_config)
     from protein_ensemble_vae_torch.ops.routing import resolve_device
+    from protein_ensemble_vae_torch.utils import enable_compilation_cache
 
+    enable_compilation_cache()
     resolve_device(args.device)
     # multi-host: each process feeds --batch_size, the global batch is dp x that
     validate_mesh_config(args.dp, args.tp,
@@ -204,6 +197,9 @@ def main(argv=None, datasets=None, timeout_s=None):
 
 def _rank_main(argv, datasets):
     """One rank of a single-host ``--dp`` / ``--tp`` run (``launch``)."""
+    from protein_ensemble_vae_torch.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     train(parse_args(argv), datasets)
 
 
@@ -229,6 +225,7 @@ def train(args, datasets=None):
     from protein_ensemble_vae_torch.train.training import (TrainState,
                                                            train_model)
     from protein_ensemble_vae_torch.utils import MetricLogger
+    from protein_ensemble_vae_torch.utils.watch import make_watch_fn
 
     mesh = make_mesh(args.dp, args.tp) if dist.is_initialized() else None
     rank0 = mesh is None or mesh.rank == 0
@@ -340,12 +337,14 @@ def train(args, datasets=None):
             init_state = TrainState.create(model)
             load_train_state(resume_path, init_state)
 
+        watch_fn = make_watch_fn(model, train_ds, cfg, os.path.join(args.save, "watch"),
+                                 args.watch_every, logger=logger)
         state, history = train_model(model, train_ds, val_ds, cfg, logger=logger,
                                      start_epoch=start_epoch,
                                      init_state=init_state,
                                      checkpoint_fn=checkpoint_fn,
                                      make_batches=make_batches, mesh=mesh,
-                                     local_batches=args.multihost)
+                                     local_batches=args.multihost, watch_fn=watch_fn)
 
         final_path = os.path.join(args.save, "final")
         final_epoch = len(history["train"]["loss"])

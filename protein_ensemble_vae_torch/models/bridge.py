@@ -14,6 +14,8 @@ carries over as it is; only leaf layouts change:
   ``global_query``) are copied as they are.
 
 It raises on any key left over on either side, and on a shape mismatch.
+``port_name`` maps a Flax path (``a/b/kernel``) to the port's name
+(``a.b.weight``).
 
 ``shard_params(full_state, tp_rank, tp)`` cuts a full state_dict (the port's
 or one from ``params_from_flax``) to tp rank ``tp_rank``'s shards, by the tp
@@ -73,6 +75,17 @@ def _convert(path: tuple[str, ...], node: Mapping, out: dict) -> None:
             out[".".join(path + (k,))] = np.asarray(node[k])
         elif isinstance(node[k], Mapping):
             _convert(path + (k,), node[k], out)
+
+
+def port_name(flax_path: str) -> str:
+    """A Flax parameter path (``a/b/kernel``) -> the port's parameter name
+    (``a.b.weight``), as ``params_from_flax`` carries the leaf over: Dense
+    and attention ``kernel`` and LayerNorm ``scale`` become ``weight``;
+    every other leaf keeps its name."""
+    parts = flax_path.split("/")
+    if parts[-1] in ("kernel", "scale"):
+        parts[-1] = "weight"
+    return ".".join(parts)
 
 
 def _match(flat: Mapping[str, np.ndarray], model: nn.Module,

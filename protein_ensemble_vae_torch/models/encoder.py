@@ -52,6 +52,18 @@ def sinusoidal_pe(length: int, d_model: int, device=None,
     return pe.to(dtype)
 
 
+class SinusoidalPE(nn.Module):
+    """``x + sinusoidal_pe`` over ``x``'s length (the JAX ``SinusoidalPE``
+    module); no parameters."""
+
+    def __init__(self, d_model: int, dtype=torch.float32):
+        super().__init__()
+        self.d_model, self.dtype = d_model, dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x + sinusoidal_pe(x.shape[1], self.d_model, x.device, self.dtype)
+
+
 class MultiHeadDotProductAttention(nn.Module):
     """Flax ``nn.MultiHeadDotProductAttention`` (qkv and out width = d).
 

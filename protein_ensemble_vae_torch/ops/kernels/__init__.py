@@ -5,9 +5,15 @@ version.
 process: a wrapper adds one where it launches its kernel, and nowhere else.
 A run resets the counts with ``reset_launches()`` and reads them afterwards
 to show that its path went through the kernels.
+
+``check_outputs`` hands a kernel's outputs, once its autograd function has
+them, to ``OUTPUT_CHECK`` (``utils.profiling.enable_debug_mode``'s NaN
+check; None, and nothing is done, otherwise).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
                             "clash_fwd": 0, "clash_bwd": 0}
@@ -28,3 +34,11 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     BAND_MODE_LAUNCHES.clear()
+
+
+OUTPUT_CHECK: Optional[Callable] = None
+
+
+def check_outputs(name: str, *outs) -> None:
+    if OUTPUT_CHECK is not None:
+        OUTPUT_CHECK(name, outs)

@@ -2,11 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
 own (with the shared ``csrc/*.cuh`` headers), into
-``_build/lib<name>-<hash>.so`` inside the package (a directory that
-``.gitignore`` lists). The hash covers the source, the headers and the
-flags, so an edited source rebuilds and a stale library is never loaded. The build runs
-at first use, from the repository's sources alone; ``build`` starts one
-``nvcc`` per source, all together.
+``BUILD_DIR/lib<name>-<hash>.so``: by default ``_build/`` inside the
+package (a directory that ``.gitignore`` lists), elsewhere after
+``utils.compile_cache.enable_compilation_cache`` (``PEV_COMPILE_CACHE``).
+The hash covers the source, the headers, the flags and the toolchain
+(``utils.compile_cache.host_fingerprint``: the nvcc release and the target),
+so an edited source or a new toolkit rebuilds and a stale library is never
+loaded. The build runs at first use, from the repository's sources alone;
+``build`` starts one ``nvcc`` per source, all together.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Optional, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
+DEFAULT_BUILD_DIR = os.path.join(PKG_DIR, "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR    # moved by utils.compile_cache.enable_compilation_cache
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,8 +53,10 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> str:
     """The library's path; its hash covers the source, every shared header
-    in ``csrc/`` and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    in ``csrc/``, the flags and the toolchain's fingerprint."""
+    from protein_ensemble_vae_torch.utils.compile_cache import host_fingerprint
+
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + (host_fingerprint(),)).encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for f in [name + ".cu"] + headers:
         with open(os.path.join(CSRC_DIR, f), "rb") as fh:

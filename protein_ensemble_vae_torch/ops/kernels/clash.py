@@ -29,7 +29,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
+from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, check_outputs
 
 Tensor = torch.Tensor
 
@@ -320,6 +320,7 @@ class ClashLossFunction(torch.autograd.Function):
             n, ca, c = n.contiguous(), ca.contiguous(), c.contiguous()
         mask = mask.to(torch.float32)
         loss, _, counts = clash_fwd(n, ca, c, mask, clash_dist, soft_margin)
+        check_outputs("clash_fwd", loss)
         ctx.save_for_backward(n, ca, c, mask, counts)
         ctx.params = (clash_dist, soft_margin)
         return loss
@@ -330,6 +331,7 @@ class ClashLossFunction(torch.autograd.Function):
         n, ca, c, mask, counts = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
         dn, dca, dc = clash_bwd(n, ca, c, mask, g, counts, *ctx.params)
+        check_outputs("clash_bwd", dn, dca, dc)
         return dn, dca, dc, None, None, None
 
 

@@ -45,7 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES, LAUNCHES
+from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                   check_outputs)
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
 from protein_ensemble_vae_torch.parallel.shard import copy_to_tp, reduce_from_tp
 
@@ -590,8 +591,10 @@ class EGNNBandFunction(torch.autograd.Function):
         ctx.W, ctx.precision, ctx.chain_dtype = W, precision, chain_dtype
         ctx.save_for_backward(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                               w_x2, b_x2)
-        return egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
+        outs = egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
                              w_x2, b_x2, W, precision, chain_dtype)
+        check_outputs(KERNEL, *outs)
+        return outs
 
     @staticmethod
     @once_differentiable
@@ -604,6 +607,7 @@ class EGNNBandFunction(torch.autograd.Function):
         da, dbs, dx, *dparams = egnn_band_bwd(a, bs, x, cmask, *params,
                                               g_agg, g_delta, ctx.W,
                                               ctx.precision, ctx.chain_dtype)
+        check_outputs(BWD_KERNEL, da, dbs, dx, *dparams)
         return (da, dbs, dx, None, *dparams, None, None, None)
 
 

@@ -220,11 +220,16 @@ def train_worker(spec: dict) -> dict:
     return history
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu",
+def dryrun_multichip(n_devices: int, device: str = "cuda",
                      timeout_s: float = 600.0, store_dir=None) -> str:
     """Launch ``n_devices`` ranks, take the sharded step, hold its loss
-    against the single-process step at rtol 1e-5; returns the parity line."""
+    against the single-process step at rtol 1e-5; returns the parity line.
+    It runs on the GPU unless ``device`` is "cpu", and raises without a GPU
+    (as the CLIs do)."""
+    from protein_ensemble_vae_torch.ops.routing import resolve_device
     from protein_ensemble_vae_torch.parallel.mesh import launch
+
+    resolve_device(device)
 
     if n_devices >= 4 and n_devices % 2 == 0:
         dp, tp = n_devices // 2, 2
@@ -253,8 +258,6 @@ def dryrun_multichip(n_devices: int, device: str = "cpu",
 
 
 def main(argv=None) -> None:
-    from protein_ensemble_vae_torch.ops.routing import resolve_device
-
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", type=int, nargs="?", default=8, help="number of ranks")
     ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
@@ -263,7 +266,6 @@ def main(argv=None) -> None:
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds the ranks may take in all")
     args = ap.parse_args(argv)
-    resolve_device(args.device)
     print(dryrun_multichip(args.n, args.device, args.timeout), flush=True)
 
 

@@ -358,16 +358,17 @@ def stop_rank_servers() -> None:
     resource_tracker._resource_tracker._stop()
 
 
-def launch(fn: Callable, world: int, args: Sequence = (), device: str = "cpu",
+def launch(fn: Callable, world: int, args: Sequence = (), *, device: str,
            timeout_s: Optional[float] = None, store_dir: Optional[str] = None,
            collective_timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
     """Run ``fn(*args)`` in ``world`` new processes, one rank each, joined
     over a ``FileStore`` in ``store_dir`` (a new temporary directory when
     None); ``fn`` and ``args`` must pickle (``fn`` by its import path).
-    Returns the ranks'
-    results in rank order. Raises, after stopping every rank, when a rank
-    fails or exits without a result, or when ``timeout_s`` passes (None:
-    no limit; the collectives' own limit is ``collective_timeout_s``)."""
+    ``device`` ("cuda" or "cpu") has no default, so no caller falls to the
+    CPU unnoticed. Returns the ranks' results in rank order. Raises, after
+    stopping every rank, when a rank fails or exits without a result, or
+    when ``timeout_s`` passes (None: no limit; the collectives' own limit is
+    ``collective_timeout_s``)."""
     import multiprocessing as mp
 
     # Ranks fork from one server process that imported torch and the port

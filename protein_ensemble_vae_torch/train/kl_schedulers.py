@@ -1,7 +1,7 @@
 """KL-annealing schedules (host-side, pure functions of epoch).
 
-A plain-Python copy of the JAX package's ``train/kl_schedulers.py``
-(``plot_schedules`` is not ported yet). Same math as reference ``models/kl_schedulers.py`` (cyclical sawtooth per Fu
+A plain-Python copy of the JAX package's ``train/kl_schedulers.py``,
+``plot_schedules`` included (matplotlib imported inside it). Same math as reference ``models/kl_schedulers.py`` (cyclical sawtooth per Fu
 et al. 2019 at :91-116, monotonic warmup :148-161, adaptive on val RMSD
 :197-221, exponential :249-260). Two reference bugs fixed deliberately:
 
@@ -164,3 +164,42 @@ def create_kl_scheduler(schedule_type: str, max_weight: float = 1.0,
     raise ValueError(
         f"Unknown schedule type: {schedule_type}. "
         "Choose from ['cyclical', 'monotonic', 'adaptive', 'exponential']")
+
+
+def plot_schedules(total_epochs: int = 200,
+                   output_path: str = "kl_schedules_comparison.png"):
+    """Schedule-comparison plot (reference kl_schedulers.py:400-439); None
+    when matplotlib is missing."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print("[kl] matplotlib unavailable")
+        return None
+
+    schedulers = {
+        "Cyclical (4 cycles)": CyclicalKLScheduler(4, 0.5, 2.0),
+        "Monotonic": MonotonicKLScheduler(40, 2.0),
+        "Exponential": ExponentialKLScheduler(40, 2.0, 3.0),
+        "Cyclical (8 cycles, fast)": CyclicalKLScheduler(8, 0.3, 2.0),
+    }
+    fig, ax = plt.subplots(figsize=(12, 6))
+    epochs = range(1, total_epochs + 1)
+    for name, sch in schedulers.items():
+        ax.plot(epochs, [sch.step(e, total_epochs) for e in epochs],
+                label=name, lw=2, alpha=0.8)
+    ax.set_xlabel("epoch")
+    ax.set_ylabel("KL weight")
+    ax.set_title("KL annealing schedules")
+    ax.legend()
+    ax.grid(alpha=0.3, ls="--")
+    fig.tight_layout()
+    fig.savefig(output_path, dpi=150)
+    plt.close(fig)
+    print(f"[kl] saved {output_path}")
+    return output_path
+
+
+if __name__ == "__main__":
+    plot_schedules()

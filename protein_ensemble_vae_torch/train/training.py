@@ -264,6 +264,34 @@ class Optimizer:
         return g_norm
 
 
+def make_optimizer(grad_clip: float = 10.0, flatten: bool = False) -> Optimizer:
+    """The JAX package's ``make_optimizer``: clip by global norm, Adam
+    moments, the finite-gradient skip; the LR is applied by the step.
+
+    ``flatten`` is accepted and changes nothing. JAX's ``flatten=True``
+    runs the optax chain on one raveled vector (``optax.flatten``) in
+    place of one update per parameter tensor; ``Optimizer`` always works on
+    one flat vector (``TrainState.flat``), so both values are one
+    computation, bit for bit."""
+    del flatten
+    return Optimizer(grad_clip=grad_clip)
+
+
+def create_train_state(model: nn.Module, rng=None, sample_batch=None,
+                       grad_clip: float = 10.0,
+                       opt_flatten: bool = False) -> TrainState:
+    """The JAX package's ``create_train_state``: ``TrainState.create(model)``.
+
+    ``rng`` and ``sample_batch`` are accepted and not used: JAX initialises
+    the parameters here from its key and a sample batch's shapes, while a
+    torch model holds its parameters from construction (seeded by
+    ``torch.manual_seed`` / ``utils.set_seed``). ``grad_clip`` belongs to
+    the step's optimizer (``make_train_step``), and ``opt_flatten`` changes
+    nothing (``make_optimizer``): the state has one layout."""
+    del rng, sample_batch, grad_clip, opt_flatten
+    return TrainState.create(model)
+
+
 def batch_to_arrays(pair_batch, seqemb_dim: int) -> dict:
     """PairBatch -> {"inp": {...}, "tgt": {...}} of numpy arrays (zeros
     seq_emb when absent)."""
@@ -340,8 +368,44 @@ def _dp_sum_with(g: Optional[Tensor], metrics: dict, dp_sum: Callable):
     return (None if g is None else buf[:g.numel()]), dict(zip(keys, vals.unbind()))
 
 
+def make_param_grad_fn(model: nn.Module, weights: LossWeights) -> Callable:
+    """``grad_fn(batch, rng, klw_g, klw_l, eps=None) -> {name: grad}``: the
+    gradient of the train step's loss (``make_loss_fn``, dropout on) in
+    every parameter, for the grad-watch dumps (``utils/watch.py``; the JAX
+    package's ``make_param_grad_fn``).
+
+    It leaves the run as it was: its draws come from torch's generators
+    forked for the call (the CPU's and, for a CUDA model, its device's) and
+    seeded with ``rng``, as JAX folds its key; it takes the gradient with
+    ``torch.autograd.grad``, so no ``.grad`` is written; the module's
+    train / eval mode is restored. The whole ``batch`` enters the loss (no
+    dp sum). For a tp-sharded model every rank of the tp group must call it
+    (its forward holds tp collectives) and each gets its shards' gradients
+    (``models/bridge.gather_params`` puts them together)."""
+    loss_fn = make_loss_fn(model, weights)
+    named = list(model.named_parameters())
+
+    def grad_fn(batch: dict, rng: int, klw_g, klw_l, eps=None) -> dict:
+        dev = named[0][1].device
+        was_training = model.training
+        try:
+            model.train(True)
+            with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+                torch.manual_seed(rng)
+                total, _ = loss_fn(batch, klw_g, klw_l, eps)
+                grads = torch.autograd.grad(total, [p for _, p in named],
+                                            allow_unused=True)
+        finally:
+            model.train(was_training)
+        return {name: torch.zeros_like(p) if g is None else g
+                for (name, p), g in zip(named, grads)}
+
+    return grad_fn
+
+
 def make_train_step(model: nn.Module, weights: LossWeights, train: bool,
-                    grad_clip: float = 10.0, mesh=None) -> Callable:
+                    grad_clip: float = 10.0, mesh=None,
+                    opt_flatten: bool = False) -> Callable:
     """``step(state, batch, rng, klw_g, klw_l, lr, eps=None) -> (state,
     metrics)``.
 
@@ -356,8 +420,11 @@ def make_train_step(model: nn.Module, weights: LossWeights, train: bool,
     the step is this rank's part of the dp x tp step, ``batch`` its rows of
     the global batch (``make_parallel_step`` cuts them), and the metrics
     are the global batch's on every rank. A mesh without a dp group
-    (``Mesh.without_dp``) runs the whole batch on every dp rank."""
-    opt = Optimizer(grad_clip=grad_clip)
+    (``Mesh.without_dp``) runs the whole batch on every dp rank.
+
+    ``opt_flatten`` is the JAX argument and changes nothing: the optimizer
+    always updates one flat vector (``make_optimizer``)."""
+    opt = make_optimizer(grad_clip, flatten=opt_flatten)
     dp_sum = mesh.dp_sum if mesh is not None and mesh.dp_group is not None else None
     rows = (mesh.dp_rank, mesh.dp) if dp_sum is not None else (0, 1)
     tp_sum = mesh.tp_sum if getattr(model, "tp", None) is not None else None
@@ -451,11 +518,15 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
                 init_state: Optional[TrainState] = None,
                 checkpoint_fn: Optional[Callable] = None,
                 make_batches: Optional[Callable] = None,
-                mesh=None, local_batches: bool = False):
+                mesh=None, local_batches: bool = False,
+                watch_fn: Optional[Callable] = None):
     """Full fit loop: KL annealing (the configured schedule), plateau LR,
     early stopping with best-parameter capture and restore, per-epoch
     logging. ``checkpoint_fn(state, epoch, loss_history, meta)`` is called
     on every validation improvement and every ``checkpoint_every`` epochs.
+    ``watch_fn(state, epoch)`` is called after every epoch is logged and
+    before early stopping (``utils.watch.make_watch_fn`` decides its own
+    cadence).
     ``make_batches`` replaces ``make_epoch_batches`` (same signature).
     Returns (state, loss_history).
 
@@ -542,6 +613,8 @@ def train_model(model: nn.Module, train_ds, val_ds, run_config: RunConfig,
         if logger is not None:
             logger.log_epoch(epoch, tr, va, klw_g=klw_g, klw_l=klw_l,
                              lr=plateau.lr, seconds=time.time() - t0)
+        if watch_fn is not None:
+            watch_fn(state, epoch)
 
         metric_name = tcfg.early_stopping_metric
         current = last_val_rmsd if metric_name == "rmsd" else va[metric_name]

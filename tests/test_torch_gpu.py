@@ -956,3 +956,96 @@ def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
     np.testing.assert_allclose(ranks[0]["loss"], ref["loss"], rtol=1e-5)
     for k, v in ref["params"].items():
         np.testing.assert_allclose(ranks[0]["params"][k], v, rtol=0, atol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# Grad-watch gradient, debug mode and the build cache on the card
+# ---------------------------------------------------------------------------
+
+_WATCH_CFG = dict(seqemb_dim=16, d_model=64, nhead=4, ff=128, nlayers=1, z_global=32,
+                  z_local=16, decoder_hidden=64, decoder_layers=2, max_neighbors=8,
+                  dropout=0.1)
+
+
+def test_watch_gradient_kernel_path_matches_plain_path(cuda):
+    """``make_param_grad_fn`` (the grad-watch gradient, dropout on) on the
+    kernel path and the plain path, same weights and seed, so the same
+    dropout masks: 2 + 2 band and 1 + 1 clash launches on the kernel path,
+    none on the plain path; on the smooth loss weights every gradient
+    within rtol 1e-3 / atol 1e-5 max|g| per tensor."""
+    from protein_ensemble_vae_torch.config import LossWeights
+    from protein_ensemble_vae_torch.train.training import make_param_grad_fn
+
+    torch.manual_seed(0)
+    kmodel = HierCVAE(ModelConfig(**_WATCH_CFG)).to(cuda)
+    pmodel = HierCVAE(ModelConfig(**_WATCH_CFG, use_pallas_egnn=False)).to(cuda)
+    pmodel.load_state_dict(kmodel.state_dict())
+    batch = _train_batch(4, 128, _WATCH_CFG["seqemb_dim"], cuda)
+    before = dict(LAUNCHES)
+    grads = make_param_grad_fn(kmodel, LossWeights())(batch, 7, 1.0, 0.5)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        "egnn_band_fwd": 2, "egnn_band_bwd": 2, "clash_fwd": 1, "clash_bwd": 1}
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    smooth = LossWeights(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
+                         w_angle=0.0, w_clash=0.0)
+    got = make_param_grad_fn(kmodel, smooth)(batch, 7, 1.0, 0.5)
+    before = dict(LAUNCHES)
+    want = make_param_grad_fn(pmodel, smooth)(batch, 7, 1.0, 0.5)
+    assert dict(LAUNCHES) == before
+    assert all(p.grad is None for p in kmodel.parameters())
+    for name, w in want.items():
+        atol = max(1e-5 * float(w.abs().max()), 1e-6)
+        torch.testing.assert_close(got[name], w, rtol=1e-3, atol=atol, msg=name)
+
+
+def test_debug_mode_on_the_kernel_path(cuda):
+    """Under ``enable_debug_mode`` a kernel-path train step runs silent (its
+    kernels write into ``torch.empty`` memory), and NaN coordinates reaching
+    the band kernel raise."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.config import LossWeights
+    from protein_ensemble_vae_torch.train.training import TrainState, make_train_step
+    from protein_ensemble_vae_torch.utils.profiling import (disable_debug_mode,
+                                                            enable_debug_mode)
+
+    torch.manual_seed(0)
+    model = HierCVAE(ModelConfig(**_WATCH_CFG)).to(cuda)
+    state = TrainState.create(model)
+    step = make_train_step(model, LossWeights(), train=True)
+    batch = _train_batch(2, 128, _WATCH_CFG["seqemb_dim"], cuda)
+    consts = [torch.tensor(v, device=cuda) for v in (0.5, 0.25, 1e-4)]
+    args = _inputs(2, 64, 64, cuda)
+    args[2] = args[2].clone()
+    args[2][0, 3, 1] = float(np.nan)
+    before = dict(LAUNCHES)
+    enable_debug_mode()
+    try:
+        _, metrics = step(state, batch, 0, *consts)
+        with pytest.raises(FloatingPointError):
+            egnn_band_fused(*args, 4)
+    finally:
+        disable_debug_mode()
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 2
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def test_build_into_a_compile_cache_dir(cuda, monkeypatch, tmp_path):
+    """``PEV_COMPILE_CACHE=<dir>`` builds the libraries under
+    ``<dir>/<nvcc release>-sm_90a``."""
+    from protein_ensemble_vae_torch.ops.kernels import build
+    from protein_ensemble_vae_torch.utils.compile_cache import (
+        enable_compilation_cache, host_fingerprint)
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setenv("PEV_COMPILE_CACHE", str(tmp_path))
+    where = enable_compilation_cache()
+    fp = host_fingerprint()
+    assert fp.startswith("nvcc-") and not fp.startswith("nvcc-none") and fp.endswith("sm_90a")
+    assert where == str(tmp_path / fp)
+    report = build.build(["clash"])
+    lib = build.library_path("clash")
+    assert report["clash"]["seconds"] > 0 and lib.startswith(where)
+    import ctypes
+    assert ctypes.CDLL(lib).clash_noop is not None

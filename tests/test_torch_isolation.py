@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, at run time or in its sources (chip_smoke.py included)."""
+package, at run time or in its sources (chip_smoke.py included); and
+importing it pulls in neither matplotlib nor h5py (the chip machine has
+neither: the modules that use them import them inside a function)."""
 
 import os
 import re
@@ -42,11 +44,16 @@ def test_importing_every_module_pulls_no_jax():
         "        'train.lr_schedule', 'data.collate', 'data.prefetch',\n"
         "        'utils.logging', 'cli.train', 'cli.generate',\n"
         "        'models.esm2', 'dataprep.esm', 'dataprep.pipeline',\n"
-        "        'parallel.mesh', 'parallel.shard', 'parallel.dryrun'}\n"
+        "        'parallel.mesh', 'parallel.shard', 'parallel.dryrun',\n"
+        "        'utils.watch', 'utils.profiling', 'utils.seeding',\n"
+        "        'utils.compile_cache', 'viz.training_curves', 'viz.parameters',\n"
+        "        'viz.dataset_stats'}\n"
         "missing = {n for n in need if p.__name__ + '.' + n not in mods}\n"
         "assert len(mods) >= 30 and not missing, (mods, missing)\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "               ('matplotlib', 'h5py'))\n"
+        "print(len(mods), bad, heavy)\n"
+        "sys.exit(1 if bad or heavy else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)

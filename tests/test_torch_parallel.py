@@ -444,6 +444,25 @@ def test_dryrun_runs_on_the_card_unless_asked(monkeypatch):
         dryrun.main(["2"])
 
 
+def test_dryrun_multichip_defaults_to_the_card(monkeypatch, tmp_path):
+    """``dryrun_multichip`` (the JAX entry's counterpart) runs on the card
+    unless asked for the CPU: without one it raises, and on the CPU it
+    returns the parity line."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
+    line = dryrun.dryrun_multichip(2, "cpu", WAIT_S, store_dir=str(tmp_path))
+    assert line.startswith("[dryrun_multichip] mesh dp=2 tp=1: one train step OK"), line
+
+
+def test_launch_takes_no_default_device():
+    import inspect
+
+    param = inspect.signature(launch).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+
+
 @pytest.mark.parametrize("case", ["rank_fails", "timeout"])
 def test_launch_fails_fast(case, tmp_path):
     """A rank that raises (here: a 3 x 1 mesh asked of 2 ranks) or ranks
@@ -457,7 +476,8 @@ def test_launch_fails_fast(case, tmp_path):
     else:
         t0 = time.monotonic()
         with pytest.raises(TimeoutError, match="did not finish within 2 s"):
-            launch(time.sleep, 2, (60,), timeout_s=2, store_dir=str(tmp_path))
+            launch(time.sleep, 2, (60,), device="cpu", timeout_s=2,
+                   store_dir=str(tmp_path))
         assert time.monotonic() - t0 < 30
 
 
@@ -465,8 +485,8 @@ def test_coordination_barrier(tmp_path):
     """A no-op in one process; across ranks, a store barrier every rank
     passes."""
     coordination_barrier("single-process-noop", timeout_s=1)
-    assert launch(coordination_barrier, 3, ("ranks-meet", WAIT_S), timeout_s=WAIT_S,
-                  store_dir=str(tmp_path)) == [None] * 3
+    assert launch(coordination_barrier, 3, ("ranks-meet", WAIT_S), device="cpu",
+                  timeout_s=WAIT_S, store_dir=str(tmp_path)) == [None] * 3
 
 
 def _session_processes(sid: int) -> list[int]:
@@ -495,7 +515,7 @@ def test_launching_program_leaves_no_process(tmp_path):
     import sys
 
     code = ("import os; from protein_ensemble_vae_torch.parallel.mesh import launch; "
-            f"print(len(set(launch(os.getpid, 2, timeout_s={WAIT_S}))))")
+            f"print(len(set(launch(os.getpid, 2, device='cpu', timeout_s={WAIT_S}))))")
     with open(tmp_path / "out.txt", "w") as f:
         proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
                                 start_new_session=True)

@@ -3,8 +3,8 @@
 checkpoint file set, the history's metric names (the JAX package's
 ``EPOCH_METRICS``), ``--resume``, the generation CLI on the trained
 checkpoint, the bf16 compute path (``--compute_dtype bfloat16``) trained
-and generated from, ``--dp`` / ``--tp`` / ``--multihost``, and the features
-that raise instead of running."""
+and generated from, ``--dp`` / ``--tp`` / ``--multihost`` and
+``--watch_every``."""
 
 import json
 import os
@@ -87,16 +87,13 @@ def _free_port() -> int:
 
 @pytest.mark.parametrize("extra", [["--dp", "2"], ["--tp", "2"], ["--multihost"],
                                    ["--watch_every", "1"]])
-def test_unported_features_raise(run, tmp_path, extra):
-    """``--watch_every`` is not ported and raises. ``--dp``, ``--tp`` and
-    ``--multihost`` (one process here, its own coordinator) are ported now:
-    they train one epoch and write the full model's checkpoint, as the
-    single-process run's, and leave no process group behind."""
+def test_parallel_and_watch_flags_train_an_epoch(run, tmp_path, extra):
+    """``--dp``, ``--tp``, ``--multihost`` (one process here, its own
+    coordinator) and ``--watch_every`` each train one epoch and write the
+    full model's checkpoint, as the single-process run's, and leave no
+    process group behind; ``--watch_every 1`` also writes that epoch's
+    param / grad histograms."""
     root, base = run
-    if extra == ["--watch_every", "1"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_cli.main(base + ["--epochs", "1"] + extra)
-        return
     if extra == ["--multihost"]:
         # a multi-host rank drops every partial batch: 3 val pairs need batch 2
         extra = extra + ["--batch_size", "2", "--num_processes", "1", "--process_id", "0",
@@ -111,6 +108,13 @@ def test_unported_features_raise(run, tmp_path, extra):
     with open(save / "final" / "history.json") as f:
         hist = json.load(f)
     assert len(hist["train"]["loss"]) == 1 and np.isfinite(hist["val"]["loss"]).all()
+    watched = extra == ["--watch_every", "1"]
+    assert os.path.isdir(save / "watch") == watched
+    if watched:
+        assert os.listdir(save / "watch") == ["epoch_00001.npz"]
+        z = np.load(save / "watch" / "epoch_00001.npz")
+        for k in got["model"]:
+            assert f"param/{k}/counts" in z.files and f"grad/{k}/l2" in z.files, k
 
 
 def test_bf16_compute_path_trains_and_generates(run, monkeypatch):

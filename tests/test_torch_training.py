@@ -15,7 +15,11 @@ tests/test_torch_models.py (dropout 0), weights carried over through
     within 2 * lr of the JAX step's. The two steps draw different noise, so
     this is the bound Adam's first update (~ lr * sign(g)) allows;
 (d) KL schedules, plateau LR and the epoch batchers: equal sequences and
-    arrays.
+    arrays;
+(e) ``opt_flatten``: both values give bitwise-equal steps (the port's
+    optimizer is flat either way), and the step stays within (c)'s bound of
+    JAX's flattened step; ``make_optimizer`` / ``create_train_state`` are
+    ``Optimizer`` / ``TrainState.create``.
 """
 
 import numpy as np
@@ -38,7 +42,8 @@ from protein_ensemble_vae_torch.train import kl_schedulers as TKL  # noqa: E402
 from protein_ensemble_vae_torch.train.lr_schedule import (  # noqa: E402
     ReduceLROnPlateau as TPlateau)
 from protein_ensemble_vae_torch.train.training import (  # noqa: E402
-    EPOCH_METRICS, Optimizer, TrainState, make_loss_fn, make_train_step)
+    EPOCH_METRICS, Optimizer, TrainState, create_train_state, make_loss_fn,
+    make_optimizer, make_train_step)
 from protein_ensemble_vae_tpu.config import LossWeights, ModelConfig  # noqa: E402
 from protein_ensemble_vae_tpu.losses import compute_total_loss  # noqa: E402
 from protein_ensemble_vae_tpu.models import HierCVAE  # noqa: E402
@@ -240,6 +245,52 @@ def test_train_step_matches_jax_step(setup):
         state, _to_torch(batch), 4, *consts)
     assert torch.equal(state.flat, flat) and state.step == 1
     assert float(ev["grad_norm"]) == 0.0
+
+
+def test_opt_flatten_is_one_computation(setup):
+    """The port's optimizer always updates one flat vector, so
+    ``opt_flatten`` (JAX: ``optax.flatten`` of the chain) changes nothing:
+    two steps each way are bitwise equal; ``make_optimizer`` and
+    ``create_train_state`` are ``Optimizer`` and ``TrainState.create``."""
+    *_, tmodel, batch = setup
+    assert make_optimizer(5.0, flatten=True) == make_optimizer(5.0) == Optimizer(grad_clip=5.0)
+    finals = []
+    for flatten in (False, True):
+        model = tmodel()
+        state = create_train_state(model, jax.random.PRNGKey(0), None, opt_flatten=flatten)
+        ref = TrainState.create(tmodel())
+        assert state.names == ref.names and torch.equal(state.flat, ref.flat)
+        step = make_train_step(model, TLossWeights(), train=True, opt_flatten=flatten)
+        consts = [torch.tensor(v) for v in (*KLW, 1e-3)]
+        for i in range(2):
+            state, _ = step(state, _to_torch(batch), 3 + i, *consts)
+        finals.append((state.flat.clone(), state.mu.clone(), state.nu.clone()))
+    for a, b in zip(*finals):
+        assert torch.equal(a, b)
+
+
+def test_train_step_matches_jax_flattened_step(setup):
+    """The port's step against JAX's ``make_train_step(opt_flatten=True)``,
+    at the bounds of ``test_train_step_matches_jax_step``."""
+    jmodel, jparams, params, tmodel, batch = setup
+    lr = 1e-3
+    tx = JT.make_optimizer(flatten=True)
+    jstate = JT.TrainState(params=jparams, opt_state=tx.init(jparams),
+                           step=jnp.zeros((), jnp.int32))
+    jstep = JT.make_train_step(jmodel, LossWeights(), train=True, opt_flatten=True)
+    jstate, jmetrics = jstep(jstate, batch, jax.random.PRNGKey(3),
+                             jnp.float32(KLW[0]), jnp.float32(KLW[1]), jnp.float32(lr))
+    model = tmodel()
+    state = create_train_state(model, opt_flatten=True)
+    step = make_train_step(model, TLossWeights(), train=True, opt_flatten=True)
+    state, metrics = step(state, _to_torch(batch), 3,
+                          *[torch.tensor(v) for v in (*KLW, lr)])
+    assert set(metrics) == set(jmetrics)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    want = params_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params), model)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=0, atol=2 * lr + 1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("schedule", ["cyclical", "monotonic", "adaptive", "exponential"])
