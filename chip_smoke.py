@@ -48,7 +48,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    3xTF32 ms of the same shape in the same call, plain ms, host us, the
    bound (the FLOP at the bf16 tensor-core peak, or the bytes) and the
    fp32-core time; ``shapes`` rows with ``mode`` "<dtype>/bfloat16_chain".
-   Its path follows:
+   Then kernels 1-2 at Hd 512 (``phase_wide_kernels``: one 512-thread
+   block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
+   kernel 2 at B4/L256 and B2/L640, and at widths the wrappers zero-pad to
+   a native one: Hd 384 (-> 512) in the three modes, Hd 8 and 48 (-> 32,
+   64) in fp32, at B4/L256; each row at its mode's Hd-256 tolerance, two
+   launches bitwise identical, its bound counted at the real width;
+   ``shapes`` rows with ``Hd`` and ``padded_to``. Its path follows:
    ``scripts/chain_dtype_ab.py``'s ``run()`` (the bf16 chain against the
    fp32 chain at B16/L256: value gaps and fwd + bwd ms), counts reset just
    before and read just after.
@@ -94,7 +100,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    warm-ups (host clock, synchronised), peak device memory and the band
    launches by mode; on one B4/L256 batch of each dtype the kernel path's
    loss dict and gradients are held against the plain path's
-   (``_compare_paths`` states what is held and what is only reported).
+   (``_compare_paths`` states what is held and what is only reported); in
+   fp32 also the float64 triage (``_float64_triage``): both fp32 paths'
+   gradients against the float64 plain path's, for the smooth part, the
+   full loss and each physics term alone, the kernel path's worst distance
+   held at F64_RATIO x the plain path's (``--grad-triage FILE`` writes the
+   per-tensor distances).
+6b. the decoder at Hd 512 (``phase_wide_decoder``), after the timed steps:
+   ``ModelConfig(decoder_hidden=512)``, every other field at its default,
+   random weights from the seed: generation at buckets 256 / 640 with
+   phase 4's checks, the fp32 B4/L256 step held against the plain path
+   as in phase 6 (float64 triage included), fp32 and bf16 steps timed on
+   both paths, launches by mode; then ``cli.train --device cuda`` for one
+   epoch at the widths of the repository's verify drive (decoder width
+   16, zero-padded to 32) through kernels 1-4.
 7. refinement, after the train steps (what it leaves allocated would count
    in their peak memory): checks first, counted apart from the path: the
    polish Cartesian energy and its gradient with the clash term through
@@ -162,17 +181,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and power limit: two ranks sharing one card over gloo, a record of
    cost, not a scaling figure.
 9. one ``parallel`` JSON line (phase 8's checks, times and launches by
-   rank), one ``esm`` JSON line (the ESM-2 gates, timings and the path's
+   rank), one ``wide_decoder`` JSON line (phase 6b), one ``esm`` JSON line (the ESM-2 gates, timings and the path's
    stage seconds), one ``watch`` JSON line (phase 5b's gaps, checks and
    times), one ``kernels`` JSON line (launches by path: generate,
    dataprep, refine, train, train_bf16, train_watch (phase 5b's counted
    run, dumps included), train_dp (both dp ranks' steps;
-   every kernel must launch in each rank), and chain_dtype_ab's bf16-chain
-   launches; kernels 1-2 also
+   every kernel must launch in each rank), wide_decoder (phase 6b: every
+   kernel must launch), and chain_dtype_ab's bf16-chain launches; kernels
+   1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
    there only), then, as the last line, ``{"ok": true, "device": {...}}``.
 
-``--profile TRACE.json`` adds, after the checks, torch.profiler passes over
+``--grad-triage FILE.json`` writes the float64 triage's per-tensor
+gradient distances (Hd 256 and 512). ``--profile TRACE.json`` adds, after
+the checks, torch.profiler passes over
 the generation path and over the B4/L256 timed train steps, fp32 and bf16
 (device busy share, top operators by device time) and writes their Chrome
 traces to ``TRACE.json``, ``TRACE.train_fp32.json`` and
@@ -224,6 +246,8 @@ COORD_ATOL = 1e-3
 # (weight grads) or ~1e3 atom pairs in another order, so the absolute
 # tolerance scales with each output's magnitude.
 G_RTOL, G_ATOL_REL = 2e-3, 1e-4
+# The gradients kernel 2 returns, in order.
+GRAD_NAMES = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
 # Training shapes (B, L) of kernels 2-4, and the timed train steps.
 TRAIN_SHAPES = ((4, 256), (2, 640))
 TRAIN_HEADLINE = (4, 256)
@@ -439,10 +463,11 @@ def phase_build() -> None:
 # 3. kernels
 # ---------------------------------------------------------------------------
 
-def _egnn_inputs(B: int, L: int, seed: int):
-    """Model-scale inputs: projections of unit-variance features through
-    the split edge layer's init, coordinates of a ~15 A protein, the
-    layer's init for the edge weights, and a masked tail on row 0."""
+def _egnn_inputs(B: int, L: int, seed: int, hd: int = HD):
+    """Model-scale inputs at hidden width ``hd``: projections of
+    unit-variance features through the split edge layer's init, coordinates
+    of a ~15 A protein, the layer's init for the edge weights, and a masked
+    tail on row 0."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -450,14 +475,14 @@ def _egnn_inputs(B: int, L: int, seed: int):
     def u(shape, fan_in):
         return (torch.rand(shape, generator=g) * 2 - 1) / np.sqrt(fan_in)
 
-    fan_e1 = 2 * HD + 1
-    a = torch.randn(B, L, HD, generator=g) * np.sqrt(HD / (3 * fan_e1))
-    bs = torch.randn(B, L, HD, generator=g) * np.sqrt(HD / (3 * fan_e1))
+    fan_e1 = 2 * hd + 1
+    a = torch.randn(B, L, hd, generator=g) * np.sqrt(hd / (3 * fan_e1))
+    bs = torch.randn(B, L, hd, generator=g) * np.sqrt(hd / (3 * fan_e1))
     x = torch.randn(B, L, 3, generator=g) * 10.0
     cmask = torch.ones(B, L)
     cmask[0, L - L // 8:] = 0.0
-    params = (u((1, HD), fan_e1), u((HD, HD), HD), u((HD,), HD),
-              u((HD, HD), HD), u((HD,), HD), u((HD, 1), HD), u((1,), HD))
+    params = (u((1, hd), fan_e1), u((hd, hd), hd), u((hd,), hd),
+              u((hd, hd), hd), u((hd,), hd), u((hd, 1), hd), u((1,), hd))
     return [t.cuda().contiguous() for t in (a, bs, x, cmask) + params]
 
 
@@ -477,23 +502,26 @@ def _ops_ms(flops: float, passes: int, peak: float) -> float:
 
 
 def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4, passes: int = 3,
-                peak: float = PEAK_TF32_FLOPS) -> tuple[float, str, int, float, float]:
-    """Least time for one launch on this run's inputs: exact valid edges
-    x (4 Hd^2 + 2 Hd) FLOP over the peak of the products' type (``_ops_ms``),
-    against each input read and each output written once over the HBM rate
-    (a and bs at ``in_bytes`` each). Also the valid edges, the tensor-core
-    time (the same FLOP in ``passes`` passes at ``peak``, ``_tc_ms``) and
-    the fp32-core time (the FLOP at PEAK_FP32_FLOPS)."""
+                peak: float = PEAK_TF32_FLOPS,
+                hd: int = HD) -> tuple[float, str, int, float, float]:
+    """Least time for one launch on this run's inputs at hidden width
+    ``hd`` (the real width: a padded launch's extra columns are not work
+    the function needs): exact valid edges x (4 hd^2 + 2 hd) FLOP over the
+    peak of the products' type (``_ops_ms``), against each input read and
+    each output written once over the HBM rate (a and bs at ``in_bytes``
+    each). Also the valid edges, the tensor-core time (the same FLOP in
+    ``passes`` passes at ``peak``, ``_tc_ms``) and the fp32-core time (the
+    FLOP at PEAK_FP32_FLOPS)."""
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_indices
 
     idx, in_range = band_indices(L, W, cmask.device)
     cm = cmask > 0.5
     edges = int((in_range[None] & cm[:, :, None] & cm[:, idx]).sum())
-    flops = edges * (4 * HD * HD + 2 * HD)
-    nbytes = (in_bytes * 2 * B * L * HD                           # a, bs
+    flops = edges * (4 * hd * hd + 2 * hd)
+    nbytes = (in_bytes * 2 * B * L * hd                           # a, bs
               + 4 * (B * L * 3 + B * L                            # x, cmask
-                     + 2 * HD * HD + 4 * HD + 1                   # weights
-                     + B * L * HD + B * L * 3))                   # agg, raw_delta
+                     + 2 * hd * hd + 4 * hd + 1                   # weights
+                     + B * L * hd + B * L * 3))                   # agg, raw_delta
     t_ops, t_bytes = _ops_ms(flops, passes, peak), 1e3 * nbytes / PEAK_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
     return (max(t_ops, t_bytes), by, edges, _tc_ms(flops, passes, peak),
@@ -568,19 +596,21 @@ def _close_scaled(name: str, got, ref) -> float:
 
 
 def _band_bwd_bound(B: int, L: int, cmask, in_bytes: int = 4, passes: int = 3,
-                    peak: float = PEAK_TF32_FLOPS) -> tuple[float, str, float, float]:
-    """Least time for one backward launch: per valid edge 6 Hd x Hd products
-    (12 Hd^2 FLOP) plus the elementwise chain, over the peak of the
-    products' type (``_ops_ms``), against the inputs (a, bs, x, cmask,
-    weights, g_agg, g_delta) read once and the gradients written once over
-    the HBM rate (a, bs and their gradients at ``in_bytes`` each). Also the
-    tensor-core time (the same FLOP in ``passes`` passes at ``peak``,
-    ``_tc_ms``) and the fp32-core time (the FLOP at PEAK_FP32_FLOPS)."""
+                    peak: float = PEAK_TF32_FLOPS,
+                    hd: int = HD) -> tuple[float, str, float, float]:
+    """Least time for one backward launch at hidden width ``hd`` (the real
+    width, as ``_egnn_bound``): per valid edge 6 hd x hd products (12 hd^2
+    FLOP) plus the elementwise chain, over the peak of the products' type
+    (``_ops_ms``), against the inputs (a, bs, x, cmask, weights, g_agg,
+    g_delta) read once and the gradients written once over the HBM rate (a,
+    bs and their gradients at ``in_bytes`` each). Also the tensor-core time
+    (the same FLOP in ``passes`` passes at ``peak``, ``_tc_ms``) and the
+    fp32-core time (the FLOP at PEAK_FP32_FLOPS)."""
     edges = _egnn_bound(B, L, cmask)[2]
-    flops = edges * (12 * HD * HD + 20 * HD)
-    nbytes = (in_bytes * 4 * B * L * HD                                        # a, bs, da, dbs
-              + 4 * (B * L * HD + 2 * B * L * 3 + B * L + 2 * HD * HD + 4 * HD + 1  # g_agg, x, ...
-                     + B * L * 3 + 2 * HD * HD + 4 * HD + 1))                  # dx, weight grads
+    flops = edges * (12 * hd * hd + 20 * hd)
+    nbytes = (in_bytes * 4 * B * L * hd                                        # a, bs, da, dbs
+              + 4 * (B * L * hd + 2 * B * L * 3 + B * L + 2 * hd * hd + 4 * hd + 1  # g_agg, x, ...
+                     + B * L * 3 + 2 * hd * hd + 4 * hd + 1))                  # dx, weight grads
     t_ops, t_bytes = _ops_ms(flops, passes, peak), 1e3 * nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             _tc_ms(flops, passes, peak), 1e3 * flops / PEAK_FP32_FLOPS)
@@ -759,7 +789,7 @@ def phase_train_kernels() -> dict[str, list[dict]]:
         band_work, bwd_plan, egnn_band_bwd, egnn_band_bwd_reference)
 
     rows = {"egnn_band_bwd": []}
-    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    names = GRAD_NAMES
     for k, (B, L) in enumerate(TRAIN_SHAPES):
         args = _egnn_inputs(B, L, SEED + 10 + k)
         g = torch.Generator(device="cuda").manual_seed(SEED + k)
@@ -858,7 +888,7 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
             fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel))
         del args, args16, out, again, ref
-    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    names = GRAD_NAMES
     for k, (B, L) in enumerate(BF16_BWD_SHAPES):
         args = _egnn_inputs(B, L, SEED + 50 + k)
         args16 = bf16(args)
@@ -934,7 +964,7 @@ def phase_chain_kernels() -> dict[str, list[dict]]:
         mode_key)
 
     chain = torch.bfloat16
-    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    names = GRAD_NAMES
     rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
     cases = [(B, L, torch.bfloat16) for B, L in CHAIN_SHAPES] + [(*CHAIN_FP32_INPUTS, torch.float32)]
     for k, (B, L, in_dtype) in enumerate(cases):
@@ -1023,6 +1053,129 @@ def phase_chain_path() -> dict:
 # 4. generation main path
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 3b. kernels 1-2 at Hd 512 and at padded widths
+# ---------------------------------------------------------------------------
+
+# Hd 512, the reference CLI's --decoder_hidden default (one 512-thread block
+# per SM), in the three modes of the Hd-256 rows, at the shapes a model of
+# that width gives the kernels: kernel 1 at B4/L256 (training) and
+# B10/L640 (generation), kernel 2 at the training shapes. Widths outside
+# NATIVE_HIDDEN run zero-padded to the next native width: 384 (-> 512) in
+# the three modes, and the small widths 8 and 48 (-> 32, 64) in fp32, at
+# B4/L256. Each row is held at its mode's Hd-256 tolerance; its bound
+# counts the work at the real width, so a padded row's share of it shows
+# what the padding costs.
+WIDE_HD = 512
+WIDE_ROWS = tuple((kernel, mode, WIDE_HD, B, L)
+                  for mode in (FP32_MODE, BF16_MODE, "bfloat16/bfloat16_chain")
+                  for kernel, shapes in (("egnn_band_fwd", ((4, 256), (NUM_SAMPLES, 640))),
+                                         ("egnn_band_bwd", TRAIN_SHAPES))
+                  for B, L in shapes)
+PADDED_ROWS = (tuple((kernel, mode, 384, 4, 256)
+                     for mode in (FP32_MODE, BF16_MODE, "bfloat16/bfloat16_chain")
+                     for kernel in ("egnn_band_fwd", "egnn_band_bwd"))
+               + tuple((kernel, FP32_MODE, hd, 4, 256) for hd in (8, 48)
+                       for kernel in ("egnn_band_fwd", "egnn_band_bwd")))
+
+
+def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dict:
+    """One kernel (``egnn_band_fwd`` or ``egnn_band_bwd``) in one mode
+    (FP32_MODE, BF16_MODE or ``bfloat16/bfloat16_chain``) at width ``hd``
+    against its plain version, at that mode's Hd-256 tolerance (fp32:
+    rtol RTOL / atol ATOL_REL x max|plain| forward, ``_close_scaled``
+    backward; bf16 model: BF16_VALUE_FRAC / BF16_GRAD_FRAC of max|plain|;
+    bf16 chain: CHAIN_VALUE_FRAC / BF16_GRAD_FRAC and closer to the plain
+    bf16 chain than to the one-pass fp32-chain kernel, ``_chain_err``); two
+    launches bitwise identical; device ms, plain ms, host us and the bound
+    at the real width."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference,
+        native_width)
+
+    args = _egnn_inputs(B, L, seed, hd)
+    chain = torch.bfloat16 if mode.endswith("_chain") else torch.float32
+    in_dtype = torch.float32 if mode == FP32_MODE else torch.bfloat16
+    precision = "highest" if mode == FP32_MODE else "default"
+    xin = [args[0].to(in_dtype), args[1].to(in_dtype)] + args[2:]
+    tag = f"{kernel} {mode} Hd{hd} B{B}/L{L}" + (
+        f" (padded to {native_width(hd)})" if native_width(hd) != hd else "")
+    if kernel == "egnn_band_fwd":
+        extra, outs = (), ("agg", "raw_delta")
+        call = lambda: egnn_band_fwd(*xin, W, precision, chain)  # noqa: E731
+        plain = lambda: egnn_band_reference(*xin, W, chain)  # noqa: E731
+        onepass = lambda: egnn_band_fwd(*xin, W, "default")  # noqa: E731
+    else:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        extra = (torch.randn(B, L, hd, generator=g, device=DEVICE),
+                 torch.randn(B, L, 3, generator=g, device=DEVICE))
+        outs = GRAD_NAMES
+        call = lambda: egnn_band_bwd(*xin, *extra, W, precision, chain)  # noqa: E731
+        plain = lambda: egnn_band_bwd_reference(*xin, *extra, W, chain)  # noqa: E731
+        onepass = lambda: egnn_band_bwd(*xin, *extra, W, "default")  # noqa: E731
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"{tag}: two launches differ")
+    if kernel == "egnn_band_bwd" and any(a.shape != b.shape
+                                         for a, b in zip(got, xin[:3] + xin[4:])):
+        raise RuntimeError(f"{tag}: gradients not shaped like their inputs")
+    ref = plain()
+    if mode == FP32_MODE:
+        errs = []
+        for name, a, b in zip(outs, got, ref):
+            if kernel == "egnn_band_bwd":
+                errs.append(_close_scaled(f"{tag} {name}", a, b))
+                continue
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            if not (torch.isfinite(a).all()
+                    and torch.allclose(a, b, rtol=RTOL, atol=ATOL_REL * scale)):
+                raise RuntimeError(f"{tag} disagrees with its plain version ({name}: max "
+                                   f"abs err {err:.3e}, max|plain| {scale:.3e})")
+            errs.append(err)
+        rel = max(e / max(float(b.abs().max()), 1e-30) for e, b in zip(errs, ref))
+        rel_fp32 = None
+    elif mode == BF16_MODE:
+        frac = BF16_VALUE_FRAC if kernel == "egnn_band_fwd" else BF16_GRAD_FRAC
+        rel = max(_bf16_err(f"{tag} {n}", a, b, frac) for n, a, b in zip(outs, got, ref))
+        rel_fp32 = None
+    else:
+        frac = CHAIN_VALUE_FRAC if kernel == "egnn_band_fwd" else BF16_GRAD_FRAC
+        rel, rel_fp32 = _chain_err(tag, outs, got, ref, onepass(), frac)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+    del got, again, ref
+    ms = _median_ms(call)
+    host_us = _host_us(call, n=MIN_LAUNCHES)
+    plain_ms = _median_ms(plain, reps=3)
+    in_bytes = 4 if in_dtype == torch.float32 else 2
+    passes = 3 if mode == FP32_MODE else 1
+    peak = PEAK_BF16_FLOPS if chain == torch.bfloat16 else PEAK_TF32_FLOPS
+    bound = _egnn_bound if kernel == "egnn_band_fwd" else _band_bwd_bound
+    bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, passes, peak, hd)
+    log(f"[kernels] {tag}: {ms:.3f} ms (plain {plain_ms:.3f} ms), host {host_us:.1f} us "
+        f"per call; bound {bound_ms:.4f} ms by {bound_by} at Hd {hd}, "
+        f"{100 * bound_ms / ms:.1f}% of it; tensor-core time {tc_ms:.3f} ms, fp32-core "
+        f"time {core_ms:.3f} ms; max err / max|plain| {rel:.2e}; bitwise identical over "
+        f"two launches")
+    del args, xin, extra
+    torch.cuda.empty_cache()
+    return dict(mode=mode, Hd=hd, padded_to=native_width(hd), B=B, L=L, ms=ms,
+                host_us=host_us, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tc_bound_ms=tc_ms, fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel,
+                **({} if rel_fp32 is None else {"max_rel_err_to_fp32_chain": rel_fp32}))
+
+
+def phase_wide_kernels() -> dict[str, list[dict]]:
+    """Kernels 1-2 at Hd 512 (WIDE_ROWS) and at padded widths
+    (PADDED_ROWS), each row by ``_band_row``."""
+    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    for k, (kernel, mode, hd, B, L) in enumerate(WIDE_ROWS + PADDED_ROWS):
+        rows[kernel].append(_band_row(kernel, mode, hd, B, L, SEED + 90 + k))
+    return rows
+
+
 def _protein_view(pid: str, L: int, seed: int, seqemb_dim: int):
     """A one-structure SingleConformerView over an in-memory NeRF fold."""
     from protein_ensemble_vae_torch.config import AA_ORDER
@@ -1080,7 +1233,8 @@ def phase_main_path(model, views, out_dir: str) -> dict:
 
     from protein_ensemble_vae_torch.infer.generate import generate_ensembles
     from protein_ensemble_vae_torch.models import HierCVAE
-    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
 
     cfg = model.config
     # warm-up (library handles, allocator, per-shape GEMM choices), uncounted
@@ -1100,7 +1254,7 @@ def phase_main_path(model, views, out_dir: str) -> dict:
         torch.cuda.synchronize()
         per_structure.append(time.perf_counter() - t0)
         results += out["results"]
-    launches = dict(LAUNCHES)
+    launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
     expected = len(PROTEINS) * 2 * cfg.decoder_layers
@@ -1131,14 +1285,14 @@ def phase_main_path(model, views, out_dir: str) -> dict:
         raise RuntimeError("generation_summary.txt not written")
 
     # The kernel decode of one ensemble latent against the plain decode.
-    plain = HierCVAE(dataclasses.replace(cfg, use_pallas_egnn=False)).cuda().eval()
+    plain = HierCVAE(dataclasses.replace(cfg, use_pallas_egnn=False)).to(DEVICE).eval()
     plain.load_state_dict(model.state_dict())
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     L_pad = 640
-    mask = torch.zeros(NUM_SAMPLES, L_pad, device="cuda")
+    mask = torch.zeros(NUM_SAMPLES, L_pad, device=DEVICE)
     mask[:, :PROTEINS[1][1]] = 1.0
-    z_g = torch.randn(NUM_SAMPLES, cfg.z_global, generator=g, device="cuda")
-    z_l = torch.randn(NUM_SAMPLES, L_pad, cfg.z_local, generator=g, device="cuda")
+    z_g = torch.randn(NUM_SAMPLES, cfg.z_global, generator=g, device=DEVICE)
+    z_l = torch.randn(NUM_SAMPLES, L_pad, cfg.z_local, generator=g, device=DEVICE)
     with torch.no_grad():
         got = model.decode(z_g, z_l, mask)
         want = plain.decode(z_g, z_l, mask)
@@ -1148,7 +1302,7 @@ def phase_main_path(model, views, out_dir: str) -> dict:
             f"max abs err {err:.3e} A (atol {COORD_ATOL})")
         if not torch.isfinite(a).all() or err > COORD_ATOL:
             raise RuntimeError(f"kernel decode disagrees with the plain decode ({name})")
-    return dict(launches=launches, per_structure=per_structure, peak=peak)
+    return dict(launches=launches, modes=modes, per_structure=per_structure, peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -1980,6 +2134,30 @@ def _grad_gap(kg: dict, pg: dict, bf16: bool) -> tuple[list, float, str]:
 
 
 @contextlib.contextmanager
+def _plain_backwards():
+    """The backward of kernels 2 and 4 (``egnn_band_bwd``, ``clash_bwd``)
+    swapped for their plain versions inside the block; the forward kernels
+    stay."""
+    from protein_ensemble_vae_torch.ops.kernels import clash, egnn_band
+
+    def band_bwd(a, bs, x, cmask, *rest):   # rest: 7 weights, g_agg, g_delta, W, ...
+        return egnn_band.egnn_band_bwd_reference(a, bs, x, cmask, *rest[:10])
+
+    def clash_bwd(n, ca, c, mask, g, counts, *params):
+        B, L = mask.shape
+        atoms, amask = clash.backbone_atoms(n, ca, c, mask)
+        grad = clash.clash_bwd_reference(atoms, amask, g / (B * (counts + 1e-8)), *params)
+        return grad.reshape(B, L, 3, 3).unbind(2)
+
+    orig = (egnn_band.egnn_band_bwd, clash.clash_bwd)
+    egnn_band.egnn_band_bwd, clash.clash_bwd = band_bwd, clash_bwd
+    try:
+        yield
+    finally:
+        egnn_band.egnn_band_bwd, clash.clash_bwd = orig
+
+
+@contextlib.contextmanager
 def _band_plain_version():
     """Route ``egnn_band_fused`` to the kernels' plain version (fp32 chain,
     full fp32 products) also for CUDA tensors, inside the block."""
@@ -1993,22 +2171,259 @@ def _band_plain_version():
         egnn_band.pallas_policy = orig
 
 
-def _compare_paths(kmodel, pmodel, batch) -> dict:
+# The float64 triage of the kernel path's gradient (``_float64_triage``).
+# Model level, reported: both fp32 paths' parameter gradients against the
+# float64 plain path's, for the smooth part, the full loss and the smooth
+# part plus each of PHYSICS_TERMS alone, beside the plain path rerun with
+# its band outputs multiplied by 1 + 2^-23 N(0, 1) (one fp32 rounding step;
+# seeds PERTURB_SEEDS): at random initialisation such a perturbation alone
+# flips the model's ReLU / clamp switches and moves whole gradients far
+# past the tolerance (PERF.md, section 6), so a gradient's distance
+# to float64 there measures the switches, not the kernels. Layer level,
+# held: at the model's own inputs (each band layer's inputs and cotangents
+# and the clash term's, recorded from the kernel path's full-loss
+# gradient), kernels 1-4 against the float64 plain version, no farther
+# than F64_RATIO x the fp32 plain version, or within the gradient
+# tolerance (``_f64_dist`` <= 1). The band function and the clash term
+# away from its threshold are smooth, so no switch moves this reading.
+PHYSICS_TERMS = ("w_pair", "w_dihedral", "w_rama", "w_bond", "w_angle", "w_clash")
+PERTURB_SEEDS = (100, 101, 102)
+F64_RATIO = 2.0
+TRIAGE_PATH = None   # --grad-triage: where the per-tensor distances go
+
+
+def _float64_reference(model):
+    """The plain path of ``model`` in float64: the same weights (fp32 values
+    cast exactly), every Linear, LayerNorm, the band chain, the coordinates
+    and the losses in float64."""
+    import torch
+
+    from protein_ensemble_vae_torch.models import HierCVAE
+
+    ref = HierCVAE(dataclasses.replace(model.config, use_pallas_egnn=False),
+                   dtype=torch.float64)
+    ref.load_state_dict(model.state_dict())
+    ref = ref.double().to(DEVICE)
+    for m in ref.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return ref
+
+
+def _f64_dist(got, want) -> float:
+    """``_grad_gap``'s fp32 measure of ``got`` against the float64 value
+    ``want``: max |got - want| / (1e-5 max|want| (>= 1e-6) + 1e-3 |want|),
+    so that 1 is the gradient tolerance."""
+    want = want.double()
+    atol = max(1e-5 * float(want.abs().max()), 1e-6)
+    return float(((got.double() - want).abs() / (atol + 1e-3 * want.abs())).max())
+
+
+@contextlib.contextmanager
+def _perturbed_band(seed: int):
+    """The plain path's band outputs (agg, raw_delta) each multiplied by
+    1 + 2^-23 N(0, 1), drawn from ``seed``, inside the block."""
+    import torch
+
+    from protein_ensemble_vae_torch.models import decoder
+
+    orig = decoder.band_chain
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def chain(*args, **kw):
+        return tuple(t * (1 + 2.0 ** -23 * torch.randn(t.shape, generator=g, device=t.device))
+                     for t in orig(*args, **kw))
+
+    decoder.band_chain = chain
+    try:
+        yield
+    finally:
+        decoder.band_chain = orig
+
+
+@contextlib.contextmanager
+def _recorded_backwards():
+    """Record the arguments and outputs of every kernel 2 and kernel 4 call
+    (the backward wrappers) inside the block; yields the list of
+    (kernel, args, outputs)."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels import clash, egnn_band
+
+    calls, orig = [], (egnn_band.egnn_band_bwd, clash.clash_bwd)
+
+    def recording(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((name, [t.detach().clone() if torch.is_tensor(t) else t for t in args],
+                          [t.detach().clone() for t in out]))
+            return out
+        return call
+
+    egnn_band.egnn_band_bwd = recording("egnn_band_bwd", orig[0])
+    clash.clash_bwd = recording("clash_bwd", orig[1])
+    try:
+        yield calls
+    finally:
+        egnn_band.egnn_band_bwd, clash.clash_bwd = orig
+
+
+def _band_versions(args, kgrads) -> dict:
+    """Kernels 1-2 on one band layer's recorded arguments (a, bs, x, cmask,
+    the 7 weights, g_agg, g_delta, W, precision, chain_dtype) and the fp32
+    and float64 plain versions: {output: (kernel, fp32 plain, float64)}."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        band_chain, band_indices, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference)
+
+    a, bs, x, cmask, *rest = args
+    params, (g_agg, g_delta, W, precision, chain) = rest[:7], rest[7:]
+    kout = egnn_band_fwd(a, bs, x, cmask, *params, W, precision, chain)
+    pout = egnn_band_reference(a, bs, x, cmask, *params, W)
+    pgrads = egnn_band_bwd_reference(a, bs, x, cmask, *params, g_agg, g_delta, W)
+    idx, in_range = band_indices(a.shape[1], W, a.device)
+    cm = cmask > 0.5
+    valid = in_range[None] & cm[:, :, None] & cm[:, idx]
+    diff = [t.double().requires_grad_(True) for t in (a, bs, x, *params)]
+    with torch.enable_grad():
+        rout = band_chain(diff[0], diff[1], diff[2], idx, valid, *diff[3:], torch.float64)
+        rgrads = torch.autograd.grad(rout, diff, (g_agg.double(), g_delta.double()))
+    names = ("agg", "raw_delta") + tuple(f"d{n}" for n in GRAD_NAMES)
+    return {n: v for n, *v in zip(names, (*kout, *kgrads), (*pout, *pgrads),
+                                  (*rout, *rgrads))}
+
+
+def _clash_versions(args, kgrads) -> dict:
+    """Kernels 3-4 on the clash term's recorded arguments (n, ca, c, mask,
+    g, counts, clash_dist, soft_margin) and the fp32 and float64 plain
+    versions: {output: (kernel, fp32 plain, float64)}."""
+    from protein_ensemble_vae_torch.ops.kernels.clash import (backbone_atoms,
+                                                              clash_bwd_reference)
+
+    from protein_ensemble_vae_torch.ops.kernels.clash import clash_fwd, clash_fwd_reference
+
+    n, ca, c, mask, g, counts, *params = args
+    B, L = mask.shape
+    versions = {}
+    for dtype in ("float", "double"):
+        atoms, amask = backbone_atoms(*(getattr(t, dtype)() for t in (n, ca, c, mask)))
+        scale = getattr(g, dtype)() / (B * (getattr(counts, dtype)() + 1e-8))
+        versions[dtype] = (clash_fwd_reference(atoms, amask, *params),) + tuple(
+            clash_bwd_reference(atoms, amask, scale, *params).reshape(B, L, 3, 3).unbind(2))
+    kernel = (clash_fwd(n, ca, c, mask, *params)[1],) + tuple(kgrads)
+    return {k: v for k, *v in zip(("totals", "dn", "dca", "dc"), kernel, versions["float"],
+                                  versions["double"])}
+
+
+def _float64_triage(kmodel, pmodel, batch, eps) -> dict:
+    """See the note above PHYSICS_TERMS: the model-level distances
+    (reported) and the layer-level gate (held). Per-tensor distances go to
+    TRIAGE_PATH when it is set."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import LossWeights
+
+    hd = kmodel.config.decoder_hidden
+    rmodel = _float64_reference(kmodel)
+    batch64 = {s: {k: v.double() if v.is_floating_point() else v for k, v in d.items()}
+               for s, d in batch.items()}
+    eps64 = tuple(e.double() for e in eps)
+    default = LossWeights()
+    cases = [("smooth", LossWeights(**SMOOTH_WEIGHTS)), ("full", default)] + [
+        (f"smooth+{t[2:]}", LossWeights(**{**SMOOTH_WEIGHTS, t: getattr(default, t)}))
+        for t in PHYSICS_TERMS]
+
+    def run(model, b, w, e, ctx=contextlib.nullcontext):
+        with ctx():
+            d, g = _path_grads(model, b, w, e)
+        return {k: v.double() for k, v in d.items()}, {n: t.clone() for n, t in g.items()}
+
+    out, per_tensor = {"model": {}}, {}
+    for label, weights in cases:
+        rd, rg = run(rmodel, batch64, weights, eps64)
+        paths = {"kernel": run(kmodel, batch, weights, eps), "plain": run(pmodel, batch, weights, eps)}
+        paths.update({f"plain, perturbed {s}": run(pmodel, batch, weights, eps,
+                                                   lambda s=s: _perturbed_band(s))
+                      for s in PERTURB_SEEDS})
+        dist = {path: {n: _f64_dist(g[n], rg[n]) for n in rg} for path, (_, g) in paths.items()}
+        worst = {path: max(d.values()) for path, d in dist.items()}
+        loss_err = {path: max(float((d[k] - rd[k]).abs() / rd[k].abs().clamp(min=1e-30))
+                              for k in rd) for path, (d, _) in paths.items()}
+        out["model"][label] = dict(
+            worst=worst, worst_name={p: max(d, key=d.get) for p, d in dist.items()},
+            within={p: sum(v <= 1 for v in d.values()) for p, d in dist.items()}, n=len(rg),
+            ratio=worst["kernel"] / max(worst["plain"], 1e-30), loss_rel_err=loss_err)
+        per_tensor[label] = {n: [dist[p][n] for p in paths] for n in rg}
+        log(f"[steps] float64 triage Hd{hd}, {label} loss (worst tensor's distance to the "
+            f"float64 gradient, 1 = the gradient tolerance; tensors within): "
+            + "; ".join(f"{p} {worst[p]:.2f} ({out['model'][label]['within'][p]}/{len(rg)})"
+                        for p in paths)
+            + f"; kernel / plain {out['model'][label]['ratio']:.2f}; loss dict max rel err "
+            f"to float64: kernel {loss_err['kernel']:.2e}, plain {loss_err['plain']:.2e} "
+            "[reported]")
+    per_tensor["paths"] = list(paths)
+    del rmodel
+    torch.cuda.empty_cache()
+
+    # layer level: kernels 1-4 at the model's inputs, against float64
+    with _recorded_backwards() as calls:
+        _path_grads(kmodel, batch, default, eps)
+    layer, bad = {}, []
+    for k, (name, args, kgrads) in enumerate(calls):
+        key = "kernels 1-2" if name == "egnn_band_bwd" else "kernels 3-4"
+        row = layer.setdefault(key, dict(kernel_worst=0.0, plain_worst=0.0, calls=0))
+        row["calls"] += 1
+        versions = (_band_versions if name == "egnn_band_bwd" else _clash_versions)(args, kgrads)
+        for o, (kv, pv, rv) in versions.items():
+            dk, dp = _f64_dist(kv, rv), _f64_dist(pv, rv)
+            row["kernel_worst"] = max(row["kernel_worst"], dk)
+            row["plain_worst"] = max(row["plain_worst"], dp)
+            if dk > max(F64_RATIO * dp, 1.0):
+                bad.append(f"call {k} ({name}) {o}: kernel {dk:.2f}, plain {dp:.2f}")
+        del versions
+    del calls
+    torch.cuda.empty_cache()
+    for key, row in layer.items():
+        log(f"[steps] float64 triage Hd{hd}, {key} at the model's inputs ({row['calls']} calls "
+            f"of the full loss's gradient): worst distance to float64 kernel "
+            f"{row['kernel_worst']:.3f}, fp32 plain version {row['plain_worst']:.3f} (held: "
+            f"kernel <= {F64_RATIO} x plain, or <= 1) {'FAIL' if bad else 'ok'}")
+    out["layer"] = layer
+    if TRIAGE_PATH:
+        os.makedirs(os.path.dirname(os.path.abspath(TRIAGE_PATH)), exist_ok=True)
+        triage = {}
+        if os.path.exists(TRIAGE_PATH):
+            with open(TRIAGE_PATH) as f:
+                triage = json.load(f)
+        triage[f"Hd{hd}"] = dict(summary=out, per_tensor=per_tensor)
+        with open(TRIAGE_PATH, "w") as f:
+            json.dump(triage, f)
+    if bad:
+        raise RuntimeError(f"float64 triage Hd{hd}: kernel outputs farther from float64 than "
+                           f"{F64_RATIO}x the fp32 plain version: {bad[:8]}")
+    return out
+
+
+def _compare_paths(kmodel, pmodel, batch, hold_plain: bool = True) -> dict:
     """Kernel path vs reference paths on one batch, same injected noise,
     dropout off; the loss dict and every parameter gradient, for the smooth
     part of the objective (reconstruction, KL, sequence terms) and the full
     loss.
 
-    fp32: the reference is the plain path (the band's plain version, the
-    dense clash). Held: the full default loss dict to rtol 1e-4, and the
-    smooth part's gradients within rtol 1e-3 / atol 1e-5 * max|g| per
-    tensor (the CPU parity tests' tolerance). Reported, not held: the full
-    loss's gradients against the same tolerance. At random initialisation
-    the decoder emits a near-collapsed backbone, where the clash gradient's
-    direction (a_i - a_j) / d_ij of nearly coincident atoms and the other
-    terms' validity switches and kinks amplify the kernels' fp32
-    summation-order differences (~3e-7 of the forward's scale) into
-    per-mille differences of a few whole-model sums (PERF.md, section 6).
+    fp32: two references, the plain path (the band's plain version, the
+    dense clash) and the kernel path with the backward of kernels 2 and 4
+    swapped for their plain versions (``_plain_backwards``). Held: the full
+    default loss dict to rtol 1e-4 against the plain path; the smooth
+    part's gradients within rtol 1e-3 / atol 1e-5 * max|g| per tensor (the
+    CPU parity tests' tolerance) against the plain backward, and against
+    the plain path when ``hold_plain``; the full loss's gradients are
+    reported. The plain backward runs on the kernel path's own forward, so
+    both take every ReLU / clamp switch the same way. Against the plain
+    path a switch may flip: at random initialisation one fp32 rounding
+    step on the band outputs already flips switches that move whole
+    gradients past the tolerance (``_float64_triage`` measures it: PERF.md,
+    section 6). Then the float64 triage (``_float64_triage``).
 
     bf16: two references, the same bf16 model with kernels 1-2 routed to
     their plain version (``_band_plain_version``: the fp32 chain in full
@@ -2049,19 +2464,21 @@ def _compare_paths(kmodel, pmodel, batch) -> dict:
             log(f"[steps] bf16-chain plain path vs kernels' plain version, B{B}/L{L}, "
                 f"{label} loss: worst gradient {rworst:.2f}x the per-tensor tolerance ({rname})")
             out[f"{label} references"] = dict(worst=rworst, worst_name=rname)
-            refs = (("kernels' plain version", vd, vg, True),
-                    ("plain path, bf16 chain", cd, cg, False))
+            refs = (("kernels' plain version", vd, vg, {"smooth"}),
+                    ("plain path, bf16 chain", cd, cg, set()))
         else:
             pd, pg = run(pmodel)
-            refs = (("plain path", pd, pg, True),)
-        for ref, pd, pg, hold_grads in refs:
+            bd, bg = run(kmodel, _plain_backwards)
+            refs = (("plain path", pd, pg, {"smooth"} if hold_plain else set()),
+                    ("kernel forward, plain backward", bd, bg, {"smooth"}))
+        for ref, pd, pg, hold_labels in refs:
             loss_err = max(float(((kd[k].float() - pd[k].float())
                                   / pd[k].float().abs().clamp(min=1e-30)).abs()) for k in pd)
             if loss_err > loss_tol:
                 raise RuntimeError(f"{label} loss: kernel-path loss dict differs from the "
                                    f"{ref}, rel err {loss_err:.3e} (tolerance {loss_tol})")
             bad, worst, worst_name = _grad_gap(kg, pg, bf16)
-            held = hold_grads and label == "smooth"
+            held = label in hold_labels
             if bad and held:
                 raise RuntimeError(f"{label} loss: kernel-path gradients of {bad} differ from "
                                    f"the {ref} (worst {worst:.2f}x the tolerance, {worst_name})")
@@ -2082,18 +2499,16 @@ def _compare_paths(kmodel, pmodel, batch) -> dict:
             out[f"{label} vs {ref}"] = dict(loss_rel_err=loss_err, worst=worst,
                                             worst_name=worst_name,
                                             within=len(pg) - len(bad), n=len(pg))
+    if not bf16:
+        out["float64"] = _float64_triage(kmodel, pmodel, batch, eps)
     return out
 
 
 def phase_timed_steps(trace_path=None) -> list[dict]:
     import torch
 
-    from protein_ensemble_vae_torch.config import LossWeights, ModelConfig
+    from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.models import HierCVAE
-    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
-                                                       reset_launches)
-    from protein_ensemble_vae_torch.train.training import (TrainState,
-                                                           make_train_step)
 
     rows = []
     for dtype, mode in ((torch.float32, FP32_MODE), (torch.bfloat16, BF16_MODE)):
@@ -2109,55 +2524,193 @@ def phase_timed_steps(trace_path=None) -> list[dict]:
             batch = _step_batch(B, L, spec["L_real"], SEED + 8, mcfg.seqemb_dim)
             if (B, L) == TRAIN_HEADLINE:
                 rows.append(dict(dtype=dname, compare=_compare_paths(kmodel, pmodel, batch)))
-            consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
             tag = f"B{B}/L{L}" + ("+remat" if spec["remat"] else "") + f" {dname}"
             for path, model in (("kernel", kmodel), ("plain", pmodel)):
-                state = TrainState.create(model)
-                step = make_train_step(model, LossWeights(), train=True)
-                for i in range(STEP_WARMUP):
-                    step(state, batch, i, *consts)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated() / 2**20
-                reset_launches()
-                times = []
-                for i in range(STEP_REPS):
-                    t0 = time.perf_counter()
-                    _, metrics = step(state, batch, i, *consts)
-                    torch.cuda.synchronize()
-                    times.append(1e3 * (time.perf_counter() - t0))
-                launches = {k: v // STEP_REPS for k, v in LAUNCHES.items()}
-                modes = {k: v // STEP_REPS for k, v in BAND_MODE_LAUNCHES.items()}
-                peak = torch.cuda.max_memory_allocated() / 2**20
-                if not all(bool(torch.isfinite(v)) for v in metrics.values()):
-                    raise RuntimeError(f"{path} step {tag}: non-finite metrics")
-                per_layer = 2 if spec["remat"] else 1
-                want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
-                         "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
-                         "clash_bwd": 1} if path == "kernel"
-                        else {k: 0 for k in LAUNCHES})
-                want_modes = ({f"egnn_band_fwd:{mode}": want["egnn_band_fwd"],
-                               f"egnn_band_bwd:{mode}": want["egnn_band_bwd"]}
-                              if path == "kernel" else {})
-                if launches != want or modes != want_modes:
-                    raise RuntimeError(f"{path} step {tag} launched {launches} / {modes}, "
-                                       f"expected {want} / {want_modes}")
-                ms = float(np.median(times))
-                log(f"[steps] {tag} {path} path: {ms:.2f} ms per train step (median of "
-                    f"{STEP_REPS} after {STEP_WARMUP} warm-ups, host clock, synchronised; "
-                    f"min {min(times):.2f}), peak device memory {peak:.1f} MiB ({base:.1f} "
-                    f"allocated before the steps: both models, optimizer state, batch), "
-                    f"launches per step {launches}, band launches by mode {modes}")
-                rows.append(dict(shape=tag, dtype=dname, path=path, ms=ms,
-                                 min_ms=min(times), peak_mib=peak, base_mib=base,
-                                 launches=launches, modes=modes))
-                if trace_path and path == "kernel" and (B, L) == TRAIN_HEADLINE:
-                    _profile(lambda: step(state, batch, 0, *consts), f"train step {tag}",
-                             trace_path.replace(".json", f".train_{dname}.json"))
-                del state, step
+                profile = (trace_path.replace(".json", f".train_{dname}.json")
+                           if trace_path and path == "kernel" and (B, L) == TRAIN_HEADLINE
+                           else None)
+                rows.append(dict(shape=tag, dtype=dname, path=path,
+                                 **_timed_steps(model, batch, path, mode, tag, profile)))
             del kmodel, pmodel, batch
             torch.cuda.empty_cache()
     return rows
+
+
+def _timed_steps(model, batch, path: str, mode: str, tag: str, profile=None) -> dict:
+    """``make_train_step`` on ``model`` (the kernel or the plain path):
+    median ms of STEP_REPS synchronised steps after STEP_WARMUP warm-ups,
+    peak device memory, and the launches per step, held at the model's
+    count (kernels 1-2 in ``mode``, twice kernel 1 per layer under remat;
+    none on the plain path). ``profile``: a torch.profiler trace path for
+    one more step."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import LossWeights
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
+    from protein_ensemble_vae_torch.train.training import TrainState, make_train_step
+
+    mcfg = model.config
+    consts = [torch.tensor(v, device=DEVICE) for v in (0.5, 0.25, 3e-5)]
+    state = TrainState.create(model)
+    step = make_train_step(model, LossWeights(), train=True)
+    for i in range(STEP_WARMUP):
+        step(state, batch, i, *consts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    reset_launches()
+    times = []
+    for i in range(STEP_REPS):
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, i, *consts)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = {k: v // STEP_REPS for k, v in LAUNCHES.items()}
+    modes = {k: v // STEP_REPS for k, v in BAND_MODE_LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+        raise RuntimeError(f"{path} step {tag}: non-finite metrics")
+    per_layer = 2 if mcfg.decoder_remat else 1
+    want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
+             "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
+             "clash_bwd": 1} if path == "kernel"
+            else {k: 0 for k in LAUNCHES})
+    want_modes = ({f"egnn_band_fwd:{mode}": want["egnn_band_fwd"],
+                   f"egnn_band_bwd:{mode}": want["egnn_band_bwd"]}
+                  if path == "kernel" else {})
+    if launches != want or modes != want_modes:
+        raise RuntimeError(f"{path} step {tag} launched {launches} / {modes}, "
+                           f"expected {want} / {want_modes}")
+    ms = float(np.median(times))
+    log(f"[steps] {tag} {path} path: {ms:.2f} ms per train step (median of "
+        f"{STEP_REPS} after {STEP_WARMUP} warm-ups, host clock, synchronised; "
+        f"min {min(times):.2f}), peak device memory {peak:.1f} MiB ({base:.1f} "
+        f"allocated before the steps: both models, optimizer state, batch), "
+        f"launches per step {launches}, band launches by mode {modes}")
+    if profile:
+        _profile(lambda: step(state, batch, 0, *consts), f"train step {tag}", profile)
+    return dict(ms=ms, min_ms=min(times), peak_mib=peak, base_mib=base,
+                launches=launches, modes=modes)
+
+
+# ---------------------------------------------------------------------------
+# 6b. the decoder at Hd 512 and at the verify drive's width
+# ---------------------------------------------------------------------------
+
+# cli.train at the widths of the repository's end-to-end drive
+# (.claude/skills/verify/SKILL.md): decoder width 16, run zero-padded to 32.
+TINY_CLI = ["--use_seqemb", "--batch_size", "4", "--lr", "1e-4", "--d_model", "32",
+            "--nhead", "4", "--ff", "64", "--nlayers", "1", "--z_global", "16",
+            "--z_local", "8", "--decoder_hidden", "16", "--decoder_layers", "2",
+            "--max_neighbors", "4"]
+TINY_PROTEIN = ("synU", 24, 4, 4)   # id, length, fold seed, conformers (6 pairs)
+
+
+def _tiny_cli_train(out_dir: str) -> dict:
+    """``cli.train --device cuda`` for one epoch at TINY_CLI's widths on
+    TINY_PROTEIN's pairs (4 train / 2 val, in-memory pair sets standing in
+    for ``EnsembleDataset``, as ``phase_train_cli_bf16``). Counts reset just
+    before and read just after: per train step 2 band forwards, 2 band
+    backwards, one of each clash kernel; per eval step 2 + 1; every band
+    launch in FP32_MODE."""
+    import torch
+
+    import protein_ensemble_vae_torch.data as data
+    from protein_ensemble_vae_torch.cli import train as train_cli
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
+
+    pid, L, seed, K = TINY_PROTEIN
+    confs = _nerf_conformers(pid, L, seed, K, 16)
+    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+    sets = {"train.csv": PairSet(confs, pairs[:4], 16), "val.csv": PairSet(confs, pairs[4:], 16)}
+    save = os.path.join(out_dir, "train_cli_tiny")
+    orig = data.EnsembleDataset
+    data.EnsembleDataset = lambda manifest, **kw: sets[manifest]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        train_cli.main(["--manifest_train", "train.csv", "--manifest_val", "val.csv",
+                        *TINY_CLI, "--epochs", "1", "--save", save, "--device", DEVICE])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        data.EnsembleDataset = orig
+    launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+    want = {"egnn_band_fwd": 2 * 2, "egnn_band_bwd": 2, "clash_fwd": 2, "clash_bwd": 1}
+    want_modes = {f"egnn_band_fwd:{FP32_MODE}": 4, f"egnn_band_bwd:{FP32_MODE}": 2}
+    with open(os.path.join(save, "final", "history.json")) as f:
+        history = json.load(f)
+    finite = all(np.isfinite(v).all() for split in ("train", "val")
+                 for v in history[split].values())
+    log(f"[wide] cli.train --device {DEVICE} at the verify drive's widths (decoder "
+        f"16, zero-padded to 32), 1 epoch: {secs:.2f} s (host clock, model set-up and "
+        f"first use included), launches {launches} (expected {want}), by mode {modes}; "
+        f"losses finite: {finite}")
+    if launches != want or modes != want_modes or not finite:
+        raise RuntimeError(f"cli.train at decoder width 16 launched {launches} / {modes}, "
+                           f"expected {want} / {want_modes}, or gave non-finite losses")
+    return dict(launches=launches, modes=modes, seconds=secs)
+
+
+def phase_wide_decoder(views, out_dir: str) -> dict:
+    """``ModelConfig(decoder_hidden=WIDE_HD)``, every other field at its
+    default, random weights from SEED: generation at buckets 256 / 640 with
+    ``phase_main_path``'s checks (launch counts, files, the kernel decode of
+    one latent within COORD_ATOL of the plain decode), the fp32 B4/L256
+    train step (``_compare_paths``: the loss dict, the smooth part's
+    gradients and the float64 triage) and the bf16 one, each timed on the
+    kernel and the plain path (``_timed_steps``); then ``_tiny_cli_train``.
+    Launches of every kernel on these paths: generation's, the timed
+    kernel-path steps' (STEP_REPS each) and the CLI's."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.models import HierCVAE
+
+    mcfg = ModelConfig(decoder_hidden=WIDE_HD)
+    torch.manual_seed(SEED)
+    model = HierCVAE(mcfg).to(DEVICE).eval()
+    log(f"[wide] HierCVAE(decoder_hidden={WIDE_HD}): "
+        f"{sum(p.numel() for p in model.parameters())} parameters; generation with "
+        f"phase 4's checks ([main] lines)")
+    gen = phase_main_path(model, views, os.path.join(out_dir, "wide"))
+    want = {f"egnn_band_fwd:{FP32_MODE}": gen["launches"]["egnn_band_fwd"]}
+    if gen["modes"] != want:
+        raise RuntimeError(f"Hd {WIDE_HD} generation launched {gen['modes']}, expected {want}")
+    del model
+    torch.cuda.empty_cache()
+    B, L = TRAIN_HEADLINE
+    batch = _step_batch(B, L, TIMED_STEPS[0]["L_real"], SEED + 8, mcfg.seqemb_dim)
+    steps, compare = [], None
+    for dtype, mode in ((torch.float32, FP32_MODE), (torch.bfloat16, BF16_MODE)):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        torch.manual_seed(SEED)
+        kmodel = HierCVAE(mcfg, dtype=dtype).to(DEVICE)
+        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False),
+                          dtype=dtype).to(DEVICE)
+        pmodel.load_state_dict(kmodel.state_dict())
+        if dtype == torch.float32:
+            # against the plain path the gradients are reported: one fp32
+            # rounding step on the band outputs flips switches here (PERF.md)
+            compare = _compare_paths(kmodel, pmodel, batch, hold_plain=False)
+        tag = f"B{B}/L{L}/Hd{WIDE_HD} {dname}"
+        for path, m in (("kernel", kmodel), ("plain", pmodel)):
+            steps.append(dict(shape=tag, dtype=dname, path=path,
+                              **_timed_steps(m, batch, path, mode, tag)))
+        del kmodel, pmodel
+        torch.cuda.empty_cache()
+    cli = _tiny_cli_train(out_dir)
+    launches = {k: gen["launches"][k] + cli["launches"][k]
+                + sum(STEP_REPS * r["launches"][k] for r in steps if r["path"] == "kernel")
+                for k in cli["launches"]}
+    log(f"[wide] Hd {WIDE_HD} path launches {launches}: generation {gen['launches']}, "
+        f"{STEP_REPS} fp32 + {STEP_REPS} bf16 timed steps, the width-16 CLI epoch "
+        f"{cli['launches']}")
+    return dict(launches=launches, per_structure=gen["per_structure"], peak_mib=gen["peak"] / 2**20,
+                steps=steps, compare=compare, cli=cli)
 
 
 # ---------------------------------------------------------------------------
@@ -2960,7 +3513,12 @@ def main(argv=None) -> None:
                          "the B4/L256 train steps with torch.profiler and "
                          "write their traces (TRACE.json, "
                          "TRACE.train_fp32.json, TRACE.train_bf16.json)")
+    ap.add_argument("--grad-triage", metavar="FILE.json", default=None,
+                    help="write the float64 triage's per-tensor gradient distances "
+                         "(kernel path and fp32 plain path, Hd 256 and 512) to FILE")
     args = ap.parse_args(argv)
+    global TRIAGE_PATH
+    TRIAGE_PATH = args.grad_triage
 
     device = phase_device()
     phase_build()
@@ -2973,6 +3531,8 @@ def main(argv=None) -> None:
     for name, rows in phase_bf16_kernels().items():
         shapes[name] += rows
     for name, rows in phase_chain_kernels().items():
+        shapes[name] += rows
+    for name, rows in phase_wide_kernels().items():
         shapes[name] += rows
     chain_ab = phase_chain_path()
     shapes.update(phase_clash_kernels(floor))
@@ -2989,6 +3549,7 @@ def main(argv=None) -> None:
         watch = phase_watch_path(out_dir, device["smi"])
         parallel = phase_parallel(out_dir, device["smi"])
         steps = phase_timed_steps(args.profile)
+        wide = phase_wide_decoder(views, out_dir)
         # refinement after the train steps: what it leaves allocated would
         # count in their peak memory
         refine_gates(args.profile)
@@ -2999,7 +3560,7 @@ def main(argv=None) -> None:
         rows = shapes[name]
         want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
         head = next(r for r in rows if (r["B"], r["L"]) == want and r.get("mode", FP32_MODE)
-                    == FP32_MODE)
+                    == FP32_MODE and r.get("Hd", HD) == HD)
         chain_modes = {k.split(":", 1)[1]: v for k, v in chain_ab["modes"].items()
                        if k.startswith(name + ":")}
         # chain_dtype_ab's path is the bf16 chain's: its fp32-chain launches
@@ -3011,9 +3572,10 @@ def main(argv=None) -> None:
                    "train_dp": parallel["launches"][name],
                    "dataprep": dataprep["launches"][name],
                    "chain_dtype_ab": sum(v for k, v in chain_modes.items()
-                                         if k.endswith("/bfloat16_chain"))}
+                                         if k.endswith("/bfloat16_chain")),
+                   "wide_decoder": wide["launches"][name]}
         if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_watch"],
-                  by_path["train_dp"])
+                  by_path["train_dp"], by_path["wide_decoder"])
                 or any(r[name] == 0 for r in parallel["launches_by_rank"])
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
                 or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
@@ -3058,6 +3620,8 @@ def main(argv=None) -> None:
                                                      "stats_worst", "counts_worst", "compare",
                                                      "records", "times", "seconds")}}))
     log(json.dumps({"train_steps": steps}))
+    log(json.dumps({"wide_decoder": {k: wide[k] for k in ("per_structure", "peak_mib", "steps",
+                                                          "compare", "cli")}}))
     log(json.dumps({"parallel": {k: parallel[k] for k in ("checks", "times",
                                                            "launches_by_rank",
                                                            "cli_seconds")}}))

@@ -34,9 +34,14 @@
 // the TF32 rate, or in the bf16 chain the FLOP at the bf16 rate. The
 // gradients' sums do not need kernel 1's per-step rounding (STEP_SUM off: a
 // whole-model gradient check passes either way, and it would cost a fifth
-// of the time). What holds the kernel above its floor: mma.sync latency at
-// 16 warps per SM, 128 registers with spills, the elementwise chain, and the
-// per-edge scratch round trip (see PERF.md).
+// of the time), up to Hd 256. At Hd 512 the weight-grad pass takes four
+// times fewer slices (its 32 output tiles fill the card at 9), so one
+// accumulator sums ~9,000 edge rows: there it sums each k8 step in
+// round-to-nearest fp32 (WGRAD_STEP_SUM), which brought dW_e2 from 2-5x the
+// model-level gradient tolerance to within it (PERF.md, section 6). What
+// holds the kernel above its floor: mma.sync latency at 16 warps per SM,
+// 128 registers with spills, the elementwise chain, and the per-edge
+// scratch round trip (see PERF.md).
 //
 // Design. The TPU kernel relied on its grid running in order: it added the
 // sender cotangents into padded windows and the weight grads into shared
@@ -44,7 +49,8 @@
 // blocks here is a separate pass in a fixed order, with no atomics: two
 // launches on the same inputs give bitwise-identical outputs.
 //   1. edge pass, a persistent grid of G blocks, one per resident slot (two
-//      per SM; the caller picks G). The work items are (batch row, tile of 8
+//      per SM up to Hd = 256, one 512-thread block at Hd = 512; the caller
+//      picks G from the occupancy query). The work items are (batch row, tile of 8
 //      receivers, step of 8 band offsets), step fastest; block g takes items
 //      g, g + G, ..., so each block's vector-grad partial is a fixed sum.
 //      Per item: the four products of the chain on the 64-edge tile (W_e2^T
@@ -57,12 +63,15 @@
 //      silu'(u) waits in the item's own cot_u rows until cot_u overwrites
 //      it, so shared memory holds only the 66 KB activation tile, a 4-stage
 //      ring of 8-row chunks (33 KB) and the row / column sums: ~108 KB, two
-//      blocks (16 warps) per SM.
+//      blocks (16 warps) per SM. At Hd = 512 the tile (133 KB), the ring
+//      (66 KB) and the sums take ~217 KB of the 227 KB a block may have:
+//      one 16-warp block per SM, the same registers per thread.
 //   2. node pass (one block per residue): d_a_i = sum over i's 2W edges of
 //      cot_pre, d_bs_j = sum over the 2W edges that reach j (a gather, not
 //      a scatter), d_x likewise from d_rel; rows of flag-0 items are skipped.
 //   3. weight-grad pass: dW_e2 = M1^T @ COT_U and dW_x1 = M^T @ COT_V as
-//      split-K 3xTF32 products: 128 x 128 output tiles (64 x 32 per warp),
+//      split-K 3xTF32 products: 128 x 128 output tiles (64 x 32 per warp; 32
+//      tiles at Hd = 512),
 //      NSPLIT slices of the items (the caller sizes NSPLIT so the grid fills
 //      two slots per SM), flag-0 items skipped; each slice writes its own
 //      partial.
@@ -73,7 +82,8 @@
 // bf16 chain, 3 R floats of d_rel, the flags, G (4 Hd + 1) floats of vector
 // partials; the weight-grad partials (2 NSPLIT Hd^2 floats) reuse cot_pre's
 // rows where they fit, which the node pass has consumed by then: ~421 MB at
-// B4/L256/Hd256/W40 in the fp32 chain, ~212 MB in the bf16 chain. The
+// B4/L256/Hd256/W40 in the fp32 chain, ~212 MB in the bf16 chain, twice
+// that at Hd 512. The
 // bf16 chain's weight-grad pass runs m16n8k16 bf16 products on the bf16
 // activations (ldmatrix.trans fragments), summed in fp32.
 // Left for later: wgmma for the products, TMA for the ring, the weight
@@ -89,6 +99,9 @@ constexpr int BK = 8;        // weight rows per ring chunk (fp32 chain)
 constexpr int BKH = 16;      // weight rows per ring chunk (bf16 chain)
 constexpr int STAGES = 4;    // ring depth
 constexpr bool STEP_SUM = false;  // round-to-nearest sum of each k8 step (egnn_tile.cuh)
+// the same in the weight-grad pass, by width (see the top of this file)
+template <int HD>
+constexpr bool WGRAD_STEP_SUM = HD >= 512;
 constexpr int NVEC = 4;      // vector grads summed per column: w_d, b_e2, b_x1, w_x2
 
 __host__ __device__ inline size_t align4(size_t n) { return (n + 3) & ~size_t(3); }
@@ -184,7 +197,7 @@ __device__ __forceinline__ void store_rows(Act* __restrict__ dst,
 }
 
 template <int HD, class In, int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
 egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
                const float* __restrict__ x, const float* __restrict__ cmask,
                const typename Chain<MODE>::Act* __restrict__ w_d,
@@ -231,7 +244,7 @@ egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
 
     // column sums of the vector grads (w_d, b_e2, b_x1, w_x2), per row-warp
     float* colacc = sm + SM::COLACC + wm * NVEC * HD;
-    for (int k = tid; k < TL::WM * NVEC * HD; k += THREADS) sm[SM::COLACC + k] = 0.f;
+    for (int k = tid; k < TL::WM * NVEC * HD; k += TL::THREADS) sm[SM::COLACC + k] = 0.f;
     float cs[2][NT][2];      // the lane's column sums of one epilogue
 #pragma unroll
     for (int q = 0; q < 2; ++q)
@@ -284,7 +297,7 @@ egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
         // 0. Each thread reads 16 bytes of a_i and of bs_j (NV values) at a time.
         constexpr int NV = Vec<In>::N, HDV = HD / NV;
 #pragma unroll 4
-        for (int idx = tid; idx < M * HDV; idx += THREADS) {
+        for (int idx = tid; idx < M * HDV; idx += TL::THREADS) {
             const int r = idx / HDV, c = NV * (idx % HDV);
             float p[NV];
 #pragma unroll
@@ -496,7 +509,7 @@ egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
     if (tid < M) stage_cw[tid] = cw_sum;
     __syncthreads();
     float* vp = s.vpart + (size_t)blockIdx.x * vpart_stride(HD);
-    for (int k = tid; k < NVEC * HD; k += THREADS) {
+    for (int k = tid; k < NVEC * HD; k += TL::THREADS) {
         float t = 0.f;
         for (int q = 0; q < TL::WM; ++q) t += sm[SM::COLACC + q * NVEC * HD + k];
         vp[k] = t;
@@ -577,7 +590,8 @@ __device__ __forceinline__ int valid_items(const int* __restrict__ flags, int it
     return n_valid;
 }
 
-// Split-K weight grads on the tensor cores (PASSES TF32 passes):
+// Split-K weight grads on the tensor cores (PASSES TF32 passes; SUM: each
+// k8 step summed in round-to-nearest fp32, as STEP_SUM in egnn_tile.cuh):
 // part[z][sl] = X_z[rows of slice sl]^T @ Y_z[same rows], z = 0: (m1, cot_u)
 // -> dW_e2, z = 1: (m, cot_v) -> dW_x1. One block per TW x TW output tile
 // and slice; 8 warps as 2 x 4, each (TW/2) x (TW/4). The slice's valid
@@ -591,7 +605,7 @@ struct Wgrad {
     static constexpr size_t smem(int per) { return sizeof(float) * STG * STAGE + sizeof(int) * per; }
 };
 
-template <int TW, int PASSES>
+template <int TW, int PASSES, bool SUM>
 __global__ void __launch_bounds__(THREADS)
 egnn_bwd_wgrad(const float* __restrict__ x0, const float* __restrict__ y0,
                const float* __restrict__ x1, const float* __restrict__ y1,
@@ -648,7 +662,7 @@ egnn_bwd_wgrad(const float* __restrict__ x0, const float* __restrict__ y0,
         for (int k8 = 0; k8 < C::KC; k8 += 8) {
             const float* xp = xs + (k8 + t) * C::XS + am;
             const float* yp = ys + (k8 + t) * C::XS + bn;
-            mma_k8<C::MT, C::NT, PASSES, STEP_SUM>(
+            mma_k8<C::MT, C::NT, PASSES, SUM>(
                 acc,
                 [&](int mt, float2& lo, float2& hi) {
                     lo = make_float2(xp[mt * 16], xp[4 * C::XS + mt * 16]);
@@ -812,7 +826,7 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     cudaError_t err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    edges<<<G, THREADS, smem, stream>>>(
+    edges<<<G, Tile<HD>::THREADS, smem, stream>>>(
         a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], g_agg, g_delta,
         s, L, W, items);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -831,7 +845,7 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
                                                  items, HD, nsplit);
     } else {
         const size_t wsmem = Wgrad<TW>::smem(per);
-        auto wgrad = egnn_bwd_wgrad<TW, MODE>;
+        auto wgrad = egnn_bwd_wgrad<TW, MODE, WGRAD_STEP_SUM<HD>>;
         err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
         if (err != cudaSuccess) return err;
         wgrad<<<wgrid, THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
@@ -874,7 +888,8 @@ int egnn_band_bwd_blocks_per_sm(int hd, int bf16_in, int passes, int chain_bf16)
         cudaError_t e = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
         if (e != cudaSuccess) return e;
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edges, THREADS, smem);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, edges, Tile<HD>::THREADS,
+                                                             smem);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }

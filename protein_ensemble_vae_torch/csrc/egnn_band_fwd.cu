@@ -61,6 +61,11 @@
 //   at 128 per thread, with a few hundred bytes of spills). The bf16 chain
 //   streams 16-row bf16 chunks (the same 8 KB each, 34 KB of ring) beside a
 //   34 KB bf16 tile: ~70 KB.
+// - Hd = 512 (egnn_tile.cuh: Tile<512>): a 512-thread block, one per SM,
+//   each warp with Hd 256's fragments (the same registers per thread); the
+//   133 KB fp32 tile and a 66 KB ring take ~200 KB of the SM's 227 KB, the
+//   bf16 chain's 66 KB tile and 66 KB ring ~139 KB. The launch plan reads
+//   the resident blocks from the occupancy query (fwd_plan).
 // - Per-row reductions (the w_x2 dot product) sum each lane's columns, then
 //   the four lanes of a quad with shuffles, then the warps that own the
 //   row's other columns through shared memory, always in the same order.
@@ -93,7 +98,7 @@ struct FwdSmem {
 };
 
 template <int HD, class In, int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
 egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
                      const float* __restrict__ x, const float* __restrict__ cmask,
                      const typename Chain<MODE>::Act* __restrict__ w_d,
@@ -179,7 +184,7 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
         // thread reads 16 bytes of a_i and of bs_j (NV values) at a time.
         constexpr int NV = Vec<In>::N, HDV = HD / NV;
 #pragma unroll 4
-        for (int idx = tid; idx < M * HDV; idx += THREADS) {
+        for (int idx = tid; idx < M * HDV; idx += TL::THREADS) {
             const int r = idx / HDV, c = NV * (idx % HDV);
             float p[NV];
 #pragma unroll
@@ -355,7 +360,7 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     const Act* w[7];
     for (int k = 0; k < 7; ++k) w[k] = static_cast<const Act*>(wts[k]);
     dim3 grid((L + T - 1) / T, B, S);
-    kernel<<<grid, THREADS, smem, stream>>>(
+    kernel<<<grid, Tile<HD>::THREADS, smem, stream>>>(
         a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6],
         S > 1 ? part_agg : agg, S > 1 ? part_delta : delta, L, W, per);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
@@ -382,7 +387,8 @@ int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes, int chain_bf16)
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
         if (e != cudaSuccess) return e;
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, smem);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, Tile<HD>::THREADS,
+                                                             smem);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -37,7 +37,8 @@
 // an fp32 one); the fp32 chain runs on them as they are, the bf16 chain
 // rounds them to bf16 first (exact for bf16 inputs).
 //
-// Layout: 256 threads = 8 warps as WM x WN; warp (wm, wn) owns MT m16 row
+// Layout: Tile<HD>::THREADS threads (256, or 512 at HD = 512) = NWARPS
+// warps as WM x WN; warp (wm, wn) owns MT m16 row
 // tiles and NT n8 column tiles. A lane (group g = lane / 4, t = lane % 4)
 // holds, in m16n8k8 terms, rows mt*16 + g and mt*16 + 8 + g of each of its
 // row tiles and columns nt*8 + 2t, +1 of each of its column tiles:
@@ -71,21 +72,33 @@
 
 namespace egnn {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
+constexpr int THREADS = 256;  // block of the passes whose shape no width sets
 constexpr int T = 8;          // receivers per tile
 constexpr int OPS = 8;        // band offsets per step
 constexpr int M = T * OPS;    // edge rows per step
 
+// The native widths: one instantiation of each kernel per width, the
+// wrapper pads every other width up to the next of them (zero columns add
+// nothing; ops/kernels/egnn_band.py: pad_band_width).
+// The edge tile's block: 256 threads, two blocks per SM up to HD = 256;
+// at HD = 512, 512 threads (16 warps, each with the fragment shape of HD
+// 256: MT = 4, NT = 4), one block per SM. Either way an SM holds 16 warps
+// and __launch_bounds__ caps a thread at 65,536 / 512 = 128 registers.
 template <int HD>
 struct Tile {
+    static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256 || HD == 512,
+                  "a native width: 32, 64, 128, 256 or 512");
+    static constexpr int THREADS = HD >= 512 ? 512 : 256;           // threads per block
+    static constexpr int MIN_BLOCKS = HD >= 512 ? 1 : 2;            // resident blocks per SM
+    static constexpr int NWARPS = THREADS / 32;
     static constexpr int WN = HD / 8 < NWARPS ? HD / 8 : NWARPS;   // warps across columns
     static constexpr int WM = NWARPS / WN;                          // warps across rows
     static constexpr int MT = M / 16 / WM;                          // m16 tiles per warp
     static constexpr int NT = HD / 8 / WN;                          // n8 tiles per warp
     static constexpr int AS = HD + 8;                               // A row stride
     static constexpr int BS = HD + 4;                               // ring row stride
-    static_assert(WM * WN == NWARPS && MT >= 1 && NT >= 1, "tile does not divide");
+    static_assert(WM * WN == NWARPS && MT * WM * 16 == M && NT * WN * 8 == HD,
+                  "tile does not divide");
 };
 
 // MODE of a kernel: TF32 passes (1 or 3) with the fp32 chain, or the bf16 chain.
@@ -337,7 +350,7 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ w, int kc, 
                                            int tid) {
     constexpr int F4R = HD / 4;
     const float* src = w + (size_t)kc * BK * HD;
-    for (int v = tid; v < BK * F4R; v += THREADS) {
+    for (int v = tid; v < BK * F4R; v += Tile<HD>::THREADS) {
         const int r = v / F4R, c4 = v % F4R;
         cp_async16(dst + r * Tile<HD>::BS + 4 * c4, src + (size_t)r * HD + 4 * c4);
     }
@@ -448,7 +461,7 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* __restrict__ w, 
                                            __nv_bfloat16* dst, int tid) {
     constexpr int V8 = HD / 8, BS = HD + 8;
     const __nv_bfloat16* src = w + (size_t)kc * BK * HD;
-    for (int v = tid; v < BK * V8; v += THREADS) {
+    for (int v = tid; v < BK * V8; v += Tile<HD>::THREADS) {
         const int r = v / V8, c8 = v % V8;
         cp_async16(dst + r * BS + 8 * c8, src + (size_t)r * HD + 8 * c8);
     }
@@ -544,7 +557,7 @@ template <int V>
 using Int = std::integral_constant<int, V>;
 
 // f(Int<HD>{}, Type<In>{}, Int<MODE>{}) for the run-time hidden width hd
-// (32, 64, 128 or 256), input type In of a / bs (bf16 when bf16_in, else
+// (a native width: 32, 64, 128, 256 or 512), input type In of a / bs (bf16 when bf16_in, else
 // fp32) and mode: CHAIN_BF16 when chain_bf16, else the TF32 passes (1 or
 // 3; the bf16 chain takes either and makes one bf16 pass). The bf16 chain
 // is instantiated once per (hd, In). cudaErrorInvalidValue for anything
@@ -557,6 +570,7 @@ cudaError_t dispatch(int hd, int bf16_in, int passes, int chain_bf16, F&& f) {
             case 64:  return f(Int<64>{}, t, m);
             case 128: return f(Int<128>{}, t, m);
             case 256: return f(Int<256>{}, t, m);
+            case 512: return f(Int<512>{}, t, m);
             default:  return cudaErrorInvalidValue;
         }
     };

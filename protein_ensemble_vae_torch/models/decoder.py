@@ -116,7 +116,7 @@ class EGNNBandLayer(nn.Module):
             W = (nbr_idx.shape[1] - 1) // 2
             precision = "highest" if dt == torch.float32 else "default"
             agg, raw_delta = egnn_band_fused(a_i, b_j, x, cmask, *edge, W,
-                                             self.use_pallas, precision)
+                                             precision, use_pallas=self.use_pallas)
             agg = agg.to(dt)
         hu = F.silu(self.phi_h1(torch.cat([hc, agg], dim=-1)))
         hu = self.phi_h2(hu)
@@ -177,7 +177,8 @@ class EGNNDecoder(nn.Module):
         t = F.relu(self.l2c_norm(self.l2c_dense1(zc)))
         t = self.drop_half(t)
         t = F.relu(self.l2c_dense2(t))
-        x = self.l2c_out(t).to(torch.float32)                   # [B, L, 3]
+        # coordinates in fp32 (float64 in a float64 reference model)
+        x = self.l2c_out(t).to(torch.promote_types(self.dtype, torch.float32))
 
         h = self.input_embedding(zc)
 

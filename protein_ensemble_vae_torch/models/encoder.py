@@ -109,8 +109,10 @@ class MultiHeadDotProductAttention(nn.Module):
         # The softmax runs in fp32 also for bf16 logits (Flax's bf16 module
         # takes it in bf16, force_fp32_for_softmax=False): the weights are
         # rounded once, to bf16, instead of every step of the softmax, and a
-        # fully masked row (all finfo(bf16).min) stays uniform.
-        weights = F.softmax(logits.float(), dim=-1).to(q.dtype)
+        # fully masked row (all finfo(bf16).min) stays uniform. (A float64
+        # reference model keeps float64.)
+        weights = F.softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)),
+                            dim=-1).to(q.dtype)
         weights = self.dropout(weights, self.tp, 1)
         o = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Lq, H * hd)
         return self.out(o)

@@ -86,14 +86,15 @@ class Linear(nn.Linear):
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` with Flax's eps (fp32 parameters): statistics and
-    normalisation in fp32, the output in ``dtype``."""
+    normalisation in the parameters' dtype, fp32 (float64 only in a model
+    cast to float64 as a reference), the output in ``dtype``."""
 
     def __init__(self, d: int, dtype: torch.dtype = torch.float32):
         super().__init__(d, eps=LN_EPS)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
+        return super().forward(x.to(self.weight.dtype)).to(self.compute_dtype)
 
 
 def layer_norm(d: int, dtype: torch.dtype = torch.float32) -> LayerNorm:

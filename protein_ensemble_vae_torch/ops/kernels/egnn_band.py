@@ -35,6 +35,14 @@ Modes, as the JAX function's arguments:
   must be one of the two. The plain version follows the JAX kernel op by
   op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
   uses this mode, and the port's decoder does not either.
+
+Widths: the kernels are instantiated at the native widths NATIVE_HIDDEN
+(32 to 512); for CUDA tensors of any other width from 1 to MAX_HIDDEN the
+wrappers zero-pad to the next native width (``native_width``,
+``pad_band_width``), launch, and slice the results back, which is exact up
+to summation order (``pad_band_width`` says why). Above MAX_HIDDEN they
+raise: the fp32 activation tile alone, 64 x (Hd + 8) x 4 bytes, outgrows
+the 227 KB of shared memory a block may have near Hd 880.
 """
 
 from __future__ import annotations
@@ -54,7 +62,10 @@ Tensor = torch.Tensor
 
 KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
-SUPPORTED_HIDDEN = (32, 64, 128, 256)
+# widths the kernels are instantiated at (csrc/egnn_tile.cuh: Tile); the
+# wrappers zero-pad any other width up to the next (pad_band_width)
+NATIVE_HIDDEN = (32, 64, 128, 256, 512)
+MAX_HIDDEN = NATIVE_HIDDEN[-1]
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
 CHAIN_DTYPES = (torch.float32, torch.bfloat16)   # of the edge chain
 PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product (fp32 chain)
@@ -78,11 +89,12 @@ def band_work(B: int, L: int, W: int) -> tuple[int, int, int]:
     return n_tiles, n_steps, B * n_tiles * n_steps
 
 
-def fwd_slices(B: int, L: int, W: int, n_sm: int, per_sm: int = 2) -> int:
+def fwd_slices(B: int, L: int, W: int, n_sm: int, per_sm: int) -> int:
     """Slices S of the band offsets for kernel 1: each of its B x tiles x S
     blocks walks ceil(steps / S) steps, and a second pass sums the S
     partial outputs in slice order. The grid should span FWD_WAVES waves of
-    the ``n_sm * per_sm`` resident blocks, so that the last, partly filled
+    the ``n_sm * per_sm`` resident blocks (``per_sm``: the occupancy query's
+    answer, 2 up to Hd 256 and 1 at Hd 512), so that the last, partly filled
     wave costs little: S = 1 where B x tiles blocks already do; otherwise
     the most steps per block that still give that many blocks (one step
     per block at the least)."""
@@ -96,12 +108,14 @@ def fwd_slices(B: int, L: int, W: int, n_sm: int, per_sm: int = 2) -> int:
 
 
 def bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
-             per_sm: int = 2) -> tuple[int, int]:
+             per_sm: int) -> tuple[int, int]:
     """Kernel 2's grid: G persistent edge-pass blocks, one per resident slot
-    (``per_sm`` blocks on each of ``n_sm`` SMs; block g takes work items g,
-    g + G, ...), and the weight-grad pass's slices of the items, enough for
-    its 2 x (Hd / tile)^2 output tiles to fill two slots per SM (the pass
-    holds two blocks per SM)."""
+    (``per_sm`` blocks on each of ``n_sm`` SMs, the occupancy query's answer:
+    two 256-thread blocks up to Hd 256, one 512-thread block at Hd 512;
+    block g takes work items g, g + G, ...), and the weight-grad pass's
+    slices of the items, enough for its 2 x (Hd / tile)^2 output tiles to
+    fill two slots per SM (that pass's 256-thread blocks, two per SM at
+    every width)."""
     _, _, items = band_work(B, L, W)
     out_tiles = 2 * (Hd // min(Hd, WGRAD_TILE)) ** 2
     return (max(1, min(items, n_sm * max(1, per_sm))),
@@ -140,6 +154,45 @@ def check_mode(precision: str, chain_dtype=torch.float32) -> None:
 
 def _chain_bf16(chain_dtype) -> int:
     return int(chain_dtype == torch.bfloat16)
+
+
+def native_width(Hd: int) -> int:
+    """The narrowest native width (NATIVE_HIDDEN) that holds Hd: the width
+    the kernels run a band layer of hidden width Hd at. Raises outside 1 to
+    MAX_HIDDEN."""
+    for n in NATIVE_HIDDEN:
+        if 1 <= Hd <= n:
+            return n
+    raise ValueError(f"hidden width {Hd}: the band kernels take widths 1 to "
+                     f"{MAX_HIDDEN} (native {NATIVE_HIDDEN}, any other zero-padded "
+                     f"to the next of them)")
+
+
+def pad_band_width(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                   width: int) -> tuple[Tensor, ...]:
+    """The band inputs zero-padded from hidden width Hd to ``width``: a, bs
+    [B, L, width]; w_d, b_e2, b_x1, w_x2 flat [width]; w_e2, w_x1 [width,
+    width]; x, cmask and b_x2 as given. In the kernels' argument order.
+
+    The padded function equals the real one on the real columns, and its
+    gradient on the real entries, up to summation order (a sum gains exact
+    zero terms):
+    - a padded column's pre-activation is 0 + 0 + d2 * 0 = 0, and
+      silu(0) = 0, so m1 is 0 there (in the bf16 chain too);
+    - the zero rows of w_e2 / w_x1 add nothing to a real column of u / v,
+      and their zero columns and biases make the padded u, v 0, so m and
+      silu(v) are 0 there: ``agg``'s padded columns are 0 (sliced off), and
+      the zero entries of w_x2 add nothing to ``raw_delta``;
+    - backward, every padded cotangent meets a zero weight: cot_v is
+      cot_wsc * w_x2 * silu'(v), 0 on padded columns; the padded g_agg is
+      0, so cot_m, cot_u and cot_pre are 0 there, and they add nothing to
+      the real columns through the zero rows of w_x1^T and w_e2^T; each
+      real weight-grad entry sums products of real columns only."""
+    p = width - a.shape[-1]
+    flat = lambda t: F.pad(t.reshape(-1), (0, p))  # noqa: E731
+    square = lambda t: F.pad(t, (0, p, 0, p))      # noqa: E731
+    return (F.pad(a, (0, p)), F.pad(bs, (0, p)), x, cmask, flat(w_d), square(w_e2),
+            flat(b_e2), square(w_x1), flat(b_x1), flat(w_x2), b_x2)
 
 
 def band_chain(a, bs, x, nbr_idx, valid, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
@@ -351,14 +404,27 @@ def _check(name: str, t: Tensor, shape: tuple, device,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def unpad_band_grads(grads, a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
+                     b_x2) -> tuple[Tensor, ...]:
+    """The gradients of a call on ``pad_band_width``'s inputs, (a, bs, x,
+    w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2) at the padded width, sliced
+    back to the real inputs given after them: each shaped like its input
+    (views of the padded gradients). At the real width it returns them as
+    they are."""
+    Hd = a.shape[-1]
+    da, dbs, dx, dw_d, dw_e2, db_e2, dw_x1, db_x1, dw_x2, db_x2 = grads
+    vec = lambda g, t: g.reshape(-1)[:Hd].reshape(t.shape)  # noqa: E731
+    return (da[..., :Hd], dbs[..., :Hd], dx, vec(dw_d, w_d), dw_e2[:Hd, :Hd],
+            vec(db_e2, b_e2), dw_x1[:Hd, :Hd], vec(db_x1, b_x1), vec(dw_x2, w_x2), db_x2)
+
+
 def _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                   W: int) -> None:
-    """Raise unless the band inputs are what both kernels take: a and bs
-    of one dtype of INPUT_DTYPES, everything else fp32."""
+    """Raise unless the band inputs are what both kernels take: a width of
+    1 to MAX_HIDDEN (``native_width``), a and bs of one dtype of
+    INPUT_DTYPES, everything else fp32."""
     B, L, Hd = a.shape
-    if Hd not in SUPPORTED_HIDDEN:
-        raise ValueError(f"hidden width {Hd} not supported by the kernel "
-                         f"(one of {SUPPORTED_HIDDEN})")
+    native_width(Hd)
     if W < 1:
         raise ValueError(f"band half-width W={W} must be >= 1")
     if bs.dtype != a.dtype:
@@ -398,9 +464,10 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
 
     a, bs [B, L, Hd], both fp32 or both bf16; x [B, L, 3]; cmask [B, L];
     w_d [1, Hd] or [Hd]; w_e2, w_x1 [Hd, Hd]; b_e2, b_x1 [Hd]; w_x2 [Hd, 1]
-    or [Hd]; b_x2 [1]; all but a, bs fp32. ``precision`` and
-    ``chain_dtype`` as in the module docstring. Returns (agg [B, L, Hd],
-    raw_delta [B, L, 3]), fp32.
+    or [Hd]; b_x2 [1]; all but a, bs fp32; Hd from 1 to MAX_HIDDEN (a
+    width outside NATIVE_HIDDEN runs zero-padded, ``pad_band_width``).
+    ``precision`` and ``chain_dtype`` as in the module docstring. Returns
+    (agg [B, L, Hd], raw_delta [B, L, 3]), fp32.
     """
     check_mode(precision, chain_dtype)
     if not a.is_cuda:
@@ -409,6 +476,12 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
+    n = native_width(Hd)
+    if n != Hd:
+        agg, delta = egnn_band_fwd(*pad_band_width(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
+                                                   b_x1, w_x2, b_x2, n),
+                                   W, precision, chain_dtype)
+        return agg[..., :Hd], delta
     bf16, passes, cb = int(a.dtype == torch.bfloat16), PASSES[precision], _chain_bf16(chain_dtype)
     wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
     fn, lib = _kernel_fn()
@@ -537,7 +610,8 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     and g_delta [B, L, 3], fp32. Returns the gradients of (a, bs, x, w_d,
     w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), each shaped like its input: those
     of a and bs in their dtype, the rest fp32. The kernel is deterministic:
-    it sums across blocks in fixed order.
+    it sums across blocks in fixed order. A width outside NATIVE_HIDDEN
+    runs zero-padded as in ``egnn_band_fwd`` (g_agg padded with zeros).
     """
     check_mode(precision, chain_dtype)
     if not a.is_cuda:
@@ -548,6 +622,12 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
     _check("g_agg", g_agg, (B, L, Hd), dev)
     _check("g_delta", g_delta, (B, L, 3), dev)
+    n = native_width(Hd)
+    if n != Hd:
+        args = (a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
+        return unpad_band_grads(
+            egnn_band_bwd(*pad_band_width(*args, n), F.pad(g_agg, (0, n - Hd)), g_delta,
+                          W, precision, chain_dtype), *args)
     fn, lib = _bwd_kernel_fn()
     f32 = dict(dtype=torch.float32, device=dev)
     alloc = torch.empty if B and L else torch.zeros
@@ -612,14 +692,18 @@ class EGNNBandFunction(torch.autograd.Function):
 
 
 def egnn_band_fused(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                    W: int, use_pallas: object = "auto", precision: str = "highest",
-                    chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
+                    W: int, precision=None, chain_dtype=torch.float32, *,
+                    use_pallas: object = "auto") -> tuple[Tensor, Tensor]:
     """Routed entry of the decoder: ``EGNNBandFunction`` (kernel forward and
     backward) where ``pallas_policy`` says so (``ops/routing.py``), else the
     plain version, whose gradient is torch autograd (in the bf16 chain
-    ``_bf16_chain_backward``, JAX's rounding points). ``precision`` and
-    ``chain_dtype`` as in the module docstring (JAX ``egnn_band_fused``'s
-    arguments of the same names)."""
+    ``_bf16_chain_backward``, JAX's rounding points). The JAX function's
+    arguments in its order: ``precision`` (None, JAX's default, is
+    ``"default"``, one TF32 pass on the card; ``"highest"`` is
+    Precision.HIGHEST) and ``chain_dtype`` as in the module docstring; the
+    port's routing knob ``use_pallas`` (``ModelConfig.use_pallas_egnn``)
+    follows as a keyword."""
+    precision = "default" if precision is None else precision
     check_mode(precision, chain_dtype)
     if pallas_policy(a, use_pallas):
         return EGNNBandFunction.apply(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,

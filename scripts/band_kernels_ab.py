@@ -24,8 +24,9 @@ path's shapes, in each mode both versions have: fp32 ``a`` / ``bs`` in
 L256/L640 and the training shapes B4/L256, B2/L640; kernel 2 at the
 training shapes. The current version runs through the package's wrappers;
 the baseline gets the launch plan (offset slices, edge-pass grid) of its
-own occupancy. Each row also gives the plain version's time, the fp32
-bound and the tensor-core bound (chip_smoke.py). ``--sweep-slices`` also
+own occupancy. Each row also says whether the two versions' outputs are
+bitwise equal and gives the plain version's time, the fp32 bound and the
+tensor-core bound (chip_smoke.py). ``--sweep-slices`` also
 times the current kernel 1 (fp32 mode) with its band offsets split into
 each of SWEEP_SLICES slices (``fwd_plan`` overridden), in two turns per
 count. ``--mma-rate`` also measures the card's rate for register-fed
@@ -276,13 +277,14 @@ def main(argv=None) -> None:
             old = lambda: _baseline_fwd(base, args, W, mode, n_sm)  # noqa: E731
             for label, fn in (("baseline", old), ("current", cur)):
                 _check(f"{label} {tag} B{B}/L{L}", ("agg", "raw_delta"), fn(), ref, mode)
+            same = all(torch.equal(a, b) for a, b in zip(old(), cur()))
             passes = egnn_band.PASSES[precision] if chain == f32 else 1
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, _, tc, _ = cs._egnn_bound(B, L, args[3], args[0].element_size(),
                                                  passes, peak)
             S = fwd_plan(B, L, W, cs.HD, args[0].device, *mode)
             row = dict(kernel="egnn_band_fwd", mode=tag.split(":", 1)[1], B=B, L=L,
-                       **_turns(old, cur),
+                       bitwise_equal_to_baseline=same, **_turns(old, cur),
                        plain_ms=cs._median_ms(lambda: egnn_band_reference(*args, W, chain)),
                        bound_ms=bound, bound_by=by, tc_bound_ms=tc,
                        slices=S, blocks=B * band_work(B, L, W)[0] * S)
@@ -310,13 +312,14 @@ def main(argv=None) -> None:
             old = lambda: _baseline_bwd(base, args, g_agg, g_delta, W, mode, n_sm)  # noqa: E731
             for label, fn in (("baseline", old), ("current", cur)):
                 _check(f"{label} {tag} B{B}/L{L}", names, fn(), ref, mode)
+            same = all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(old(), cur()))
             passes = egnn_band.PASSES[precision] if chain == f32 else 1
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, tc, _ = cs._band_bwd_bound(B, L, args[3], args[0].element_size(),
                                                   passes, peak)
             G, nsplit = bwd_plan(B, L, W, cs.HD, args[0].device, *mode)
             row = dict(kernel="egnn_band_bwd", mode=tag.split(":", 1)[1], B=B, L=L,
-                       **_turns(old, cur),
+                       bitwise_equal_to_baseline=same, **_turns(old, cur),
                        plain_ms=cs._median_ms(
                            lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W, chain)),
                        bound_ms=bound, bound_by=by, tc_bound_ms=tc,

@@ -73,8 +73,8 @@ def run(seed: int = SEED) -> dict:
     diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
 
     def fwd(precision, chain):
-        return egnn_band_fused(diff[0], diff[1], diff[2], cm, *diff[3:], W, "auto",
-                               precision, chain)
+        return egnn_band_fused(diff[0], diff[1], diff[2], cm, *diff[3:], W,
+                               precision, chain, use_pallas="auto")
 
     def step(precision, chain):
         agg, delta = fwd(precision, chain)

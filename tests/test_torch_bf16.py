@@ -120,7 +120,7 @@ def test_band_bf16_inputs_match_pallas_interpret():
         np.testing.assert_array_equal(np.asarray(j.astype(jnp.float32)), t.float().numpy())
     want = jax_egnn_band_fused(*jargs[:11], W, None, jnp.float32)
     before = dict(LAUNCHES)
-    for got in (egnn_band_fused(*targs, W, "auto", "default"),
+    for got in (egnn_band_fused(*targs, W, "default"),
                 egnn_band_fwd(*targs, W, "default"),
                 EGNNBandFunction.apply(*targs, W, "default")):
         for g, w in zip(got, want):
@@ -136,7 +136,7 @@ def _port_grads(targs, ga, gd):
     out = {"bwd_reference": egnn_band_bwd_reference(*targs, ga, gd, W),
            "bwd_wrapper": egnn_band_bwd(*targs, ga, gd, W, "default")}
     diff = [t.clone().requires_grad_(True) for t in targs[:3] + targs[4:]]
-    agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], W, "auto", "default")
+    agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], W, "default")
     out["fused_auto"] = torch.autograd.grad((agg * ga).sum() + (delta * gd).sum(), diff)
     return out
 
@@ -182,7 +182,7 @@ def test_band_bf16_chain_raises_naming_roadmap(entry):
     a, bs, x, cmask, p = _band_inputs(seed=64)
     targs = _torch_args(a, bs, x, cmask, p)
     g = (torch.zeros(a.shape), torch.zeros(x.shape))
-    call = {"fused": lambda c: egnn_band_fused(*targs, W, "auto", "default", c),
+    call = {"fused": lambda c: egnn_band_fused(*targs, W, "default", c),
             "fwd": lambda c: egnn_band_fwd(*targs, W, "default", c),
             "bwd": lambda c: egnn_band_bwd(*targs, *g, W, "default", c)}[entry]
     for out in call(torch.bfloat16):

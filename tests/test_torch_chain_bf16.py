@@ -92,7 +92,7 @@ def test_plain_bf16_chain_matches_pallas_interpret(Hd, W, seed):
             assert _rel(g.detach().numpy(), w) <= VALUE_TOL, name
     ga, gd = torch.from_numpy(g_agg), torch.from_numpy(g_delta)
     diff = [t.clone().requires_grad_(True) for t in targs[:3] + targs[4:]]
-    agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], W, "auto", "highest", CHAIN)
+    agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], W, "highest", CHAIN)
     routes = {"bwd_wrapper": egnn_band_bwd(*targs, ga, gd, W, "highest", CHAIN),
               "bwd_reference": egnn_band_bwd_reference(*targs, ga, gd, W, CHAIN),
               "fused_auto": torch.autograd.grad((agg * ga).sum() + (delta * gd).sum(), diff)}
@@ -116,7 +116,7 @@ def test_bf16_chain_tracks_fp32_chain():
     out = {}
     for chain in (torch.float32, CHAIN):
         diff = [t.clone().requires_grad_(True) for t in targs[:3] + targs[4:]]
-        agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], 4, "auto", "highest", chain)
+        agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], 4, "highest", chain)
         assert agg.dtype == delta.dtype == torch.float32
         grads = torch.autograd.grad(agg.square().sum() + delta.square().sum(), diff)
         out[chain] = ((agg.detach(), delta.detach()), grads)
@@ -154,7 +154,7 @@ def test_fp32_chain_bound_depends_on_the_seed():
         w = targs[4 + k - 3].clone().requires_grad_(True)
         ps = targs[4:]
         ps[k - 3] = w
-        agg, delta = egnn_band_fused(*targs[:4], *ps, 4, "auto", "highest", chain)
+        agg, delta = egnn_band_fused(*targs[:4], *ps, 4, "highest", chain)
         port[chain] = torch.autograd.grad(agg.square().sum() + delta.square().sum(), w)[0]
     port_gap = _rel(port[CHAIN].numpy(), port[torch.float32].numpy())
     print(f"w_x1 gradient, bf16 chain vs fp32 chain at seed 0: JAX {jax_gap:.4e}, "
@@ -171,7 +171,7 @@ def test_check_mode_rejects_other_chain_dtypes(chain):
         check_mode("highest", chain)
     targs = _torch(*_inputs(3))
     with pytest.raises(ValueError, match="chain_dtype"):
-        egnn_band_fused(*targs, 4, "auto", "highest", chain)
+        egnn_band_fused(*targs, 4, "highest", chain)
     with pytest.raises(ValueError, match="precision"):
         check_mode("fast", torch.bfloat16)
 
@@ -183,7 +183,8 @@ def test_cpu_bf16_chain_counts_no_launch():
     before, before_modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     diff = [t.clone().requires_grad_(True) for t in targs[:3] + targs[4:]]
     for mode in ("auto", "interpret", False):
-        agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], 4, mode, "default", CHAIN)
+        agg, delta = egnn_band_fused(*diff[:3], targs[3], *diff[3:], 4, "default", CHAIN,
+                                     use_pallas=mode)
         (agg.sum() + delta.sum()).backward()
     agg, delta = EGNNBandFunction.apply(*diff[:3], targs[3], *diff[3:], 4, "default", CHAIN)
     (agg.sum() + delta.sum()).backward()

@@ -67,7 +67,7 @@ def test_work_items_are_every_step_once(B, L, W):
 @pytest.mark.parametrize("B,L", MAIN_SHAPES + [(2, 37)])
 def test_persistent_grid_takes_every_item_once(B, L, n_sm):
     _, _, items = band_work(B, L, 40)
-    G, nsplit = bwd_grid(B, L, 40, 256, n_sm)
+    G, nsplit = bwd_grid(B, L, 40, 256, n_sm, 2)
     assert 1 <= G <= min(items, 2 * n_sm) and 1 <= nsplit <= items
     taken = [k for g in range(G) for k in range(g, items, G)]
     assert sorted(taken) == list(range(items))
@@ -84,13 +84,13 @@ def test_full_width_grids_fill_the_card(B, L, per_sm):
     assert G == per_sm * H100_SMS <= items       # one wave: a block per slot
     assert 2 * (256 // 128) ** 2 * nsplit >= 2 * H100_SMS
     n_tiles = band_work(B, L, 40)[0]
-    assert B * n_tiles * fwd_slices(B, L, 40, H100_SMS) >= 128
+    assert B * n_tiles * fwd_slices(B, L, 40, H100_SMS, per_sm) >= 128
 
 
 @pytest.mark.parametrize("W", [1, 4, 12, 40])
 @pytest.mark.parametrize("B,L", MAIN_SHAPES + [(1, 37), (2, 19)])
 def test_offset_slices_cover_every_step_once(B, L, W):
-    S = fwd_slices(B, L, W, H100_SMS)
+    S = fwd_slices(B, L, W, H100_SMS, 2)
     n_steps = band_work(B, L, W)[1]
     slices = fwd_slice_steps(W, S)
     assert len(slices) == S and all(len(r) > 0 for r in slices)
@@ -109,6 +109,55 @@ def test_offset_slices_at_the_main_shapes(B, L, S):
     assert fwd_slices(B, L, 40, H100_SMS, 2) == S
     blocks = B * band_work(B, L, 40)[0]
     assert S == 1 or blocks * S >= 8 * 2 * H100_SMS or S == band_work(B, L, 40)[1]
+
+
+# Hd 512: one 512-thread block per SM (csrc/egnn_tile.cuh: Tile<512>), so
+# the occupancy query answers 1 and both plans take per_sm = 1.
+
+@pytest.mark.parametrize("n_sm", [1, 16, 132, 1000])
+@pytest.mark.parametrize("B,L", MAIN_SHAPES + [(2, 37)])
+def test_persistent_grid_at_hd512_takes_every_item_once(B, L, n_sm):
+    _, _, items = band_work(B, L, 40)
+    G, nsplit = bwd_grid(B, L, 40, 512, n_sm, 1)
+    assert 1 <= G <= min(items, n_sm) and 1 <= nsplit <= items
+    taken = [k for g in range(G) for k in range(g, items, G)]
+    assert sorted(taken) == list(range(items))
+    per = -(-items // nsplit)
+    assert sum(len(range(s * per, min(items, (s + 1) * per))) for s in range(nsplit)) == items
+
+
+@pytest.mark.parametrize("B,L", MAIN_SHAPES)
+def test_full_width_grids_at_hd512_fill_the_card(B, L):
+    """One block per SM: the edge pass is one wave of 132 blocks; the
+    weight-grad pass has 2 x (512 / 128)^2 = 32 output tiles, so 9 slices
+    give 288 blocks, more than its two 256-thread slots per SM."""
+    G, nsplit = bwd_grid(B, L, 40, 512, H100_SMS, 1)
+    assert G == H100_SMS
+    assert nsplit == 9 and 32 * nsplit >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("W", [1, 4, 12, 40])
+@pytest.mark.parametrize("B,L", MAIN_SHAPES + [(1, 37), (2, 19)])
+def test_offset_slices_at_hd512_cover_every_step_once(B, L, W):
+    S = fwd_slices(B, L, W, H100_SMS, 1)
+    n_steps = band_work(B, L, W)[1]
+    slices = fwd_slice_steps(W, S)
+    assert len(slices) == S and all(len(r) > 0 for r in slices)
+    assert [s for r in slices for s in r] == list(range(n_steps))
+
+
+@pytest.mark.parametrize("B,L,S", [
+    (1, 256, 10), (1, 640, 10), (4, 256, 10), (2, 640, 10),   # one step a block
+    (10, 256, 4), (10, 640, 2),
+    (40, 256, 1), (16, 640, 1)])                              # >= 8 waves already
+def test_offset_slices_at_hd512_at_the_main_shapes(B, L, S):
+    """One block per SM on 132 SMs: 8 waves = 1,056 blocks. B10/L256 has
+    320 (batch row, tile) blocks -> 3 steps per block, 4 slices; B10/L640
+    has 800 -> 7 steps per block, 2 slices; grids of >= 1,056 blocks keep
+    one slice."""
+    assert fwd_slices(B, L, 40, H100_SMS, 1) == S
+    blocks = B * band_work(B, L, 40)[0]
+    assert S == 1 or blocks * S >= 8 * H100_SMS or S == band_work(B, L, 40)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +272,34 @@ def test_3xtf32_weight_grad_product(rows):
     rng = np.random.default_rng(rows)
     xs = torch.from_numpy(rng.normal(0, 3, (rows, 256)).astype(np.float32))
     ys = torch.from_numpy(rng.normal(0, 0.1, (rows, 256)).astype(np.float32))
+    exact = xs.double().t() @ ys.double()
+    scale = float(exact.abs().max())
+    err3 = float((mm_3xtf32(xs.t().contiguous(), ys).double() - exact).abs().max())
+    err1 = float((mm_tf32(xs.t().contiguous(), ys).double() - exact).abs().max())
+    assert err3 < 1e-5 * scale and err3 < err1 / 30
+
+
+def test_3xtf32_holds_the_forward_tolerance_at_hd512():
+    """As at Hd 256, with twice the sum length: Hd = 512, B1/L64, W = 40
+    at the model's scale, the 3xTF32 products hold the forward's tolerance
+    on the card; one TF32 pass is far worse."""
+    args = _model_scale_inputs(1, 64, 512, seed=5)
+    plain = egnn_band_reference(*args, 40)
+    three = band_chain(*args, 40, mm=mm_3xtf32)
+    one = band_chain(*args, 40, mm=mm_tf32)
+    for got, single, want in zip(three, one, plain):
+        scale = float(want.abs().max())
+        err3 = float((got - want).abs().max()) / scale
+        err1 = float((single - want).abs().max()) / scale
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+        assert err3 < err1 / 30
+
+
+@pytest.mark.parametrize("rows", [64, 5120])
+def test_3xtf32_weight_grad_product_at_hd512(rows):
+    rng = np.random.default_rng(rows + 512)
+    xs = torch.from_numpy(rng.normal(0, 3, (rows, 512)).astype(np.float32))
+    ys = torch.from_numpy(rng.normal(0, 0.1, (rows, 512)).astype(np.float32))
     exact = xs.double().t() @ ys.double()
     scale = float(exact.abs().max())
     err3 = float((mm_3xtf32(xs.t().contiguous(), ys).double() - exact).abs().max())

@@ -84,9 +84,9 @@ def test_routing_and_checks_on_cuda(cuda):
     args = _inputs(2, 64, 32, cuda)
     before = LAUNCHES["egnn_band_fwd"]
     for mode in ("auto", "interpret", True):
-        egnn_band_fused(*args, 4, use_pallas=mode)
+        egnn_band_fused(*args, 4, "highest", use_pallas=mode)
     assert LAUNCHES["egnn_band_fwd"] == before + 3
-    egnn_band_fused(*args, 4, use_pallas=False)
+    egnn_band_fused(*args, 4, "highest", use_pallas=False)
     assert LAUNCHES["egnn_band_fwd"] == before + 3
     bad = list(args)
     bad[0] = args[0].double()
@@ -98,8 +98,62 @@ def test_routing_and_checks_on_cuda(cuda):
     bad[0] = args[0][..., :30].contiguous()
     with pytest.raises(ValueError):
         egnn_band_fwd(*bad, 4)
-    with pytest.raises(ValueError, match="hidden width"):
-        egnn_band_fwd(*_inputs(1, 16, 48, cuda), 4)
+    # a width outside the native ones runs the kernel, zero-padded to 64
+    args48 = _inputs(1, 16, 48, cuda)
+    before = LAUNCHES["egnn_band_fwd"]
+    agg, delta = egnn_band_fwd(*args48, 4)
+    assert LAUNCHES["egnn_band_fwd"] == before + 1 and agg.shape == (1, 16, 48)
+    for got, want in zip((agg, delta), egnn_band_reference(*args48, 4)):
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("Hd", [513, 1024])
+def test_width_above_the_limit_raises(cuda, Hd):
+    """Above MAX_HIDDEN (512) no native width holds Hd: both wrappers and
+    the routed entry raise and name the limit, launching nothing."""
+    args = _inputs(1, 16, Hd, cuda)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="1 to 512"):
+        egnn_band_fwd(*args, 4)
+    with pytest.raises(ValueError, match="1 to 512"):
+        egnn_band_bwd(*args, torch.zeros_like(args[0]), torch.zeros_like(args[2]), 4)
+    with pytest.raises(ValueError, match="1 to 512"):
+        egnn_band_fused(*args, 4, "highest")
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("hidden", [16, 48, 512])
+def test_decoder_kernel_path_at_every_width(cuda, hidden):
+    """A model at a padded width (16, 48) and at Hd 512 runs its band
+    layers through kernels 1-2 under "auto", forward and backward, and
+    matches the plain path."""
+    cfg = ModelConfig(seqemb_dim=16, d_model=32, nhead=4, ff=64, nlayers=1,
+                      z_global=16, z_local=8, decoder_hidden=hidden,
+                      decoder_layers=2, max_neighbors=8)
+    torch.manual_seed(0)
+    model = HierCVAE(cfg).to(cuda).eval()
+    plain = HierCVAE(dataclasses.replace(cfg, use_pallas_egnn=False)).to(cuda).eval()
+    plain.load_state_dict(model.state_dict())
+    g = torch.Generator().manual_seed(4)
+    B, L = 2, 64
+    mask = torch.ones(B, L)
+    mask[0, 50:] = 0.0
+    z_g = torch.randn(B, cfg.z_global, generator=g).to(cuda)
+    z_l = torch.randn(B, L, cfg.z_local, generator=g).to(cuda)
+    before = dict(LAUNCHES)
+    outs = []
+    for m in (model, plain):
+        out = m.decode(z_g, z_l, mask.to(cuda))
+        (out[0].square().sum() + out[1].square().sum()).backward()
+        outs.append((out, {n: p.grad for n, p in m.named_parameters()}))
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + cfg.decoder_layers
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + cfg.decoder_layers
+    (got, kg), (want, pg) = outs
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    for n, w in pg.items():
+        if w is not None:
+            _close_scaled(kg[n], w, n)
 
 
 def test_decoder_kernel_path_matches_plain_path(cuda):
@@ -224,10 +278,11 @@ def test_masked_steps_are_skipped_exactly(cuda, case):
 
 
 @pytest.mark.parametrize("W", [4, 12, 40])
-@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256, 8, 16, 48, 96, 384, 512])
 def test_odd_length_every_width(cuda, Hd, W):
-    """L = 37 (not a multiple of the 8-receiver tile) at every supported
-    hidden width and band half-widths 4-40."""
+    """L = 37 (not a multiple of the 8-receiver tile) at every native
+    hidden width, at padded ones (8, 16, 48, 96, 384) and band half-widths
+    4-40."""
     args = _inputs(2, 37, Hd, cuda, seed=Hd + W)
     _check_fwd_bwd(args, W, seed=Hd * W)
 
@@ -245,6 +300,69 @@ def test_two_launches_are_bitwise_identical(cuda, B, L):
     second = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Hd", [512, 384])
+@pytest.mark.parametrize("B,L", [(1, 256), (4, 256)])
+def test_two_launches_are_bitwise_identical_at_wide_widths(cuda, B, L, Hd):
+    """As above at Hd 512 (one 512-thread block per SM) and at Hd 384
+    (zero-padded to 512), where the kernels also match the plain versions
+    at chip_smoke.py's tolerances: the forward at rtol 1e-4 / atol 1e-4 x
+    max|plain| (raw_delta sums 80 edges of ~10 A offsets, so at full width
+    an absolute 1e-4 is ~2e-6 of its scale), the gradients as above."""
+    args = _inputs(B, L, Hd, cuda, seed=B + L + Hd)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    first = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    second = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = egnn_band_reference(*args, 40)
+    for got, ref in zip(first[:2], want):
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL * float(ref.abs().max()))
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, 40)
+    for name, got, ref in zip(_GRAD_NAMES, first[2:], want):
+        assert got.shape == ref.shape, name
+        _close_scaled(got, ref, name)
+
+
+def _f64_dist(got, want):
+    """max |got - want| / (1e-5 max|want| + 1e-3 |want|): 1 is the model's
+    gradient tolerance (chip_smoke.py: _f64_dist)."""
+    want = want.double()
+    atol = max(1e-5 * float(want.abs().max()), 1e-6)
+    return float(((got.double() - want).abs() / (atol + 1e-3 * want.abs())).max())
+
+
+@pytest.mark.parametrize("Hd", [512, 384, 256])
+def test_weight_grads_hold_float64_at_full_width(cuda, Hd):
+    """Kernel 2's weight grads sum ~82,000 edge rows at B4/L256: at Hd 512
+    (and 384, padded to it) its weight-grad pass takes 9 slices, ~9,000 rows
+    an accumulator, and summed them in the tensor cores' truncating fp32
+    until each k8 step was rounded to nearest (WGRAD_STEP_SUM), which put
+    dW_e2 at 2-5x the model's gradient tolerance from float64 where the
+    fp32 plain version lies at ~0.2x. Every gradient must lie no farther
+    from the float64 band function than 2x the fp32 plain version, or
+    within the tolerance."""
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_chain, band_indices
+
+    B, L, W = 4, 256, 40
+    args = _inputs(B, L, Hd, cuda, seed=Hd + 3)
+    g = torch.Generator(device="cpu").manual_seed(Hd)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W)
+    plain = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    idx, in_range = band_indices(L, W, cuda)
+    cm = args[3] > 0.5
+    valid = in_range[None] & cm[:, :, None] & cm[:, idx]
+    diff = [t.double().requires_grad_(True) for t in args[:3] + args[4:]]
+    outs = band_chain(diff[0], diff[1], diff[2], idx, valid, *diff[3:], torch.float64)
+    exact = torch.autograd.grad(outs, diff, (g_agg.double(), g_delta.double()))
+    for name, k, p, r in zip(_GRAD_NAMES, got, plain, exact):
+        dk, dp = _f64_dist(k, r), _f64_dist(p, r)
+        assert dk <= max(2 * dp, 1.0), f"{name}: kernel {dk:.2f}, plain {dp:.2f}"
 
 
 # The bf16-model mode of kernels 1-2 (bf16 a / bs, one-pass TF32 products)
@@ -268,6 +386,7 @@ def _within_frac(got, want, frac, name):
 
 @pytest.mark.parametrize("B,L,Hd,W", [
     (2, 37, 32, 4), (3, 70, 64, 12), (2, 256, 256, 40), (1, 640, 256, 40),
+    (2, 37, 48, 4), (2, 256, 512, 40),
 ])
 def test_bf16_mode_matches_plain_version(cuda, B, L, Hd, W):
     from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
@@ -424,10 +543,10 @@ def _check_chain(args, W, seed):
 
 
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256, 8, 16, 48, 96, 384, 512])
 def test_chain_bf16_matches_plain_version(cuda, Hd, in_dtype):
-    """Every supported width at an odd length (L = 37, not a multiple of
-    the 8-receiver tile), bf16 and fp32 inputs a / bs."""
+    """Every native width and padded ones at an odd length (L = 37, not a
+    multiple of the 8-receiver tile), bf16 and fp32 inputs a / bs."""
     args = _inputs(2, 37, Hd, cuda, seed=Hd + 7)
     if in_dtype == torch.bfloat16:
         args = _bf16_args(args)
@@ -489,7 +608,7 @@ def test_chain_bf16_never_runs_the_plain_version_on_cuda(cuda, monkeypatch):
     diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
     before = dict(LAUNCHES)
     agg, delta = egnn_band_fused(diff[0], diff[1], diff[2], args[3], *diff[3:], 8,
-                                 "auto", "default", CHAIN)
+                                 "default", CHAIN)
     (agg.square().sum() + delta.square().sum()).backward()
     torch.cuda.synchronize()
     assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + 1
@@ -506,7 +625,7 @@ def test_chain_bf16_function_gradients_on_cuda(cuda):
     for mode in ("auto", False):
         diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
         agg, delta = egnn_band_fused(diff[0], diff[1], diff[2], args[3], *diff[3:], 12,
-                                     mode, "highest", CHAIN)
+                                     "highest", CHAIN, use_pallas=mode)
         (agg.square().sum() + delta.square().sum()).backward()
         grads[mode] = [t.grad for t in diff]
     for name, a, b in zip(_GRAD_NAMES, grads["auto"], grads[False]):
@@ -523,7 +642,7 @@ def test_band_function_gradients_on_cuda(cuda):
 
     def run(ts, mode):
         a, bs, x, *p = ts
-        agg, delta = egnn_band_fused(a, bs, x, cm, *p, 4, use_pallas=mode)
+        agg, delta = egnn_band_fused(a, bs, x, cm, *p, 4, "highest", use_pallas=mode)
         assert agg.requires_grad and delta.requires_grad
         return (agg.square().sum() + delta.square().sum())
 
@@ -1024,7 +1143,7 @@ def test_debug_mode_on_the_kernel_path(cuda):
     try:
         _, metrics = step(state, batch, 0, *consts)
         with pytest.raises(FloatingPointError):
-            egnn_band_fused(*args, 4)
+            egnn_band_fused(*args, 4, "highest")
     finally:
         disable_debug_mode()
     assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 2
