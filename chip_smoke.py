@@ -52,9 +52,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
    kernel 2 at B4/L256 and B2/L640, and at widths the wrappers zero-pad to
    a native one: Hd 384 (-> 512) in the three modes, Hd 8 and 48 (-> 32,
-   64) in fp32, at B4/L256; each row at its mode's Hd-256 tolerance, two
-   launches bitwise identical, its bound counted at the real width;
-   ``shapes`` rows with ``Hd`` and ``padded_to``. Its path follows:
+   64) in fp32, at B4/L256; and above 512, the wide variants
+   (``WIDER_ROWS``: a run-time width, a multiple of 256, any other padded
+   up): Hd 1024 at B4/L256 and Hd 640 (-> 768), 1100 (-> 1280) and 2048
+   at B1/L256, in the three modes, both kernels; each row at its mode's
+   Hd-256 tolerance, two launches bitwise identical, its bound counted at
+   the real width; ``shapes`` rows with ``Hd`` and ``padded_to``. Then the
+   flagship path's shapes at Hd 256 (``FLAGSHIP_ROWS``): both kernels in
+   the bf16-model mode at B8/L128 and B8/L192 (training), kernel 1 in fp32
+   at B4/L128 and B20/L128 (generation), at their modes' tolerances; kernels
+   3-4 at B4/L128, B8/L128 and B8/L192 join CLASH_SHAPES. Its path follows:
    ``scripts/chain_dtype_ab.py``'s ``run()`` (the bf16 chain against the
    fp32 chain at B16/L256: value gaps and fwd + bwd ms), counts reset just
    before and read just after.
@@ -77,8 +84,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    time by kind); then
    the path: ``tests/fixtures/messy_9xyz.cif`` -> ``parse_mmcif_backbone``
    -> ``chain_to_arrays`` -> ``process_chain`` (torsions on the card) ->
-   the ESM-2 embedding of chain AA (58 residues) -> an in-memory conformer
-   view with the H5 layout -> ``generate_ensembles`` with the main model,
+   ``write_chain_h5`` (an H5 file by the port's own writer: this machine
+   has no h5py) -> ``add_embeddings_to_h5`` (the ESM-2 embedding of chain
+   AA, 58 residues, appended) -> ``EnsembleDataset`` reading the file ->
+   ``generate_ensembles`` with the main model,
    ``num_samples=10`` -> PDB files. Counts reset just before the path and
    read just after: 3 structures x 16 launches of kernel 1, nothing else.
    Its weights are freed before the later phases.
@@ -89,10 +98,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    epoch: 8 band forward + 8 band backward + 1 clash forward + 1 clash
    backward per train step, 8 + 1 per eval step. Losses finite, parameters
    changed. Then one ``cli.train --compute_dtype bfloat16`` run (1 epoch,
-   default widths, batch 4) on the same pairs, read through an in-memory
-   stand-in for ``EnsembleDataset`` (the H5 reader needs ``h5py``, which
-   the chip machine lacks): counts reset just before and read just after,
-   every band launch in the bf16 mode; losses finite, checkpoint written.
+   default widths, batch 4) on TRAIN_PROTEIN's fold written as H5 files
+   by the port's writer and read through ``EnsembleDataset``
+   (``_pair_manifests``: 10 train / 1 val pairs; the CLI phases 5b, 6b
+   and 8 read the same files): counts reset just before and read just
+   after, every band launch in the bf16 mode; losses finite, checkpoint
+   written.
 6. timed train steps, fp32 then bf16 (``HierCVAE(dtype=bfloat16)``):
    ``make_train_step`` at B4/L256 and at B2/L640 with ``decoder_remat``
    (16 band forwards per step), kernel path and plain path
@@ -113,7 +124,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    as in phase 6 (float64 triage included), fp32 and bf16 steps timed on
    both paths, launches by mode; then ``cli.train --device cuda`` for one
    epoch at the widths of the repository's verify drive (decoder width
-   16, zero-padded to 32) through kernels 1-4.
+   16, zero-padded to 32) through kernels 1-4, and one epoch of
+   ``cli.train --decoder_hidden 1024`` (every other width at its
+   default) through the wide variants of kernels 1-2 and kernels 3-4.
 7. refinement, after the train steps (what it leaves allocated would count
    in their peak memory): checks first, counted apart from the path: the
    polish Cartesian energy and its gradient with the clash term through
@@ -174,20 +187,36 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    world-size-1 NCCL group (its dp all-reduce over NCCL), held likewise;
    (b) tp = 2 on the plain path (no kernel), against the single-process
    plain step; (c) ``cli.train --dp 2`` for one epoch on TRAIN_PROTEIN's
-   pairs (in-memory pair sets, pickled to the ranks), whose full checkpoint
-   the single-process ``cli.generate`` decodes; (d) CUDA-event times of
+   H5 files (each rank reads them through ``EnsembleDataset``), whose full
+   checkpoint the single-process ``cli.generate`` decodes from the
+   validation manifest; (d) CUDA-event times of
    the single-process, dp = 2 and tp = 2 steps (median of 5 after 2
    warm-ups) and of the dp all-reduce alone, printed with the card's name
    and power limit: two ranks sharing one card over gloo, a record of
    cost, not a scaling figure.
+10. the flagship pipeline (``phase_flagship``), last:
+   ``scripts/flagship_run_torch.py``'s stages data, train and gen at its
+   full widths (``ModelConfig()``, bf16, B8, the nerf3 recipe) cut to 2
+   epochs and batteries of 4 samples (raw, then polish with 20 torsion
+   steps), its stage functions run in this process with each CLI command
+   called through its ``main``: the 7 proteins' H5 files written by the
+   port's writer and read through ``EnsembleDataset``; counts reset just
+   before each stage and read just after, printed by mode: data none,
+   train 8 band forwards per step and 8 band backwards per train step in
+   the bf16-model mode and kernels 3-4 per step, gen 2 x 8 fp32 band
+   forwards per structure and battery and kernels 3-4 in polish; the
+   train log finite with no skipped step, both analyses and run.json
+   written.
 9. one ``parallel`` JSON line (phase 8's checks, times and launches by
    rank), one ``wide_decoder`` JSON line (phase 6b), one ``esm`` JSON line (the ESM-2 gates, timings and the path's
-   stage seconds), one ``watch`` JSON line (phase 5b's gaps, checks and
+   stage seconds), one ``flagship`` JSON line (phase 10's stages, launches
+   by mode, the batteries' aggregates), one ``watch`` JSON line (phase 5b's gaps, checks and
    times), one ``kernels`` JSON line (launches by path: generate,
    dataprep, refine, train, train_bf16, train_watch (phase 5b's counted
    run, dumps included), train_dp (both dp ranks' steps;
    every kernel must launch in each rank), wide_decoder (phase 6b: every
-   kernel must launch), and chain_dtype_ab's bf16-chain launches; kernels
+   kernel must launch), flagship (phase 10: every kernel must launch),
+   and chain_dtype_ab's bf16-chain launches; kernels
    1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
    there only), then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -275,9 +304,11 @@ PROFILER_MARKERS = 8   # empty kernels that open a profiled window (_device_kern
 # Kernels 3-4 at the training shapes and at refinement's: B = num_samples
 # over the padded buckets (600 Adam steps of one forward and one backward),
 # and over the 230 residues of the ensemble file that cli.refine reads back
-# (unpadded, not a multiple of the 32-residue tile).
+# (unpadded, not a multiple of the 32-residue tile); then the flagship
+# path's: polish at phase 10's B4 over bucket 128, training at B8 over the
+# buckets 128 and 192.
 CLASH_SHAPES = ((4, 256), (2, 640), (NUM_SAMPLES, 256), (NUM_SAMPLES, 640),
-                (NUM_SAMPLES, 230))
+                (NUM_SAMPLES, 230), (4, 128), (8, 128), (8, 192))
 
 # The bf16-model mode of kernels 1-2: bf16 a / bs, precision "default"
 # (one TF32 pass per product), held against the plain version (fp32 chain,
@@ -336,18 +367,18 @@ def _window_ms(fn, n: int) -> float:
     return s.elapsed_time(e) / n
 
 
-def _median_ms(fn, reps: int = 5) -> float:
+def _median_ms(fn, reps: int = 5, min_launches: int = MIN_LAUNCHES) -> float:
     """Device ms per call: CUDA events around N back-to-back calls divided
     by N, median of ``reps`` windows after warm-up. N is the larger of
-    MIN_LAUNCHES and what fills WINDOW_MS, so that a call shorter than the
-    host's time to issue it reads as the rate the card was fed at, not as
-    one launch waiting for the host."""
+    ``min_launches`` and what fills WINDOW_MS, so that a call shorter than
+    the host's time to issue it reads as the rate the card was fed at, not
+    as one launch waiting for the host."""
     import torch
 
     fn()
     fn()
     torch.cuda.synchronize()
-    n = max(MIN_LAUNCHES, math.ceil(WINDOW_MS / max(_window_ms(fn, 3), 1e-6)))
+    n = max(min_launches, math.ceil(WINDOW_MS / max(_window_ms(fn, 3), 1e-6)))
     return float(np.median([_window_ms(fn, n) for _ in range(reps)]))
 
 
@@ -1092,8 +1123,8 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference,
-        native_width)
+        MAX_NATIVE, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        egnn_band_reference, native_width)
 
     args = _egnn_inputs(B, L, seed, hd)
     chain = torch.bfloat16 if mode.endswith("_chain") else torch.float32
@@ -1146,9 +1177,14 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
         rel, rel_fp32 = _chain_err(tag, outs, got, ref, onepass(), frac)
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
     del got, again, ref
-    ms = _median_ms(call)
-    host_us = _host_us(call, n=MIN_LAUNCHES)
-    plain_ms = _median_ms(plain, reps=3)
+    if hd > MAX_NATIVE:   # the wide variants: tens of ms a call
+        ms = _median_ms(call, reps=WIDER_REPS, min_launches=WIDER_LAUNCHES)
+        host_us = _host_us(call, n=WIDER_LAUNCHES)
+        plain_ms = _median_ms(plain, reps=WIDER_REPS, min_launches=WIDER_LAUNCHES)
+    else:
+        ms = _median_ms(call)
+        host_us = _host_us(call, n=MIN_LAUNCHES)
+        plain_ms = _median_ms(plain, reps=3)
     in_bytes = 4 if in_dtype == torch.float32 else 2
     passes = 3 if mode == FP32_MODE else 1
     peak = PEAK_BF16_FLOPS if chain == torch.bfloat16 else PEAK_TF32_FLOPS
@@ -1167,11 +1203,38 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
                 **({} if rel_fp32 is None else {"max_rel_err_to_fp32_chain": rel_fp32}))
 
 
+# Widths above 512 run the kernels' wide variants (a multiple of 256 at run
+# time, any other width zero-padded up: 640 -> 768, 1100 -> 1280;
+# csrc/egnn_tile.cuh), in the three modes: Hd 1024 at B4/L256, the shape
+# of the `cli.train --decoder_hidden 1024` epoch (phase 6b), and 640, 1100
+# and 2048 at B1/L256. Each row is held at its mode's Hd-256 tolerance; a
+# call there takes tens of ms, so its device time is the median of
+# WIDER_REPS windows of at least WIDER_LAUNCHES calls.
+WIDER_ROWS = (tuple((kernel, mode, 1024, 4, 256)
+                    for mode in (FP32_MODE, BF16_MODE, "bfloat16/bfloat16_chain")
+                    for kernel in ("egnn_band_fwd", "egnn_band_bwd"))
+              + tuple((kernel, mode, hd, 1, 256) for hd in (640, 1100, 2048)
+                      for mode in (FP32_MODE, BF16_MODE, "bfloat16/bfloat16_chain")
+                      for kernel in ("egnn_band_fwd", "egnn_band_bwd")))
+WIDER_REPS, WIDER_LAUNCHES = 3, 3
+
+# The flagship path's own shapes at Hd 256 (phase 10 and
+# scripts/flagship_run_torch.py): training's bf16-model mode of both
+# kernels at B8 over the buckets 128 and 192, and generation's fp32
+# forward over the validation protein's bucket 128 at phase 10's 4
+# samples and the committed run's 20.
+FLAGSHIP_ROWS = (tuple((kernel, BF16_MODE, HD, 8, L) for L in (128, 192)
+                       for kernel in ("egnn_band_fwd", "egnn_band_bwd"))
+                 + tuple(("egnn_band_fwd", FP32_MODE, HD, B, 128) for B in (4, 20)))
+
+
 def phase_wide_kernels() -> dict[str, list[dict]]:
-    """Kernels 1-2 at Hd 512 (WIDE_ROWS) and at padded widths
-    (PADDED_ROWS), each row by ``_band_row``."""
+    """Kernels 1-2 at Hd 512 (WIDE_ROWS), at padded widths (PADDED_ROWS),
+    above 512 (WIDER_ROWS) and at the flagship's shapes (FLAGSHIP_ROWS),
+    each row by ``_band_row``."""
     rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
-    for k, (kernel, mode, hd, B, L) in enumerate(WIDE_ROWS + PADDED_ROWS):
+    for k, (kernel, mode, hd, B, L) in enumerate(WIDE_ROWS + PADDED_ROWS + WIDER_ROWS
+                                                 + FLAGSHIP_ROWS):
         rows[kernel].append(_band_row(kernel, mode, hd, B, L, SEED + 90 + k))
     return rows
 
@@ -1465,17 +1528,19 @@ def _esm_timing(emb, trace_path) -> list[dict]:
 def phase_dataprep(model, out_dir: str, trace_path=None) -> dict:
     """ESM-2 t33 on the card (gates and timing), then the path: the mmCIF
     fixture through parse, gates, core-fit alignment and torsions on the
-    card, its chain's ESM-2 embedding, an in-memory conformer view with the
-    H5 layout (the chip machine has no h5py) and ``generate_ensembles`` with
-    the main model. Kernel 1's counts are reset just before the path and
-    read just after: 2 decodes x decoder_layers per structure."""
+    card, the chain's H5 file (``write_chain_h5``, the port's own writer:
+    the chip machine has no h5py), its ESM-2 embedding appended to it
+    (``add_embeddings_to_h5``), the file read back through
+    ``EnsembleDataset`` and ``generate_ensembles`` with the main model.
+    Kernel 1's counts are reset just before the path and read just after:
+    2 decodes x decoder_layers per structure."""
     import torch
 
-    from protein_ensemble_vae_torch.data.dataset import (SingleConformerView,
-                                                         _conformers_from_group)
+    from protein_ensemble_vae_torch.data.dataset import EnsembleDataset, SingleConformerView
+    from protein_ensemble_vae_torch.dataprep.esm import GROUP, add_embeddings_to_h5
     from protein_ensemble_vae_torch.dataprep.mmcif import (chain_to_arrays,
                                                            parse_mmcif_backbone)
-    from protein_ensemble_vae_torch.dataprep.pipeline import process_chain
+    from protein_ensemble_vae_torch.dataprep.pipeline import process_chain, write_chain_h5
     from protein_ensemble_vae_torch.infer.generate import generate_ensembles
     from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
 
@@ -1502,19 +1567,25 @@ def phase_dataprep(model, out_dir: str, trace_path=None) -> dict:
     if chain is None or chain["mask"].shape != (K, L):
         raise RuntimeError(f"chain {cid} of {DATAPREP_CIF}: expected K={K}, L={L}")
     t0 = time.perf_counter()
-    seq_emb = emb.embed(chain["sequence"])
+    h5 = write_chain_h5(os.path.join(out_dir, "dataprep_h5", f"9xyz_{cid}_nmr.h5"), chain)
+    stages["write_h5_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not add_embeddings_to_h5(h5, emb, verbose=False):
+        raise RuntimeError(f"no embedding written to {h5}")
     stages["embed_s"] = time.perf_counter() - t0
-    if seq_emb.shape != (L, emb.config.hidden) or not np.isfinite(seq_emb).all():
-        raise RuntimeError(f"embedding of chain {cid}: {seq_emb.shape}, finite "
-                           f"{np.isfinite(seq_emb).all()}")
-    h5_like = {"coords_N": chain["coords_n"], "coords_ca": chain["coords_ca"],
-               "coords_C": chain["coords_c"], "mask_ca": chain["mask"]}
-    h5_like.update({k: chain[k] for k in ("torsion_phi_sincos", "torsion_psi_sincos",
-                                          "torsion_omega_sincos")})
-    pid = f"9xyz{cid}"
-    confs = _conformers_from_group(h5_like, pid, "", seq_emb, chain["sequence"])
-    view = SingleConformerView(types.SimpleNamespace(conformers=confs,
-                                                     proteins={pid: list(range(len(confs)))}))
+    t0 = time.perf_counter()
+    manifest = os.path.join(out_dir, "dataprep_h5", "manifest.csv")
+    with open(manifest, "w") as f:
+        f.write(f"h5_path\n{h5}\n")
+    ds = EnsembleDataset(manifest, use_seqemb=True, verbose=False)
+    stages["read_h5_s"] = time.perf_counter() - t0
+    seq_emb = ds.conformers[0].seq_emb
+    if (seq_emb is None or seq_emb.shape != (L, emb.config.hidden)
+            or not np.isfinite(seq_emb).all() or len(ds.conformers) != K
+            or not np.array_equal(ds.conformers[0].ca, chain["coords_ca"][0])):
+        raise RuntimeError(f"{h5} ({GROUP}) read back {len(ds.conformers)} conformers, "
+                           f"embedding {None if seq_emb is None else seq_emb.shape}")
+    view = SingleConformerView(ds)
     t0 = time.perf_counter()
     out = generate_ensembles(model, view, gen_dir, num_samples=NUM_SAMPLES, seed=SEED,
                              buckets=BUCKETS, verbose=False)
@@ -1585,6 +1656,36 @@ def _nerf_conformers(pid: str, L: int, seed: int, K: int, seqemb_dim: int):
     return [Conformer(n=n[k], ca=ca[k], c=c[k], mask=mask, seq_emb=emb,
                       dihedrals=_torsions_np(n[k], ca[k], c[k], mask).astype(np.float32),
                       sequence=seq, protein_id=pid, h5_path="") for k in range(K)]
+
+
+def _pair_manifests(out_dir: str, protein: tuple, seqemb_dim: int) -> tuple[str, str]:
+    """``protein``'s NeRF fold (id, length, seed, conformers K) as real H5
+    files, written by the port's own writer (``data.synthetic.
+    write_synthetic_h5`` through ``data/h5file.py``: the card's machine has
+    no h5py), and their manifests, read back by the CLIs through the normal
+    ``EnsembleDataset``: K conformers to train on (K (K - 1) / 2 pairs) and
+    2 conformers of the seed + 1 fold to validate on (1 pair). Written once
+    per ``out_dir``."""
+    from protein_ensemble_vae_torch.data.synthetic import write_synthetic_h5
+
+    pid, L, seed, K = protein
+    root = os.path.join(out_dir, "h5", f"{pid}_{seqemb_dim}")
+    csvs = tuple(os.path.join(root, f"manifest_{s}.csv") for s in ("train", "val"))
+    if all(os.path.exists(c) for c in csvs):
+        return csvs
+    for csv_path, tag, k, sd in ((csvs[0], "", K, seed), (csvs[1], "v", 2, seed + 1)):
+        h5 = write_synthetic_h5(os.path.join(root, f"{pid}{tag}_nmr.h5"), K=k, L=L, seed=sd,
+                                noise=0.105, seqemb_dim=seqemb_dim, fold="nerf")
+        with open(csv_path, "w") as f:
+            f.write(f"h5_path\n{h5}\n")
+    return csvs
+
+
+def _pair_steps(protein: tuple, batch_size: int) -> tuple[int, int]:
+    """Train and val steps of one epoch over ``_pair_manifests``' pairs
+    (one length, so one bucket)."""
+    K = protein[3]
+    return -(-(K * (K - 1) // 2) // batch_size), 1
 
 
 class EpochLaunches:
@@ -1685,43 +1786,32 @@ def phase_train_path(out_dir: str) -> dict:
 
 def phase_train_cli_bf16(out_dir: str) -> dict:
     """``cli.train --compute_dtype bfloat16`` for one epoch at the default
-    widths, batch 4, on TRAIN_PROTEIN's pairs (8 train / 2 val). The chip
-    machine has no ``h5py``, so the manifests name in-memory pair sets that
-    stand in for ``EnsembleDataset`` inside the call. Counts reset just
+    widths, batch 4, on TRAIN_PROTEIN's H5 files (``_pair_manifests``: 10
+    train / 1 val pairs) read through ``EnsembleDataset``. Counts reset just
     before and read just after: per train step 8 band forwards, 8 band
     backwards, one of each clash kernel; per eval step 8 + 1; every band
     launch in the bf16 mode."""
     import torch
 
-    import protein_ensemble_vae_torch.data as data
     from protein_ensemble_vae_torch.cli import train as train_cli
     from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
                                                        reset_launches)
 
     cfg = ModelConfig()
-    pid, L, seed, K = TRAIN_PROTEIN
-    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
-    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
-    sets = {"train.csv": PairSet(confs, pairs[:8], cfg.seqemb_dim),
-            "val.csv": PairSet(confs, pairs[8:], cfg.seqemb_dim)}
+    train_csv, val_csv = _pair_manifests(out_dir, TRAIN_PROTEIN, cfg.seqemb_dim)
     save = os.path.join(out_dir, "train_cli_bf16")
-    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+    argv = ["--manifest_train", train_csv, "--manifest_val", val_csv, "--use_seqemb",
             "--epochs", "1", "--batch_size", "4", "--compute_dtype", "bfloat16",
             "--save", save, "--device", DEVICE]
-    orig = data.EnsembleDataset
-    data.EnsembleDataset = lambda manifest, **kw: sets[manifest]
-    try:
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        train_cli.main(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        data.EnsembleDataset = orig
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
-    tr_steps, va_steps = -(-8 // 4), -(-2 // 4)
+    tr_steps, va_steps = _pair_steps(TRAIN_PROTEIN, 4)
     want = {"egnn_band_fwd": cfg.decoder_layers * (tr_steps + va_steps),
             "egnn_band_bwd": cfg.decoder_layers * tr_steps,
             "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps}
@@ -1786,7 +1876,8 @@ def _watch_stats_gap(npz, want: dict) -> tuple[float, float]:
 
 def phase_watch_path(out_dir: str, card: str) -> dict:
     """``cli.train --watch_every 1`` for 2 epochs at the default widths, fp32,
-    batch 4, on TRAIN_PROTEIN's pairs (8 train / 2 val): counts reset just
+    batch 4, on TRAIN_PROTEIN's H5 files (``_pair_manifests``: 10 train / 1
+    val pairs, read through ``EnsembleDataset``): counts reset just
     before and read just after; each epoch launches its train and val
     steps' kernels plus 8 / 8 / 1 / 1 for the dump. Two dumps, each with a
     ``param/`` and a ``grad/`` entry for every parameter, all finite; the
@@ -1818,13 +1909,14 @@ def phase_watch_path(out_dir: str, card: str) -> dict:
     from protein_ensemble_vae_torch.viz import parameters as viz_params
     from protein_ensemble_vae_torch.viz import training_curves
 
+    from protein_ensemble_vae_torch.data import EnsembleDataset
+
     t_phase = time.perf_counter()
     cfg = ModelConfig()
-    pid, L, seed, K = TRAIN_PROTEIN
-    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
-    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
-    sets = (PairSet(confs, pairs[:8], cfg.seqemb_dim), PairSet(confs, pairs[8:], cfg.seqemb_dim))
-    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+    train_csv, val_csv = _pair_manifests(out_dir, TRAIN_PROTEIN, cfg.seqemb_dim)
+    sets = tuple(EnsembleDataset(m, use_seqemb=True, verbose=False)
+                 for m in (train_csv, val_csv))
+    argv = ["--manifest_train", train_csv, "--manifest_val", val_csv, "--use_seqemb",
             "--epochs", "2", "--batch_size", "4", "--seed", str(SEED), "--device", DEVICE]
     dumps = []
     orig_dump = watch.dump_watch_npz
@@ -1845,7 +1937,7 @@ def phase_watch_path(out_dir: str, card: str) -> dict:
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            train_cli.main(argv + ["--save", save] + extra, datasets=sets)
+            train_cli.main(argv + ["--save", save] + extra)
             torch.cuda.synchronize()
         finally:
             watch.dump_watch_npz = orig_dump
@@ -2609,38 +2701,31 @@ TINY_PROTEIN = ("synU", 24, 4, 4)   # id, length, fold seed, conformers (6 pairs
 
 def _tiny_cli_train(out_dir: str) -> dict:
     """``cli.train --device cuda`` for one epoch at TINY_CLI's widths on
-    TINY_PROTEIN's pairs (4 train / 2 val, in-memory pair sets standing in
-    for ``EnsembleDataset``, as ``phase_train_cli_bf16``). Counts reset just
-    before and read just after: per train step 2 band forwards, 2 band
-    backwards, one of each clash kernel; per eval step 2 + 1; every band
-    launch in FP32_MODE."""
+    TINY_PROTEIN's H5 files (``_pair_manifests``: 6 train / 1 val pairs).
+    Counts reset just before and read just after: per train step 2 band
+    forwards, 2 band backwards, one of each clash kernel; per eval step
+    2 + 1; every band launch in FP32_MODE."""
     import torch
 
-    import protein_ensemble_vae_torch.data as data
     from protein_ensemble_vae_torch.cli import train as train_cli
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
                                                        reset_launches)
 
-    pid, L, seed, K = TINY_PROTEIN
-    confs = _nerf_conformers(pid, L, seed, K, 16)
-    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
-    sets = {"train.csv": PairSet(confs, pairs[:4], 16), "val.csv": PairSet(confs, pairs[4:], 16)}
+    train_csv, val_csv = _pair_manifests(out_dir, TINY_PROTEIN, 16)
     save = os.path.join(out_dir, "train_cli_tiny")
-    orig = data.EnsembleDataset
-    data.EnsembleDataset = lambda manifest, **kw: sets[manifest]
-    try:
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        train_cli.main(["--manifest_train", "train.csv", "--manifest_val", "val.csv",
-                        *TINY_CLI, "--epochs", "1", "--save", save, "--device", DEVICE])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        data.EnsembleDataset = orig
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_cli.main(["--manifest_train", train_csv, "--manifest_val", val_csv,
+                    *TINY_CLI, "--epochs", "1", "--save", save, "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
-    want = {"egnn_band_fwd": 2 * 2, "egnn_band_bwd": 2, "clash_fwd": 2, "clash_bwd": 1}
-    want_modes = {f"egnn_band_fwd:{FP32_MODE}": 4, f"egnn_band_bwd:{FP32_MODE}": 2}
+    tr, va = _pair_steps(TINY_PROTEIN, 4)
+    want = {"egnn_band_fwd": 2 * (tr + va), "egnn_band_bwd": 2 * tr, "clash_fwd": tr + va,
+            "clash_bwd": tr}
+    want_modes = {f"egnn_band_fwd:{FP32_MODE}": want["egnn_band_fwd"],
+                  f"egnn_band_bwd:{FP32_MODE}": want["egnn_band_bwd"]}
     with open(os.path.join(save, "final", "history.json")) as f:
         history = json.load(f)
     finite = all(np.isfinite(v).all() for split in ("train", "val")
@@ -2652,6 +2737,56 @@ def _tiny_cli_train(out_dir: str) -> dict:
     if launches != want or modes != want_modes or not finite:
         raise RuntimeError(f"cli.train at decoder width 16 launched {launches} / {modes}, "
                            f"expected {want} / {want_modes}, or gave non-finite losses")
+    return dict(launches=launches, modes=modes, seconds=secs)
+
+
+WIDER_CLI_HD = 1024   # a decoder above the native widths: the wide variants
+
+
+def _wider_cli_train(out_dir: str) -> dict:
+    """``cli.train --decoder_hidden WIDER_CLI_HD --device cuda`` for one
+    epoch, every other width at its default, fp32, batch 4, on
+    TRAIN_PROTEIN's H5 files (``_pair_manifests``). Counts reset just
+    before and read just after: per train step 8 band forwards and 8 band
+    backwards (the wide variants), one of each clash kernel; per eval step
+    8 + 1; every band launch in FP32_MODE; losses finite."""
+    import torch
+
+    from protein_ensemble_vae_torch.cli import train as train_cli
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
+
+    cfg = ModelConfig()
+    train_csv, val_csv = _pair_manifests(out_dir, TRAIN_PROTEIN, cfg.seqemb_dim)
+    save = os.path.join(out_dir, "train_cli_wider")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    train_cli.main(["--manifest_train", train_csv, "--manifest_val", val_csv, "--use_seqemb",
+                    "--epochs", "1", "--batch_size", "4", "--decoder_hidden",
+                    str(WIDER_CLI_HD), "--save", save, "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+    tr, va = _pair_steps(TRAIN_PROTEIN, 4)
+    n = cfg.decoder_layers
+    want = {"egnn_band_fwd": n * (tr + va), "egnn_band_bwd": n * tr, "clash_fwd": tr + va,
+            "clash_bwd": tr}
+    want_modes = {f"egnn_band_fwd:{FP32_MODE}": want["egnn_band_fwd"],
+                  f"egnn_band_bwd:{FP32_MODE}": want["egnn_band_bwd"]}
+    with open(os.path.join(save, "final", "history.json")) as f:
+        history = json.load(f)
+    finite = all(np.isfinite(v).all() for split in ("train", "val")
+                 for v in history[split].values())
+    log(f"[wide] cli.train --decoder_hidden {WIDER_CLI_HD} --device {DEVICE}, 1 epoch: "
+        f"{secs:.2f} s (host clock, model set-up and first use included), launches "
+        f"{launches} (expected {want}), by mode {modes}; losses finite: {finite}; train "
+        f"loss {history['train']['loss'][-1]:.3f}")
+    if launches != want or modes != want_modes or not finite:
+        raise RuntimeError(f"cli.train at decoder width {WIDER_CLI_HD} launched {launches} / "
+                           f"{modes}, expected {want} / {want_modes}, or gave non-finite "
+                           "losses")
     return dict(launches=launches, modes=modes, seconds=secs)
 
 
@@ -2703,14 +2838,147 @@ def phase_wide_decoder(views, out_dir: str) -> dict:
         del kmodel, pmodel
         torch.cuda.empty_cache()
     cli = _tiny_cli_train(out_dir)
-    launches = {k: gen["launches"][k] + cli["launches"][k]
+    wider = _wider_cli_train(out_dir)
+    launches = {k: gen["launches"][k] + cli["launches"][k] + wider["launches"][k]
                 + sum(STEP_REPS * r["launches"][k] for r in steps if r["path"] == "kernel")
                 for k in cli["launches"]}
     log(f"[wide] Hd {WIDE_HD} path launches {launches}: generation {gen['launches']}, "
         f"{STEP_REPS} fp32 + {STEP_REPS} bf16 timed steps, the width-16 CLI epoch "
-        f"{cli['launches']}")
+        f"{cli['launches']}, the width-{WIDER_CLI_HD} CLI epoch {wider['launches']}")
     return dict(launches=launches, per_structure=gen["per_structure"], peak_mib=gen["peak"] / 2**20,
-                steps=steps, compare=compare, cli=cli)
+                steps=steps, compare=compare, cli=cli, cli_wider=wider)
+
+
+# ---------------------------------------------------------------------------
+# 10. the flagship pipeline
+# ---------------------------------------------------------------------------
+
+# scripts/flagship_run_torch.py at its full widths (ModelConfig(), bf16,
+# B8, the nerf3 recipe) cut to 2 epochs and batteries of 4 samples with 20
+# torsion-stage polish steps (the Cartesian stage's 600 are fixed).
+FLAGSHIP_ENV = dict(FLAGSHIP_EPOCHS="2", FLAGSHIP_FOLD="nerf", FLAGSHIP_PLATEAU="160",
+                    FLAGSHIP_SAMPLES="4", FLAGSHIP_REFINE="20")
+FLAGSHIP_STRUCTURES = 5   # the validation protein's conformers (K = 5)
+
+
+def _flagship_steps(manifest: str, batch_size: int) -> int:
+    """Steps of one epoch over a manifest's pairs, batched by length bucket."""
+    from protein_ensemble_vae_torch.config import TrainConfig
+    from protein_ensemble_vae_torch.data import EnsembleDataset
+    from protein_ensemble_vae_torch.data.collate import make_epoch_batches
+
+    ds = EnsembleDataset(manifest, use_seqemb=True, verbose=False)
+    return sum(1 for _ in make_epoch_batches(ds, batch_size, TrainConfig().bucket_sizes,
+                                             False, 0))
+
+
+def phase_flagship(out_dir: str) -> dict:
+    """``scripts/flagship_run_torch.py``'s stages ``data``, ``train`` and
+    ``gen`` with FLAGSHIP_ENV on the card: its own stage functions, each of
+    its CLI commands called through the module's ``main`` in this process
+    (so that the counts are read here; the commands are the script's).
+    The data stage writes the 7 proteins' H5 files with the port's writer
+    (no h5py on this machine) and the train and gen stages read them
+    through ``EnsembleDataset``. Counts reset just before each stage and
+    read just after, by mode: data launches nothing; train launches per
+    epoch 8 band forwards per train and val step and 8 band backwards per
+    train step, all in the bf16-model mode, and one of each clash kernel
+    per step; gen (the raw battery, then polish) 2 decodes x 8 layers per
+    structure and battery of fp32 band forwards, and kernels 3-4 in
+    polish's Cartesian stage. The train log is finite with no skipped step,
+    both analyses are written, run.json records every stage."""
+    import importlib
+    import importlib.util
+
+    import torch
+
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.infer.refine import clear_graphs
+    from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
+                                                       reset_launches)
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "flagship_run_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "scripts", "flagship_run_torch.py"))
+    fr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fr)
+    root = os.path.join(out_dir, "flagship")
+    s = fr.settings(dict(FLAGSHIP_ENV, FLAGSHIP_ROOT=root, FLAGSHIP_DEVICE=DEVICE))
+
+    def in_process(cmds, record):
+        for cmd in cmds:
+            record.append(cmd)
+            importlib.import_module(cmd[2]).main(cmd[3:])
+
+    stages = {}
+    fr._run = in_process
+    for name, stage in (("data", fr.build_data), ("train", fr.train),
+                        ("gen", fr.generate_and_analyze)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stage(s)
+        torch.cuda.synchronize()
+        stages[name] = dict(seconds=time.perf_counter() - t0, launches=dict(LAUNCHES),
+                            modes=dict(BAND_MODE_LAUNCHES))
+        log(f"[flagship] {name}: {stages[name]['seconds']:.1f} s (host clock), launches "
+            f"{stages[name]['launches']}, band launches by mode {stages[name]['modes']}")
+    clear_graphs()
+
+    n = ModelConfig().decoder_layers
+    epochs = int(FLAGSHIP_ENV["FLAGSHIP_EPOCHS"])
+    tr = _flagship_steps(os.path.join(root, "data", "manifest_train.csv"), 8)
+    va = _flagship_steps(os.path.join(root, "data", "manifest_val.csv"), 8)
+    want_train = {"egnn_band_fwd": epochs * n * (tr + va), "egnn_band_bwd": epochs * n * tr,
+                  "clash_fwd": epochs * (tr + va), "clash_bwd": epochs * tr}
+    want_train_modes = {f"egnn_band_fwd:{BF16_MODE}": want_train["egnn_band_fwd"],
+                        f"egnn_band_bwd:{BF16_MODE}": want_train["egnn_band_bwd"]}
+    gen_fwd = 2 * FLAGSHIP_STRUCTURES * 2 * n
+    got_gen = stages["gen"]["launches"]
+    bad = []
+    if any(stages["data"]["launches"].values()):
+        bad.append(f"data launched {stages['data']['launches']}")
+    if (stages["train"]["launches"] != want_train
+            or stages["train"]["modes"] != want_train_modes):
+        bad.append(f"train launched {stages['train']['launches']} / {stages['train']['modes']}, "
+                   f"expected {want_train} / {want_train_modes}")
+    if (got_gen["egnn_band_fwd"] != gen_fwd or got_gen["egnn_band_bwd"]
+            or stages["gen"]["modes"] != {f"egnn_band_fwd:{FP32_MODE}": gen_fwd}
+            or not got_gen["clash_fwd"] or not got_gen["clash_bwd"]):
+        bad.append(f"gen launched {got_gen} / {stages['gen']['modes']}, expected "
+                   f"{gen_fwd} fp32 band forwards and kernels 3-4 in polish")
+    recs = [json.loads(line) for line in open(os.path.join(root, "train_log.jsonl"))]
+    if len(recs) != epochs or any(
+            r.get("train/nonfinite_frac", 1) != 0 or not all(
+                np.isfinite(v) for v in r.values() if isinstance(v, float)) for r in recs):
+        bad.append(f"train_log.jsonl: {len(recs)} epochs, or non-finite / skipped steps")
+    for f in ("analysis.txt", "analysis_raw.txt"):
+        with open(os.path.join(root, f)) as fh:
+            if "AGGREGATE" not in fh.read():
+                bad.append(f"{f} has no aggregate")
+    with open(os.path.join(root, "run.json")) as f:
+        run = json.load(f)
+    if [st["stage"] for st in run["stages"]] != ["data", "train", "gen"] or not all(
+            st["ok"] for st in run["stages"]):
+        bad.append(f"run.json stages {[(st['stage'], st['ok']) for st in run['stages']]}")
+    if bad:
+        raise RuntimeError("flagship: " + "; ".join(bad))
+    aggregate = {}
+    for tag, f in (("raw", "analysis_raw.txt"), ("polish", "analysis.txt")):
+        with open(os.path.join(root, f)) as fh:
+            text = fh.read().split("AGGREGATE", 1)[1]
+        aggregate[tag] = {k.strip(): float(v) for k, v in
+                          (line.split(":", 1) for line in text.splitlines()
+                           if line.strip().startswith("mean_"))}
+    log(f"[flagship] {epochs} epochs ({tr} + {va} steps each, B8), val RMSD "
+        f"{[round(r['val/rmsd'], 3) for r in recs]}, {recs[-1]['seconds']:.2f} s for the last "
+        f"epoch; raw battery {aggregate['raw']}; polish battery {aggregate['polish']}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s (random-init weights: the "
+        "numbers mean nothing)")
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in LAUNCHES}
+    return dict(launches=launches, stages=stages, aggregate=aggregate,
+                epoch_seconds=[r["seconds"] for r in recs])
 
 
 # ---------------------------------------------------------------------------
@@ -3264,28 +3532,24 @@ def _parity(tag: str, ranks: list, ref: dict, want: dict, backend: str) -> dict:
 
 def _parallel_cli(out_dir: str) -> dict:
     """``cli.train --dp 2`` for one epoch at the default widths, batch 4, on
-    TRAIN_PROTEIN's pairs (8 train / 2 val; in-memory pair sets stand in
-    for the manifests' H5 datasets, as in phase 5, and go to the ranks
-    pickled), then the single-process ``cli.generate`` on its checkpoint."""
+    TRAIN_PROTEIN's H5 files (``_pair_manifests``; each rank reads them
+    through ``EnsembleDataset``), then the single-process ``cli.generate``
+    on its checkpoint from the validation manifest."""
     import torch
 
-    import protein_ensemble_vae_torch.data as data
     from protein_ensemble_vae_torch.cli import generate as gen_cli
     from protein_ensemble_vae_torch.cli import train as train_cli
     from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.models import HierCVAE
 
     cfg = ModelConfig()
-    pid, L, seed, K = TRAIN_PROTEIN
-    confs = _nerf_conformers(pid, L, seed, K, cfg.seqemb_dim)
-    pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
-    sets = (PairSet(confs, pairs[:8], cfg.seqemb_dim), PairSet(confs, pairs[8:], cfg.seqemb_dim))
+    train_csv, val_csv = _pair_manifests(out_dir, TRAIN_PROTEIN, cfg.seqemb_dim)
     save = os.path.join(out_dir, "train_cli_dp2")
-    argv = ["--manifest_train", "train.csv", "--manifest_val", "val.csv", "--use_seqemb",
+    argv = ["--manifest_train", train_csv, "--manifest_val", val_csv, "--use_seqemb",
             "--epochs", "1", "--batch_size", "4", "--dp", "2", "--save", save,
             "--device", DEVICE]
     t0 = time.perf_counter()
-    train_cli.main(argv, datasets=sets, timeout_s=PARALLEL_WAIT_S)
+    train_cli.main(argv, timeout_s=PARALLEL_WAIT_S)
     secs = time.perf_counter() - t0
     final = os.path.join(save, "final")
     with open(os.path.join(final, "history.json")) as f:
@@ -3299,15 +3563,9 @@ def _parallel_cli(out_dir: str) -> dict:
     if {k: v.shape for k, v in saved.items()} != full:
         raise RuntimeError("cli.train --dp 2 checkpoint does not hold the full parameters")
     gen_dir = os.path.join(out_dir, "generate_dp2")
-    orig = data.EnsembleDataset
-    data.EnsembleDataset = lambda manifest, **kw: types.SimpleNamespace(
-        conformers=confs[:1], proteins={pid: [0]})
-    try:
-        gen_cli.main(["--checkpoint", final, "--manifest", "val.csv", "--output_dir",
-                      gen_dir, "--num_samples", "2", "--max_structures", "1",
-                      "--device", DEVICE])
-    finally:
-        data.EnsembleDataset = orig
+    gen_cli.main(["--checkpoint", final, "--manifest", val_csv, "--output_dir",
+                  gen_dir, "--num_samples", "2", "--max_structures", "1",
+                  "--device", DEVICE])
     pdbs = sorted(f for f in os.listdir(gen_dir) if f.endswith(".pdb"))
     if not any(f.endswith("_ensemble.pdb") for f in pdbs):
         raise RuntimeError(f"cli.generate on the dp=2 checkpoint wrote {pdbs}")
@@ -3554,6 +3812,7 @@ def main(argv=None) -> None:
         # count in their peak memory
         refine_gates(args.profile)
         refine = phase_refine_path(main_model(), views, out_dir, gen["per_structure"])
+        flagship = phase_flagship(out_dir)
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3573,9 +3832,10 @@ def main(argv=None) -> None:
                    "dataprep": dataprep["launches"][name],
                    "chain_dtype_ab": sum(v for k, v in chain_modes.items()
                                          if k.endswith("/bfloat16_chain")),
-                   "wide_decoder": wide["launches"][name]}
+                   "wide_decoder": wide["launches"][name],
+                   "flagship": flagship["launches"][name]}
         if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_watch"],
-                  by_path["train_dp"], by_path["wide_decoder"])
+                  by_path["train_dp"], by_path["wide_decoder"], by_path["flagship"])
                 or any(r[name] == 0 for r in parallel["launches_by_rank"])
                 or (name != "egnn_band_bwd" and by_path["refine"] == 0)
                 or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
@@ -3621,12 +3881,14 @@ def main(argv=None) -> None:
                                                      "records", "times", "seconds")}}))
     log(json.dumps({"train_steps": steps}))
     log(json.dumps({"wide_decoder": {k: wide[k] for k in ("per_structure", "peak_mib", "steps",
-                                                          "compare", "cli")}}))
+                                                          "compare", "cli", "cli_wider")}}))
     log(json.dumps({"parallel": {k: parallel[k] for k in ("checks", "times",
                                                            "launches_by_rank",
                                                            "cli_seconds")}}))
     log(json.dumps({"esm": {k: dataprep[k] for k in ("timed", "stages", "cpu_err", "cpu_atol",
                                                      "bucket_err", "bucket_atol")}}))
+    log(json.dumps({"flagship": {k: flagship[k] for k in ("stages", "aggregate",
+                                                          "epoch_seconds")}}))
     stop_children()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -521,6 +521,332 @@ egnn_bwd_edges(const In* __restrict__ a, const In* __restrict__ bs,
     }
 }
 
+// The wide edge pass (hd > 512, WIDE_GROUP | hd; egnn_tile.cuh): the same
+// items, chain, rounding and scratch rows as egnn_bwd_edges, each product
+// run over the hd output columns in groups of WIDE_GROUP with its A operand
+// read from the item's own scratch rows (m1, m, cot_v, cot_u: written by
+// this block before a barrier), so shared memory holds only the row
+// arrays and the per-row sums. The vector-grad column sums go straight to
+// the block's partial in device memory (each column owned by one lane per
+// group: a fixed order, no atomics); the per-row dot products (wsc,
+// cot_d2) are summed over the warps, then over the groups, in order.
+template <class In, int MODE>
+__global__ void __launch_bounds__(WideTile::THREADS, WideTile::MIN_BLOCKS)
+egnn_bwd_edges_wide(const In* __restrict__ a, const In* __restrict__ bs,
+                    const float* __restrict__ x, const float* __restrict__ cmask,
+                    const typename Chain<MODE>::Act* __restrict__ w_d,
+                    const typename Chain<MODE>::Act* __restrict__ w_e2,
+                    const typename Chain<MODE>::Act* __restrict__ b_e2,
+                    const typename Chain<MODE>::Act* __restrict__ w_x1,
+                    const typename Chain<MODE>::Act* __restrict__ b_x1,
+                    const typename Chain<MODE>::Act* __restrict__ w_x2,
+                    const typename Chain<MODE>::Act* __restrict__ b_x2,
+                    const typename Chain<MODE>::Act* __restrict__ w_e2t,
+                    const typename Chain<MODE>::Act* __restrict__ w_x1t,
+                    const float* __restrict__ g_agg, const float* __restrict__ g_delta,
+                    Scratch<typename Chain<MODE>::Act> s, int L, int hd, int W, int items) {
+    using TL = WideTile;
+    using Act = typename Chain<MODE>::Act;
+    constexpr bool CB = Chain<MODE>::BF16;
+    constexpr int MT = TL::MT, NT = TL::NT;
+    __shared__ float red1[TL::WN * M], red2[TL::WN * M];   // wsc, cot_d2 partials of a group
+    __shared__ float sum1[M], sum2[M];                     // the same summed over groups
+    __shared__ float row_valid[M], row_d2[M], row_cw[M], row_rel[3 * M];
+    __shared__ int row_j[M];
+    // products in the mode; the fp32 chain's gradients without STEP_SUM, as egnn_bwd_edges
+    auto gemm = [&](const Act* A, const Act* w, int c0, float (&acc)[MT][NT][4], const Lane& ln) {
+        if constexpr (CB) gemm_wide(A, hd, w, hd, c0, hd, acc, ln);
+        else gemm_wide<MODE, STEP_SUM>(A, hd, w, hd, c0, hd, acc, ln);
+    };
+
+    const int tid = threadIdx.x;
+    const Lane ln = Lane::of<WIDE_GROUP>(tid);
+    const int wn = (tid / 32) % TL::WN;
+    const int n_off = 2 * W;
+    const int n_steps = (n_off + OPS - 1) / OPS;
+    const int n_tiles = (L + T - 1) / T;
+    const float bx2 = to_float(b_x2[0]);
+
+    // this block's vector-grad partial (w_d, b_e2, b_x1, w_x2 columns; b_x2)
+    float* vp = s.vpart + (size_t)blockIdx.x * vpart_stride(hd);
+    for (int k = tid; k < NVEC * hd; k += TL::THREADS) vp[k] = 0.f;
+    float cs[2][NT][2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) cs[q][nt][0] = cs[q][nt][1] = 0.f;
+    float cw_sum = 0.f;      // tid < M: b_x2 grad
+    float acc[MT][NT][4];
+
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int step = item % n_steps;
+        const int i0 = ((item / n_steps) % n_tiles) * T;
+        const int b = item / (n_steps * n_tiles);
+        const size_t row0 = (size_t)b * L;
+        const In* a_b = a + row0 * hd;
+        const In* bs_b = bs + row0 * hd;
+        const size_t erow = (size_t)item * M;
+        const int my_i = i0 + ln.g;
+        Act* m1_rows = s.m1 + erow * hd;
+        Act* mm_rows = s.mm + erow * hd;
+        Act* cotu_rows = s.cotu + erow * hd;
+        Act* cotv_rows = s.cotv + erow * hd;
+
+        __syncthreads();   // last item's row arrays and sums are consumed
+        float v = 0.f;
+        if (tid < M) {
+            const int o = tid / T, rr = tid % T;
+            const int e = step * OPS + o, i = i0 + rr;
+            float d2 = 0.f, cw = 0.f, rel[3] = {0.f, 0.f, 0.f};
+            int j = 0;
+            if (e < n_off && i < L) {
+                j = i + band_offset(e, W);
+                if (j >= 0 && j < L && cmask[row0 + i] > 0.5f && cmask[row0 + j] > 0.5f) {
+                    v = 1.f;
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) rel[c] = x[(row0 + i) * 3 + c] - x[(row0 + j) * 3 + c];
+                    d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+                    const float* gd = g_delta + (row0 + i) * 3;
+                    cw = gd[0] * rel[0] + gd[1] * rel[1] + gd[2] * rel[2];
+                }
+            }
+            row_valid[tid] = v;
+            row_d2[tid] = d2;
+            row_cw[tid] = cw;
+            row_j[tid] = j;
+            sum1[tid] = sum2[tid] = 0.f;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) row_rel[tid * 3 + c] = rel[c];
+        }
+        const int any = __syncthreads_or(v > 0.f);
+        if (tid == 0) s.flags[item] = any;
+        if (!any) continue;
+
+        // m1 = silu(pre) to the scratch rows; rows of invalid edges are 0
+        constexpr int NV = Vec<In>::N;
+        const int hdv = hd / NV;
+        for (int idx = tid; idx < M * hdv; idx += TL::THREADS) {
+            const int r = idx / hdv, c = NV * (idx % hdv);
+            float p[NV];
+#pragma unroll
+            for (int q = 0; q < NV; ++q) p[q] = 0.f;
+            if (row_valid[r] > 0.f) {
+                float av[NV], bv[NV];
+                load_vec(a_b + (size_t)(i0 + r % T) * hd + c, av);
+                load_vec(bs_b + (size_t)row_j[r] * hd + c, bv);
+                const float d2 = row_d2[r];
+#pragma unroll
+                for (int q4 = 0; q4 < NV / 4; ++q4) {
+                    const float4 wd = load4(w_d + c + 4 * q4);
+                    const float w4[4] = {wd.x, wd.y, wd.z, wd.w};
+#pragma unroll
+                    for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
+                        if constexpr (CB) p[q] = silu_bf16(pre_bf16(av[q], bv[q], rbf(d2), w4[q % 4]));
+                        else p[q] = silu(av[q] + bv[q] + d2 * w4[q % 4]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4)
+                store4(m1_rows + (size_t)r * hd + c + 4 * q4,
+                       make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]));
+        }
+        __syncthreads();
+
+        // u = m1 @ W_e2 + b_e2: silu'(u) waits in the cot_u rows, m = silu(u)
+        for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+            gemm(m1_rows, w_e2, c0, acc, ln);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        const int col = c0 + ln.col0 + nt * 8;
+                        const float2 be = load2(b_e2 + col);
+                        Act* du = cotu_rows + (size_t)(ln.row0 + mt * 16 + 8 * h) * hd + col;
+                        if constexpr (CB) {
+                            const float u0 = rbf(rbf(acc[mt][nt][2 * h]) + be.x);
+                            const float u1 = rbf(rbf(acc[mt][nt][2 * h + 1]) + be.y);
+                            store2(du, dsilu_bf16(u0), dsilu_bf16(u1));
+                            acc[mt][nt][2 * h] = silu_bf16(u0);
+                            acc[mt][nt][2 * h + 1] = silu_bf16(u1);
+                        } else {
+                            const float u0 = acc[mt][nt][2 * h] + be.x;
+                            const float u1 = acc[mt][nt][2 * h + 1] + be.y;
+                            store2(du, dsilu(u0), dsilu(u1));
+                            acc[mt][nt][2 * h] = silu(u0);
+                            acc[mt][nt][2 * h + 1] = silu(u1);
+                        }
+                    }
+            store_rows_wide(mm_rows, hd, c0, acc, ln);
+        }
+        __syncthreads();   // m complete
+
+        // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 (per row); cot_v
+        for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+            gemm(mm_rows, w_x1, c0, acc, ln);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = ln.row0 + mt * 16 + 8 * h;
+                    const float cw = CB ? rbf(row_cw[r]) : row_cw[r];   // cot_wsc
+                    float sw = 0.f;
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        const float2 bx = load2(b_x1 + c0 + ln.col0 + nt * 8);
+                        const float2 wx = load2(w_x2 + c0 + ln.col0 + nt * 8);
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const float wx2 = c ? wx.y : wx.x;
+                            float w1, cot_v;
+                            if constexpr (CB) {
+                                const float vv = rbf(rbf(acc[mt][nt][2 * h + c]) + (c ? bx.y : bx.x));
+                                w1 = silu_bf16(vv);
+                                cot_v = rbf(rbf(cw * wx2) * dsilu_bf16(vv));
+                            } else {
+                                const float vv = acc[mt][nt][2 * h + c] + (c ? bx.y : bx.x);
+                                w1 = silu(vv);
+                                cot_v = cw * wx2 * dsilu(vv);
+                            }
+                            sw = fmaf(w1, wx2, sw);
+                            cs[0][nt][c] += w1 * cw;   // w_x2 grad
+                            cs[1][nt][c] += cot_v;     // b_x1 grad
+                            acc[mt][nt][2 * h + c] = cot_v;
+                        }
+                    }
+                    sw = quad_sum(sw);
+                    if (ln.t == 0) red1[wn * M + r] = sw;
+                }
+            store_rows_wide(cotv_rows, hd, c0, acc, ln);
+            flush_cols<WIDE_GROUP>(vp + 3 * hd + c0, cs[0], ln);
+            flush_cols<WIDE_GROUP>(vp + 2 * hd + c0, cs[1], ln);
+            __syncthreads();
+            if (tid < M) {
+                float t = 0.f;
+#pragma unroll
+                for (int q = 0; q < TL::WN; ++q) t += red1[q * M + tid];
+                sum1[tid] += t;
+            }
+            __syncthreads();   // red1 consumed; after the last group, cot_v complete
+        }
+
+        // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u)
+        for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+            gemm(cotv_rows, w_x1t, c0, acc, ln);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+                const int col = c0 + ln.col0 + nt * 8;
+                float2 gv = my_i < L
+                    ? __ldg(reinterpret_cast<const float2*>(g_agg + (row0 + my_i) * hd + col))
+                    : make_float2(0.f, 0.f);
+                if constexpr (CB) gv = make_float2(rbf(gv.x), rbf(gv.y));
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const float valid = row_valid[ln.row0 + mt * 16 + 8 * h];
+                        Act* p = cotu_rows + (size_t)(ln.row0 + mt * 16 + 8 * h) * hd + col;
+                        const float2 ds = ld2(p);
+                        float cu0, cu1;
+                        if constexpr (CB) {
+                            cu0 = rbf(rbf(valid * gv.x + rbf(acc[mt][nt][2 * h])) * ds.x);
+                            cu1 = rbf(rbf(valid * gv.y + rbf(acc[mt][nt][2 * h + 1])) * ds.y);
+                        } else {
+                            cu0 = (valid * gv.x + acc[mt][nt][2 * h]) * ds.x;
+                            cu1 = (valid * gv.y + acc[mt][nt][2 * h + 1]) * ds.y;
+                        }
+                        store2(p, cu0, cu1);
+                        cs[0][nt][0] += cu0;   // b_e2 grad
+                        cs[0][nt][1] += cu1;
+                    }
+            }
+            flush_cols<WIDE_GROUP>(vp + 1 * hd + c0, cs[0], ln);
+        }
+        __syncthreads();   // cot_u complete
+
+        // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d (per row)
+        for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+            gemm(cotu_rows, w_e2t, c0, acc, ln);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = ln.row0 + mt * 16 + 8 * h;
+                    float sd = 0.f;
+                    if (row_valid[r] > 0.f) {
+                        const float d2 = row_d2[r];
+                        const In* a_i = a_b + (size_t)my_i * hd + c0 + ln.col0;
+                        const In* bs_j = bs_b + (size_t)row_j[r] * hd + c0 + ln.col0;
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt) {
+                            const float2 av = load2(a_i + nt * 8);
+                            const float2 bv = load2(bs_j + nt * 8);
+                            const float2 wd = load2(w_d + c0 + ln.col0 + nt * 8);
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const float wdc = c ? wd.y : wd.x;
+                                float cp;
+                                if constexpr (CB) {
+                                    const float pre = pre_bf16(c ? av.y : av.x, c ? bv.y : bv.x, rbf(d2), wdc);
+                                    cp = rbf(rbf(acc[mt][nt][2 * h + c]) * dsilu_bf16(pre));
+                                    sd += rbf(cp * wdc);
+                                } else {
+                                    const float pre = (c ? av.y : av.x) + (c ? bv.y : bv.x) + d2 * wdc;
+                                    cp = acc[mt][nt][2 * h + c] * dsilu(pre);
+                                    sd = fmaf(cp, wdc, sd);
+                                }
+                                acc[mt][nt][2 * h + c] = cp;
+                                cs[0][nt][c] += cp * d2;   // w_d grad
+                            }
+                        }
+                    } else {
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt) acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+                    }
+                    sd = quad_sum(sd);
+                    if (ln.t == 0) red2[wn * M + r] = sd;
+                }
+            store_rows_wide(s.cotpre + erow * hd, hd, c0, acc, ln);
+            flush_cols<WIDE_GROUP>(vp + 0 * hd + c0, cs[0], ln);
+            __syncthreads();
+            if (tid < M) {
+                float t = 0.f;
+#pragma unroll
+                for (int q = 0; q < TL::WN; ++q) t += red2[q * M + tid];
+                sum2[tid] += t;
+            }
+            __syncthreads();   // red2 consumed
+        }
+
+        // d_rel = valid * wsc * g_delta_i + 2 * rel * cot_d2, per row
+        if (tid < M) {
+            const int r = tid;
+            const float vw = row_valid[r] * (CB ? rbf(rbf(sum1[r]) + bx2) : sum1[r] + bx2);
+            float gd[3] = {0.f, 0.f, 0.f};
+            if (row_valid[r] > 0.f) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) gd[c] = g_delta[(row0 + i0 + r % T) * 3 + c];
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                s.drel[(erow + r) * 3 + c] = vw * gd[c] + 2.f * row_rel[r * 3 + c] * sum2[r];
+            cw_sum += row_cw[r];   // b_x2 grad
+        }
+    }
+
+    // the b_x2 grad summed over the rows in order
+    __syncthreads();
+    if (tid < M) sum1[tid] = cw_sum;
+    __syncthreads();
+    if (tid == 0) {
+        float t = 0.f;
+        for (int r = 0; r < M; ++r) t += sum1[r];
+        vp[NVEC * hd] = t;
+    }
+}
+
 // d_a, d_bs, d_x of residue (b, i): gathers over the 2W edges of i as a
 // receiver (d_a, d_x += d_rel) and as a sender (d_bs, d_x -= d_rel), in
 // offset order, skipping the rows of items with no valid edge. cot_pre is
@@ -809,6 +1135,42 @@ __global__ void egnn_bwd_reduce(const float* __restrict__ wpart, const float* __
     }
 }
 
+// Passes 2-4 (nodes, weight grads, reduce) after an edge pass, at width hd
+// (TW: the weight-grad tile edge; SUM: its per-k8-step sums).
+template <class In, int MODE, int TW, bool SUM>
+cudaError_t launch_tail(const Scratch<typename Chain<MODE>::Act>& s, In* da, In* dbs, float* dx,
+                        float* dw_e2, float* dw_x1, float* dvec, int B, int L, int hd, int W,
+                        int G, int nsplit, cudaStream_t stream) {
+    using Act = typename Chain<MODE>::Act;
+    const int items = n_items(B, L, W);
+    cudaError_t err;
+    egnn_bwd_nodes<In, Act><<<dim3(L, B), THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+        s.cotpre, s.drel, s.flags, da, dbs, dx, L, hd, W);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int per = (items + nsplit - 1) / nsplit;
+    const dim3 wgrid((hd / TW) * (hd / TW), nsplit, 2);
+    if constexpr (Chain<MODE>::BF16) {
+        const size_t wsmem = WgradH<TW>::smem(per);
+        auto wgrad = egnn_bwd_wgrad_bf16<TW>;
+        err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+        if (err != cudaSuccess) return err;
+        wgrad<<<wgrid, THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
+                                                 items, hd, nsplit);
+    } else {
+        const size_t wsmem = Wgrad<TW>::smem(per);
+        auto wgrad = egnn_bwd_wgrad<TW, MODE, SUM>;
+        err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+        if (err != cudaSuccess) return err;
+        wgrad<<<wgrid, THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
+                                                 items, hd, nsplit);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const size_t n_out = 2 * (size_t)hd * hd + NVEC * hd + 1;
+    egnn_bwd_reduce<<<(unsigned)((n_out + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+        s.wpart, s.vpart, dw_e2, dw_x1, dvec, hd, G, nsplit);
+    return cudaGetLastError();
+}
+
 template <int HD, class In, int MODE>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const void* const* wts, const float* g_agg, const float* g_delta, In* da,
@@ -830,32 +1192,33 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
         a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], g_agg, g_delta,
         s, L, W, items);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    egnn_bwd_nodes<In, Act><<<dim3(L, B), THREADS, 2 * 2 * W * sizeof(int), stream>>>(
-        s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    constexpr int TW = HD < 128 ? HD : 128;
-    const int per = (items + nsplit - 1) / nsplit;
-    const dim3 wgrid((HD / TW) * (HD / TW), nsplit, 2);
-    if constexpr (Chain<MODE>::BF16) {
-        const size_t wsmem = WgradH<TW>::smem(per);
-        auto wgrad = egnn_bwd_wgrad_bf16<TW>;
-        err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
-        if (err != cudaSuccess) return err;
-        wgrad<<<wgrid, THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
-                                                 items, HD, nsplit);
-    } else {
-        const size_t wsmem = Wgrad<TW>::smem(per);
-        auto wgrad = egnn_bwd_wgrad<TW, MODE, WGRAD_STEP_SUM<HD>>;
-        err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
-        if (err != cudaSuccess) return err;
-        wgrad<<<wgrid, THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
-                                                 items, HD, nsplit);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const size_t n_out = 2 * (size_t)HD * HD + NVEC * HD + 1;
-    egnn_bwd_reduce<<<(unsigned)((n_out + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-        s.wpart, s.vpart, dw_e2, dw_x1, dvec, HD, G, nsplit);
-    return cudaGetLastError();
+    return launch_tail<In, MODE, (HD < 128 ? HD : 128), WGRAD_STEP_SUM<HD>>(
+        s, da, dbs, dx, dw_e2, dw_x1, dvec, B, L, HD, W, G, nsplit, stream);
+}
+
+// The wide variant (hd > 512, WIDE_GROUP | hd): egnn_bwd_edges_wide, then
+// the same passes 2-4 (128-wide weight-grad tiles, each k8 step summed as
+// at Hd 512: one slice sums every item's rows).
+template <class In, int MODE>
+cudaError_t launch_wide(const In* a, const In* bs, const float* x, const float* cmask,
+                        const void* const* wts, const float* g_agg, const float* g_delta, In* da,
+                        In* dbs, float* dx, float* dw_e2, float* dw_x1, float* dvec,
+                        float* scratch, int B, int L, int hd, int W, int G, int nsplit,
+                        cudaStream_t stream) {
+    using Act = typename Chain<MODE>::Act;
+    if (!wide_width(hd) || G < 1 || nsplit < 1) return cudaErrorInvalidValue;
+    Scratch<Act> s;
+    scratch_floats(B, L, hd, W, G, nsplit, &s, scratch);
+    const int items = n_items(B, L, W);
+    const Act* w[9];
+    for (int k = 0; k < 9; ++k) w[k] = static_cast<const Act*>(wts[k]);
+    egnn_bwd_edges_wide<In, MODE><<<G, WideTile::THREADS, 0, stream>>>(
+        a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8], g_agg, g_delta,
+        s, L, hd, W, items);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_tail<In, MODE, 128, true>(s, da, dbs, dx, dw_e2, dw_x1, dvec, B, L, hd, W, G,
+                                            nsplit, stream);
 }
 
 }  // namespace
@@ -880,6 +1243,15 @@ size_t egnn_band_bwd_scratch_floats(int B, int L, int hd, int W, int G, int nspl
 // negative CUDA error code.
 int egnn_band_bwd_blocks_per_sm(int hd, int bf16_in, int passes, int chain_bf16) {
     int n = 0;
+    if (hd > 512) {   // the wide variant
+        if (!wide_width(hd)) return -static_cast<int>(cudaErrorInvalidValue);
+        const cudaError_t err = dispatch_mode(bf16_in, passes, chain_bf16, [&](auto in_c, auto m_c) {
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, egnn_bwd_edges_wide<typename decltype(in_c)::type, decltype(m_c)::value>,
+                WideTile::THREADS, 0);
+        });
+        return err == cudaSuccess ? n : -static_cast<int>(err);
+    }
     const cudaError_t err = dispatch(hd, bf16_in, passes, chain_bf16,
                                      [&](auto hd_c, auto in_c, auto m_c) {
         constexpr int HD = decltype(hd_c)::value, MODE = decltype(m_c)::value;
@@ -914,6 +1286,14 @@ int egnn_band_bwd_launch(const void* a, const void* bs, const float* x, const fl
                          void* stream) {
     const void* wts[9] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, w_e2t, w_x1t};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (hd > 512)   // the wide variant
+        return dispatch_mode(bf16_in, passes, chain_bf16, [&](auto in_c, auto m_c) {
+            using In = typename decltype(in_c)::type;
+            return launch_wide<In, decltype(m_c)::value>(
+                static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, wts, g_agg,
+                g_delta, static_cast<In*>(da), static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec,
+                scratch, B, L, hd, W, G, nsplit, s);
+        });
     return dispatch(hd, bf16_in, passes, chain_bf16, [&](auto hd_c, auto in_c, auto m_c) {
         using In = typename decltype(in_c)::type;
         return launch<decltype(hd_c)::value, In, decltype(m_c)::value>(

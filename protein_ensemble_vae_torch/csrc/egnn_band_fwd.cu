@@ -319,6 +319,212 @@ egnn_band_fwd_kernel(const In* __restrict__ a, const In* __restrict__ bs,
     if (tid < 3 * T && i0 + tid / 3 < L) delta[(row0 + i0 + tid / 3) * 3 + tid % 3] = delta_r;
 }
 
+// The wide variant (hd > 512, WIDE_GROUP | hd; egnn_tile.cuh): the same
+// function, steps and rounding as egnn_band_fwd_kernel, one persistent
+// block per resident slot walking the (batch row, tile) items g, g + G, ...
+// and every step of each. A step's m1 and m rows ([M][hd] each, in the
+// chain's type) lie in the block's two scratch buffers, X and Y; each
+// product runs over the hd output columns in groups of WIDE_GROUP. The lane
+// that owns (receiver g, column) in a group adds the step's valid messages
+// to agg in device memory (the item's agg rows are zeroed first); the
+// per-row w_x2 dot products are summed over the warps, then over the
+// groups, in a fixed order. Deterministic, no atomics.
+template <class In, int MODE>
+__global__ void __launch_bounds__(WideTile::THREADS, WideTile::MIN_BLOCKS)
+egnn_band_fwd_wide(const In* __restrict__ a, const In* __restrict__ bs,
+                   const float* __restrict__ x, const float* __restrict__ cmask,
+                   const typename Chain<MODE>::Act* __restrict__ w_d,
+                   const typename Chain<MODE>::Act* __restrict__ w_e2,
+                   const typename Chain<MODE>::Act* __restrict__ b_e2,
+                   const typename Chain<MODE>::Act* __restrict__ w_x1,
+                   const typename Chain<MODE>::Act* __restrict__ b_x1,
+                   const typename Chain<MODE>::Act* __restrict__ w_x2,
+                   const typename Chain<MODE>::Act* __restrict__ b_x2, float* __restrict__ agg,
+                   float* __restrict__ delta, typename Chain<MODE>::Act* scratch, int B, int L,
+                   int hd, int W) {
+    using TL = WideTile;
+    using Act = typename Chain<MODE>::Act;
+    constexpr bool CB = Chain<MODE>::BF16;
+    constexpr int MT = TL::MT, NT = TL::NT;
+    __shared__ float red[TL::WN * M];
+    __shared__ float rowsum[M];   // the w_x2 dot product of each row, summed over groups
+    __shared__ float row_valid[M], row_d2[M], row_rel[3 * M];
+    __shared__ int row_j[M];
+    Act* X = scratch + (size_t)blockIdx.x * 2 * M * hd;   // m1 of the step
+    Act* Y = X + (size_t)M * hd;                           // m of the step
+
+    const int tid = threadIdx.x;
+    const Lane ln = Lane::of<WIDE_GROUP>(tid);
+    const int wn = (tid / 32) % TL::WN;
+    const int n_off = 2 * W;
+    const int n_steps = (n_off + OPS - 1) / OPS;
+    const int n_tiles = (L + T - 1) / T;
+    const float bx2 = to_float(b_x2[0]);
+    float acc[MT][NT][4];
+
+    for (int item = blockIdx.x; item < B * n_tiles; item += gridDim.x) {
+        const int b = item / n_tiles;
+        const int i0 = (item % n_tiles) * T;
+        const size_t row0 = (size_t)b * L;
+        const In* a_b = a + row0 * hd;
+        const In* bs_b = bs + row0 * hd;
+        const int my_i = i0 + ln.g;
+        __syncthreads();   // the last item's row arrays are consumed
+        for (int k = tid; k < T * hd; k += TL::THREADS)
+            if (i0 + k / hd < L) agg[(row0 + i0) * hd + k] = 0.f;
+        float delta_r = 0.f;   // tid < 3T: receiver tid / 3, coordinate tid % 3
+
+        for (int step = 0; step < n_steps; ++step) {
+            __syncthreads();   // row arrays, red and rowsum consumed; agg zeroed
+            float v = 0.f;
+            if (tid < M) {
+                const int o = tid / T, rr = tid % T;
+                const int e = step * OPS + o, i = i0 + rr;
+                float d2 = 0.f, rel[3] = {0.f, 0.f, 0.f};
+                int j = 0;
+                if (e < n_off && i < L) {
+                    j = i + band_offset(e, W);
+                    if (j >= 0 && j < L && cmask[row0 + i] > 0.5f && cmask[row0 + j] > 0.5f) {
+                        v = 1.f;
+#pragma unroll
+                        for (int c = 0; c < 3; ++c)
+                            rel[c] = x[(row0 + i) * 3 + c] - x[(row0 + j) * 3 + c];
+                        d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+                    }
+                }
+                row_valid[tid] = v;
+                row_d2[tid] = d2;
+                row_j[tid] = j;
+                rowsum[tid] = 0.f;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) row_rel[tid * 3 + c] = rel[c];
+            }
+            if (!__syncthreads_or(v > 0.f)) continue;   // no valid edge: adds exact zeros
+
+            // X = silu(a_i + bs_j + d2 * w_d); rows of invalid edges are 0
+            constexpr int NV = Vec<In>::N;
+            const int hdv = hd / NV;
+            for (int idx = tid; idx < M * hdv; idx += TL::THREADS) {
+                const int r = idx / hdv, c = NV * (idx % hdv);
+                float p[NV];
+#pragma unroll
+                for (int q = 0; q < NV; ++q) p[q] = 0.f;
+                if (row_valid[r] > 0.f) {
+                    float av[NV], bv[NV];
+                    load_vec(a_b + (size_t)(i0 + r % T) * hd + c, av);
+                    load_vec(bs_b + (size_t)row_j[r] * hd + c, bv);
+                    const float d2 = row_d2[r];
+#pragma unroll
+                    for (int q4 = 0; q4 < NV / 4; ++q4) {
+                        const float4 wd = load4(w_d + c + 4 * q4);
+                        const float w4[4] = {wd.x, wd.y, wd.z, wd.w};
+#pragma unroll
+                        for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
+                            if constexpr (CB) p[q] = silu_bf16(pre_bf16(av[q], bv[q], rbf(d2), w4[q % 4]));
+                            else p[q] = silu(av[q] + bv[q] + d2 * w4[q % 4]);
+                        }
+                    }
+                }
+#pragma unroll
+                for (int q4 = 0; q4 < NV / 4; ++q4)
+                    store4(X + (size_t)r * hd + c + 4 * q4,
+                           make_float4(p[4 * q4], p[4 * q4 + 1], p[4 * q4 + 2], p[4 * q4 + 3]));
+            }
+            __syncthreads();
+
+            // Y = m = silu(X @ W_e2 + b_e2); agg_i += sum over the step of valid * m
+            for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+                if constexpr (CB) gemm_wide(X, hd, w_e2, hd, c0, hd, acc, ln);
+                else gemm_wide<MODE, MODE == 3>(X, hd, w_e2, hd, c0, hd, acc, ln);
+                float sum[NT][2];
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) sum[nt][0] = sum[nt][1] = 0.f;
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const bool ok = row_valid[ln.row0 + mt * 16 + 8 * h] > 0.f;
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt) {
+                            const float2 be = load2(b_e2 + c0 + ln.col0 + nt * 8);
+                            float m0, m1;
+                            if constexpr (CB) {
+                                m0 = silu_bf16(rbf(rbf(acc[mt][nt][2 * h]) + be.x));
+                                m1 = silu_bf16(rbf(rbf(acc[mt][nt][2 * h + 1]) + be.y));
+                            } else {
+                                m0 = silu(acc[mt][nt][2 * h] + be.x);
+                                m1 = silu(acc[mt][nt][2 * h + 1] + be.y);
+                            }
+                            acc[mt][nt][2 * h] = m0;
+                            acc[mt][nt][2 * h + 1] = m1;
+                            if (ok) {
+                                sum[nt][0] += m0;
+                                sum[nt][1] += m1;
+                            }
+                        }
+                    }
+                store_rows_wide(Y, hd, c0, acc, ln);
+                if (my_i < L) {
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                        float2* p = reinterpret_cast<float2*>(agg + (row0 + my_i) * hd + c0 +
+                                                              ln.col0 + nt * 8);
+                        const float2 o = *p;
+                        *p = make_float2(o.x + sum[nt][0], o.y + sum[nt][1]);
+                    }
+                }
+            }
+            __syncthreads();   // Y complete
+
+            // wsc = silu(Y @ W_x1 + b_x1) . w_x2 + b_x2, per row
+            for (int c0 = 0; c0 < hd; c0 += WIDE_GROUP) {
+                if constexpr (CB) gemm_wide(Y, hd, w_x1, hd, c0, hd, acc, ln);
+                else gemm_wide<MODE, MODE == 3>(Y, hd, w_x1, hd, c0, hd, acc, ln);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        float sw = 0.f;
+#pragma unroll
+                        for (int nt = 0; nt < NT; ++nt) {
+                            const float2 bx = load2(b_x1 + c0 + ln.col0 + nt * 8);
+                            const float2 wx = load2(w_x2 + c0 + ln.col0 + nt * 8);
+                            if constexpr (CB) {
+                                sw = fmaf(silu_bf16(rbf(rbf(acc[mt][nt][2 * h]) + bx.x)), wx.x, sw);
+                                sw = fmaf(silu_bf16(rbf(rbf(acc[mt][nt][2 * h + 1]) + bx.y)), wx.y, sw);
+                            } else {
+                                sw = fmaf(silu(acc[mt][nt][2 * h] + bx.x), wx.x, sw);
+                                sw = fmaf(silu(acc[mt][nt][2 * h + 1] + bx.y), wx.y, sw);
+                            }
+                        }
+                        sw = quad_sum(sw);
+                        if (ln.t == 0) red[wn * M + ln.row0 + mt * 16 + 8 * h] = sw;
+                    }
+                __syncthreads();
+                if (tid < M) {
+                    float t = 0.f;
+#pragma unroll
+                    for (int q = 0; q < TL::WN; ++q) t += red[q * M + tid];
+                    rowsum[tid] += t;
+                }
+                __syncthreads();   // red consumed
+            }
+            // delta_i += sum over the step's offsets of valid * wsc * rel
+            if (tid < 3 * T) {
+                const int rr = tid / 3, c = tid % 3;
+                for (int o = 0; o < OPS; ++o) {
+                    const int r = o * T + rr;
+                    if (row_valid[r] > 0.f) {
+                        const float wsc = CB ? rbf(rbf(rowsum[r]) + bx2) : rowsum[r] + bx2;
+                        delta_r += wsc * row_rel[r * 3 + c];
+                    }
+                }
+            }
+        }
+        if (tid < 3 * T && i0 + tid / 3 < L) delta[(row0 + i0 + tid / 3) * 3 + tid % 3] = delta_r;
+    }
+}
+
 // out[k] = sum over s of part[s][k], in slice order (float4 over agg).
 __global__ void __launch_bounds__(THREADS)
 egnn_band_fwd_sum(const float* __restrict__ part_agg, const float* __restrict__ part_delta,
@@ -371,6 +577,20 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
+template <class In, int MODE>
+cudaError_t launch_wide(const In* a, const In* bs, const float* x, const float* cmask,
+                        const void* const* wts, float* agg, float* delta, void* scratch, int B,
+                        int L, int hd, int W, int G, cudaStream_t stream) {
+    using Act = typename Chain<MODE>::Act;
+    if (!wide_width(hd) || G < 1 || !scratch) return cudaErrorInvalidValue;
+    const Act* w[7];
+    for (int k = 0; k < 7; ++k) w[k] = static_cast<const Act*>(wts[k]);
+    egnn_band_fwd_wide<In, MODE><<<G, WideTile::THREADS, 0, stream>>>(
+        a, bs, x, cmask, w[0], w[1], w[2], w[3], w[4], w[5], w[6], agg, delta,
+        static_cast<Act*>(scratch), B, L, hd, W);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -379,6 +599,15 @@ extern "C" {
 // holds at once, or a negative CUDA error code.
 int egnn_band_fwd_blocks_per_sm(int hd, int bf16_in, int passes, int chain_bf16) {
     int n = 0;
+    if (hd > 512) {   // the wide variant
+        if (!wide_width(hd)) return -static_cast<int>(cudaErrorInvalidValue);
+        const cudaError_t err = dispatch_mode(bf16_in, passes, chain_bf16, [&](auto in_c, auto m_c) {
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, egnn_band_fwd_wide<typename decltype(in_c)::type, decltype(m_c)::value>,
+                WideTile::THREADS, 0);
+        });
+        return err == cudaSuccess ? n : -static_cast<int>(err);
+    }
     const cudaError_t err = dispatch(hd, bf16_in, passes, chain_bf16,
                                      [&](auto hd_c, auto in_c, auto m_c) {
         constexpr int HD = decltype(hd_c)::value, MODE = decltype(m_c)::value;
@@ -416,6 +645,31 @@ int egnn_band_fwd_launch(const void* a, const void* bs, const float* x, const fl
         return launch<decltype(hd_c)::value, In, decltype(m_c)::value>(
             static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, wts, agg, delta,
             part_agg, part_delta, B, L, W, S, s);
+    });
+}
+
+// The wide variant (hd > 512, a multiple of 256): floats of scratch for a
+// grid of G blocks (two [64, hd] activation buffers each, in the chain's
+// type), and its launch on `stream` with the arguments of
+// egnn_band_fwd_launch (no slices: G persistent blocks, G >= 1).
+size_t egnn_band_fwd_wide_scratch_floats(int hd, int G, int chain_bf16) {
+    const size_t vals = (size_t)G * 2 * M * hd;
+    return chain_bf16 ? (vals + 1) / 2 : vals;
+}
+
+int egnn_band_fwd_wide_launch(const void* a, const void* bs, const float* x, const float* cmask,
+                              const void* w_d, const void* w_e2, const void* b_e2,
+                              const void* w_x1, const void* b_x1, const void* w_x2,
+                              const void* b_x2, float* agg, float* delta, void* scratch, int B,
+                              int L, int hd, int W, int G, int bf16_in, int passes,
+                              int chain_bf16, void* stream) {
+    const void* wts[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return dispatch_mode(bf16_in, passes, chain_bf16, [&](auto in_c, auto m_c) {
+        using In = typename decltype(in_c)::type;
+        return launch_wide<In, decltype(m_c)::value>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, wts, agg, delta,
+            scratch, B, L, hd, W, G, s);
     });
 }
 

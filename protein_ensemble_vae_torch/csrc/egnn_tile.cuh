@@ -541,6 +541,116 @@ __device__ __forceinline__ void store_tile(Act* A, const float (&acc)[Tile<HD>::
                        acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
 }
 
+// ---- widths above 512: the wide kernels ---------------------------------
+// A block of either kernel's wide variant (egnn_band_fwd.cu,
+// egnn_band_bwd.cu) takes any width hd > 512 that WIDE_GROUP divides (the
+// wrapper zero-pads the others), given at run time: one instantiation per
+// mode. It keeps Tile<256>'s block and fragments (256 threads, 8 warps
+// across the columns, MT = NT = 4) and walks the hd output columns of each
+// product in groups of WIDE_GROUP, so registers do not grow with the
+// width. The activation rows of the 64-edge step (the product's A
+// operand, M x hd) no longer fit in shared memory: they lie in device
+// memory, in the block's own scratch rows (L2-resident while the block
+// works on them), written and read back by the block between barriers;
+// the B operand, the weight, is read from device memory by each lane
+// (through the read-only cache; every block reads the same weight).
+constexpr int WIDE_GROUP = 256;
+using WideTile = Tile<WIDE_GROUP>;
+static_assert(WideTile::WM == 1, "a wide group's lane owns whole columns of the step");
+
+inline bool wide_width(int hd) { return hd > 512 && hd % WIDE_GROUP == 0; }
+
+// acc = A @ w[:, c0 : c0 + WIDE_GROUP] in PASSES TF32 passes (STEP_SUM as
+// in mma_k8): A is [M][lda] fp32 in device memory, written earlier by this
+// block (so read through the coherent path), w [K][ldw] fp32 read-only.
+template <int PASSES, bool STEP_SUM>
+__device__ __forceinline__ void gemm_wide(const float* A, int lda, const float* __restrict__ w,
+                                          int ldw, int c0, int K,
+                                          float (&acc)[WideTile::MT][WideTile::NT][4],
+                                          const Lane& ln) {
+    using TL = WideTile;
+#pragma unroll
+    for (int mt = 0; mt < TL::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < TL::NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    const float* a_lane = A + (size_t)ln.row0 * lda + 2 * ln.t;
+    // rows 2t, 2t + 1 of each k8 step, column g of the warp's first n8 tile
+    const float* b_lane = w + (size_t)(2 * ln.t) * ldw + c0 + ln.col0 - 2 * ln.t + ln.g;
+#pragma unroll 2
+    for (int k = 0; k < K; k += 8) {
+        const float* bp = b_lane + (size_t)k * ldw;
+        mma_k8<TL::MT, TL::NT, PASSES, STEP_SUM>(
+            acc,
+            [&](int mt, float2& lo, float2& hi) {
+                lo = *reinterpret_cast<const float2*>(a_lane + (size_t)(mt * 16) * lda + k);
+                hi = *reinterpret_cast<const float2*>(a_lane + (size_t)(mt * 16 + 8) * lda + k);
+            },
+            [&](int nt, float& b0, float& b1) {
+                b0 = __ldg(bp + nt * 8);
+                b1 = __ldg(bp + nt * 8 + ldw);
+            });
+    }
+}
+
+// The same for the bf16 chain: A [M][lda] and w [K][ldw] bf16, m16n8k16
+// products, fp32 accumulation in mma order. A lane loads its fragments
+// itself (32-bit loads of two k-neighbours of A; two 16-bit loads of w per
+// register), in the layout of mma_bf16.
+__device__ __forceinline__ void gemm_wide(const __nv_bfloat16* A, int lda,
+                                          const __nv_bfloat16* __restrict__ w, int ldw, int c0,
+                                          int K, float (&acc)[WideTile::MT][WideTile::NT][4],
+                                          const Lane& ln) {
+    using TL = WideTile;
+#pragma unroll
+    for (int mt = 0; mt < TL::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < TL::NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    const __nv_bfloat16* a_lane = A + (size_t)ln.row0 * lda + 2 * ln.t;
+    const unsigned short* b_lane = reinterpret_cast<const unsigned short*>(w) +
+                                   (size_t)(2 * ln.t) * ldw + c0 + ln.col0 - 2 * ln.t + ln.g;
+    for (int k = 0; k < K; k += 16) {
+        uint32_t b[TL::NT][2];
+        const unsigned short* bp = b_lane + (size_t)k * ldw;
+#pragma unroll
+        for (int nt = 0; nt < TL::NT; ++nt) {
+            const unsigned short* q = bp + nt * 8;
+            b[nt][0] = (uint32_t)__ldg(q) | ((uint32_t)__ldg(q + ldw) << 16);
+            b[nt][1] = (uint32_t)__ldg(q + 8 * (size_t)ldw) | ((uint32_t)__ldg(q + 9 * (size_t)ldw) << 16);
+        }
+#pragma unroll
+        for (int mt = 0; mt < TL::MT; ++mt) {
+            const __nv_bfloat16* ap = a_lane + (size_t)(mt * 16) * lda + k;
+            uint32_t a[4];
+            a[0] = *reinterpret_cast<const uint32_t*>(ap);                       // row g, k 2t..
+            a[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * (size_t)lda);     // row g + 8
+            a[2] = *reinterpret_cast<const uint32_t*>(ap + 8);                   // row g, k 2t + 8..
+            a[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * (size_t)lda + 8); // row g + 8, k 2t + 8..
+#pragma unroll
+            for (int nt = 0; nt < TL::NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+        }
+    }
+}
+
+// Store the lane's fragments of `acc` to columns c0.. of rows [0, M) of an
+// [.., ld] array of type Act.
+template <class Act>
+__device__ __forceinline__ void store_rows_wide(Act* dst, int ld, int c0,
+                                                const float (&acc)[WideTile::MT][WideTile::NT][4],
+                                                const Lane& ln) {
+#pragma unroll
+    for (int mt = 0; mt < WideTile::MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < WideTile::NT; ++nt)
+                store2(dst + (size_t)(ln.row0 + mt * 16 + 8 * h) * ld + c0 + ln.col0 + nt * 8,
+                       acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+}
+
 // Sum v over the four lanes of a quad (the lanes that share a row).
 __device__ __forceinline__ float quad_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -562,6 +672,19 @@ using Int = std::integral_constant<int, V>;
 // 3; the bf16 chain takes either and makes one bf16 pass). The bf16 chain
 // is instantiated once per (hd, In). cudaErrorInvalidValue for anything
 // else.
+// f(Type<In>{}, Int<MODE>{}) for the input type and mode, as dispatch
+// below; for the wide kernels, which take the width at run time.
+template <class F>
+cudaError_t dispatch_mode(int bf16_in, int passes, int chain_bf16, F&& f) {
+    auto by_mode = [&](auto t) -> cudaError_t {
+        if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
+        if (chain_bf16) return f(t, Int<CHAIN_BF16>{});
+        if (passes == 1) return f(t, Int<1>{});
+        return f(t, Int<3>{});
+    };
+    return bf16_in ? by_mode(Type<__nv_bfloat16>{}) : by_mode(Type<float>{});
+}
+
 template <class F>
 cudaError_t dispatch(int hd, int bf16_in, int passes, int chain_bf16, F&& f) {
     auto by_hd = [&](auto t, auto m) -> cudaError_t {

@@ -1,7 +1,8 @@
 """Ensemble dataset: H5 reading, conformer records, pair enumeration.
 
 A numpy copy of the JAX package's ``data/dataset.py`` (no JAX there, but
-the port keeps its own copy); ``h5py`` is imported only by the H5 reader.
+the port keeps its own copy); the H5 files are read by ``data.h5file``
+(pure Python, no ``h5py``).
 
 Host-side numpy re-design of reference ``models/data.py``. Matches its
 semantics exactly:
@@ -104,9 +105,9 @@ def _conformers_from_group(fh, protein_id: str, h5_path: str,
 
 def _load_h5(h5_path: str, protein_id: str, use_seqemb: bool,
              use_crosspdb: bool = False) -> list[Conformer]:
-    import h5py
+    from protein_ensemble_vae_torch.data import h5file
 
-    with h5py.File(h5_path, "r") as fh:
+    with h5file.File(h5_path, "r") as fh:
         seq_emb = None
         if use_seqemb and ESM_GROUP in fh:
             seq_emb = fh[ESM_GROUP][:].astype(np.float32)

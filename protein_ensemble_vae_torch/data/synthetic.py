@@ -246,7 +246,7 @@ def write_synthetic_h5(path: str, K: int = 5, L: int = 64, seed: int = 0,
     N/C placement) or "nerf" (torsion-built, physically valid covalent
     geometry — the fold that makes BASELINE.md's post-fix generation
     targets honestly scoreable; `noise` rescales the torsion jitter)."""
-    import h5py
+    from protein_ensemble_vae_torch.data import h5file
 
     rng = np.random.default_rng(seed)
     mask = np.ones(L, np.float32)
@@ -281,7 +281,7 @@ def write_synthetic_h5(path: str, K: int = 5, L: int = 64, seed: int = 0,
     sequence = "".join(rng.choice(list(AA_ORDER), L))
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with h5py.File(path, "w") as fh:
+    with h5file.File(path, "w") as fh:
         fh.create_dataset("coords_N", data=coords_n)
         fh.create_dataset("coords_ca", data=coords_ca)
         fh.create_dataset("coords_C", data=coords_c)

@@ -65,9 +65,9 @@ def add_embeddings_to_h5(h5_path: str, embedder, overwrite: bool = False,
     ``embedder`` is anything with that method (``ESMEmbedder``,
     ``models/esm2.ESM2Embedder``). Skips a file that has the group (unless
     ``overwrite``) or no ``sequence``; returns whether it wrote."""
-    import h5py
+    from protein_ensemble_vae_torch.data import h5file
 
-    with h5py.File(h5_path, "a") as fh:
+    with h5file.File(h5_path, "a") as fh:
         if GROUP in fh and not overwrite:
             if verbose:
                 print(f"[esm] exists, skipping: {h5_path}")

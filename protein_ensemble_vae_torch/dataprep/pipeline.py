@@ -345,10 +345,10 @@ def discover_crosspdb(base_pdb_id: str, base_cif: str, client: "RCSBClient",
 def write_chain_h5(path: str, chain: dict,
                    crosspdb: Optional[dict] = None) -> str:
     """Write the reference H5 schema (prepare_data.py:957-995)."""
-    import h5py
+    from protein_ensemble_vae_torch.data import h5file
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with h5py.File(path, "w") as fh:
+    with h5file.File(path, "w") as fh:
         fh.create_dataset("coords_N", data=chain["coords_n"])
         fh.create_dataset("coords_ca", data=chain["coords_ca"])
         fh.create_dataset("coords_C", data=chain["coords_c"])

@@ -36,13 +36,17 @@ Modes, as the JAX function's arguments:
   op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
   uses this mode, and the port's decoder does not either.
 
-Widths: the kernels are instantiated at the native widths NATIVE_HIDDEN
-(32 to 512); for CUDA tensors of any other width from 1 to MAX_HIDDEN the
-wrappers zero-pad to the next native width (``native_width``,
-``pad_band_width``), launch, and slice the results back, which is exact up
-to summation order (``pad_band_width`` says why). Above MAX_HIDDEN they
-raise: the fp32 activation tile alone, 64 x (Hd + 8) x 4 bytes, outgrows
-the 227 KB of shared memory a block may have near Hd 880.
+Widths: any width from 1 up. The kernels are instantiated at the native
+widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
+shared memory; above MAX_NATIVE that tile, 64 x (Hd + 8) x 4 bytes, would
+outgrow the 227 KB of shared memory a block may have (near Hd 880), so a
+wide variant of each kernel takes every width that WIDE_GROUP divides,
+given at run time, with the tile in the block's device-memory scratch and
+the products walked in column groups (``csrc/egnn_tile.cuh``). For CUDA
+tensors of any other width the wrappers zero-pad to the next width the
+kernels take (``native_width``, ``pad_band_width``), launch, and slice the
+results back, which is exact up to summation order (``pad_band_width``
+says why).
 """
 
 from __future__ import annotations
@@ -62,10 +66,12 @@ Tensor = torch.Tensor
 
 KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
-# widths the kernels are instantiated at (csrc/egnn_tile.cuh: Tile); the
-# wrappers zero-pad any other width up to the next (pad_band_width)
+# widths the kernels are instantiated at (csrc/egnn_tile.cuh: Tile); above
+# MAX_NATIVE the wide variants take the multiples of WIDE_GROUP; the
+# wrappers zero-pad any other width up to the next of these (pad_band_width)
 NATIVE_HIDDEN = (32, 64, 128, 256, 512)
-MAX_HIDDEN = NATIVE_HIDDEN[-1]
+MAX_NATIVE = NATIVE_HIDDEN[-1]
+WIDE_GROUP = 256          # columns per group of the wide variants (csrc/egnn_tile.cuh)
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
 CHAIN_DTYPES = (torch.float32, torch.bfloat16)   # of the edge chain
 PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product (fp32 chain)
@@ -122,6 +128,15 @@ def bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
             max(1, min(items, -(-2 * n_sm // out_tiles))))
 
 
+def wide_fwd_grid(B: int, L: int, n_sm: int, per_sm: int) -> int:
+    """Blocks of kernel 1's wide variant: one persistent block per resident
+    slot (``per_sm`` on each of ``n_sm`` SMs), each walking (batch row,
+    tile) items g, g + G, ... with every band step of each; no more blocks
+    than items."""
+    n_tiles, _, _ = band_work(B, L, 1)
+    return max(1, min(B * n_tiles, n_sm * max(1, per_sm)))
+
+
 def _sm_count(dev) -> int:
     if dev not in _SM_COUNT:
         _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -157,15 +172,16 @@ def _chain_bf16(chain_dtype) -> int:
 
 
 def native_width(Hd: int) -> int:
-    """The narrowest native width (NATIVE_HIDDEN) that holds Hd: the width
-    the kernels run a band layer of hidden width Hd at. Raises outside 1 to
-    MAX_HIDDEN."""
+    """The width the kernels run a band layer of hidden width Hd at: the
+    narrowest native width (NATIVE_HIDDEN) that holds Hd, or above
+    MAX_NATIVE the next multiple of WIDE_GROUP (the wide variants). Raises
+    for Hd < 1."""
+    if Hd < 1:
+        raise ValueError(f"hidden width {Hd}: the band kernels take widths of at least 1")
     for n in NATIVE_HIDDEN:
-        if 1 <= Hd <= n:
+        if Hd <= n:
             return n
-    raise ValueError(f"hidden width {Hd}: the band kernels take widths 1 to "
-                     f"{MAX_HIDDEN} (native {NATIVE_HIDDEN}, any other zero-padded "
-                     f"to the next of them)")
+    return -(-Hd // WIDE_GROUP) * WIDE_GROUP
 
 
 def pad_band_width(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
@@ -377,6 +393,11 @@ def _kernel_fn():
         fn = lib.egnn_band_fwd_launch
         fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.egnn_band_fwd_wide_launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
+                                                  + [ctypes.c_void_p])
+        lib.egnn_band_fwd_wide_launch.restype = ctypes.c_int
+        lib.egnn_band_fwd_wide_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.egnn_band_fwd_wide_scratch_floats.restype = ctypes.c_size_t
         lib.egnn_band_fwd_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_error_string.restype = ctypes.c_char_p
         lib.egnn_band_fwd_blocks_per_sm.argtypes = [ctypes.c_int] * 4
@@ -421,8 +442,8 @@ def unpad_band_grads(grads, a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
 def _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                   W: int) -> None:
     """Raise unless the band inputs are what both kernels take: a width of
-    1 to MAX_HIDDEN (``native_width``), a and bs of one dtype of
-    INPUT_DTYPES, everything else fp32."""
+    at least 1 (``native_width``), a and bs of one dtype of INPUT_DTYPES,
+    everything else fp32."""
     B, L, Hd = a.shape
     native_width(Hd)
     if W < 1:
@@ -464,8 +485,8 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
 
     a, bs [B, L, Hd], both fp32 or both bf16; x [B, L, 3]; cmask [B, L];
     w_d [1, Hd] or [Hd]; w_e2, w_x1 [Hd, Hd]; b_e2, b_x1 [Hd]; w_x2 [Hd, 1]
-    or [Hd]; b_x2 [1]; all but a, bs fp32; Hd from 1 to MAX_HIDDEN (a
-    width outside NATIVE_HIDDEN runs zero-padded, ``pad_band_width``).
+    or [Hd]; b_x2 [1]; all but a, bs fp32; Hd >= 1 (a width the kernels do
+    not take runs zero-padded to ``native_width(Hd)``, ``pad_band_width``).
     ``precision`` and ``chain_dtype`` as in the module docstring. Returns
     (agg [B, L, Hd], raw_delta [B, L, 3]), fp32.
     """
@@ -489,6 +510,9 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    if Hd > MAX_NATIVE:
+        return _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
+                         chain_dtype)
     S = fwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
     # S > 1: each slice's partial outputs, summed in slice order by the
     # kernel's second pass
@@ -501,6 +525,32 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                  *(t.data_ptr() for t in wts), agg.data_ptr(), delta.data_ptr(),
                  *((p.data_ptr() for p in parts) if parts else (None, None)),
                  B, L, Hd, W, S, bf16, passes, cb, stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_fwd_error_string(err).decode()})")
+    _count(KERNEL, a.dtype, precision, chain_dtype)
+    return agg, delta
+
+
+def _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
+              chain_dtype) -> tuple[Tensor, Tensor]:
+    """Kernel 1's wide variant (Hd > MAX_NATIVE, a multiple of WIDE_GROUP):
+    ``wide_fwd_grid`` blocks, each with two [64, Hd] activation buffers of
+    scratch."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _kernel_fn()
+    per_sm = _blocks_per_sm(KERNEL, lib.egnn_band_fwd_blocks_per_sm, Hd, dev, a.dtype,
+                            precision, chain_dtype)
+    G = wide_fwd_grid(B, L, _sm_count(dev), per_sm)
+    scratch = torch.empty((lib.egnn_band_fwd_wide_scratch_floats(Hd, G, cb),),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.egnn_band_fwd_wide_launch(
+            a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
+            *(t.data_ptr() for t in wts), agg.data_ptr(), delta.data_ptr(),
+            scratch.data_ptr(), B, L, Hd, W, G, bf16, passes, cb, stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_error_string(err).decode()})")

@@ -1,8 +1,9 @@
 """Training-data statistics: per-chain conformer count / length / missing
 fraction / RMSF summary CSV + optional histograms (the JAX package's
 ``viz/dataset_stats.py``; RMSF from the port's ``eval.metrics`` on
-``--device``, which is the GPU unless ``cpu`` is given; ``h5py`` and
-matplotlib are imported inside the functions that need them).
+``--device``, which is the GPU unless ``cpu`` is given; the H5 files are
+read by ``data.h5file``; matplotlib is imported inside the functions that
+need it).
 
 Reference ``scripts/viz_train.py`` equivalent, driven off manifests.
 """
@@ -20,8 +21,7 @@ def dataset_stats(manifest_csv: str, device: str = "cuda") -> list[dict]:
     """One row per readable chain of the manifest (a file that fails to
     read is reported and skipped); the RMSF's Kabsch runs on ``device``,
     which raises up front when it is a GPU that is missing."""
-    import h5py
-
+    from protein_ensemble_vae_torch.data import h5file
     from protein_ensemble_vae_torch.eval.metrics import compute_rmsf
     from protein_ensemble_vae_torch.ops.routing import resolve_device
 
@@ -34,7 +34,7 @@ def dataset_stats(manifest_csv: str, device: str = "cuda") -> list[dict]:
             if not os.path.exists(h5_path):
                 continue
             try:
-                with h5py.File(h5_path, "r") as fh:
+                with h5file.File(h5_path, "r") as fh:
                     ca = fh["coords_ca"][:]
                     mask = fh["mask_ca"][:]
                 K, L, _ = ca.shape

@@ -2,6 +2,7 @@
 float64, on one NVIDIA GPU.
 
     python scripts/grad_triage.py [--hd 512 384 256] [--baseline DIR] [--out FILE.json]
+    python scripts/grad_triage.py --checkpoint DIR [--manifest CSV] [--out FILE.json]
 
 For each decoder width: ``ModelConfig(decoder_hidden=hd)`` with random
 weights from chip_smoke.py's seed, its B4/L256 timed-step batch and noise,
@@ -24,7 +25,16 @@ with random cotangents (``tests/test_torch_gpu.py``'s
 fp32 plain version's. ``--baseline DIR`` repeats the kernel-2 rows with
 another version's ``egnn_band_bwd.cu`` (and the ``egnn_tile.cuh`` beside
 it, the same C interface) built under another library name, for example
-a copy with one change undone. Needs a GPU; imports no JAX.
+a copy with one change undone.
+
+``--checkpoint DIR`` repeats the model-level rows on trained weights: the
+checkpoint's model (fp32) at the first batch of its own training data
+(``--manifest``, default ``DIR/../../data/manifest_train.csv``; B4, the
+first length bucket, unshuffled), for the smooth part and for the run's
+own loss weights, on the kernel path, the plain path and the perturbed
+plain paths; then the same at a random initialisation of the same
+configuration (chip_smoke.py's seed) and the same batch, so that the two
+readings stand side by side. Needs a GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -107,9 +117,77 @@ def _weight_grads(hd: int) -> dict:
             for n, k, p, r in zip(cs.GRAD_NAMES, got, plain, exact)}
 
 
+def _reading(rows: list, label: dict, model, batch, weights, eps, rg, ctx=None) -> None:
+    """One path's gradient against the float64 one (``rg``): the worst
+    tensor's distance and the tensors within the tolerance, into ``rows``."""
+    with ctx or contextlib.nullcontext():
+        grads = cs._path_grads(model, batch, weights, eps)[1]
+    dist = {n: cs._f64_dist(grads[n], rg[n]) for n in rg}
+    worst = sorted(dist, key=dist.get, reverse=True)[:3]
+    row = dict(label, worst=dist[worst[0]], within=sum(v <= 1 for v in dist.values()),
+               n=len(dist), farthest={n: dist[n] for n in worst})
+    cs.log(f"[triage] {', '.join(f'{k} {v}' for k, v in label.items())}: worst "
+           f"{row['worst']:.2f} ({worst[0]}), {row['within']}/{row['n']} within")
+    rows.append(row)
+
+
+def _checkpoint_rows(ckpt: str, manifest: str, batch_size: int = 4) -> list:
+    """The model-level triage on the checkpoint's weights and on a random
+    initialisation of its configuration, at one batch of its training data."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import LossWeights
+    from protein_ensemble_vae_torch.data import EnsembleDataset
+    from protein_ensemble_vae_torch.data.collate import make_epoch_batches
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.train.checkpoint import load_checkpoint, load_run_config
+    from protein_ensemble_vae_torch.train.training import batch_to_arrays
+
+    run = load_run_config(ckpt)
+    mcfg = run.model
+    ds = EnsembleDataset(manifest, use_seqemb=mcfg.use_seqemb, verbose=False)
+    pb = next(iter(make_epoch_batches(ds, batch_size, run.train.bucket_sizes, shuffle=False,
+                                      seed=0)))
+    arrays = batch_to_arrays(pb, mcfg.seqemb_dim)
+    batch = {s: {k: torch.from_numpy(v).to(cs.DEVICE) for k, v in d.items()}
+             for s, d in arrays.items()}
+    batch64 = {s: {k: v.double() if v.is_floating_point() else v for k, v in d.items()}
+               for s, d in batch.items()}
+    B, L = batch["inp"]["ca"].shape[:2]
+    g = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 5)
+    eps = (torch.randn(B, mcfg.z_global, generator=g, device=cs.DEVICE),
+           torch.randn(B, L, mcfg.z_local, generator=g, device=cs.DEVICE))
+    eps64 = tuple(e.double() for e in eps)
+    rows = []
+    for init in ("trained", "random init"):
+        torch.manual_seed(cs.SEED)
+        kmodel = HierCVAE(mcfg).to(cs.DEVICE)
+        if init == "trained":
+            load_checkpoint(ckpt, kmodel)
+        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False)).to(cs.DEVICE)
+        pmodel.load_state_dict(kmodel.state_dict())
+        rmodel = cs._float64_reference(kmodel)
+        for loss, weights in (("smooth", LossWeights(**cs.SMOOTH_WEIGHTS)),
+                              ("the run's loss", run.loss)):
+            rg = cs._path_grads(rmodel, batch64, weights, eps64)[1]
+            label = dict(hd=mcfg.decoder_hidden, weights=init, loss=loss, B=int(B), L=int(L))
+            _reading(rows, dict(label, path="kernel path"), kmodel, batch, weights, eps, rg)
+            _reading(rows, dict(label, path="plain path"), pmodel, batch, weights, eps, rg)
+            for s in cs.PERTURB_SEEDS:
+                _reading(rows, dict(label, path=f"plain path, band outputs perturbed (seed {s})"),
+                         pmodel, batch, weights, eps, rg, cs._perturbed_band(s))
+        del kmodel, pmodel, rmodel
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--hd", type=int, nargs="+", default=[512, 384, 256])
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="a port checkpoint: the model-level rows on its trained weights")
+    ap.add_argument("--manifest", default=None, metavar="CSV",
+                    help="its training manifest (default DIR/../../data/manifest_train.csv)")
     ap.add_argument("--baseline", default=None, metavar="DIR",
                     help="directory with another egnn_band_bwd.cu and egnn_tile.cuh")
     ap.add_argument("--out", default=None, metavar="FILE.json")
@@ -125,6 +203,16 @@ def main(argv=None) -> None:
     device = cs.phase_device()
     cs.phase_build()
     set_full_fp32()
+    if args.checkpoint:
+        ckpt = os.path.abspath(args.checkpoint)
+        manifest = args.manifest or os.path.join(os.path.dirname(os.path.dirname(ckpt)),
+                                                 "data", "manifest_train.csv")
+        rows = _checkpoint_rows(ckpt, manifest)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(dict(device=device, checkpoint=args.checkpoint, rows=rows), f)
+        return
     libs = {"current": eb._bwd_kernel_fn()}
     if args.baseline:
         libs["baseline"] = _bind_bwd(_build_bwd(os.path.abspath(args.baseline)))
@@ -147,16 +235,7 @@ def main(argv=None) -> None:
         rg = cs._path_grads(rmodel, batch64, weights, tuple(e.double() for e in eps))[1]
 
         def reading(path, model, ctx=None):
-            with ctx or contextlib.nullcontext():
-                grads = cs._path_grads(model, batch, weights, eps)[1]
-            dist = {n: cs._f64_dist(grads[n], rg[n]) for n in rg}
-            worst = sorted(dist, key=dist.get, reverse=True)[:3]
-            row = dict(hd=hd, path=path, worst=dist[worst[0]],
-                       within=sum(v <= 1 for v in dist.values()), n=len(dist),
-                       farthest={n: dist[n] for n in worst})
-            cs.log(f"[triage] Hd{hd} {path}: worst {row['worst']:.2f} ({worst[0]}), "
-                   f"{row['within']}/{row['n']} within")
-            rows.append(row)
+            _reading(rows, dict(hd=hd, path=path), model, batch, weights, eps, rg, ctx)
 
         plain_forward = lambda: _swapped(eb, "egnn_band_fwd",  # noqa: E731
                                          lambda a, bs, x, cm, *rest: eb.egnn_band_reference(

@@ -1,9 +1,10 @@
 """Every decoder width through the EGNN band kernels, on the CPU.
 
 The CUDA kernels are instantiated at the native widths (``NATIVE_HIDDEN``,
-32 to 512); for a CUDA tensor of any other width the wrappers zero-pad to
-the next native width (``pad_band_width``), launch, and slice the results
-back (``unpad_band_grads`` for the gradients). Here the same padding and
+32 to 512), and above 512 their wide variants take every multiple of
+``WIDE_GROUP``; for a CUDA tensor of any other width the wrappers zero-pad
+to the next of these (``native_width``, ``pad_band_width``), launch, and
+slice the results back (``unpad_band_grads`` for the gradients). Here the same padding and
 slicing run around the kernels' plain version: the padded function, sliced
 back, must be the unpadded one to fp32 rounding, values and gradients, and
 at Hd 8, 16 and 48 it must match the JAX package's ``egnn_band_fused``
@@ -24,8 +25,8 @@ import jax.numpy as jnp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (  # noqa: E402
-    MAX_HIDDEN, NATIVE_HIDDEN, egnn_band_bwd_reference, egnn_band_reference,
-    native_width, pad_band_width, unpad_band_grads)
+    MAX_NATIVE, NATIVE_HIDDEN, WIDE_GROUP, egnn_band_bwd_reference, egnn_band_reference,
+    native_width, pad_band_width, unpad_band_grads, wide_fwd_grid)
 from protein_ensemble_vae_tpu.ops.pallas.egnn_band import (  # noqa: E402
     egnn_band_fused as jax_egnn_band_fused)
 
@@ -70,16 +71,32 @@ def _padded_plain_grads(args, g_agg, g_delta, W, chain_dtype=torch.float32):
 
 @pytest.mark.parametrize("Hd,want", [(1, 32), (8, 32), (16, 32), (31, 32), (32, 32),
                                      (33, 64), (48, 64), (96, 128), (200, 256),
-                                     (256, 256), (384, 512), (511, 512), (512, 512)])
+                                     (256, 256), (384, 512), (511, 512), (512, 512),
+                                     (640, 768), (768, 768), (1100, 1280), (2048, 2048)])
 def test_native_width(Hd, want):
     assert native_width(Hd) == want
-    assert (native_width(Hd) == Hd) == (Hd in NATIVE_HIDDEN)
+    assert (native_width(Hd) == Hd) == (Hd in NATIVE_HIDDEN or
+                                        (Hd > MAX_NATIVE and Hd % WIDE_GROUP == 0))
 
 
-@pytest.mark.parametrize("Hd", [0, -3, MAX_HIDDEN + 1, 1024])
+@pytest.mark.parametrize("Hd", [0, -3, MAX_NATIVE + 1, 1024])
 def test_native_width_raises_outside_the_limit(Hd):
-    with pytest.raises(ValueError, match=f"1 to {MAX_HIDDEN}"):
-        native_width(Hd)
+    """Only a width below 1 raises; above 512 (once the limit) the wide
+    variants take the next multiple of WIDE_GROUP: 513 runs at 768, 1024
+    at its own width."""
+    if Hd < 1:
+        with pytest.raises(ValueError, match="at least 1"):
+            native_width(Hd)
+    else:
+        assert native_width(Hd) == {MAX_NATIVE + 1: 768, 1024: 1024}[Hd]
+
+
+@pytest.mark.parametrize("B,L,n_sm,per_sm,want", [
+    (1, 37, 132, 2, 5), (4, 256, 132, 2, 128), (10, 640, 132, 2, 264), (2, 64, 132, 0, 16)])
+def test_wide_fwd_grid(B, L, n_sm, per_sm, want):
+    """Kernel 1's wide variant: one block per resident slot, at most one
+    per (batch row, 8-receiver tile) item."""
+    assert wide_fwd_grid(B, L, n_sm, per_sm) == want
 
 
 def test_padding_is_zeros_around_the_real_entries():

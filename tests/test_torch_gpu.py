@@ -109,17 +109,96 @@ def test_routing_and_checks_on_cuda(cuda):
 
 @pytest.mark.parametrize("Hd", [513, 1024])
 def test_width_above_the_limit_raises(cuda, Hd):
-    """Above MAX_HIDDEN (512) no native width holds Hd: both wrappers and
-    the routed entry raise and name the limit, launching nothing."""
+    """Above 512 (once the limit, where both wrappers raised) the wide
+    variants run: 513 zero-padded to 768, 1024 at its own width. Both
+    wrappers and the routed entry launch their kernel once each and match
+    the plain versions (forward at rtol 1e-4 / atol 1e-4 x max|plain|, the
+    gradients as the other widths')."""
     args = _inputs(1, 16, Hd, cuda)
     before = dict(LAUNCHES)
-    with pytest.raises(ValueError, match="1 to 512"):
-        egnn_band_fwd(*args, 4)
-    with pytest.raises(ValueError, match="1 to 512"):
-        egnn_band_bwd(*args, torch.zeros_like(args[0]), torch.zeros_like(args[2]), 4)
-    with pytest.raises(ValueError, match="1 to 512"):
-        egnn_band_fused(*args, 4, "highest")
-    assert LAUNCHES == before
+    out = egnn_band_fwd(*args, 4)
+    g = torch.Generator(device="cpu").manual_seed(Hd)
+    g_agg = torch.randn(1, 16, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(1, 16, 3, generator=g).to(cuda)
+    grads = egnn_band_bwd(*args, g_agg, g_delta, 4)
+    routed = egnn_band_fused(*args, 4, "highest")
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + 2
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 1
+    want = egnn_band_reference(*args, 4)
+    for got in (out, routed):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL * float(b.abs().max()))
+    for name, a, b in zip(_GRAD_NAMES, grads, egnn_band_bwd_reference(*args, g_agg, g_delta, 4)):
+        assert a.shape == b.shape, name
+        _close_scaled(a, b, name)
+
+
+# Widths above 512: the wide variants of kernels 1-2 (Hd a multiple of 256
+# at run time; any other width zero-padded up: 640 -> 768, 1100 -> 1280) in
+# every mode, against the plain versions at the tolerances of the other
+# widths: 3xTF32 at rtol 1e-4 / atol 1e-4 x max|plain| (values) and
+# _close_scaled (gradients); the bf16-model mode (bf16 a / bs, one TF32
+# pass) at BF16_VALUE_FRAC / BF16_GRAD_FRAC; the bf16 chain through
+# _check_chain.
+WIDE_HD = [640, 1024, 1100, 2048]
+
+
+@pytest.mark.parametrize("mode", ["highest", "default", "bfloat16_chain"])
+@pytest.mark.parametrize("Hd", WIDE_HD)
+def test_wide_widths_match_plain_versions(cuda, Hd, mode):
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import mode_key
+
+    B, L, W = 2, 37, 12
+    args = _inputs(B, L, Hd, cuda, seed=Hd + 3)
+    if mode == "bfloat16_chain":
+        _check_chain(_bf16_args(args), W, seed=Hd)
+        return
+    if mode == "default":
+        args = _bf16_args(args)
+    keys = [mode_key(k, args[0].dtype, mode) for k in ("egnn_band_fwd", "egnn_band_bwd")]
+    before = [BAND_MODE_LAUNCHES.get(k, 0) for k in keys]
+    out = egnn_band_fwd(*args, W, mode)
+    g = torch.Generator(device="cpu").manual_seed(Hd)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, mode)
+    torch.cuda.synchronize()
+    assert [BAND_MODE_LAUNCHES.get(k, 0) for k in keys] == [n + 1 for n in before]
+    want = egnn_band_reference(*args, W)
+    wgrads = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(("agg", "raw_delta"), out, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        if mode == "highest":
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL * float(b.abs().max()))
+        else:
+            _within_frac(a, b, BF16_VALUE_FRAC, name)
+    for name, a, b in zip(_GRAD_NAMES, got, wgrads):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if mode == "highest":
+            _close_scaled(a, b, name)
+        else:
+            _within_frac(a, b, BF16_GRAD_FRAC, name)
+
+
+@pytest.mark.parametrize("Hd", [1024, 2048])
+def test_wide_widths_two_launches_are_bitwise_identical(cuda, Hd):
+    """The wide variants sum in a fixed order (the lane that owns a column,
+    then the groups, then the persistent blocks' partials): two launches at
+    B2/L256/W40 give bitwise-identical outputs, and a masked tail stays
+    exactly zero."""
+    B, L = 2, 256
+    args = _inputs(B, L, Hd, cuda, seed=Hd + 17)
+    g = torch.Generator(device="cpu").manual_seed(L)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    first = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    second = egnn_band_fwd(*args, 40) + egnn_band_bwd(*args, g_agg, g_delta, 40)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert float(first[0][0, L - L // 5:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("hidden", [16, 48, 512])

@@ -138,3 +138,29 @@ def test_fresh_init_tree_matches_flax(pair):
     # the split edge layer uses the joint fan-in 2H+1
     bound = 1.0 / np.sqrt(2 * 16 + 1)
     assert float(fresh["decoder.egnn_0.phi_e1_hi_kernel"].abs().max()) <= bound
+
+
+def test_bridge_carries_a_decoder_of_width_1024():
+    """``params_from_flax`` at decoder width 1024 (above the native kernel
+    widths; the wide variants run it on the card): every tensor carries over
+    at its shape, and the decode agrees with the JAX package's."""
+    wide = dict(SMALL, decoder_hidden=1024, decoder_layers=1)
+    x = _inputs()
+    jmodel = HierCVAE(ModelConfig(**wide))
+    variables = jax.jit(jmodel.init)(
+        {"params": jax.random.PRNGKey(0), "reparam": jax.random.PRNGKey(1)},
+        x["seq_emb"], x["n"], x["ca"], x["c"], x["dih"], x["mask"])
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    tmodel = THierCVAE(TModelConfig(**wide))
+    sd = params_from_flax(params, tmodel)
+    assert tuple(sd["decoder.egnn_0.phi_e2_kernel"].shape) == (1024, 1024)
+    tmodel.load_state_dict(sd)
+    tmodel.eval().requires_grad_(False)
+    rng = np.random.default_rng(11)
+    z_g = rng.normal(0, 1, (B, wide["z_global"])).astype(np.float32)
+    z_l = rng.normal(0, 1, (B, L, wide["z_local"])).astype(np.float32)
+    want = jmodel.apply({"params": variables["params"]}, z_g, z_l, x["mask"],
+                        method=HierCVAE.decode)
+    got = tmodel.decode(_t(z_g), _t(z_l), _t(x["mask"]))
+    for g, w in zip(got, want):
+        _close(g, w)

@@ -141,6 +141,12 @@ DIFFERENCES = {
     "utils/watch.py:histogram_summaries()": "named (name, tensor) pairs for a pytree",
     "utils/profiling.py:trace()":
         "logdir defaults to a directory under the temporary directory, not a fixed /tmp path",
+    # Not a name or a signature, so no entry: the port's H5 files go through
+    # its own data/h5file.py (no h5py), whose writer stores a dataset
+    # contiguous, or with compression="gzip" as one deflated chunk of its
+    # whole shape (level 4), where h5py picks smaller chunks; h5py and the
+    # JAX package's EnsembleDataset read the port's files as the arrays they
+    # hold (tests/test_torch_h5file.py).
 }
 
 
