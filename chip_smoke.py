@@ -219,7 +219,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and chain_dtype_ab's bf16-chain launches; kernels
    1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
-   there only), then, as the last line, ``{"ok": true, "device": {...}}``.
+   there only; each kernel must have launched on its REQUIRED_PATHS: the
+   Hopper kernels 1-2 (``egnn_band_fwd_sm90``, ``egnn_band_bwd_sm90``),
+   which serve the bf16 model's one-pass mode up to Hd 256, on train_bf16
+   and the flagship's training, with their own rows, the weight-stream
+   and scratch floors beside the TF32 bound; the first ones every other
+   mode), then, as the last line, ``{"ok": true, "device": {...}}``.
+
+Kernels 1-2 in the one-pass fp32 chain at Hd 256 (phase 3's bf16-model
+rows, the flagship's rows) run on the Hopper kernels; their log lines name
+the kernel and give, beside the TF32 bound, the weight-stream floor (the
+pairs of 64-row steps with a valid edge x the weights each streams from
+L2, at this run's L2 read rate for a region every SM reads, measured
+first, ``_l2_rate``) and, for kernel 2, the scratch floor (its five
+per-edge activations written and read once at the HBM peak).
 
 ``--grad-triage FILE.json`` writes the float64 triage's per-tensor
 gradient distances (Hd 256 and 512). ``--profile TRACE.json`` adds, after
@@ -559,6 +572,103 @@ def _egnn_bound(B: int, L: int, cmask, in_bytes: int = 4, passes: int = 3,
             1e3 * flops / PEAK_FP32_FLOPS)
 
 
+# Every thread sums 16-byte loads that skip L1 (ld.global.cg): reps sweeps
+# over n4 float4 values; shared = 1: every block sweeps all n4 values (one
+# region that every SM reads, as the Hopper band kernels' weight ring
+# does), shared = 0: the grid's threads stripe them.
+L2_SRC = r"""
+#include <cstddef>
+__global__ void __launch_bounds__(512) l2_read(const float4* __restrict__ p, size_t n4,
+                                               int reps, int shared, float* out) {
+    float acc = 0.f;
+    const size_t start = shared ? threadIdx.x : (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const size_t step = shared ? blockDim.x : (size_t)gridDim.x * blockDim.x;
+    for (int r = 0; r < reps; ++r)
+#pragma unroll 8
+        for (size_t i = start; i < n4; i += step) {
+            const float4 v = __ldcg(p + i);
+            acc += v.x + v.y + v.z + v.w;
+        }
+    if (acc == 1234.5f) out[blockIdx.x] = acc;   // keeps the loads
+}
+extern "C" int l2_read_launch(const void* p, size_t n4, int reps, int shared, float* out,
+                              int blocks, void* stream) {
+    l2_read<<<blocks, 512, 0, (cudaStream_t)stream>>>((const float4*)p, n4, reps, shared, out);
+    return (int)cudaGetLastError();
+}
+"""
+READ_RATE = None   # _l2_rate() of this run, set by main
+
+
+def _l2_rate() -> dict:
+    """GB/s that L2_SRC reads: from L2 (16 MiB striped over the grid; 512
+    KiB read whole by every block) and from HBM (2 GiB striped), 4 blocks of
+    512 threads per SM (CUDA events, ``_median_ms``). Built into the
+    package's build directory."""
+    import ctypes
+
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels import build
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.BUILD_DIR, "l2_read.cu")
+    lib_path = os.path.join(build.BUILD_DIR, "libl2_read.so")
+    with open(src, "w") as f:
+        f.write(L2_SRC)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib_path).l2_read_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(blocks, device=DEVICE)
+    res = {}
+    for label, nbytes, reps, shared in (("l2_striped_16MiB", 16 << 20, 64, 0),
+                                        ("l2_shared_512KiB", 512 << 10, 4, 1),
+                                        ("hbm_striped_2GiB", 2 << 30, 1, 0)):
+        buf = torch.ones(nbytes // 4, device=DEVICE)
+        run = lambda: fn(buf.data_ptr(), nbytes // 16, reps, shared, out.data_ptr(),  # noqa: E731
+                         blocks, torch.cuda.current_stream().cuda_stream)
+        ms = _median_ms(run)
+        moved = nbytes * reps * (blocks if shared else 1)
+        res[label] = dict(gb_per_s=moved / ms / 1e6, ms=ms, bytes=moved)
+        del buf
+    return res
+
+
+def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD) -> dict:
+    """The Hopper band kernels' floors on this run's inputs beside the TF32
+    bound: the weight stream (the pairs of steps with a valid edge, each
+    streaming two weights (kernel 1) or four (kernel 2) of hd^2 fp32 from
+    L2, at this run's L2 rate for a region every SM reads) and, for kernel
+    2, the scratch round trip (m1, m, cot_u, cot_v, cot_pre: 64 x hd fp32
+    each per step with a valid edge, written once and read once, at the
+    HBM peak)."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import OPS, TILE, band_indices
+
+    idx, in_range = band_indices(L, W, cmask.device)
+    cm = cmask > 0.5
+    valid = (in_range[None] & cm[:, :, None] & cm[:, idx])              # [B, L, 2W + 1]
+    valid = torch.cat([valid[..., :W], valid[..., W + 1:]], dim=-1)      # the 2W offsets
+    n_tiles, n_steps = -(-L // TILE), -(-2 * W // OPS)
+    n_pairs = -(-n_steps // 2)
+    v = torch.zeros(B, n_tiles * TILE, 2 * n_pairs * OPS, dtype=torch.bool, device=cmask.device)
+    v[:, :L, :2 * W] = valid
+    steps = v.view(B, n_tiles, TILE, 2 * n_pairs, OPS).any(dim=4).any(dim=2)   # [B, tiles, steps]
+    pairs = int(steps.view(B, n_tiles, -1, 2).any(dim=-1).sum())
+    items = int(steps[..., :n_steps].sum())
+    weights = 2 if kernel == "egnn_band_fwd" else 4
+    out = dict(weight_floor_ms=1e3 * pairs * weights * hd * hd * 4
+               / (READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9),
+               weight_passes=pairs)
+    if kernel == "egnn_band_bwd":
+        out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * hd * 4 / PEAK_BYTES_PER_S
+    return out
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
@@ -874,6 +984,37 @@ def _bf16_err(name: str, got, ref, frac: float) -> float:
     return err / max(scale, 1e-30)
 
 
+def _served(want: dict, mode: str = FP32_MODE, hd: int = HD) -> tuple[dict, dict]:
+    """Expected launches of a path whose band calls run in ``mode`` at width
+    ``hd``: ``want`` gives kernels 1-2 under "egnn_band_fwd" /
+    "egnn_band_bwd", counted here under the kernel that serves the mode
+    (``egnn_band.band_kernel``: the Hopper kernels take the one-pass fp32
+    chain up to Hd 256), every other counter 0. Returns (launches by
+    kernel, band launches by mode)."""
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_kernel
+
+    precision = "highest" if mode == FP32_MODE else "default"
+    launches, modes = {k: 0 for k in LAUNCHES}, {}
+    for k, v in want.items():
+        name = band_kernel(k, hd, precision) if k.startswith("egnn_band") else k
+        launches[name] += v
+        if k.startswith("egnn_band") and v:
+            modes[f"{name}:{mode}"] = v
+    return launches, modes
+
+
+def _floor_text(floors: dict) -> str:
+    """The Hopper kernels' floors (``_sm90_floors``) for a log line."""
+    text = ""
+    if "weight_floor_ms" in floors:
+        text += (f"; weight-stream floor {floors['weight_floor_ms']:.4f} ms "
+                 f"({floors['weight_passes']} weight passes from L2)")
+    if "scratch_floor_ms" in floors:
+        text += f"; scratch floor {floors['scratch_floor_ms']:.4f} ms (HBM round trip)"
+    return text
+
+
 def phase_bf16_kernels() -> dict[str, list[dict]]:
     """The bf16-model mode of kernels 1-2 (BF16_MODE) against the plain
     version on the same bf16-rounded inputs: kernel 1 at BF16_FWD_SHAPES,
@@ -885,12 +1026,13 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference)
+        band_kernel, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference)
 
     def bf16(args):
         return [args[0].bfloat16().contiguous(), args[1].bfloat16().contiguous()] + args[2:]
 
-    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    fwd, bwd = (band_kernel(k, HD, "default") for k in ("egnn_band_fwd", "egnn_band_bwd"))
+    rows = {fwd: [], bwd: []}
     for k, (B, L) in enumerate(BF16_FWD_SHAPES):
         args = _egnn_inputs(B, L, SEED + 40 + k)
         args16 = bf16(args)
@@ -909,15 +1051,16 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
         plain_ms = _median_ms(lambda: egnn_band_reference(*args16, W), reps=3)
         bound_ms, bound_by, _, tc_ms, core_ms = _egnn_bound(B, L, args[3], in_bytes=2,
                                                             passes=1)
-        log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
-            f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
+        floors = _sm90_floors("egnn_band_fwd", B, L, args[3]) if fwd.endswith("_sm90") else {}
+        log(f"[kernels] {tag} ({fwd}): {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms "
+            f"in this call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
             f"{bound_ms:.4f} ms by {bound_by} (one-pass TF32 products, "
-            f"{100 * bound_ms / ms:.1f}% of it), fp32-core time {core_ms:.3f} ms; "
-            f"bitwise identical over two launches")
-        rows["egnn_band_fwd"].append(dict(
+            f"{100 * bound_ms / ms:.1f}% of it){_floor_text(floors)}, fp32-core time "
+            f"{core_ms:.3f} ms; bitwise identical over two launches")
+        rows[fwd].append(dict(
             mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
-            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel))
+            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel, **floors))
         del args, args16, out, again, ref
     names = GRAD_NAMES
     for k, (B, L) in enumerate(BF16_BWD_SHAPES):
@@ -946,15 +1089,16 @@ def phase_bf16_kernels() -> dict[str, list[dict]]:
                               reps=3)
         bound_ms, bound_by, tc_ms, core_ms = _band_bwd_bound(B, L, args[3], in_bytes=2,
                                                              passes=1)
-        log(f"[kernels] {tag}: {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms in this "
-            f"call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
+        floors = _sm90_floors("egnn_band_bwd", B, L, args[3]) if bwd.endswith("_sm90") else {}
+        log(f"[kernels] {tag} ({bwd}): {ms:.3f} ms (3xTF32 with fp32 inputs {fp32_ms:.3f} ms "
+            f"in this call, plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
             f"{bound_ms:.4f} ms by {bound_by} (one-pass TF32 products, "
-            f"{100 * bound_ms / ms:.1f}% of it), fp32-core time {core_ms:.3f} ms; "
-            f"bitwise identical over two launches")
-        rows["egnn_band_bwd"].append(dict(
+            f"{100 * bound_ms / ms:.1f}% of it){_floor_text(floors)}, fp32-core time "
+            f"{core_ms:.3f} ms; bitwise identical over two launches")
+        rows[bwd].append(dict(
             mode=BF16_MODE, B=B, L=L, ms=ms, fp32_ms=fp32_ms, host_us=host_us,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, tc_bound_ms=tc_ms,
-            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel))
+            fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel, **floors))
         del args, args16, got, again, ref
     return rows
 
@@ -1123,7 +1267,7 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        MAX_NATIVE, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        MAX_NATIVE, band_kernel, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
         egnn_band_reference, native_width)
 
     args = _egnn_inputs(B, L, seed, hd)
@@ -1190,16 +1334,19 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
     peak = PEAK_BF16_FLOPS if chain == torch.bfloat16 else PEAK_TF32_FLOPS
     bound = _egnn_bound if kernel == "egnn_band_fwd" else _band_bwd_bound
     bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, passes, peak, hd)
-    log(f"[kernels] {tag}: {ms:.3f} ms (plain {plain_ms:.3f} ms), host {host_us:.1f} us "
-        f"per call; bound {bound_ms:.4f} ms by {bound_by} at Hd {hd}, "
-        f"{100 * bound_ms / ms:.1f}% of it; tensor-core time {tc_ms:.3f} ms, fp32-core "
-        f"time {core_ms:.3f} ms; max err / max|plain| {rel:.2e}; bitwise identical over "
-        f"two launches")
+    served = band_kernel(kernel, hd, precision, chain)
+    floors = _sm90_floors(kernel, B, L, args[3], hd) if served.endswith("_sm90") else {}
+    log(f"[kernels] {tag} ({served}): {ms:.3f} ms (plain {plain_ms:.3f} ms), host "
+        f"{host_us:.1f} us per call; bound {bound_ms:.4f} ms by {bound_by} at Hd {hd}, "
+        f"{100 * bound_ms / ms:.1f}% of it{_floor_text(floors)}; tensor-core time "
+        f"{tc_ms:.3f} ms, fp32-core time {core_ms:.3f} ms; max err / max|plain| {rel:.2e}; "
+        f"bitwise identical over two launches")
     del args, xin, extra
     torch.cuda.empty_cache()
-    return dict(mode=mode, Hd=hd, padded_to=native_width(hd), B=B, L=L, ms=ms,
+    return dict(kernel=served, mode=mode, Hd=hd, padded_to=native_width(hd), B=B, L=L, ms=ms,
                 host_us=host_us, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 tc_bound_ms=tc_ms, fp32_core_ms=core_ms, max_abs_err=err, max_rel_err=rel,
+                **floors,
                 **({} if rel_fp32 is None else {"max_rel_err_to_fp32_chain": rel_fp32}))
 
 
@@ -1232,10 +1379,11 @@ def phase_wide_kernels() -> dict[str, list[dict]]:
     """Kernels 1-2 at Hd 512 (WIDE_ROWS), at padded widths (PADDED_ROWS),
     above 512 (WIDER_ROWS) and at the flagship's shapes (FLAGSHIP_ROWS),
     each row by ``_band_row``."""
-    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    rows = {}
     for k, (kernel, mode, hd, B, L) in enumerate(WIDE_ROWS + PADDED_ROWS + WIDER_ROWS
                                                  + FLAGSHIP_ROWS):
-        rows[kernel].append(_band_row(kernel, mode, hd, B, L, SEED + 90 + k))
+        row = _band_row(kernel, mode, hd, B, L, SEED + 90 + k)
+        rows.setdefault(row.pop("kernel"), []).append(row)
     return rows
 
 
@@ -1812,11 +1960,10 @@ def phase_train_cli_bf16(out_dir: str) -> dict:
     secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     tr_steps, va_steps = _pair_steps(TRAIN_PROTEIN, 4)
-    want = {"egnn_band_fwd": cfg.decoder_layers * (tr_steps + va_steps),
-            "egnn_band_bwd": cfg.decoder_layers * tr_steps,
-            "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps}
-    want_modes = {f"egnn_band_fwd:{BF16_MODE}": want["egnn_band_fwd"],
-                  f"egnn_band_bwd:{BF16_MODE}": want["egnn_band_bwd"]}
+    want, want_modes = _served({"egnn_band_fwd": cfg.decoder_layers * (tr_steps + va_steps),
+                                "egnn_band_bwd": cfg.decoder_layers * tr_steps,
+                                "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps},
+                               BF16_MODE, cfg.decoder_hidden)
     log(f"[train] cli.train --compute_dtype bfloat16, 1 epoch: launches {launches} "
         f"(expected {want}), band launches by mode {modes}")
     if launches != want or modes != want_modes:
@@ -2664,13 +2811,10 @@ def _timed_steps(model, batch, path: str, mode: str, tag: str, profile=None) -> 
     if not all(bool(torch.isfinite(v)) for v in metrics.values()):
         raise RuntimeError(f"{path} step {tag}: non-finite metrics")
     per_layer = 2 if mcfg.decoder_remat else 1
-    want = ({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
-             "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
-             "clash_bwd": 1} if path == "kernel"
-            else {k: 0 for k in LAUNCHES})
-    want_modes = ({f"egnn_band_fwd:{mode}": want["egnn_band_fwd"],
-                   f"egnn_band_bwd:{mode}": want["egnn_band_bwd"]}
-                  if path == "kernel" else {})
+    want, want_modes = (_served({"egnn_band_fwd": per_layer * mcfg.decoder_layers,
+                                 "egnn_band_bwd": mcfg.decoder_layers, "clash_fwd": 1,
+                                 "clash_bwd": 1}, mode, mcfg.decoder_hidden)
+                        if path == "kernel" else ({k: 0 for k in LAUNCHES}, {}))
     if launches != want or modes != want_modes:
         raise RuntimeError(f"{path} step {tag} launched {launches} / {modes}, "
                            f"expected {want} / {want_modes}")
@@ -2722,10 +2866,8 @@ def _tiny_cli_train(out_dir: str) -> dict:
     secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     tr, va = _pair_steps(TINY_PROTEIN, 4)
-    want = {"egnn_band_fwd": 2 * (tr + va), "egnn_band_bwd": 2 * tr, "clash_fwd": tr + va,
-            "clash_bwd": tr}
-    want_modes = {f"egnn_band_fwd:{FP32_MODE}": want["egnn_band_fwd"],
-                  f"egnn_band_bwd:{FP32_MODE}": want["egnn_band_bwd"]}
+    want, want_modes = _served({"egnn_band_fwd": 2 * (tr + va), "egnn_band_bwd": 2 * tr,
+                                "clash_fwd": tr + va, "clash_bwd": tr}, FP32_MODE, 16)
     with open(os.path.join(save, "final", "history.json")) as f:
         history = json.load(f)
     finite = all(np.isfinite(v).all() for split in ("train", "val")
@@ -2771,10 +2913,8 @@ def _wider_cli_train(out_dir: str) -> dict:
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     tr, va = _pair_steps(TRAIN_PROTEIN, 4)
     n = cfg.decoder_layers
-    want = {"egnn_band_fwd": n * (tr + va), "egnn_band_bwd": n * tr, "clash_fwd": tr + va,
-            "clash_bwd": tr}
-    want_modes = {f"egnn_band_fwd:{FP32_MODE}": want["egnn_band_fwd"],
-                  f"egnn_band_bwd:{FP32_MODE}": want["egnn_band_bwd"]}
+    want, want_modes = _served({"egnn_band_fwd": n * (tr + va), "egnn_band_bwd": n * tr,
+                                "clash_fwd": tr + va, "clash_bwd": tr}, FP32_MODE, WIDER_CLI_HD)
     with open(os.path.join(save, "final", "history.json")) as f:
         history = json.load(f)
     finite = all(np.isfinite(v).all() for split in ("train", "val")
@@ -2930,10 +3070,9 @@ def phase_flagship(out_dir: str) -> dict:
     epochs = int(FLAGSHIP_ENV["FLAGSHIP_EPOCHS"])
     tr = _flagship_steps(os.path.join(root, "data", "manifest_train.csv"), 8)
     va = _flagship_steps(os.path.join(root, "data", "manifest_val.csv"), 8)
-    want_train = {"egnn_band_fwd": epochs * n * (tr + va), "egnn_band_bwd": epochs * n * tr,
-                  "clash_fwd": epochs * (tr + va), "clash_bwd": epochs * tr}
-    want_train_modes = {f"egnn_band_fwd:{BF16_MODE}": want_train["egnn_band_fwd"],
-                        f"egnn_band_bwd:{BF16_MODE}": want_train["egnn_band_bwd"]}
+    want_train, want_train_modes = _served(
+        {"egnn_band_fwd": epochs * n * (tr + va), "egnn_band_bwd": epochs * n * tr,
+         "clash_fwd": epochs * (tr + va), "clash_bwd": epochs * tr}, BF16_MODE)
     gen_fwd = 2 * FLAGSHIP_STRUCTURES * 2 * n
     got_gen = stages["gen"]["launches"]
     bad = []
@@ -3389,8 +3528,8 @@ def phase_refine_path(model, views, out_dir: str, plain_seconds: list) -> dict:
     reserved = torch.cuda.max_memory_reserved()
 
     n_clash = POLISH_CARTESIAN["steps"] * len(views) + CLI_REFINE_STEPS
-    want = {"egnn_band_fwd": len(views) * 2 * model.config.decoder_layers,
-            "egnn_band_bwd": 0, "clash_fwd": n_clash, "clash_bwd": n_clash}
+    want, _ = _served({"egnn_band_fwd": len(views) * 2 * model.config.decoder_layers,
+                       "clash_fwd": n_clash, "clash_bwd": n_clash})
     log(f"[refine] launches {launches} (expected {want}; each replayed graph adds the "
         f"launches its capture made)")
     if launches != want:
@@ -3594,8 +3733,8 @@ def phase_parallel(out_dir: str, card: str) -> dict:
     spec = dict(model=dataclasses.asdict(cfg), seed=SEED, rng=0, consts=PARALLEL_CONSTS,
                 dp=2, tp=1, device=DEVICE, batch=_parallel_batch(cfg.seqemb_dim),
                 warmup=STEP_WARMUP, reps=STEP_REPS)
-    want = {"egnn_band_fwd": cfg.decoder_layers, "egnn_band_bwd": cfg.decoder_layers,
-            "clash_fwd": 1, "clash_bwd": 1}
+    want, _ = _served({"egnn_band_fwd": cfg.decoder_layers,
+                       "egnn_band_bwd": cfg.decoder_layers, "clash_fwd": 1, "clash_bwd": 1})
 
     def ranks(n, s):
         return launch(parity_step, n, (s,), device=DEVICE, timeout_s=PARALLEL_WAIT_S)
@@ -3710,11 +3849,38 @@ KERNEL_INFO = {
                       "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
     "egnn_band_bwd": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd.cu",
                       "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
+    "egnn_band_fwd_sm90": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd_sm90.cu",
+                           "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
+    "egnn_band_bwd_sm90": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90.cu",
+                           "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
     "clash_fwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:54"),
     "clash_bwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:79"),
 }
+
+# The paths on which each kernel must have launched: the first band
+# kernels serve the fp32 model (3xTF32), the bf16 chain and Hd 512; the
+# Hopper ones the bf16 model's one-pass mode up to Hd 256 (train_bf16, the
+# flagship's training); kernels 3-4 every path with a loss.
+REQUIRED_PATHS = {
+    "egnn_band_fwd": ("generate", "dataprep", "refine", "train", "train_watch", "train_dp",
+                      "wide_decoder", "flagship", "chain_dtype_ab"),
+    "egnn_band_bwd": ("train", "train_watch", "train_dp", "wide_decoder", "chain_dtype_ab"),
+    "egnn_band_fwd_sm90": ("train_bf16", "flagship"),
+    "egnn_band_bwd_sm90": ("train_bf16", "flagship"),
+    "clash_fwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
+                  "flagship"),
+    "clash_bwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
+                  "flagship"),
+}
+# the row each kernel's line reports: the fp32 headline shapes, the
+# flagship's B8/L128 in the bf16 model's mode for the Hopper kernels
+KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, FP32_MODE),
+               "egnn_band_bwd": (TRAIN_HEADLINE, FP32_MODE),
+               "egnn_band_fwd_sm90": ((8, 128), BF16_MODE),
+               "egnn_band_bwd_sm90": ((8, 128), BF16_MODE),
+               "clash_fwd": (TRAIN_HEADLINE, FP32_MODE), "clash_bwd": (TRAIN_HEADLINE, FP32_MODE)}
 
 
 def _descendants() -> list[int]:
@@ -3784,8 +3950,13 @@ def main(argv=None) -> None:
     log(f"[kernels] launch floor (clash_noop, same ctypes path): {floor['floor_us']:.2f} us "
         f"per launch back to back, {floor['floor_graph_us']:.2f} us in a CUDA graph, "
         f"{floor['floor_host_us']:.1f} us per call on the host")
-    shapes = {"egnn_band_fwd": phase_kernels()}
-    shapes.update(phase_train_kernels())
+    global READ_RATE
+    READ_RATE = _l2_rate()
+    log(f"[kernels] read rates ({device['smi']}): {json.dumps(READ_RATE)}")
+    shapes = {name: [] for name in KERNEL_INFO}
+    shapes["egnn_band_fwd"] += phase_kernels()
+    for name, rows in phase_train_kernels().items():
+        shapes[name] += rows
     for name, rows in phase_bf16_kernels().items():
         shapes[name] += rows
     for name, rows in phase_chain_kernels().items():
@@ -3793,7 +3964,8 @@ def main(argv=None) -> None:
     for name, rows in phase_wide_kernels().items():
         shapes[name] += rows
     chain_ab = phase_chain_path()
-    shapes.update(phase_clash_kernels(floor))
+    for name, rows in phase_clash_kernels(floor).items():
+        shapes[name] += rows
     clash_term_kernels()
     model, views = setup_main_path()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as out_dir:
@@ -3817,9 +3989,9 @@ def main(argv=None) -> None:
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = shapes[name]
-        want = HEADLINE_SHAPE if name == "egnn_band_fwd" else TRAIN_HEADLINE
+        want, want_mode = KERNEL_HEAD[name]
         head = next(r for r in rows if (r["B"], r["L"]) == want and r.get("mode", FP32_MODE)
-                    == FP32_MODE and r.get("Hd", HD) == HD)
+                    == want_mode and r.get("Hd", HD) == HD)
         chain_modes = {k.split(":", 1)[1]: v for k, v in chain_ab["modes"].items()
                        if k.startswith(name + ":")}
         # chain_dtype_ab's path is the bf16 chain's: its fp32-chain launches
@@ -3834,13 +4006,9 @@ def main(argv=None) -> None:
                                          if k.endswith("/bfloat16_chain")),
                    "wide_decoder": wide["launches"][name],
                    "flagship": flagship["launches"][name]}
-        if (0 in (by_path["train"], by_path["train_bf16"], by_path["train_watch"],
-                  by_path["train_dp"], by_path["wide_decoder"], by_path["flagship"])
-                or any(r[name] == 0 for r in parallel["launches_by_rank"])
-                or (name != "egnn_band_bwd" and by_path["refine"] == 0)
-                or (name == "egnn_band_fwd" and 0 in (by_path["generate"],
-                                                      by_path["dataprep"]))
-                or (name.startswith("egnn") and by_path["chain_dtype_ab"] == 0)):
+        if (any(by_path[p] == 0 for p in REQUIRED_PATHS[name])
+                or ("train_dp" in REQUIRED_PATHS[name]
+                    and any(r[name] == 0 for r in parallel["launches_by_rank"]))):
             raise RuntimeError(f"{name} was not launched on its main path: {by_path}, "
                                f"chain_dtype_ab modes {chain_modes}")
         kernels.append(dict(
@@ -3852,6 +4020,7 @@ def main(argv=None) -> None:
             graph_ms=head.get("graph_ms"),
             **floor,
             tc_bound_ms=head.get("tc_bound_ms"),
+            **{k: head[k] for k in ("weight_floor_ms", "scratch_floor_ms") if k in head},
             # kernels 1-2: the train_bf16 path's launches by mode
             **({"train_bf16_modes": {k.split(":", 1)[1]: v
                                      for k, v in train_bf16["modes"].items()

@@ -69,10 +69,12 @@
 // - Per-row reductions (the w_x2 dot product) sum each lane's columns, then
 //   the four lanes of a quad with shuffles, then the warps that own the
 //   row's other columns through shared memory, always in the same order.
-// Left for later: wgmma for the products (it needs split operand copies in
-// shared memory), TMA for the ring.
+// The one-pass mode at widths 32 to 256 runs egnn_band_fwd_sm90.cu instead
+// (wgmma, a bulk-copy weight ring); this file no longer builds it. Left
+// for later: wgmma for this file's modes (3xTF32 needs split operand
+// copies in shared memory).
 
-#include "egnn_tile.cuh"
+#include "egnn_passes.cuh"
 
 namespace {
 
@@ -522,30 +524,6 @@ egnn_band_fwd_wide(const In* __restrict__ a, const In* __restrict__ bs,
             }
         }
         if (tid < 3 * T && i0 + tid / 3 < L) delta[(row0 + i0 + tid / 3) * 3 + tid % 3] = delta_r;
-    }
-}
-
-// out[k] = sum over s of part[s][k], in slice order (float4 over agg).
-__global__ void __launch_bounds__(THREADS)
-egnn_band_fwd_sum(const float* __restrict__ part_agg, const float* __restrict__ part_delta,
-                  float* __restrict__ agg, float* __restrict__ delta, size_t n_agg4,
-                  size_t n_delta, int S) {
-    const size_t stride = (size_t)gridDim.x * blockDim.x;
-    for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n_agg4 + n_delta; k += stride) {
-        if (k < n_agg4) {
-            const float4* p = reinterpret_cast<const float4*>(part_agg) + k;
-            float4 t = p[0];
-            for (int s = 1; s < S; ++s) {
-                const float4 q = p[(size_t)s * n_agg4];
-                t.x += q.x; t.y += q.y; t.z += q.z; t.w += q.w;
-            }
-            reinterpret_cast<float4*>(agg)[k] = t;
-        } else {
-            const size_t q = k - n_agg4;
-            float t = part_delta[q];
-            for (int s = 1; s < S; ++s) t += part_delta[(size_t)s * n_delta + q];
-            delta[q] = t;
-        }
     }
 }
 

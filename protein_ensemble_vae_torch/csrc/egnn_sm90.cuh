@@ -1,0 +1,433 @@
+// Hopper building blocks of the one-pass EGNN band kernels
+// (egnn_band_fwd_sm90.cu, egnn_band_bwd_sm90.cu): warpgroup products
+// (wgmma) on TF32 operands in shared memory, a ring of weight chunks filled
+// by bulk asynchronous copies under mbarriers, and the operand layout both
+// sides agree on.
+//
+// Operand layout (K-major, 128-byte swizzle). wgmma's TF32 form takes both
+// operands K-major only (no transpose bit): a 64-row A tile [64][K] and a
+// B tile [N][K], each row's K values contiguous. K is cut into blocks of 32
+// floats (128 bytes); block kb of an R-row tile starts at kb * R * 128
+// bytes, row r of it at r * 128, and its 16-byte chunk c (floats 4c..4c+3)
+// lies at chunk position c ^ (r % 8): the 128-byte swizzle, which the
+// hardware undoes on the address bits (bits 4-6 XOR bits 7-9), so every
+// tile starts 1024-byte aligned. A matrix descriptor names the start, the
+// 1024 bytes between 8-row groups (SBO) and the swizzle; a k8 step inside a
+// block adds 32 bytes to the start (sw_off below is the same map).
+//
+// Weight images. The ring streams an Hd x Hd weight as chunks of NW output
+// rows x 32 K values (NW = min(Hd, 128) columns per product: m64nNWk8), in
+// the order (K block kc, column group h), h fastest, each chunk already in
+// the swizzled byte order, so one cp.async.bulk lands it as the descriptor
+// reads it. Values are rounded to TF32 with cvt.rna's rounding when the
+// image is written (wgmma would drop the low 13 bits otherwise). Two
+// orientations: IMG_T, B[n][k] = W[k][n], for x @ W (the forward products);
+// IMG_N, B[n][k] = W[n][k], for x @ W^T (the cotangent products). One
+// small kernel (weight_images) writes the images a call needs into scratch
+// the wrapper allocates, from the same C entry as the band kernel.
+//
+// Accumulators (m64nN, fp32): in a warpgroup, warp w, lane (g = lane / 4,
+// t = lane % 4) holds rows 16 w + g and 16 w + 8 + g; register 4 j + e is
+// row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2). With edge row r =
+// (offset slot r / 8, receiver r % 8), both rows of a lane belong to
+// receiver g.
+
+#pragma once
+
+#include "egnn_tile.cuh"
+
+namespace egnn {
+namespace sm90 {
+
+constexpr int WG = 128;           // threads of a warpgroup
+constexpr int CONSUMERS = 2;      // consumer warpgroups of the band kernels
+// the consumer warpgroups and a producer warpgroup (one working warp)
+constexpr int THREADS = (CONSUMERS + 1) * WG;
+constexpr int KB = 32;            // K values per 128-byte row of a K block
+// Registers (setmaxnreg): an SM's four sub-partitions hold 16,384 each, and
+// a 384-thread block puts three warps on each, so a thread starts at 168;
+// the producer warpgroup gives its share up (40) and the consumers take it
+// (232: the m64n256 fp32 accumulator is 128 per thread). The consumer
+// code must lie in the other branch of one if / else, or ptxas ignores it.
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+// empty-barrier arrivals per ring chunk: lane 0 of every consumer warp
+constexpr int EMPTY_ARRIVALS = CONSUMERS * WG / 32;
+
+// Output columns per product (m64nNWk8) and column groups at width HD.
+template <int HD>
+struct Cols {
+    static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256, "a width of 32 to 256");
+    static constexpr int NW = HD < 128 ? HD : 128;
+    static constexpr int NH = HD / NW;
+    static constexpr int CHUNK = NW * KB;            // floats of a ring chunk
+    static constexpr int NQ = (HD / KB) * NH;        // chunks of one product
+    static constexpr int ACC = NW / 2;               // accumulator floats per thread and group
+};
+
+// Float offset of element (row, k) in a K-major 128-byte-swizzled tile of
+// `rows` rows.
+__host__ __device__ constexpr int sw_off(int row, int k, int rows) {
+    return (k / KB) * rows * KB + row * KB + ((((k / 4) & 7) ^ (row & 7)) << 2) + (k & 3);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor of a K-major, 128-byte-swizzled operand at p
+// (1024-byte aligned tile; p may add k8 steps of 32 bytes): start >> 4,
+// leading offset 1 (unused by swizzled K-major layouts), 1024 bytes between
+// 8-row groups, layout type 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc(const float* p) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// ---- mbarriers and bulk copies --------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// arrive and expect `bytes` of asynchronous copies to complete the phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    }
+}
+// one 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+// generic-proxy writes to shared memory, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// barrier `id` (1..15) over `n` threads
+__device__ __forceinline__ void named_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
+
+// silu and its derivative (egnn_tile.cuh) with the fast exponential and
+// division (__expf, __fdividef, a few ulp): the one-pass mode's TF32
+// operands (~1e-3 relative) dwarf that. Large |x| still give x * 0 (or 0)
+// and x, and s in {0, 1}.
+__device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.0f + __expf(-x)); }
+__device__ __forceinline__ float sigmoid_fast(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
+// silu'(x) from s = sigmoid(x), which silu(x) = x s shares
+__device__ __forceinline__ float dsilu_of(float x, float s) { return s * (1.0f + x * (1.0f - s)); }
+
+// ---- warpgroup products ------------------------------------------------------
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products (CUTLASS's warpgroup_fence_operand).
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64nN, fp32) = A (64 x 8, TF32) * B (N x 8, TF32) + (scale_d ? d : 0)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+    __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db,
+                                               int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(da), "l"(db), "r"(scale_d));
+    }
+};
+
+template <>
+struct Wgmma<64> {
+    __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(da), "l"(db), "r"(scale_d));
+    }
+};
+
+template <>
+struct Wgmma<128> {
+    __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                               int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(da), "l"(db), "r"(scale_d));
+    }
+};
+
+// ---- the weight ring ---------------------------------------------------------
+
+// A ring position: stage and the parity of its current round.
+struct RingPos {
+    int stage = 0;
+    uint32_t phase = 0;
+    template <int STAGES>
+    __device__ __forceinline__ void next() {
+        if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+        }
+    }
+};
+
+// Producer (one thread): stream the NQ chunks of one weight image into the
+// ring, each stage once its last reader has released it.
+template <int HD, int STAGES>
+__device__ __forceinline__ void produce(const float* __restrict__ img, float* ring,
+                                        uint64_t* full, uint64_t* empty, RingPos& rp) {
+    using C = Cols<HD>;
+    for (int q = 0; q < C::NQ; ++q) {
+        mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
+        mbar_expect_tx(&full[rp.stage], C::CHUNK * 4);
+        bulk_load(ring + rp.stage * C::CHUNK, img + (size_t)q * C::CHUNK, C::CHUNK * 4,
+                  &full[rp.stage]);
+        rp.next<STAGES>();
+    }
+}
+
+// Consumer warpgroup: acc[h] = A @ (column group h of the streamed weight),
+// A the warpgroup's [64][HD] tile (K-major, swizzled). One commit group per
+// chunk, one group left in flight; lane 0 of each warp releases a stage
+// once its warp's products that read it have completed. Every thread of
+// the warpgroup calls it. side(q) runs after chunk q's products are issued,
+// while they run: work that only reads A, or touches neither A nor acc.
+struct NoSide {
+    __device__ __forceinline__ void operator()(int) const {}
+};
+
+template <int HD, int STAGES, class Side = NoSide>
+__device__ __forceinline__ void product(const float* A, const float* ring, uint64_t* full,
+                                        uint64_t* empty, RingPos& rp,
+                                        float (&acc)[Cols<HD>::NH][Cols<HD>::ACC], int lane,
+                                        Side side = Side()) {
+    using C = Cols<HD>;
+#pragma unroll
+    for (int h = 0; h < C::NH; ++h) pin(acc[h]);
+    int prev = -1;
+#pragma unroll 1
+    for (int kc = 0; kc < HD / KB; ++kc) {
+#pragma unroll
+        for (int h = 0; h < C::NH; ++h) {
+            mbar_wait(&full[rp.stage], rp.phase);
+            const float* b = ring + rp.stage * C::CHUNK;
+            const float* a = A + kc * 64 * KB;
+            wg_fence();
+#pragma unroll
+            for (int k8 = 0; k8 < KB / 8; ++k8)
+                Wgmma<C::NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8), (kc | k8) != 0);
+            wg_commit();
+            side(kc * C::NH + h);
+            wg_wait<1>();
+            if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+            prev = rp.stage;
+            rp.next<STAGES>();
+        }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int h = 0; h < C::NH; ++h) pin(acc[h]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+// Consumer warpgroup with no valid edge in its step: walk one product's
+// chunks in step with the other warpgroup, releasing each unread.
+template <int HD, int STAGES>
+__device__ __forceinline__ void pass_product(uint64_t* full, uint64_t* empty, RingPos& rp,
+                                             int lane) {
+    for (int q = 0; q < Cols<HD>::NQ; ++q) {
+        mbar_wait(&full[rp.stage], rp.phase);
+        if (lane == 0) mbar_arrive(&empty[rp.stage]);
+        rp.next<STAGES>();
+    }
+}
+
+// ---- weight images -----------------------------------------------------------
+
+constexpr int IMG_T = 0;   // B[n][k] = W[k][n]  (x @ W)
+constexpr int IMG_N = 1;   // B[n][k] = W[n][k]  (x @ W^T)
+
+// Image element e of an HD x HD weight w in orientation `orient`: chunk
+// e / CHUNK = (kc, h), then row n_local and swizzled position within it.
+template <int HD>
+__device__ __forceinline__ float image_value(const float* __restrict__ w, int orient, int e) {
+    using C = Cols<HD>;
+    const int q = e / C::CHUNK, r = e % C::CHUNK;
+    const int nl = r / KB, pos = r % KB;
+    const int kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3);
+    const int n = (q % C::NH) * C::NW + nl, k = (q / C::NH) * KB + kl;
+    const float v = orient == IMG_T ? w[k * HD + n] : w[n * HD + k];
+    return __uint_as_float(rna_tf32(v));
+}
+
+// img[q] = image of (srcs[q], orient[q]) for q < n (at most 4), each HD*HD floats.
+struct ImageSet {
+    const float* src[4];
+    int orient[4];
+    int n;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(256) weight_images(ImageSet set, float* __restrict__ img) {
+    const int per = HD * HD;
+    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < set.n * per;
+         idx += gridDim.x * blockDim.x) {
+        const int q = idx / per;
+        img[idx] = image_value<HD>(set.src[q], set.orient[q], idx % per);
+    }
+}
+
+template <int HD>
+cudaError_t launch_images(const ImageSet& set, float* img, cudaStream_t stream) {
+    const int n = set.n * HD * HD;
+    weight_images<HD><<<(n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024, 256, 0, stream>>>(set, img);
+    return cudaGetLastError();
+}
+
+// ---- rows of a step ------------------------------------------------------------
+
+// Edge row r of step s for receiver tile i0 of batch row b: its sender j
+// and validity (band offset in range, both residues unmasked).
+__device__ __forceinline__ bool edge_row(const float* __restrict__ cmask, size_t row0, int i0,
+                                         int s, int r, int L, int W, int& i, int& j) {
+    const int e = s * OPS + r / T;
+    i = i0 + r % T;
+    j = 0;
+    if (e >= 2 * W || i >= L) return false;
+    j = i + band_offset(e, W);
+    return j >= 0 && j < L && cmask[row0 + i] > 0.5f && cmask[row0 + j] > 0.5f;
+}
+
+// cvt.rna.tf32.f32's rounding of v (egnn_tile.cuh: rna_tf32), as an fp32 value.
+__device__ __forceinline__ float tf32(float v) { return __uint_as_float(rna_tf32(v)); }
+
+// A = silu(pre), pre = a_i + bs_j + d2 * w_d, of a step's 64 edge rows
+// (row r: receiver i0 + r % T, sender row_j[r]), rounded to TF32, in the
+// warpgroup's K-major swizzled tile, and with dpre also silu'(pre) into
+// dpre [64][HD] (row-major, fp32); rows of invalid edges are 0. Thread t of
+// the warpgroup reads 16 bytes of a_i and of bs_j at a time.
+template <int HD, class In>
+__device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
+                                         const In* __restrict__ bs_b, const float* __restrict__ w_d,
+                                         const float* row_valid, const float* row_d2,
+                                         const int* row_j, int i0, int t,
+                                         float* __restrict__ dpre = nullptr) {
+    constexpr int NV = Vec<In>::N, HDV = HD / NV;
+#pragma unroll 4
+    for (int idx = t; idx < M * HDV; idx += WG) {
+        const int r = idx / HDV, c = NV * (idx % HDV);
+        float pv[NV], dv[NV];
+#pragma unroll
+        for (int q = 0; q < NV; ++q) pv[q] = dv[q] = 0.f;
+        if (row_valid[r] > 0.f) {
+            float av[NV], bv[NV];
+            load_vec(a_b + (size_t)(i0 + r % T) * HD + c, av);
+            load_vec(bs_b + (size_t)row_j[r] * HD + c, bv);
+            const float d2 = row_d2[r];
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4) {
+                const float4 wd = load4(w_d + c + 4 * q4);
+                const float w4[4] = {wd.x, wd.y, wd.z, wd.w};
+#pragma unroll
+                for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
+                    const float pre = av[q] + bv[q] + d2 * w4[q % 4];
+                    const float s = sigmoid_fast(pre);
+                    pv[q] = pre * s;
+                    dv[q] = dsilu_of(pre, s);
+                }
+            }
+        }
+#pragma unroll
+        for (int q4 = 0; q4 < NV / 4; ++q4)
+            *reinterpret_cast<float4*>(A + sw_off(r, c + 4 * q4, M)) =
+                make_float4(tf32(pv[4 * q4]), tf32(pv[4 * q4 + 1]), tf32(pv[4 * q4 + 2]),
+                            tf32(pv[4 * q4 + 3]));
+        if (dpre) {
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4)
+                *reinterpret_cast<float4*>(dpre + (size_t)r * HD + c + 4 * q4) =
+                    make_float4(dv[4 * q4], dv[4 * q4 + 1], dv[4 * q4 + 2], dv[4 * q4 + 3]);
+        }
+    }
+}
+
+// 1024-byte aligned start of dynamic shared memory (the swizzled tiles'
+// alignment); the kernels ask for 1 KB more than their layout.
+__device__ __forceinline__ char* smem_base(char* raw) {
+    const uint32_t a = smem_u32(raw);
+    return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// f(Int<HD>{}, Type<In>{}) for a width the sm90 kernels take (32..256) and
+// the input type of a / bs; cudaErrorInvalidValue otherwise.
+template <class F>
+cudaError_t dispatch(int hd, int bf16_in, F&& f) {
+    auto by_hd = [&](auto t) -> cudaError_t {
+        switch (hd) {
+            case 32:  return f(Int<32>{}, t);
+            case 64:  return f(Int<64>{}, t);
+            case 128: return f(Int<128>{}, t);
+            case 256: return f(Int<256>{}, t);
+            default:  return cudaErrorInvalidValue;
+        }
+    };
+    return bf16_in ? by_hd(Type<__nv_bfloat16>{}) : by_hd(Type<float>{});
+}
+
+}  // namespace sm90
+}  // namespace egnn

@@ -36,6 +36,18 @@ Modes, as the JAX function's arguments:
   op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
   uses this mode, and the port's decoder does not either.
 
+Kernels by mode. The one-pass fp32 chain (``precision="default"``,
+``chain_dtype`` fp32; ``a`` / ``bs`` in bf16, the bf16 model's mode, or in
+fp32) at the native widths SM90_HIDDEN (32 to 256, and the widths padded
+to them) runs on the Hopper kernels ``csrc/egnn_band_fwd_sm90.cu`` /
+``csrc/egnn_band_bwd_sm90.cu`` (``wgmma`` products fed by an ``mbarrier``
+weight ring that two consumer warpgroups share; counters
+``egnn_band_fwd_sm90`` / ``egnn_band_bwd_sm90``), and for a CUDA tensor
+only there. Every other mode and width stays on ``csrc/egnn_band_fwd.cu`` /
+``csrc/egnn_band_bwd.cu``: the 3xTF32 mode, the bf16 chain, Hd 512 and
+the widths padded to it, and the wide variants above 512
+(``band_kernel`` names the kernel that serves a call).
+
 Widths: any width from 1 up. The kernels are instantiated at the native
 widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
 shared memory; above MAX_NATIVE that tile, 64 x (Hd + 8) x 4 bytes, would
@@ -53,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -79,9 +92,26 @@ TILE = 8                  # receivers per tile (csrc/egnn_tile.cuh: T)
 OPS = 8                   # band offsets per step (csrc/egnn_tile.cuh: OPS)
 WGRAD_TILE = 128          # weight-grad output tile edge (csrc/egnn_band_bwd.cu)
 FWD_WAVES = 8             # waves of resident blocks kernel 1's grid should span
+# The Hopper kernels of the one-pass fp32 chain (csrc/egnn_band_{fwd,bwd}_sm90.cu,
+# csrc/egnn_sm90.cuh), their widths and the constants of their layouts
+SM90_KERNEL = "egnn_band_fwd_sm90"
+SM90_BWD_KERNEL = "egnn_band_bwd_sm90"
+SM90_HIDDEN = (32, 64, 128, 256)
+SM90_THREADS = 384        # a producer warpgroup and two consumer warpgroups
+SM90_FWD_WAVES = 2        # waves of the persistent blocks kernel 1's units should span
+SM90_KB = 32              # K values per 128-byte swizzled row of a K block
+SM90_NW_MAX = 128         # output columns per wgmma (m64nNk8), at most
+SM90_FWD_STAGES = 5       # ring chunks of kernel 1 (egnn_band_fwd_sm90.cu: STAGES)
+SM90_BWD_STAGES = 3       # ring chunks of kernel 2's edge pass (egnn_band_bwd_sm90.cu: STAGES)
+SM90_WGRAD_STAGES = 4     # stages of its weight-grad pass (egnn_band_bwd_sm90.cu: WSTAGES)
+SM90_WGRAD_M = 64         # weight-grad tile rows (one m64 warpgroup product)
+SMEM_LIMIT = 232448       # shared memory one block may have on an H100
+IMG_T, IMG_N = 0, 1       # weight image orientations: B[n][k] = W[k][n], W[n][k]
 
 _FN = None
 _BWD_FN = None
+_SM90_FN = None
+_SM90_BWD_FN = None
 _SM_COUNT: dict = {}
 _PER_SM: dict = {}
 
@@ -135,6 +165,100 @@ def wide_fwd_grid(B: int, L: int, n_sm: int, per_sm: int) -> int:
     than items."""
     n_tiles, _, _ = band_work(B, L, 1)
     return max(1, min(B * n_tiles, n_sm * max(1, per_sm)))
+
+
+def takes_sm90(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
+    """Whether the Hopper kernels take a call at native width Hd in this
+    mode: the one-pass fp32 chain at a width of SM90_HIDDEN."""
+    return precision == "default" and not _chain_bf16(chain_dtype) and Hd in SM90_HIDDEN
+
+
+def band_kernel(kernel: str, Hd: int, precision: str = "highest",
+                chain_dtype=torch.float32) -> str:
+    """The kernel, and launch counter, that serves ``kernel``
+    (``"egnn_band_fwd"`` or ``"egnn_band_bwd"``) at hidden width Hd (any
+    width; the kernels run it at ``native_width(Hd)``) in the mode."""
+    return kernel + "_sm90" if takes_sm90(native_width(Hd), precision, chain_dtype) else kernel
+
+
+def sm90_cols(Hd: int) -> tuple[int, int]:
+    """(NW, NH): output columns per product (m64nNWk8) and column groups."""
+    nw = min(Hd, SM90_NW_MAX)
+    return nw, Hd // nw
+
+
+def sm90_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
+                     per_sm: int) -> tuple[int, int, int]:
+    """Kernel 1's Hopper plan: (S, pairs per slice, G). A work unit is
+    (batch row, receiver tile, slice of the band's step pairs; a pair is two
+    64-edge-row steps, one per consumer warpgroup); G persistent blocks
+    (``per_sm`` on each of ``n_sm`` SMs, no more than the units) walk units
+    g, g + G, ... The slices S split the pairs so that the units span
+    SM90_FWD_WAVES waves of the G blocks where the pairs allow (each unit
+    ends in a cross-warp sum of its receivers' rows, so fewer, longer units
+    where the card is full), every slice owning at least one pair; with
+    S > 1 a second pass sums the slices' partial outputs in slice order."""
+    n_tiles, n_steps, _ = band_work(B, L, W)
+    n_pairs = -(-n_steps // 2)
+    blocks = B * n_tiles
+    slots = n_sm * max(1, per_sm)
+    S = max(1, min(n_pairs, -(-SM90_FWD_WAVES * slots // max(1, blocks))))
+    per = -(-n_pairs // S)
+    S = -(-n_pairs // per)
+    return S, per, max(1, min(blocks * S, slots))
+
+
+def sm90_smem_bytes(kernel: str, Hd: int) -> int:
+    """Shared memory one block of a Hopper kernel asks for at width Hd
+    (mirror of the layouts in csrc/egnn_band_{fwd,bwd}_sm90.cu; + 1 KiB to
+    align the swizzled tiles): ``"egnn_band_fwd_sm90"``, the edge pass
+    ``"egnn_band_bwd_sm90"`` or its weight-grad pass ``"wgrad"``."""
+    nw, _ = sm90_cols(Hd)
+    chunk = nw * SM90_KB * 4
+    a_tiles = 2 * 64 * Hd * 4
+    if kernel == SM90_KERNEL:
+        return a_tiles + SM90_FWD_STAGES * chunk + 2 * 6 * 64 * 4 + 32 + 2 * SM90_FWD_STAGES * 8 + 1024
+    if kernel == SM90_BWD_KERNEL:
+        # A tiles, ring, the eight warps' vector-grad column sums, rows, flags, barriers
+        return (a_tiles + SM90_BWD_STAGES * chunk + 8 * 4 * Hd * 4 + 2 * 7 * 64 * 4 + 32
+                + 2 * SM90_BWD_STAGES * 8 + 1024)
+    if kernel == "wgrad":
+        stage = SM90_WGRAD_M * SM90_KB * 4 + nw * SM90_KB * 4
+        return SM90_WGRAD_STAGES * stage + 2 * SM90_WGRAD_STAGES * 8 + 1024
+    raise ValueError(f"not a Hopper kernel: {kernel!r}")
+
+
+def rna_tf32(v):
+    """numpy float32 values rounded to TF32 as cvt.rna.tf32.f32 rounds
+    them (to nearest, ties away from zero; egnn_tile.cuh: rna_tf32)."""
+    u = np.asarray(v, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def sw_off(row, k, rows: int):
+    """Float offset of element (row, k) in a K-major, 128-byte-swizzled
+    tile of ``rows`` rows (egnn_sm90.cuh: sw_off); numpy arrays or ints."""
+    return ((k // SM90_KB) * rows * SM90_KB + row * SM90_KB
+            + ((((k // 4) & 7) ^ (row & 7)) << 2) + (k & 3))
+
+
+def weight_image(w, orient: int):
+    """numpy mirror of the layout kernel (egnn_sm90.cuh: weight_images):
+    the Hd x Hd fp32 weight ``w`` as the ring streams it, chunks of NW
+    output rows x 32 K values in the order (K block, column group), each
+    in the swizzled byte order, values rounded to TF32. ``orient`` IMG_T:
+    B[n][k] = w[k][n] (products x @ w), IMG_N: B[n][k] = w[n][k] (x @ w^T).
+    Returns the flat image, Hd * Hd float32."""
+    w = np.asarray(w, dtype=np.float32)
+    Hd = w.shape[0]
+    nw, nh = sm90_cols(Hd)
+    chunk = nw * SM90_KB
+    e = np.arange(Hd * Hd)
+    q, r = e // chunk, e % chunk
+    nl, pos = r // SM90_KB, r % SM90_KB
+    kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
+    n, k = (q % nh) * nw + nl, (q // nh) * SM90_KB + kl
+    return rna_tf32(w[k, n] if orient == IMG_T else w[n, k])
 
 
 def _sm_count(dev) -> int:
@@ -504,12 +628,15 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                                    W, precision, chain_dtype)
         return agg[..., :Hd], delta
     bf16, passes, cb = int(a.dtype == torch.bfloat16), PASSES[precision], _chain_bf16(chain_dtype)
-    wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
-    fn, lib = _kernel_fn()
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    if takes_sm90(Hd, precision, chain_dtype):
+        return _fwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
+                         delta, W, precision)
+    wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
+    fn, lib = _kernel_fn()
     if Hd > MAX_NATIVE:
         return _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
                          chain_dtype)
@@ -530,6 +657,80 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                            f"({lib.egnn_band_fwd_error_string(err).decode()})")
     _count(KERNEL, a.dtype, precision, chain_dtype)
     return agg, delta
+
+
+def _sm90_fn():
+    global _SM90_FN
+    if _SM90_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(SM90_KERNEL)
+        fn = lib.egnn_band_fwd_sm90_launch
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_fwd_sm90_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_fwd_sm90_error_string.restype = ctypes.c_char_p
+        lib.egnn_sm90_weight_images.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                                                + [ctypes.c_void_p] * 2)
+        lib.egnn_sm90_weight_images.restype = ctypes.c_int
+        _SM90_FN = (fn, lib)
+    return _SM90_FN
+
+
+def sm90_fwd_plan(B: int, L: int, W: int, Hd: int, dev,
+                  dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int]:
+    """``sm90_fwd_plan_of`` on CUDA device ``dev``: its SM count and the
+    blocks of the Hopper kernel 1 that one SM holds."""
+    lib = _sm90_fn()[1]
+    per_sm = _blocks_per_sm(SM90_KERNEL, lambda hd, b16, *_: lib.egnn_band_fwd_sm90_blocks_per_sm(
+        hd, b16), Hd, dev, dtype, "default", torch.float32)
+    return sm90_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
+
+
+def _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tensor, Tensor]:
+    """Kernel 1 on Hopper (the one-pass fp32 chain at a width of
+    SM90_HIDDEN): one C call writes the weight images, runs the kernel on
+    the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums their partials.
+    The images and the partials share one scratch allocation."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _sm90_fn()
+    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype)
+    n_img, n_part = 2 * Hd * Hd, (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
+    scratch = torch.empty((n_img + sum(n_part),), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    parts = (base + 4 * n_img, base + 4 * (n_img + n_part[0])) if S > 1 else (None, None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
+                 *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
+                 *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{SM90_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_fwd_sm90_error_string(err).decode()})")
+    _count(SM90_KERNEL, a.dtype, precision, torch.float32)
+    return agg, delta
+
+
+def sm90_weight_images(ws, orients) -> Tensor:
+    """The layout kernel alone: the images of the CUDA fp32 [Hd, Hd] weights
+    ``ws`` in orientations ``orients`` (IMG_T / IMG_N), [len(ws), Hd * Hd],
+    as the band kernels' C entries write them (for tests against
+    ``weight_image``)."""
+    Hd, dev = ws[0].shape[0], ws[0].device
+    lib = _sm90_fn()[1]
+    out = torch.empty((len(ws), Hd * Hd), dtype=torch.float32, device=dev)
+    srcs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
+    kinds = (ctypes.c_int * len(ws))(*orients)
+    with torch.cuda.device(dev):
+        err = lib.egnn_sm90_weight_images(ctypes.cast(srcs, ctypes.c_void_p),
+                                          ctypes.cast(kinds, ctypes.c_void_p), len(ws), Hd,
+                                          out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"egnn_sm90_weight_images failed: CUDA error {err}")
+    return out
 
 
 def _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
@@ -678,7 +879,6 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
         return unpad_band_grads(
             egnn_band_bwd(*pad_band_width(*args, n), F.pad(g_agg, (0, n - Hd)), g_delta,
                           W, precision, chain_dtype), *args)
-    fn, lib = _bwd_kernel_fn()
     f32 = dict(dtype=torch.float32, device=dev)
     alloc = torch.empty if B and L else torch.zeros
     da = alloc((B, L, Hd), dtype=a.dtype, device=dev)
@@ -687,7 +887,11 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_e2 = alloc((Hd, Hd), **f32)
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
-    if B and L:
+    if B and L and takes_sm90(Hd, precision, chain_dtype):
+        _bwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
+                  (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
+    elif B and L:
+        fn, lib = _bwd_kernel_fn()
         cb = _chain_bf16(chain_dtype)
         G, nsplit = bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
         scratch = torch.empty(
@@ -708,6 +912,72 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     return (da, dbs, dx, dw_d.reshape(w_d.shape), dw_e2,
             db_e2.reshape(b_e2.shape), dw_x1, db_x1.reshape(b_x1.shape),
             dw_x2.reshape(w_x2.shape), dvec[4 * Hd:].reshape(b_x2.shape))
+
+
+def _sm90_bwd_fn():
+    global _SM90_BWD_FN
+    if _SM90_BWD_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(SM90_BWD_KERNEL)
+        fn = lib.egnn_band_bwd_sm90_launch
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.egnn_band_bwd_sm90_scratch_floats.restype = ctypes.c_size_t
+        lib.egnn_band_bwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_bwd_sm90_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_sm90_error_string.restype = ctypes.c_char_p
+        _SM90_BWD_FN = (fn, lib)
+    return _SM90_BWD_FN
+
+
+def sm90_bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
+                  per_sm: int) -> tuple[int, int]:
+    """Kernel 2's Hopper plan: G persistent edge-pass blocks (``per_sm`` on
+    each of ``n_sm`` SMs, no more than the step pairs; block g takes pairs
+    g, g + G, ...) and the weight-grad pass's slices of the steps, enough
+    for its 2 x ceil(Hd / 64) x (Hd / NW) output tiles to fill two blocks
+    per SM."""
+    n_tiles, n_steps, items = band_work(B, L, W)
+    pairs = B * n_tiles * -(-n_steps // 2)
+    nw, nh = sm90_cols(Hd)
+    out_tiles = 2 * -(-Hd // SM90_WGRAD_M) * nh
+    return (max(1, min(pairs, n_sm * max(1, per_sm))),
+            max(1, min(items, -(-2 * n_sm // out_tiles))))
+
+
+def sm90_bwd_plan(B: int, L: int, W: int, Hd: int, dev,
+                  dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """``sm90_bwd_grid`` on CUDA device ``dev``: its SM count and the
+    edge-pass blocks of the Hopper kernel 2 that one SM holds."""
+    lib = _sm90_bwd_fn()[1]
+    per_sm = _blocks_per_sm(SM90_BWD_KERNEL, lambda hd, b16, *_: lib.egnn_band_bwd_sm90_blocks_per_sm(
+        hd, b16), Hd, dev, dtype, "default", torch.float32)
+    return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
+
+
+def _bwd_sm90(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
+    """Kernel 2 on Hopper (the one-pass fp32 chain at a width of
+    SM90_HIDDEN) into ``outs`` = (da, dbs, dx, dw_e2, dw_x1, dvec): one C
+    call writes the four weight images into the scratch and runs the edge,
+    node, weight-grad and reduce passes on the ``sm90_bwd_plan`` grid."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _sm90_bwd_fn()
+    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype)
+    scratch = torch.empty((lib.egnn_band_bwd_sm90_scratch_floats(B, L, Hd, W, G, nsplit),),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
+                                          scratch)),
+                 B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{SM90_BWD_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_bwd_sm90_error_string(err).decode()})")
+    _count(SM90_BWD_KERNEL, a.dtype, precision, torch.float32)
 
 
 class EGNNBandFunction(torch.autograd.Function):

@@ -26,7 +26,20 @@ training shapes. The current version runs through the package's wrappers;
 the baseline gets the launch plan (offset slices, edge-pass grid) of its
 own occupancy. Each row also says whether the two versions' outputs are
 bitwise equal and gives the plain version's time, the fp32 bound and the
-tensor-core bound (chip_smoke.py). ``--sweep-slices`` also
+tensor-core bound (chip_smoke.py). ``--onepass`` times only the one-pass
+fp32-chain mode (bf16 ``a`` / ``bs``, ``precision="default"``: the bf16
+model's mode) at ONEPASS_FWD_SHAPES / ONEPASS_BWD_SHAPES, the flagship's
+training shapes B8/L128 and B8/L192 first. ``--pass-split`` profiles the
+current kernels with torch.profiler in that mode at PASS_SPLIT_SHAPES and
+gives the device ms per call of each CUDA kernel they launch, by name
+(kernel 2: edge, node, weight-grad and reduce passes). ``--l2-rate``
+measures the card's L2 read rate (chip_smoke.py's L2_SRC: 16-byte
+``ld.global.cg`` loads, which skip L1, over a buffer that stays resident
+in L2; once with every block reading its own stripe of 16 MiB, once with
+every block reading the same 512 KiB, the pattern of a weight stream that
+every SM reads) and, for scale, the HBM read rate over 2 GiB; rows of the
+Hopper kernels (the one-pass mode up to Hd 256) then also give their
+weight-stream and scratch floors (chip_smoke.py's ``_sm90_floors``). ``--sweep-slices`` also
 times the current kernel 1 (fp32 mode) with its band offsets split into
 each of SWEEP_SLICES slices (``fwd_plan`` overridden), in two turns per
 count. ``--mma-rate`` also measures the card's rate for register-fed
@@ -51,6 +64,13 @@ import chip_smoke as cs  # noqa: E402
 FWD_SHAPES = ((1, 256), (10, 256), (1, 640), (10, 640), (4, 256), (2, 640))
 BWD_SHAPES = ((4, 256), (2, 640))
 SWEEP_SLICES = (1, 2, 3, 4, 5, 10)
+# the bf16 model's one-pass mode: the flagship's training shapes, then the
+# training and generation shapes
+ONEPASS_FWD_SHAPES = ((8, 128), (8, 192), (4, 256), (2, 640), (10, 640))
+ONEPASS_BWD_SHAPES = ((8, 128), (8, 192), (4, 256))
+PASS_SPLIT_SHAPES = ((8, 128), (8, 192))
+PASS_SPLIT_CALLS = 20
+
 
 # Each warp issues ITERS x 16 m16n8k8 TF32 products into 16 independent
 # accumulators; 2 x 16 x 8 x 8 FLOP each.
@@ -103,6 +123,31 @@ def _mma_rate(workdir: str, n_sm: int) -> dict:
         flop = blocks * 8 * iters * 16 * 2 * 16 * 8 * 8
         res[f"{8 * per_sm}_warps_per_sm_tflops"] = flop / ms / 1e9
     return res
+
+
+def _pass_split(call, calls: int = PASS_SPLIT_CALLS) -> dict:
+    """Device ms per call of each CUDA kernel ``call`` launches, by the
+    kernel's function name (torch.profiler over ``calls`` calls after one
+    warm-up)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(egnn_\w+)", e.name)
+        key = m.group(1) if m else e.name[:48]
+        by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / calls / 1e3
+    return by
 
 
 def _build_baseline(src_dir: str) -> dict:
@@ -245,14 +290,20 @@ def main(argv=None) -> None:
                     help="also time kernel 1 at each slice count of SWEEP_SLICES")
     ap.add_argument("--mma-rate", action="store_true",
                     help="also measure register-fed TF32 mma.sync throughput")
+    ap.add_argument("--onepass", action="store_true",
+                    help="only the bf16 model's one-pass mode, at ONEPASS_*_SHAPES")
+    ap.add_argument("--pass-split", action="store_true",
+                    help="also profile the current kernels' passes at PASS_SPLIT_SHAPES")
+    ap.add_argument("--l2-rate", action="store_true",
+                    help="also measure the card's L2 and HBM read rates")
     args_ns = ap.parse_args(argv)
 
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels import egnn_band
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        bwd_plan, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
-        egnn_band_reference, fwd_plan, band_work, mode_key)
+        band_kernel, band_work, bwd_plan, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        egnn_band_reference, fwd_plan, mode_key, sm90_bwd_plan, sm90_fwd_plan)
     from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 
     device = cs.phase_device()
@@ -262,12 +313,36 @@ def main(argv=None) -> None:
     f32, b16 = torch.float32, torch.bfloat16
     modes = [(f32, "highest", f32), (b16, "default", f32)]
     modes += [(b16, "default", b16)] if base["chain"] else []
+    fwd_shapes, bwd_shapes = FWD_SHAPES, BWD_SHAPES
+    if args_ns.onepass:
+        modes, fwd_shapes, bwd_shapes = [(b16, "default", f32)], ONEPASS_FWD_SHAPES, \
+            ONEPASS_BWD_SHAPES
     W, rows = cs.W, []
+    result = dict(device=device, n_sm=n_sm, rows=rows)
+    if args_ns.l2_rate:
+        result["read_rate"] = cs.READ_RATE = cs._l2_rate()
+        cs.log(f"[ab] read rates ({device['smi']}): {json.dumps(result['read_rate'])}")
+    if args_ns.pass_split:
+        split = {}
+        for k, (B, L) in enumerate(PASS_SPLIT_SHAPES):
+            args = cs._egnn_inputs(B, L, cs.SEED + 20 + k)
+            args = [args[0].to(b16), args[1].to(b16)] + args[2:]
+            g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20 + k)
+            g_agg = torch.randn(B, L, cs.HD, generator=g, device="cuda")
+            g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+            split[f"B{B}/L{L}"] = dict(
+                egnn_band_fwd=_pass_split(lambda: egnn_band_fwd(*args, W, "default")),
+                egnn_band_bwd=_pass_split(
+                    lambda: egnn_band_bwd(*args, g_agg, g_delta, W, "default")))
+            del args, g_agg, g_delta
+        result["pass_split_ms"] = split
+        cs.log(f"[ab] device ms per call by CUDA kernel, {cs.BF16_MODE} ({device['smi']}): "
+               f"{json.dumps(split)}")
 
     def cast(args, mode):
         return [args[0].to(mode[0]), args[1].to(mode[0])] + args[2:]
 
-    for k, (B, L) in enumerate(FWD_SHAPES):
+    for k, (B, L) in enumerate(fwd_shapes):
         args0 = cs._egnn_inputs(B, L, cs.SEED + k)
         for mode in modes:
             args, (_, precision, chain) = cast(args0, mode), mode
@@ -282,12 +357,19 @@ def main(argv=None) -> None:
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, _, tc, _ = cs._egnn_bound(B, L, args[3], args[0].element_size(),
                                                  passes, peak)
-            S = fwd_plan(B, L, W, cs.HD, args[0].device, *mode)
-            row = dict(kernel="egnn_band_fwd", mode=tag.split(":", 1)[1], B=B, L=L,
+            served = band_kernel("egnn_band_fwd", cs.HD, precision, chain)
+            if served.endswith("_sm90"):
+                S, _, G = sm90_fwd_plan(B, L, W, cs.HD, args[0].device, args[0].dtype)
+                plan = dict(slices=S, units=B * band_work(B, L, W)[0] * S, blocks=G,
+                            **(cs._sm90_floors("egnn_band_fwd", B, L, args[3])
+                               if cs.READ_RATE else {}))
+            else:
+                S = fwd_plan(B, L, W, cs.HD, args[0].device, *mode)
+                plan = dict(slices=S, blocks=B * band_work(B, L, W)[0] * S)
+            row = dict(kernel=served, mode=tag.split(":", 1)[1], B=B, L=L,
                        bitwise_equal_to_baseline=same, **_turns(old, cur),
                        plain_ms=cs._median_ms(lambda: egnn_band_reference(*args, W, chain)),
-                       bound_ms=bound, bound_by=by, tc_bound_ms=tc,
-                       slices=S, blocks=B * band_work(B, L, W)[0] * S)
+                       bound_ms=bound, bound_by=by, tc_bound_ms=tc, **plan)
             if args_ns.sweep_slices and mode == modes[0]:
                 sweep = {}
                 for sl in SWEEP_SLICES:
@@ -299,7 +381,7 @@ def main(argv=None) -> None:
             cs.log(f"[ab] {json.dumps(row)}")
             del args, ref
     names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
-    for k, (B, L) in enumerate(BWD_SHAPES):
+    for k, (B, L) in enumerate(bwd_shapes):
         args0 = cs._egnn_inputs(B, L, cs.SEED + 10 + k)
         g = torch.Generator(device="cuda").manual_seed(cs.SEED + k)
         g_agg = torch.randn(B, L, cs.HD, generator=g, device="cuda")
@@ -317,17 +399,23 @@ def main(argv=None) -> None:
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, tc, _ = cs._band_bwd_bound(B, L, args[3], args[0].element_size(),
                                                   passes, peak)
-            G, nsplit = bwd_plan(B, L, W, cs.HD, args[0].device, *mode)
-            row = dict(kernel="egnn_band_bwd", mode=tag.split(":", 1)[1], B=B, L=L,
+            served = band_kernel("egnn_band_bwd", cs.HD, precision, chain)
+            if served.endswith("_sm90"):
+                G, nsplit = sm90_bwd_plan(B, L, W, cs.HD, args[0].device, args[0].dtype)
+                floors = (cs._sm90_floors("egnn_band_bwd", B, L, args[3]) if cs.READ_RATE
+                          else {})
+            else:
+                G, nsplit = bwd_plan(B, L, W, cs.HD, args[0].device, *mode)
+                floors = {}
+            row = dict(kernel=served, mode=tag.split(":", 1)[1], B=B, L=L,
                        bitwise_equal_to_baseline=same, **_turns(old, cur),
                        plain_ms=cs._median_ms(
                            lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W, chain)),
                        bound_ms=bound, bound_by=by, tc_bound_ms=tc,
-                       edge_blocks=G, wgrad_slices=nsplit, items=band_work(B, L, W)[2])
+                       edge_blocks=G, wgrad_slices=nsplit, items=band_work(B, L, W)[2], **floors)
             rows.append(row)
             cs.log(f"[ab] {json.dumps(row)}")
             del args, ref
-    result = dict(device=device, n_sm=n_sm, rows=rows)
     if args_ns.mma_rate:
         result["mma_sync_tf32"] = _mma_rate(os.path.abspath(args_ns.baseline), n_sm)
         cs.log(f"[ab] mma.sync m16n8k8 TF32: {json.dumps(result['mma_sync_tf32'])}")

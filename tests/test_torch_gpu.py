@@ -22,7 +22,7 @@ from protein_ensemble_vae_torch.ops.kernels.clash import (  # noqa: E402
     backbone_atoms, clash_bwd, clash_bwd_reference, clash_fwd,
     clash_fwd_reference, clash_loss_kernel)
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (  # noqa: E402
-    egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fused, egnn_band_fwd,
+    band_kernel, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fused, egnn_band_fwd,
     egnn_band_reference)
 from protein_ensemble_vae_torch.ops.routing import set_full_fp32  # noqa: E402
 
@@ -486,7 +486,7 @@ def test_bf16_mode_matches_plain_version(cuda, B, L, Hd, W):
         assert a.dtype == b.dtype == (torch.bfloat16 if name in ("a", "bs") else torch.float32)
         _within_frac(a, b, BF16_GRAD_FRAC, name)
     for k in ("egnn_band_fwd", "egnn_band_bwd"):
-        key = f"{k}:bfloat16/default"
+        key = f"{band_kernel(k, Hd, 'default')}:bfloat16/default"
         assert BAND_MODE_LAUNCHES.get(key, 0) == before.get(key, 0) + 1
 
 
@@ -558,8 +558,9 @@ def test_bf16_kernel_runs_in_a_remat_layer(cuda):
         (n.square().sum() + ca.square().sum() + c.square().sum() + seq.square().sum()).backward()
         torch.cuda.synchronize()
         per_layer = 2 if name == "remat" else 1
-        assert BAND_MODE_LAUNCHES == {"egnn_band_fwd:bfloat16/default": per_layer * 3,
-                                      "egnn_band_bwd:bfloat16/default": 3}, name
+        assert BAND_MODE_LAUNCHES == {
+            f"{band_kernel('egnn_band_fwd', 64, 'default')}:bfloat16/default": per_layer * 3,
+            f"{band_kernel('egnn_band_bwd', 64, 'default')}:bfloat16/default": 3}, name
         grads[name] = {k: p.grad for k, p in dec.named_parameters()}
     for k, a in grads["remat"].items():
         assert a is not None and torch.isfinite(a).all(), k
@@ -1145,7 +1146,8 @@ def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
     ref = single_step(spec)
     ranks = launch(parity_step, 2, (spec,), device="cuda", timeout_s=300,
                    store_dir=str(tmp_path))
-    want = {"egnn_band_fwd": 2, "egnn_band_bwd": 2, "clash_fwd": 1, "clash_bwd": 1}
+    want = {"egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
+            "egnn_band_bwd_sm90": 0, "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
     assert ref["launches"] == want
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     for r in ranks:
@@ -1183,7 +1185,8 @@ def test_watch_gradient_kernel_path_matches_plain_path(cuda):
     grads = make_param_grad_fn(kmodel, LossWeights())(batch, 7, 1.0, 0.5)
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
-        "egnn_band_fwd": 2, "egnn_band_bwd": 2, "clash_fwd": 1, "clash_bwd": 1}
+        "egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
+        "egnn_band_bwd_sm90": 0, "clash_fwd": 1, "clash_bwd": 1}
     assert all(torch.isfinite(g).all() for g in grads.values())
     smooth = LossWeights(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
                          w_angle=0.0, w_clash=0.0)
@@ -1247,3 +1250,102 @@ def test_build_into_a_compile_cache_dir(cuda, monkeypatch, tmp_path):
     assert report["clash"]["seconds"] > 0 and lib.startswith(where)
     import ctypes
     assert ctypes.CDLL(lib).clash_noop is not None
+
+
+# The Hopper kernels of the one-pass fp32 chain (csrc/egnn_band_fwd_sm90.cu,
+# csrc/egnn_band_bwd_sm90.cu: wgmma products fed by an mbarrier weight ring)
+# at the widths they take, with a / bs in bf16 (a bf16 model) and in fp32,
+# against the plain versions at the bf16-model tolerances: every call goes
+# through them, one launch each counted under their own names, and two
+# launches are bitwise identical.
+SM90_SHAPES = [(Hd, L, W) for Hd in (32, 64, 128, 256) for L in (37, 128, 192, 256)
+               for W in (4, 40)]
+
+
+def _sm90_args(Hd, L, W, in_dtype, device, B=2):
+    args = _inputs(B, L, Hd, device, seed=Hd + 3 * L + W)
+    return [args[0].to(in_dtype).contiguous(), args[1].to(in_dtype).contiguous()] + args[2:]
+
+
+def _cotangents(args, seed):
+    B, L, Hd = args[0].shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(B, L, Hd, generator=g).to(args[0].device),
+            torch.randn(B, L, 3, generator=g).to(args[0].device))
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hd,L,W", SM90_SHAPES)
+def test_sm90_fwd_matches_plain_version(cuda, Hd, L, W, in_dtype):
+    args = _sm90_args(Hd, L, W, in_dtype, cuda)
+    before = dict(LAUNCHES)
+    out = egnn_band_fwd(*args, W, "default")
+    again = egnn_band_fwd(*args, W, "default")
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_fwd_sm90"] == before["egnn_band_fwd_sm90"] + 2
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"]
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for name, got, want in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        assert got.dtype == torch.float32
+        _within_frac(got, want, BF16_VALUE_FRAC, name)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hd,L,W", SM90_SHAPES)
+def test_sm90_bwd_matches_plain_version(cuda, Hd, L, W, in_dtype):
+    args = _sm90_args(Hd, L, W, in_dtype, cuda)
+    g_agg, g_delta = _cotangents(args, seed=Hd + L)
+    before = dict(LAUNCHES)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "default")
+    again = egnn_band_bwd(*args, g_agg, g_delta, W, "default")
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_bwd_sm90"] == before["egnn_band_bwd_sm90"] + 2
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _within_frac(a, b, BF16_GRAD_FRAC, name)
+
+
+@pytest.mark.parametrize("case", ["all_masked_sample", "padding_tile"])
+def test_sm90_masked_steps_are_skipped_exactly(cuda, case):
+    """A wholly masked sample and an all-padding tile of receivers: the
+    Hopper kernels skip their steps (both consumer warpgroups and the
+    producer agree on it), match the plain versions, and leave exact zeros
+    on those rows."""
+    B, L, Hd, W = 2, 96, 256, 40
+    args = _sm90_args(Hd, L, W, torch.bfloat16, cuda, B=B)
+    if case == "all_masked_sample":
+        args[3][1] = 0.0
+        rows = (1, slice(None))
+    else:
+        args[3][:, 40:48] = 0.0
+        rows = (slice(None), slice(40, 48))
+    g_agg, g_delta = _cotangents(args, seed=9)
+    out = egnn_band_fwd(*args, W, "default")
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "default")
+    for name, a, b in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        _within_frac(a, b, BF16_VALUE_FRAC, name)
+    for name, a, b in zip(_GRAD_NAMES, got,
+                          egnn_band_bwd_reference(*args, g_agg, g_delta, W)):
+        _within_frac(a, b, BF16_GRAD_FRAC, name)
+    for t in out + got[:3]:
+        assert float(t[rows].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+def test_sm90_weight_images_match_numpy_mirror(cuda, Hd):
+    """The layout kernel's images of W in both orientations equal the
+    wrapper's numpy mirror (``weight_image``) bit for bit."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (IMG_N, IMG_T,
+                                                                  sm90_weight_images,
+                                                                  weight_image)
+
+    w = torch.randn(Hd, Hd, generator=torch.Generator().manual_seed(Hd))
+    got = sm90_weight_images([w.to(cuda), w.to(cuda)], [IMG_T, IMG_N]).cpu().numpy()
+    for q, orient in enumerate((IMG_T, IMG_N)):
+        want = weight_image(w.numpy(), orient)
+        assert np.array_equal(got[q].view(np.uint32), want.view(np.uint32)), orient
