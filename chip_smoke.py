@@ -48,8 +48,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    3xTF32 ms of the same shape in the same call, plain ms, host us, the
    bound (the FLOP at the bf16 tensor-core peak, or the bytes) and the
    fp32-core time; ``shapes`` rows with ``mode`` "<dtype>/bfloat16_chain".
-   Then kernels 1-2 at Hd 512 (``phase_wide_kernels``: one 512-thread
-   block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
+   Then kernels 1-2 at Hd 512 (``phase_wide_kernels``: in 3xTF32 and one
+   pass the width-512 Hopper kernels ``egnn_band_{fwd,bwd}_sm90_hd512``
+   with their weight-stream and scratch floors, in the bf16 chain one
+   512-thread ``Tile<512>`` block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
    kernel 2 at B4/L256 and B2/L640, and at widths the wrappers zero-pad to
    a native one: Hd 384 (-> 512) in the three modes, Hd 8 and 48 (-> 32,
    64) in fp32, at B4/L256; and above 512, the wide variants
@@ -120,11 +122,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 6b. the decoder at Hd 512 (``phase_wide_decoder``), after the timed steps:
    ``ModelConfig(decoder_hidden=512)``, every other field at its default,
    random weights from the seed: generation at buckets 256 / 640 with
-   phase 4's checks, the fp32 B4/L256 step held against the plain path
-   as in phase 6 (float64 triage included), fp32 and bf16 steps timed on
-   both paths, launches by mode; then ``cli.train --device cuda`` for one
-   epoch at the widths of the repository's verify drive (decoder width
-   16, zero-padded to 32) through kernels 1-4, and one epoch of
+   phase 4's checks, timed beside the plain path, the fp32 B4/L256 step
+   held against the plain path as in phase 6 (float64 triage included),
+   fp32 and bf16 steps timed on both paths, launches by mode (the
+   width-512 kernels must launch in the generation and in both steps);
+   then ``cli.train --device cuda`` for one epoch at the widths of the
+   repository's verify drive (decoder width 16, zero-padded to 32)
+   through kernels 1-4, one at decoder width 384 (zero-padded to 512: the
+   width-512 kernels must launch), and one epoch of
    ``cli.train --decoder_hidden 1024`` (every other width at its
    default) through the wide variants of kernels 1-2 and kernels 3-4.
 7. refinement, after the train steps (what it leaves allocated would count
@@ -223,8 +228,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    Hopper kernels 1-2 (``egnn_band_fwd_sm90``, ``egnn_band_bwd_sm90``),
    which serve the bf16 model's one-pass mode up to Hd 256, on train_bf16
    and the flagship's training, with their own rows, the weight-stream
-   and scratch floors beside the TF32 bound; the first ones every other
-   mode), then, as the last line, ``{"ok": true, "device": {...}}``.
+   and scratch floors beside the TF32 bound; the width-512 Hopper kernels
+   (``egnn_band_{fwd,bwd}_sm90_hd512``), which serve both fp32-chain
+   modes at Hd 257-512, on wide_decoder, their line's row the fp32
+   B4/L256 one at Hd 512; the first ones every other mode), then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Kernels 1-2 in the one-pass fp32 chain at Hd 256 (phase 3's bf16-model
 rows, the flagship's rows) run on the Hopper kernels; their log lines name
@@ -255,6 +263,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -637,14 +646,18 @@ def _l2_rate() -> dict:
     return res
 
 
-def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD) -> dict:
+def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
+                 precision: str = "default") -> dict:
     """The Hopper band kernels' floors on this run's inputs beside the TF32
-    bound: the weight stream (the pairs of steps with a valid edge, each
-    streaming two weights (kernel 1) or four (kernel 2) of hd^2 fp32 from
-    L2, at this run's L2 rate for a region every SM reads) and, for kernel
-    2, the scratch round trip (m1, m, cot_u, cot_v, cot_pre: 64 x hd fp32
-    each per step with a valid edge, written once and read once, at the
-    HBM peak)."""
+    bound: the weight stream (the steps with a valid edge, each streaming
+    two weights (kernel 1) or four (kernel 2) of hd^2 fp32 from L2 once per
+    pass, at this run's L2 rate for a region every SM reads: up to Hd 256
+    two steps (a pair) share a pass and a weight streams once; at Hd 512
+    (``kernel`` ending in ``_hd512``, or ``hd`` 512) every step streams it
+    once in one pass and three times in 3xTF32, ``precision`` "highest":
+    Ws, Wb, Wb) and, for kernel 2, the scratch round trip (m1, m, cot_u,
+    cot_v, cot_pre: 64 x hd fp32 each per step with a valid edge, written
+    once and read once, at the HBM peak)."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import OPS, TILE, band_indices
@@ -660,12 +673,15 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD) -> dict:
     steps = v.view(B, n_tiles, TILE, 2 * n_pairs, OPS).any(dim=4).any(dim=2)   # [B, tiles, steps]
     pairs = int(steps.view(B, n_tiles, -1, 2).any(dim=-1).sum())
     items = int(steps[..., :n_steps].sum())
-    weights = 2 if kernel == "egnn_band_fwd" else 4
-    out = dict(weight_floor_ms=1e3 * pairs * weights * hd * hd * 4
+    weights = 2 if kernel.startswith("egnn_band_fwd") else 4
+    hd512 = kernel.endswith("_hd512") or hd == 512
+    passes = items * (3 if precision == "highest" else 1) if hd512 else pairs
+    n = 512 if hd512 else hd   # the width the kernel streams (a padded width runs at 512)
+    out = dict(weight_floor_ms=1e3 * passes * weights * n * n * 4
                / (READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9),
-               weight_passes=pairs)
-    if kernel == "egnn_band_bwd":
-        out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * hd * 4 / PEAK_BYTES_PER_S
+               weight_passes=passes)
+    if kernel.startswith("egnn_band_bwd"):
+        out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * n * 4 / PEAK_BYTES_PER_S
     return out
 
 
@@ -1232,8 +1248,9 @@ def phase_chain_path() -> dict:
 # 3b. kernels 1-2 at Hd 512 and at padded widths
 # ---------------------------------------------------------------------------
 
-# Hd 512, the reference CLI's --decoder_hidden default (one 512-thread block
-# per SM), in the three modes of the Hd-256 rows, at the shapes a model of
+# Hd 512, the reference CLI's --decoder_hidden default (the width-512 Hopper
+# kernels in 3xTF32 and one pass, Tile<512> in the bf16 chain), in the three
+# modes of the Hd-256 rows, at the shapes a model of
 # that width gives the kernels: kernel 1 at B4/L256 (training) and
 # B10/L640 (generation), kernel 2 at the training shapes. Widths outside
 # NATIVE_HIDDEN run zero-padded to the next native width: 384 (-> 512) in
@@ -1335,7 +1352,7 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
     bound = _egnn_bound if kernel == "egnn_band_fwd" else _band_bwd_bound
     bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, passes, peak, hd)
     served = band_kernel(kernel, hd, precision, chain)
-    floors = _sm90_floors(kernel, B, L, args[3], hd) if served.endswith("_sm90") else {}
+    floors = _sm90_floors(served, B, L, args[3], hd, precision) if served != kernel else {}
     log(f"[kernels] {tag} ({served}): {ms:.3f} ms (plain {plain_ms:.3f} ms), host "
         f"{host_us:.1f} us per call; bound {bound_ms:.4f} ms by {bound_by} at Hd {hd}, "
         f"{100 * bound_ms / ms:.1f}% of it{_floor_text(floors)}; tensor-core time "
@@ -1446,8 +1463,10 @@ def phase_main_path(model, views, out_dir: str) -> dict:
     from protein_ensemble_vae_torch.models import HierCVAE
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
                                                        reset_launches)
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_kernel
 
     cfg = model.config
+    fwd = band_kernel("egnn_band_fwd", cfg.decoder_hidden, "highest")   # the fp32 model's
     # warm-up (library handles, allocator, per-shape GEMM choices), uncounted
     for view in views:
         generate_ensembles(model, view, os.path.join(out_dir, "warmup"),
@@ -1469,10 +1488,10 @@ def phase_main_path(model, views, out_dir: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     expected = len(PROTEINS) * 2 * cfg.decoder_layers
-    log(f"[main] launches {launches} (expected egnn_band_fwd = {expected})")
-    if launches["egnn_band_fwd"] != expected:
-        raise RuntimeError(f"main path launched egnn_band_fwd "
-                           f"{launches['egnn_band_fwd']} times, expected {expected}")
+    log(f"[main] launches {launches} (expected {fwd} = {expected})")
+    if launches[fwd] != expected:
+        raise RuntimeError(f"main path launched {fwd} {launches[fwd]} times, expected "
+                           f"{expected}")
     for r, (pid, L, _), secs in zip(results, PROTEINS, per_structure):
         sid = r["structure"]
         for suffix in ("true", "reconstruction", "ensemble"):
@@ -2824,10 +2843,13 @@ def _timed_steps(model, batch, path: str, mode: str, tag: str, profile=None) -> 
         f"min {min(times):.2f}), peak device memory {peak:.1f} MiB ({base:.1f} "
         f"allocated before the steps: both models, optimizer state, batch), "
         f"launches per step {launches}, band launches by mode {modes}")
+    prof = {}
     if profile:
-        _profile(lambda: step(state, batch, 0, *consts), f"train step {tag}", profile)
+        p = _profile(lambda: step(state, batch, 0, *consts), f"train step {tag}", profile)
+        prof = dict(profile={k: p[k] for k in ("busy_share", "busy_ms", "wall_ms",
+                                               "us_by_kernel")})
     return dict(ms=ms, min_ms=min(times), peak_mib=peak, base_mib=base,
-                launches=launches, modes=modes)
+                launches=launches, modes=modes, **prof)
 
 
 # ---------------------------------------------------------------------------
@@ -2843,9 +2865,11 @@ TINY_CLI = ["--use_seqemb", "--batch_size", "4", "--lr", "1e-4", "--d_model", "3
 TINY_PROTEIN = ("synU", 24, 4, 4)   # id, length, fold seed, conformers (6 pairs)
 
 
-def _tiny_cli_train(out_dir: str) -> dict:
+def _tiny_cli_train(out_dir: str, hd: int = 16) -> dict:
     """``cli.train --device cuda`` for one epoch at TINY_CLI's widths on
-    TINY_PROTEIN's H5 files (``_pair_manifests``: 6 train / 1 val pairs).
+    TINY_PROTEIN's H5 files (``_pair_manifests``: 6 train / 1 val pairs),
+    the decoder at width ``hd`` (16, zero-padded to 32, is the verify
+    drive's; 384 runs zero-padded to 512 on the width-512 kernels).
     Counts reset just before and read just after: per train step 2 band
     forwards, 2 band backwards, one of each clash kernel; per eval step
     2 + 1; every band launch in FP32_MODE."""
@@ -2854,30 +2878,32 @@ def _tiny_cli_train(out_dir: str) -> dict:
     from protein_ensemble_vae_torch.cli import train as train_cli
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
                                                        reset_launches)
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import native_width
 
     train_csv, val_csv = _pair_manifests(out_dir, TINY_PROTEIN, 16)
-    save = os.path.join(out_dir, "train_cli_tiny")
+    save = os.path.join(out_dir, f"train_cli_tiny_{hd}")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     train_cli.main(["--manifest_train", train_csv, "--manifest_val", val_csv,
-                    *TINY_CLI, "--epochs", "1", "--save", save, "--device", DEVICE])
+                    *TINY_CLI, "--decoder_hidden", str(hd), "--epochs", "1", "--save", save,
+                    "--device", DEVICE])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     tr, va = _pair_steps(TINY_PROTEIN, 4)
     want, want_modes = _served({"egnn_band_fwd": 2 * (tr + va), "egnn_band_bwd": 2 * tr,
-                                "clash_fwd": tr + va, "clash_bwd": tr}, FP32_MODE, 16)
+                                "clash_fwd": tr + va, "clash_bwd": tr}, FP32_MODE, hd)
     with open(os.path.join(save, "final", "history.json")) as f:
         history = json.load(f)
     finite = all(np.isfinite(v).all() for split in ("train", "val")
                  for v in history[split].values())
     log(f"[wide] cli.train --device {DEVICE} at the verify drive's widths (decoder "
-        f"16, zero-padded to 32), 1 epoch: {secs:.2f} s (host clock, model set-up and "
+        f"{hd}, zero-padded to {native_width(hd)}), 1 epoch: {secs:.2f} s (host clock, model set-up and "
         f"first use included), launches {launches} (expected {want}), by mode {modes}; "
         f"losses finite: {finite}")
     if launches != want or modes != want_modes or not finite:
-        raise RuntimeError(f"cli.train at decoder width 16 launched {launches} / {modes}, "
+        raise RuntimeError(f"cli.train at decoder width {hd} launched {launches} / {modes}, "
                            f"expected {want} / {want_modes}, or gave non-finite losses")
     return dict(launches=launches, modes=modes, seconds=secs)
 
@@ -2930,20 +2956,98 @@ def _wider_cli_train(out_dir: str) -> dict:
     return dict(launches=launches, modes=modes, seconds=secs)
 
 
-def phase_wide_decoder(views, out_dir: str) -> dict:
-    """``ModelConfig(decoder_hidden=WIDE_HD)``, every other field at its
-    default, random weights from SEED: generation at buckets 256 / 640 with
-    ``phase_main_path``'s checks (launch counts, files, the kernel decode of
-    one latent within COORD_ATOL of the plain decode), the fp32 B4/L256
-    train step (``_compare_paths``: the loss dict, the smooth part's
-    gradients and the float64 triage) and the bf16 one, each timed on the
-    kernel and the plain path (``_timed_steps``); then ``_tiny_cli_train``.
-    Launches of every kernel on these paths: generation's, the timed
-    kernel-path steps' (STEP_REPS each) and the CLI's."""
+def wide_steps(trace_path=None, compare: bool = True) -> tuple[list[dict], dict]:
+    """The B4/L256 train step of ``ModelConfig(decoder_hidden=WIDE_HD)`` in
+    fp32 and bf16, each timed on the kernel and the plain path
+    (``_timed_steps``), the fp32 one first held against the plain path
+    (``_compare_paths``: the loss dict, the smooth part's gradients and
+    the float64 triage) when ``compare``. ``trace_path``: torch.profiler
+    traces of one kernel-path step each (``TRACE.wide_fp32.json``,
+    ``TRACE.wide_bf16.json``; device busy share, top operators)."""
     import torch
 
     from protein_ensemble_vae_torch.config import ModelConfig
     from protein_ensemble_vae_torch.models import HierCVAE
+
+    mcfg = ModelConfig(decoder_hidden=WIDE_HD)
+    B, L = TRAIN_HEADLINE
+    batch = _step_batch(B, L, TIMED_STEPS[0]["L_real"], SEED + 8, mcfg.seqemb_dim)
+    steps, result = [], None
+    for dtype, mode in ((torch.float32, FP32_MODE), (torch.bfloat16, BF16_MODE)):
+        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        torch.manual_seed(SEED)
+        kmodel = HierCVAE(mcfg, dtype=dtype).to(DEVICE)
+        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False),
+                          dtype=dtype).to(DEVICE)
+        pmodel.load_state_dict(kmodel.state_dict())
+        if dtype == torch.float32 and compare:
+            # against the plain path the gradients are reported: one fp32
+            # rounding step on the band outputs flips switches here (PERF.md)
+            result = _compare_paths(kmodel, pmodel, batch, hold_plain=False)
+        tag = f"B{B}/L{L}/Hd{WIDE_HD} {dname}"
+        for path, m in (("kernel", kmodel), ("plain", pmodel)):
+            profile = (trace_path.replace(".json", f".wide_{dname}.json")
+                       if trace_path and path == "kernel" else None)
+            steps.append(dict(shape=tag, dtype=dname, path=path,
+                              **_timed_steps(m, batch, path, mode, tag, profile)))
+        del kmodel, pmodel
+        torch.cuda.empty_cache()
+    return steps, result
+
+
+WIDE_CLI_HD = 384   # a CLI epoch at a width the wrappers pad to WIDE_HD
+
+
+def _plain_generation(model, views, out_dir: str) -> list[float]:
+    """Seconds per structure of ``generate_ensembles`` on the plain path
+    (``model``'s weights, ``use_pallas_egnn=False``): one warm-up pass,
+    then one timed pass per view (host clock, synchronised). No kernel may
+    launch."""
+    import torch
+
+    from protein_ensemble_vae_torch.infer.generate import generate_ensembles
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+
+    plain = HierCVAE(dataclasses.replace(model.config, use_pallas_egnn=False)).to(DEVICE).eval()
+    plain.load_state_dict(model.state_dict())
+    for view in views:
+        generate_ensembles(plain, view, os.path.join(out_dir, "plain_warmup"),
+                           num_samples=NUM_SAMPLES, seed=SEED, buckets=BUCKETS, verbose=False)
+    torch.cuda.synchronize()
+    reset_launches()
+    secs = []
+    for view in views:
+        t0 = time.perf_counter()
+        generate_ensembles(plain, view, os.path.join(out_dir, "plain"), num_samples=NUM_SAMPLES,
+                           seed=SEED, buckets=BUCKETS, verbose=False)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    if any(LAUNCHES.values()):
+        raise RuntimeError(f"the plain generation path launched {dict(LAUNCHES)}")
+    del plain
+    return secs
+
+
+def phase_wide_decoder(views, out_dir: str, trace_path=None) -> dict:
+    """``ModelConfig(decoder_hidden=WIDE_HD)``, every other field at its
+    default, random weights from SEED: generation at buckets 256 / 640 with
+    ``phase_main_path``'s checks (launch counts, files, the kernel decode of
+    one latent within COORD_ATOL of the plain decode), timed beside the
+    plain path (``_plain_generation``); the fp32 B4/L256 train step
+    (``_compare_paths``: the loss dict, the smooth part's gradients and the
+    float64 triage) and the bf16 one, each timed on the kernel and the
+    plain path (``wide_steps``; profiled with ``trace_path``); then
+    ``_tiny_cli_train`` at decoder widths 16 and WIDE_CLI_HD and
+    ``_wider_cli_train``. The width-512 kernels must launch in the
+    generation, in both steps and in the WIDE_CLI_HD epoch. Launches of
+    every kernel on these paths: generation's, the timed kernel-path
+    steps' (STEP_REPS each) and the CLIs'."""
+    import torch
+
+    from protein_ensemble_vae_torch.config import ModelConfig
+    from protein_ensemble_vae_torch.models import HierCVAE
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_kernel
 
     mcfg = ModelConfig(decoder_hidden=WIDE_HD)
     torch.manual_seed(SEED)
@@ -2952,41 +3056,42 @@ def phase_wide_decoder(views, out_dir: str) -> dict:
         f"{sum(p.numel() for p in model.parameters())} parameters; generation with "
         f"phase 4's checks ([main] lines)")
     gen = phase_main_path(model, views, os.path.join(out_dir, "wide"))
-    want = {f"egnn_band_fwd:{FP32_MODE}": gen["launches"]["egnn_band_fwd"]}
-    if gen["modes"] != want:
+    fwd = band_kernel("egnn_band_fwd", WIDE_HD, "highest")
+    want = {f"{fwd}:{FP32_MODE}": gen["launches"][fwd]}
+    if gen["modes"] != want or not gen["launches"][fwd]:
         raise RuntimeError(f"Hd {WIDE_HD} generation launched {gen['modes']}, expected {want}")
+    plain_gen = _plain_generation(model, views, os.path.join(out_dir, "wide"))
+    log(f"[wide] Hd {WIDE_HD} generation, seconds per structure (host clock, synchronised; "
+        f"buckets {[min(b for b in BUCKETS if b >= L) for _, L, _ in PROTEINS]}): kernel path "
+        f"{[round(t, 4) for t in gen['per_structure']]}, plain path "
+        f"{[round(t, 4) for t in plain_gen]}")
     del model
     torch.cuda.empty_cache()
-    B, L = TRAIN_HEADLINE
-    batch = _step_batch(B, L, TIMED_STEPS[0]["L_real"], SEED + 8, mcfg.seqemb_dim)
-    steps, compare = [], None
-    for dtype, mode in ((torch.float32, FP32_MODE), (torch.bfloat16, BF16_MODE)):
-        dname = "bf16" if dtype == torch.bfloat16 else "fp32"
-        torch.manual_seed(SEED)
-        kmodel = HierCVAE(mcfg, dtype=dtype).to(DEVICE)
-        pmodel = HierCVAE(dataclasses.replace(mcfg, use_pallas_egnn=False),
-                          dtype=dtype).to(DEVICE)
-        pmodel.load_state_dict(kmodel.state_dict())
-        if dtype == torch.float32:
-            # against the plain path the gradients are reported: one fp32
-            # rounding step on the band outputs flips switches here (PERF.md)
-            compare = _compare_paths(kmodel, pmodel, batch, hold_plain=False)
-        tag = f"B{B}/L{L}/Hd{WIDE_HD} {dname}"
-        for path, m in (("kernel", kmodel), ("plain", pmodel)):
-            steps.append(dict(shape=tag, dtype=dname, path=path,
-                              **_timed_steps(m, batch, path, mode, tag)))
-        del kmodel, pmodel
-        torch.cuda.empty_cache()
+    steps, compare = wide_steps(trace_path)
+    for r in steps:
+        precision = "highest" if r["dtype"] == "fp32" else "default"
+        if r["path"] == "kernel" and not all(r["launches"][band_kernel(k, WIDE_HD, precision)]
+                                             for k in ("egnn_band_fwd", "egnn_band_bwd")):
+            raise RuntimeError(f"{r['shape']} step did not launch the width-{WIDE_HD} kernels: "
+                               f"{r['launches']}")
     cli = _tiny_cli_train(out_dir)
+    cli_wide = _tiny_cli_train(out_dir, WIDE_CLI_HD)
+    if not all(cli_wide["launches"][band_kernel(k, WIDE_CLI_HD, "highest")]
+               for k in ("egnn_band_fwd", "egnn_band_bwd")):
+        raise RuntimeError(f"the width-{WIDE_CLI_HD} CLI epoch did not launch the width-"
+                           f"{WIDE_HD} kernels: {cli_wide['launches']}")
     wider = _wider_cli_train(out_dir)
-    launches = {k: gen["launches"][k] + cli["launches"][k] + wider["launches"][k]
+    launches = {k: gen["launches"][k] + cli["launches"][k] + cli_wide["launches"][k]
+                + wider["launches"][k]
                 + sum(STEP_REPS * r["launches"][k] for r in steps if r["path"] == "kernel")
                 for k in cli["launches"]}
     log(f"[wide] Hd {WIDE_HD} path launches {launches}: generation {gen['launches']}, "
         f"{STEP_REPS} fp32 + {STEP_REPS} bf16 timed steps, the width-16 CLI epoch "
-        f"{cli['launches']}, the width-{WIDER_CLI_HD} CLI epoch {wider['launches']}")
-    return dict(launches=launches, per_structure=gen["per_structure"], peak_mib=gen["peak"] / 2**20,
-                steps=steps, compare=compare, cli=cli, cli_wider=wider)
+        f"{cli['launches']}, the width-{WIDE_CLI_HD} CLI epoch {cli_wide['launches']}, the "
+        f"width-{WIDER_CLI_HD} CLI epoch {wider['launches']}")
+    return dict(launches=launches, per_structure=gen["per_structure"],
+                plain_per_structure=plain_gen, peak_mib=gen["peak"] / 2**20,
+                steps=steps, compare=compare, cli=cli, cli_wide=cli_wide, cli_wider=wider)
 
 
 # ---------------------------------------------------------------------------
@@ -3817,12 +3922,20 @@ def _profile(run_once, label: str, trace_path, active: int = 1, table: bool = Tr
         os.makedirs(os.path.dirname(os.path.abspath(trace_path)), exist_ok=True)
         prof.export_chrome_trace(trace_path)
     us_by_kind: dict[str, float] = {}
+    us_by_kernel: dict[str, float] = {}   # the port's own kernels, by function name
     for e in events:
         kind = next((k for k, words in DEVICE_KINDS if any(w in e.name.lower() for w in words)),
                     "other")
         us_by_kind[kind] = us_by_kind.get(kind, 0.0) + e.time_range.elapsed_us() / active
+        own = re.search(r"((?:egnn|clash)_\w+)", e.name)
+        if own:
+            us_by_kernel[own.group(1)] = (us_by_kernel.get(own.group(1), 0.0)
+                                          + e.time_range.elapsed_us() / active)
+    if us_by_kernel:
+        log(f"[profile] {label}: device us per call of the port's kernels "
+            f"{json.dumps({k: round(v, 1) for k, v in us_by_kernel.items()})}")
     return dict(busy_share=busy / 1e3 / wall_ms, busy_ms=busy / 1e3 / active, wall_ms=wall_ms,
-                us_by_kind=us_by_kind,
+                us_by_kind=us_by_kind, us_by_kernel=us_by_kernel,
                 names=[e.name for e in sorted(events, key=lambda e: e.time_range.start)])
 
 
@@ -3853,6 +3966,10 @@ KERNEL_INFO = {
                            "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
     "egnn_band_bwd_sm90": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90.cu",
                            "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
+    "egnn_band_fwd_sm90_hd512": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd_sm90_hd512.cu",
+                                 "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
+    "egnn_band_bwd_sm90_hd512": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90_hd512.cu",
+                                 "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
     "clash_fwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:54"),
     "clash_bwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
@@ -3860,27 +3977,37 @@ KERNEL_INFO = {
 }
 
 # The paths on which each kernel must have launched: the first band
-# kernels serve the fp32 model (3xTF32), the bf16 chain and Hd 512; the
-# Hopper ones the bf16 model's one-pass mode up to Hd 256 (train_bf16, the
-# flagship's training); kernels 3-4 every path with a loss.
+# kernels serve the fp32 model (3xTF32) up to Hd 256, the bf16 chain and
+# the widths above 512; the Hopper ones the bf16 model's one-pass mode up
+# to Hd 256 (train_bf16, the flagship's training), and at Hd 512 both
+# fp32-chain modes (the wide_decoder path: its generation, fp32 and bf16
+# steps and its width-384 CLI epoch, each checked there); kernels 3-4
+# every path with a loss.
 REQUIRED_PATHS = {
     "egnn_band_fwd": ("generate", "dataprep", "refine", "train", "train_watch", "train_dp",
                       "wide_decoder", "flagship", "chain_dtype_ab"),
     "egnn_band_bwd": ("train", "train_watch", "train_dp", "wide_decoder", "chain_dtype_ab"),
     "egnn_band_fwd_sm90": ("train_bf16", "flagship"),
     "egnn_band_bwd_sm90": ("train_bf16", "flagship"),
+    "egnn_band_fwd_sm90_hd512": ("wide_decoder",),
+    "egnn_band_bwd_sm90_hd512": ("wide_decoder",),
     "clash_fwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
     "clash_bwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
 }
-# the row each kernel's line reports: the fp32 headline shapes, the
-# flagship's B8/L128 in the bf16 model's mode for the Hopper kernels
-KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, FP32_MODE),
-               "egnn_band_bwd": (TRAIN_HEADLINE, FP32_MODE),
-               "egnn_band_fwd_sm90": ((8, 128), BF16_MODE),
-               "egnn_band_bwd_sm90": ((8, 128), BF16_MODE),
-               "clash_fwd": (TRAIN_HEADLINE, FP32_MODE), "clash_bwd": (TRAIN_HEADLINE, FP32_MODE)}
+# the row each kernel's line reports (shape, mode, width): the fp32
+# headline shapes, the flagship's B8/L128 in the bf16 model's mode for the
+# Hopper kernels, the train step's B4/L256 in fp32 at Hd 512 for those of
+# width 512
+KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, FP32_MODE, HD),
+               "egnn_band_bwd": (TRAIN_HEADLINE, FP32_MODE, HD),
+               "egnn_band_fwd_sm90": ((8, 128), BF16_MODE, HD),
+               "egnn_band_bwd_sm90": ((8, 128), BF16_MODE, HD),
+               "egnn_band_fwd_sm90_hd512": (TRAIN_HEADLINE, FP32_MODE, WIDE_HD),
+               "egnn_band_bwd_sm90_hd512": (TRAIN_HEADLINE, FP32_MODE, WIDE_HD),
+               "clash_fwd": (TRAIN_HEADLINE, FP32_MODE, HD),
+               "clash_bwd": (TRAIN_HEADLINE, FP32_MODE, HD)}
 
 
 def _descendants() -> list[int]:
@@ -3979,7 +4106,7 @@ def main(argv=None) -> None:
         watch = phase_watch_path(out_dir, device["smi"])
         parallel = phase_parallel(out_dir, device["smi"])
         steps = phase_timed_steps(args.profile)
-        wide = phase_wide_decoder(views, out_dir)
+        wide = phase_wide_decoder(views, out_dir, args.profile)
         # refinement after the train steps: what it leaves allocated would
         # count in their peak memory
         refine_gates(args.profile)
@@ -3989,9 +4116,9 @@ def main(argv=None) -> None:
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = shapes[name]
-        want, want_mode = KERNEL_HEAD[name]
+        want, want_mode, want_hd = KERNEL_HEAD[name]
         head = next(r for r in rows if (r["B"], r["L"]) == want and r.get("mode", FP32_MODE)
-                    == want_mode and r.get("Hd", HD) == HD)
+                    == want_mode and r.get("Hd", HD) == want_hd)
         chain_modes = {k.split(":", 1)[1]: v for k, v in chain_ab["modes"].items()
                        if k.startswith(name + ":")}
         # chain_dtype_ab's path is the bf16 chain's: its fp32-chain launches
@@ -4035,7 +4162,7 @@ def main(argv=None) -> None:
                                        "records": refine["cli_records"][name],
                                        "profiled_calls": refine["cli_records"]["profiled_calls"]}}
                if name.startswith("clash") else {}),
-            shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{HD}/W{W}" if "egnn" in name else ""),
+            shape=f"B{head['B']}/L{head['L']}" + (f"/Hd{want_hd}/W{W}" if "egnn" in name else ""),
             shapes=[{k: v for k, v in r.items() if k != "errors"} for r in rows]))
     fp32_step = next(r for r in steps if r.get("shape") == "B4/L256 fp32"
                      and r.get("path") == "kernel")
@@ -4049,8 +4176,9 @@ def main(argv=None) -> None:
                                                      "stats_worst", "counts_worst", "compare",
                                                      "records", "times", "seconds")}}))
     log(json.dumps({"train_steps": steps}))
-    log(json.dumps({"wide_decoder": {k: wide[k] for k in ("per_structure", "peak_mib", "steps",
-                                                          "compare", "cli", "cli_wider")}}))
+    log(json.dumps({"wide_decoder": {k: wide[k] for k in ("per_structure", "plain_per_structure",
+                                                          "peak_mib", "steps", "compare", "cli",
+                                                          "cli_wide", "cli_wider")}}))
     log(json.dumps({"parallel": {k: parallel[k] for k in ("checks", "times",
                                                            "launches_by_rank",
                                                            "cli_seconds")}}))

@@ -87,9 +87,11 @@
 // bf16 chain's weight-grad pass runs m16n8k16 bf16 products on the bf16
 // activations (ldmatrix.trans fragments), summed in fp32.
 // The one-pass mode at widths 32 to 256 runs egnn_band_bwd_sm90.cu instead
-// (its node and reduce passes are egnn_passes.cuh's, as here). Left for
-// later: wgmma for this file's modes, the weight grads without the
-// per-edge scratch round trip.
+// (its node and reduce passes are egnn_passes.cuh's, as here), and both
+// fp32-chain modes at Hd 512 egnn_band_bwd_sm90_hd512.cu; this file no
+// longer builds them (at 512 only the bf16 chain uses Tile<512>). Left for
+// later: wgmma for the bf16 chain and the wide variants, the weight grads
+// without the per-edge scratch round trip.
 
 #include "egnn_passes.cuh"
 

@@ -1,0 +1,753 @@
+// EGNN band backward on Hopper (sm_90a) at the native width 512 (decoder
+// widths 257 to 512, zero-padded to it): the gradient of
+// egnn_band_fwd_sm90_hd512.cu's function, in the fp32 model's 3xTF32 mode
+// (PASSES = 3) and the bf16 model's one-pass mode (PASSES = 1), fp32 or
+// bf16 a / bs. The bf16 chain at 512 stays on egnn_band_bwd.cu.
+//
+// Replaces the TPU kernel `_bwd_merged_kernel` (egnn_band.py:235, with
+// `_edge_chain_cotangents`) of the JAX package's ops/pallas/egnn_band.py.
+// Per valid edge it recomputes the forward chain and runs the cotangent
+// chain of egnn_band_bwd_sm90.cu's header, and emits d_a, d_bs, d_x, dW_e2 =
+// sum m1^T cot_u, dW_x1 = sum m^T cot_v and the vector grads.
+//
+// What bounds it: operations, 12 Hd^2 FLOP per valid edge (0.464 ms at
+// B4/L256 in one TF32 pass, three times that in 3xTF32), then the weight
+// stream (four weights of 1 MiB per 64-row step, once per pass: 4 images in
+// one pass, 12 in 3xTF32) and the per-edge scratch round trip (m1, m,
+// cot_u, cot_v, cot_pre: 5 x 64 x 512 fp32 per valid step, written and
+// read back once).
+//
+// Design (egnn_sm90.cuh holds the building blocks; the node and reduce
+// passes are egnn_passes.cuh's):
+//   1. edge pass: egnn_band_fwd_sm90_hd512.cu's block (a producer
+//      warpgroup, two consumer warpgroups sharing one [64][512] activation
+//      tile, each computing its 256 output columns from its own ring of
+//      m64n64k8 chunks, 8 KiB) runs the four products of a step: W_e2 and
+//      W_x1 as x @ W (IMG_T), then W_x1 and W_e2 as x @ W^T (IMG_N), each
+//      in the mode's passes (product_half). A persistent grid walks the
+//      steps (work items) g, g + G, ... Each activation of the chain is
+//      written into the tile (TF32-rounded in one pass, exact in 3xTF32)
+//      after both consumers have retired the product that read the last
+//      one. The step's m1, m, cot_v and cot_u go from the tile to the
+//      scratch in the weight-grad layout ([2][512][32], egnn_band_bwd_sm90.cu)
+//      while the first pass that reads the same tile runs; cot_pre [64][512]
+//      and d_rel [64][3] keep the row layout the node pass reads, silu'(pre)
+//      and silu'(u) wait in the step's cot_pre and cot_u rows. The w_x2 and
+//      w_d row dot products span both halves: the second consumer's partial
+//      meets the first's in shared memory, added in that order. The vector
+//      grads' column sums: a shuffle reduce-scatter per warp, then one
+//      fire-and-forget add (red.global) per column into the warp's own sums
+//      in device memory ([8 warps][NVEC][256] a block: one writer per
+//      address, so the adds land in program order), added in warp order at
+//      the block's end; shared memory keeps the tile and a deeper ring.
+//   2. node pass (egnn_passes.cuh): d_a, d_bs, d_x gathered per residue.
+//   3. weight-grad pass: dW_e2 = M1^T @ COT_U, dW_x1 = M^T @ COT_V as
+//      split-K wgmma products, a block per 64 x 64 output tile and slice of
+//      the steps: a producer warp brings each valid step's two 32-row K
+//      blocks of both operands with bulk copies into a WSTAGES ring, one
+//      consumer warpgroup runs m64n64k8 per k8 step into its own
+//      accumulator and adds it to the running sum in round-to-nearest fp32
+//      (the tensor cores truncate: at ~9,000 rows a sum a truncating
+//      accumulator drifted past the model's gradient tolerance, PERF.md).
+//      In 3xTF32 it splits each stage in shared memory (Xs = rna(X -
+//      trunc(X)), Ys likewise; the next stage's split while this one's
+//      products run) and adds Xs.Yt + Xt.Ys + Xt.Yt. (Splitting X in
+//      registers for wgmma's register-A form instead measured slower,
+//      PERF.md.)
+//   4. reduce pass (egnn_passes.cuh): the slices' and blocks' partials
+//      summed in index order.
+// No atomics: two launches give bitwise-identical outputs.
+//
+// Shared memory of the edge pass (bytes; + 1 KiB alignment slack):
+//   A tile 131,072 | rings (2 x STAGES x 64 x 128) 81,920 | rows 1,792 |
+//   dot products 512 | flags, barriers 176 | total 216,496 (of 232,448)
+// and of the weight-grad pass: WSTAGES x 16 KiB + (3xTF32) two split
+// stages, 32 KiB, + barriers and the slice's step list: 50,224 / 82,992 + 4 x steps,
+// two blocks per SM.
+
+#include "egnn_passes.cuh"
+#include "egnn_sm90.cuh"
+
+namespace {
+
+using namespace egnn;
+namespace s9 = egnn::sm90;
+
+constexpr int NW = 64;                         // output columns per product of the edge pass
+constexpr int STAGES = 5;                      // chunks of each consumer's ring
+constexpr int WSTAGES = 3;                     // stages of the weight-grad ring
+constexpr int BAR_ALL = 1;                     // named barrier of both consumer warpgroups
+constexpr int CT = s9::CONSUMERS * s9::WG;     // consumer threads
+constexpr int WGRAD_THREADS = s9::WG + 32;     // one consumer warpgroup and a producer warp
+constexpr int HD = 512;
+using H = s9::Half<NW>;
+
+template <int PASSES>
+constexpr int PARTS = PASSES == 3 ? 2 : 1;     // images per weight: Wb (and Ws)
+
+// The scratch of one call (floats), carved from `base` when given.
+struct Scratch {
+    float *m1, *mm, *cotu, *cotv, *cotpre, *drel, *vpart, *wpart, *img, *cols;
+    int* flags;
+};
+
+constexpr int COLS_PER_BLOCK = 2 * 4 * NVEC * 256;   // the eight warps' column sums
+
+inline size_t scratch_floats(int B, int L, int W, int G, int nsplit, int passes, Scratch* s,
+                             float* base) {
+    const size_t R = (size_t)n_items(B, L, W) * M;
+    const size_t act = R * HD;
+    size_t off = 0;
+    auto take = [&](size_t n) {
+        float* p = base ? base + off : nullptr;
+        off += (n + 255) & ~size_t(255);   // 1 KiB apart: bulk copies need 16-byte alignment
+        return p;
+    };
+    s->m1 = take(act);
+    s->mm = take(act);
+    s->cotu = take(act);
+    s->cotv = take(act);
+    s->cotpre = take(act);
+    s->drel = take(R * 3);
+    s->flags = reinterpret_cast<int*>(take((size_t)n_items(B, L, W)));
+    s->vpart = take((size_t)G * vpart_stride(HD));
+    s->img = take((size_t)4 * (passes == 3 ? 2 : 1) * HD * HD);
+    s->cols = take((size_t)G * COLS_PER_BLOCK);
+    const size_t n_wpart = (size_t)2 * nsplit * HD * HD;
+    s->wpart = n_wpart <= act ? s->cotpre : take(n_wpart);
+    return off;
+}
+
+struct EdgeLayout {
+    static constexpr int A = 0;                                     // [64][512]
+    static constexpr int RING = A + M * HD * 4;                     // [2][STAGES][CHUNK]
+    static constexpr int ROWS = RING + 2 * STAGES * H::CHUNK * 4;   // [7][64]
+    static constexpr int PART = ROWS + 7 * M * 4;                   // [2][64]
+    static constexpr int FLAGS = PART + 2 * M * 4;                  // int [4]
+    static constexpr int BARS = FLAGS + 4 * 4;
+    static constexpr int SMEM = BARS + 4 * STAGES * 8 + 1024;
+    static_assert(SMEM <= 232448, "shared memory of one block");
+    static_assert(BARS % 8 == 0, "mbarriers are 8-byte aligned");
+};
+
+// Part q (< 8) of the step's tile (A: [64][512], K-major swizzled) into dst
+// in the weight-grad layout ([2][512][32], egnn_band_bwd_sm90.cu:
+// tile_to_scratch): a 4 x 4 block (rows 4m.., features 4cf..) per thread
+// and part, read as four 16-byte row chunks and written as four 16-byte
+// feature chunks. A warp takes 4 row blocks x one 32-feature K block: its
+// quarter-warps read the 8 chunks of one tile row (no bank conflict), and
+// each store fills two whole 32-byte sectors of 8 feature rows.
+__device__ __forceinline__ void tile_to_scratch(const float* A, float* __restrict__ dst, int tid,
+                                                int q) {
+    static_assert(M * HD / 16 == 8 * CT, "8 parts of one 4 x 4 block per thread");
+    if (q >= 8) return;
+    const int lane = tid % 32, wi = tid / 32 + 8 * q;   // wi: 64 warp tasks
+    const int m = 4 * (wi % 4) + lane / 8, cf = 8 * (wi / 4) + lane % 8;
+    float4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int r = 4 * m + j;
+        v[j] = *reinterpret_cast<const float4*>(A + (cf / 8) * M * s9::KB + r * s9::KB +
+                                                (((cf % 8) ^ (r & 7)) << 2));
+    }
+    const float* w = reinterpret_cast<const float*>(v);
+    const int h = m / 8, mr = m % 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int k = 4 * cf + i;
+        *reinterpret_cast<float4*>(dst + (size_t)h * HD * s9::KB + k * s9::KB + ((mr ^ (k & 7)) << 2)) =
+            make_float4(w[i], w[4 + i], w[8 + i], w[12 + i]);
+    }
+}
+
+// egnn_band_bwd_sm90.cu's add_cols8: eight column values summed over the
+// warp's rows, lane g adding one of them to the warp's sums in device
+// memory (a red.global: the warp is their only writer).
+__device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (&v)[8], int g) {
+    const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
+    float x[4], y[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        x[i] = (b0 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, b0 ? v[i] : v[i + 4], 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+        y[i] = (b1 ? x[i + 2] : x[i]) + __shfl_xor_sync(0xffffffffu, b1 ? x[i] : x[i + 2], 8);
+    const float sum = (b2 ? y[1] : y[0]) + __shfl_xor_sync(0xffffffffu, b2 ? y[0] : y[1], 16);
+    const int k = 4 * b0 + 2 * b1 + b2;
+    atomicAdd(col + 8 * (k >> 1) + (k & 1), sum);
+}
+
+template <int PASSES>
+__device__ __forceinline__ float2 act2(float v0, float v1) {
+    return PASSES == 1 ? make_float2(s9::tf32(v0), s9::tf32(v1)) : make_float2(v0, v1);
+}
+
+template <int PASSES, class In>
+__global__ void __launch_bounds__(s9::THREADS, 1)
+egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
+                          const float* __restrict__ x, const float* __restrict__ cmask,
+                          const float* __restrict__ w_d, const float* __restrict__ b_e2,
+                          const float* __restrict__ b_x1, const float* __restrict__ w_x2,
+                          const float* __restrict__ b_x2, const float* __restrict__ g_agg,
+                          const float* __restrict__ g_delta, Scratch s, int B, int L, int W) {
+    using LY = EdgeLayout;
+    constexpr int NH = H::NH;
+    extern __shared__ char smem_raw[];
+    char* sm = s9::smem_base(smem_raw);
+    float* A = reinterpret_cast<float*>(sm + LY::A);
+    int* flags = reinterpret_cast<int*>(sm + LY::FLAGS);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BARS);   // [2][STAGES]
+    uint64_t* empty = full + 2 * STAGES;
+    const int tid = threadIdx.x, wg = tid / s9::WG, lane = tid % 32;
+    if (tid == 0) {
+        for (int q = 0; q < 2 * STAGES; ++q) {
+            s9::mbar_init(&full[q], 1);
+            s9::mbar_init(&empty[q], s9::WG / 32);
+        }
+        s9::fence_mbar_init();
+    }
+    __syncthreads();
+
+    const int n_steps = (2 * W + OPS - 1) / OPS, n_tiles = (L + T - 1) / T;
+    const int items = B * n_tiles * n_steps;
+
+    if (wg == s9::CONSUMERS) {   // the producer warpgroup: warp h streams half h
+        s9::setmaxnreg_dec<s9::PRODUCER_REGS>();
+        const int half = (tid % s9::WG) / 32;
+        if (half < s9::CONSUMERS) {
+            float* ring = reinterpret_cast<float*>(sm + LY::RING) + half * STAGES * H::CHUNK;
+            s9::RingPos rp;
+            for (int item = blockIdx.x; item < items; item += gridDim.x) {
+                const int step = item % n_steps, i0 = ((item / n_steps) % n_tiles) * T;
+                const size_t row0 = (size_t)(item / (n_steps * n_tiles)) * L;
+                bool v = false;
+                for (int r = lane; r < M; r += 32) {
+                    int i, j;
+                    v |= s9::edge_row(cmask, row0, i0, step, r, L, W, i, j);
+                }
+                if (!__any_sync(0xffffffffu, v)) continue;   // the consumers skip it too
+                if (lane == 0)
+                    for (int q = 0; q < 4; ++q) {   // e2 (T), x1 (T), x1 (N), e2 (N)
+                        const float* big = s.img + (size_t)q * PARTS<PASSES> * H::IMG;
+                        s9::produce_half<PASSES, NW, STAGES>(big, big + H::IMG, half, ring,
+                                                             full + half * STAGES,
+                                                             empty + half * STAGES, rp);
+                    }
+                __syncwarp();
+            }
+        }
+    } else {   // the consumer warpgroups
+        s9::setmaxnreg_inc<s9::CONSUMER_REGS>();
+        float* ring = reinterpret_cast<float*>(sm + LY::RING) + wg * STAGES * H::CHUNK;
+        uint64_t* my_full = full + wg * STAGES;
+        uint64_t* my_empty = empty + wg * STAGES;
+        float* row_valid = reinterpret_cast<float*>(sm + LY::ROWS);
+        float* row_d2 = row_valid + M;
+        float* row_cw = row_valid + 2 * M;
+        int* row_j = reinterpret_cast<int*>(row_valid + 3 * M);
+        float* row_rel = row_valid + 4 * M;
+        float* part_wsc = reinterpret_cast<float*>(sm + LY::PART);   // the second consumer's
+        float* part_cd2 = part_wsc + M;
+        const int t = tid % s9::WG, warp = t / 32, g = lane / 4, tq = lane % 4;
+        const int col0 = wg * H::N;
+        const int rw = 16 * warp + g;   // the lane's rows: rw, rw + 8
+        const float bx2 = b_x2[0];
+        s9::RingPos rp;
+        float acc[NH][H::ACC];
+        float tmp[H::ACC];   // unused: the kc-major products need no step sums
+        // this warp's column sums of the vector grads (w_d, b_e2, b_x1, w_x2)
+        // over the consumer's columns, [NVEC][256], zeroed by the launch
+        float* cols = s.cols + (size_t)blockIdx.x * COLS_PER_BLOCK + (wg * 4 + warp) * NVEC * H::N;
+        float cw_sum = 0.f;   // first consumer, tq == 0: the b_x2 grad over the lane's rows
+
+        for (int item = blockIdx.x; item < items; item += gridDim.x) {
+            const int i0 = ((item / n_steps) % n_tiles) * T, step = item % n_steps;
+            const size_t row0 = (size_t)(item / (n_steps * n_tiles)) * L;
+            const size_t erow = (size_t)item * M;
+            const In* a_b = a + row0 * HD;
+            const In* bs_b = bs + row0 * HD;
+
+            s9::named_sync(BAR_ALL, CT);   // the last step's rows, flags, parts and A are consumed
+            if (tid < M) {                 // the first two warps: row tid
+                int i, j;
+                const bool v = s9::edge_row(cmask, row0, i0, step, tid, L, W, i, j);
+                float rel[3] = {0.f, 0.f, 0.f}, d2 = 0.f, cw = 0.f;
+                if (v) {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) rel[c] = x[(row0 + i) * 3 + c] - x[(row0 + j) * 3 + c];
+                    d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+                    const float* gd = g_delta + (row0 + i) * 3;
+                    cw = gd[0] * rel[0] + gd[1] * rel[1] + gd[2] * rel[2];
+                }
+                row_valid[tid] = v ? 1.f : 0.f;
+                row_d2[tid] = d2;
+                row_cw[tid] = cw;
+                row_j[tid] = j;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) row_rel[tid * 3 + c] = rel[c];
+                const unsigned any = __ballot_sync(0xffffffffu, v);
+                if (lane == 0) flags[tid / 32] = any != 0u;
+            }
+            s9::named_sync(BAR_ALL, CT);
+            const bool any = flags[0] | flags[1];
+            if (tid == 0) s.flags[item] = any;
+            if (!any) continue;   // no valid edge in the step: skipped by all
+            float* m1_i = s.m1 + erow * HD;
+            float* mm_i = s.mm + erow * HD;
+            float* cotu_i = s.cotu + erow * HD;
+            float* cotv_i = s.cotv + erow * HD;
+            float* cotpre_i = s.cotpre + erow * HD;
+            const float vr[2] = {row_valid[rw], row_valid[rw + 8]};
+
+            // m1 = silu(pre) into A; silu'(pre) waits in the cot_pre rows
+            s9::fill_pre<HD, In, CT, PASSES == 1>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0,
+                                                  tid, cotpre_i);
+            s9::fence_async_smem();
+            s9::named_sync(BAR_ALL, CT);
+
+            // u = m1 @ W_e2 + b_e2: silu'(u) waits in the cot_u rows; m = silu(u) -> A
+            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
+                                                 tid, BAR_ALL,
+                                                 [&](int q) { tile_to_scratch(A, m1_i, tid, q); });
+            s9::named_sync(BAR_ALL, CT);   // both consumers' products (and the copy) have read A
+#pragma unroll
+            for (int h = 0; h < NH; ++h)
+#pragma unroll
+                for (int jj = 0; jj < NW / 8; ++jj) {
+                    const int col = col0 + h * NW + 8 * jj + 2 * tq;
+                    const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                        const float u0 = acc[h][4 * jj + 2 * hh] + be.x;
+                        const float u1 = acc[h][4 * jj + 2 * hh + 1] + be.y;
+                        const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
+                        *reinterpret_cast<float2*>(cotu_i + (size_t)(rw + 8 * hh) * HD + col) =
+                            make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
+                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
+                            act2<PASSES>(u0 * s0, u1 * s1);
+                    }
+                }
+            s9::fence_async_smem();
+            s9::named_sync(BAR_ALL, CT);
+
+            // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 per row; cot_v -> A
+            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
+                                                 tid, BAR_ALL,
+                                                 [&](int q) { tile_to_scratch(A, mm_i, tid, q); });
+            s9::named_sync(BAR_ALL, CT);
+            const float cw[2] = {row_cw[rw], row_cw[rw + 8]};
+            float sw[2] = {0.f, 0.f};
+#pragma unroll
+            for (int h = 0; h < NH; ++h) {
+                float gw8[8], gb8[8];   // four column pairs' sums over the lane's rows
+#pragma unroll
+                for (int jj = 0; jj < NW / 8; ++jj) {
+                    const int col = col0 + h * NW + 8 * jj + 2 * tq;
+                    const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + col));
+                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
+                    float cot[2][2], gw[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) {
+                            const float wx2 = c ? wx.y : wx.x;
+                            const float vv = acc[h][4 * jj + 2 * hh + c] + (c ? bx.y : bx.x);
+                            const float sg = s9::sigmoid_fast(vv), w1 = vv * sg;
+                            cot[hh][c] = cw[hh] * wx2 * s9::dsilu_of(vv, sg);
+                            sw[hh] = fmaf(w1, wx2, sw[hh]);
+                            gw[c] += w1 * cw[hh];    // w_x2 grad
+                            gb[c] += cot[hh][c];     // b_x1 grad
+                        }
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh)
+                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
+                            act2<PASSES>(cot[hh][0], cot[hh][1]);
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        gw8[2 * (jj & 3) + c] = gw[c];
+                        gb8[2 * (jj & 3) + c] = gb[c];
+                    }
+                    if ((jj & 3) == 3) {   // the sums of columns col - 24 .. col + 1
+                        add_cols8(cols + 3 * H::N + col - col0 - 24, gw8, g);
+                        add_cols8(cols + 2 * H::N + col - col0 - 24, gb8, g);
+                    }
+                }
+            }
+            const float wsc[2] = {quad_sum(sw[0]), quad_sum(sw[1])};
+            if (wg == 1 && tq == 0) {
+                part_wsc[rw] = wsc[0];
+                part_wsc[rw + 8] = wsc[1];
+            }
+            s9::fence_async_smem();
+            s9::named_sync(BAR_ALL, CT);
+
+            // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u) -> A
+            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
+                                                 tid, BAR_ALL,
+                                                 [&](int q) { tile_to_scratch(A, cotv_i, tid, q); });
+            s9::named_sync(BAR_ALL, CT);
+            const int my_i = i0 + g;
+#pragma unroll
+            for (int h = 0; h < NH; ++h) {
+                float gb8[8];
+#pragma unroll
+                for (int jj = 0; jj < NW / 8; ++jj) {
+                    const int col = col0 + h * NW + 8 * jj + 2 * tq;
+                    const float2 gv = my_i < L
+                        ? __ldg(reinterpret_cast<const float2*>(g_agg + (row0 + my_i) * HD + col))
+                        : make_float2(0.f, 0.f);
+                    float gb[2] = {0.f, 0.f};
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                        const float2 ds =
+                            *reinterpret_cast<const float2*>(cotu_i + (size_t)(rw + 8 * hh) * HD + col);
+                        const float cu0 = (vr[hh] * gv.x + acc[h][4 * jj + 2 * hh]) * ds.x;
+                        const float cu1 = (vr[hh] * gv.y + acc[h][4 * jj + 2 * hh + 1]) * ds.y;
+                        gb[0] += cu0;   // b_e2 grad
+                        gb[1] += cu1;
+                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
+                            act2<PASSES>(cu0, cu1);
+                    }
+                    gb8[2 * (jj & 3)] = gb[0];
+                    gb8[2 * (jj & 3) + 1] = gb[1];
+                    if ((jj & 3) == 3) add_cols8(cols + 1 * H::N + col - col0 - 24, gb8, g);
+                }
+            }
+            s9::fence_async_smem();
+            s9::named_sync(BAR_ALL, CT);   // silu'(u) read by every lane before cot_u replaces it
+
+            // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d per row
+            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
+                                                 tid, BAR_ALL,
+                                                 [&](int q) { tile_to_scratch(A, cotu_i, tid, q); });
+            float sd[2] = {0.f, 0.f};
+            const float d2r[2] = {row_d2[rw], row_d2[rw + 8]};
+#pragma unroll
+            for (int h = 0; h < NH; ++h) {
+                float gd8[8];
+#pragma unroll
+                for (int jj = 0; jj < NW / 8; ++jj) {
+                    const int col = col0 + h * NW + 8 * jj + 2 * tq;
+                    const float2 wd = __ldg(reinterpret_cast<const float2*>(w_d + col));
+                    float gd[2] = {0.f, 0.f};
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                        float2* p = reinterpret_cast<float2*>(cotpre_i + (size_t)(rw + 8 * hh) * HD + col);
+                        float cp[2] = {0.f, 0.f};
+                        if (vr[hh] > 0.f) {
+                            const float2 ds = *p;   // silu'(pre), from the fill
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const float wdc = c ? wd.y : wd.x;
+                                cp[c] = acc[h][4 * jj + 2 * hh + c] * (c ? ds.y : ds.x);
+                                sd[hh] = fmaf(cp[c], wdc, sd[hh]);
+                                gd[c] += cp[c] * d2r[hh];   // w_d grad
+                            }
+                        }
+                        *p = make_float2(cp[0], cp[1]);
+                    }
+                    gd8[2 * (jj & 3)] = gd[0];
+                    gd8[2 * (jj & 3) + 1] = gd[1];
+                    if ((jj & 3) == 3) add_cols8(cols + 0 * H::N + col - col0 - 24, gd8, g);
+                }
+            }
+            const float cd2[2] = {quad_sum(sd[0]), quad_sum(sd[1])};
+            if (wg == 1 && tq == 0) {
+                part_cd2[rw] = cd2[0];
+                part_cd2[rw + 8] = cd2[1];
+            }
+            s9::named_sync(BAR_ALL, CT);
+            // d_rel = valid * wsc * g_delta_i + 2 * rel * cot_d2, per row
+            if (wg == 0 && tq == 0) {
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int row = rw + 8 * hh;
+                    const float vw = vr[hh] * (wsc[hh] + part_wsc[row] + bx2);
+                    const float c2 = cd2[hh] + part_cd2[row];
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const float gdc = vr[hh] > 0.f ? g_delta[(row0 + my_i) * 3 + c] : 0.f;
+                        s.drel[(erow + row) * 3 + c] = vw * gdc + 2.f * row_rel[row * 3 + c] * c2;
+                    }
+                    cw_sum += cw[hh];   // b_x2 grad
+                }
+            }
+        }
+
+        // The block's vector-grad partial: the warps' column sums added in
+        // warp order; the b_x2 grad over the threads in order.
+        __threadfence();   // this thread's column adds, before the block reads them
+        s9::named_sync(BAR_ALL, CT);
+        float* red_cw = A;   // [256]
+        red_cw[tid] = cw_sum;
+        s9::named_sync(BAR_ALL, CT);
+        const float* all_cols = s.cols + (size_t)blockIdx.x * COLS_PER_BLOCK;
+        float* vp = s.vpart + (size_t)blockIdx.x * vpart_stride(HD);
+        for (int k = tid; k < NVEC * HD; k += CT) {
+            const int v = k / HD, c = k % HD, half = c / H::N;
+            float sum = 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                sum += __ldcg(all_cols + ((half * 4 + q) * NVEC + v) * H::N + c % H::N);
+            vp[k] = sum;
+        }
+        if (tid == 0) {
+            float v = 0.f;
+            for (int q = 0; q < CT; ++q) v += red_cw[q];
+            vp[NVEC * HD] = v;
+        }
+    }
+}
+
+// Split-K weight grads on wgmma: part[z][sl] = X_z^T @ Y_z over the valid
+// steps of slice sl (z = 0: (m1, cot_u) -> dW_e2, z = 1: (m, cot_v) ->
+// dW_x1), a block per 64 x 64 output tile (rows m0.., columns n0..): X's
+// and Y's 64 feature rows of one 32-row K block are contiguous in the
+// [2][512][32] layout, one bulk copy each.
+struct WgradLayout {
+    static constexpr int OP_BYTES = 64 * s9::KB * 4;            // an operand of a stage
+    static constexpr int STAGE = 2 * OP_BYTES;                   // X, Y
+    static constexpr int SPLIT = WSTAGES * STAGE;                // [2][Xs, Ys] (3xTF32)
+    template <int PASSES>
+    __host__ __device__ static constexpr int bars() { return SPLIT + (PASSES == 3 ? 2 * STAGE : 0); }
+    template <int PASSES>
+    static constexpr size_t smem(int per) {
+        return bars<PASSES>() + 2 * WSTAGES * 8 + sizeof(int) * per + 1024;
+    }
+};
+
+template <int PASSES>
+__global__ void __launch_bounds__(WGRAD_THREADS, 2)
+egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0,
+                      const float* __restrict__ x1, const float* __restrict__ y1,
+                      const int* __restrict__ flags, float* __restrict__ part, int items,
+                      int nsplit) {
+    using LY = WgradLayout;
+    constexpr int ACC = 32;   // m64n64 fp32 accumulator floats per thread
+    extern __shared__ char smem_raw[];
+    char* sm = s9::smem_base(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::bars<PASSES>());
+    uint64_t* empty = full + WSTAGES;
+    int* list = reinterpret_cast<int*>(full + 2 * WSTAGES);
+    float* split = reinterpret_cast<float*>(sm + LY::SPLIT);
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int m0 = (blockIdx.x / (HD / 64)) * 64, n0 = (blockIdx.x % (HD / 64)) * 64;
+    const int sl = blockIdx.y, z = blockIdx.z;
+    const float* X = z ? x1 : x0;
+    const float* Y = z ? y1 : y0;
+    if (tid == 0) {
+        for (int q = 0; q < WSTAGES; ++q) {
+            s9::mbar_init(&full[q], 1);
+            s9::mbar_init(&empty[q], s9::WG / 32);
+        }
+        s9::fence_mbar_init();
+    }
+    const int nchunk = 2 * valid_items(flags, items, nsplit, sl, list);   // synchronises the block
+
+    if (warp == s9::WG / 32) {   // the producer warp
+        if (lane == 0) {
+            s9::RingPos rp;
+            for (int q = 0; q < nchunk; ++q) {
+                const size_t base = (size_t)list[q / 2] * M * HD + (size_t)(q % 2) * s9::KB * HD;
+                float* st = reinterpret_cast<float*>(sm + rp.stage * LY::STAGE);
+                s9::mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
+                s9::mbar_expect_tx(&full[rp.stage], LY::STAGE);
+                s9::bulk_load(st, X + base + (size_t)m0 * s9::KB, LY::OP_BYTES, &full[rp.stage]);
+                s9::bulk_load(st + LY::OP_BYTES / 4, Y + base + (size_t)n0 * s9::KB, LY::OP_BYTES,
+                              &full[rp.stage]);
+                rp.next<WSTAGES>();
+            }
+        }
+        return;
+    }
+    float sum[ACC], step[4][ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sum[i] = 0.f;
+    // 3xTF32: Xs, Ys = rna(v - trunc(v)) of a stage into split buffer b;
+    // chunk q + 1's split runs while chunk q's products are in flight
+    auto split_stage = [&](int stage, int b) {
+        const float4* src = reinterpret_cast<const float4*>(sm + stage * LY::STAGE);
+        float4* dst = reinterpret_cast<float4*>(split + b * (LY::STAGE / 4));
+        for (int i = tid; i < LY::STAGE / 16; i += s9::WG) {
+            const float4 v = src[i];
+            auto lo = [](float f) {
+                return __uint_as_float(
+                    rna_tf32(f - __uint_as_float(__float_as_uint(f) & 0xFFFFE000u)));
+            };
+            dst[i] = make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
+        }
+        s9::fence_async_smem();
+    };
+    s9::RingPos rp;
+    if (PASSES == 3 && nchunk > 0) {
+        s9::mbar_wait(&full[rp.stage], rp.phase);
+        split_stage(rp.stage, 0);
+    }
+    for (int q = 0; q < nchunk; ++q) {
+        const float* xa = reinterpret_cast<const float*>(sm + rp.stage * LY::STAGE);
+        const float* yb = xa + LY::OP_BYTES / 4;
+        if constexpr (PASSES == 3)   // chunk q's split written, chunk q - 1's products done
+            s9::named_sync(1, s9::WG);
+        else
+            s9::mbar_wait(&full[rp.stage], rp.phase);
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) s9::pin(step[k8]);
+        s9::wg_fence();
+#pragma unroll
+        for (int k8 = 0; k8 < s9::KB / 8; ++k8) {
+            const uint64_t dx = s9::desc(xa + 8 * k8), dy = s9::desc(yb + 8 * k8);
+            if constexpr (PASSES == 3) {
+                const float* xs = split + (q & 1) * (LY::STAGE / 4);
+                const float* ys = xs + LY::OP_BYTES / 4;
+                s9::Wgmma<64>::mma(step[k8], s9::desc(xs + 8 * k8), dy, 0);
+                s9::Wgmma<64>::mma(step[k8], dx, s9::desc(ys + 8 * k8), 1);
+                s9::Wgmma<64>::mma(step[k8], dx, dy, 1);
+            } else {
+                s9::Wgmma<64>::mma(step[k8], dx, dy, 0);
+            }
+        }
+        s9::wg_commit();
+        if (PASSES == 3 && q + 1 < nchunk) {
+            s9::RingPos nx = rp;
+            nx.next<WSTAGES>();
+            s9::mbar_wait(&full[nx.stage], nx.phase);
+            split_stage(nx.stage, (q + 1) & 1);
+        }
+        s9::wg_wait<0>();
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) s9::pin(step[k8]);
+        if (lane == 0) s9::mbar_arrive(&empty[rp.stage]);
+        rp.next<WSTAGES>();
+        // each k8 step's sum added in round-to-nearest fp32, in order
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8)
+#pragma unroll
+            for (int i = 0; i < ACC; ++i) sum[i] += step[k8][i];
+    }
+
+    float* out = part + ((size_t)z * nsplit + sl) * HD * HD;
+    const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int i = m0 + 16 * warp + g + 8 * hh;
+            *reinterpret_cast<float2*>(out + (size_t)i * HD + n0 + 8 * jj + 2 * tq) =
+                make_float2(sum[4 * jj + 2 * hh], sum[4 * jj + 2 * hh + 1]);
+        }
+}
+
+template <int PASSES, class In>
+cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
+                   const float* const* w, const float* g_agg, const float* g_delta, In* da,
+                   In* dbs, float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
+                   int B, int L, int W, int G, int nsplit, cudaStream_t stream) {
+    if (G < 1 || nsplit < 1 || !scratch) return cudaErrorInvalidValue;
+    Scratch s;
+    scratch_floats(B, L, W, G, nsplit, PASSES, &s, scratch);
+    const int items = n_items(B, L, W);
+    // x @ W_e2, x @ W_x1 (the recomputed products), x @ W_x1^T, x @ W_e2^T
+    // (the cotangents), each as Wb (and Ws)
+    const float* srcs[4] = {w[1], w[3], w[3], w[1]};
+    const int orients[4] = {s9::IMG_T, s9::IMG_T, s9::IMG_N, s9::IMG_N};
+    s9::HalfImageSet set{};
+    for (int q = 0; q < 4; ++q)
+        for (int p = 0; p < PARTS<PASSES>; ++p) {
+            set.src[set.n] = srcs[q];
+            set.orient[set.n] = orients[q];
+            set.part[set.n++] = p;
+        }
+    cudaError_t err = s9::launch_images_half<NW>(set, s.img, stream);
+    if (err != cudaSuccess) return err;
+    err = cudaMemsetAsync(s.cols, 0, sizeof(float) * G * COLS_PER_BLOCK, stream);
+    if (err != cudaSuccess) return err;
+    auto edges = egnn_bwd_edges_sm90_hd512<PASSES, In>;
+    err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize, EdgeLayout::SMEM);
+    if (err != cudaSuccess) return err;
+    edges<<<G, s9::THREADS, EdgeLayout::SMEM, stream>>>(a, bs, x, cmask, w[0], w[2], w[4], w[5],
+                                                       w[6], g_agg, g_delta, s, B, L, W);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    egnn_bwd_nodes<In, float><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+        s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int per = (items + nsplit - 1) / nsplit;
+    const size_t wsmem = WgradLayout::smem<PASSES>(per);
+    auto wgrad = egnn_wgrad_sm90_hd512<PASSES>;
+    err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
+    if (err != cudaSuccess) return err;
+    const dim3 wgrid((HD / 64) * (HD / 64), nsplit, 2);
+    wgrad<<<wgrid, WGRAD_THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
+                                                   items, nsplit);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const size_t n_out = 2 * (size_t)HD * HD + NVEC * HD + 1;
+    egnn_bwd_reduce<<<(unsigned)((n_out + egnn::THREADS - 1) / egnn::THREADS), egnn::THREADS, 0,
+                      stream>>>(s.wpart, s.vpart, dw_e2, dw_x1, dvec, HD, G, nsplit);
+    return cudaGetLastError();
+}
+
+// f(Int<PASSES>{}, Type<In>{}) for passes 1 or 3 and the input type.
+template <class F>
+cudaError_t dispatch(int passes, int bf16_in, F&& f) {
+    auto by_in = [&](auto p) -> cudaError_t {
+        return bf16_in ? f(p, Type<__nv_bfloat16>{}) : f(p, Type<float>{});
+    };
+    switch (passes) {
+        case 1: return by_in(Int<1>{});
+        case 3: return by_in(Int<3>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch one call needs (the caller allocates it), for G
+// edge-pass blocks, nsplit weight-grad slices and passes (1 or 3).
+size_t egnn_band_bwd_sm90_hd512_scratch_floats(int B, int L, int W, int G, int nsplit,
+                                               int passes) {
+    Scratch s;
+    return scratch_floats(B, L, W, G, nsplit, passes, &s, nullptr);
+}
+
+// Edge-pass blocks that one SM holds, or a negative CUDA error code.
+int egnn_band_bwd_sm90_hd512_blocks_per_sm(int bf16_in, int passes) {
+    int n = 0;
+    const cudaError_t err = dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+        auto kernel = egnn_bwd_edges_sm90_hd512<decltype(p_c)::value, typename decltype(in_c)::type>;
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             EdgeLayout::SMEM);
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
+                                                             EdgeLayout::SMEM);
+    });
+    return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Launch the four passes on `stream`; returns the CUDA error code (0 =
+// success). As egnn_band_bwd_sm90_launch at hd 512, with passes (1 or 3
+// TF32 passes per product) and scratch as sized above.
+int egnn_band_bwd_sm90_hd512_launch(const void* a, const void* bs, const float* x,
+                                    const float* cmask, const float* w_d, const float* w_e2,
+                                    const float* b_e2, const float* w_x1, const float* b_x1,
+                                    const float* w_x2, const float* b_x2, const float* g_agg,
+                                    const float* g_delta, void* da, void* dbs, float* dx,
+                                    float* dw_e2, float* dw_x1, float* dvec, float* scratch, int B,
+                                    int L, int W, int G, int nsplit, int bf16_in, int passes,
+                                    void* stream) {
+    const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+        using In = typename decltype(in_c)::type;
+        return launch<decltype(p_c)::value, In>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, g_agg, g_delta,
+            static_cast<In*>(da), static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec, scratch, B, L, W,
+            G, nsplit, s);
+    });
+}
+
+const char* egnn_band_bwd_sm90_hd512_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -70,9 +70,10 @@
 //   the four lanes of a quad with shuffles, then the warps that own the
 //   row's other columns through shared memory, always in the same order.
 // The one-pass mode at widths 32 to 256 runs egnn_band_fwd_sm90.cu instead
-// (wgmma, a bulk-copy weight ring); this file no longer builds it. Left
-// for later: wgmma for this file's modes (3xTF32 needs split operand
-// copies in shared memory).
+// (wgmma, a bulk-copy weight ring), and both fp32-chain modes at Hd 512
+// egnn_band_fwd_sm90_hd512.cu; this file no longer builds them (at 512
+// only the bf16 chain uses Tile<512>). Left for later: wgmma for the
+// bf16 chain and the wide variants.
 
 #include "egnn_passes.cuh"
 

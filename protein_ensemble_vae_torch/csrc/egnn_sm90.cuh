@@ -100,17 +100,26 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
-// wait until the phase of parity `parity` has completed
+// wait until the phase of parity `parity` has completed; a wait longer than
+// MBAR_CYCLES SM cycles (~10 s: a ring out of step, never a slow step)
+// traps, so a fault in the protocol ends the launch with an error instead of
+// hanging the card
+constexpr long long MBAR_CYCLES = 1ll << 34;
+__device__ __forceinline__ uint32_t mbar_try(uint32_t addr, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    return done;
+}
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     const uint32_t addr = smem_u32(bar);
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    }
+    if (mbar_try(addr, parity)) return;   // the clock is read only once a wait spins
+    const long long t0 = clock64();
+    for (uint32_t spins = 1; !mbar_try(addr, parity); ++spins)
+        if ((spins & 1023u) == 0 && clock64() - t0 > MBAR_CYCLES) __trap();
 }
 // one 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
 // aligned) from device memory into shared memory, completing on `bar`
@@ -141,6 +150,12 @@ __device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.0f 
 __device__ __forceinline__ float sigmoid_fast(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 // silu'(x) from s = sigmoid(x), which silu(x) = x s shares
 __device__ __forceinline__ float dsilu_of(float x, float s) { return s * (1.0f + x * (1.0f - s)); }
+// the fast forms where FAST (one pass), egnn_tile.cuh's accurate ones (expf,
+// IEEE division) in 3xTF32, whose products hold fp32 accuracy
+template <bool FAST>
+__device__ __forceinline__ float sigmoid_m(float x) { return FAST ? sigmoid_fast(x) : sigmoid(x); }
+template <bool FAST>
+__device__ __forceinline__ float silu_m(float x) { return FAST ? silu_fast(x) : silu(x); }
 
 // ---- warpgroup products ------------------------------------------------------
 
@@ -226,19 +241,23 @@ struct RingPos {
     }
 };
 
-// Producer (one thread): stream the NQ chunks of one weight image into the
-// ring, each stage once its last reader has released it.
+// Producer (one thread): stream NQ chunks of CHUNK floats of one weight
+// image into the ring, each stage once its last reader has released it.
+template <int NQ, int CHUNK, int STAGES>
+__device__ __forceinline__ void produce_chunks(const float* __restrict__ img, float* ring,
+                                               uint64_t* full, uint64_t* empty, RingPos& rp) {
+    for (int q = 0; q < NQ; ++q) {
+        mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
+        mbar_expect_tx(&full[rp.stage], CHUNK * 4);
+        bulk_load(ring + rp.stage * CHUNK, img + (size_t)q * CHUNK, CHUNK * 4, &full[rp.stage]);
+        rp.next<STAGES>();
+    }
+}
+
 template <int HD, int STAGES>
 __device__ __forceinline__ void produce(const float* __restrict__ img, float* ring,
                                         uint64_t* full, uint64_t* empty, RingPos& rp) {
-    using C = Cols<HD>;
-    for (int q = 0; q < C::NQ; ++q) {
-        mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
-        mbar_expect_tx(&full[rp.stage], C::CHUNK * 4);
-        bulk_load(ring + rp.stage * C::CHUNK, img + (size_t)q * C::CHUNK, C::CHUNK * 4,
-                  &full[rp.stage]);
-        rp.next<STAGES>();
-    }
+    produce_chunks<Cols<HD>::NQ, Cols<HD>::CHUNK, STAGES>(img, ring, full, empty, rp);
 }
 
 // Consumer warpgroup: acc[h] = A @ (column group h of the streamed weight),
@@ -251,28 +270,31 @@ struct NoSide {
     __device__ __forceinline__ void operator()(int) const {}
 };
 
-template <int HD, int STAGES, class Side = NoSide>
-__device__ __forceinline__ void product(const float* A, const float* ring, uint64_t* full,
-                                        uint64_t* empty, RingPos& rp,
-                                        float (&acc)[Cols<HD>::NH][Cols<HD>::ACC], int lane,
-                                        Side side = Side()) {
-    using C = Cols<HD>;
+// The general form: A [64][KD], NH column groups of NW (chunks of NW x 32,
+// in the order (K block, group)); with `accumulate` the products add to acc
+// instead of starting from zero.
+template <int KD, int NW, int NH, int STAGES, class Side = NoSide>
+__device__ __forceinline__ void product_k(const float* A, const float* ring, uint64_t* full,
+                                          uint64_t* empty, RingPos& rp, float (&acc)[NH][NW / 2],
+                                          int lane, bool accumulate, Side side = Side()) {
+    constexpr int CHUNK = NW * KB;
 #pragma unroll
-    for (int h = 0; h < C::NH; ++h) pin(acc[h]);
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
     int prev = -1;
 #pragma unroll 1
-    for (int kc = 0; kc < HD / KB; ++kc) {
+    for (int kc = 0; kc < KD / KB; ++kc) {
 #pragma unroll
-        for (int h = 0; h < C::NH; ++h) {
+        for (int h = 0; h < NH; ++h) {
             mbar_wait(&full[rp.stage], rp.phase);
-            const float* b = ring + rp.stage * C::CHUNK;
+            const float* b = ring + rp.stage * CHUNK;
             const float* a = A + kc * 64 * KB;
             wg_fence();
 #pragma unroll
             for (int k8 = 0; k8 < KB / 8; ++k8)
-                Wgmma<C::NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8), (kc | k8) != 0);
+                Wgmma<NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
+                               accumulate || (kc | k8) != 0);
             wg_commit();
-            side(kc * C::NH + h);
+            side(kc * NH + h);
             wg_wait<1>();
             if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
             prev = rp.stage;
@@ -281,8 +303,17 @@ __device__ __forceinline__ void product(const float* A, const float* ring, uint6
     }
     wg_wait<0>();
 #pragma unroll
-    for (int h = 0; h < C::NH; ++h) pin(acc[h]);
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
     if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+template <int HD, int STAGES, class Side = NoSide>
+__device__ __forceinline__ void product(const float* A, const float* ring, uint64_t* full,
+                                        uint64_t* empty, RingPos& rp,
+                                        float (&acc)[Cols<HD>::NH][Cols<HD>::ACC], int lane,
+                                        Side side = Side()) {
+    using C = Cols<HD>;
+    product_k<HD, C::NW, C::NH, STAGES>(A, ring, full, empty, rp, acc, lane, false, side);
 }
 
 // Consumer warpgroup with no valid edge in its step: walk one product's
@@ -357,19 +388,22 @@ __device__ __forceinline__ bool edge_row(const float* __restrict__ cmask, size_t
 __device__ __forceinline__ float tf32(float v) { return __uint_as_float(rna_tf32(v)); }
 
 // A = silu(pre), pre = a_i + bs_j + d2 * w_d, of a step's 64 edge rows
-// (row r: receiver i0 + r % T, sender row_j[r]), rounded to TF32, in the
-// warpgroup's K-major swizzled tile, and with dpre also silu'(pre) into
-// dpre [64][HD] (row-major, fp32); rows of invalid edges are 0. Thread t of
-// the warpgroup reads 16 bytes of a_i and of bs_j at a time.
-template <int HD, class In>
+// (row r: receiver i0 + r % T, sender row_j[r]), rounded to TF32 (or, with
+// ROUND false, exact and with the accurate sigmoid: the 3xTF32 mode splits
+// it later), in the K-major
+// swizzled tile, and with dpre also silu'(pre) into dpre [64][HD]
+// (row-major, fp32); rows of invalid edges are 0. Thread t of the NT that
+// fill it reads 16 bytes of a_i and of bs_j at a time.
+template <int HD, class In, int NT = WG, bool ROUND = true>
 __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
                                          const In* __restrict__ bs_b, const float* __restrict__ w_d,
                                          const float* row_valid, const float* row_d2,
                                          const int* row_j, int i0, int t,
                                          float* __restrict__ dpre = nullptr) {
     constexpr int NV = Vec<In>::N, HDV = HD / NV;
+    auto rd = [](float v) { return ROUND ? __uint_as_float(rna_tf32(v)) : v; };
 #pragma unroll 4
-    for (int idx = t; idx < M * HDV; idx += WG) {
+    for (int idx = t; idx < M * HDV; idx += NT) {
         const int r = idx / HDV, c = NV * (idx % HDV);
         float pv[NV], dv[NV];
 #pragma unroll
@@ -386,7 +420,7 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
 #pragma unroll
                 for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
                     const float pre = av[q] + bv[q] + d2 * w4[q % 4];
-                    const float s = sigmoid_fast(pre);
+                    const float s = sigmoid_m<ROUND>(pre);
                     pv[q] = pre * s;
                     dv[q] = dsilu_of(pre, s);
                 }
@@ -395,8 +429,8 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
 #pragma unroll
         for (int q4 = 0; q4 < NV / 4; ++q4)
             *reinterpret_cast<float4*>(A + sw_off(r, c + 4 * q4, M)) =
-                make_float4(tf32(pv[4 * q4]), tf32(pv[4 * q4 + 1]), tf32(pv[4 * q4 + 2]),
-                            tf32(pv[4 * q4 + 3]));
+                make_float4(rd(pv[4 * q4]), rd(pv[4 * q4 + 1]), rd(pv[4 * q4 + 2]),
+                            rd(pv[4 * q4 + 3]));
         if (dpre) {
 #pragma unroll
             for (int q4 = 0; q4 < NV / 4; ++q4)
@@ -404,6 +438,214 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
                     make_float4(dv[4 * q4], dv[4 * q4 + 1], dv[4 * q4 + 2], dv[4 * q4 + 3]);
         }
     }
+}
+
+// ---- width 512: one shared A tile, the columns split between the consumers ----
+//
+// At Hd 512 one 64-row activation tile is 128 KiB, so the two consumer
+// warpgroups share it: each computes its half of the output columns (256)
+// of every product, over all 512 K values, from its own weight ring. The
+// producer warpgroup's first two warps stream one half each. A half image
+// is (K block kc, column group h) chunks of NW rows x 32 K values, h
+// fastest, as Cols' chunks; an image is its two halves in turn (the N-half
+// chunk order).
+//
+// 3xTF32 at this width (PASSES = 3). The tile holds the activation X in
+// fp32; wgmma reads an fp32 operand as TF32 by dropping its low 13 bits, so
+// it reads trunc(X). With W = Wb + Ws (Wb = rna(W), Ws = rna(W - Wb), two
+// images) a product is Xt.Ws + Xt.Wb, then, after both warpgroups are done
+// with the tile, the tile is rewritten in place as Xs = rna(X - trunc(X))
+// (split_tile) and Xs.Wb added (product_half): three passes over three
+// streamed images. trunc(X) + Xs holds X to ~2^-21 of it, Wb + Ws holds W
+// to ~2^-22; the dropped Xs.Ws is ~2^-20 of the product. The tensor cores'
+// accumulation, which rounds toward zero, is the larger error at K 512
+// (product_hmajor).
+template <int NW_>
+struct Half {
+    static constexpr int HD = 512, N = 256;      // width; output columns per consumer
+    static constexpr int NW = NW_;               // columns per product (m64nNWk8)
+    static constexpr int NH = N / NW;            // column groups per consumer
+    static constexpr int CHUNK = NW * KB;        // floats of a ring chunk
+    static constexpr int NQ = (HD / KB) * NH;    // chunks of one half image
+    static constexpr int ACC = NW / 2;           // accumulator floats per thread and group
+    static constexpr int IMG = HD * HD;          // floats of an image
+};
+
+// Image element e of a 512 x 512 weight w in orientation `orient`, part 0
+// (big: rna(v)) or 1 (small: rna(v - rna(v))), in the N-half chunk order;
+// within a half the chunks go (K block, column group), the group fastest,
+// or with `hmajor` (column group, K block).
+template <int NW>
+__device__ __forceinline__ float image_value_half(const float* __restrict__ w, int orient,
+                                                  int part, int hmajor, int e) {
+    using H = Half<NW>;
+    constexpr int NKC = H::HD / KB;
+    const int half = e / (H::N * H::HD), eh = e % (H::N * H::HD);
+    const int q = eh / H::CHUNK, r = eh % H::CHUNK;
+    const int nl = r / KB, pos = r % KB;
+    const int kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3);
+    const int h = hmajor ? q / NKC : q % H::NH, kc = hmajor ? q % NKC : q / H::NH;
+    const int n = half * H::N + h * NW + nl, k = kc * KB + kl;
+    const float v = orient == IMG_T ? w[k * H::HD + n] : w[n * H::HD + k];
+    const float big = __uint_as_float(rna_tf32(v));
+    return part ? __uint_as_float(rna_tf32(v - big)) : big;
+}
+
+// img[q] = image of (src[q], orient[q], part[q]) for q < n (at most 8),
+// all in the chunk order `hmajor` names.
+struct HalfImageSet {
+    const float* src[8];
+    int orient[8];
+    int part[8];
+    int n;
+    int hmajor;
+};
+
+template <int NW>
+__global__ void __launch_bounds__(256) weight_images_half(HalfImageSet set, float* __restrict__ img) {
+    constexpr int per = Half<NW>::IMG;
+    for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < set.n * per;
+         idx += gridDim.x * blockDim.x) {
+        const int q = idx / per;
+        img[idx] = image_value_half<NW>(set.src[q], set.orient[q], set.part[q], set.hmajor,
+                                        idx % per);
+    }
+}
+
+template <int NW>
+cudaError_t launch_images_half(const HalfImageSet& set, float* img, cudaStream_t stream) {
+    const int n = set.n * Half<NW>::IMG;
+    weight_images_half<NW><<<(n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048, 256, 0, stream>>>(
+        set, img);
+    return cudaGetLastError();
+}
+
+// The 3xTF32 rewrite of a [64][512] tile in place, X -> rna(X - trunc(X)),
+// by thread t of NT, 16 bytes at a time (the layout does not matter: every
+// element maps to itself).
+template <int NT>
+__device__ __forceinline__ void split_tile(float* A, int t) {
+#pragma unroll 4
+    for (int i = t; i < M * 512 / 4; i += NT) {
+        float4 v = reinterpret_cast<float4*>(A)[i];
+        auto lo = [](float x) {
+            return __uint_as_float(rna_tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
+        };
+        v = make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
+        reinterpret_cast<float4*>(A)[i] = v;
+    }
+}
+
+// The h-major form of product_k (chunks in the order (column group h, K
+// block kc)) with GROUP K values a step sum: each group of GROUP / 32 K
+// blocks accumulates into `tmp` from zero on the tensor cores, whose fp32
+// accumulation rounds toward zero, and is added to acc[h] in
+// round-to-nearest fp32. Summed whole, the 64 k8 steps of one pass at K 512
+// cut every partial sum toward zero (3xTF32 drifted ~2x past rtol 1e-4 at
+// Hd 512 that way); a 128-K step sum holds the drift to a quarter of the
+// tolerance (PERF.md). GROUP 0: no step sums, acc[h] accumulates directly.
+template <int KD, int NW, int NH, int STAGES, int GROUP, class Side = NoSide>
+__device__ __forceinline__ void product_hmajor(const float* A, const float* ring, uint64_t* full,
+                                               uint64_t* empty, RingPos& rp,
+                                               float (&acc)[NH][NW / 2], float (&tmp)[NW / 2],
+                                               int lane, bool accumulate, Side side = Side()) {
+    constexpr int CHUNK = NW * KB, NKC = KD / KB, GKC = GROUP ? GROUP / KB : NKC;
+    static_assert(NKC % GKC == 0, "whole groups");
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
+    int prev = -1;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll 1
+        for (int kg = 0; kg < NKC; kg += GKC) {
+            if (GROUP) pin(tmp);
+#pragma unroll 1
+            for (int kc = kg; kc < kg + GKC; ++kc) {
+                mbar_wait(&full[rp.stage], rp.phase);
+                const float* b = ring + rp.stage * CHUNK;
+                const float* a = A + kc * 64 * KB;
+                wg_fence();
+#pragma unroll
+                for (int k8 = 0; k8 < KB / 8; ++k8) {
+                    if (GROUP)
+                        Wgmma<NW>::mma(tmp, desc(a + 8 * k8), desc(b + 8 * k8),
+                                       (kc - kg) | k8);
+                    else
+                        Wgmma<NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
+                                       accumulate || (kc | k8) != 0);
+                }
+                wg_commit();
+                side(h * NKC + kc);
+                wg_wait<1>();
+                if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+                prev = rp.stage;
+                rp.next<STAGES>();
+            }
+            if (GROUP) {   // the group's sum, added in round-to-nearest fp32
+                wg_wait<0>();
+                pin(tmp);
+#pragma unroll
+                for (int i = 0; i < NW / 2; ++i)
+                    acc[h][i] = (accumulate || kg) ? acc[h][i] + tmp[i] : tmp[i];
+            }
+        }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+// One product of the shared tile in the mode's passes, into the consumer's
+// accumulators: with PASSES 1 the tile holds rna(X) (or X, which wgmma reads
+// truncated) and one image streams; with PASSES 3 it holds X, and the ring
+// brings Ws, Wb, Wb (see Half), the tile split in place between the second
+// and third pass. HMAJOR: the images are in the h-major chunk order and
+// product_hmajor runs, in 3xTF32 with 128-K step sums into `tmp`. Every
+// thread of both consumer warpgroups calls it; bar_all names their barrier.
+// side(q) runs during the first pass (it may read the tile).
+template <int PASSES, int NW, int STAGES, bool HMAJOR = false, class Side = NoSide>
+__device__ __forceinline__ void product_half(float* A, const float* ring, uint64_t* full,
+                                             uint64_t* empty, RingPos& rp,
+                                             float (&acc)[Half<NW>::NH][NW / 2],
+                                             float (&tmp)[NW / 2], int lane, int tid, int bar_all,
+                                             Side side = Side()) {
+    static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
+    using H = Half<NW>;
+    constexpr int GROUP = PASSES == 3 ? 128 : 0;
+    auto pass = [&](bool accumulate, auto sd) {
+        if constexpr (HMAJOR)
+            product_hmajor<H::HD, NW, H::NH, STAGES, GROUP>(A, ring, full, empty, rp, acc, tmp,
+                                                           lane, accumulate, sd);
+        else
+            product_k<H::HD, NW, H::NH, STAGES>(A, ring, full, empty, rp, acc, lane, accumulate,
+                                                sd);
+    };
+    pass(false, side);
+    if constexpr (PASSES == 3) {
+        pass(true, NoSide());
+        named_sync(bar_all, CONSUMERS * WG);   // both consumers are done with trunc(X)
+        split_tile<CONSUMERS * WG>(A, tid);
+        fence_async_smem();
+        named_sync(bar_all, CONSUMERS * WG);
+        pass(true, NoSide());
+    }
+}
+
+// Producer side of product_half: the chunks of one weight's images for
+// the consumer of half `half`, in the order product_half reads them.
+// img_big / img_small: the weight's two images (img_small unread in one pass).
+template <int PASSES, int NW, int STAGES>
+__device__ __forceinline__ void produce_half(const float* img_big, const float* img_small,
+                                             int half, float* ring, uint64_t* full,
+                                             uint64_t* empty, RingPos& rp) {
+    using H = Half<NW>;
+    const size_t off = (size_t)half * (H::IMG / 2);
+    if constexpr (PASSES == 3) {
+        produce_chunks<H::NQ, H::CHUNK, STAGES>(img_small + off, ring, full, empty, rp);
+        produce_chunks<H::NQ, H::CHUNK, STAGES>(img_big + off, ring, full, empty, rp);
+    }
+    produce_chunks<H::NQ, H::CHUNK, STAGES>(img_big + off, ring, full, empty, rp);
 }
 
 // 1024-byte aligned start of dynamic shared memory (the swizzled tiles'

@@ -685,12 +685,15 @@ cudaError_t dispatch_mode(int bf16_in, int passes, int chain_bf16, F&& f) {
     return bf16_in ? by_mode(Type<__nv_bfloat16>{}) : by_mode(Type<float>{});
 }
 
-// The one-pass fp32 chain (MODE 1) at widths 32 to 256 is not built here:
-// the sm90 kernels take it (egnn_sm90.cuh), and dispatch refuses it.
+// The one-pass fp32 chain (MODE 1) at widths 32 to 256 and both fp32-chain
+// modes (MODE 1, 3) at 512 are not built here: the sm90 kernels take them
+// (egnn_band_{fwd,bwd}_sm90.cu, egnn_band_{fwd,bwd}_sm90_hd512.cu), and
+// dispatch refuses them. At 512 only the bf16 chain runs Tile<512>.
 template <class F>
 cudaError_t dispatch(int hd, int bf16_in, int passes, int chain_bf16, F&& f) {
     auto at = [&](auto hd_c, auto t, auto m) -> cudaError_t {
-        if constexpr (decltype(m)::value == 1 && decltype(hd_c)::value <= 256)
+        constexpr int HD = decltype(hd_c)::value, MODE = decltype(m)::value;
+        if constexpr ((MODE == 1 && HD <= 256) || (MODE != CHAIN_BF16 && HD == 512))
             return cudaErrorInvalidValue;
         else
             return f(hd_c, t, m);

@@ -43,10 +43,17 @@ to them) runs on the Hopper kernels ``csrc/egnn_band_fwd_sm90.cu`` /
 ``csrc/egnn_band_bwd_sm90.cu`` (``wgmma`` products fed by an ``mbarrier``
 weight ring that two consumer warpgroups share; counters
 ``egnn_band_fwd_sm90`` / ``egnn_band_bwd_sm90``), and for a CUDA tensor
-only there. Every other mode and width stays on ``csrc/egnn_band_fwd.cu`` /
-``csrc/egnn_band_bwd.cu``: the 3xTF32 mode, the bf16 chain, Hd 512 and
-the widths padded to it, and the wide variants above 512
-(``band_kernel`` names the kernel that serves a call).
+only there. At the native width 512 (and the widths 257 to 511 padded to
+it) both fp32-chain modes, 3xTF32 (``"highest"``) and one pass
+(``"default"``), run on ``csrc/egnn_band_fwd_sm90_hd512.cu`` /
+``csrc/egnn_band_bwd_sm90_hd512.cu`` (``wgmma`` products, the two consumer
+warpgroups sharing one activation tile and splitting the output columns,
+each fed by its own ``mbarrier`` weight ring; counters
+``egnn_band_fwd_sm90_hd512`` / ``egnn_band_bwd_sm90_hd512``). Every other
+mode and width stays on ``csrc/egnn_band_fwd.cu`` /
+``csrc/egnn_band_bwd.cu``: the 3xTF32 mode up to 256, the bf16 chain (at
+512 too) and the wide variants above 512 (``band_kernel`` names the
+kernel that serves a call).
 
 Widths: any width from 1 up. The kernels are instantiated at the native
 widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
@@ -105,6 +112,19 @@ SM90_FWD_STAGES = 5       # ring chunks of kernel 1 (egnn_band_fwd_sm90.cu: STAG
 SM90_BWD_STAGES = 3       # ring chunks of kernel 2's edge pass (egnn_band_bwd_sm90.cu: STAGES)
 SM90_WGRAD_STAGES = 4     # stages of its weight-grad pass (egnn_band_bwd_sm90.cu: WSTAGES)
 SM90_WGRAD_M = 64         # weight-grad tile rows (one m64 warpgroup product)
+# The Hopper kernels at width 512 in both fp32-chain modes
+# (csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu) and their layout constants
+HD512_KERNEL = "egnn_band_fwd_sm90_hd512"
+HD512_BWD_KERNEL = "egnn_band_bwd_sm90_hd512"
+HD512 = 512
+HD512_HALF = 256          # output columns of each consumer warpgroup
+HD512_FWD_NW = 128        # columns per wgmma of kernel 1 (egnn_band_fwd_sm90_hd512.cu: NW)
+HD512_BWD_NW = 64         # of kernel 2's edge pass (egnn_band_bwd_sm90_hd512.cu: NW)
+HD512_FWD_STAGES = 3      # chunks of each consumer's ring, kernel 1
+HD512_BWD_STAGES = 5      # of kernel 2's edge pass
+HD512_WGRAD_STAGES = 3    # stages of its weight-grad pass (WSTAGES)
+HD512_WGRAD_TILE = 64     # its output tiles are 64 x 64
+HD512_UNIT_COST = 0.1     # a unit's closing sums, in steps (hd512_fwd_plan_of)
 SMEM_LIMIT = 232448       # shared memory one block may have on an H100
 IMG_T, IMG_N = 0, 1       # weight image orientations: B[n][k] = W[k][n], W[n][k]
 
@@ -112,6 +132,8 @@ _FN = None
 _BWD_FN = None
 _SM90_FN = None
 _SM90_BWD_FN = None
+_HD512_FN = None
+_HD512_BWD_FN = None
 _SM_COUNT: dict = {}
 _PER_SM: dict = {}
 
@@ -173,12 +195,21 @@ def takes_sm90(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
     return precision == "default" and not _chain_bf16(chain_dtype) and Hd in SM90_HIDDEN
 
 
+def takes_hd512(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
+    """Whether the Hopper kernels of width 512 take a call at native width
+    Hd in this mode: either fp32-chain mode (3xTF32 or one pass) at 512."""
+    return not _chain_bf16(chain_dtype) and Hd == HD512
+
+
 def band_kernel(kernel: str, Hd: int, precision: str = "highest",
                 chain_dtype=torch.float32) -> str:
     """The kernel, and launch counter, that serves ``kernel``
     (``"egnn_band_fwd"`` or ``"egnn_band_bwd"``) at hidden width Hd (any
     width; the kernels run it at ``native_width(Hd)``) in the mode."""
-    return kernel + "_sm90" if takes_sm90(native_width(Hd), precision, chain_dtype) else kernel
+    n = native_width(Hd)
+    if takes_hd512(n, precision, chain_dtype):
+        return kernel + "_sm90_hd512"
+    return kernel + "_sm90" if takes_sm90(n, precision, chain_dtype) else kernel
 
 
 def sm90_cols(Hd: int) -> tuple[int, int]:
@@ -208,7 +239,33 @@ def sm90_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
     return S, per, max(1, min(blocks * S, slots))
 
 
-def sm90_smem_bytes(kernel: str, Hd: int) -> int:
+def hd512_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
+                      per_sm: int) -> tuple[int, int, int]:
+    """Kernel 1's plan at width 512: (S, steps per slice, G). A work unit is
+    (batch row, receiver tile, slice of the band's 64-edge-row steps); G
+    persistent blocks (``per_sm`` on each of ``n_sm`` SMs, no more than the
+    units) walk units g, g + G, ... S is the slice count (every slice
+    owning at least one step) that gives the least estimated makespan, in
+    steps: the most units a block takes times the steps of a unit, plus
+    HD512_UNIT_COST a unit for its closing sums (the fewer slices on a
+    tie). With S > 1 a second pass sums the slices' partial outputs in
+    slice order."""
+    n_tiles, n_steps, _ = band_work(B, L, W)
+    blocks = B * n_tiles
+    slots = n_sm * max(1, per_sm)
+    best = None
+    for per in range(1, n_steps + 1):
+        S = -(-n_steps // per)
+        if (S - 1) * per >= n_steps:
+            continue
+        G = max(1, min(blocks * S, slots))
+        key = (-(-blocks * S // G) * (per + HD512_UNIT_COST), S)
+        if best is None or key < best[0]:
+            best = (key, S, per, G)
+    return best[1:]
+
+
+def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> int:
     """Shared memory one block of a Hopper kernel asks for at width Hd
     (mirror of the layouts in csrc/egnn_band_{fwd,bwd}_sm90.cu; + 1 KiB to
     align the swizzled tiles): ``"egnn_band_fwd_sm90"``, the edge pass
@@ -225,6 +282,23 @@ def sm90_smem_bytes(kernel: str, Hd: int) -> int:
     if kernel == "wgrad":
         stage = SM90_WGRAD_M * SM90_KB * 4 + nw * SM90_KB * 4
         return SM90_WGRAD_STAGES * stage + 2 * SM90_WGRAD_STAGES * 8 + 1024
+    tile = 64 * HD512 * 4    # the shared activation tile
+    if kernel == HD512_KERNEL:
+        # tile, the consumers' rings, rows (valid, d2, j, rel[3]), the second
+        # consumer's dot products, flags, barriers
+        ring = 2 * HD512_FWD_STAGES * HD512_FWD_NW * SM90_KB * 4
+        return tile + ring + 6 * 64 * 4 + 64 * 4 + 16 + 4 * HD512_FWD_STAGES * 8 + 1024
+    if kernel == HD512_BWD_KERNEL:
+        # tile, rings, rows (valid, d2, cw, j, rel[3]), two dot products,
+        # flags, barriers (the column sums live in device memory)
+        ring = 2 * HD512_BWD_STAGES * HD512_BWD_NW * SM90_KB * 4
+        return tile + ring + 7 * 64 * 4 + 2 * 64 * 4 + 16 + 4 * HD512_BWD_STAGES * 8 + 1024
+    if kernel == "wgrad_hd512":
+        # stages of X and Y (64 rows x 32 K each), two split stages in
+        # 3xTF32, barriers, the slice's step list
+        stage = 2 * HD512_WGRAD_TILE * SM90_KB * 4
+        return ((HD512_WGRAD_STAGES + 2 * (passes == 3)) * stage + 2 * HD512_WGRAD_STAGES * 8
+                + 4 * steps + 1024)
     raise ValueError(f"not a Hopper kernel: {kernel!r}")
 
 
@@ -259,6 +333,31 @@ def weight_image(w, orient: int):
     kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
     n, k = (q % nh) * nw + nl, (q // nh) * SM90_KB + kl
     return rna_tf32(w[k, n] if orient == IMG_T else w[n, k])
+
+
+def weight_image_hd512(w, orient: int, part: int, nw: int, hmajor: bool):
+    """numpy mirror of the width-512 layout kernel (egnn_sm90.cuh:
+    weight_images_half): the 512 x 512 fp32 weight ``w`` as the two
+    consumers' rings stream it, the half of the output columns of
+    consumer 0, then of consumer 1 (HD512_HALF each), each as chunks of
+    ``nw`` output rows x 32 K values in the order (K block, column group),
+    or with ``hmajor`` (column group, K block) as kernel 1 streams them,
+    each in the swizzled byte order. ``orient`` as ``weight_image``;
+    ``part`` 0: the values rounded to TF32 (big), 1: the rest of each
+    value rounded to TF32 (small; 3xTF32). Returns the flat image."""
+    w = np.asarray(w, dtype=np.float32)
+    nh, chunk, half = HD512_HALF // nw, nw * SM90_KB, HD512_HALF * HD512
+    nkc = HD512 // SM90_KB
+    e = np.arange(HD512 * HD512)
+    h2, eh = e // half, e % half
+    q, r = eh // chunk, eh % chunk
+    nl, pos = r // SM90_KB, r % SM90_KB
+    kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
+    h, kc = (q // nkc, q % nkc) if hmajor else (q % nh, q // nh)
+    n, k = h2 * HD512_HALF + h * nw + nl, kc * SM90_KB + kl
+    v = w[k, n] if orient == IMG_T else w[n, k]
+    big = rna_tf32(v)
+    return rna_tf32(v - big) if part else big
 
 
 def _sm_count(dev) -> int:
@@ -632,6 +731,9 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    if takes_hd512(Hd, precision, chain_dtype):
+        return _fwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
+                          delta, W, precision)
     if takes_sm90(Hd, precision, chain_dtype):
         return _fwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
                          delta, W, precision)
@@ -680,9 +782,17 @@ def _sm90_fn():
 
 
 def sm90_fwd_plan(B: int, L: int, W: int, Hd: int, dev,
-                  dtype: torch.dtype = torch.bfloat16) -> tuple[int, int, int]:
-    """``sm90_fwd_plan_of`` on CUDA device ``dev``: its SM count and the
-    blocks of the Hopper kernel 1 that one SM holds."""
+                  dtype: torch.dtype = torch.bfloat16,
+                  precision: str = "default") -> tuple[int, int, int]:
+    """``sm90_fwd_plan_of`` (``hd512_fwd_plan_of`` at width 512) on CUDA
+    device ``dev``: its SM count and the blocks of the Hopper kernel 1 that
+    one SM holds."""
+    if Hd == HD512:
+        lib = _hd512_fn()[1]
+        per_sm = _blocks_per_sm(HD512_KERNEL, lambda hd, b16, passes, _: (
+            lib.egnn_band_fwd_sm90_hd512_blocks_per_sm(b16, passes)), Hd, dev, dtype, precision,
+            torch.float32)
+        return hd512_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
     lib = _sm90_fn()[1]
     per_sm = _blocks_per_sm(SM90_KERNEL, lambda hd, b16, *_: lib.egnn_band_fwd_sm90_blocks_per_sm(
         hd, b16), Hd, dev, dtype, "default", torch.float32)
@@ -712,6 +822,76 @@ def _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tenso
                            f"({lib.egnn_band_fwd_sm90_error_string(err).decode()})")
     _count(SM90_KERNEL, a.dtype, precision, torch.float32)
     return agg, delta
+
+
+def _hd512_fn():
+    global _HD512_FN
+    if _HD512_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(HD512_KERNEL)
+        fn = lib.egnn_band_fwd_sm90_hd512_launch
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_fwd_sm90_hd512_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_hd512_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_fwd_sm90_hd512_error_string.restype = ctypes.c_char_p
+        lib.egnn_hd512_weight_images.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                                 + [ctypes.c_void_p] * 2)
+        lib.egnn_hd512_weight_images.restype = ctypes.c_int
+        _HD512_FN = (fn, lib)
+    return _HD512_FN
+
+
+def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tensor, Tensor]:
+    """Kernel 1 on Hopper at width 512 (both fp32-chain modes): one C call
+    writes the weight images (Wb, and Ws in 3xTF32, of W_e2 and W_x1), runs
+    the kernel on the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums
+    their partials. The images and the partials share one scratch
+    allocation."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _hd512_fn()
+    passes = PASSES[precision]
+    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    n_img = 2 * (2 if passes == 3 else 1) * Hd * Hd
+    n_part = (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
+    scratch = torch.empty((n_img + sum(n_part),), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    parts = (base + 4 * n_img, base + 4 * (n_img + n_part[0])) if S > 1 else (None, None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
+                 *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
+                 *parts, B, L, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
+    if err != 0:
+        raise RuntimeError(f"{HD512_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_fwd_sm90_hd512_error_string(err).decode()})")
+    _count(HD512_KERNEL, a.dtype, precision, torch.float32)
+    return agg, delta
+
+
+def hd512_weight_images(ws, orients, parts, nw: int, hmajor: bool) -> Tensor:
+    """The width-512 layout kernel alone: the images of the CUDA fp32
+    [512, 512] weights ``ws`` in orientations ``orients``, parts ``parts``
+    (0 big, 1 small), ``nw`` columns per chunk and the chunk order
+    ``hmajor``, [len(ws), 512 * 512], as the width-512 kernels' C entries
+    write them (for tests against ``weight_image_hd512``)."""
+    dev = ws[0].device
+    lib = _hd512_fn()[1]
+    out = torch.empty((len(ws), HD512 * HD512), dtype=torch.float32, device=dev)
+    srcs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
+    kinds = (ctypes.c_int * len(ws))(*orients)
+    pieces = (ctypes.c_int * len(ws))(*parts)
+    with torch.cuda.device(dev):
+        err = lib.egnn_hd512_weight_images(
+            ctypes.cast(srcs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p),
+            ctypes.cast(pieces, ctypes.c_void_p), len(ws), nw, int(hmajor), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"egnn_hd512_weight_images failed: CUDA error {err}")
+    return out
 
 
 def sm90_weight_images(ws, orients) -> Tensor:
@@ -887,7 +1067,10 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_e2 = alloc((Hd, Hd), **f32)
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
-    if B and L and takes_sm90(Hd, precision, chain_dtype):
+    if B and L and takes_hd512(Hd, precision, chain_dtype):
+        _bwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
+                   (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
+    elif B and L and takes_sm90(Hd, precision, chain_dtype):
         _bwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
                   (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
     elif B and L:
@@ -939,8 +1122,14 @@ def sm90_bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
     each of ``n_sm`` SMs, no more than the step pairs; block g takes pairs
     g, g + G, ...) and the weight-grad pass's slices of the steps, enough
     for its 2 x ceil(Hd / 64) x (Hd / NW) output tiles to fill two blocks
-    per SM."""
+    per SM. At width 512 a block takes single steps (items) g, g + G, ...,
+    and the weight-grad pass's 2 x 8 x 8 tiles of 64 x 64 take as many
+    slices as fit two blocks per SM in one wave."""
     n_tiles, n_steps, items = band_work(B, L, W)
+    if Hd == HD512:
+        tiles = 2 * (HD512 // HD512_WGRAD_TILE) ** 2
+        return (max(1, min(items, n_sm * max(1, per_sm))),
+                max(1, min(items, 2 * n_sm // tiles)))
     pairs = B * n_tiles * -(-n_steps // 2)
     nw, nh = sm90_cols(Hd)
     out_tiles = 2 * -(-Hd // SM90_WGRAD_M) * nh
@@ -949,9 +1138,17 @@ def sm90_bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
 
 
 def sm90_bwd_plan(B: int, L: int, W: int, Hd: int, dev,
-                  dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+                  dtype: torch.dtype = torch.bfloat16,
+                  precision: str = "default") -> tuple[int, int]:
     """``sm90_bwd_grid`` on CUDA device ``dev``: its SM count and the
-    edge-pass blocks of the Hopper kernel 2 that one SM holds."""
+    edge-pass blocks of the Hopper kernel 2 (at width 512 in the mode of
+    ``precision``) that one SM holds."""
+    if Hd == HD512:
+        lib = _hd512_bwd_fn()[1]
+        per_sm = _blocks_per_sm(HD512_BWD_KERNEL, lambda hd, b16, passes, _: (
+            lib.egnn_band_bwd_sm90_hd512_blocks_per_sm(b16, passes)), Hd, dev, dtype, precision,
+            torch.float32)
+        return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
     lib = _sm90_bwd_fn()[1]
     per_sm = _blocks_per_sm(SM90_BWD_KERNEL, lambda hd, b16, *_: lib.egnn_band_bwd_sm90_blocks_per_sm(
         hd, b16), Hd, dev, dtype, "default", torch.float32)
@@ -978,6 +1175,50 @@ def _bwd_sm90(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> N
         raise RuntimeError(f"{SM90_BWD_KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_error_string(err).decode()})")
     _count(SM90_BWD_KERNEL, a.dtype, precision, torch.float32)
+
+
+def _hd512_bwd_fn():
+    global _HD512_BWD_FN
+    if _HD512_BWD_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(HD512_BWD_KERNEL)
+        fn = lib.egnn_band_bwd_sm90_hd512_launch
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_hd512_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.egnn_band_bwd_sm90_hd512_scratch_floats.restype = ctypes.c_size_t
+        lib.egnn_band_bwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_bwd_sm90_hd512_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_hd512_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_sm90_hd512_error_string.restype = ctypes.c_char_p
+        _HD512_BWD_FN = (fn, lib)
+    return _HD512_BWD_FN
+
+
+def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
+    """Kernel 2 on Hopper at width 512 (both fp32-chain modes) into ``outs``
+    = (da, dbs, dx, dw_e2, dw_x1, dvec): one C call writes the weight images
+    (four orientations, each Wb and in 3xTF32 Ws) into the scratch and runs
+    the edge, node, weight-grad and reduce passes on the ``sm90_bwd_plan``
+    grid."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _hd512_bwd_fn()
+    passes = PASSES[precision]
+    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    scratch = torch.empty(
+        (lib.egnn_band_bwd_sm90_hd512_scratch_floats(B, L, W, G, nsplit, passes),),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
+                                          scratch)),
+                 B, L, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
+    if err != 0:
+        raise RuntimeError(f"{HD512_BWD_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_bwd_sm90_hd512_error_string(err).decode()})")
+    _count(HD512_BWD_KERNEL, a.dtype, precision, torch.float32)
 
 
 class EGNNBandFunction(torch.autograd.Function):

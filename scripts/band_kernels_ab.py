@@ -70,6 +70,13 @@ ONEPASS_FWD_SHAPES = ((8, 128), (8, 192), (4, 256), (2, 640), (10, 640))
 ONEPASS_BWD_SHAPES = ((8, 128), (8, 192), (4, 256))
 PASS_SPLIT_SHAPES = ((8, 128), (8, 192))
 PASS_SPLIT_CALLS = 20
+# --hd other than chip_smoke.py's HD (the decoder widths 257-512 run at 512):
+# the fp32 model's 3xTF32 mode and the bf16 model's one-pass mode, kernel 1
+# at the training shapes and generation's B10/L640, kernel 2 at the
+# training shapes; --pass-split in both modes at the train step's B4/L256
+WIDTH_FWD_SHAPES = ((4, 256), (2, 640), (10, 640))
+WIDTH_BWD_SHAPES = ((4, 256), (2, 640))
+WIDTH_PASS_SPLIT_SHAPES = ((4, 256),)
 
 
 # Each warp issues ITERS x 16 m16n8k8 TF32 products into 16 independent
@@ -296,6 +303,9 @@ def main(argv=None) -> None:
                     help="also profile the current kernels' passes at PASS_SPLIT_SHAPES")
     ap.add_argument("--l2-rate", action="store_true",
                     help="also measure the card's L2 and HBM read rates")
+    ap.add_argument("--hd", type=int, default=None, metavar="N",
+                    help="decoder width (default chip_smoke.py's HD); another width "
+                         "times the 3xTF32 and one-pass modes at WIDTH_*_SHAPES")
     args_ns = ap.parse_args(argv)
 
     import torch
@@ -317,33 +327,41 @@ def main(argv=None) -> None:
     if args_ns.onepass:
         modes, fwd_shapes, bwd_shapes = [(b16, "default", f32)], ONEPASS_FWD_SHAPES, \
             ONEPASS_BWD_SHAPES
+    hd = args_ns.hd or cs.HD
+    split_modes, split_shapes = [(b16, "default", f32)], PASS_SPLIT_SHAPES
+    if hd != cs.HD:
+        modes = [(f32, "highest", f32), (b16, "default", f32)]
+        fwd_shapes, bwd_shapes = WIDTH_FWD_SHAPES, WIDTH_BWD_SHAPES
+        split_modes, split_shapes = modes, WIDTH_PASS_SPLIT_SHAPES
     W, rows = cs.W, []
-    result = dict(device=device, n_sm=n_sm, rows=rows)
+    result = dict(device=device, n_sm=n_sm, hd=hd, rows=rows)
     if args_ns.l2_rate:
         result["read_rate"] = cs.READ_RATE = cs._l2_rate()
         cs.log(f"[ab] read rates ({device['smi']}): {json.dumps(result['read_rate'])}")
     if args_ns.pass_split:
         split = {}
-        for k, (B, L) in enumerate(PASS_SPLIT_SHAPES):
-            args = cs._egnn_inputs(B, L, cs.SEED + 20 + k)
-            args = [args[0].to(b16), args[1].to(b16)] + args[2:]
+        for k, (B, L) in enumerate(split_shapes):
+            args0 = cs._egnn_inputs(B, L, cs.SEED + 20 + k, hd)
             g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20 + k)
-            g_agg = torch.randn(B, L, cs.HD, generator=g, device="cuda")
+            g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
             g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
-            split[f"B{B}/L{L}"] = dict(
-                egnn_band_fwd=_pass_split(lambda: egnn_band_fwd(*args, W, "default")),
-                egnn_band_bwd=_pass_split(
-                    lambda: egnn_band_bwd(*args, g_agg, g_delta, W, "default")))
-            del args, g_agg, g_delta
+            for dtype, precision, _ in split_modes:
+                args = [args0[0].to(dtype), args0[1].to(dtype)] + args0[2:]
+                split[f"{mode_key('', dtype, precision)[1:]} B{B}/L{L}"] = dict(
+                    egnn_band_fwd=_pass_split(lambda: egnn_band_fwd(*args, W, precision)),
+                    egnn_band_bwd=_pass_split(
+                        lambda: egnn_band_bwd(*args, g_agg, g_delta, W, precision)))
+                del args
+            del args0, g_agg, g_delta
         result["pass_split_ms"] = split
-        cs.log(f"[ab] device ms per call by CUDA kernel, {cs.BF16_MODE} ({device['smi']}): "
+        cs.log(f"[ab] device ms per call by CUDA kernel at Hd {hd} ({device['smi']}): "
                f"{json.dumps(split)}")
 
     def cast(args, mode):
         return [args[0].to(mode[0]), args[1].to(mode[0])] + args[2:]
 
     for k, (B, L) in enumerate(fwd_shapes):
-        args0 = cs._egnn_inputs(B, L, cs.SEED + k)
+        args0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)
         for mode in modes:
             args, (_, precision, chain) = cast(args0, mode), mode
             tag = mode_key("egnn_band_fwd", *mode)
@@ -356,15 +374,15 @@ def main(argv=None) -> None:
             passes = egnn_band.PASSES[precision] if chain == f32 else 1
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, _, tc, _ = cs._egnn_bound(B, L, args[3], args[0].element_size(),
-                                                 passes, peak)
-            served = band_kernel("egnn_band_fwd", cs.HD, precision, chain)
-            if served.endswith("_sm90"):
-                S, _, G = sm90_fwd_plan(B, L, W, cs.HD, args[0].device, args[0].dtype)
+                                                 passes, peak, hd)
+            served = band_kernel("egnn_band_fwd", hd, precision, chain)
+            if served != "egnn_band_fwd":
+                S, _, G = sm90_fwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision)
                 plan = dict(slices=S, units=B * band_work(B, L, W)[0] * S, blocks=G,
-                            **(cs._sm90_floors("egnn_band_fwd", B, L, args[3])
+                            **(cs._sm90_floors(served, B, L, args[3], hd, precision)
                                if cs.READ_RATE else {}))
             else:
-                S = fwd_plan(B, L, W, cs.HD, args[0].device, *mode)
+                S = fwd_plan(B, L, W, hd, args[0].device, *mode)
                 plan = dict(slices=S, blocks=B * band_work(B, L, W)[0] * S)
             row = dict(kernel=served, mode=tag.split(":", 1)[1], B=B, L=L,
                        bitwise_equal_to_baseline=same, **_turns(old, cur),
@@ -382,9 +400,9 @@ def main(argv=None) -> None:
             del args, ref
     names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
     for k, (B, L) in enumerate(bwd_shapes):
-        args0 = cs._egnn_inputs(B, L, cs.SEED + 10 + k)
+        args0 = cs._egnn_inputs(B, L, cs.SEED + 10 + k, hd)
         g = torch.Generator(device="cuda").manual_seed(cs.SEED + k)
-        g_agg = torch.randn(B, L, cs.HD, generator=g, device="cuda")
+        g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
         g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
         for mode in modes:
             args, (_, precision, chain) = cast(args0, mode), mode
@@ -398,14 +416,14 @@ def main(argv=None) -> None:
             passes = egnn_band.PASSES[precision] if chain == f32 else 1
             peak = cs.PEAK_TF32_FLOPS if chain == f32 else cs.PEAK_BF16_FLOPS
             bound, by, tc, _ = cs._band_bwd_bound(B, L, args[3], args[0].element_size(),
-                                                  passes, peak)
-            served = band_kernel("egnn_band_bwd", cs.HD, precision, chain)
-            if served.endswith("_sm90"):
-                G, nsplit = sm90_bwd_plan(B, L, W, cs.HD, args[0].device, args[0].dtype)
-                floors = (cs._sm90_floors("egnn_band_bwd", B, L, args[3]) if cs.READ_RATE
-                          else {})
+                                                  passes, peak, hd)
+            served = band_kernel("egnn_band_bwd", hd, precision, chain)
+            if served != "egnn_band_bwd":
+                G, nsplit = sm90_bwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision)
+                floors = (cs._sm90_floors(served, B, L, args[3], hd, precision)
+                          if cs.READ_RATE else {})
             else:
-                G, nsplit = bwd_plan(B, L, W, cs.HD, args[0].device, *mode)
+                G, nsplit = bwd_plan(B, L, W, hd, args[0].device, *mode)
                 floors = {}
             row = dict(kernel=served, mode=tag.split(":", 1)[1], B=B, L=L,
                        bitwise_equal_to_baseline=same, **_turns(old, cur),

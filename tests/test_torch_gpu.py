@@ -201,11 +201,13 @@ def test_wide_widths_two_launches_are_bitwise_identical(cuda, Hd):
     assert float(first[0][0, L - L // 5:].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("hidden", [16, 48, 512])
+@pytest.mark.parametrize("hidden", [16, 48, 384, 512])
 def test_decoder_kernel_path_at_every_width(cuda, hidden):
-    """A model at a padded width (16, 48) and at Hd 512 runs its band
-    layers through kernels 1-2 under "auto", forward and backward, and
-    matches the plain path."""
+    """A model at a padded width (16, 48, 384) and at Hd 512 runs its band
+    layers through kernels 1-2 under "auto", forward and backward, on the
+    kernels ``band_kernel`` names (at 384 and 512 the width-512 Hopper
+    kernels, ``egnn_band_{fwd,bwd}_sm90_hd512``), and matches the plain
+    path."""
     cfg = ModelConfig(seqemb_dim=16, d_model=32, nhead=4, ff=64, nlayers=1,
                       z_global=16, z_local=8, decoder_hidden=hidden,
                       decoder_layers=2, max_neighbors=8)
@@ -225,8 +227,11 @@ def test_decoder_kernel_path_at_every_width(cuda, hidden):
         out = m.decode(z_g, z_l, mask.to(cuda))
         (out[0].square().sum() + out[1].square().sum()).backward()
         outs.append((out, {n: p.grad for n, p in m.named_parameters()}))
-    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + cfg.decoder_layers
-    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + cfg.decoder_layers
+    fwd, bwd = (band_kernel(k, hidden, "highest") for k in ("egnn_band_fwd", "egnn_band_bwd"))
+    if hidden > 256:
+        assert (fwd, bwd) == ("egnn_band_fwd_sm90_hd512", "egnn_band_bwd_sm90_hd512")
+    assert LAUNCHES[fwd] == before[fwd] + cfg.decoder_layers
+    assert LAUNCHES[bwd] == before[bwd] + cfg.decoder_layers
     (got, kg), (want, pg) = outs
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
@@ -442,6 +447,11 @@ def test_weight_grads_hold_float64_at_full_width(cuda, Hd):
     for name, k, p, r in zip(_GRAD_NAMES, got, plain, exact):
         dk, dp = _f64_dist(k, r), _f64_dist(p, r)
         assert dk <= max(2 * dp, 1.0), f"{name}: kernel {dk:.2f}, plain {dp:.2f}"
+    # at 384 and 512 the width-512 Hopper kernel (split-K wgmma, each k8
+    # step summed in round-to-nearest fp32) computed them
+    served = band_kernel("egnn_band_bwd", Hd, "highest")
+    assert served == ("egnn_band_bwd_sm90_hd512" if Hd > 256 else "egnn_band_bwd")
+    assert LAUNCHES[served] >= 1
 
 
 # The bf16-model mode of kernels 1-2 (bf16 a / bs, one-pass TF32 products)
@@ -1147,7 +1157,8 @@ def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
     ranks = launch(parity_step, 2, (spec,), device="cuda", timeout_s=300,
                    store_dir=str(tmp_path))
     want = {"egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
-            "egnn_band_bwd_sm90": 0, "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
+            "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0,
+            "egnn_band_bwd_sm90_hd512": 0, "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
     assert ref["launches"] == want
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     for r in ranks:
@@ -1186,7 +1197,8 @@ def test_watch_gradient_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
-        "egnn_band_bwd_sm90": 0, "clash_fwd": 1, "clash_bwd": 1}
+        "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0, "egnn_band_bwd_sm90_hd512": 0,
+        "clash_fwd": 1, "clash_bwd": 1}
     assert all(torch.isfinite(g).all() for g in grads.values())
     smooth = LossWeights(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
                          w_angle=0.0, w_clash=0.0)
@@ -1349,3 +1361,112 @@ def test_sm90_weight_images_match_numpy_mirror(cuda, Hd):
     for q, orient in enumerate((IMG_T, IMG_N)):
         want = weight_image(w.numpy(), orient)
         assert np.array_equal(got[q].view(np.uint32), want.view(np.uint32)), orient
+
+
+# The width-512 Hopper kernels (csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu: two
+# consumer warpgroups sharing one activation tile and splitting the output
+# columns, wgmma fed by mbarrier weight rings) in both fp32-chain modes:
+# 3xTF32 ("highest", the fp32 model) at rtol 1e-4 / atol 1e-4 max|plain|
+# forward and the gradient tolerance (_close_scaled) backward, one pass
+# ("default", the bf16 model) at the bf16-model fractions; a / bs in fp32
+# and bf16; at 512 and at 384 (zero-padded to 512). Every call goes through
+# them, counted under their own names, and two launches are bitwise
+# identical.
+HD512_CASES = [(Hd, precision, in_dtype) for Hd in (512, 384)
+               for precision in ("highest", "default")
+               for in_dtype in (torch.float32, torch.bfloat16)]
+
+
+def _hd512_check(name, got, want, precision, value):
+    if precision == "highest" and got.dtype == torch.bfloat16:
+        # d_a / d_bs of bf16 inputs: both rounded to bf16 from fp32 sums
+        _within_frac(got, want, 2 ** -7, name)
+    elif precision == "highest" and value:
+        scale = float(want.float().abs().max())
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL * scale)
+    elif precision == "highest":
+        _close_scaled(got, want, name)
+    else:
+        _within_frac(got, want, BF16_VALUE_FRAC if value else BF16_GRAD_FRAC, name)
+
+
+@pytest.mark.parametrize("Hd,precision,in_dtype", HD512_CASES)
+def test_hd512_fwd_matches_plain_version(cuda, Hd, precision, in_dtype):
+    B, L, W = 2, 160, 40
+    args = _sm90_args(Hd, L, W, in_dtype, cuda, B=B)
+    before = dict(LAUNCHES)
+    out = egnn_band_fwd(*args, W, precision)
+    again = egnn_band_fwd(*args, W, precision)
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_fwd_sm90_hd512"] == before["egnn_band_fwd_sm90_hd512"] + 2
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"]
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for name, got, want in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _hd512_check(name, got, want, precision, value=True)
+
+
+@pytest.mark.parametrize("Hd,precision,in_dtype", HD512_CASES)
+def test_hd512_bwd_matches_plain_version(cuda, Hd, precision, in_dtype):
+    B, L, W = 2, 160, 40
+    args = _sm90_args(Hd, L, W, in_dtype, cuda, B=B)
+    g_agg, g_delta = _cotangents(args, seed=Hd + L)
+    before = dict(LAUNCHES)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, precision)
+    again = egnn_band_bwd(*args, g_agg, g_delta, W, precision)
+    torch.cuda.synchronize()
+    assert LAUNCHES["egnn_band_bwd_sm90_hd512"] == before["egnn_band_bwd_sm90_hd512"] + 2
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _hd512_check(name, a, b, precision, value=False)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("case", ["all_masked_sample", "padding_tile"])
+def test_hd512_masked_steps_are_skipped_exactly(cuda, case, precision):
+    """A wholly masked sample and an all-padding tile of receivers: the
+    width-512 kernels skip their steps (both consumer warpgroups and both
+    producer warps agree on it), match the plain versions, and leave exact
+    zeros on those rows."""
+    B, L, Hd, W = 2, 96, 512, 40
+    args = _sm90_args(Hd, L, W, torch.float32, cuda, B=B)
+    if case == "all_masked_sample":
+        args[3][1] = 0.0
+        rows = (1, slice(None))
+    else:
+        args[3][:, 40:48] = 0.0
+        rows = (slice(None), slice(40, 48))
+    g_agg, g_delta = _cotangents(args, seed=9)
+    out = egnn_band_fwd(*args, W, precision)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, precision)
+    for name, a, b in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        _hd512_check(name, a, b, precision, value=True)
+    for name, a, b in zip(_GRAD_NAMES, got,
+                          egnn_band_bwd_reference(*args, g_agg, g_delta, W)):
+        _hd512_check(name, a, b, precision, value=False)
+    for t in out + got[:3]:
+        assert float(t[rows].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("nw,hmajor", [(64, False), (128, True), (128, False)])
+def test_hd512_weight_images_match_numpy_mirror(cuda, nw, hmajor):
+    """The width-512 layout kernel's images (both orientations, big and
+    small parts, the N-half chunk orders) equal the wrapper's numpy mirror
+    (``weight_image_hd512``) bit for bit."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (IMG_N, IMG_T,
+                                                                  hd512_weight_images,
+                                                                  weight_image_hd512)
+
+    w = torch.randn(512, 512, generator=torch.Generator().manual_seed(nw)) / 20
+    kinds = [(IMG_T, 0), (IMG_T, 1), (IMG_N, 0), (IMG_N, 1)]
+    got = hd512_weight_images([w.to(cuda)] * 4, [k for k, _ in kinds], [p for _, p in kinds],
+                              nw, hmajor).cpu().numpy()
+    for q, (orient, part) in enumerate(kinds):
+        want = weight_image_hd512(w.numpy(), orient, part, nw, hmajor)
+        assert np.array_equal(got[q].view(np.uint32), want.view(np.uint32)), (orient, part)
