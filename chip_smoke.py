@@ -231,16 +231,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and scratch floors beside the TF32 bound; the width-512 Hopper kernels
    (``egnn_band_{fwd,bwd}_sm90_hd512``), which serve both fp32-chain
    modes at Hd 257-512, on wide_decoder, their line's row the fp32
-   B4/L256 one at Hd 512; the first ones every other mode), then, as the
-   last line, ``{"ok": true, "device": {...}}``.
+   B4/L256 one at Hd 512; the same sources under the 3xTF32 counters
+   (``egnn_band_{fwd,bwd}_sm90_x3``), which serve the fp32 model's mode
+   up to Hd 256, on generate, dataprep, refine, train, train_watch,
+   train_dp, wide_decoder (its width-16 CLI epoch) and the flagship's
+   generation, their line's rows the fp32 headline shapes; the first ones
+   the bf16 chain and the widths above 512 (chain_dtype_ab and
+   wide_decoder), their line's rows the bf16 chain's at the headline
+   shapes), then, as the last line, ``{"ok": true, "device": {...}}``.
 
-Kernels 1-2 in the one-pass fp32 chain at Hd 256 (phase 3's bf16-model
-rows, the flagship's rows) run on the Hopper kernels; their log lines name
-the kernel and give, beside the TF32 bound, the weight-stream floor (the
-pairs of 64-row steps with a valid edge x the weights each streams from
-L2, at this run's L2 read rate for a region every SM reads, measured
-first, ``_l2_rate``) and, for kernel 2, the scratch floor (its five
-per-edge activations written and read once at the HBM peak).
+Kernels 1-2 at Hd 256 in the fp32 model's 3xTF32 mode (phase 3's fp32
+rows, the flagship's generation rows) and in the one-pass fp32 chain
+(phase 3's bf16-model rows, the flagship's training rows) run on Hopper
+kernels; their log lines name the kernel and give, beside the TF32 (or
+3xTF32, 3 x the FLOP at the TF32 peak) tensor-core bound, the
+weight-stream floor (the 64-row steps with a valid edge x the weights
+each streams from L2 x the images a step streams: a pair of steps shares
+one in one pass, each step streams Ws and Wb in 3xTF32; at this run's L2
+read rate for a region every SM reads, measured first, ``_l2_rate``)
+and, for kernel 2, the scratch floor (its five per-edge activations
+written and read once at the HBM peak).
 
 ``--grad-triage FILE.json`` writes the float64 triage's per-tensor
 gradient distances (Hd 256 and 512). ``--profile TRACE.json`` adds, after
@@ -650,17 +660,20 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
                  precision: str = "default") -> dict:
     """The Hopper band kernels' floors on this run's inputs beside the TF32
     bound: the weight stream (the steps with a valid edge, each streaming
-    two weights (kernel 1) or four (kernel 2) of hd^2 fp32 from L2 once per
-    pass, at this run's L2 rate for a region every SM reads: up to Hd 256
-    two steps (a pair) share a pass and a weight streams once; at Hd 512
-    (``kernel`` ending in ``_hd512``, or ``hd`` 512) every step streams it
-    once in one pass and three times in 3xTF32, ``precision`` "highest":
-    Ws, Wb, Wb) and, for kernel 2, the scratch round trip (m1, m, cot_u,
-    cot_v, cot_pre: 64 x hd fp32 each per step with a valid edge, written
-    once and read once, at the HBM peak)."""
+    two weights (kernel 1) or four (kernel 2) of n^2 fp32 from L2 once per
+    image, at this run's L2 rate for a region every SM reads, n the native
+    width the kernel runs: in the one-pass mode up to Hd 256 two steps (a
+    pair) share an image and a weight streams once; on the shared-tile
+    kernels every step streams its images: at Hd 512 (``kernel`` ending in
+    ``_hd512``, or ``hd`` 512) one in one pass and three in 3xTF32,
+    ``precision`` "highest" (Ws, Wb, Wb), up to 256 in 3xTF32 (``kernel``
+    ending in ``_x3``) two (Ws, Wb)) and, for kernel 2, the scratch round
+    trip (m1, m, cot_u, cot_v, cot_pre: 64 x n fp32 each per step with a
+    valid edge, written once and read once, at the HBM peak)."""
     import torch
 
-    from protein_ensemble_vae_torch.ops.kernels.egnn_band import OPS, TILE, band_indices
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (OPS, TILE, band_indices,
+                                                                  native_width)
 
     idx, in_range = band_indices(L, W, cmask.device)
     cm = cmask > 0.5
@@ -674,9 +687,13 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     pairs = int(steps.view(B, n_tiles, -1, 2).any(dim=-1).sum())
     items = int(steps[..., :n_steps].sum())
     weights = 2 if kernel.startswith("egnn_band_fwd") else 4
-    hd512 = kernel.endswith("_hd512") or hd == 512
-    passes = items * (3 if precision == "highest" else 1) if hd512 else pairs
-    n = 512 if hd512 else hd   # the width the kernel streams (a padded width runs at 512)
+    n = native_width(hd)   # the width the kernel streams (a padded width runs at its native one)
+    if kernel.endswith("_hd512") or n == 512:
+        passes = items * (3 if precision == "highest" else 1)
+    elif kernel.endswith("_x3"):
+        passes = items * 2
+    else:
+        passes = pairs
     out = dict(weight_floor_ms=1e3 * passes * weights * n * n * 4
                / (READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9),
                weight_passes=passes)
@@ -685,14 +702,19 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     return out
 
 
-def phase_kernels() -> list[dict]:
+def phase_kernels() -> dict[str, list[dict]]:
+    """Kernel 1 in the fp32 model's mode (3xTF32, fp32 a / bs) at
+    KERNEL_SHAPES against its plain version, under the kernel that serves
+    the mode at HD (``band_kernel``: the shared-tile Hopper kernel's ``_x3``
+    counter), with its 3xTF32 tensor-core bound and weight-stream floor."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        band_work, egnn_band_fwd, egnn_band_reference, fwd_plan)
+        band_kernel, band_work, egnn_band_fwd, egnn_band_reference, sm90_fwd_plan)
     from protein_ensemble_vae_torch.ops.routing import set_full_fp32
 
     set_full_fp32()
+    fwd = band_kernel("egnn_band_fwd", HD, "highest")
     rows = []
     for k, (B, L) in enumerate(KERNEL_SHAPES):
         args = _egnn_inputs(B, L, SEED + k)
@@ -723,18 +745,21 @@ def phase_kernels() -> list[dict]:
         host_us = _host_us(lambda: egnn_band_fwd(*args, W), n=MIN_LAUNCHES)
         plain_ms = _median_ms(lambda: egnn_band_reference(*args, W), reps=3)
         bound_ms, bound_by, edges, tc_ms, _ = _egnn_bound(B, L, args[3])
-        S = fwd_plan(B, L, W, HD, args[0].device)
-        blocks = B * band_work(B, L, W)[0] * S
-        log(f"[kernels] egnn_band_fwd B{B}/L{L}: {ms:.3f} ms (plain "
+        S, _, G = sm90_fwd_plan(B, L, W, HD, args[0].device, torch.float32, "highest")
+        units = B * band_work(B, L, W)[0] * S
+        floors = _sm90_floors(fwd, B, L, args[3], HD, "highest")
+        log(f"[kernels] egnn_band_fwd B{B}/L{L} ({fwd}): {ms:.3f} ms (plain "
             f"{plain_ms:.3f} ms), host {host_us:.1f} us per call, bound "
             f"{bound_ms:.3f} ms by {bound_by} ({edges} valid edges), "
-            f"{100 * bound_ms / ms:.1f}% of bound; tensor-core bound {tc_ms:.3f} ms; "
-            f"{S} offset slice(s), {blocks} blocks; bitwise identical over two launches")
+            f"{100 * bound_ms / ms:.1f}% of bound; 3xTF32 tensor-core bound {tc_ms:.3f} ms"
+            f"{_floor_text(floors)}; {S} slice(s), {units} units on {G} blocks; bitwise "
+            f"identical over two launches")
         rows.append(dict(mode=FP32_MODE, B=B, L=L, ms=ms, host_us=host_us,
                          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         tc_bound_ms=tc_ms, slices=S, blocks=blocks, max_abs_err=max(errs)))
+                         tc_bound_ms=tc_ms, slices=S, units=units, blocks=G,
+                         max_abs_err=max(errs), **floors))
         del args, agg, delta, again, ragg, rdelta
-    return rows
+    return {fwd: rows}
 
 
 def _close_scaled(name: str, got, ref) -> float:
@@ -939,13 +964,16 @@ def clash_term_kernels(attempts: int = 3) -> int:
 
 
 def phase_train_kernels() -> dict[str, list[dict]]:
-    """Kernel 2 against its plain version at the training shapes."""
+    """Kernel 2 in the fp32 model's mode against its plain version at the
+    training shapes, under the kernel that serves it (``band_kernel``), with
+    its 3xTF32 tensor-core bound, weight-stream and scratch floors."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        band_work, bwd_plan, egnn_band_bwd, egnn_band_bwd_reference)
+        band_kernel, band_work, egnn_band_bwd, egnn_band_bwd_reference, sm90_bwd_plan)
 
-    rows = {"egnn_band_bwd": []}
+    bwd = band_kernel("egnn_band_bwd", HD, "highest")
+    rows = {bwd: []}
     names = GRAD_NAMES
     for k, (B, L) in enumerate(TRAIN_SHAPES):
         args = _egnn_inputs(B, L, SEED + 10 + k)
@@ -967,20 +995,19 @@ def phase_train_kernels() -> dict[str, list[dict]]:
         plain_ms = _median_ms(lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W),
                               reps=3)
         bound_ms, bound_by, tc_ms, _ = _band_bwd_bound(B, L, args[3])
-        G, nsplit = bwd_plan(B, L, W, HD, args[0].device)
-        log(f"[kernels] egnn_band_bwd B{B}/L{L}: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
-            f"host {host_us:.1f} us per call, "
+        G, nsplit = sm90_bwd_plan(B, L, W, HD, args[0].device, torch.float32, "highest")
+        floors = _sm90_floors(bwd, B, L, args[3], HD, "highest")
+        log(f"[kernels] egnn_band_bwd B{B}/L{L} ({bwd}): {ms:.3f} ms (plain "
+            f"{plain_ms:.3f} ms), host {host_us:.1f} us per call, "
             f"bound {bound_ms:.3f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of "
-            f"bound; tensor-core bound {tc_ms:.3f} ms; {G} edge-pass blocks over "
-            f"{band_work(B, L, W)[2]} work items, {nsplit} weight-grad slices; max abs "
-            f"err {max(errs.values()):.3e}, largest err / max|plain| "
+            f"bound; 3xTF32 tensor-core bound {tc_ms:.3f} ms{_floor_text(floors)}; {G} "
+            f"edge-pass blocks over {band_work(B, L, W)[2]} work items, {nsplit} weight-grad "
+            f"slices; max abs err {max(errs.values()):.3e}, largest err / max|plain| "
             f"{rel[worst]:.2e} ({worst}); bitwise identical over two launches")
-        rows["egnn_band_bwd"].append(dict(mode=FP32_MODE, B=B, L=L, ms=ms, host_us=host_us,
-                                          plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by, tc_bound_ms=tc_ms,
-                                          edge_blocks=G, wgrad_slices=nsplit,
-                                          max_abs_err=max(errs.values()),
-                                          errors=errs))
+        rows[bwd].append(dict(mode=FP32_MODE, B=B, L=L, ms=ms, host_us=host_us,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              tc_bound_ms=tc_ms, edge_blocks=G, wgrad_slices=nsplit,
+                              max_abs_err=max(errs.values()), errors=errs, **floors))
         del args, got, again, ref
     return rows
 
@@ -1710,6 +1737,7 @@ def phase_dataprep(model, out_dir: str, trace_path=None) -> dict:
     from protein_ensemble_vae_torch.dataprep.pipeline import process_chain, write_chain_h5
     from protein_ensemble_vae_torch.infer.generate import generate_ensembles
     from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, reset_launches
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_kernel
 
     t_phase = t0 = time.perf_counter()
     emb = _esm2_t33()
@@ -1761,11 +1789,12 @@ def phase_dataprep(model, out_dir: str, trace_path=None) -> dict:
     launches = dict(LAUNCHES)
 
     expected = K * 2 * model.config.decoder_layers
-    log(f"[dataprep] path launches {launches} (expected egnn_band_fwd = {expected}: "
+    fwd = band_kernel("egnn_band_fwd", model.config.decoder_hidden, "highest")
+    log(f"[dataprep] path launches {launches} (expected {fwd} = {expected}: "
         f"{K} structures x 2 decodes x {model.config.decoder_layers} layers)")
-    if launches["egnn_band_fwd"] != expected or sum(launches.values()) != expected:
+    if launches[fwd] != expected or sum(launches.values()) != expected:
         raise RuntimeError(f"dataprep path launched {launches}, expected "
-                           f"egnn_band_fwd = {expected} and nothing else")
+                           f"{fwd} = {expected} and nothing else")
     for r in out["results"]:
         for suffix in ("true", "reconstruction", "ensemble"):
             path = os.path.join(gen_dir, f"{r['structure']}_{suffix}.pdb")
@@ -1920,9 +1949,10 @@ def phase_train_path(out_dir: str) -> dict:
     n_layers = cfg.model.decoder_layers
     tr_steps = -(-len(train_ds) // cfg.train.batch_size)
     va_steps = -(-len(val_ds) // cfg.train.batch_size)
-    want = {"egnn_band_fwd": n_layers * (tr_steps + va_steps),
-            "egnn_band_bwd": n_layers * tr_steps,
-            "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps}
+    want, _ = _served({"egnn_band_fwd": n_layers * (tr_steps + va_steps),
+                       "egnn_band_bwd": n_layers * tr_steps,
+                       "clash_fwd": tr_steps + va_steps, "clash_bwd": tr_steps},
+                      hd=cfg.model.decoder_hidden)
     prev = {k: 0 for k in want}
     for rec in logger.epochs:
         got = {k: rec["launches"][k] - prev[k] for k in want}
@@ -2011,8 +2041,10 @@ def phase_train_cli_bf16(out_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # kernel -> a substring of its device kernel's name in profiler records
-# (kernel 2's edge pass stands for its four passes)
-KERNEL_RECORDS = {"egnn_band_fwd": "egnn_band_fwd_kernel", "egnn_band_bwd": "egnn_bwd_edges",
+# (kernel 2's edge pass stands for its four passes): the kernels of the
+# fp32 model's step at HD (3xTF32: the shared-tile Hopper kernels)
+KERNEL_RECORDS = {"egnn_band_fwd_sm90_x3": "egnn_fwd_sm90_hd512",
+                  "egnn_band_bwd_sm90_x3": "egnn_bwd_edges_sm90_hd512",
                   "clash_fwd": "clash_fwd_kernel", "clash_bwd": "clash_bwd_kernel"}
 WATCH_RTOL = 1e-6   # dump statistics vs the same gradient recomputed, of the tensor's scale
 
@@ -2117,9 +2149,10 @@ def phase_watch_path(out_dir: str, card: str) -> dict:
     # launches per epoch: the train and val steps' plus one gradient's
     tr_steps, va_steps = -(-len(sets[0]) // 4), -(-len(sets[1]) // 4)
     n = cfg.decoder_layers
-    want = {"egnn_band_fwd": n * (tr_steps + va_steps + 1),
-            "egnn_band_bwd": n * (tr_steps + 1),
-            "clash_fwd": tr_steps + va_steps + 1, "clash_bwd": tr_steps + 1}
+    want, _ = _served({"egnn_band_fwd": n * (tr_steps + va_steps + 1),
+                       "egnn_band_bwd": n * (tr_steps + 1),
+                       "clash_fwd": tr_steps + va_steps + 1, "clash_bwd": tr_steps + 1},
+                      hd=cfg.decoder_hidden)
     if len(dumps) != 2:
         raise RuntimeError(f"--watch_every 1 over 2 epochs dumped {len(dumps)} times")
     prev = {k: 0 for k in want}
@@ -3141,6 +3174,7 @@ def phase_flagship(out_dir: str) -> dict:
     from protein_ensemble_vae_torch.infer.refine import clear_graphs
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
                                                        reset_launches)
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_kernel
 
     t_phase = time.perf_counter()
     spec = importlib.util.spec_from_file_location(
@@ -3179,6 +3213,7 @@ def phase_flagship(out_dir: str) -> dict:
         {"egnn_band_fwd": epochs * n * (tr + va), "egnn_band_bwd": epochs * n * tr,
          "clash_fwd": epochs * (tr + va), "clash_bwd": epochs * tr}, BF16_MODE)
     gen_fwd = 2 * FLAGSHIP_STRUCTURES * 2 * n
+    gen_kernel = band_kernel("egnn_band_fwd", ModelConfig().decoder_hidden, "highest")
     got_gen = stages["gen"]["launches"]
     bad = []
     if any(stages["data"]["launches"].values()):
@@ -3187,8 +3222,9 @@ def phase_flagship(out_dir: str) -> dict:
             or stages["train"]["modes"] != want_train_modes):
         bad.append(f"train launched {stages['train']['launches']} / {stages['train']['modes']}, "
                    f"expected {want_train} / {want_train_modes}")
-    if (got_gen["egnn_band_fwd"] != gen_fwd or got_gen["egnn_band_bwd"]
-            or stages["gen"]["modes"] != {f"egnn_band_fwd:{FP32_MODE}": gen_fwd}
+    if (got_gen[gen_kernel] != gen_fwd
+            or any(got_gen[k] for k in got_gen if k.startswith("egnn") and k != gen_kernel)
+            or stages["gen"]["modes"] != {f"{gen_kernel}:{FP32_MODE}": gen_fwd}
             or not got_gen["clash_fwd"] or not got_gen["clash_bwd"]):
         bad.append(f"gen launched {got_gen} / {stages['gen']['modes']}, expected "
                    f"{gen_fwd} fp32 band forwards and kernels 3-4 in polish")
@@ -3970,6 +4006,10 @@ KERNEL_INFO = {
                                  "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
     "egnn_band_bwd_sm90_hd512": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90_hd512.cu",
                                  "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
+    "egnn_band_fwd_sm90_x3": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd_sm90_hd512.cu",
+                              "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
+    "egnn_band_bwd_sm90_x3": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90_hd512.cu",
+                              "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
     "clash_fwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:54"),
     "clash_bwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
@@ -3977,31 +4017,39 @@ KERNEL_INFO = {
 }
 
 # The paths on which each kernel must have launched: the first band
-# kernels serve the fp32 model (3xTF32) up to Hd 256, the bf16 chain and
-# the widths above 512; the Hopper ones the bf16 model's one-pass mode up
-# to Hd 256 (train_bf16, the flagship's training), and at Hd 512 both
-# fp32-chain modes (the wide_decoder path: its generation, fp32 and bf16
-# steps and its width-384 CLI epoch, each checked there); kernels 3-4
-# every path with a loss.
+# kernels serve the bf16 chain and the widths above 512 (the wide_decoder
+# path's width-1024 CLI epoch); the Hopper ones the bf16 model's one-pass
+# mode up to Hd 256 (train_bf16, the flagship's training), the fp32
+# model's 3xTF32 mode up to Hd 256 (the _x3 counters of the shared-tile
+# kernels: generation, dataprep, refine, the fp32 training paths, the
+# flagship's generation and the wide_decoder path's width-16 CLI epoch),
+# and at Hd 512 both fp32-chain modes (the wide_decoder path: its
+# generation, fp32 and bf16 steps and its width-384 CLI epoch, each checked
+# there); kernels 3-4 every path with a loss.
 REQUIRED_PATHS = {
-    "egnn_band_fwd": ("generate", "dataprep", "refine", "train", "train_watch", "train_dp",
-                      "wide_decoder", "flagship", "chain_dtype_ab"),
-    "egnn_band_bwd": ("train", "train_watch", "train_dp", "wide_decoder", "chain_dtype_ab"),
+    "egnn_band_fwd": ("wide_decoder", "chain_dtype_ab"),
+    "egnn_band_bwd": ("wide_decoder", "chain_dtype_ab"),
     "egnn_band_fwd_sm90": ("train_bf16", "flagship"),
     "egnn_band_bwd_sm90": ("train_bf16", "flagship"),
     "egnn_band_fwd_sm90_hd512": ("wide_decoder",),
     "egnn_band_bwd_sm90_hd512": ("wide_decoder",),
+    "egnn_band_fwd_sm90_x3": ("generate", "dataprep", "refine", "train", "train_watch",
+                              "train_dp", "wide_decoder", "flagship"),
+    "egnn_band_bwd_sm90_x3": ("train", "train_watch", "train_dp", "wide_decoder"),
     "clash_fwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
     "clash_bwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
 }
-# the row each kernel's line reports (shape, mode, width): the fp32
-# headline shapes, the flagship's B8/L128 in the bf16 model's mode for the
-# Hopper kernels, the train step's B4/L256 in fp32 at Hd 512 for those of
-# width 512
-KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, FP32_MODE, HD),
-               "egnn_band_bwd": (TRAIN_HEADLINE, FP32_MODE, HD),
+# the row each kernel's line reports (shape, mode, width): the first band
+# kernels' bf16-chain rows at the headline shapes, the flagship's B8/L128
+# in the bf16 model's mode for the one-pass Hopper kernels, the train
+# step's B4/L256 in fp32 at Hd 512 for those of width 512, the fp32
+# headline shapes for the 3xTF32 ones
+KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, "bfloat16/bfloat16_chain", HD),
+               "egnn_band_bwd": (TRAIN_HEADLINE, "bfloat16/bfloat16_chain", HD),
+               "egnn_band_fwd_sm90_x3": (HEADLINE_SHAPE, FP32_MODE, HD),
+               "egnn_band_bwd_sm90_x3": (TRAIN_HEADLINE, FP32_MODE, HD),
                "egnn_band_fwd_sm90": ((8, 128), BF16_MODE, HD),
                "egnn_band_bwd_sm90": ((8, 128), BF16_MODE, HD),
                "egnn_band_fwd_sm90_hd512": (TRAIN_HEADLINE, FP32_MODE, WIDE_HD),
@@ -4081,7 +4129,8 @@ def main(argv=None) -> None:
     READ_RATE = _l2_rate()
     log(f"[kernels] read rates ({device['smi']}): {json.dumps(READ_RATE)}")
     shapes = {name: [] for name in KERNEL_INFO}
-    shapes["egnn_band_fwd"] += phase_kernels()
+    for name, rows in phase_kernels().items():
+        shapes[name] += rows
     for name, rows in phase_train_kernels().items():
         shapes[name] += rows
     for name, rows in phase_bf16_kernels().items():

@@ -86,12 +86,13 @@
 // that at Hd 512. The
 // bf16 chain's weight-grad pass runs m16n8k16 bf16 products on the bf16
 // activations (ldmatrix.trans fragments), summed in fp32.
-// The one-pass mode at widths 32 to 256 runs egnn_band_bwd_sm90.cu instead
-// (its node and reduce passes are egnn_passes.cuh's, as here), and both
-// fp32-chain modes at Hd 512 egnn_band_bwd_sm90_hd512.cu; this file no
-// longer builds them (at 512 only the bf16 chain uses Tile<512>). Left for
-// later: wgmma for the bf16 chain and the wide variants, the weight grads
-// without the per-edge scratch round trip.
+// The fp32 chain at the native widths runs on wgmma instead (node and
+// reduce passes egnn_passes.cuh's, as here): the one-pass mode at widths 32
+// to 256 in egnn_band_bwd_sm90.cu, 3xTF32 at 32 to 256 and both modes at Hd
+// 512 in egnn_band_bwd_sm90_hd512.cu; this file no longer builds them
+// (Tile<HD> runs the bf16 chain only). Left for later: wgmma for the bf16
+// chain and the wide variants, the weight grads without the per-edge
+// scratch round trip.
 
 #include "egnn_passes.cuh"
 

@@ -1,8 +1,10 @@
-// EGNN band backward on Hopper (sm_90a) at the native width 512 (decoder
-// widths 257 to 512, zero-padded to it): the gradient of
-// egnn_band_fwd_sm90_hd512.cu's function, in the fp32 model's 3xTF32 mode
-// (PASSES = 3) and the bf16 model's one-pass mode (PASSES = 1), fp32 or
-// bf16 a / bs. The bf16 chain at 512 stays on egnn_band_bwd.cu.
+// EGNN band backward on Hopper (sm_90a), the shared-tile kernel: the
+// gradient of egnn_band_fwd_sm90_hd512.cu's function at the native width
+// 512 (decoder widths 257 to 512, zero-padded to it) in the fp32 model's
+// 3xTF32 mode (PASSES = 3) and the bf16 model's one-pass mode (PASSES = 1),
+// and at the native widths 32 to 256 (and the widths padded to them) in
+// 3xTF32; fp32 or bf16 a / bs. The one-pass mode up to 256 runs on
+// egnn_band_bwd_sm90.cu, the bf16 chain on egnn_band_bwd.cu.
 //
 // Replaces the TPU kernel `_bwd_merged_kernel` (egnn_band.py:235, with
 // `_edge_chain_cotangents`) of the JAX package's ops/pallas/egnn_band.py.
@@ -10,60 +12,69 @@
 // chain of egnn_band_bwd_sm90.cu's header, and emits d_a, d_bs, d_x, dW_e2 =
 // sum m1^T cot_u, dW_x1 = sum m^T cot_v and the vector grads.
 //
-// What bounds it: operations, 12 Hd^2 FLOP per valid edge (0.464 ms at
-// B4/L256 in one TF32 pass, three times that in 3xTF32), then the weight
-// stream (four weights of 1 MiB per 64-row step, once per pass: 4 images in
-// one pass, 12 in 3xTF32) and the per-edge scratch round trip (m1, m,
-// cot_u, cot_v, cot_pre: 5 x 64 x 512 fp32 per valid step, written and
-// read back once).
+// What bounds it: operations, 12 Hd^2 FLOP per valid edge (at B4/L256 0.464
+// ms at Hd 512 and 0.116 ms at Hd 256 in one TF32 pass, three times that in
+// 3xTF32), then the weight stream (four weights of Hd^2 fp32 per 64-row
+// step, once per image: 4 images in one pass, 12 in 3xTF32 at 512, 8 in
+// 3xTF32 up to 256) and the per-edge scratch round trip (m1, m, cot_u,
+// cot_v, cot_pre: 5 x 64 x Hd fp32 per valid step, written and read back
+// once).
 //
 // Design (egnn_sm90.cuh holds the building blocks; the node and reduce
 // passes are egnn_passes.cuh's):
 //   1. edge pass: egnn_band_fwd_sm90_hd512.cu's block (a producer
-//      warpgroup, two consumer warpgroups sharing one [64][512] activation
-//      tile, each computing its 256 output columns from its own ring of
-//      m64n64k8 chunks, 8 KiB) runs the four products of a step: W_e2 and
-//      W_x1 as x @ W (IMG_T), then W_x1 and W_e2 as x @ W^T (IMG_N), each
-//      in the mode's passes (product_half). A persistent grid walks the
-//      steps (work items) g, g + G, ... Each activation of the chain is
-//      written into the tile (TF32-rounded in one pass, exact in 3xTF32)
-//      after both consumers have retired the product that read the last
-//      one. The step's m1, m, cot_v and cot_u go from the tile to the
-//      scratch in the weight-grad layout ([2][512][32], egnn_band_bwd_sm90.cu)
-//      while the first pass that reads the same tile runs; cot_pre [64][512]
-//      and d_rel [64][3] keep the row layout the node pass reads, silu'(pre)
-//      and silu'(u) wait in the step's cot_pre and cot_u rows. The w_x2 and
-//      w_d row dot products span both halves: the second consumer's partial
-//      meets the first's in shared memory, added in that order. The vector
-//      grads' column sums: a shuffle reduce-scatter per warp, then one
-//      fire-and-forget add (red.global) per column into the warp's own sums
-//      in device memory ([8 warps][NVEC][256] a block: one writer per
-//      address, so the adds land in program order), added in warp order at
-//      the block's end; shared memory keeps the tile and a deeper ring.
+//      warpgroup, two consumer warpgroups sharing one [64][Hd] activation
+//      tile, each computing its Hd / 2 output columns from its own ring of
+//      m64nNWk8 chunks, NW = 64 or Hd / 2 below 128) runs the four products
+//      of a step: W_e2 and W_x1 as x @ W (IMG_T), then W_x1 and W_e2 as
+//      x @ W^T (IMG_N), each in the mode's passes (product_half at 512,
+//      product_split with the split tile beside the activation tile up to
+//      256: no rewrite of the tile, two images per product, the small terms
+//      in their own accumulator). A persistent grid walks the steps (work
+//      items) g, g + G, ... Each activation of the chain is written into the
+//      tile (TF32-rounded in one pass, exact in 3xTF32, with its small part
+//      into the split tile up to 256) after both consumers have retired the
+//      product that read the last one. The step's m1, m, cot_v and cot_u go
+//      from the tile to the scratch in the weight-grad layout ([2][Hd][32],
+//      egnn_band_bwd_sm90.cu) while the first pass that reads the same tile
+//      runs; cot_pre [64][Hd] and d_rel [64][3] keep the row layout the node
+//      pass reads, silu'(pre) and silu'(u) wait in the step's cot_pre and
+//      cot_u rows. The w_x2 and w_d row dot products span both halves: the
+//      second consumer's partial meets the first's in shared memory, added
+//      in that order. The vector grads' column sums: a shuffle
+//      reduce-scatter per warp, then one fire-and-forget add (red.global)
+//      per column into the warp's own sums in device memory ([8 warps][NVEC]
+//      [Hd / 2] a block: one writer per address, so the adds land in program
+//      order), added in warp order at the block's end; shared memory keeps
+//      the tile(s) and a deeper ring.
 //   2. node pass (egnn_passes.cuh): d_a, d_bs, d_x gathered per residue.
 //   3. weight-grad pass: dW_e2 = M1^T @ COT_U, dW_x1 = M^T @ COT_V as
-//      split-K wgmma products, a block per 64 x 64 output tile and slice of
-//      the steps: a producer warp brings each valid step's two 32-row K
-//      blocks of both operands with bulk copies into a WSTAGES ring, one
-//      consumer warpgroup runs m64n64k8 per k8 step into its own
-//      accumulator and adds it to the running sum in round-to-nearest fp32
-//      (the tensor cores truncate: at ~9,000 rows a sum a truncating
-//      accumulator drifted past the model's gradient tolerance, PERF.md).
-//      In 3xTF32 it splits each stage in shared memory (Xs = rna(X -
-//      trunc(X)), Ys likewise; the next stage's split while this one's
-//      products run) and adds Xs.Yt + Xt.Ys + Xt.Yt. (Splitting X in
-//      registers for wgmma's register-A form instead measured slower,
-//      PERF.md.)
+//      split-K wgmma products, a block per 64 x TN output tile (TN = 64, or
+//      Hd below 64) and slice of the steps: a producer warp brings each
+//      valid step's two 32-row K blocks of both operands with bulk copies
+//      into a WSTAGES ring, one consumer warpgroup runs m64nTNk8 into a step
+//      sum over WGRAD_SPAN rows (each k8 step at 512, a 32-row chunk below)
+//      and adds it to the running sum in round-to-nearest fp32 (the tensor
+//      cores truncate: at ~9,000 rows a sum a truncating accumulator
+//      drifted past the model's gradient tolerance at Hd 512, PERF.md). In 3xTF32 it splits each stage in
+//      shared memory (Xs = rna(X - trunc(X)), Ys likewise; the next stage's
+//      split while this one's products run) and adds Xs.Yt + Xt.Ys + Xt.Yt.
+//      (Splitting X in registers for wgmma's register-A form instead
+//      measured slower, PERF.md.)
 //   4. reduce pass (egnn_passes.cuh): the slices' and blocks' partials
 //      summed in index order.
 // No atomics: two launches give bitwise-identical outputs.
 //
 // Shared memory of the edge pass (bytes; + 1 KiB alignment slack):
-//   A tile 131,072 | rings (2 x STAGES x 64 x 128) 81,920 | rows 1,792 |
-//   dot products 512 | flags, barriers 176 | total 216,496 (of 232,448)
-// and of the weight-grad pass: WSTAGES x 16 KiB + (3xTF32) two split
-// stages, 32 KiB, + barriers and the slice's step list: 50,224 / 82,992 + 4 x steps,
-// two blocks per SM.
+//   Hd  | tile(s)            | rings (2 x STAGES x NW x 128) | rows, dot products, flags, barriers | total
+//   512 | 131,072 (one)      | 81,920 (NW 64)                | 2,480 | 216,496  (of 232,448)
+//   256 | 131,072 (A and As) | 81,920 (NW 64)                | 2,480 | 216,496
+//   128 |  65,536            | 81,920 (NW 64)                | 2,480 | 150,960
+//    64 |  32,768            | 40,960 (NW 32)                | 2,480 |  77,232
+//    32 |  16,384            | 20,480 (NW 16)                | 2,480 |  40,368
+// and of the weight-grad pass: WSTAGES x (8 KiB + TN x 128) + (3xTF32) two
+// split stages + barriers and the slice's step list, at TN 64:
+// 50,224 / 82,992 + 4 x steps, two blocks per SM.
 
 #include "egnn_passes.cuh"
 #include "egnn_sm90.cuh"
@@ -73,14 +84,30 @@ namespace {
 using namespace egnn;
 namespace s9 = egnn::sm90;
 
-constexpr int NW = 64;                         // output columns per product of the edge pass
 constexpr int STAGES = 5;                      // chunks of each consumer's ring
 constexpr int WSTAGES = 3;                     // stages of the weight-grad ring
 constexpr int BAR_ALL = 1;                     // named barrier of both consumer warpgroups
 constexpr int CT = s9::CONSUMERS * s9::WG;     // consumer threads
 constexpr int WGRAD_THREADS = s9::WG + 32;     // one consumer warpgroup and a producer warp
-constexpr int HD = 512;
-using H = s9::Half<NW>;
+// edge rows (K) a weight-grad step sum spans: each k8 step at 512 (~9,000
+// rows a slice drifted past the gradient tolerance summed whole, PERF.md),
+// a 32-row chunk up to 256 (0.4 of kernel 2's 1.6 ms was this pass with
+// per-k8 sums, 0.31 with per-chunk ones)
+template <int HD>
+constexpr int WGRAD_SPAN = HD == 512 ? 8 : 32;
+
+// output columns per product of the edge pass: 64, or a consumer's Hd / 2 below 128
+template <int HD>
+constexpr int NW_OF = HD / 2 < 64 ? HD / 2 : 64;
+template <int HD>
+using HalfOf = s9::Half<HD, NW_OF<HD>>;
+// the split tile beside the activation tile (3xTF32 up to 256)
+template <int HD>
+constexpr bool SPLIT = HD < 512;
+// the fill's sigmoid in the fast form (egnn_sm90.cuh: sigmoid_m; the
+// epilogues' always are): one pass, and 3xTF32 up to 256
+template <int HD, int PASSES>
+constexpr bool FAST_SILU = PASSES == 1 || SPLIT<HD>;
 
 template <int PASSES>
 constexpr int PARTS = PASSES == 3 ? 2 : 1;     // images per weight: Wb (and Ws)
@@ -91,12 +118,13 @@ struct Scratch {
     int* flags;
 };
 
-constexpr int COLS_PER_BLOCK = 2 * 4 * NVEC * 256;   // the eight warps' column sums
+// the eight warps' column sums of a block (each over its consumer's Hd / 2)
+__host__ __device__ constexpr int cols_per_block(int hd) { return 4 * NVEC * hd; }
 
-inline size_t scratch_floats(int B, int L, int W, int G, int nsplit, int passes, Scratch* s,
-                             float* base) {
+inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, int passes,
+                             Scratch* s, float* base) {
     const size_t R = (size_t)n_items(B, L, W) * M;
-    const size_t act = R * HD;
+    const size_t act = R * hd;
     size_t off = 0;
     auto take = [&](size_t n) {
         float* p = base ? base + off : nullptr;
@@ -110,17 +138,21 @@ inline size_t scratch_floats(int B, int L, int W, int G, int nsplit, int passes,
     s->cotpre = take(act);
     s->drel = take(R * 3);
     s->flags = reinterpret_cast<int*>(take((size_t)n_items(B, L, W)));
-    s->vpart = take((size_t)G * vpart_stride(HD));
-    s->img = take((size_t)4 * (passes == 3 ? 2 : 1) * HD * HD);
-    s->cols = take((size_t)G * COLS_PER_BLOCK);
-    const size_t n_wpart = (size_t)2 * nsplit * HD * HD;
+    s->vpart = take((size_t)G * vpart_stride(hd));
+    s->img = take((size_t)4 * (passes == 3 ? 2 : 1) * hd * hd);
+    s->cols = take((size_t)G * cols_per_block(hd));
+    const size_t n_wpart = (size_t)2 * nsplit * hd * hd;
     s->wpart = n_wpart <= act ? s->cotpre : take(n_wpart);
     return off;
 }
 
+template <int HD>
 struct EdgeLayout {
-    static constexpr int A = 0;                                     // [64][512]
-    static constexpr int RING = A + M * HD * 4;                     // [2][STAGES][CHUNK]
+    using H = HalfOf<HD>;
+    static constexpr int TILE = M * HD * 4;
+    static constexpr int A = 0;                                     // [64][HD]
+    static constexpr int AS = A + TILE;                             // [64][HD] (SPLIT)
+    static constexpr int RING = AS + (SPLIT<HD> ? TILE : 0);        // [2][STAGES][CHUNK]
     static constexpr int ROWS = RING + 2 * STAGES * H::CHUNK * 4;   // [7][64]
     static constexpr int PART = ROWS + 7 * M * 4;                   // [2][64]
     static constexpr int FLAGS = PART + 2 * M * 4;                  // int [4]
@@ -130,18 +162,19 @@ struct EdgeLayout {
     static_assert(BARS % 8 == 0, "mbarriers are 8-byte aligned");
 };
 
-// Part q (< 8) of the step's tile (A: [64][512], K-major swizzled) into dst
-// in the weight-grad layout ([2][512][32], egnn_band_bwd_sm90.cu:
-// tile_to_scratch): a 4 x 4 block (rows 4m.., features 4cf..) per thread
-// and part, read as four 16-byte row chunks and written as four 16-byte
-// feature chunks. A warp takes 4 row blocks x one 32-feature K block: its
-// quarter-warps read the 8 chunks of one tile row (no bank conflict), and
-// each store fills two whole 32-byte sectors of 8 feature rows.
+// Part q (< Hd / 64, or 0 below 64) of the step's tile (A: [64][Hd],
+// K-major swizzled) into dst in the weight-grad layout ([2][Hd][32],
+// egnn_band_bwd_sm90.cu: tile_to_scratch): a 4 x 4 block (rows 4m..,
+// features 4cf..) per thread and part, read as four 16-byte row chunks and
+// written as four 16-byte feature chunks. A warp takes 4 row blocks x one
+// 32-feature K block (Hd / 8 warp tasks, 8 a part): its quarter-warps read
+// the 8 chunks of one tile row (no bank conflict), and each store fills two
+// whole 32-byte sectors of 8 feature rows.
+template <int HD>
 __device__ __forceinline__ void tile_to_scratch(const float* A, float* __restrict__ dst, int tid,
                                                 int q) {
-    static_assert(M * HD / 16 == 8 * CT, "8 parts of one 4 x 4 block per thread");
-    if (q >= 8) return;
-    const int lane = tid % 32, wi = tid / 32 + 8 * q;   // wi: 64 warp tasks
+    const int lane = tid % 32, wi = tid / 32 + 8 * q;   // wi: HD / 8 warp tasks
+    if (wi >= HD / 8) return;
     const int m = 4 * (wi % 4) + lane / 8, cf = 8 * (wi / 4) + lane % 8;
     float4 v[4];
 #pragma unroll
@@ -160,10 +193,13 @@ __device__ __forceinline__ void tile_to_scratch(const float* A, float* __restric
     }
 }
 
-// egnn_band_bwd_sm90.cu's add_cols8: eight column values summed over the
-// warp's rows, lane g adding one of them to the warp's sums in device
-// memory (a red.global: the warp is their only writer).
-__device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (&v)[8], int g) {
+// egnn_band_bwd_sm90.cu's add_cols8: eight column values (four column
+// pairs, 8 apart) summed over the warp's rows, lane g adding one of them to
+// the warp's sums in device memory (a red.global: the warp is their only
+// writer); only the first `pairs` column pairs exist (fewer than four where
+// a consumer's columns end first: Hd 32).
+__device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (&v)[8], int g,
+                                          int pairs = 4) {
     const bool b0 = g & 1, b1 = g & 2, b2 = g & 4;
     float x[4], y[2];
 #pragma unroll
@@ -174,7 +210,7 @@ __device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (
         y[i] = (b1 ? x[i + 2] : x[i]) + __shfl_xor_sync(0xffffffffu, b1 ? x[i] : x[i + 2], 8);
     const float sum = (b2 ? y[1] : y[0]) + __shfl_xor_sync(0xffffffffu, b2 ? y[0] : y[1], 16);
     const int k = 4 * b0 + 2 * b1 + b2;
-    atomicAdd(col + 8 * (k >> 1) + (k & 1), sum);
+    if ((k >> 1) < pairs) atomicAdd(col + 8 * (k >> 1) + (k & 1), sum);
 }
 
 template <int PASSES>
@@ -182,7 +218,7 @@ __device__ __forceinline__ float2 act2(float v0, float v1) {
     return PASSES == 1 ? make_float2(s9::tf32(v0), s9::tf32(v1)) : make_float2(v0, v1);
 }
 
-template <int PASSES, class In>
+template <int HD, int PASSES, class In>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                           const float* __restrict__ x, const float* __restrict__ cmask,
@@ -190,11 +226,16 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                           const float* __restrict__ b_x1, const float* __restrict__ w_x2,
                           const float* __restrict__ b_x2, const float* __restrict__ g_agg,
                           const float* __restrict__ g_delta, Scratch s, int B, int L, int W) {
-    using LY = EdgeLayout;
-    constexpr int NH = H::NH;
+    static_assert(PASSES == 3 || !SPLIT<HD>, "one pass up to 256 runs on egnn_band_bwd_sm90.cu");
+    using LY = EdgeLayout<HD>;
+    using H = HalfOf<HD>;
+    constexpr int NW = H::NW, NH = H::NH;
+    // column pairs of a column-sum flush: four (32 columns), or a group's NW / 8
+    constexpr int PAIRS = NW / 8 < 4 ? NW / 8 : 4;
     extern __shared__ char smem_raw[];
     char* sm = s9::smem_base(smem_raw);
     float* A = reinterpret_cast<float*>(sm + LY::A);
+    float* As = reinterpret_cast<float*>(sm + LY::AS);
     int* flags = reinterpret_cast<int*>(sm + LY::FLAGS);
     uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BARS);   // [2][STAGES]
     uint64_t* empty = full + 2 * STAGES;
@@ -229,9 +270,16 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 if (lane == 0)
                     for (int q = 0; q < 4; ++q) {   // e2 (T), x1 (T), x1 (N), e2 (N)
                         const float* big = s.img + (size_t)q * PARTS<PASSES> * H::IMG;
-                        s9::produce_half<PASSES, NW, STAGES>(big, big + H::IMG, half, ring,
-                                                             full + half * STAGES,
-                                                             empty + half * STAGES, rp);
+                        if constexpr (SPLIT<HD>) {
+                            const size_t off = (size_t)half * (H::IMG / 2);
+                            s9::produce_split<H::NQ, H::CHUNK, STAGES>(
+                                big + off, big + H::IMG + off, ring, full + half * STAGES,
+                                empty + half * STAGES, rp);
+                        } else {
+                            s9::produce_half<PASSES, NW, STAGES>(big, big + H::IMG, half, ring,
+                                                                 full + half * STAGES,
+                                                                 empty + half * STAGES, rp);
+                        }
                     }
                 __syncwarp();
             }
@@ -254,10 +302,33 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         const float bx2 = b_x2[0];
         s9::RingPos rp;
         float acc[NH][H::ACC];
-        float tmp[H::ACC];   // unused: the kc-major products need no step sums
+        float tmp[2][H::ACC];     // unused: the kc-major products need no step sums
+        float sml[NH][H::ACC];    // 3xTF32 up to 256: the small terms (product_split)
         // this warp's column sums of the vector grads (w_d, b_e2, b_x1, w_x2)
-        // over the consumer's columns, [NVEC][256], zeroed by the launch
-        float* cols = s.cols + (size_t)blockIdx.x * COLS_PER_BLOCK + (wg * 4 + warp) * NVEC * H::N;
+        // over the consumer's columns, [NVEC][Hd / 2], zeroed by the launch
+        float* cols = s.cols + (size_t)blockIdx.x * cols_per_block(HD) + (wg * 4 + warp) * NVEC * H::N;
+        // one product of the tile into acc, in the mode's passes; side(q)
+        // copies part q of the tile to the scratch
+        auto product = [&](float* dst) {
+            auto side = [&](int q) { tile_to_scratch<HD>(A, dst, tid, q); };
+            if constexpr (SPLIT<HD>)
+                s9::product_split<HD, NW, NH, STAGES, 0, false>(A, As, ring, my_full, my_empty,
+                                                               rp, acc, tmp, sml, lane, side);
+            else
+                s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp[0],
+                                                     lane, tid, BAR_ALL, side);
+        };
+        // the activation (v0, v1) at columns (col, col + 1) of row r: rounded to
+        // TF32 in one pass, exact in 3xTF32 with its small part in As up to 256
+        auto put2 = [&](int r, int col, float v0, float v1) {
+            *reinterpret_cast<float2*>(A + s9::sw_off(r, col, M)) = act2<PASSES>(v0, v1);
+            if constexpr (SPLIT<HD>)
+                *reinterpret_cast<float2*>(As + s9::sw_off(r, col, M)) =
+                    make_float2(s9::tf32_lo(v0), s9::tf32_lo(v1));
+        };
+        // add_cols8's flush after column pair jj of group h: the sums of the
+        // flush's columns, from the first of them
+        auto flush = [&](int jj) { return (jj & 3) == PAIRS - 1; };
         float cw_sum = 0.f;   // first consumer, tq == 0: the b_x2 grad over the lane's rows
 
         for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -300,15 +371,14 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             const float vr[2] = {row_valid[rw], row_valid[rw + 8]};
 
             // m1 = silu(pre) into A; silu'(pre) waits in the cot_pre rows
-            s9::fill_pre<HD, In, CT, PASSES == 1>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0,
-                                                  tid, cotpre_i);
+            s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
+                A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, cotpre_i,
+                SPLIT<HD> ? As : nullptr);
             s9::fence_async_smem();
             s9::named_sync(BAR_ALL, CT);
 
             // u = m1 @ W_e2 + b_e2: silu'(u) waits in the cot_u rows; m = silu(u) -> A
-            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
-                                                 tid, BAR_ALL,
-                                                 [&](int q) { tile_to_scratch(A, m1_i, tid, q); });
+            product(m1_i);
             s9::named_sync(BAR_ALL, CT);   // both consumers' products (and the copy) have read A
 #pragma unroll
             for (int h = 0; h < NH; ++h)
@@ -323,17 +393,14 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
                         *reinterpret_cast<float2*>(cotu_i + (size_t)(rw + 8 * hh) * HD + col) =
                             make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
-                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
-                            act2<PASSES>(u0 * s0, u1 * s1);
+                        put2(rw + 8 * hh, col, u0 * s0, u1 * s1);
                     }
                 }
             s9::fence_async_smem();
             s9::named_sync(BAR_ALL, CT);
 
             // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 per row; cot_v -> A
-            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
-                                                 tid, BAR_ALL,
-                                                 [&](int q) { tile_to_scratch(A, mm_i, tid, q); });
+            product(mm_i);
             s9::named_sync(BAR_ALL, CT);
             const float cw[2] = {row_cw[rw], row_cw[rw + 8]};
             float sw[2] = {0.f, 0.f};
@@ -359,17 +426,15 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                             gb[c] += cot[hh][c];     // b_x1 grad
                         }
 #pragma unroll
-                    for (int hh = 0; hh < 2; ++hh)
-                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
-                            act2<PASSES>(cot[hh][0], cot[hh][1]);
+                    for (int hh = 0; hh < 2; ++hh) put2(rw + 8 * hh, col, cot[hh][0], cot[hh][1]);
 #pragma unroll
                     for (int c = 0; c < 2; ++c) {
                         gw8[2 * (jj & 3) + c] = gw[c];
                         gb8[2 * (jj & 3) + c] = gb[c];
                     }
-                    if ((jj & 3) == 3) {   // the sums of columns col - 24 .. col + 1
-                        add_cols8(cols + 3 * H::N + col - col0 - 24, gw8, g);
-                        add_cols8(cols + 2 * H::N + col - col0 - 24, gb8, g);
+                    if (flush(jj)) {   // the sums of columns col - 8 (PAIRS - 1) .. col + 1
+                        add_cols8(cols + 3 * H::N + col - col0 - 8 * (PAIRS - 1), gw8, g, PAIRS);
+                        add_cols8(cols + 2 * H::N + col - col0 - 8 * (PAIRS - 1), gb8, g, PAIRS);
                     }
                 }
             }
@@ -382,9 +447,7 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             s9::named_sync(BAR_ALL, CT);
 
             // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u) -> A
-            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
-                                                 tid, BAR_ALL,
-                                                 [&](int q) { tile_to_scratch(A, cotv_i, tid, q); });
+            product(cotv_i);
             s9::named_sync(BAR_ALL, CT);
             const int my_i = i0 + g;
 #pragma unroll
@@ -405,21 +468,19 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const float cu1 = (vr[hh] * gv.y + acc[h][4 * jj + 2 * hh + 1]) * ds.y;
                         gb[0] += cu0;   // b_e2 grad
                         gb[1] += cu1;
-                        *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
-                            act2<PASSES>(cu0, cu1);
+                        put2(rw + 8 * hh, col, cu0, cu1);
                     }
                     gb8[2 * (jj & 3)] = gb[0];
                     gb8[2 * (jj & 3) + 1] = gb[1];
-                    if ((jj & 3) == 3) add_cols8(cols + 1 * H::N + col - col0 - 24, gb8, g);
+                    if (flush(jj))
+                        add_cols8(cols + 1 * H::N + col - col0 - 8 * (PAIRS - 1), gb8, g, PAIRS);
                 }
             }
             s9::fence_async_smem();
             s9::named_sync(BAR_ALL, CT);   // silu'(u) read by every lane before cot_u replaces it
 
             // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d per row
-            s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp, lane,
-                                                 tid, BAR_ALL,
-                                                 [&](int q) { tile_to_scratch(A, cotu_i, tid, q); });
+            product(cotu_i);
             float sd[2] = {0.f, 0.f};
             const float d2r[2] = {row_d2[rw], row_d2[rw + 8]};
 #pragma unroll
@@ -448,7 +509,8 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     }
                     gd8[2 * (jj & 3)] = gd[0];
                     gd8[2 * (jj & 3) + 1] = gd[1];
-                    if ((jj & 3) == 3) add_cols8(cols + 0 * H::N + col - col0 - 24, gd8, g);
+                    if (flush(jj))
+                        add_cols8(cols + 0 * H::N + col - col0 - 8 * (PAIRS - 1), gd8, g, PAIRS);
                 }
             }
             const float cd2[2] = {quad_sum(sd[0]), quad_sum(sd[1])};
@@ -481,7 +543,7 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         float* red_cw = A;   // [256]
         red_cw[tid] = cw_sum;
         s9::named_sync(BAR_ALL, CT);
-        const float* all_cols = s.cols + (size_t)blockIdx.x * COLS_PER_BLOCK;
+        const float* all_cols = s.cols + (size_t)blockIdx.x * cols_per_block(HD);
         float* vp = s.vpart + (size_t)blockIdx.x * vpart_stride(HD);
         for (int k = tid; k < NVEC * HD; k += CT) {
             const int v = k / HD, c = k % HD, half = c / H::N;
@@ -501,13 +563,21 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
 
 // Split-K weight grads on wgmma: part[z][sl] = X_z^T @ Y_z over the valid
 // steps of slice sl (z = 0: (m1, cot_u) -> dW_e2, z = 1: (m, cot_v) ->
-// dW_x1), a block per 64 x 64 output tile (rows m0.., columns n0..): X's
-// and Y's 64 feature rows of one 32-row K block are contiguous in the
-// [2][512][32] layout, one bulk copy each.
+// dW_x1), a block per 64 x TN output tile (rows m0.., columns n0..; TN = 64,
+// or Hd below 64, where X brings Hd of the m64 operand's rows and the rest
+// go unread into unwritten output rows): X's and Y's feature rows of one
+// 32-row K block are contiguous in the [2][Hd][32] layout, one bulk copy
+// each.
+template <int HD>
 struct WgradLayout {
-    static constexpr int OP_BYTES = 64 * s9::KB * 4;            // an operand of a stage
-    static constexpr int STAGE = 2 * OP_BYTES;                   // X, Y
+    static constexpr int TN = HD < 64 ? HD : 64;                 // output columns of a tile
+    static constexpr int ROWS_X = HD < 64 ? HD : 64;             // feature rows X brings
+    static constexpr int X_BYTES = 64 * s9::KB * 4;              // the m64 operand
+    static constexpr int Y_BYTES = TN * s9::KB * 4;
+    static constexpr int STAGE = X_BYTES + Y_BYTES;              // X, Y
+    static constexpr int LOADED = ROWS_X * s9::KB * 4 + Y_BYTES; // bytes a stage's copies bring
     static constexpr int SPLIT = WSTAGES * STAGE;                // [2][Xs, Ys] (3xTF32)
+    static constexpr int TILES_N = HD / TN, TILES = ((HD + 63) / 64) * TILES_N;
     template <int PASSES>
     __host__ __device__ static constexpr int bars() { return SPLIT + (PASSES == 3 ? 2 * STAGE : 0); }
     template <int PASSES>
@@ -516,22 +586,22 @@ struct WgradLayout {
     }
 };
 
-template <int PASSES>
+template <int HD, int PASSES>
 __global__ void __launch_bounds__(WGRAD_THREADS, 2)
 egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0,
                       const float* __restrict__ x1, const float* __restrict__ y1,
                       const int* __restrict__ flags, float* __restrict__ part, int items,
                       int nsplit) {
-    using LY = WgradLayout;
-    constexpr int ACC = 32;   // m64n64 fp32 accumulator floats per thread
+    using LY = WgradLayout<HD>;
+    constexpr int TN = LY::TN, ACC = TN / 2;   // m64nTN fp32 accumulator floats per thread
     extern __shared__ char smem_raw[];
     char* sm = s9::smem_base(smem_raw);
-    uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::bars<PASSES>());
+    uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::template bars<PASSES>());
     uint64_t* empty = full + WSTAGES;
     int* list = reinterpret_cast<int*>(full + 2 * WSTAGES);
     float* split = reinterpret_cast<float*>(sm + LY::SPLIT);
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-    const int m0 = (blockIdx.x / (HD / 64)) * 64, n0 = (blockIdx.x % (HD / 64)) * 64;
+    const int m0 = (blockIdx.x / LY::TILES_N) * 64, n0 = (blockIdx.x % LY::TILES_N) * TN;
     const int sl = blockIdx.y, z = blockIdx.z;
     const float* X = z ? x1 : x0;
     const float* Y = z ? y1 : y0;
@@ -551,16 +621,18 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
                 const size_t base = (size_t)list[q / 2] * M * HD + (size_t)(q % 2) * s9::KB * HD;
                 float* st = reinterpret_cast<float*>(sm + rp.stage * LY::STAGE);
                 s9::mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
-                s9::mbar_expect_tx(&full[rp.stage], LY::STAGE);
-                s9::bulk_load(st, X + base + (size_t)m0 * s9::KB, LY::OP_BYTES, &full[rp.stage]);
-                s9::bulk_load(st + LY::OP_BYTES / 4, Y + base + (size_t)n0 * s9::KB, LY::OP_BYTES,
+                s9::mbar_expect_tx(&full[rp.stage], LY::LOADED);
+                s9::bulk_load(st, X + base + (size_t)m0 * s9::KB, LY::ROWS_X * s9::KB * 4,
+                              &full[rp.stage]);
+                s9::bulk_load(st + LY::X_BYTES / 4, Y + base + (size_t)n0 * s9::KB, LY::Y_BYTES,
                               &full[rp.stage]);
                 rp.next<WSTAGES>();
             }
         }
         return;
     }
-    float sum[ACC], step[4][ACC];
+    constexpr int SPAN = WGRAD_SPAN<HD>, NSUM = s9::KB / SPAN;   // step sums a chunk
+    float sum[ACC], step[NSUM][ACC];
 #pragma unroll
     for (int i = 0; i < ACC; ++i) sum[i] = 0.f;
     // 3xTF32: Xs, Ys = rna(v - trunc(v)) of a stage into split buffer b;
@@ -570,11 +642,8 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
         float4* dst = reinterpret_cast<float4*>(split + b * (LY::STAGE / 4));
         for (int i = tid; i < LY::STAGE / 16; i += s9::WG) {
             const float4 v = src[i];
-            auto lo = [](float f) {
-                return __uint_as_float(
-                    rna_tf32(f - __uint_as_float(__float_as_uint(f) & 0xFFFFE000u)));
-            };
-            dst[i] = make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
+            dst[i] = make_float4(s9::tf32_lo(v.x), s9::tf32_lo(v.y), s9::tf32_lo(v.z),
+                                 s9::tf32_lo(v.w));
         }
         s9::fence_async_smem();
     };
@@ -585,25 +654,27 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
     }
     for (int q = 0; q < nchunk; ++q) {
         const float* xa = reinterpret_cast<const float*>(sm + rp.stage * LY::STAGE);
-        const float* yb = xa + LY::OP_BYTES / 4;
+        const float* yb = xa + LY::X_BYTES / 4;
         if constexpr (PASSES == 3)   // chunk q's split written, chunk q - 1's products done
             s9::named_sync(1, s9::WG);
         else
             s9::mbar_wait(&full[rp.stage], rp.phase);
 #pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8) s9::pin(step[k8]);
+        for (int j = 0; j < NSUM; ++j) s9::pin(step[j]);
         s9::wg_fence();
 #pragma unroll
         for (int k8 = 0; k8 < s9::KB / 8; ++k8) {
             const uint64_t dx = s9::desc(xa + 8 * k8), dy = s9::desc(yb + 8 * k8);
+            float(&st)[ACC] = step[8 * k8 / SPAN];
+            const bool first = (8 * k8) % SPAN == 0;
             if constexpr (PASSES == 3) {
                 const float* xs = split + (q & 1) * (LY::STAGE / 4);
-                const float* ys = xs + LY::OP_BYTES / 4;
-                s9::Wgmma<64>::mma(step[k8], s9::desc(xs + 8 * k8), dy, 0);
-                s9::Wgmma<64>::mma(step[k8], dx, s9::desc(ys + 8 * k8), 1);
-                s9::Wgmma<64>::mma(step[k8], dx, dy, 1);
+                const float* ys = xs + LY::X_BYTES / 4;
+                s9::Wgmma<TN>::mma(st, s9::desc(xs + 8 * k8), dy, first ? 0 : 1);
+                s9::Wgmma<TN>::mma(st, dx, s9::desc(ys + 8 * k8), 1);
+                s9::Wgmma<TN>::mma(st, dx, dy, 1);
             } else {
-                s9::Wgmma<64>::mma(step[k8], dx, dy, 0);
+                s9::Wgmma<TN>::mma(st, dx, dy, first ? 0 : 1);
             }
         }
         s9::wg_commit();
@@ -615,36 +686,37 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
         }
         s9::wg_wait<0>();
 #pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8) s9::pin(step[k8]);
+        for (int j = 0; j < NSUM; ++j) s9::pin(step[j]);
         if (lane == 0) s9::mbar_arrive(&empty[rp.stage]);
         rp.next<WSTAGES>();
-        // each k8 step's sum added in round-to-nearest fp32, in order
+        // each step sum (SPAN rows) added in round-to-nearest fp32, in order
 #pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8)
+        for (int j = 0; j < NSUM; ++j)
 #pragma unroll
-            for (int i = 0; i < ACC; ++i) sum[i] += step[k8][i];
+            for (int i = 0; i < ACC; ++i) sum[i] += step[j][i];
     }
 
     float* out = part + ((size_t)z * nsplit + sl) * HD * HD;
     const int g = lane / 4, tq = lane % 4;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < TN / 8; ++jj)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
             const int i = m0 + 16 * warp + g + 8 * hh;
-            *reinterpret_cast<float2*>(out + (size_t)i * HD + n0 + 8 * jj + 2 * tq) =
-                make_float2(sum[4 * jj + 2 * hh], sum[4 * jj + 2 * hh + 1]);
+            if (i < HD)
+                *reinterpret_cast<float2*>(out + (size_t)i * HD + n0 + 8 * jj + 2 * tq) =
+                    make_float2(sum[4 * jj + 2 * hh], sum[4 * jj + 2 * hh + 1]);
         }
 }
 
-template <int PASSES, class In>
+template <int HD, int PASSES, class In>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, const float* g_agg, const float* g_delta, In* da,
                    In* dbs, float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
                    int B, int L, int W, int G, int nsplit, cudaStream_t stream) {
     if (G < 1 || nsplit < 1 || !scratch) return cudaErrorInvalidValue;
     Scratch s;
-    scratch_floats(B, L, W, G, nsplit, PASSES, &s, scratch);
+    scratch_floats(B, L, HD, W, G, nsplit, PASSES, &s, scratch);
     const int items = n_items(B, L, W);
     // x @ W_e2, x @ W_x1 (the recomputed products), x @ W_x1^T, x @ W_e2^T
     // (the cotangents), each as Wb (and Ws)
@@ -657,25 +729,26 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
             set.orient[set.n] = orients[q];
             set.part[set.n++] = p;
         }
-    cudaError_t err = s9::launch_images_half<NW>(set, s.img, stream);
+    cudaError_t err = s9::launch_images_half<HD, NW_OF<HD>>(set, s.img, stream);
     if (err != cudaSuccess) return err;
-    err = cudaMemsetAsync(s.cols, 0, sizeof(float) * G * COLS_PER_BLOCK, stream);
+    err = cudaMemsetAsync(s.cols, 0, sizeof(float) * G * cols_per_block(HD), stream);
     if (err != cudaSuccess) return err;
-    auto edges = egnn_bwd_edges_sm90_hd512<PASSES, In>;
-    err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize, EdgeLayout::SMEM);
+    auto edges = egnn_bwd_edges_sm90_hd512<HD, PASSES, In>;
+    err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               EdgeLayout<HD>::SMEM);
     if (err != cudaSuccess) return err;
-    edges<<<G, s9::THREADS, EdgeLayout::SMEM, stream>>>(a, bs, x, cmask, w[0], w[2], w[4], w[5],
-                                                       w[6], g_agg, g_delta, s, B, L, W);
+    edges<<<G, s9::THREADS, EdgeLayout<HD>::SMEM, stream>>>(a, bs, x, cmask, w[0], w[2], w[4],
+                                                           w[5], w[6], g_agg, g_delta, s, B, L, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     egnn_bwd_nodes<In, float><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
         s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int per = (items + nsplit - 1) / nsplit;
-    const size_t wsmem = WgradLayout::smem<PASSES>(per);
-    auto wgrad = egnn_wgrad_sm90_hd512<PASSES>;
+    const size_t wsmem = WgradLayout<HD>::template smem<PASSES>(per);
+    auto wgrad = egnn_wgrad_sm90_hd512<HD, PASSES>;
     err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
     if (err != cudaSuccess) return err;
-    const dim3 wgrid((HD / 64) * (HD / 64), nsplit, 2);
+    const dim3 wgrid(WgradLayout<HD>::TILES, nsplit, 2);
     wgrad<<<wgrid, WGRAD_THREADS, wsmem, stream>>>(s.m1, s.cotu, s.mm, s.cotv, s.flags, s.wpart,
                                                    items, nsplit);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -685,16 +758,22 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
-// f(Int<PASSES>{}, Type<In>{}) for passes 1 or 3 and the input type.
+// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}) for the modes this kernel takes:
+// width 512 in 1 or 3 passes, the widths 32 to 256 in 3; the input type.
 template <class F>
-cudaError_t dispatch(int passes, int bf16_in, F&& f) {
-    auto by_in = [&](auto p) -> cudaError_t {
-        return bf16_in ? f(p, Type<__nv_bfloat16>{}) : f(p, Type<float>{});
+cudaError_t dispatch(int hd, int passes, int bf16_in, F&& f) {
+    auto by_in = [&](auto h, auto p) -> cudaError_t {
+        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}) : f(h, p, Type<float>{});
     };
-    switch (passes) {
-        case 1: return by_in(Int<1>{});
-        case 3: return by_in(Int<3>{});
-        default: return cudaErrorInvalidValue;
+    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{});
+    if (passes != 3) return cudaErrorInvalidValue;
+    switch (hd) {
+        case 32:  return by_in(Int<32>{}, Int<3>{});
+        case 64:  return by_in(Int<64>{}, Int<3>{});
+        case 128: return by_in(Int<128>{}, Int<3>{});
+        case 256: return by_in(Int<256>{}, Int<3>{});
+        case 512: return by_in(Int<512>{}, Int<3>{});
+        default:  return cudaErrorInvalidValue;
     }
 }
 
@@ -702,44 +781,46 @@ cudaError_t dispatch(int passes, int bf16_in, F&& f) {
 
 extern "C" {
 
-// Floats of scratch one call needs (the caller allocates it), for G
-// edge-pass blocks, nsplit weight-grad slices and passes (1 or 3).
-size_t egnn_band_bwd_sm90_hd512_scratch_floats(int B, int L, int W, int G, int nsplit,
+// Floats of scratch one call needs (the caller allocates it), at width hd,
+// for G edge-pass blocks, nsplit weight-grad slices and passes (1 or 3).
+size_t egnn_band_bwd_sm90_hd512_scratch_floats(int B, int L, int hd, int W, int G, int nsplit,
                                                int passes) {
     Scratch s;
-    return scratch_floats(B, L, W, G, nsplit, passes, &s, nullptr);
+    return scratch_floats(B, L, hd, W, G, nsplit, passes, &s, nullptr);
 }
 
 // Edge-pass blocks that one SM holds, or a negative CUDA error code.
-int egnn_band_bwd_sm90_hd512_blocks_per_sm(int bf16_in, int passes) {
+int egnn_band_bwd_sm90_hd512_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
-        auto kernel = egnn_bwd_edges_sm90_hd512<decltype(p_c)::value, typename decltype(in_c)::type>;
+    const cudaError_t err = dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+        constexpr int HD = decltype(h_c)::value;
+        auto kernel = egnn_bwd_edges_sm90_hd512<HD, decltype(p_c)::value,
+                                                typename decltype(in_c)::type>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             EdgeLayout::SMEM);
+                                             EdgeLayout<HD>::SMEM);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
-                                                             EdgeLayout::SMEM);
+                                                             EdgeLayout<HD>::SMEM);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch the four passes on `stream`; returns the CUDA error code (0 =
-// success). As egnn_band_bwd_sm90_launch at hd 512, with passes (1 or 3
-// TF32 passes per product) and scratch as sized above.
+// success). As egnn_band_bwd_sm90_launch, at hd 512 with passes 1 or 3 (TF32
+// passes per product), at hd 32..256 with passes 3; scratch as sized above.
 int egnn_band_bwd_sm90_hd512_launch(const void* a, const void* bs, const float* x,
                                     const float* cmask, const float* w_d, const float* w_e2,
                                     const float* b_e2, const float* w_x1, const float* b_x1,
                                     const float* w_x2, const float* b_x2, const float* g_agg,
                                     const float* g_delta, void* da, void* dbs, float* dx,
                                     float* dw_e2, float* dw_x1, float* dvec, float* scratch, int B,
-                                    int L, int W, int G, int nsplit, int bf16_in, int passes,
-                                    void* stream) {
+                                    int L, int hd, int W, int G, int nsplit, int bf16_in,
+                                    int passes, void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(p_c)::value, In>(
+        return launch<decltype(h_c)::value, decltype(p_c)::value, In>(
             static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, g_agg, g_delta,
             static_cast<In*>(da), static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec, scratch, B, L, W,
             G, nsplit, s);

@@ -69,11 +69,11 @@
 // - Per-row reductions (the w_x2 dot product) sum each lane's columns, then
 //   the four lanes of a quad with shuffles, then the warps that own the
 //   row's other columns through shared memory, always in the same order.
-// The one-pass mode at widths 32 to 256 runs egnn_band_fwd_sm90.cu instead
-// (wgmma, a bulk-copy weight ring), and both fp32-chain modes at Hd 512
-// egnn_band_fwd_sm90_hd512.cu; this file no longer builds them (at 512
-// only the bf16 chain uses Tile<512>). Left for later: wgmma for the
-// bf16 chain and the wide variants.
+// The fp32 chain at the native widths runs on wgmma instead: the one-pass
+// mode at widths 32 to 256 in egnn_band_fwd_sm90.cu, 3xTF32 at 32 to 256
+// and both modes at Hd 512 in egnn_band_fwd_sm90_hd512.cu; this file no
+// longer builds them (Tile<HD> runs the bf16 chain only). Left for later:
+// wgmma for the bf16 chain and the wide variants.
 
 #include "egnn_passes.cuh"
 

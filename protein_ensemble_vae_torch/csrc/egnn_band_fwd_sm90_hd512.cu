@@ -1,10 +1,11 @@
-// EGNN band forward on Hopper (sm_90a) at the native width 512 (every
-// decoder width from 257 to 512 runs here, zero-padded to it), in the fp32
-// model's mode (precision="highest": 3xTF32 products, the fp32 chain) and
-// the bf16 model's one-pass mode (precision="default"), fp32 or bf16 a / bs.
-// The bf16 chain at 512 stays on egnn_band_fwd.cu (Tile<512>), the widths
-// 32 to 256 on egnn_band_fwd_sm90.cu / egnn_band_fwd.cu, those above 512 on
-// the wide variant.
+// EGNN band forward on Hopper (sm_90a), the shared-tile kernel: at the
+// native width 512 (every decoder width from 257 to 512 runs here,
+// zero-padded to it) in the fp32 model's mode (precision="highest": 3xTF32
+// products, the fp32 chain) and the bf16 model's one-pass mode
+// (precision="default"), and at the native widths 32 to 256 (and the widths
+// padded to them) in the fp32 model's 3xTF32 mode; fp32 or bf16 a / bs.
+// The one-pass mode up to 256 runs on egnn_band_fwd_sm90.cu, the bf16 chain
+// on egnn_band_fwd.cu, the widths above 512 on its wide variant.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/egnn_band.py (egnn_band.py:107): the function of
@@ -12,56 +13,78 @@
 // TF32 and summed in fp32 (one pass), or in three TF32 passes (PASSES = 3,
 // egnn_sm90.cuh: Half).
 //
-// What bounds it: operations, 4 Hd^2 FLOP per valid edge: 0.154 ms at
-// B4/L256 in one TF32 pass, three times that in 3xTF32. The weights are a
-// floor of their own: every 64-row step streams W_e2 and W_x1 (1 MiB each)
-// from L2, once per pass: one image each in one pass, three (Ws, Wb, Wb)
-// in 3xTF32.
+// What bounds it: operations, 4 Hd^2 FLOP per valid edge: at B4/L256 0.154
+// ms at Hd 512 and 0.039 ms at Hd 256 in one TF32 pass, three times that in
+// 3xTF32. The weights are a floor of their own: every 64-row step streams
+// W_e2 and W_x1 (Hd^2 fp32 each) from L2, once per image: one image each in
+// one pass, three (Ws, Wb, Wb) in 3xTF32 at 512, two (Ws, Wb) in 3xTF32 up
+// to 256.
 //
 // Design (egnn_sm90.cuh holds the building blocks):
 // - A block is a producer warpgroup and two consumer warpgroups; a
 //   persistent grid of one block per SM walks work units (batch row, tile of
 //   T = 8 receivers, slice of the band's 64-edge-row steps), unit g, g + G,
 //   ... Row r of a step is (offset slot r / 8, receiver r % 8).
-// - One activation tile A [64][512] (K-major, 128-byte swizzle, 128 KiB)
-//   serves both consumers: each computes its 256 output columns of every
-//   product (m64n128k8 wgmma, two column groups), reading all of A. The
-//   epilogues write the next activation into A by columns, so a barrier of
-//   both consumer warpgroups comes after both have retired the product that
-//   reads it (product_half ends in wgmma.wait_group 0) and before either
-//   writes, and the writes are fenced to the async proxy before the next
-//   product.
-// - Each consumer has its own ring of STAGES weight chunks (128 columns x
-//   32 K, 16 KiB), filled by its own producer warp from its half of the
-//   image with cp.async.bulk under full / empty mbarriers.
+// - One activation tile A [64][Hd] (K-major, 128-byte swizzle) serves both
+//   consumers: each computes its Hd / 2 output columns of every product
+//   (m64nNWk8 wgmma), reading all of A. The epilogues write the next
+//   activation into A by columns, so a barrier of both consumer warpgroups
+//   comes after both have retired the product that reads it (the products
+//   end in wgmma.wait_group 0) and before either writes, and the writes are
+//   fenced to the async proxy before the next product.
+// - Each consumer has its own ring of STAGES weight chunks (NW columns x 32
+//   K: 3 x 16 KiB at 512, 6 x 8 KiB at 256), filled by its own producer
+//   warp from its half of the image with cp.async.bulk under full / empty
+//   mbarriers.
 // - The w_x2 row dot product spans both halves: the second consumer's
 //   partial sums meet the first's in shared memory, added in that order.
 //   agg: A holds m exact (in one pass wgmma reads it truncated), and while
-//   the W_x1 product runs each consumer thread adds its two columns' valid
-//   rows of A to its registers, over the unit's steps in order; delta's
-//   partials meet in the A tile at the unit's end, added in warp order: no
-//   atomics, two launches bitwise identical. With S > 1 slices a unit
-//   writes its slice's partial and egnn_band_fwd_sum adds the S partials in
-//   slice order.
-// - 3xTF32: the products' chunks stream in the h-major order (a column
-//   group's K blocks in turn), each 128 K summed apart and added to the
-//   accumulators in round-to-nearest fp32 (egnn_sm90.cuh: product_hmajor),
-//   and silu / sigmoid are the accurate ones.
+//   the W_x1 product runs each consumer thread adds its columns' valid rows
+//   of A to its registers, over the unit's steps in order; delta's partials
+//   meet in the A tile at the unit's end, added in warp order: no atomics,
+//   two launches bitwise identical. With S > 1 slices a unit writes its
+//   slice's partial and egnn_band_fwd_sum adds the S partials in slice
+//   order.
+// - 3xTF32 at 512: the products' chunks stream in the h-major order (a
+//   column group's K blocks in turn), each 128 K summed apart and added to
+//   the accumulators in round-to-nearest fp32 (egnn_sm90.cuh:
+//   product_hmajor), the tile rewritten in place as its small part between
+//   the second and third pass (product_half).
+// - 3xTF32 up to 256: the split tile As = tf32_lo(A) lies beside A, written
+//   by the same epilogue (and fill), so no pass rewrites the tile and no
+//   barrier waits for a rewrite; each K block's Ws chunk and then its Wb
+//   chunk stream (two images, not three), the Wb chunk serving A.Wb and
+//   As.Wb (product_split), the big terms summed 32 K at a time and the
+//   small terms in their own accumulator, added in round-to-nearest fp32.
+//   The one-pass kernel's layout (egnn_band_fwd_sm90.cu: a tile per
+//   consumer, each on its own step; here the split in registers for
+//   wgmma's register-A form) was the other candidate: it halves the weight
+//   stream, but its m64n256 accumulator (128 registers) leaves no room for
+//   a step sum or a small-term accumulator under the consumers' 232, and
+//   the split would cost a shared-memory load and split of every A
+//   fragment per column group. The weight stream here is ~1.2 GB of L2
+//   reads at B4/L256 (~0.075 ms at the L2 rate, under the 3xTF32
+//   tensor-core bound of ~0.116 ms).
+// - silu / sigmoid are the fast ones (__expf, __fdividef) in one pass and
+//   in 3xTF32 up to 256 (the accurate ones took a third of this kernel's
+//   time there, and its error is the accumulation's either way, PERF.md),
+//   the accurate ones in 3xTF32 at 512.
 // - A step with no valid edge is skipped by all three warpgroups.
-// - Registers: setmaxnreg gives the consumers 232 (the two m64n128
-//   accumulators 128 per thread, a step sum 64 in 3xTF32, agg 16), the
-//   producer 40.
+// - Registers: setmaxnreg gives the consumers 232 (at 512 the two m64n128
+//   accumulators 128 per thread, a step sum 64 in 3xTF32, agg 16; at 256
+//   two m64n64 accumulators 64, a step sum and the small terms' 32 each,
+//   agg 8), the producer 40.
 // - Weight images (egnn_sm90.cuh: Half, image_value_half) are written per
 //   call by weight_images_half from this file's C entry, into scratch the
 //   wrapper allocates: Wb of W_e2 and W_x1, and in 3xTF32 also their Ws.
 //
 // Shared memory per block (bytes; + 1 KiB alignment slack):
-//   A tile (64 x 512 x 4)             131,072
-//   rings (2 x STAGES x 128 x 128)     98,304
-//   rows (valid, d2, j, rel[3])         1,536
-//   the second consumer's dot products    256
-//   flags, barriers                       112
-//   total                             232,304  (of 232,448)
+//   Hd  | A tile(s)          | rings (2 x STAGES x NW x 128)  | rows, part, flags, barriers | total
+//   512 | 131,072 (one)      | 98,304 (3 stages, NW 128)      | 1,904 | 232,304  (of 232,448)
+//   256 | 131,072 (A and As) | 98,304 (6 stages, NW 64)       | 2,000 | 232,400  (of 232,448)
+//   128 |  65,536            | 98,304 (6 stages, NW 64)       | 2,000 | 166,864
+//    64 |  32,768            | 49,152 (6 stages, NW 32)       | 2,000 |  84,944
+//    32 |  16,384            | 24,576 (6 stages, NW 16)       | 2,000 |  43,984
 
 #include "egnn_passes.cuh"
 #include "egnn_sm90.cuh"
@@ -71,15 +94,40 @@ namespace {
 using namespace egnn;
 namespace s9 = egnn::sm90;
 
-constexpr int NW = 128;                        // output columns per product
-constexpr int STAGES = 3;                      // chunks of each consumer's ring
 constexpr int BAR_ALL = 1;                     // named barrier of both consumer warpgroups
 constexpr int CT = s9::CONSUMERS * s9::WG;     // consumer threads
-using H = s9::Half<NW>;
 
+// output columns per product: 128 at 512; up to 256 64, or a consumer's
+// Hd / 2 below 128 (the small terms' accumulator beside the step sum)
+template <int HD>
+constexpr int NW_OF = HD == 512 ? 128 : HD / 2 < 64 ? HD / 2 : 64;
+// chunks of each consumer's ring: 3 of 16 KiB at 512, 6 below
+template <int HD>
+constexpr int STAGES_OF = HD == 512 ? 3 : 6;
+// K values a step sum in 3xTF32 (egnn_sm90.cuh: product_hmajor, product_split):
+// 128 at 512, 32 below (at Hd 256, B4/L256 on the card agg read 0.70 of the
+// GPU tests' tolerance with 64, 1.13 with 128, 2.67 summed whole, and a
+// raw_delta element that cancels to ~0.2 left it at 1.24x with 64, PERF.md)
+template <int HD>
+constexpr int GROUP_OF = HD == 512 ? 128 : 32;
+template <int HD>
+using HalfOf = s9::Half<HD, NW_OF<HD>>;
+// the split tile beside the activation tile (3xTF32 up to 256)
+template <int HD>
+constexpr bool SPLIT = HD < 512;
+// silu / sigmoid in the fast forms (egnn_sm90.cuh: silu_m): one pass, and
+// 3xTF32 up to 256; the accurate ones in 3xTF32 at 512
+template <int HD, int PASSES>
+constexpr bool FAST_SILU = PASSES == 1 || SPLIT<HD>;
+
+template <int HD>
 struct FwdLayout {
-    static constexpr int A = 0;                                     // [64][512]
-    static constexpr int RING = A + M * H::HD * 4;                  // [2][STAGES][CHUNK]
+    using H = HalfOf<HD>;
+    static constexpr int STAGES = STAGES_OF<HD>;
+    static constexpr int TILE = M * HD * 4;
+    static constexpr int A = 0;                                     // [64][HD]
+    static constexpr int AS = A + TILE;                             // [64][HD] (SPLIT)
+    static constexpr int RING = AS + (SPLIT<HD> ? TILE : 0);        // [2][STAGES][CHUNK]
     static constexpr int ROWS = RING + 2 * STAGES * H::CHUNK * 4;   // [6][64]
     static constexpr int PART = ROWS + 6 * M * 4;                   // [64]
     static constexpr int FLAGS = PART + M * 4;                      // int [4]
@@ -87,14 +135,13 @@ struct FwdLayout {
     static constexpr int SMEM = BARS + 4 * STAGES * 8 + 1024;
     static_assert(SMEM <= 232448, "shared memory of one block");
     static_assert(BARS % 8 == 0, "mbarriers are 8-byte aligned");
-    static_assert(CT * 2 == H::HD, "two agg columns per consumer thread");
 };
 
 // images per weight in the scratch: Wb, and in 3xTF32 Ws after it
 template <int PASSES>
 constexpr int PARTS = PASSES == 3 ? 2 : 1;
 
-template <int PASSES, class In>
+template <int HD, int PASSES, class In>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     const float* __restrict__ x, const float* __restrict__ cmask,
@@ -103,11 +150,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     const float* __restrict__ b_x2, const float* __restrict__ img,
                     float* __restrict__ agg, float* __restrict__ delta, int B, int L, int W,
                     int S, int steps_per_slice) {
-    constexpr int HD = H::HD;
-    using LY = FwdLayout;
+    static_assert(PASSES == 3 || !SPLIT<HD>, "one pass up to 256 runs on egnn_band_fwd_sm90.cu");
+    using LY = FwdLayout<HD>;
+    using H = HalfOf<HD>;
+    constexpr int NW = H::NW, STAGES = STAGES_OF<HD>;
+    // agg columns of a consumer thread: 2 at 512, else 1 (the first Hd threads)
+    constexpr int CPT = HD / CT > 1 ? HD / CT : 1;
     extern __shared__ char smem_raw[];
     char* sm = s9::smem_base(smem_raw);
     float* A = reinterpret_cast<float*>(sm + LY::A);
+    float* As = reinterpret_cast<float*>(sm + LY::AS);
     int* flags = reinterpret_cast<int*>(sm + LY::FLAGS);
     uint64_t* full = reinterpret_cast<uint64_t*>(sm + LY::BARS);   // [2][STAGES]
     uint64_t* empty = full + 2 * STAGES;
@@ -144,9 +196,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     if (lane == 0)
                         for (int wi = 0; wi < 2; ++wi) {   // W_e2, then W_x1
                             const float* big = img + (size_t)wi * PARTS<PASSES> * H::IMG;
-                            s9::produce_half<PASSES, NW, STAGES>(
-                                big, big + H::IMG, half, ring, full + half * STAGES,
-                                empty + half * STAGES, rp);
+                            if constexpr (SPLIT<HD>) {
+                                const size_t off = (size_t)half * (H::IMG / 2);
+                                s9::produce_split<H::NQ, H::CHUNK, STAGES>(
+                                    big + off, big + H::IMG + off, ring, full + half * STAGES,
+                                    empty + half * STAGES, rp);
+                            } else {
+                                s9::produce_half<PASSES, NW, STAGES>(
+                                    big, big + H::IMG, half, ring, full + half * STAGES,
+                                    empty + half * STAGES, rp);
+                            }
                         }
                     __syncwarp();
                 }
@@ -168,24 +227,47 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         const float bx2 = b_x2[0];
         s9::RingPos rp;
         float acc[H::NH][H::ACC];
-        float tmp[H::ACC];               // 3xTF32: a 128-K step sum (product_hmajor)
-        float agg_t[T][2];               // receiver i, columns 2 tid, 2 tid + 1
+        float tmp[2][H::ACC];            // 3xTF32: step sums (at 512 tmp[0])
+        float sml[1][H::ACC];            // 3xTF32 up to 256: the small terms (product_split)
+        float agg_t[T][CPT];             // receiver i, columns CPT tid ..
         float delta_r[3];                // first consumer, tq == 0: receiver g
+        const bool agg_cols = CPT * tid < HD;
         // agg += valid * m over the step's eight offset slots, read from A
         // while the product that reads m runs (A holds m exact)
         auto agg_side = [&](int q) {
-            if (q != 0) return;
+            if (q != 0 || !agg_cols) return;
 #pragma unroll
             for (int i = 0; i < T; ++i)
 #pragma unroll
                 for (int o = 0; o < OPS; ++o) {
                     const int r = o * T + i;
                     if (row_valid[r] > 0.f) {
-                        const float2 v = *reinterpret_cast<const float2*>(A + s9::sw_off(r, 2 * tid, M));
-                        agg_t[i][0] += v.x;
-                        agg_t[i][1] += v.y;
+                        if constexpr (CPT == 2) {
+                            const float2 v = *reinterpret_cast<const float2*>(A + s9::sw_off(r, 2 * tid, M));
+                            agg_t[i][0] += v.x;
+                            agg_t[i][1] += v.y;
+                        } else {
+                            agg_t[i][0] += A[s9::sw_off(r, tid, M)];
+                        }
                     }
                 }
+        };
+        // one product of the tile into acc, in the mode's passes
+        auto product = [&](auto side) {
+            if constexpr (SPLIT<HD>)
+                s9::product_split<HD, NW, H::NH, STAGES, GROUP_OF<HD>, true>(
+                    A, As, ring, my_full, my_empty, rp, acc, tmp, sml, lane, side);
+            else
+                s9::product_half<PASSES, NW, STAGES, true>(A, ring, my_full, my_empty, rp, acc,
+                                                           tmp[0], lane, tid, BAR_ALL, side);
+        };
+        // the activation (v0, v1) at columns (col, col + 1) of row r: exact
+        // in 3xTF32 (wgmma reads it truncated), with its small part in As
+        auto put2 = [&](int r, int col, float v0, float v1) {
+            *reinterpret_cast<float2*>(A + s9::sw_off(r, col, M)) = make_float2(v0, v1);
+            if constexpr (SPLIT<HD>)
+                *reinterpret_cast<float2*>(As + s9::sw_off(r, col, M)) =
+                    make_float2(s9::tf32_lo(v0), s9::tf32_lo(v1));
         };
 
         for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -195,7 +277,9 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             const In* bs_b = bs + row0 * HD;
             const int s1 = min(n_steps, (sl + 1) * steps_per_slice);
 #pragma unroll
-            for (int i = 0; i < T; ++i) agg_t[i][0] = agg_t[i][1] = 0.f;
+            for (int i = 0; i < T; ++i)
+#pragma unroll
+                for (int c = 0; c < CPT; ++c) agg_t[i][c] = 0.f;
             delta_r[0] = delta_r[1] = delta_r[2] = 0.f;
 
             for (int s = sl * steps_per_slice; s < s1; ++s) {
@@ -221,15 +305,15 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 if (!(flags[0] | flags[1])) continue;   // no valid edge: skipped by all
 
                 // A = silu(a_i + bs_j + d2 * w_d) (in TF32 in one pass); rows of invalid edges 0
-                s9::fill_pre<HD, In, CT, PASSES == 1>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j,
-                                                      i0, tid);
+                s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
+                    A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, nullptr,
+                    SPLIT<HD> ? As : nullptr);
                 s9::fence_async_smem();
                 s9::named_sync(BAR_ALL, CT);
 
                 // m = silu(A @ W_e2 + b_e2); A = m (exact: agg sums it from A, and
                 // wgmma reads it truncated in one pass)
-                s9::product_half<PASSES, NW, STAGES, true>(A, ring, my_full, my_empty, rp, acc, tmp,
-                                                           lane, tid, BAR_ALL);
+                product(s9::NoSide());
                 s9::named_sync(BAR_ALL, CT);   // both consumers' products have read A
                 const float vr[2] = {row_valid[rw], row_valid[rw + 8]};
 #pragma unroll
@@ -240,17 +324,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
 #pragma unroll
                         for (int hh = 0; hh < 2; ++hh)
-                            *reinterpret_cast<float2*>(A + s9::sw_off(rw + 8 * hh, col, M)) =
-                                make_float2(s9::silu_m<PASSES == 1>(acc[h][4 * jj + 2 * hh] + be.x),
-                                            s9::silu_m<PASSES == 1>(acc[h][4 * jj + 2 * hh + 1] + be.y));
+                            put2(rw + 8 * hh, col,
+                                 s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh] + be.x),
+                                 s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh + 1] + be.y));
                     }
                 s9::fence_async_smem();
                 s9::named_sync(BAR_ALL, CT);
 
                 // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2 per row; delta_i += valid * wsc * rel;
                 // agg += valid * m
-                s9::product_half<PASSES, NW, STAGES, true>(A, ring, my_full, my_empty, rp, acc, tmp,
-                                                           lane, tid, BAR_ALL, agg_side);
+                product(agg_side);
                 float sw[2] = {0.f, 0.f};
 #pragma unroll
                 for (int h = 0; h < H::NH; ++h)
@@ -261,8 +344,8 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
 #pragma unroll
                         for (int hh = 0; hh < 2; ++hh) {
-                            sw[hh] = fmaf(s9::silu_m<PASSES == 1>(acc[h][4 * jj + 2 * hh] + bx.x), wx.x, sw[hh]);
-                            sw[hh] = fmaf(s9::silu_m<PASSES == 1>(acc[h][4 * jj + 2 * hh + 1] + bx.y), wx.y, sw[hh]);
+                            sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh] + bx.x), wx.x, sw[hh]);
+                            sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh + 1] + bx.y), wx.y, sw[hh]);
                         }
                     }
                 const float s_own[2] = {quad_sum(sw[0]), quad_sum(sw[1])};
@@ -290,9 +373,13 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             float* delta_u = delta + (size_t)sl * B * L * 3;
 #pragma unroll
             for (int i = 0; i < T; ++i)
-                if (i0 + i < L)
-                    *reinterpret_cast<float2*>(agg_u + (row0 + i0 + i) * HD + 2 * tid) =
-                        make_float2(agg_t[i][0], agg_t[i][1]);
+                if (i0 + i < L && agg_cols) {
+                    if constexpr (CPT == 2)
+                        *reinterpret_cast<float2*>(agg_u + (row0 + i0 + i) * HD + 2 * tid) =
+                            make_float2(agg_t[i][0], agg_t[i][1]);
+                    else
+                        agg_u[(row0 + i0 + i) * HD + tid] = agg_t[i][0];
+                }
             s9::named_sync(BAR_ALL, CT);   // both consumers' products have read A
             float* red_d = A;                     // [4 warps][T][3]
             if (wg == 0 && tq == 0) {
@@ -311,7 +398,7 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
     }
 }
 
-template <int PASSES, class In>
+template <int HD, int PASSES, class In>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, float* img, float* agg, float* delta, float* part_agg,
                    float* part_delta, int B, int L, int W, int S, int G, cudaStream_t stream) {
@@ -329,32 +416,39 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
             set.orient[set.n] = s9::IMG_T;
             set.part[set.n++] = p;
         }
-    cudaError_t err = s9::launch_images_half<NW>(set, img, stream);
+    cudaError_t err = s9::launch_images_half<HD, NW_OF<HD>>(set, img, stream);
     if (err != cudaSuccess) return err;
-    auto kernel = egnn_fwd_sm90_hd512<PASSES, In>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FwdLayout::SMEM);
+    auto kernel = egnn_fwd_sm90_hd512<HD, PASSES, In>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FwdLayout<HD>::SMEM);
     if (err != cudaSuccess) return err;
-    kernel<<<G, s9::THREADS, FwdLayout::SMEM, stream>>>(
+    kernel<<<G, s9::THREADS, FwdLayout<HD>::SMEM, stream>>>(
         a, bs, x, cmask, w[0], w[2], w[4], w[5], w[6], img, S > 1 ? part_agg : agg,
         S > 1 ? part_delta : delta, B, L, W, S, per);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
-    const size_t n_agg4 = (size_t)B * L * H::HD / 4, n_delta = (size_t)B * L * 3;
+    const size_t n_agg4 = (size_t)B * L * HD / 4, n_delta = (size_t)B * L * 3;
     const size_t blocks = (n_agg4 + n_delta + egnn::THREADS - 1) / egnn::THREADS;
     egnn_band_fwd_sum<<<(unsigned)(blocks < 4096 ? blocks : 4096), egnn::THREADS, 0, stream>>>(
         part_agg, part_delta, agg, delta, n_agg4, n_delta, S);
     return cudaGetLastError();
 }
 
-// f(Int<PASSES>{}, Type<In>{}) for passes 1 or 3 and the input type.
+// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}) for the modes this kernel takes:
+// width 512 in 1 or 3 passes, the widths 32 to 256 in 3; the input type.
 template <class F>
-cudaError_t dispatch(int passes, int bf16_in, F&& f) {
-    auto by_in = [&](auto p) -> cudaError_t {
-        return bf16_in ? f(p, Type<__nv_bfloat16>{}) : f(p, Type<float>{});
+cudaError_t dispatch(int hd, int passes, int bf16_in, F&& f) {
+    auto by_in = [&](auto h, auto p) -> cudaError_t {
+        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}) : f(h, p, Type<float>{});
     };
-    switch (passes) {
-        case 1: return by_in(Int<1>{});
-        case 3: return by_in(Int<3>{});
-        default: return cudaErrorInvalidValue;
+    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{});
+    if (passes != 3) return cudaErrorInvalidValue;
+    switch (hd) {
+        case 32:  return by_in(Int<32>{}, Int<3>{});
+        case 64:  return by_in(Int<64>{}, Int<3>{});
+        case 128: return by_in(Int<128>{}, Int<3>{});
+        case 256: return by_in(Int<256>{}, Int<3>{});
+        case 512: return by_in(Int<512>{}, Int<3>{});
+        default:  return cudaErrorInvalidValue;
     }
 }
 
@@ -363,46 +457,49 @@ cudaError_t dispatch(int passes, int bf16_in, F&& f) {
 extern "C" {
 
 // Blocks of the kernel that one SM holds, or a negative CUDA error code.
-int egnn_band_fwd_sm90_hd512_blocks_per_sm(int bf16_in, int passes) {
+int egnn_band_fwd_sm90_hd512_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
-        auto kernel = egnn_fwd_sm90_hd512<decltype(p_c)::value, typename decltype(in_c)::type>;
+    const cudaError_t err = dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+        constexpr int HD = decltype(h_c)::value;
+        auto kernel = egnn_fwd_sm90_hd512<HD, decltype(p_c)::value, typename decltype(in_c)::type>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             FwdLayout::SMEM);
+                                             FwdLayout<HD>::SMEM);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
-                                                             FwdLayout::SMEM);
+                                                             FwdLayout<HD>::SMEM);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch on `stream`; returns the CUDA error code (0 = success). As
-// egnn_band_fwd_sm90_launch at hd 512, with passes (1 or 3 TF32 passes per
-// product) and img: 2 x 512^2 floats of scratch in one pass, 4 x 512^2 in
-// three.
+// egnn_band_fwd_sm90_launch, at hd 512 with passes 1 or 3 (TF32 passes per
+// product), at hd 32..256 with passes 3; img: 2 x hd^2 floats of scratch in
+// one pass, 4 x hd^2 in three.
 int egnn_band_fwd_sm90_hd512_launch(const void* a, const void* bs, const float* x,
                                     const float* cmask, const float* w_d, const float* w_e2,
                                     const float* b_e2, const float* w_x1, const float* b_x1,
                                     const float* w_x2, const float* b_x2, float* img, float* agg,
                                     float* delta, float* part_agg, float* part_delta, int B, int L,
-                                    int W, int S, int G, int bf16_in, int passes, void* stream) {
+                                    int hd, int W, int S, int G, int bf16_in, int passes,
+                                    void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(p_c)::value, In>(static_cast<const In*>(a),
-                                                static_cast<const In*>(bs), x, cmask, w, img, agg,
-                                                delta, part_agg, part_delta, B, L, W, S, G, s);
+        return launch<decltype(h_c)::value, decltype(p_c)::value, In>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, img, agg, delta,
+            part_agg, part_delta, B, L, W, S, G, s);
     });
 }
 
-// The width-512 weight images alone (the layout kernel), for a test against
-// the wrapper's numpy mirror: n (1..8) images of srcs[q] in orientation
-// orient[q] (0 = IMG_T, 1 = IMG_N), part[q] (0 = big, 1 = small), with nw
-// (64 or 128) columns per chunk, in the h-major chunk order if hmajor, into
-// img [n][512 * 512].
+// The shared-tile kernels' weight images alone (the layout kernel), for a
+// test against the wrapper's numpy mirror: n (1..8) images of the hd x hd
+// srcs[q] in orientation orient[q] (0 = IMG_T, 1 = IMG_N), part[q] (0 =
+// big, 1 = small), with nw columns per chunk (a width's kernel-1 or
+// kernel-2 chunks: 64 or 128 at hd 512 and 256, hd / 2 below), in the
+// h-major chunk order if hmajor, into img [n][hd * hd].
 int egnn_hd512_weight_images(const float* const* srcs, const int* orient, const int* part, int n,
-                             int nw, int hmajor, float* img, void* stream) {
+                             int hd, int nw, int hmajor, float* img, void* stream) {
     if (n < 1 || n > 8) return cudaErrorInvalidValue;
     s9::HalfImageSet set{};
     set.hmajor = hmajor;
@@ -413,11 +510,14 @@ int egnn_hd512_weight_images(const float* const* srcs, const int* orient, const 
     }
     set.n = n;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (nw) {
-        case 64: return s9::launch_images_half<64>(set, img, s);
-        case 128: return s9::launch_images_half<128>(set, img, s);
-        default: return cudaErrorInvalidValue;
-    }
+    if (hd == 512 && nw == 64) return s9::launch_images_half<512, 64>(set, img, s);
+    if (hd == 512 && nw == 128) return s9::launch_images_half<512, 128>(set, img, s);
+    if (hd == 256 && nw == 64) return s9::launch_images_half<256, 64>(set, img, s);
+    if (hd == 256 && nw == 128) return s9::launch_images_half<256, 128>(set, img, s);
+    if (hd == 128 && nw == 64) return s9::launch_images_half<128, 64>(set, img, s);
+    if (hd == 64 && nw == 32) return s9::launch_images_half<64, 32>(set, img, s);
+    if (hd == 32 && nw == 16) return s9::launch_images_half<32, 16>(set, img, s);
+    return cudaErrorInvalidValue;
 }
 
 const char* egnn_band_fwd_sm90_hd512_error_string(int err) {

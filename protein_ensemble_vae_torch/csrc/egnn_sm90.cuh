@@ -1,8 +1,9 @@
-// Hopper building blocks of the one-pass EGNN band kernels
-// (egnn_band_fwd_sm90.cu, egnn_band_bwd_sm90.cu): warpgroup products
-// (wgmma) on TF32 operands in shared memory, a ring of weight chunks filled
-// by bulk asynchronous copies under mbarriers, and the operand layout both
-// sides agree on.
+// Hopper building blocks of the EGNN band kernels on wgmma (the one-pass
+// egnn_band_{fwd,bwd}_sm90.cu and the shared-tile
+// egnn_band_{fwd,bwd}_sm90_hd512.cu): warpgroup products (wgmma) on TF32
+// operands in shared memory, a ring of weight chunks filled by bulk
+// asynchronous copies under mbarriers, and the operand layout both sides
+// agree on.
 //
 // Operand layout (K-major, 128-byte swizzle). wgmma's TF32 form takes both
 // operands K-major only (no transpose bit): a 64-row A tile [64][K] and a
@@ -143,15 +144,18 @@ template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
 
 // silu and its derivative (egnn_tile.cuh) with the fast exponential and
-// division (__expf, __fdividef, a few ulp): the one-pass mode's TF32
-// operands (~1e-3 relative) dwarf that. Large |x| still give x * 0 (or 0)
-// and x, and s in {0, 1}.
+// division (__expf, __fdividef, a few ulp; ~1e-6 relative at |x| ~ 20):
+// the one-pass mode's TF32 operands (~1e-3 relative) dwarf that, and so
+// does 3xTF32's truncating accumulation (its drift reached 0.7 of the fp32
+// tolerance at Hd 256 with the fast and with the accurate forms alike,
+// PERF.md). Large |x| still give x * 0 (or 0) and x, and s in {0, 1}.
 __device__ __forceinline__ float silu_fast(float x) { return __fdividef(x, 1.0f + __expf(-x)); }
 __device__ __forceinline__ float sigmoid_fast(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 // silu'(x) from s = sigmoid(x), which silu(x) = x s shares
 __device__ __forceinline__ float dsilu_of(float x, float s) { return s * (1.0f + x * (1.0f - s)); }
-// the fast forms where FAST (one pass), egnn_tile.cuh's accurate ones (expf,
-// IEEE division) in 3xTF32, whose products hold fp32 accuracy
+// the fast forms where FAST (one pass; 3xTF32 up to Hd 256, where the
+// accurate ones took a third of kernel 1's time), egnn_tile.cuh's accurate
+// ones (expf, IEEE division) otherwise (3xTF32 at 512)
 template <bool FAST>
 __device__ __forceinline__ float sigmoid_m(float x) { return FAST ? sigmoid_fast(x) : sigmoid(x); }
 template <bool FAST>
@@ -175,6 +179,19 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
 // d (m64nN, fp32) = A (64 x 8, TF32) * B (N x 8, TF32) + (scale_d ? d : 0)
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+    __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db,
+                                               int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(da), "l"(db), "r"(scale_d));
+    }
+};
 
 template <>
 struct Wgmma<32> {
@@ -386,20 +403,27 @@ __device__ __forceinline__ bool edge_row(const float* __restrict__ cmask, size_t
 
 // cvt.rna.tf32.f32's rounding of v (egnn_tile.cuh: rna_tf32), as an fp32 value.
 __device__ __forceinline__ float tf32(float v) { return __uint_as_float(rna_tf32(v)); }
+// 3xTF32's small part of an operand that wgmma reads truncated (its low 13
+// bits dropped): rna(v - trunc(v)), so that trunc(v) + it holds v to ~2^-21.
+__device__ __forceinline__ float tf32_lo(float v) {
+    return tf32(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
+}
 
 // A = silu(pre), pre = a_i + bs_j + d2 * w_d, of a step's 64 edge rows
 // (row r: receiver i0 + r % T, sender row_j[r]), rounded to TF32 (or, with
-// ROUND false, exact and with the accurate sigmoid: the 3xTF32 mode splits
-// it later), in the K-major
-// swizzled tile, and with dpre also silu'(pre) into dpre [64][HD]
-// (row-major, fp32); rows of invalid edges are 0. Thread t of the NT that
-// fill it reads 16 bytes of a_i and of bs_j at a time.
-template <int HD, class In, int NT = WG, bool ROUND = true>
+// ROUND false, exact: the 3xTF32 mode; sigmoid_m<FAST>), in
+// the K-major swizzled tile, with As also its small part tf32_lo(A) into
+// the split tile As (3xTF32 at widths up to 256), and with dpre also
+// silu'(pre) into dpre [64][HD] (row-major, fp32); rows of invalid edges
+// are 0. Thread t of the NT that fill it reads 16 bytes of a_i and of bs_j
+// at a time.
+template <int HD, class In, int NT = WG, bool ROUND = true, bool FAST = ROUND>
 __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
                                          const In* __restrict__ bs_b, const float* __restrict__ w_d,
                                          const float* row_valid, const float* row_d2,
                                          const int* row_j, int i0, int t,
-                                         float* __restrict__ dpre = nullptr) {
+                                         float* __restrict__ dpre = nullptr,
+                                         float* __restrict__ As = nullptr) {
     constexpr int NV = Vec<In>::N, HDV = HD / NV;
     auto rd = [](float v) { return ROUND ? __uint_as_float(rna_tf32(v)) : v; };
 #pragma unroll 4
@@ -420,7 +444,7 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
 #pragma unroll
                 for (int q = 4 * q4; q < 4 * q4 + 4; ++q) {
                     const float pre = av[q] + bv[q] + d2 * w4[q % 4];
-                    const float s = sigmoid_m<ROUND>(pre);
+                    const float s = sigmoid_m<FAST>(pre);
                     pv[q] = pre * s;
                     dv[q] = dsilu_of(pre, s);
                 }
@@ -431,6 +455,13 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
             *reinterpret_cast<float4*>(A + sw_off(r, c + 4 * q4, M)) =
                 make_float4(rd(pv[4 * q4]), rd(pv[4 * q4 + 1]), rd(pv[4 * q4 + 2]),
                             rd(pv[4 * q4 + 3]));
+        if (As) {
+#pragma unroll
+            for (int q4 = 0; q4 < NV / 4; ++q4)
+                *reinterpret_cast<float4*>(As + sw_off(r, c + 4 * q4, M)) =
+                    make_float4(tf32_lo(pv[4 * q4]), tf32_lo(pv[4 * q4 + 1]),
+                                tf32_lo(pv[4 * q4 + 2]), tf32_lo(pv[4 * q4 + 3]));
+        }
         if (dpre) {
 #pragma unroll
             for (int q4 = 0; q4 < NV / 4; ++q4)
@@ -440,45 +471,55 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
     }
 }
 
-// ---- width 512: one shared A tile, the columns split between the consumers ----
+// ---- one shared A tile, the columns split between the consumers ----------
 //
-// At Hd 512 one 64-row activation tile is 128 KiB, so the two consumer
-// warpgroups share it: each computes its half of the output columns (256)
-// of every product, over all 512 K values, from its own weight ring. The
-// producer warpgroup's first two warps stream one half each. A half image
-// is (K block kc, column group h) chunks of NW rows x 32 K values, h
-// fastest, as Cols' chunks; an image is its two halves in turn (the N-half
+// The shared-tile kernels (egnn_band_{fwd,bwd}_sm90_hd512.cu): the two
+// consumer warpgroups share one 64-row activation tile (128 KiB at Hd 512)
+// and each computes its half of the output columns (N = HD / 2) of every
+// product, over all HD K values, from its own weight ring. The producer
+// warpgroup's first two warps stream one half each. A half image is (K
+// block kc, column group h) chunks of NW rows x 32 K values, h fastest, as
+// Cols' chunks, or h-major; an image is its two halves in turn (the N-half
 // chunk order).
 //
-// 3xTF32 at this width (PASSES = 3). The tile holds the activation X in
-// fp32; wgmma reads an fp32 operand as TF32 by dropping its low 13 bits, so
-// it reads trunc(X). With W = Wb + Ws (Wb = rna(W), Ws = rna(W - Wb), two
-// images) a product is Xt.Ws + Xt.Wb, then, after both warpgroups are done
-// with the tile, the tile is rewritten in place as Xs = rna(X - trunc(X))
-// (split_tile) and Xs.Wb added (product_half): three passes over three
-// streamed images. trunc(X) + Xs holds X to ~2^-21 of it, Wb + Ws holds W
-// to ~2^-22; the dropped Xs.Ws is ~2^-20 of the product. The tensor cores'
-// accumulation, which rounds toward zero, is the larger error at K 512
-// (product_hmajor).
-template <int NW_>
+// 3xTF32 (PASSES = 3). The tile holds the activation X in fp32; wgmma reads
+// an fp32 operand as TF32 by dropping its low 13 bits, so it reads
+// trunc(X). With W = Wb + Ws (Wb = rna(W), Ws = rna(W - Wb), two images) a
+// product is Xt.Wb + Xt.Ws + Xs.Wb, Xs = rna(X - trunc(X)) (tf32_lo).
+// trunc(X) + Xs holds X to ~2^-21 of it, Wb + Ws holds W to ~2^-22; the
+// dropped Xs.Ws is ~2^-20 of the product.
+// - At Hd 512 no second tile fits: the ring brings Ws, Wb, Wb, and the tile
+//   is rewritten in place as Xs between the second and third pass
+//   (product_half, split_tile): three streamed images per product.
+// - Up to Hd 256 the split tile Xs lies beside X (64 KiB at Hd 256), written
+//   by the epilogue that writes X (fill_pre's As, tf32_lo): the ring brings
+//   each K block's Ws chunk, then its Wb chunk, which serves Xt.Wb and
+//   Xs.Wb (product_split, produce_split): two streamed images per product,
+//   and no rewrite, no barrier beyond the one per activation.
+// The tensor cores' accumulation rounds toward zero; the big term's sums
+// are kept apart from the small terms' (product_split) and, in kernel 1,
+// summed 128 K (at 512) or 32 K at a time in round-to-nearest fp32
+// (product_hmajor, product_split's GROUP).
+template <int HD_, int NW_>
 struct Half {
-    static constexpr int HD = 512, N = 256;      // width; output columns per consumer
+    static constexpr int HD = HD_, N = HD_ / 2;  // width; output columns per consumer
     static constexpr int NW = NW_;               // columns per product (m64nNWk8)
     static constexpr int NH = N / NW;            // column groups per consumer
     static constexpr int CHUNK = NW * KB;        // floats of a ring chunk
     static constexpr int NQ = (HD / KB) * NH;    // chunks of one half image
     static constexpr int ACC = NW / 2;           // accumulator floats per thread and group
     static constexpr int IMG = HD * HD;          // floats of an image
+    static_assert(N % NW == 0 && HD % KB == 0, "whole column groups and K blocks");
 };
 
-// Image element e of a 512 x 512 weight w in orientation `orient`, part 0
+// Image element e of an HD x HD weight w in orientation `orient`, part 0
 // (big: rna(v)) or 1 (small: rna(v - rna(v))), in the N-half chunk order;
 // within a half the chunks go (K block, column group), the group fastest,
 // or with `hmajor` (column group, K block).
-template <int NW>
+template <int HD, int NW>
 __device__ __forceinline__ float image_value_half(const float* __restrict__ w, int orient,
                                                   int part, int hmajor, int e) {
-    using H = Half<NW>;
+    using H = Half<HD, NW>;
     constexpr int NKC = H::HD / KB;
     const int half = e / (H::N * H::HD), eh = e % (H::N * H::HD);
     const int q = eh / H::CHUNK, r = eh % H::CHUNK;
@@ -501,21 +542,21 @@ struct HalfImageSet {
     int hmajor;
 };
 
-template <int NW>
+template <int HD, int NW>
 __global__ void __launch_bounds__(256) weight_images_half(HalfImageSet set, float* __restrict__ img) {
-    constexpr int per = Half<NW>::IMG;
+    constexpr int per = Half<HD, NW>::IMG;
     for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < set.n * per;
          idx += gridDim.x * blockDim.x) {
         const int q = idx / per;
-        img[idx] = image_value_half<NW>(set.src[q], set.orient[q], set.part[q], set.hmajor,
-                                        idx % per);
+        img[idx] = image_value_half<HD, NW>(set.src[q], set.orient[q], set.part[q], set.hmajor,
+                                            idx % per);
     }
 }
 
-template <int NW>
+template <int HD, int NW>
 cudaError_t launch_images_half(const HalfImageSet& set, float* img, cudaStream_t stream) {
-    const int n = set.n * Half<NW>::IMG;
-    weight_images_half<NW><<<(n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048, 256, 0, stream>>>(
+    const int n = set.n * Half<HD, NW>::IMG;
+    weight_images_half<HD, NW><<<(n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048, 256, 0, stream>>>(
         set, img);
     return cudaGetLastError();
 }
@@ -528,10 +569,7 @@ __device__ __forceinline__ void split_tile(float* A, int t) {
 #pragma unroll 4
     for (int i = t; i < M * 512 / 4; i += NT) {
         float4 v = reinterpret_cast<float4*>(A)[i];
-        auto lo = [](float x) {
-            return __uint_as_float(rna_tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
-        };
-        v = make_float4(lo(v.x), lo(v.y), lo(v.z), lo(v.w));
+        v = make_float4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
         reinterpret_cast<float4*>(A)[i] = v;
     }
 }
@@ -596,22 +634,22 @@ __device__ __forceinline__ void product_hmajor(const float* A, const float* ring
     if (lane == 0) mbar_arrive(&empty[prev]);
 }
 
-// One product of the shared tile in the mode's passes, into the consumer's
-// accumulators: with PASSES 1 the tile holds rna(X) (or X, which wgmma reads
-// truncated) and one image streams; with PASSES 3 it holds X, and the ring
-// brings Ws, Wb, Wb (see Half), the tile split in place between the second
-// and third pass. HMAJOR: the images are in the h-major chunk order and
-// product_hmajor runs, in 3xTF32 with 128-K step sums into `tmp`. Every
-// thread of both consumer warpgroups calls it; bar_all names their barrier.
-// side(q) runs during the first pass (it may read the tile).
+// One product of the shared [64][512] tile in the mode's passes, into the
+// consumer's accumulators: with PASSES 1 the tile holds rna(X) (or X, which
+// wgmma reads truncated) and one image streams; with PASSES 3 it holds X,
+// and the ring brings Ws, Wb, Wb (see Half), the tile split in place
+// between the second and third pass. HMAJOR: the images are in the h-major
+// chunk order and product_hmajor runs, in 3xTF32 with 128-K step sums into
+// `tmp`. Every thread of both consumer warpgroups calls it; bar_all names
+// their barrier. side(q) runs during the first pass (it may read the tile).
 template <int PASSES, int NW, int STAGES, bool HMAJOR = false, class Side = NoSide>
 __device__ __forceinline__ void product_half(float* A, const float* ring, uint64_t* full,
                                              uint64_t* empty, RingPos& rp,
-                                             float (&acc)[Half<NW>::NH][NW / 2],
+                                             float (&acc)[Half<512, NW>::NH][NW / 2],
                                              float (&tmp)[NW / 2], int lane, int tid, int bar_all,
                                              Side side = Side()) {
     static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
-    using H = Half<NW>;
+    using H = Half<512, NW>;
     constexpr int GROUP = PASSES == 3 ? 128 : 0;
     auto pass = [&](bool accumulate, auto sd) {
         if constexpr (HMAJOR)
@@ -639,13 +677,143 @@ template <int PASSES, int NW, int STAGES>
 __device__ __forceinline__ void produce_half(const float* img_big, const float* img_small,
                                              int half, float* ring, uint64_t* full,
                                              uint64_t* empty, RingPos& rp) {
-    using H = Half<NW>;
+    using H = Half<512, NW>;
     const size_t off = (size_t)half * (H::IMG / 2);
     if constexpr (PASSES == 3) {
         produce_chunks<H::NQ, H::CHUNK, STAGES>(img_small + off, ring, full, empty, rp);
         produce_chunks<H::NQ, H::CHUNK, STAGES>(img_big + off, ring, full, empty, rp);
     }
     produce_chunks<H::NQ, H::CHUNK, STAGES>(img_big + off, ring, full, empty, rp);
+}
+
+// 3xTF32 with the split tile beside the activation tile (widths up to 256):
+// acc[h] = X @ W over the consumer's columns, X the shared tile (read
+// truncated), Xs = tf32_lo(X) the split tile, the ring bringing chunk q of
+// the Ws image, then chunk q of the Wb image (produce_split), chunks in the
+// h-major order if HMAJOR, else (K block, column group). Per chunk pair:
+// Xt.Ws into the small terms' accumulator, then Xt.Wb into the big sum and
+// Xs.Wb into the small terms', the two accumulators interleaved; the small
+// terms are added to acc[h] in round-to-nearest fp32 once a column group's
+// K blocks are done (HMAJOR: one small accumulator, reused per group;
+// else one per group, added at the end). The big sum: with GROUP (HMAJOR
+// only) each GROUP K values accumulate from zero into a step sum, tmp[0]
+// and tmp[1] in turn, which is added to acc[h] in round-to-nearest fp32
+// once the next group's first Ws chunk is issued and the chunks before it
+// have completed (wg_wait<1>), so the tensor cores do not drain at a
+// group's end; with GROUP 0 acc[h] accumulates directly. Every thread of
+// the consumer warpgroup calls it; side(q) runs after chunk pair q's
+// products are issued, while they run.
+template <int KD, int NW, int NH, int STAGES, int GROUP, bool HMAJOR, class Side = NoSide>
+__device__ __forceinline__ void product_split(const float* X, const float* Xs, const float* ring,
+                                              uint64_t* full, uint64_t* empty, RingPos& rp,
+                                              float (&acc)[NH][NW / 2], float (&tmp)[2][NW / 2],
+                                              float (&sml)[HMAJOR ? 1 : NH][NW / 2], int lane,
+                                              Side side = Side()) {
+    // K blocks a step sum: GROUP's, or all of them where K is shorter
+    constexpr int CHUNK = NW * KB, NKC = KD / KB;
+    constexpr int GKC = GROUP && GROUP / KB < NKC ? GROUP / KB : NKC, NG = NKC / GKC;
+    static_assert(NKC % GKC == 0 && (GROUP == 0 || HMAJOR), "whole groups, h-major");
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
+#pragma unroll
+    for (int h = 0; h < (HMAJOR ? 1 : NH); ++h) pin(sml[h]);
+    int prev = -1;
+    auto release = [&]() {   // the last group but one has completed: free its stage
+        wg_wait<1>();
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = rp.stage;
+        rp.next<STAGES>();
+    };
+    // acc[h] (+)= a completed sum t, in round-to-nearest fp32
+    auto add_to = [&](int h, float (&t)[NW / 2], bool first) {
+        pin(t);
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) acc[h][i] = first ? t[i] : acc[h][i] + t[i];
+    };
+    // Chunk pair (h, kc), the big sum into `big` (a step sum starting at
+    // each group's first K block, or acc[h]); after_ws() runs once the Ws
+    // chunk is issued and every earlier chunk has completed. h is a
+    // constant wherever pair is called: the loops over h unroll.
+    auto pair = [&](int h, int kc, float (&big)[NW / 2], auto after_ws) {
+        float(&s)[NW / 2] = sml[HMAJOR ? 0 : h];
+        const float* a = X + kc * 64 * KB;
+        const float* as = Xs + kc * 64 * KB;
+        mbar_wait(&full[rp.stage], rp.phase);   // Ws
+        const float* b = ring + rp.stage * CHUNK;
+        wg_fence();
+#pragma unroll
+        for (int k8 = 0; k8 < KB / 8; ++k8)
+            Wgmma<NW>::mma(s, desc(a + 8 * k8), desc(b + 8 * k8), (kc | k8) != 0);
+        wg_commit();
+        release();
+        after_ws();
+        mbar_wait(&full[rp.stage], rp.phase);   // Wb
+        b = ring + rp.stage * CHUNK;
+        wg_fence();
+        const int kz = GROUP ? kc % GKC : kc;   // K blocks into `big` so far
+#pragma unroll
+        for (int k8 = 0; k8 < KB / 8; ++k8) {
+            Wgmma<NW>::mma(big, desc(a + 8 * k8), desc(b + 8 * k8), (kz | k8) != 0);
+            Wgmma<NW>::mma(s, desc(as + 8 * k8), desc(b + 8 * k8), 1);
+        }
+        wg_commit();
+        side(HMAJOR ? h * NKC + kc : kc * NH + h);
+        release();
+    };
+    auto nothing = [] {};
+    // acc[h] += the small terms, in round-to-nearest fp32 (all products done)
+    auto add_small = [&](int h) { add_to(h, sml[HMAJOR ? 0 : h], false); };
+    if constexpr (HMAJOR) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+            if constexpr (GROUP) {
+                // groups g, g + 1 into tmp[0], tmp[1]; each added during the next
+#pragma unroll 1
+                for (int g = 0; g < NG; g += 2) {
+                    for (int j = 0; j < GKC; ++j)
+                        pair(h, g * GKC + j, tmp[0], [&] {
+                            if (j == 0 && g > 0) add_to(h, tmp[1], false);
+                        });
+                    if (g + 1 < NG)
+                        for (int j = 0; j < GKC; ++j)
+                            pair(h, (g + 1) * GKC + j, tmp[1], [&] {
+                                if (j == 0) add_to(h, tmp[0], g == 0);
+                            });
+                }
+                wg_wait<0>();   // the last group's sum and the small terms are complete
+                add_to(h, tmp[(NG - 1) & 1], NG == 1);
+            } else {
+#pragma unroll 1
+                for (int kc = 0; kc < NKC; ++kc) pair(h, kc, acc[h], nothing);
+                wg_wait<0>();
+            }
+            add_small(h);
+        }
+    } else {
+#pragma unroll 1
+        for (int kc = 0; kc < NKC; ++kc)
+#pragma unroll
+            for (int h = 0; h < NH; ++h) pair(h, kc, acc[h], nothing);
+        wg_wait<0>();
+#pragma unroll
+        for (int h = 0; h < NH; ++h) add_small(h);
+    }
+#pragma unroll
+    for (int h = 0; h < NH; ++h) pin(acc[h]);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+// Producer side of product_split: chunk q of the Ws image, then chunk q of
+// the Wb image, for each chunk q of one half image (img_big / img_small
+// point at the consumer's half).
+template <int NQ, int CHUNK, int STAGES>
+__device__ __forceinline__ void produce_split(const float* img_big, const float* img_small,
+                                              float* ring, uint64_t* full, uint64_t* empty,
+                                              RingPos& rp) {
+    for (int q = 0; q < NQ; ++q) {
+        produce_chunks<1, CHUNK, STAGES>(img_small + (size_t)q * CHUNK, ring, full, empty, rp);
+        produce_chunks<1, CHUNK, STAGES>(img_big + (size_t)q * CHUNK, ring, full, empty, rp);
+    }
 }
 
 // 1024-byte aligned start of dynamic shared memory (the swizzled tiles'

@@ -19,8 +19,11 @@
 //     fp32 operands (XLA:GPU's TF32); the JAX side's bf16 model asks for it
 //     because its projections a, bs are bf16 already.
 //   mma.sync takes its fragments from registers, so the split costs no
-//   shared memory (wgmma would need split copies of both operands in
-//   swizzled shared memory).
+//   shared memory. Here that serves only the wide variants (above 512):
+//   at the native widths both fp32-chain modes run on wgmma
+//   (egnn_band_{fwd,bwd}_sm90*.cu), where the weights' split is written
+//   once per call into their images and the activation's split into a
+//   second tile (up to 256) or over the tile in place (512).
 // - MODE = CHAIN_BF16 (chain_dtype=bfloat16): the chain's activations and
 //   cotangents are bf16, rounded where the JAX kernel rounds them (after
 //   every elementwise op, `_silu` / `_dsilu` op by op, each product's fp32
@@ -685,15 +688,16 @@ cudaError_t dispatch_mode(int bf16_in, int passes, int chain_bf16, F&& f) {
     return bf16_in ? by_mode(Type<__nv_bfloat16>{}) : by_mode(Type<float>{});
 }
 
-// The one-pass fp32 chain (MODE 1) at widths 32 to 256 and both fp32-chain
-// modes (MODE 1, 3) at 512 are not built here: the sm90 kernels take them
-// (egnn_band_{fwd,bwd}_sm90.cu, egnn_band_{fwd,bwd}_sm90_hd512.cu), and
-// dispatch refuses them. At 512 only the bf16 chain runs Tile<512>.
+// Neither fp32-chain mode (MODE 1, 3) is built here at the native widths:
+// the sm90 kernels take them (the one-pass mode up to 256 in
+// egnn_band_{fwd,bwd}_sm90.cu, 3xTF32 up to 256 and both modes at 512 in
+// egnn_band_{fwd,bwd}_sm90_hd512.cu), and dispatch refuses them. Tile<HD>
+// runs the bf16 chain only.
 template <class F>
 cudaError_t dispatch(int hd, int bf16_in, int passes, int chain_bf16, F&& f) {
     auto at = [&](auto hd_c, auto t, auto m) -> cudaError_t {
         constexpr int HD = decltype(hd_c)::value, MODE = decltype(m)::value;
-        if constexpr ((MODE == 1 && HD <= 256) || (MODE != CHAIN_BF16 && HD == 512))
+        if constexpr (MODE != CHAIN_BF16)
             return cudaErrorInvalidValue;
         else
             return f(hd_c, t, m);

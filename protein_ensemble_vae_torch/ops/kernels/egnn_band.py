@@ -36,24 +36,28 @@ Modes, as the JAX function's arguments:
   op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
   uses this mode, and the port's decoder does not either.
 
-Kernels by mode. The one-pass fp32 chain (``precision="default"``,
-``chain_dtype`` fp32; ``a`` / ``bs`` in bf16, the bf16 model's mode, or in
-fp32) at the native widths SM90_HIDDEN (32 to 256, and the widths padded
-to them) runs on the Hopper kernels ``csrc/egnn_band_fwd_sm90.cu`` /
-``csrc/egnn_band_bwd_sm90.cu`` (``wgmma`` products fed by an ``mbarrier``
-weight ring that two consumer warpgroups share; counters
-``egnn_band_fwd_sm90`` / ``egnn_band_bwd_sm90``), and for a CUDA tensor
-only there. At the native width 512 (and the widths 257 to 511 padded to
-it) both fp32-chain modes, 3xTF32 (``"highest"``) and one pass
-(``"default"``), run on ``csrc/egnn_band_fwd_sm90_hd512.cu`` /
-``csrc/egnn_band_bwd_sm90_hd512.cu`` (``wgmma`` products, the two consumer
-warpgroups sharing one activation tile and splitting the output columns,
-each fed by its own ``mbarrier`` weight ring; counters
-``egnn_band_fwd_sm90_hd512`` / ``egnn_band_bwd_sm90_hd512``). Every other
-mode and width stays on ``csrc/egnn_band_fwd.cu`` /
-``csrc/egnn_band_bwd.cu``: the 3xTF32 mode up to 256, the bf16 chain (at
-512 too) and the wide variants above 512 (``band_kernel`` names the
-kernel that serves a call).
+Kernels by mode. Both fp32-chain modes run on Hopper kernels (``wgmma``
+products fed by ``mbarrier`` weight rings) at every native width, and for
+a CUDA tensor only there:
+- the one-pass mode (``precision="default"``; ``a`` / ``bs`` in bf16, the
+  bf16 model's mode, or in fp32) at the native widths SM90_HIDDEN (32 to
+  256, and the widths padded to them) on ``csrc/egnn_band_fwd_sm90.cu`` /
+  ``csrc/egnn_band_bwd_sm90.cu`` (two consumer warpgroups on a step each,
+  sharing one weight ring; counters ``egnn_band_fwd_sm90`` /
+  ``egnn_band_bwd_sm90``);
+- 3xTF32 (``"highest"``, the fp32 model's mode) at SM90_HIDDEN, and both
+  modes at the native width 512 (and the widths 257 to 511 padded to it),
+  on the shared-tile kernels ``csrc/egnn_band_fwd_sm90_hd512.cu`` /
+  ``csrc/egnn_band_bwd_sm90_hd512.cu`` (the two consumer warpgroups
+  sharing one activation tile and splitting the output columns, each fed
+  by its own ring; the weights' 3xTF32 split written once per call into
+  their images, the activation's into a second tile up to 256 and over the
+  tile in place at 512; counters ``egnn_band_fwd_sm90_x3`` /
+  ``egnn_band_bwd_sm90_x3`` up to 256, ``egnn_band_fwd_sm90_hd512`` /
+  ``egnn_band_bwd_sm90_hd512`` at 512).
+The bf16 chain (at every width) and the wide variants above 512 stay on
+``csrc/egnn_band_fwd.cu`` / ``csrc/egnn_band_bwd.cu`` (``band_kernel``
+names the kernel that serves a call).
 
 Widths: any width from 1 up. The kernels are instantiated at the native
 widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
@@ -112,18 +116,23 @@ SM90_FWD_STAGES = 5       # ring chunks of kernel 1 (egnn_band_fwd_sm90.cu: STAG
 SM90_BWD_STAGES = 3       # ring chunks of kernel 2's edge pass (egnn_band_bwd_sm90.cu: STAGES)
 SM90_WGRAD_STAGES = 4     # stages of its weight-grad pass (egnn_band_bwd_sm90.cu: WSTAGES)
 SM90_WGRAD_M = 64         # weight-grad tile rows (one m64 warpgroup product)
-# The Hopper kernels at width 512 in both fp32-chain modes
-# (csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu) and their layout constants
+# The shared-tile Hopper kernels (csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu):
+# width 512 in both fp32-chain modes, and the widths of SM90_HIDDEN in
+# 3xTF32 under their own counters (X3_KERNEL, X3_BWD_KERNEL), and their
+# layout constants
 HD512_KERNEL = "egnn_band_fwd_sm90_hd512"
 HD512_BWD_KERNEL = "egnn_band_bwd_sm90_hd512"
+X3_KERNEL = "egnn_band_fwd_sm90_x3"
+X3_BWD_KERNEL = "egnn_band_bwd_sm90_x3"
 HD512 = 512
-HD512_HALF = 256          # output columns of each consumer warpgroup
-HD512_FWD_NW = 128        # columns per wgmma of kernel 1 (egnn_band_fwd_sm90_hd512.cu: NW)
-HD512_BWD_NW = 64         # of kernel 2's edge pass (egnn_band_bwd_sm90_hd512.cu: NW)
-HD512_FWD_STAGES = 3      # chunks of each consumer's ring, kernel 1
+HD512_HALF = 256          # output columns of each consumer warpgroup at 512 (Hd / 2)
+HD512_FWD_NW = 128        # columns per wgmma of kernel 1 at 512 (egnn_band_fwd_sm90_hd512.cu: NW_OF)
+HD512_BWD_NW = 64         # of kernel 2's edge pass, and of kernel 1 up to 256, at most
+HD512_FWD_STAGES = 3      # chunks of each consumer's ring, kernel 1 at 512
+X3_FWD_STAGES = 6         # and up to 256 (egnn_band_fwd_sm90_hd512.cu: STAGES_OF)
 HD512_BWD_STAGES = 5      # of kernel 2's edge pass
 HD512_WGRAD_STAGES = 3    # stages of its weight-grad pass (WSTAGES)
-HD512_WGRAD_TILE = 64     # its output tiles are 64 x 64
+HD512_WGRAD_TILE = 64     # its output tiles are 64 x 64 (64 x Hd below 64)
 HD512_UNIT_COST = 0.1     # a unit's closing sums, in steps (hd512_fwd_plan_of)
 SMEM_LIMIT = 232448       # shared memory one block may have on an H100
 IMG_T, IMG_N = 0, 1       # weight image orientations: B[n][k] = W[k][n], W[n][k]
@@ -196,9 +205,12 @@ def takes_sm90(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
 
 
 def takes_hd512(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
-    """Whether the Hopper kernels of width 512 take a call at native width
-    Hd in this mode: either fp32-chain mode (3xTF32 or one pass) at 512."""
-    return not _chain_bf16(chain_dtype) and Hd == HD512
+    """Whether the shared-tile Hopper kernels take a call at native width Hd
+    in this mode: either fp32-chain mode (3xTF32 or one pass) at 512, or
+    3xTF32 at a width of SM90_HIDDEN."""
+    if _chain_bf16(chain_dtype):
+        return False
+    return Hd == HD512 or (precision == "highest" and Hd in SM90_HIDDEN)
 
 
 def band_kernel(kernel: str, Hd: int, precision: str = "highest",
@@ -208,8 +220,18 @@ def band_kernel(kernel: str, Hd: int, precision: str = "highest",
     width; the kernels run it at ``native_width(Hd)``) in the mode."""
     n = native_width(Hd)
     if takes_hd512(n, precision, chain_dtype):
-        return kernel + "_sm90_hd512"
+        return kernel + ("_sm90_hd512" if n == HD512 else "_sm90_x3")
     return kernel + "_sm90" if takes_sm90(n, precision, chain_dtype) else kernel
+
+
+def shared_tile_nw(kernel: str, Hd: int) -> int:
+    """Output columns per product (m64nNWk8) of a shared-tile kernel at
+    native width Hd: kernel 1 (HD512_KERNEL or X3_KERNEL) HD512_FWD_NW at
+    512, else HD512_BWD_NW as kernel 2's edge pass, or a consumer's Hd / 2
+    where that is fewer (egnn_band_{fwd,bwd}_sm90_hd512.cu: NW_OF)."""
+    if kernel in (HD512_KERNEL, X3_KERNEL) and Hd == HD512:
+        return HD512_FWD_NW
+    return min(Hd // 2, HD512_BWD_NW)
 
 
 def sm90_cols(Hd: int) -> tuple[int, int]:
@@ -267,9 +289,13 @@ def hd512_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
 
 def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> int:
     """Shared memory one block of a Hopper kernel asks for at width Hd
-    (mirror of the layouts in csrc/egnn_band_{fwd,bwd}_sm90.cu; + 1 KiB to
+    (mirror of the layouts in csrc/egnn_band_{fwd,bwd}_sm90*.cu; + 1 KiB to
     align the swizzled tiles): ``"egnn_band_fwd_sm90"``, the edge pass
-    ``"egnn_band_bwd_sm90"`` or its weight-grad pass ``"wgrad"``."""
+    ``"egnn_band_bwd_sm90"`` or its weight-grad pass ``"wgrad"``; the
+    shared-tile kernels HD512_KERNEL / X3_KERNEL, the edge pass
+    HD512_BWD_KERNEL / X3_BWD_KERNEL or its weight-grad pass
+    ``"wgrad_hd512"`` (``passes``: 3xTF32's split stages; ``steps``: the
+    slice's step list)."""
     nw, _ = sm90_cols(Hd)
     chunk = nw * SM90_KB * 4
     a_tiles = 2 * 64 * Hd * 4
@@ -282,21 +308,23 @@ def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> in
     if kernel == "wgrad":
         stage = SM90_WGRAD_M * SM90_KB * 4 + nw * SM90_KB * 4
         return SM90_WGRAD_STAGES * stage + 2 * SM90_WGRAD_STAGES * 8 + 1024
-    tile = 64 * HD512 * 4    # the shared activation tile
-    if kernel == HD512_KERNEL:
-        # tile, the consumers' rings, rows (valid, d2, j, rel[3]), the second
-        # consumer's dot products, flags, barriers
-        ring = 2 * HD512_FWD_STAGES * HD512_FWD_NW * SM90_KB * 4
-        return tile + ring + 6 * 64 * 4 + 64 * 4 + 16 + 4 * HD512_FWD_STAGES * 8 + 1024
-    if kernel == HD512_BWD_KERNEL:
-        # tile, rings, rows (valid, d2, cw, j, rel[3]), two dot products,
+    # the shared-tile kernels: the activation tile, and up to 256 its split
+    tile = 64 * Hd * 4 * (2 if Hd < HD512 else 1)
+    if kernel in (HD512_KERNEL, X3_KERNEL):
+        # tile(s), the consumers' rings, rows (valid, d2, j, rel[3]), the
+        # second consumer's dot products, flags, barriers
+        stages = HD512_FWD_STAGES if Hd == HD512 else X3_FWD_STAGES
+        ring = 2 * stages * shared_tile_nw(kernel, Hd) * SM90_KB * 4
+        return tile + ring + 6 * 64 * 4 + 64 * 4 + 16 + 4 * stages * 8 + 1024
+    if kernel in (HD512_BWD_KERNEL, X3_BWD_KERNEL):
+        # tile(s), rings, rows (valid, d2, cw, j, rel[3]), two dot products,
         # flags, barriers (the column sums live in device memory)
-        ring = 2 * HD512_BWD_STAGES * HD512_BWD_NW * SM90_KB * 4
+        ring = 2 * HD512_BWD_STAGES * shared_tile_nw(kernel, Hd) * SM90_KB * 4
         return tile + ring + 7 * 64 * 4 + 2 * 64 * 4 + 16 + 4 * HD512_BWD_STAGES * 8 + 1024
     if kernel == "wgrad_hd512":
-        # stages of X and Y (64 rows x 32 K each), two split stages in
-        # 3xTF32, barriers, the slice's step list
-        stage = 2 * HD512_WGRAD_TILE * SM90_KB * 4
+        # stages of X (the m64 operand) and Y (TN rows, 32 K each), two split
+        # stages in 3xTF32, barriers, the slice's step list
+        stage = (64 + min(Hd, HD512_WGRAD_TILE)) * SM90_KB * 4
         return ((HD512_WGRAD_STAGES + 2 * (passes == 3)) * stage + 2 * HD512_WGRAD_STAGES * 8
                 + 4 * steps + 1024)
     raise ValueError(f"not a Hopper kernel: {kernel!r}")
@@ -336,25 +364,27 @@ def weight_image(w, orient: int):
 
 
 def weight_image_hd512(w, orient: int, part: int, nw: int, hmajor: bool):
-    """numpy mirror of the width-512 layout kernel (egnn_sm90.cuh:
-    weight_images_half): the 512 x 512 fp32 weight ``w`` as the two
-    consumers' rings stream it, the half of the output columns of
-    consumer 0, then of consumer 1 (HD512_HALF each), each as chunks of
-    ``nw`` output rows x 32 K values in the order (K block, column group),
-    or with ``hmajor`` (column group, K block) as kernel 1 streams them,
-    each in the swizzled byte order. ``orient`` as ``weight_image``;
-    ``part`` 0: the values rounded to TF32 (big), 1: the rest of each
-    value rounded to TF32 (small; 3xTF32). Returns the flat image."""
+    """numpy mirror of the shared-tile kernels' layout kernel (egnn_sm90.cuh:
+    weight_images_half): the Hd x Hd fp32 weight ``w`` (Hd 512, or a width
+    of SM90_HIDDEN) as the two consumers' rings stream it, the half of the
+    output columns of consumer 0, then of consumer 1 (Hd / 2 each), each as
+    chunks of ``nw`` output rows x 32 K values in the order (K block, column
+    group), or with ``hmajor`` (column group, K block) as kernel 1 streams
+    them, each in the swizzled byte order. ``orient`` as ``weight_image``;
+    ``part`` 0: the values rounded to TF32 (big), 1: the rest of each value
+    rounded to TF32 (small; 3xTF32). Returns the flat image."""
     w = np.asarray(w, dtype=np.float32)
-    nh, chunk, half = HD512_HALF // nw, nw * SM90_KB, HD512_HALF * HD512
-    nkc = HD512 // SM90_KB
-    e = np.arange(HD512 * HD512)
+    Hd = w.shape[0]
+    n_half = Hd // 2
+    nh, chunk, half = n_half // nw, nw * SM90_KB, n_half * Hd
+    nkc = Hd // SM90_KB
+    e = np.arange(Hd * Hd)
     h2, eh = e // half, e % half
     q, r = eh // chunk, eh % chunk
     nl, pos = r // SM90_KB, r % SM90_KB
     kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
     h, kc = (q // nkc, q % nkc) if hmajor else (q % nh, q // nh)
-    n, k = h2 * HD512_HALF + h * nw + nl, kc * SM90_KB + kl
+    n, k = h2 * n_half + h * nw + nl, kc * SM90_KB + kl
     v = w[k, n] if orient == IMG_T else w[n, k]
     big = rna_tf32(v)
     return rna_tf32(v - big) if part else big
@@ -784,14 +814,14 @@ def _sm90_fn():
 def sm90_fwd_plan(B: int, L: int, W: int, Hd: int, dev,
                   dtype: torch.dtype = torch.bfloat16,
                   precision: str = "default") -> tuple[int, int, int]:
-    """``sm90_fwd_plan_of`` (``hd512_fwd_plan_of`` at width 512) on CUDA
-    device ``dev``: its SM count and the blocks of the Hopper kernel 1 that
-    one SM holds."""
-    if Hd == HD512:
+    """``sm90_fwd_plan_of`` (``hd512_fwd_plan_of`` for the shared-tile
+    kernel: width 512, or 3xTF32) on CUDA device ``dev``: its SM count and
+    the blocks of the Hopper kernel 1 that one SM holds."""
+    if takes_hd512(Hd, precision):
         lib = _hd512_fn()[1]
         per_sm = _blocks_per_sm(HD512_KERNEL, lambda hd, b16, passes, _: (
-            lib.egnn_band_fwd_sm90_hd512_blocks_per_sm(b16, passes)), Hd, dev, dtype, precision,
-            torch.float32)
+            lib.egnn_band_fwd_sm90_hd512_blocks_per_sm(hd, b16, passes)), Hd, dev, dtype,
+            precision, torch.float32)
         return hd512_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
     lib = _sm90_fn()[1]
     per_sm = _blocks_per_sm(SM90_KERNEL, lambda hd, b16, *_: lib.egnn_band_fwd_sm90_blocks_per_sm(
@@ -831,13 +861,13 @@ def _hd512_fn():
 
         lib = load_library(HD512_KERNEL)
         fn = lib.egnn_band_fwd_sm90_hd512_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.egnn_band_fwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_fwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_fwd_sm90_hd512_blocks_per_sm.restype = ctypes.c_int
         lib.egnn_band_fwd_sm90_hd512_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_sm90_hd512_error_string.restype = ctypes.c_char_p
-        lib.egnn_hd512_weight_images.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        lib.egnn_hd512_weight_images.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                                                  + [ctypes.c_void_p] * 2)
         lib.egnn_hd512_weight_images.restype = ctypes.c_int
         _HD512_FN = (fn, lib)
@@ -845,11 +875,12 @@ def _hd512_fn():
 
 
 def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tensor, Tensor]:
-    """Kernel 1 on Hopper at width 512 (both fp32-chain modes): one C call
-    writes the weight images (Wb, and Ws in 3xTF32, of W_e2 and W_x1), runs
-    the kernel on the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums
-    their partials. The images and the partials share one scratch
-    allocation."""
+    """Kernel 1 on the shared-tile Hopper kernel (width 512 in both
+    fp32-chain modes, 3xTF32 at SM90_HIDDEN): one C call writes the weight
+    images (Wb, and Ws in 3xTF32, of W_e2 and W_x1), runs the kernel on the
+    ``sm90_fwd_plan`` grid and, with S > 1 slices, sums their partials. The
+    images and the partials share one scratch allocation; the launch counts
+    under ``band_kernel``'s name."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _hd512_fn()
@@ -864,30 +895,32 @@ def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tens
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
                  *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
-                 *parts, B, L, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
+                 *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
+    name = band_kernel(KERNEL, Hd, precision)
     if err != 0:
-        raise RuntimeError(f"{HD512_KERNEL} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_sm90_hd512_error_string(err).decode()})")
-    _count(HD512_KERNEL, a.dtype, precision, torch.float32)
+    _count(name, a.dtype, precision, torch.float32)
     return agg, delta
 
 
 def hd512_weight_images(ws, orients, parts, nw: int, hmajor: bool) -> Tensor:
-    """The width-512 layout kernel alone: the images of the CUDA fp32
-    [512, 512] weights ``ws`` in orientations ``orients``, parts ``parts``
-    (0 big, 1 small), ``nw`` columns per chunk and the chunk order
-    ``hmajor``, [len(ws), 512 * 512], as the width-512 kernels' C entries
-    write them (for tests against ``weight_image_hd512``)."""
-    dev = ws[0].device
+    """The shared-tile kernels' layout kernel alone: the images of the CUDA
+    fp32 [Hd, Hd] weights ``ws`` (Hd 512 or a width of SM90_HIDDEN) in
+    orientations ``orients``, parts ``parts`` (0 big, 1 small), ``nw``
+    columns per chunk (``shared_tile_nw``) and the chunk order ``hmajor``,
+    [len(ws), Hd * Hd], as the kernels' C entries write them (for tests
+    against ``weight_image_hd512``)."""
+    Hd, dev = ws[0].shape[0], ws[0].device
     lib = _hd512_fn()[1]
-    out = torch.empty((len(ws), HD512 * HD512), dtype=torch.float32, device=dev)
+    out = torch.empty((len(ws), Hd * Hd), dtype=torch.float32, device=dev)
     srcs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
     kinds = (ctypes.c_int * len(ws))(*orients)
     pieces = (ctypes.c_int * len(ws))(*parts)
     with torch.cuda.device(dev):
         err = lib.egnn_hd512_weight_images(
             ctypes.cast(srcs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p),
-            ctypes.cast(pieces, ctypes.c_void_p), len(ws), nw, int(hmajor), out.data_ptr(),
+            ctypes.cast(pieces, ctypes.c_void_p), len(ws), Hd, nw, int(hmajor), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"egnn_hd512_weight_images failed: CUDA error {err}")
@@ -1117,17 +1150,20 @@ def _sm90_bwd_fn():
 
 
 def sm90_bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
-                  per_sm: int) -> tuple[int, int]:
+                  per_sm: int, shared: bool = False) -> tuple[int, int]:
     """Kernel 2's Hopper plan: G persistent edge-pass blocks (``per_sm`` on
     each of ``n_sm`` SMs, no more than the step pairs; block g takes pairs
     g, g + G, ...) and the weight-grad pass's slices of the steps, enough
     for its 2 x ceil(Hd / 64) x (Hd / NW) output tiles to fill two blocks
-    per SM. At width 512 a block takes single steps (items) g, g + G, ...,
-    and the weight-grad pass's 2 x 8 x 8 tiles of 64 x 64 take as many
-    slices as fit two blocks per SM in one wave."""
+    per SM. On the shared-tile kernel (``shared``: width 512, or 3xTF32) a
+    block takes single steps (items) g, g + G, ..., and the weight-grad
+    pass's 2 x ceil(Hd / 64) x (Hd / TN) tiles of 64 x TN (TN =
+    min(Hd, 64); 2 x 8 x 8 at 512) take as many slices as fit two blocks
+    per SM in one wave."""
     n_tiles, n_steps, items = band_work(B, L, W)
-    if Hd == HD512:
-        tiles = 2 * (HD512 // HD512_WGRAD_TILE) ** 2
+    if shared or Hd == HD512:
+        tn = min(Hd, HD512_WGRAD_TILE)
+        tiles = 2 * -(-Hd // HD512_WGRAD_TILE) * (Hd // tn)
         return (max(1, min(items, n_sm * max(1, per_sm))),
                 max(1, min(items, 2 * n_sm // tiles)))
     pairs = B * n_tiles * -(-n_steps // 2)
@@ -1141,14 +1177,14 @@ def sm90_bwd_plan(B: int, L: int, W: int, Hd: int, dev,
                   dtype: torch.dtype = torch.bfloat16,
                   precision: str = "default") -> tuple[int, int]:
     """``sm90_bwd_grid`` on CUDA device ``dev``: its SM count and the
-    edge-pass blocks of the Hopper kernel 2 (at width 512 in the mode of
-    ``precision``) that one SM holds."""
-    if Hd == HD512:
+    edge-pass blocks of the Hopper kernel 2 (the shared-tile one at width
+    512 or in 3xTF32, in the mode of ``precision``) that one SM holds."""
+    if takes_hd512(Hd, precision):
         lib = _hd512_bwd_fn()[1]
         per_sm = _blocks_per_sm(HD512_BWD_KERNEL, lambda hd, b16, passes, _: (
-            lib.egnn_band_bwd_sm90_hd512_blocks_per_sm(b16, passes)), Hd, dev, dtype, precision,
-            torch.float32)
-        return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
+            lib.egnn_band_bwd_sm90_hd512_blocks_per_sm(hd, b16, passes)), Hd, dev, dtype,
+            precision, torch.float32)
+        return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm, shared=True)
     lib = _sm90_bwd_fn()[1]
     per_sm = _blocks_per_sm(SM90_BWD_KERNEL, lambda hd, b16, *_: lib.egnn_band_bwd_sm90_blocks_per_sm(
         hd, b16), Hd, dev, dtype, "default", torch.float32)
@@ -1184,11 +1220,11 @@ def _hd512_bwd_fn():
 
         lib = load_library(HD512_BWD_KERNEL)
         fn = lib.egnn_band_bwd_sm90_hd512_launch
-        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.egnn_band_bwd_sm90_hd512_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.egnn_band_bwd_sm90_hd512_scratch_floats.argtypes = [ctypes.c_int] * 7
         lib.egnn_band_bwd_sm90_hd512_scratch_floats.restype = ctypes.c_size_t
-        lib.egnn_band_bwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_bwd_sm90_hd512_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_bwd_sm90_hd512_blocks_per_sm.restype = ctypes.c_int
         lib.egnn_band_bwd_sm90_hd512_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_bwd_sm90_hd512_error_string.restype = ctypes.c_char_p
@@ -1197,28 +1233,30 @@ def _hd512_bwd_fn():
 
 
 def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
-    """Kernel 2 on Hopper at width 512 (both fp32-chain modes) into ``outs``
-    = (da, dbs, dx, dw_e2, dw_x1, dvec): one C call writes the weight images
-    (four orientations, each Wb and in 3xTF32 Ws) into the scratch and runs
-    the edge, node, weight-grad and reduce passes on the ``sm90_bwd_plan``
-    grid."""
+    """Kernel 2 on the shared-tile Hopper kernel (width 512 in both
+    fp32-chain modes, 3xTF32 at SM90_HIDDEN) into ``outs`` = (da, dbs, dx,
+    dw_e2, dw_x1, dvec): one C call writes the weight images (four
+    orientations, each Wb and in 3xTF32 Ws) into the scratch and runs the
+    edge, node, weight-grad and reduce passes on the ``sm90_bwd_plan`` grid;
+    the launch counts under ``band_kernel``'s name."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _hd512_bwd_fn()
     passes = PASSES[precision]
     G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
     scratch = torch.empty(
-        (lib.egnn_band_bwd_sm90_hd512_scratch_floats(B, L, W, G, nsplit, passes),),
+        (lib.egnn_band_bwd_sm90_hd512_scratch_floats(B, L, Hd, W, G, nsplit, passes),),
         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
                                           scratch)),
-                 B, L, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
+                 B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
+    name = band_kernel(BWD_KERNEL, Hd, precision)
     if err != 0:
-        raise RuntimeError(f"{HD512_BWD_KERNEL} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_hd512_error_string(err).decode()})")
-    _count(HD512_BWD_KERNEL, a.dtype, precision, torch.float32)
+    _count(name, a.dtype, precision, torch.float32)
 
 
 class EGNNBandFunction(torch.autograd.Function):

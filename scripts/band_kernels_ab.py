@@ -29,9 +29,12 @@ bitwise equal and gives the plain version's time, the fp32 bound and the
 tensor-core bound (chip_smoke.py). ``--onepass`` times only the one-pass
 fp32-chain mode (bf16 ``a`` / ``bs``, ``precision="default"``: the bf16
 model's mode) at ONEPASS_FWD_SHAPES / ONEPASS_BWD_SHAPES, the flagship's
-training shapes B8/L128 and B8/L192 first. ``--pass-split`` profiles the
-current kernels with torch.profiler in that mode at PASS_SPLIT_SHAPES and
-gives the device ms per call of each CUDA kernel they launch, by name
+training shapes B8/L128 and B8/L192 first; ``--x3`` only the fp32 model's
+3xTF32 mode (fp32 ``a`` / ``bs``, ``precision="highest"``), the one whose
+baseline is a commit that still builds it on ``mma.sync`` at Hd 256. ``--pass-split`` profiles the
+current kernels with torch.profiler in that mode at PASS_SPLIT_SHAPES (and,
+without ``--onepass``, in the fp32 model's 3xTF32 mode at
+X3_PASS_SPLIT_SHAPES) and gives the device ms per call of each CUDA kernel they launch, by name
 (kernel 2: edge, node, weight-grad and reduce passes). ``--l2-rate``
 measures the card's L2 read rate (chip_smoke.py's L2_SRC: 16-byte
 ``ld.global.cg`` loads, which skip L1, over a buffer that stays resident
@@ -69,6 +72,8 @@ SWEEP_SLICES = (1, 2, 3, 4, 5, 10)
 ONEPASS_FWD_SHAPES = ((8, 128), (8, 192), (4, 256), (2, 640), (10, 640))
 ONEPASS_BWD_SHAPES = ((8, 128), (8, 192), (4, 256))
 PASS_SPLIT_SHAPES = ((8, 128), (8, 192))
+# the fp32 model's 3xTF32 mode: the train step's B4/L256 and generation's B10/L256
+X3_PASS_SPLIT_SHAPES = ((4, 256), (10, 256))
 PASS_SPLIT_CALLS = 20
 # --hd other than chip_smoke.py's HD (the decoder widths 257-512 run at 512):
 # the fp32 model's 3xTF32 mode and the bf16 model's one-pass mode, kernel 1
@@ -157,10 +162,9 @@ def _pass_split(call, calls: int = PASS_SPLIT_CALLS) -> dict:
     return by
 
 
-def _build_baseline(src_dir: str) -> dict:
-    """nvcc each baseline source into ``src_dir`` (library names with a
-    ``_baseline`` suffix) and bind its C interface (with ``chain_bf16``
-    where its ``egnn_band_fwd.cu`` has it)."""
+def _start_baseline(src_dir: str) -> dict:
+    """Start nvcc on each baseline source in ``src_dir`` (library names with
+    a ``_baseline`` suffix); ``_bind_baseline`` waits for them."""
     from protein_ensemble_vae_torch.ops.kernels.build import NVCC_FLAGS, nvcc_path
 
     procs = {}
@@ -169,6 +173,12 @@ def _build_baseline(src_dir: str) -> dict:
         procs[name] = (subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", out, os.path.join(src_dir, name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def _bind_baseline(src_dir: str, procs: dict) -> dict:
+    """Wait for ``_start_baseline``'s builds and bind their C interface (with
+    ``chain_bf16`` where the baseline's ``egnn_band_fwd.cu`` has it)."""
     libs = {}
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
@@ -193,6 +203,11 @@ def _build_baseline(src_dir: str) -> dict:
         q.argtypes, q.restype = [I] * (3 + chain), I
         per_sm[k] = q
     return dict(fwd=fwd, bwd=bwd, scratch=nsc, per_sm=per_sm, chain=chain, cache={})
+
+
+def _build_baseline(src_dir: str) -> dict:
+    """nvcc each baseline source into ``src_dir`` and bind its C interface."""
+    return _bind_baseline(src_dir, _start_baseline(src_dir))
 
 
 def _mode_args(lib, mode, Hd):
@@ -299,6 +314,9 @@ def main(argv=None) -> None:
                     help="also measure register-fed TF32 mma.sync throughput")
     ap.add_argument("--onepass", action="store_true",
                     help="only the bf16 model's one-pass mode, at ONEPASS_*_SHAPES")
+    ap.add_argument("--x3", action="store_true",
+                    help="only the fp32 model's 3xTF32 mode (fp32 a / bs), at FWD_SHAPES / "
+                         "BWD_SHAPES, --pass-split at X3_PASS_SPLIT_SHAPES")
     ap.add_argument("--pass-split", action="store_true",
                     help="also profile the current kernels' passes at PASS_SPLIT_SHAPES")
     ap.add_argument("--l2-rate", action="store_true",
@@ -328,11 +346,14 @@ def main(argv=None) -> None:
         modes, fwd_shapes, bwd_shapes = [(b16, "default", f32)], ONEPASS_FWD_SHAPES, \
             ONEPASS_BWD_SHAPES
     hd = args_ns.hd or cs.HD
-    split_modes, split_shapes = [(b16, "default", f32)], PASS_SPLIT_SHAPES
+    splits = [((b16, "default", f32), PASS_SPLIT_SHAPES)]
+    splits += [] if args_ns.onepass else [((f32, "highest", f32), X3_PASS_SPLIT_SHAPES)]
+    if args_ns.x3:
+        modes, splits = [(f32, "highest", f32)], splits[1:]
     if hd != cs.HD:
         modes = [(f32, "highest", f32), (b16, "default", f32)]
         fwd_shapes, bwd_shapes = WIDTH_FWD_SHAPES, WIDTH_BWD_SHAPES
-        split_modes, split_shapes = modes, WIDTH_PASS_SPLIT_SHAPES
+        splits = [(m, WIDTH_PASS_SPLIT_SHAPES) for m in modes]
     W, rows = cs.W, []
     result = dict(device=device, n_sm=n_sm, hd=hd, rows=rows)
     if args_ns.l2_rate:
@@ -340,19 +361,18 @@ def main(argv=None) -> None:
         cs.log(f"[ab] read rates ({device['smi']}): {json.dumps(result['read_rate'])}")
     if args_ns.pass_split:
         split = {}
-        for k, (B, L) in enumerate(split_shapes):
-            args0 = cs._egnn_inputs(B, L, cs.SEED + 20 + k, hd)
-            g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20 + k)
-            g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
-            g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
-            for dtype, precision, _ in split_modes:
+        for (dtype, precision, _), shapes in splits:
+            for k, (B, L) in enumerate(shapes):
+                args0 = cs._egnn_inputs(B, L, cs.SEED + 20 + k, hd)
+                g = torch.Generator(device="cuda").manual_seed(cs.SEED + 20 + k)
+                g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
+                g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
                 args = [args0[0].to(dtype), args0[1].to(dtype)] + args0[2:]
                 split[f"{mode_key('', dtype, precision)[1:]} B{B}/L{L}"] = dict(
                     egnn_band_fwd=_pass_split(lambda: egnn_band_fwd(*args, W, precision)),
                     egnn_band_bwd=_pass_split(
                         lambda: egnn_band_bwd(*args, g_agg, g_delta, W, precision)))
-                del args
-            del args0, g_agg, g_delta
+                del args, args0, g_agg, g_delta
         result["pass_split_ms"] = split
         cs.log(f"[ab] device ms per call by CUDA kernel at Hd {hd} ({device['smi']}): "
                f"{json.dumps(split)}")

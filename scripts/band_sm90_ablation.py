@@ -2,9 +2,14 @@
 (``csrc/egnn_band_fwd_sm90.cu``, ``csrc/egnn_band_bwd_sm90.cu``), or with
 ``--hd 512`` the width-512 kernels in both fp32-chain modes
 (``csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu``), timed with one part of their
-work removed at a time, on one NVIDIA GPU.
+work removed at a time, on one NVIDIA GPU. ``--x3`` ablates the
+shared-tile kernels in the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS,
+at X3_SHAPES); ``--x3 --baseline DIR`` the register-fed mma.sync kernels
+of that mode in DIR (``egnn_band_{fwd,bwd}.cu`` and ``egnn_tile.cuh`` of
+an earlier commit, MMA_X3_VARIANTS).
 
-    python scripts/band_sm90_ablation.py [--hd 512] [--workdir DIR] [--out FILE.json]
+    python scripts/band_sm90_ablation.py [--hd 512 | --x3 [--baseline DIR]]
+        [--workdir DIR] [--out FILE.json]
 
 Each variant is a copy of ``protein_ensemble_vae_torch/csrc/`` in DIR (a
 git-ignored directory; default ``protein_ensemble_vae_torch/_build/ablation``)
@@ -15,7 +20,7 @@ libraries swapped in) at the flagship's training shapes in the bf16 model's
 mode (at width 512: the train step's B4/L256 in the 3xTF32 and one-pass
 modes, fp32 ``a`` / ``bs`` in 3xTF32 as the fp32 model has them), kernel 1
 and kernel 2 (CUDA events, chip_smoke.py's ``_median_ms``),
-and kernel 2 by pass (torch.profiler, ``band_kernels_ab._pass_split``). The
+and both kernels by pass (torch.profiler, ``band_kernels_ab._pass_split``). The
 difference between the full kernels and a variant bounds what that part
 costs where it does not overlap the rest. Needs a GPU; imports no JAX.
 """
@@ -76,8 +81,9 @@ HD512_VARIANTS = {
     "no_wgmma": VARIANTS["no_wgmma"],
     "no_silu": VARIANTS["no_silu"],
     "no_weight_copies": VARIANTS["no_weight_copies"],
-    "no_scratch_copies": (("egnn_band_bwd_sm90_hd512.cu", r"tile_to_scratch\(A, \w+, tid, q\);",
-                           ""),),
+    "no_scratch_copies": (("egnn_band_bwd_sm90_hd512.cu",
+                           r"auto side = \[&\]\(int q\) \{ tile_to_scratch<HD>\(A, dst, tid, q\); \};",
+                           "auto side = [&](int) {};"),),
     "no_column_sums": (("egnn_band_bwd_sm90_hd512.cu",
                         r"(__device__ __forceinline__ void add_cols8\(.*?\) \{\n).*?\n\}",
                         r"\1}"),),
@@ -88,11 +94,13 @@ HD512_VARIANTS = {
     "no_step_sums": (("egnn_sm90.cuh", r"constexpr int GROUP = PASSES == 3 \? 128 : 0;",
                       "constexpr int GROUP = 0;"),),
     # kernel 1 in 64-column chunks, twice the ring's stages (same bytes)
-    "fwd_nw64": (("egnn_band_fwd_sm90_hd512.cu", r"constexpr int NW = 128;", "constexpr int NW = 64;"),
-                 ("egnn_band_fwd_sm90_hd512.cu", r"constexpr int STAGES = 3;",
-                  "constexpr int STAGES = 6;")),
+    "fwd_nw64": (("egnn_band_fwd_sm90_hd512.cu", r"NW_OF = HD == 512 \? 128 :",
+                  "NW_OF = HD == 512 ? 64 :"),
+                 ("egnn_band_fwd_sm90_hd512.cu", r"STAGES_OF = HD == 512 \? 3 :",
+                  "STAGES_OF = HD == 512 ? 6 :")),
     # kernel 2's edge pass in 128-column chunks, two stages a ring
-    "bwd_nw128": (("egnn_band_bwd_sm90_hd512.cu", r"constexpr int NW = 64;", "constexpr int NW = 128;"),
+    "bwd_nw128": (("egnn_band_bwd_sm90_hd512.cu", r"NW_OF = HD / 2 < 64 \? HD / 2 : 64;",
+                   "NW_OF = HD == 512 ? 128 : HD / 2 < 64 ? HD / 2 : 64;"),
                   ("egnn_band_bwd_sm90_hd512.cu", r"constexpr int STAGES = 5;",
                    "constexpr int STAGES = 2;")),
     # kernel 2's edge pass with the ring of the first design (3 stages)
@@ -103,14 +111,101 @@ HD512_VARIANTS = {
                      r"__trap\(\);", ";"),),
     # 3xTF32: the weight-grad pass's split of each stage
     "no_wgrad_split": (("egnn_band_bwd_sm90_hd512.cu",
-                        r"dst\[i\] = make_float4\(lo\(v\.x\), lo\(v\.y\), lo\(v\.z\), "
-                        r"lo\(v\.w\)\);", ""),),
+                        r"dst\[i\] = make_float4\(s9::tf32_lo\(v\.x\), .*?\);", ""),),
+}
+# --x3: the shared-tile kernels in the fp32 model's 3xTF32 mode at Hd 256
+# (egnn_sm90.cuh: product_split, the split tile)
+X3_VARIANTS = {
+    "full": (),
+    # every product of the edge passes (the weight-grad pass keeps its own)
+    "no_wgmma": (("egnn_sm90.cuh", r"Wgmma<NW>::mma\(s, desc\(a \+ 8 \* k8\), desc\(b \+ 8 \* k8\), "
+                  r"\(kc \| k8\) != 0\);", ";"),
+                 ("egnn_sm90.cuh", r"Wgmma<NW>::mma\(big, desc\(a \+ 8 \* k8\), desc\(b \+ 8 \* k8\), "
+                  r"\(kz \| k8\) != 0\);", ";"),
+                 ("egnn_sm90.cuh", r"Wgmma<NW>::mma\(s, desc\(as \+ 8 \* k8\), desc\(b \+ 8 \* k8\), 1\);",
+                  ";")),
+    # 3xTF32's small terms Xt.Ws and Xs.Wb (what 3xTF32 adds to one big pass)
+    "no_small_terms": (("egnn_sm90.cuh", r"Wgmma<NW>::mma\(s, desc\(a \+ 8 \* k8\), "
+                        r"desc\(b \+ 8 \* k8\), \(kc \| k8\) != 0\);", ";"),
+                       ("egnn_sm90.cuh", r"Wgmma<NW>::mma\(s, desc\(as \+ 8 \* k8\), "
+                        r"desc\(b \+ 8 \* k8\), 1\);", ";")),
+    # the split tile's writes (fill and epilogues)
+    "no_split_tile": (("egnn_sm90.cuh", r"if \(As\) \{", "if (false) {"),
+                      ("egnn_band_fwd_sm90_hd512.cu",
+                       r"if constexpr \(SPLIT<HD>\)\n(\s+)\*reinterpret_cast<float2\*>\(As",
+                       r"if constexpr (false)\n\1*reinterpret_cast<float2*>(As"),
+                      ("egnn_band_bwd_sm90_hd512.cu",
+                       r"if constexpr \(SPLIT<HD>\)\n(\s+)\*reinterpret_cast<float2\*>\(As",
+                       r"if constexpr (false)\n\1*reinterpret_cast<float2*>(As")),
+    # silu / sigmoid in the accurate forms (expf, IEEE division) instead of the fast ones
+    "accurate_silu": tuple((f, r"constexpr bool FAST_SILU = PASSES == 1 \|\| SPLIT<HD>;",
+                            "constexpr bool FAST_SILU = PASSES == 1;")
+                           for f in ("egnn_band_fwd_sm90_hd512.cu", "egnn_band_bwd_sm90_hd512.cu")),
+    # the exponentials and divisions of silu / silu' (both forms)
+    "no_silu": VARIANTS["no_silu"] + (
+        ("egnn_tile.cuh", r"sigmoid\(float x\) \{ return 1\.0f / \(1\.0f \+ expf\(-x\)\); \}",
+         "sigmoid(float x) { return 0.5f + 0.125f * x; }"),
+        ("egnn_tile.cuh", r"silu\(float x\) \{ return x / \(1\.0f \+ expf\(-x\)\); \}",
+         "silu(float x) { return 0.5f * x; }")),
+    # kernel 1's big terms summed whole (no 32-K step sums), or 64 / 128 K apart
+    "no_step_sums": (("egnn_band_fwd_sm90_hd512.cu", r"GROUP_OF = HD == 512 \? 128 : 32;",
+                      "GROUP_OF = HD == 512 ? 128 : 0;"),),
+    "step_sums_64": (("egnn_band_fwd_sm90_hd512.cu", r"GROUP_OF = HD == 512 \? 128 : 32;",
+                      "GROUP_OF = HD == 512 ? 128 : 64;"),),
+    "step_sums_128": (("egnn_band_fwd_sm90_hd512.cu", r"GROUP_OF = HD == 512 \? 128 : 32;",
+                       "GROUP_OF = HD == 512 ? 128 : 128;"),),
+    "no_weight_copies": VARIANTS["no_weight_copies"],
+    "no_scratch_copies": HD512_VARIANTS["no_scratch_copies"],
+    "no_column_sums": HD512_VARIANTS["no_column_sums"],
+    "no_wgrad_split": HD512_VARIANTS["no_wgrad_split"],
+    # the weight grads' step sums over each k8 step instead of a 32-row chunk
+    "wgrad_sums_8": (("egnn_band_bwd_sm90_hd512.cu", r"WGRAD_SPAN = HD == 512 \? 8 : 32;",
+                      "WGRAD_SPAN = HD == 512 ? 8 : 8;"),),
+    # kernel 1 in 128-column chunks, three 16 KiB stages a ring
+    "fwd_nw128": (("egnn_band_fwd_sm90_hd512.cu", r"HD / 2 < 64 \? HD / 2 : 64;",
+                   "HD / 2 < 128 ? HD / 2 : 128;"),
+                  ("egnn_band_fwd_sm90_hd512.cu", r"STAGES_OF = HD == 512 \? 3 : 6;",
+                   "STAGES_OF = HD == 512 ? 3 : 3;")),
 }
 
 
-def _variant_dir(workdir: str, name: str, csrc: str, variants: dict) -> str:
-    """csrc copied to workdir/name with the variant's substitutions."""
-    out = os.path.join(workdir, name)
+# The fp32 model's 3xTF32 mode at Hd 256 (--x3): the train step's B4/L256 and
+# generation's B10/L256, fp32 a / bs.
+X3_SHAPES = ((4, 256), (10, 256))
+# --x3 --baseline DIR: the register-fed mma.sync kernels of the mode in DIR
+# (egnn_band_{fwd,bwd}.cu, egnn_tile.cuh of a version that builds 3xTF32 at
+# Hd 256 there), timed through band_kernels_ab's baseline binding
+MMA_X3_VARIANTS = {
+    "full": (),
+    # the products: mma.sync removed, and with it the fragment loads and
+    # splits that only fed it (the compiler drops them)
+    "no_mma": (("egnn_tile.cuh", r"(void mma_tf32\(.*?\) \{\n).*?\n\}", r"\1}"),),
+    # 3xTF32's two small-term passes (big * big only; the splits stay)
+    "one_pass_products": (("egnn_tile.cuh",
+                           r"if constexpr \(PASSES == 3\) \{\n#pragma unroll\n"
+                           r"        for \(int nt = 0; nt < NT; \+\+nt\) mma_tf32\(d\[nt\], al",
+                           "if constexpr (false) {\n#pragma unroll\n"
+                           "        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], al"),),
+    # the operands' split (small = big: one subtraction and rounding less a value)
+    "no_split": (("egnn_tile.cuh", r"small = rna_tf32\(x - __uint_as_float\(big\)\);",
+                  "small = big;"),),
+    # the accurate exponentials and divisions of silu / silu'
+    "no_silu": (("egnn_tile.cuh",
+                 r"sigmoid\(float x\) \{ return 1\.0f / \(1\.0f \+ expf\(-x\)\); \}",
+                 "sigmoid(float x) { return 0.5f + 0.125f * x; }"),
+                ("egnn_tile.cuh", r"silu\(float x\) \{ return x / \(1\.0f \+ expf\(-x\)\); \}",
+                 "silu(float x) { return 0.5f * x; }")),
+    # kernel 1's round-to-nearest sum of each k8 step
+    "no_step_sum": (("egnn_band_fwd.cu", r"MODE, MODE == 3>\(w, A, ring, acc, threadIdx\.x\)",
+                     "MODE, false>(w, A, ring, acc, threadIdx.x)"),),
+    # the weight chunks' cp.async copies (commits and waits stay)
+    "no_weight_copies": (("egnn_tile.cuh", r"(void load_chunk\(.*?\) \{\n).*?\n\}", r"\1}"),),
+}
+
+
+def _variant_dir(workdir: str, name: str, csrc: str, variants: dict, prefix: str = "") -> str:
+    """csrc copied to workdir/<prefix><name> with the variant's substitutions."""
+    out = os.path.join(workdir, prefix + name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     for fname, pattern, repl in variants[name]:
@@ -147,6 +242,37 @@ def _build_all(workdir: str, variants: dict, sources: tuple) -> dict:
     return libs
 
 
+def _build_mma(workdir: str, variants: dict, base_dir: str) -> dict:
+    """Every variant of the mma.sync sources in ``base_dir``, built all at
+    once and bound as band_kernels_ab's baseline; returns name -> binding."""
+    procs = {}
+    for name in variants:
+        d = _variant_dir(workdir, name, base_dir, variants, prefix="mma_")
+        procs[name] = (d, ab._start_baseline(d))
+    return {name: ab._bind_baseline(d, p) for name, (d, p) in procs.items()}
+
+
+def _drift(fwd_of, a, hd: int) -> dict:
+    """Kernel 1's error against its plain version as a fraction of the GPU
+    tests' tolerance (rtol 1e-4, atol 1e-4: ``tests/test_torch_gpu.py``'s
+    ``test_odd_length_every_width``), the worst element of agg and of
+    raw_delta: on ``a`` (the variant's timed inputs) and on B2/L37 at W 40
+    (that test's shape, inputs from chip_smoke.py's generator). Variants
+    that drop work are wrong by design; read it for the accumulation's."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import egnn_band_reference
+
+    def frac(args):
+        got, want = fwd_of(args), egnn_band_reference(*args, cs.W)
+        return [float(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max()) for g, w in zip(got, want)]
+
+    small = cs._egnn_inputs(2, 37, cs.SEED + 77, hd)
+    small = [small[0].to(a[0].dtype), small[1].to(a[0].dtype)] + small[2:]
+    with torch.no_grad():
+        return dict(timed=frac(a), b2_l37=frac(small))
+
+
 def _use(libs: dict) -> None:
     """Route the package's Hopper wrappers to these libraries."""
     from protein_ensemble_vae_torch.ops.kernels import build, egnn_band
@@ -165,6 +291,11 @@ def main(argv=None) -> None:
                     help="directory for the variants' sources and libraries")
     ap.add_argument("--hd", type=int, default=None, choices=(512,),
                     help="the width-512 kernels, both fp32-chain modes")
+    ap.add_argument("--x3", action="store_true",
+                    help="the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS), at X3_SHAPES")
+    ap.add_argument("--baseline", default=None, metavar="DIR",
+                    help="with --x3: ablate the mma.sync kernels in DIR "
+                         "(MMA_X3_VARIANTS) instead of the package's")
     ap.add_argument("--variants", default=None, metavar="A,B,...",
                     help="only these variants (\"full\" is always run)")
     ap.add_argument("--out", default=None, metavar="FILE.json")
@@ -179,7 +310,13 @@ def main(argv=None) -> None:
     workdir = os.path.abspath(args.workdir or os.path.join(build.DEFAULT_BUILD_DIR, "ablation"))
     os.makedirs(workdir, exist_ok=True)
     hd = args.hd or cs.HD
-    if args.hd:
+    if args.x3 and args.baseline:
+        variants, sources, shapes = MMA_X3_VARIANTS, (), X3_SHAPES
+        modes = ((torch.float32, "highest"),)
+    elif args.x3:
+        variants, sources, shapes = X3_VARIANTS, HD512_SOURCES, X3_SHAPES
+        modes = ((torch.float32, "highest"),)
+    elif args.hd:
         variants, sources, shapes = HD512_VARIANTS, HD512_SOURCES, HD512_SHAPES
         modes = ((torch.float32, "highest"), (torch.bfloat16, "default"))
     else:
@@ -188,7 +325,10 @@ def main(argv=None) -> None:
     if args.variants:
         keep = {"full", *args.variants.split(",")}
         variants = {k: v for k, v in variants.items() if k in keep}
-    libs = _build_all(workdir, variants, sources)
+    mma = args.x3 and args.baseline
+    libs = (_build_mma(workdir, variants, os.path.abspath(args.baseline)) if mma
+            else _build_all(workdir, variants, sources))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for k, (B, L) in enumerate(shapes):
         a0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)
@@ -200,12 +340,22 @@ def main(argv=None) -> None:
             for name in variants:
                 if name.endswith("split") and precision != "highest":
                     continue   # the splits run in 3xTF32 only
-                _use(libs[name])
-                fwd = lambda: egnn_band_fwd(*a, cs.W, precision)  # noqa: E731
-                bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision)  # noqa: E731
+                if mma:
+                    mode = (dtype, precision, torch.float32)
+                    fwd_of = lambda x: ab._baseline_fwd(libs[name], x, cs.W, mode, n_sm)  # noqa: E731
+                    bwd = lambda: ab._baseline_bwd(libs[name], a, g_agg, g_delta,  # noqa: E731
+                                                   cs.W, mode, n_sm)
+                else:
+                    _use(libs[name])
+                    fwd_of = lambda x: egnn_band_fwd(*x, cs.W, precision)  # noqa: E731
+                    bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision)  # noqa: E731
+                fwd = lambda: fwd_of(a)  # noqa: E731
                 row = dict(variant=name, precision=precision, Hd=hd, B=B, L=L,
                            fwd_ms=cs._median_ms(fwd), bwd_ms=cs._median_ms(bwd),
+                           fwd_passes_ms=ab._pass_split(fwd),
                            bwd_passes_ms=ab._pass_split(bwd))
+                if args.x3 and k == 0:   # the variant's accumulation drift
+                    row["drift"] = _drift(fwd_of, a, hd)
                 rows.append(row)
                 cs.log(f"[ablation] {json.dumps(row)}")
     result = dict(device=device, rows=rows)

@@ -30,6 +30,9 @@ pytestmark = pytest.mark.gpu
 
 # fp32 kernel vs fp32 plain version, sums in another order.
 RTOL = ATOL = 1e-4
+# The kernels of the fp32 model's mode (3xTF32) at the widths up to 256:
+# the shared-tile Hopper kernels, counted under their own names.
+X3_FWD, X3_BWD = "egnn_band_fwd_sm90_x3", "egnn_band_bwd_sm90_x3"
 
 
 @pytest.fixture()
@@ -67,10 +70,10 @@ def _inputs(B, L, Hd, device, seed=0, x_scale=10.0):
 ])
 def test_kernel_matches_plain_version(cuda, B, L, Hd, W):
     args = _inputs(B, L, Hd, cuda, seed=B * 1000 + L)
-    before = LAUNCHES["egnn_band_fwd"]
+    before = LAUNCHES[X3_FWD]
     agg, delta = egnn_band_fwd(*args, W)
     torch.cuda.synchronize()
-    assert LAUNCHES["egnn_band_fwd"] == before + 1
+    assert LAUNCHES[X3_FWD] == before + 1
     ragg, rdelta = egnn_band_reference(*args, W)
     torch.testing.assert_close(agg, ragg, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(delta, rdelta, rtol=RTOL, atol=ATOL)
@@ -82,12 +85,12 @@ def test_kernel_matches_plain_version(cuda, B, L, Hd, W):
 
 def test_routing_and_checks_on_cuda(cuda):
     args = _inputs(2, 64, 32, cuda)
-    before = LAUNCHES["egnn_band_fwd"]
+    before = LAUNCHES[X3_FWD]
     for mode in ("auto", "interpret", True):
         egnn_band_fused(*args, 4, "highest", use_pallas=mode)
-    assert LAUNCHES["egnn_band_fwd"] == before + 3
+    assert LAUNCHES[X3_FWD] == before + 3
     egnn_band_fused(*args, 4, "highest", use_pallas=False)
-    assert LAUNCHES["egnn_band_fwd"] == before + 3
+    assert LAUNCHES[X3_FWD] == before + 3
     bad = list(args)
     bad[0] = args[0].double()
     with pytest.raises(ValueError, match="float32"):
@@ -100,9 +103,9 @@ def test_routing_and_checks_on_cuda(cuda):
         egnn_band_fwd(*bad, 4)
     # a width outside the native ones runs the kernel, zero-padded to 64
     args48 = _inputs(1, 16, 48, cuda)
-    before = LAUNCHES["egnn_band_fwd"]
+    before = LAUNCHES[X3_FWD]
     agg, delta = egnn_band_fwd(*args48, 4)
-    assert LAUNCHES["egnn_band_fwd"] == before + 1 and agg.shape == (1, 16, 48)
+    assert LAUNCHES[X3_FWD] == before + 1 and agg.shape == (1, 16, 48)
     for got, want in zip((agg, delta), egnn_band_reference(*args48, 4)):
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
@@ -206,8 +209,8 @@ def test_decoder_kernel_path_at_every_width(cuda, hidden):
     """A model at a padded width (16, 48, 384) and at Hd 512 runs its band
     layers through kernels 1-2 under "auto", forward and backward, on the
     kernels ``band_kernel`` names (at 384 and 512 the width-512 Hopper
-    kernels, ``egnn_band_{fwd,bwd}_sm90_hd512``), and matches the plain
-    path."""
+    kernels, ``egnn_band_{fwd,bwd}_sm90_hd512``, at 16 and 48 the 3xTF32
+    ones, ``egnn_band_{fwd,bwd}_sm90_x3``), and matches the plain path."""
     cfg = ModelConfig(seqemb_dim=16, d_model=32, nhead=4, ff=64, nlayers=1,
                       z_global=16, z_local=8, decoder_hidden=hidden,
                       decoder_layers=2, max_neighbors=8)
@@ -230,6 +233,8 @@ def test_decoder_kernel_path_at_every_width(cuda, hidden):
     fwd, bwd = (band_kernel(k, hidden, "highest") for k in ("egnn_band_fwd", "egnn_band_bwd"))
     if hidden > 256:
         assert (fwd, bwd) == ("egnn_band_fwd_sm90_hd512", "egnn_band_bwd_sm90_hd512")
+    else:
+        assert (fwd, bwd) == (X3_FWD, X3_BWD)
     assert LAUNCHES[fwd] == before[fwd] + cfg.decoder_layers
     assert LAUNCHES[bwd] == before[bwd] + cfg.decoder_layers
     (got, kg), (want, pg) = outs
@@ -256,11 +261,11 @@ def test_decoder_kernel_path_matches_plain_path(cuda):
     mask[2, [5, 6, 40]] = 0.0
     z_g = torch.randn(B, cfg.z_global, generator=g)
     z_l = torch.randn(B, L, cfg.z_local, generator=g)
-    before = LAUNCHES["egnn_band_fwd"]
+    before = LAUNCHES[X3_FWD]
     with torch.no_grad():
         got = model.decode(z_g.to(cuda), z_l.to(cuda), mask.to(cuda))
         want = plain.decode(z_g.to(cuda), z_l.to(cuda), mask.to(cuda))
-    assert LAUNCHES["egnn_band_fwd"] == before + cfg.decoder_layers
+    assert LAUNCHES[X3_FWD] == before + cfg.decoder_layers
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
 
@@ -284,10 +289,10 @@ def test_band_backward_matches_plain_version(cuda, B, L, Hd, W):
     g = torch.Generator(device="cpu").manual_seed(L)
     g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
     g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
-    before = LAUNCHES["egnn_band_bwd"]
+    before = LAUNCHES[X3_BWD]
     got = egnn_band_bwd(*args, g_agg, g_delta, W)
     torch.cuda.synchronize()
-    assert LAUNCHES["egnn_band_bwd"] == before + 1
+    assert LAUNCHES[X3_BWD] == before + 1
     want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
     names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
     for name, a, b in zip(names, got, want):
@@ -323,15 +328,16 @@ def _check_fwd_bwd(args, W, seed):
 
 
 def test_fwd_offset_split_at_b1_l256(cuda):
-    """B1/L256 has 32 (batch row, tile) blocks: the wrapper splits the band
-    offsets so that kernel 1 launches >= 128 blocks, and the summed slices
+    """B1/L256 has 32 (batch row, tile) pairs: the wrapper splits the band
+    steps so that kernel 1 (3xTF32: the shared-tile kernel's persistent
+    grid) walks >= 128 units on as many blocks, and the summed slices
     match the plain version and repeat bitwise."""
-    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_work, fwd_plan
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import band_work, sm90_fwd_plan
 
     B, L, Hd, W = 1, 256, 256, 40
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    S = fwd_plan(B, L, W, Hd, cuda)
-    assert S > 1 and B * band_work(B, L, W)[0] * S >= min(128, n_sm)
+    S, _, G = sm90_fwd_plan(B, L, W, Hd, cuda, torch.float32, "highest")
+    assert S > 1 and B * band_work(B, L, W)[0] * S >= min(128, n_sm) and G >= min(128, n_sm)
     args = _inputs(B, L, Hd, cuda, seed=11)
     agg, delta = egnn_band_fwd(*args, W)
     ragg, rdelta = egnn_band_reference(*args, W)
@@ -447,10 +453,11 @@ def test_weight_grads_hold_float64_at_full_width(cuda, Hd):
     for name, k, p, r in zip(_GRAD_NAMES, got, plain, exact):
         dk, dp = _f64_dist(k, r), _f64_dist(p, r)
         assert dk <= max(2 * dp, 1.0), f"{name}: kernel {dk:.2f}, plain {dp:.2f}"
-    # at 384 and 512 the width-512 Hopper kernel (split-K wgmma, each k8
-    # step summed in round-to-nearest fp32) computed them
+    # the shared-tile Hopper kernel (split-K wgmma, each k8 step summed in
+    # round-to-nearest fp32) computed them: at 384 and 512 under the
+    # width-512 counter, at 256 in 3xTF32 under its own
     served = band_kernel("egnn_band_bwd", Hd, "highest")
-    assert served == ("egnn_band_bwd_sm90_hd512" if Hd > 256 else "egnn_band_bwd")
+    assert served == ("egnn_band_bwd_sm90_hd512" if Hd > 256 else X3_BWD)
     assert LAUNCHES[served] >= 1
 
 
@@ -736,9 +743,9 @@ def test_band_function_gradients_on_cuda(cuda):
         assert agg.requires_grad and delta.requires_grad
         return (agg.square().sum() + delta.square().sum())
 
-    before = LAUNCHES["egnn_band_bwd"]
+    before = LAUNCHES[X3_BWD]
     run(diff, "auto").backward()
-    assert LAUNCHES["egnn_band_bwd"] == before + 1
+    assert LAUNCHES[X3_BWD] == before + 1
     run(plain, False).backward()
     for a, b in zip(diff, plain):
         assert a.grad is not None
@@ -945,7 +952,7 @@ def test_train_step_has_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 2
+    assert LAUNCHES[X3_BWD] == before[X3_BWD] + 2
     assert LAUNCHES["clash_bwd"] == before["clash_bwd"] + 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
@@ -1156,9 +1163,10 @@ def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
     ref = single_step(spec)
     ranks = launch(parity_step, 2, (spec,), device="cuda", timeout_s=300,
                    store_dir=str(tmp_path))
-    want = {"egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
+    want = {"egnn_band_fwd": 0, "egnn_band_bwd": 0, "egnn_band_fwd_sm90": 0,
             "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0,
-            "egnn_band_bwd_sm90_hd512": 0, "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
+            "egnn_band_bwd_sm90_hd512": 0, X3_FWD: 2, X3_BWD: 2,
+            "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
     assert ref["launches"] == want
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     for r in ranks:
@@ -1196,9 +1204,9 @@ def test_watch_gradient_kernel_path_matches_plain_path(cuda):
     grads = make_param_grad_fn(kmodel, LossWeights())(batch, 7, 1.0, 0.5)
     torch.cuda.synchronize()
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
-        "egnn_band_fwd": 2, "egnn_band_bwd": 2, "egnn_band_fwd_sm90": 0,
+        "egnn_band_fwd": 0, "egnn_band_bwd": 0, "egnn_band_fwd_sm90": 0,
         "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0, "egnn_band_bwd_sm90_hd512": 0,
-        "clash_fwd": 1, "clash_bwd": 1}
+        X3_FWD: 2, X3_BWD: 2, "clash_fwd": 1, "clash_bwd": 1}
     assert all(torch.isfinite(g).all() for g in grads.values())
     smooth = LossWeights(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
                          w_angle=0.0, w_clash=0.0)
@@ -1240,7 +1248,7 @@ def test_debug_mode_on_the_kernel_path(cuda):
             egnn_band_fused(*args, 4, "highest")
     finally:
         disable_debug_mode()
-    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 2
+    assert LAUNCHES[X3_BWD] == before[X3_BWD] + 2
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
@@ -1464,6 +1472,100 @@ def test_hd512_weight_images_match_numpy_mirror(cuda, nw, hmajor):
                                                                   weight_image_hd512)
 
     w = torch.randn(512, 512, generator=torch.Generator().manual_seed(nw)) / 20
+    kinds = [(IMG_T, 0), (IMG_T, 1), (IMG_N, 0), (IMG_N, 1)]
+    got = hd512_weight_images([w.to(cuda)] * 4, [k for k, _ in kinds], [p for _, p in kinds],
+                              nw, hmajor).cpu().numpy()
+    for q, (orient, part) in enumerate(kinds):
+        want = weight_image_hd512(w.numpy(), orient, part, nw, hmajor)
+        assert np.array_equal(got[q].view(np.uint32), want.view(np.uint32)), (orient, part)
+
+
+# The fp32 model's 3xTF32 mode at the widths up to 256 on the shared-tile
+# Hopper kernels (the split tile beside the activation tile, two weight
+# images per product): native widths and padded ones (16, 200), band
+# half-widths 4-40, a / bs in fp32 and bf16, at the fp32 tolerances
+# (_hd512_check: rtol 1e-4 / atol 1e-4 max|plain| forward, the gradient
+# tolerance backward); every call goes through them under the x3 counters,
+# the mma.sync kernels launch no time, and two launches are bitwise
+# identical.
+X3_CASES = [(Hd, L, W, in_dtype) for Hd in (32, 64, 128, 256, 16, 200)
+            for L, W in ((37, 4), (64, 12), (160, 40))
+            for in_dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("Hd,L,W,in_dtype", X3_CASES)
+def test_x3_fwd_matches_plain_version(cuda, Hd, L, W, in_dtype):
+    args = _sm90_args(Hd, L, W, in_dtype, cuda)
+    before = dict(LAUNCHES)
+    out = egnn_band_fwd(*args, W, "highest")
+    again = egnn_band_fwd(*args, W, "highest")
+    torch.cuda.synchronize()
+    assert LAUNCHES[X3_FWD] == before[X3_FWD] + 2
+    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"]
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for name, got, want in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _hd512_check(name, got, want, "highest", value=True)
+
+
+@pytest.mark.parametrize("Hd,L,W,in_dtype", X3_CASES)
+def test_x3_bwd_matches_plain_version(cuda, Hd, L, W, in_dtype):
+    args = _sm90_args(Hd, L, W, in_dtype, cuda)
+    g_agg, g_delta = _cotangents(args, seed=Hd + L)
+    before = dict(LAUNCHES)
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "highest")
+    again = egnn_band_bwd(*args, g_agg, g_delta, W, "highest")
+    torch.cuda.synchronize()
+    assert LAUNCHES[X3_BWD] == before[X3_BWD] + 2
+    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = egnn_band_bwd_reference(*args, g_agg, g_delta, W)
+    for name, a, b in zip(_GRAD_NAMES, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _hd512_check(name, a, b, "highest", value=False)
+
+
+@pytest.mark.parametrize("case", ["all_masked_sample", "padding_tile"])
+def test_x3_masked_steps_are_skipped_exactly(cuda, case):
+    """A wholly masked sample and an all-padding tile of receivers at Hd
+    256 in 3xTF32: the shared-tile kernels skip their steps, match the
+    plain versions, and leave exact zeros on those rows."""
+    B, L, Hd, W = 2, 96, 256, 40
+    args = _sm90_args(Hd, L, W, torch.float32, cuda, B=B)
+    if case == "all_masked_sample":
+        args[3][1] = 0.0
+        rows = (1, slice(None))
+    else:
+        args[3][:, 40:48] = 0.0
+        rows = (slice(None), slice(40, 48))
+    g_agg, g_delta = _cotangents(args, seed=9)
+    out = egnn_band_fwd(*args, W, "highest")
+    got = egnn_band_bwd(*args, g_agg, g_delta, W, "highest")
+    for name, a, b in zip(("agg", "raw_delta"), out, egnn_band_reference(*args, W)):
+        _hd512_check(name, a, b, "highest", value=True)
+    for name, a, b in zip(_GRAD_NAMES, got,
+                          egnn_band_bwd_reference(*args, g_agg, g_delta, W)):
+        _hd512_check(name, a, b, "highest", value=False)
+    for t in out + got[:3]:
+        assert float(t[rows].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hmajor", [True, False])
+@pytest.mark.parametrize("Hd", [32, 64, 128, 256])
+def test_x3_weight_images_match_numpy_mirror(cuda, Hd, hmajor):
+    """The layout kernel's Wb and Ws images at each width up to 256 (both
+    orientations, kernel 1's h-major chunks or kernel 2's K-block-major
+    ones, each kernel's columns per product) equal the wrapper's numpy
+    mirror (``weight_image_hd512``) bit for bit."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (IMG_N, IMG_T,
+                                                                  hd512_weight_images,
+                                                                  shared_tile_nw,
+                                                                  weight_image_hd512)
+
+    nw = shared_tile_nw(X3_FWD if hmajor else X3_BWD, Hd)
+    w = torch.randn(Hd, Hd, generator=torch.Generator().manual_seed(Hd)) / 20
     kinds = [(IMG_T, 0), (IMG_T, 1), (IMG_N, 0), (IMG_N, 1)]
     got = hd512_weight_images([w.to(cuda)] * 4, [k for k, _ in kinds], [p for _, p in kinds],
                               nw, hmajor).cpu().numpy()

@@ -1,11 +1,14 @@
 """CPU tests of what surrounds the width-512 Hopper band kernels
 (``csrc/egnn_band_fwd_sm90_hd512.cu``, ``csrc/egnn_band_bwd_sm90_hd512.cu``,
 ``csrc/egnn_sm90.cuh``: ``Half``): the launch plans, the shared-memory
-budget against the sources' own constants and notes, the weight images
+budget against the sources' own constants and notes (at 512, and at the
+widths up to 256 those kernels serve in 3xTF32), the weight images
 (the N-half chunk order, big and small parts) read back as ``wgmma`` reads
 them, the routing of every mode and width, and a numpy emulation of the
 3xTF32 split the kernels use (the tile read truncated, its remainder
-rounded) held against the fp32 plain version, where one TF32 pass fails.
+rounded; at Hd 256 the remainder in its own tile) held against the fp32
+plain version, where one TF32 pass fails. The widths up to 256 in 3xTF32
+have their own tests (``tests/test_torch_sm90_3xtf32.py``).
 No GPU is needed; the kernels themselves are held against the plain
 versions on the card (``tests/test_torch_gpu.py``, ``hd512`` tests).
 """
@@ -21,9 +24,9 @@ torch = pytest.importorskip("torch")
 from protein_ensemble_vae_torch.ops.kernels import LAUNCHES, SOURCES  # noqa: E402
 from protein_ensemble_vae_torch.ops.kernels.egnn_band import (  # noqa: E402
     HD512, HD512_BWD_KERNEL, HD512_BWD_NW, HD512_BWD_STAGES, HD512_FWD_NW, HD512_FWD_STAGES,
-    HD512_HALF, HD512_KERNEL, HD512_WGRAD_STAGES, HD512_WGRAD_TILE, IMG_N, IMG_T, SM90_KB,
-    SMEM_LIMIT, band_kernel, band_work, egnn_band_reference, hd512_fwd_plan_of, rna_tf32,
-    sm90_bwd_grid, sm90_smem_bytes, weight_image_hd512)
+    HD512_HALF, HD512_KERNEL, HD512_WGRAD_STAGES, HD512_WGRAD_TILE, IMG_N, IMG_T, SM90_HIDDEN,
+    SM90_KB, SMEM_LIMIT, X3_BWD_KERNEL, X3_FWD_STAGES, X3_KERNEL, band_kernel, band_work, egnn_band_reference,
+    hd512_fwd_plan_of, rna_tf32, sm90_bwd_grid, sm90_smem_bytes, weight_image_hd512)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "protein_ensemble_vae_torch", "csrc")
@@ -95,25 +98,31 @@ def test_shared_memory_fits_a_block(kernel, passes):
 
 def test_wrapper_constants_match_the_sources():
     """The wrapper's mirror of the layouts reads the same constants as the
-    .cu files, and the source notes' budgets give its totals."""
+    .cu files (the columns per product at 512, NW_OF's cap), and the source
+    notes' budget tables give its totals at 512 and, in 3xTF32, at every
+    width up to 256; the 3xTF32 counters name the shared-tile sources."""
     hdr, fwd, bwd = (_src(f) for f in ("egnn_sm90.cuh", "egnn_band_fwd_sm90_hd512.cu",
                                        "egnn_band_bwd_sm90_hd512.cu"))
-    assert _constexpr(fwd, "NW") == HD512_FWD_NW
-    assert _constexpr(bwd, "NW") == HD512_BWD_NW
-    assert _constexpr(fwd, "STAGES") == HD512_FWD_STAGES
+    assert (f"constexpr int NW_OF = HD == 512 ? {HD512_FWD_NW} : HD / 2 < {HD512_BWD_NW} ? "
+            f"HD / 2 : {HD512_BWD_NW};") in fwd
+    assert f"constexpr int NW_OF = HD / 2 < {HD512_BWD_NW} ? HD / 2 : {HD512_BWD_NW};" in bwd
+    assert f"constexpr int STAGES_OF = HD == 512 ? {HD512_FWD_STAGES} : {X3_FWD_STAGES};" in fwd
     assert _constexpr(bwd, "STAGES") == HD512_BWD_STAGES
     assert _constexpr(bwd, "WSTAGES") == HD512_WGRAD_STAGES
-    assert _constexpr(bwd, "HD") == HD512
-    assert "static constexpr int HD = 512, N = 256;" in hdr and HD512_HALF == 256
-    total = re.search(r"^//\s+total\s+([\d,]+)\s+\(of 232,448\)", fwd, re.M)
-    assert int(total.group(1).replace(",", "")) == sm90_smem_bytes(HD512_KERNEL, HD512)
-    total = re.search(r"total ([\d,]+) \(of 232,448\)", bwd)
-    assert int(total.group(1).replace(",", "")) == sm90_smem_bytes(HD512_BWD_KERNEL, HD512)
-    wg = re.search(r"step list: ([\d,]+) / ([\d,]+) \+ 4 x steps", bwd)
+    assert "constexpr int GROUP_OF = HD == 512 ? 128 : 32;" in fwd
+    assert "static constexpr int HD = HD_, N = HD_ / 2;" in hdr and HD512_HALF == HD512 // 2
+    for src, kernels in ((fwd, (HD512_KERNEL, X3_KERNEL)), (bwd, (HD512_BWD_KERNEL, X3_BWD_KERNEL))):
+        for hd in (HD512,) + SM90_HIDDEN:
+            row = re.search(rf"^//\s+{hd} \|.*\|\s+([\d,]+)(?:\s+\(.*\))?\s*$", src, re.M)
+            want = sm90_smem_bytes(kernels[hd < HD512], hd, 3)
+            assert int(row.group(1).replace(",", "")) == want, (kernels, hd)
+    wg = re.search(r"step list, at TN 64:\n// ([\d,]+) / ([\d,]+) \+ 4 x steps", bwd)
     for passes, got in zip((1, 3), wg.groups()):
         assert int(got.replace(",", "")) == sm90_smem_bytes("wgrad_hd512", HD512, passes)
     for name in (HD512_KERNEL, HD512_BWD_KERNEL):
         assert SOURCES[name] == name and name in LAUNCHES
+    for name, src in ((X3_KERNEL, HD512_KERNEL), (X3_BWD_KERNEL, HD512_BWD_KERNEL)):
+        assert SOURCES[name] == src and name in LAUNCHES
 
 
 def _desc_read(img: np.ndarray, nw: int, hmajor: bool, n: np.ndarray,
@@ -161,8 +170,9 @@ def test_weight_image_reads_back_through_the_descriptor(nw, hmajor, orient, part
 
 def test_routing_names_the_kernel_of_each_mode_and_width():
     """Both fp32-chain modes at widths 257 to 512 go to the width-512
-    kernels; the bf16 chain at 512, the widths above 512 and those up to
-    256 keep their kernels."""
+    kernels; the bf16 chain at 512 and the widths above 512 keep their
+    kernels; up to 256, 3xTF32 goes to the shared-tile kernels under their
+    own counters and the one-pass mode to the one-pass Hopper kernels."""
     for hd in (257, 300, 384, 511, 512):
         for precision in ("highest", "default"):
             assert band_kernel("egnn_band_fwd", hd, precision) == HD512_KERNEL
@@ -174,7 +184,7 @@ def test_routing_names_the_kernel_of_each_mode_and_width():
             assert band_kernel("egnn_band_fwd", hd, precision) == "egnn_band_fwd"
             assert band_kernel("egnn_band_bwd", hd, precision) == "egnn_band_bwd"
     for hd in (16, 200, 256):
-        assert band_kernel("egnn_band_fwd", hd, "highest") == "egnn_band_fwd"
+        assert band_kernel("egnn_band_fwd", hd, "highest") == X3_KERNEL
         assert band_kernel("egnn_band_bwd", hd, "default") == "egnn_band_bwd_sm90"
 
 
@@ -236,6 +246,35 @@ def _mm3(x, w, group=128):
     return out.reshape(shape)
 
 
+def _mm3_split(x, w, group=32):
+    """x @ w as kernel 1 computes it in 3xTF32 up to Hd 256 (product_split):
+    Xt.Wb, each k8 step added to a step sum rounding toward zero, each
+    ``group`` K values' step sum added to the result in round-to-nearest
+    fp32 (32 up to Hd 256); the small terms Xt.Ws and Xs.Wb (Xs from the split tile) in their
+    own accumulator rounding toward zero, in the order the chunk pairs
+    stream them (a K block's Ws chunk, then its Wb chunk), added to the
+    result in round-to-nearest fp32 at the end."""
+    shape = x.shape[:-1] + (w.shape[1],)
+    x = x.reshape(-1, x.shape[-1])
+    xt = _trunc(x)
+    xs = rna_tf32(x - xt)
+    wb = rna_tf32(w)
+    ws = rna_tf32(w - wb)
+    f64 = lambda a, k: a[..., k:k + 8].astype(np.float64)  # noqa: E731
+    out = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    sml = np.zeros_like(out)
+    for g in range(0, x.shape[1], group):
+        step = np.zeros_like(out)
+        for kb in range(g, g + group, 32):
+            for k in range(kb, kb + 32, 8):
+                sml = _rz_add(sml, f64(xt, k) @ ws[k:k + 8].astype(np.float64))
+            for k in range(kb, kb + 32, 8):
+                step = _rz_add(step, f64(xt, k) @ wb[k:k + 8].astype(np.float64))
+                sml = _rz_add(sml, f64(xs, k) @ wb[k:k + 8].astype(np.float64))
+        out = (out + step).astype(np.float32)
+    return (out + sml).astype(np.float32).reshape(shape)
+
+
 def _mm1(x, w):
     """One TF32 pass: both operands rounded as the kernels write them."""
     return (rna_tf32(x) @ rna_tf32(w)).astype(np.float32)
@@ -263,13 +302,17 @@ def _forward(a, bs, x, cmask, params, Wb, mm):
     return np.sum(m * valid, axis=2), np.sum(wsc * valid * rel, axis=2)
 
 
-def test_three_pass_split_holds_the_plain_version_at_512():
-    """At Hd 512 kernel 1's 3xTF32 (truncated tile, rounded remainder, two
-    weight images, truncating accumulation in 128-K step sums) holds rtol
-    1e-4 / atol 1e-4 max|plain| of the fp32 plain version forward; one
-    TF32 pass does not."""
+@pytest.mark.parametrize("Hd", [256, HD512])
+def test_three_pass_split_holds_the_plain_version(Hd):
+    """Kernel 1's 3xTF32 holds rtol 1e-4 / atol 1e-4 max|plain| of the fp32
+    plain version forward; one TF32 pass does not. At Hd 512 the tile is
+    read truncated and rewritten as its rounded remainder, three passes
+    over two weight images with truncating accumulation in 128-K step sums
+    (_mm3); at Hd 256 the remainder lies in its own tile, each Wb chunk
+    serves both, the small terms have their own accumulator and the big
+    terms' step sums span 32 K (_mm3_split)."""
     rng = np.random.default_rng(11)
-    B, L, Hd, Wb = 2, 24, HD512, 6
+    B, L, Wb = 2, 24, 6
     sd = np.float32((Hd / (3 * (2 * Hd + 1))) ** 0.5)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     a, bs, x = f(B, L, Hd) * sd, f(B, L, Hd) * sd, f(B, L, 3) * np.float32(10)
@@ -285,5 +328,5 @@ def test_three_pass_split_holds_the_plain_version_at_512():
         return all(np.allclose(g, r, rtol=1e-4, atol=1e-4 * np.abs(r).max())
                    for g, r in zip(got, want))
 
-    assert holds(_forward(a, bs, x, cmask, params, Wb, _mm3))
+    assert holds(_forward(a, bs, x, cmask, params, Wb, _mm3 if Hd == HD512 else _mm3_split))
     assert not holds(_forward(a, bs, x, cmask, params, Wb, _mm1))
