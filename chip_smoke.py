@@ -54,9 +54,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    512-thread ``Tile<512>`` block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
    kernel 2 at B4/L256 and B2/L640, and at widths the wrappers zero-pad to
    a native one: Hd 384 (-> 512) in the three modes, Hd 8 and 48 (-> 32,
-   64) in fp32, at B4/L256; and above 512, the wide variants
-   (``WIDER_ROWS``: a run-time width, a multiple of 256, any other padded
-   up): Hd 1024 at B4/L256 and Hd 640 (-> 768), 1100 (-> 1280) and 2048
+   64) in fp32, at B4/L256; and above 512 (``WIDER_ROWS``: a run-time
+   width, a multiple of 256, any other padded up), both fp32-chain modes on
+   the Hopper kernels above 512 (``egnn_band_{fwd,bwd}_sm90_wide``, with
+   their weight- and A-stream floors), the bf16 chain on the wide variants:
+   Hd 1024 at B4/L256 and Hd 640 (-> 768), 1100 (-> 1280) and 2048
    at B1/L256, in the three modes, both kernels; each row at its mode's
    Hd-256 tolerance, two launches bitwise identical, its bound counted at
    the real width; ``shapes`` rows with ``Hd`` and ``padded_to``. Then the
@@ -131,7 +133,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    through kernels 1-4, one at decoder width 384 (zero-padded to 512: the
    width-512 kernels must launch), and one epoch of
    ``cli.train --decoder_hidden 1024`` (every other width at its
-   default) through the wide variants of kernels 1-2 and kernels 3-4.
+   default) through the Hopper kernels above 512
+   (``egnn_band_{fwd,bwd}_sm90_wide``) and kernels 3-4.
 7. refinement, after the train steps (what it leaves allocated would count
    in their peak memory): checks first, counted apart from the path: the
    polish Cartesian energy and its gradient with the clash term through
@@ -235,10 +238,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (``egnn_band_{fwd,bwd}_sm90_x3``), which serve the fp32 model's mode
    up to Hd 256, on generate, dataprep, refine, train, train_watch,
    train_dp, wide_decoder (its width-16 CLI epoch) and the flagship's
-   generation, their line's rows the fp32 headline shapes; the first ones
-   the bf16 chain and the widths above 512 (chain_dtype_ab and
-   wide_decoder), their line's rows the bf16 chain's at the headline
-   shapes), then, as the last line, ``{"ok": true, "device": {...}}``.
+   generation, their line's rows the fp32 headline shapes; the Hopper
+   kernels above 512 (``egnn_band_{fwd,bwd}_sm90_wide``), which serve both
+   fp32-chain modes there, on wide_decoder (its width-1024 CLI epoch),
+   their line's row the fp32 B4/L256 one at Hd 1024; the first ones the
+   bf16 chain (chain_dtype_ab), their line's rows the bf16 chain's at the
+   headline shapes), then, as the last line, ``{"ok": true, "device":
+   {...}}``.
 
 Kernels 1-2 at Hd 256 in the fp32 model's 3xTF32 mode (phase 3's fp32
 rows, the flagship's generation rows) and in the one-pass fp32 chain
@@ -669,11 +675,16 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     ``precision`` "highest" (Ws, Wb, Wb), up to 256 in 3xTF32 (``kernel``
     ending in ``_x3``) two (Ws, Wb)) and, for kernel 2, the scratch round
     trip (m1, m, cot_u, cot_v, cot_pre: 64 x n fp32 each per step with a
-    valid edge, written once and read once, at the HBM peak)."""
+    valid edge, written once and read once, at the HBM peak). Above 512
+    (``kernel`` ending in ``_sm90_wide``) every step streams each weight
+    once per image (one in one pass, Wb and Ws in 3xTF32), and each of its
+    products (two, or four in kernel 2) re-reads its A operand, 64 x n
+    fp32, once per column pass of 2 x WIDE_NW columns: the A-stream floor,
+    at the same L2 rate."""
     import torch
 
-    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (OPS, TILE, band_indices,
-                                                                  native_width)
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (OPS, PASSES, TILE, WIDE_NW,
+                                                                  band_indices, native_width)
 
     idx, in_range = band_indices(L, W, cmask.device)
     cm = cmask > 0.5
@@ -688,15 +699,21 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     items = int(steps[..., :n_steps].sum())
     weights = 2 if kernel.startswith("egnn_band_fwd") else 4
     n = native_width(hd)   # the width the kernel streams (a padded width runs at its native one)
-    if kernel.endswith("_hd512") or n == 512:
+    l2 = READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9
+    out = {}
+    if kernel.endswith("_sm90_wide"):
+        p = PASSES[precision]
+        passes = items * (2 if p == 3 else 1)
+        products = 2 if kernel.startswith("egnn_band_fwd") else 4
+        col_passes = n // (2 * WIDE_NW[p])
+        out["a_stream_floor_ms"] = 1e3 * items * products * col_passes * 64 * n * 4 / l2
+    elif kernel.endswith("_hd512") or n == 512:
         passes = items * (3 if precision == "highest" else 1)
     elif kernel.endswith("_x3"):
         passes = items * 2
     else:
         passes = pairs
-    out = dict(weight_floor_ms=1e3 * passes * weights * n * n * 4
-               / (READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9),
-               weight_passes=passes)
+    out.update(weight_floor_ms=1e3 * passes * weights * n * n * 4 / l2, weight_passes=passes)
     if kernel.startswith("egnn_band_bwd"):
         out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * n * 4 / PEAK_BYTES_PER_S
     return out
@@ -1053,6 +1070,8 @@ def _floor_text(floors: dict) -> str:
     if "weight_floor_ms" in floors:
         text += (f"; weight-stream floor {floors['weight_floor_ms']:.4f} ms "
                  f"({floors['weight_passes']} weight passes from L2)")
+    if "a_stream_floor_ms" in floors:
+        text += f"; A-stream floor {floors['a_stream_floor_ms']:.4f} ms (from L2)"
     if "scratch_floor_ms" in floors:
         text += f"; scratch floor {floors['scratch_floor_ms']:.4f} ms (HBM round trip)"
     return text
@@ -1365,7 +1384,7 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
         rel, rel_fp32 = _chain_err(tag, outs, got, ref, onepass(), frac)
     err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
     del got, again, ref
-    if hd > MAX_NATIVE:   # the wide variants: tens of ms a call
+    if hd > MAX_NATIVE:   # above 512: up to tens of ms a call
         ms = _median_ms(call, reps=WIDER_REPS, min_launches=WIDER_LAUNCHES)
         host_us = _host_us(call, n=WIDER_LAUNCHES)
         plain_ms = _median_ms(plain, reps=WIDER_REPS, min_launches=WIDER_LAUNCHES)
@@ -1394,9 +1413,11 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
                 **({} if rel_fp32 is None else {"max_rel_err_to_fp32_chain": rel_fp32}))
 
 
-# Widths above 512 run the kernels' wide variants (a multiple of 256 at run
-# time, any other width zero-padded up: 640 -> 768, 1100 -> 1280;
-# csrc/egnn_tile.cuh), in the three modes: Hd 1024 at B4/L256, the shape
+# Widths above 512 run a multiple of 256 given at run time (any other width
+# zero-padded up: 640 -> 768, 1100 -> 1280): both fp32-chain modes on the
+# Hopper kernels above 512 (csrc/egnn_band_{fwd,bwd}_sm90_wide.cu), the bf16
+# chain on the wide variants (csrc/egnn_tile.cuh), in the three modes: Hd
+# 1024 at B4/L256, the shape
 # of the `cli.train --decoder_hidden 1024` epoch (phase 6b), and 640, 1100
 # and 2048 at B1/L256. Each row is held at its mode's Hd-256 tolerance; a
 # call there takes tens of ms, so its device time is the median of
@@ -2941,7 +2962,7 @@ def _tiny_cli_train(out_dir: str, hd: int = 16) -> dict:
     return dict(launches=launches, modes=modes, seconds=secs)
 
 
-WIDER_CLI_HD = 1024   # a decoder above the native widths: the wide variants
+WIDER_CLI_HD = 1024   # a decoder above the native widths: the Hopper kernels above 512
 
 
 def _wider_cli_train(out_dir: str) -> dict:
@@ -2949,7 +2970,7 @@ def _wider_cli_train(out_dir: str) -> dict:
     epoch, every other width at its default, fp32, batch 4, on
     TRAIN_PROTEIN's H5 files (``_pair_manifests``). Counts reset just
     before and read just after: per train step 8 band forwards and 8 band
-    backwards (the wide variants), one of each clash kernel; per eval step
+    backwards (``egnn_band_{fwd,bwd}_sm90_wide``), one of each clash kernel; per eval step
     8 + 1; every band launch in FP32_MODE; losses finite."""
     import torch
 
@@ -4010,6 +4031,10 @@ KERNEL_INFO = {
                               "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
     "egnn_band_bwd_sm90_x3": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90_hd512.cu",
                               "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
+    "egnn_band_fwd_sm90_wide": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd_sm90_wide.cu",
+                                "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
+    "egnn_band_bwd_sm90_wide": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90_wide.cu",
+                                "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
     "clash_fwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:54"),
     "clash_bwd": ("protein_ensemble_vae_torch/csrc/clash.cu",
@@ -4017,8 +4042,9 @@ KERNEL_INFO = {
 }
 
 # The paths on which each kernel must have launched: the first band
-# kernels serve the bf16 chain and the widths above 512 (the wide_decoder
-# path's width-1024 CLI epoch); the Hopper ones the bf16 model's one-pass
+# kernels serve the bf16 chain (chain_dtype_ab); the Hopper ones above 512
+# both fp32-chain modes (the wide_decoder path's width-1024 CLI epoch);
+# the other Hopper ones the bf16 model's one-pass
 # mode up to Hd 256 (train_bf16, the flagship's training), the fp32
 # model's 3xTF32 mode up to Hd 256 (the _x3 counters of the shared-tile
 # kernels: generation, dataprep, refine, the fp32 training paths, the
@@ -4027,8 +4053,8 @@ KERNEL_INFO = {
 # generation, fp32 and bf16 steps and its width-384 CLI epoch, each checked
 # there); kernels 3-4 every path with a loss.
 REQUIRED_PATHS = {
-    "egnn_band_fwd": ("wide_decoder", "chain_dtype_ab"),
-    "egnn_band_bwd": ("wide_decoder", "chain_dtype_ab"),
+    "egnn_band_fwd": ("chain_dtype_ab",),
+    "egnn_band_bwd": ("chain_dtype_ab",),
     "egnn_band_fwd_sm90": ("train_bf16", "flagship"),
     "egnn_band_bwd_sm90": ("train_bf16", "flagship"),
     "egnn_band_fwd_sm90_hd512": ("wide_decoder",),
@@ -4036,6 +4062,8 @@ REQUIRED_PATHS = {
     "egnn_band_fwd_sm90_x3": ("generate", "dataprep", "refine", "train", "train_watch",
                               "train_dp", "wide_decoder", "flagship"),
     "egnn_band_bwd_sm90_x3": ("train", "train_watch", "train_dp", "wide_decoder"),
+    "egnn_band_fwd_sm90_wide": ("wide_decoder",),
+    "egnn_band_bwd_sm90_wide": ("wide_decoder",),
     "clash_fwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
     "clash_bwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
@@ -4044,8 +4072,9 @@ REQUIRED_PATHS = {
 # the row each kernel's line reports (shape, mode, width): the first band
 # kernels' bf16-chain rows at the headline shapes, the flagship's B8/L128
 # in the bf16 model's mode for the one-pass Hopper kernels, the train
-# step's B4/L256 in fp32 at Hd 512 for those of width 512, the fp32
-# headline shapes for the 3xTF32 ones
+# step's B4/L256 in fp32 at Hd 512 for those of width 512 and at
+# WIDER_CLI_HD for those above it, the fp32 headline shapes for the 3xTF32
+# ones
 KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, "bfloat16/bfloat16_chain", HD),
                "egnn_band_bwd": (TRAIN_HEADLINE, "bfloat16/bfloat16_chain", HD),
                "egnn_band_fwd_sm90_x3": (HEADLINE_SHAPE, FP32_MODE, HD),
@@ -4054,6 +4083,8 @@ KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, "bfloat16/bfloat16_chain", HD),
                "egnn_band_bwd_sm90": ((8, 128), BF16_MODE, HD),
                "egnn_band_fwd_sm90_hd512": (TRAIN_HEADLINE, FP32_MODE, WIDE_HD),
                "egnn_band_bwd_sm90_hd512": (TRAIN_HEADLINE, FP32_MODE, WIDE_HD),
+               "egnn_band_fwd_sm90_wide": (TRAIN_HEADLINE, FP32_MODE, WIDER_CLI_HD),
+               "egnn_band_bwd_sm90_wide": (TRAIN_HEADLINE, FP32_MODE, WIDER_CLI_HD),
                "clash_fwd": (TRAIN_HEADLINE, FP32_MODE, HD),
                "clash_bwd": (TRAIN_HEADLINE, FP32_MODE, HD)}
 
@@ -4196,7 +4227,8 @@ def main(argv=None) -> None:
             graph_ms=head.get("graph_ms"),
             **floor,
             tc_bound_ms=head.get("tc_bound_ms"),
-            **{k: head[k] for k in ("weight_floor_ms", "scratch_floor_ms") if k in head},
+            **{k: head[k] for k in ("weight_floor_ms", "a_stream_floor_ms", "scratch_floor_ms")
+               if k in head},
             # kernels 1-2: the train_bf16 path's launches by mode
             **({"train_bf16_modes": {k.split(":", 1)[1]: v
                                      for k, v in train_bf16["modes"].items()

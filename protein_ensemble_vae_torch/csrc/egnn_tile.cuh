@@ -675,17 +675,16 @@ using Int = std::integral_constant<int, V>;
 // 3; the bf16 chain takes either and makes one bf16 pass). The bf16 chain
 // is instantiated once per (hd, In). cudaErrorInvalidValue for anything
 // else.
-// f(Type<In>{}, Int<MODE>{}) for the input type and mode, as dispatch
-// below; for the wide kernels, which take the width at run time.
+// f(Type<In>{}, Int<CHAIN_BF16>{}) for the input type, as dispatch below;
+// for the wide kernels, which take the width at run time. They are built
+// for the bf16 chain only (passes 1 or 3 accepted, one bf16 pass made):
+// both fp32-chain modes above 512 run on egnn_band_{fwd,bwd}_sm90_wide.cu,
+// and a call in either is refused (cudaErrorInvalidValue).
 template <class F>
 cudaError_t dispatch_mode(int bf16_in, int passes, int chain_bf16, F&& f) {
-    auto by_mode = [&](auto t) -> cudaError_t {
-        if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
-        if (chain_bf16) return f(t, Int<CHAIN_BF16>{});
-        if (passes == 1) return f(t, Int<1>{});
-        return f(t, Int<3>{});
-    };
-    return bf16_in ? by_mode(Type<__nv_bfloat16>{}) : by_mode(Type<float>{});
+    if ((passes != 1 && passes != 3) || !chain_bf16) return cudaErrorInvalidValue;
+    return bf16_in ? f(Type<__nv_bfloat16>{}, Int<CHAIN_BF16>{})
+                   : f(Type<float>{}, Int<CHAIN_BF16>{});
 }
 
 // Neither fp32-chain mode (MODE 1, 3) is built here at the native widths:

@@ -19,6 +19,7 @@ LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
                             "egnn_band_fwd_sm90": 0, "egnn_band_bwd_sm90": 0,
                             "egnn_band_fwd_sm90_hd512": 0, "egnn_band_bwd_sm90_hd512": 0,
                             "egnn_band_fwd_sm90_x3": 0, "egnn_band_bwd_sm90_x3": 0,
+                            "egnn_band_fwd_sm90_wide": 0, "egnn_band_bwd_sm90_wide": 0,
                             "clash_fwd": 0, "clash_bwd": 0}
 
 # The launches of kernels 1-2 (counted in LAUNCHES too) by mode,
@@ -29,7 +30,8 @@ LAUNCHES: dict[str, int] = {"egnn_band_fwd": 0, "egnn_band_bwd": 0,
 # the one-pass fp32 chain at widths 32 to 256,
 # "egnn_band_fwd_sm90_x3:float32/highest" for 3xTF32 there, or
 # "egnn_band_fwd_sm90_hd512:float32/highest" for either fp32-chain mode at
-# width 512 (egnn_band.py: band_kernel).
+# width 512, "egnn_band_fwd_sm90_wide:float32/highest" above it
+# (egnn_band.py: band_kernel).
 BAND_MODE_LAUNCHES: dict[str, int] = {}
 
 # kernel -> its CUDA source, ``csrc/<source>.cu`` (one library per source;
@@ -43,6 +45,8 @@ SOURCES: dict[str, str] = {"egnn_band_fwd": "egnn_band_fwd",
                            "egnn_band_bwd_sm90_hd512": "egnn_band_bwd_sm90_hd512",
                            "egnn_band_fwd_sm90_x3": "egnn_band_fwd_sm90_hd512",
                            "egnn_band_bwd_sm90_x3": "egnn_band_bwd_sm90_hd512",
+                           "egnn_band_fwd_sm90_wide": "egnn_band_fwd_sm90_wide",
+                           "egnn_band_bwd_sm90_wide": "egnn_band_bwd_sm90_wide",
                            "clash_fwd": "clash", "clash_bwd": "clash"}
 
 

@@ -37,8 +37,8 @@ Modes, as the JAX function's arguments:
   uses this mode, and the port's decoder does not either.
 
 Kernels by mode. Both fp32-chain modes run on Hopper kernels (``wgmma``
-products fed by ``mbarrier`` weight rings) at every native width, and for
-a CUDA tensor only there:
+products fed by ``mbarrier`` rings) at every width, and for a CUDA tensor
+only there:
 - the one-pass mode (``precision="default"``; ``a`` / ``bs`` in bf16, the
   bf16 model's mode, or in fp32) at the native widths SM90_HIDDEN (32 to
   256, and the widths padded to them) on ``csrc/egnn_band_fwd_sm90.cu`` /
@@ -54,18 +54,24 @@ a CUDA tensor only there:
   their images, the activation's into a second tile up to 256 and over the
   tile in place at 512; counters ``egnn_band_fwd_sm90_x3`` /
   ``egnn_band_bwd_sm90_x3`` up to 256, ``egnn_band_fwd_sm90_hd512`` /
-  ``egnn_band_bwd_sm90_hd512`` at 512).
-The bf16 chain (at every width) and the wide variants above 512 stay on
-``csrc/egnn_band_fwd.cu`` / ``csrc/egnn_band_bwd.cu`` (``band_kernel``
-names the kernel that serves a call).
+  ``egnn_band_bwd_sm90_hd512`` at 512);
+- both modes above 512 (any multiple of WIDE_GROUP, given at run time; the
+  widths between padded up) on ``csrc/egnn_band_fwd_sm90_wide.cu`` /
+  ``csrc/egnn_band_bwd_sm90_wide.cu`` (``csrc/egnn_sm90_wide.cuh``: the
+  activation tile, too large for shared memory, streams from the block's
+  device-memory rows beside the weight chunks through one ring; the two
+  consumer warpgroups split each column pass; counters
+  ``egnn_band_fwd_sm90_wide`` / ``egnn_band_bwd_sm90_wide``).
+The bf16 chain (at every width) stays on ``csrc/egnn_band_fwd.cu`` /
+``csrc/egnn_band_bwd.cu``, above 512 on their wide variants
+(``band_kernel`` names the kernel that serves a call).
 
 Widths: any width from 1 up. The kernels are instantiated at the native
 widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
-shared memory; above MAX_NATIVE that tile, 64 x (Hd + 8) x 4 bytes, would
-outgrow the 227 KB of shared memory a block may have (near Hd 880), so a
-wide variant of each kernel takes every width that WIDE_GROUP divides,
-given at run time, with the tile in the block's device-memory scratch and
-the products walked in column groups (``csrc/egnn_tile.cuh``). For CUDA
+shared memory; above MAX_NATIVE that tile, 64 x Hd x 4 bytes, would
+outgrow the 227 KB of shared memory a block may have, so the kernels
+above it take every width that WIDE_GROUP divides, given at run time,
+with the activations in the block's device-memory scratch. For CUDA
 tensors of any other width the wrappers zero-pad to the next width the
 kernels take (``native_width``, ``pad_band_width``), launch, and slice the
 results back, which is exact up to summation order (``pad_band_width``
@@ -95,7 +101,8 @@ BWD_KERNEL = "egnn_band_bwd"
 # wrappers zero-pad any other width up to the next of these (pad_band_width)
 NATIVE_HIDDEN = (32, 64, 128, 256, 512)
 MAX_NATIVE = NATIVE_HIDDEN[-1]
-WIDE_GROUP = 256          # columns per group of the wide variants (csrc/egnn_tile.cuh)
+WIDE_GROUP = 256          # widths above 512 are its multiples (the wide variants' column
+                          # groups, csrc/egnn_tile.cuh; the Hopper kernels above 512 too)
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
 CHAIN_DTYPES = (torch.float32, torch.bfloat16)   # of the edge chain
 PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product (fp32 chain)
@@ -135,6 +142,14 @@ HD512_WGRAD_STAGES = 3    # stages of its weight-grad pass (WSTAGES)
 HD512_WGRAD_TILE = 64     # its output tiles are 64 x 64 (64 x Hd below 64)
 HD512_UNIT_COST = 0.1     # a unit's closing sums, in steps (hd512_fwd_plan_of)
 SMEM_LIMIT = 232448       # shared memory one block may have on an H100
+# The Hopper kernels above width 512 in both fp32-chain modes
+# (csrc/egnn_band_{fwd,bwd}_sm90_wide.cu, csrc/egnn_sm90_wide.cuh) and their
+# layout constants, by TF32 passes (1: one pass, 3: 3xTF32)
+WIDE_KERNEL = "egnn_band_fwd_sm90_wide"
+WIDE_BWD_KERNEL = "egnn_band_bwd_sm90_wide"
+WIDE_NW = {1: 128, 3: 64}     # columns per consumer and column pass (egnn_sm90_wide.cuh: Cfg::NW)
+WIDE_STAGES = {1: 5, 3: 4}    # ring stages (Cfg::STAGES)
+WIDE_WGRAD_TILE = 64          # weight-grad output tile edge (egnn_band_bwd_sm90_wide.cu: WGRAD_TN)
 IMG_T, IMG_N = 0, 1       # weight image orientations: B[n][k] = W[k][n], W[n][k]
 
 _FN = None
@@ -143,6 +158,8 @@ _SM90_FN = None
 _SM90_BWD_FN = None
 _HD512_FN = None
 _HD512_BWD_FN = None
+_WIDE_FN = None
+_WIDE_BWD_FN = None
 _SM_COUNT: dict = {}
 _PER_SM: dict = {}
 
@@ -190,8 +207,8 @@ def bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
 
 
 def wide_fwd_grid(B: int, L: int, n_sm: int, per_sm: int) -> int:
-    """Blocks of kernel 1's wide variant: one persistent block per resident
-    slot (``per_sm`` on each of ``n_sm`` SMs), each walking (batch row,
+    """Blocks of kernel 1's wide variant (the bf16 chain above 512): one
+    persistent block per resident slot (``per_sm`` on each of ``n_sm`` SMs), each walking (batch row,
     tile) items g, g + G, ... with every band step of each; no more blocks
     than items."""
     n_tiles, _, _ = band_work(B, L, 1)
@@ -213,12 +230,20 @@ def takes_hd512(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
     return Hd == HD512 or (precision == "highest" and Hd in SM90_HIDDEN)
 
 
+def takes_wide(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
+    """Whether the Hopper kernels above width 512 take a call at native
+    width Hd in this mode: either fp32-chain mode above MAX_NATIVE."""
+    return Hd > MAX_NATIVE and not _chain_bf16(chain_dtype)
+
+
 def band_kernel(kernel: str, Hd: int, precision: str = "highest",
                 chain_dtype=torch.float32) -> str:
     """The kernel, and launch counter, that serves ``kernel``
     (``"egnn_band_fwd"`` or ``"egnn_band_bwd"``) at hidden width Hd (any
     width; the kernels run it at ``native_width(Hd)``) in the mode."""
     n = native_width(Hd)
+    if takes_wide(n, precision, chain_dtype):
+        return kernel + "_sm90_wide"
     if takes_hd512(n, precision, chain_dtype):
         return kernel + ("_sm90_hd512" if n == HD512 else "_sm90_x3")
     return kernel + "_sm90" if takes_sm90(n, precision, chain_dtype) else kernel
@@ -263,15 +288,17 @@ def sm90_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
 
 def hd512_fwd_plan_of(B: int, L: int, W: int, n_sm: int,
                       per_sm: int) -> tuple[int, int, int]:
-    """Kernel 1's plan at width 512: (S, steps per slice, G). A work unit is
-    (batch row, receiver tile, slice of the band's 64-edge-row steps); G
-    persistent blocks (``per_sm`` on each of ``n_sm`` SMs, no more than the
-    units) walk units g, g + G, ... S is the slice count (every slice
-    owning at least one step) that gives the least estimated makespan, in
-    steps: the most units a block takes times the steps of a unit, plus
-    HD512_UNIT_COST a unit for its closing sums (the fewer slices on a
-    tie). With S > 1 a second pass sums the slices' partial outputs in
-    slice order."""
+    """Kernel 1's plan at width 512, and above 512 (the same units serve
+    egnn_band_fwd_sm90_wide.cu: B x tiles units are too few for the card at
+    B1/L256, 32 tiles of 10 steps on 132 SMs): (S, steps per slice, G). A
+    work unit is (batch row, receiver tile, slice of the band's
+    64-edge-row steps); G persistent blocks (``per_sm`` on each of ``n_sm``
+    SMs, no more than the units) walk units g, g + G, ... S is the slice
+    count (every slice owning at least one step) that gives the least
+    estimated makespan, in steps: the most units a block takes times the
+    steps of a unit, plus HD512_UNIT_COST a unit for its closing sums (the
+    fewer slices on a tie). With S > 1 a second pass sums the slices'
+    partial outputs in slice order."""
     n_tiles, n_steps, _ = band_work(B, L, W)
     blocks = B * n_tiles
     slots = n_sm * max(1, per_sm)
@@ -294,8 +321,25 @@ def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> in
     ``"egnn_band_bwd_sm90"`` or its weight-grad pass ``"wgrad"``; the
     shared-tile kernels HD512_KERNEL / X3_KERNEL, the edge pass
     HD512_BWD_KERNEL / X3_BWD_KERNEL or its weight-grad pass
-    ``"wgrad_hd512"`` (``passes``: 3xTF32's split stages; ``steps``: the
+    ``"wgrad_hd512"``; the kernels above 512, WIDE_KERNEL, the edge pass
+    WIDE_BWD_KERNEL or its weight-grad pass ``"wgrad_wide"`` (the same at
+    every width) (``passes``: 3xTF32's split stages; ``steps``: the
     slice's step list)."""
+    if kernel in (WIDE_KERNEL, WIDE_BWD_KERNEL):
+        # the ring (an A chunk and a weight chunk of 2 x NW rows a stage, the
+        # weight's small part too in 3xTF32), three split buffers of an A
+        # chunk (3xTF32), rows (6: valid, d2, j, rel[3]; 7 with cw in kernel
+        # 2), the second consumer's dot products (1, or 2), flags, barriers
+        # (full, empty, act); any width
+        parts = 2 if passes == 3 else 1
+        stage = (64 + parts * 2 * WIDE_NW[passes]) * SM90_KB * 4
+        splits = 3 * 64 * SM90_KB * 4 if passes == 3 else 0
+        rows, dots = (6, 1) if kernel == WIDE_KERNEL else (7, 2)
+        return (WIDE_STAGES[passes] * stage + splits + (rows + dots) * 64 * 4 + 8
+                + (2 * WIDE_STAGES[passes] + 1) * 8 + 1024)
+    if kernel == "wgrad_wide":
+        # as wgrad_hd512 at its 64 x 64 tiles: any width
+        return sm90_smem_bytes("wgrad_hd512", HD512, passes, steps)
     nw, _ = sm90_cols(Hd)
     chunk = nw * SM90_KB * 4
     a_tiles = 2 * 64 * Hd * 4
@@ -385,6 +429,27 @@ def weight_image_hd512(w, orient: int, part: int, nw: int, hmajor: bool):
     kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
     h, kc = (q // nkc, q % nkc) if hmajor else (q % nh, q // nh)
     n, k = h2 * n_half + h * nw + nl, kc * SM90_KB + kl
+    v = w[k, n] if orient == IMG_T else w[n, k]
+    big = rna_tf32(v)
+    return rna_tf32(v - big) if part else big
+
+
+def weight_image_wide(w, orient: int, part: int, nc: int):
+    """numpy mirror of the wide kernels' layout kernel (egnn_sm90_wide.cuh:
+    weight_images_wide): the Hd x Hd fp32 weight ``w`` (Hd a multiple of
+    ``nc``) as chunks of ``nc`` output rows x 32 K values in the order
+    (column pass, K block), each in the swizzled byte order; ``orient`` as
+    ``weight_image``; ``part`` 0: the values rounded to TF32 (big), 1: the
+    rest of each value rounded to TF32 (small; 3xTF32). Returns the flat
+    image, Hd * Hd float32."""
+    w = np.asarray(w, dtype=np.float32)
+    Hd = w.shape[0]
+    nkc, chunk = Hd // SM90_KB, nc * SM90_KB
+    e = np.arange(Hd * Hd)
+    q, r = e // chunk, e % chunk
+    nl, pos = r // SM90_KB, r % SM90_KB
+    kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
+    n, k = (q // nkc) * nc + nl, (q % nkc) * SM90_KB + kl
     v = w[k, n] if orient == IMG_T else w[n, k]
     big = rna_tf32(v)
     return rna_tf32(v - big) if part else big
@@ -761,6 +826,9 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    if takes_wide(Hd, precision, chain_dtype):
+        return _fwd_sm90_wide(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
+                              delta, W, precision)
     if takes_hd512(Hd, precision, chain_dtype):
         return _fwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
                           delta, W, precision)
@@ -946,11 +1014,96 @@ def sm90_weight_images(ws, orients) -> Tensor:
     return out
 
 
+def _wide_fn():
+    global _WIDE_FN
+    if _WIDE_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(WIDE_KERNEL)
+        fn = lib.egnn_band_fwd_sm90_wide_launch
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_wide_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_fwd_sm90_wide_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_fwd_sm90_wide_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.egnn_band_fwd_sm90_wide_scratch_floats.restype = ctypes.c_size_t
+        lib.egnn_band_fwd_sm90_wide_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_fwd_sm90_wide_error_string.restype = ctypes.c_char_p
+        lib.egnn_wide_weight_images.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                                                + [ctypes.c_void_p] * 2)
+        lib.egnn_wide_weight_images.restype = ctypes.c_int
+        _WIDE_FN = (fn, lib)
+    return _WIDE_FN
+
+
+def wide_fwd_plan(B: int, L: int, W: int, dev, dtype: torch.dtype = torch.float32,
+                  precision: str = "highest") -> tuple[int, int, int]:
+    """``hd512_fwd_plan_of`` on CUDA device ``dev`` for kernel 1 above width
+    512: its SM count and the blocks of that kernel one SM holds in the
+    mode."""
+    lib = _wide_fn()[1]
+    per_sm = _blocks_per_sm(WIDE_KERNEL, lambda _, b16, passes, __: (
+        lib.egnn_band_fwd_sm90_wide_blocks_per_sm(b16, passes)), 0, dev, dtype, precision,
+        torch.float32)
+    return hd512_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
+
+
+def _fwd_sm90_wide(a, bs, x, cmask, weights, agg, delta, W,
+                   precision) -> tuple[Tensor, Tensor]:
+    """Kernel 1 above width 512 in either fp32-chain mode: one C call writes
+    the weight images (Wb, and Ws in 3xTF32, of W_e2 and W_x1) into the
+    scratch, runs the kernel on the ``wide_fwd_plan`` grid (each block with
+    its stream buffers in the scratch) and, with S > 1 slices, sums their
+    partials, which share the allocation."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _wide_fn()
+    passes = PASSES[precision]
+    S, _, G = wide_fwd_plan(B, L, W, dev, a.dtype, precision)
+    n_own = lib.egnn_band_fwd_sm90_wide_scratch_floats(Hd, G, passes)
+    n_part = (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
+    scratch = torch.empty((n_own + sum(n_part),), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    parts = (base + 4 * n_own, base + 4 * (n_own + n_part[0])) if S > 1 else (None, None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
+                 *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
+                 *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
+    if err != 0:
+        raise RuntimeError(f"{WIDE_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_fwd_sm90_wide_error_string(err).decode()})")
+    _count(WIDE_KERNEL, a.dtype, precision, torch.float32)
+    return agg, delta
+
+
+def wide_weight_images(ws, orients, parts, nc: int) -> Tensor:
+    """The wide kernels' layout kernel alone: the images of the CUDA fp32
+    [Hd, Hd] weights ``ws`` in orientations ``orients``, parts ``parts`` (0
+    big, 1 small), in chunks of ``nc`` rows (2 x WIDE_NW of the mode),
+    [len(ws), Hd * Hd], as the kernels' C entries write them (for tests
+    against ``weight_image_wide``)."""
+    Hd, dev = ws[0].shape[0], ws[0].device
+    lib = _wide_fn()[1]
+    out = torch.empty((len(ws), Hd * Hd), dtype=torch.float32, device=dev)
+    srcs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
+    kinds = (ctypes.c_int * len(ws))(*orients)
+    pieces = (ctypes.c_int * len(ws))(*parts)
+    with torch.cuda.device(dev):
+        err = lib.egnn_wide_weight_images(
+            ctypes.cast(srcs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p),
+            ctypes.cast(pieces, ctypes.c_void_p), len(ws), Hd, nc, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"egnn_wide_weight_images failed: CUDA error {err}")
+    return out
+
+
 def _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
               chain_dtype) -> tuple[Tensor, Tensor]:
-    """Kernel 1's wide variant (Hd > MAX_NATIVE, a multiple of WIDE_GROUP):
-    ``wide_fwd_grid`` blocks, each with two [64, Hd] activation buffers of
-    scratch."""
+    """Kernel 1's wide variant (Hd > MAX_NATIVE, a multiple of WIDE_GROUP),
+    the bf16 chain's above width 512: ``wide_fwd_grid`` blocks, each with
+    two [64, Hd] activation buffers of scratch."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _kernel_fn()
@@ -1100,7 +1253,10 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_e2 = alloc((Hd, Hd), **f32)
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
-    if B and L and takes_hd512(Hd, precision, chain_dtype):
+    if B and L and takes_wide(Hd, precision, chain_dtype):
+        _bwd_sm90_wide(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg,
+                       g_delta, (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
+    elif B and L and takes_hd512(Hd, precision, chain_dtype):
         _bwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
                    (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
     elif B and L and takes_sm90(Hd, precision, chain_dtype):
@@ -1257,6 +1413,63 @@ def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> 
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_hd512_error_string(err).decode()})")
     _count(name, a.dtype, precision, torch.float32)
+
+
+def _wide_bwd_fn():
+    global _WIDE_BWD_FN
+    if _WIDE_BWD_FN is None:
+        from protein_ensemble_vae_torch.ops.kernels.build import load_library
+
+        lib = load_library(WIDE_BWD_KERNEL)
+        fn = lib.egnn_band_bwd_sm90_wide_launch
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_wide_scratch_floats.argtypes = [ctypes.c_int] * 7
+        lib.egnn_band_bwd_sm90_wide_scratch_floats.restype = ctypes.c_size_t
+        lib.egnn_band_bwd_sm90_wide_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_bwd_sm90_wide_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_band_bwd_sm90_wide_error_string.argtypes = [ctypes.c_int]
+        lib.egnn_band_bwd_sm90_wide_error_string.restype = ctypes.c_char_p
+        _WIDE_BWD_FN = (fn, lib)
+    return _WIDE_BWD_FN
+
+
+def wide_bwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
+                  precision: str = "highest") -> tuple[int, int]:
+    """Kernel 2's plan above width 512 on CUDA device ``dev``: as the
+    shared-tile kernel's (``sm90_bwd_grid`` with ``shared``: a persistent
+    edge pass over single steps, weight-grad tiles of 64 x 64), with the
+    edge-pass blocks one SM holds in the mode."""
+    lib = _wide_bwd_fn()[1]
+    per_sm = _blocks_per_sm(WIDE_BWD_KERNEL, lambda _, b16, passes, __: (
+        lib.egnn_band_bwd_sm90_wide_blocks_per_sm(b16, passes)), 0, dev, dtype, precision,
+        torch.float32)
+    return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm, shared=True)
+
+
+def _bwd_sm90_wide(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
+    """Kernel 2 above width 512 in either fp32-chain mode into ``outs`` =
+    (da, dbs, dx, dw_e2, dw_x1, dvec): one C call writes the weight images
+    (four orientations, each Wb and in 3xTF32 Ws) into the scratch and runs
+    the edge, node, weight-grad and reduce passes on the ``wide_bwd_plan``
+    grid."""
+    B, L, Hd = a.shape
+    dev = a.device
+    fn, lib = _wide_bwd_fn()
+    passes = PASSES[precision]
+    G, nsplit = wide_bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    scratch = torch.empty(
+        (lib.egnn_band_bwd_sm90_wide_scratch_floats(B, L, Hd, W, G, nsplit, passes),),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
+                                          scratch)),
+                 B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
+    if err != 0:
+        raise RuntimeError(f"{WIDE_BWD_KERNEL} launch failed: CUDA error {err} "
+                           f"({lib.egnn_band_bwd_sm90_wide_error_string(err).decode()})")
+    _count(WIDE_BWD_KERNEL, a.dtype, precision, torch.float32)
 
 
 class EGNNBandFunction(torch.autograd.Function):

@@ -48,6 +48,12 @@ each of SWEEP_SLICES slices (``fwd_plan`` overridden), in two turns per
 count. ``--mma-rate`` also measures the card's rate for register-fed
 ``mma.sync.m16n8k8`` TF32 products (MMA_SRC: independent accumulators, no
 memory traffic), the ceiling of kernels 1-2's products without wgmma.
+``--wide`` times both fp32-chain modes above width 512 (the Hopper kernels
+``egnn_band_{fwd,bwd}_sm90_wide`` against a baseline whose
+``egnn_band_fwd.cu`` / ``egnn_band_bwd.cu`` run those widths on their wide
+variants, ``egnn_band_fwd_wide_launch`` with ``wide_fwd_grid``) at
+WIDE_SHAPES: Hd 1024 at B4/L256, and Hd 768, 1280, 2048 at B1/L256; with
+``--l2-rate`` its rows give the weight- and A-stream floors.
 Needs a GPU; imports no JAX.
 """
 
@@ -82,6 +88,10 @@ PASS_SPLIT_CALLS = 20
 WIDTH_FWD_SHAPES = ((4, 256), (2, 640), (10, 640))
 WIDTH_BWD_SHAPES = ((4, 256), (2, 640))
 WIDTH_PASS_SPLIT_SHAPES = ((4, 256),)
+# --wide: (Hd, B, L) of both kernels above 512: the --decoder_hidden 1024
+# epoch's train step, then the reconstruction decode's B1 over the widths
+WIDE_SHAPES = ((1024, 4, 256), (768, 1, 256), (1280, 1, 256), (2048, 1, 256))
+WIDE_REPS = 3
 
 
 # Each warp issues ITERS x 16 m16n8k8 TF32 products into 16 independent
@@ -202,7 +212,15 @@ def _bind_baseline(src_dir: str, procs: dict) -> dict:
         q = getattr(libs[f"egnn_band_{k}"], f"egnn_band_{k}_blocks_per_sm")
         q.argtypes, q.restype = [I] * (3 + chain), I
         per_sm[k] = q
-    return dict(fwd=fwd, bwd=bwd, scratch=nsc, per_sm=per_sm, chain=chain, cache={})
+    out = dict(fwd=fwd, bwd=bwd, scratch=nsc, per_sm=per_sm, chain=chain, cache={})
+    lib = libs["egnn_band_fwd"]
+    if hasattr(lib, "egnn_band_fwd_wide_launch"):   # a version with widths above 512
+        out["fwd_wide"] = lib.egnn_band_fwd_wide_launch
+        out["fwd_wide"].argtypes = [P] * 14 + [I] * (7 + chain) + [P]
+        out["fwd_wide_scratch"] = lib.egnn_band_fwd_wide_scratch_floats
+        out["fwd_wide_scratch"].argtypes = [I] * (2 + chain)
+        out["fwd_wide_scratch"].restype = ctypes.c_size_t
+    return out
 
 
 def _build_baseline(src_dir: str) -> dict:
@@ -239,9 +257,20 @@ def _baseline_fwd(lib, args, W, mode, n_sm):
 
     B, L, Hd = args[0].shape
     ints, per_sm = _mode_args(lib, mode, Hd)
-    S = fwd_slices(B, L, W, n_sm, per_sm["fwd"])
     agg = torch.empty((B, L, Hd), device="cuda")
     delta = torch.empty((B, L, 3), device="cuda")
+    if Hd > 512:   # the baseline's wide variant: persistent blocks, no slices
+        from protein_ensemble_vae_torch.ops.kernels.egnn_band import wide_fwd_grid
+
+        G = wide_fwd_grid(B, L, n_sm, per_sm["fwd"])
+        scratch = torch.empty((lib["fwd_wide_scratch"](Hd, G, *ints[2:]),), device="cuda")
+        err = lib["fwd_wide"](*(t.data_ptr() for t in args[:4] + _weights(args, mode[2])),
+                              agg.data_ptr(), delta.data_ptr(), scratch.data_ptr(), B, L, Hd, W,
+                              G, *ints, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline egnn_band_fwd_wide failed: CUDA error {err}")
+        return agg, delta
+    S = fwd_slices(B, L, W, n_sm, per_sm["fwd"])
     parts = ([torch.empty((S, B, L, Hd), device="cuda"), torch.empty((S, B, L, 3), device="cuda")]
              if S > 1 else None)
     err = lib["fwd"](*(t.data_ptr() for t in args[:4] + _weights(args, mode[2])),
@@ -295,10 +324,78 @@ def _check(label, names, got, want, mode):
             cs._bf16_err(f"{label} {n}", g, w, frac)
 
 
-def _turns(base, cur) -> dict:
-    """Baseline, current, current, baseline; each ``chip_smoke._median_ms``."""
-    b1, c1, c2, b2 = (cs._median_ms(f) for f in (base, cur, cur, base))
+def _turns(base, cur, **kw) -> dict:
+    """Baseline, current, current, baseline; each ``chip_smoke._median_ms``
+    (``kw``: its reps and launches)."""
+    b1, c1, c2, b2 = (cs._median_ms(f, **kw) for f in (base, cur, cur, base))
     return dict(baseline_ms=[b1, b2], current_ms=[c1, c2])
+
+
+def _wide_rows(base, n_sm: int, W: int) -> list:
+    """--wide: kernels 1-2 above 512 in both fp32-chain modes at WIDE_SHAPES,
+    the current Hopper kernels against the baseline's wide variants in turns
+    (WIDE_REPS windows of 3 calls: a call takes milliseconds), each held
+    against the plain version first; the plain version's time, the bounds,
+    the plan and (with the L2 rate measured) the stream floors."""
+    import torch
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        PASSES, band_kernel, band_work, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        egnn_band_reference, mode_key, wide_bwd_plan, wide_fwd_plan)
+
+    f32, b16 = torch.float32, torch.bfloat16
+    modes = [(f32, "highest", f32), (b16, "default", f32)]
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    kw = dict(reps=WIDE_REPS, min_launches=3)
+    rows = []
+    for k, (hd, B, L) in enumerate(WIDE_SHAPES):
+        args0 = cs._egnn_inputs(B, L, cs.SEED + 40 + k, hd)
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 40 + k)
+        g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
+        g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+        for mode in modes:
+            dtype, precision, chain = mode
+            args = [args0[0].to(dtype), args0[1].to(dtype)] + args0[2:]
+            for kernel in ("egnn_band_fwd", "egnn_band_bwd"):
+                fwd = kernel == "egnn_band_fwd"
+                if fwd:
+                    cur = lambda: egnn_band_fwd(*args, W, precision)  # noqa: E731
+                    old = lambda: _baseline_fwd(base, args, W, mode, n_sm)  # noqa: E731
+                    plain = lambda: egnn_band_reference(*args, W)  # noqa: E731
+                    outs = ("agg", "raw_delta")
+                else:
+                    cur = lambda: egnn_band_bwd(*args, g_agg, g_delta, W, precision)  # noqa: E731
+                    old = lambda: _baseline_bwd(base, args, g_agg, g_delta, W, mode,  # noqa: E731
+                                                n_sm)
+                    plain = lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W)  # noqa: E731
+                    outs = names
+                tag = f"{mode_key(kernel, dtype, precision)} Hd{hd} B{B}/L{L}"
+                ref = plain()
+                for label, fn in (("baseline", old), ("current", cur)):
+                    _check(f"{label} {tag}", outs, fn(), ref, mode)
+                del ref
+                passes = PASSES[precision]
+                bound_fn = cs._egnn_bound if fwd else cs._band_bwd_bound
+                bound, by, *_, tc, _ = bound_fn(B, L, args[3], args[0].element_size(), passes,
+                                                cs.PEAK_TF32_FLOPS, hd)
+                served = band_kernel(kernel, hd, precision)
+                if fwd:
+                    S, _, G = wide_fwd_plan(B, L, W, args[0].device, dtype, precision)
+                    plan = dict(slices=S, units=B * band_work(B, L, W)[0] * S, blocks=G)
+                else:
+                    G, nsplit = wide_bwd_plan(B, L, W, hd, args[0].device, dtype, precision)
+                    plan = dict(edge_blocks=G, wgrad_slices=nsplit)
+                floors = (cs._sm90_floors(served, B, L, args[3], hd, precision)
+                          if cs.READ_RATE else {})
+                row = dict(kernel=served, mode=f"{str(dtype)[6:]}/{precision}", Hd=hd, B=B, L=L,
+                           **_turns(old, cur, **kw), plain_ms=cs._median_ms(plain, **kw),
+                           bound_ms=bound, bound_by=by, tc_bound_ms=tc, **plan, **floors)
+                rows.append(row)
+                cs.log(f"[ab] {json.dumps(row)}")
+            del args
+        del args0, g_agg, g_delta
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> None:
@@ -321,6 +418,8 @@ def main(argv=None) -> None:
                     help="also profile the current kernels' passes at PASS_SPLIT_SHAPES")
     ap.add_argument("--l2-rate", action="store_true",
                     help="also measure the card's L2 and HBM read rates")
+    ap.add_argument("--wide", action="store_true",
+                    help="only both fp32-chain modes above width 512, at WIDE_SHAPES")
     ap.add_argument("--hd", type=int, default=None, metavar="N",
                     help="decoder width (default chip_smoke.py's HD); another width "
                          "times the 3xTF32 and one-pass modes at WIDTH_*_SHAPES")
@@ -359,6 +458,10 @@ def main(argv=None) -> None:
     if args_ns.l2_rate:
         result["read_rate"] = cs.READ_RATE = cs._l2_rate()
         cs.log(f"[ab] read rates ({device['smi']}): {json.dumps(result['read_rate'])}")
+    if args_ns.wide:
+        splits = [(m, ((4, 256),)) for m in ((f32, "highest", f32), (b16, "default", f32))]
+        hd = 1024
+        result["hd"] = hd
     if args_ns.pass_split:
         split = {}
         for (dtype, precision, _), shapes in splits:
@@ -379,6 +482,10 @@ def main(argv=None) -> None:
 
     def cast(args, mode):
         return [args[0].to(mode[0]), args[1].to(mode[0])] + args[2:]
+
+    if args_ns.wide:
+        fwd_shapes = bwd_shapes = ()
+        rows += _wide_rows(base, n_sm, W)
 
     for k, (B, L) in enumerate(fwd_shapes):
         args0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)

@@ -4,11 +4,11 @@
 (``csrc/egnn_band_{fwd,bwd}_sm90_hd512.cu``), timed with one part of their
 work removed at a time, on one NVIDIA GPU. ``--x3`` ablates the
 shared-tile kernels in the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS,
-at X3_SHAPES); ``--x3 --baseline DIR`` the register-fed mma.sync kernels
-of that mode in DIR (``egnn_band_{fwd,bwd}.cu`` and ``egnn_tile.cuh`` of
-an earlier commit, MMA_X3_VARIANTS).
+at X3_SHAPES); ``--wide`` the kernels above 512 in both fp32-chain modes
+(``csrc/egnn_band_{fwd,bwd}_sm90_wide.cu``, WIDE_VARIANTS) at Hd 1024,
+B4/L256.
 
-    python scripts/band_sm90_ablation.py [--hd 512 | --x3 [--baseline DIR]]
+    python scripts/band_sm90_ablation.py [--hd 512 | --x3 | --wide]
         [--workdir DIR] [--out FILE.json]
 
 Each variant is a copy of ``protein_ensemble_vae_torch/csrc/`` in DIR (a
@@ -172,40 +172,64 @@ X3_VARIANTS = {
 # The fp32 model's 3xTF32 mode at Hd 256 (--x3): the train step's B4/L256 and
 # generation's B10/L256, fp32 a / bs.
 X3_SHAPES = ((4, 256), (10, 256))
-# --x3 --baseline DIR: the register-fed mma.sync kernels of the mode in DIR
-# (egnn_band_{fwd,bwd}.cu, egnn_tile.cuh of a version that builds 3xTF32 at
-# Hd 256 there), timed through band_kernels_ab's baseline binding
-MMA_X3_VARIANTS = {
+# --wide: the kernels above 512 (egnn_sm90_wide.cuh) at the
+# --decoder_hidden 1024 epoch's train step, both fp32-chain modes
+WIDE_HD, WIDE_SHAPES = 1024, ((4, 256),)
+WIDE_SOURCES = ("egnn_band_fwd_sm90_wide", "egnn_band_bwd_sm90_wide")
+_WIDE_EXPECT = r"mbar_expect_tx\(&full\[rp\.stage\], C::STAGE \* 4\);"
+WIDE_VARIANTS = {
     "full": (),
-    # the products: mma.sync removed, and with it the fragment loads and
-    # splits that only fed it (the compiler drops them)
-    "no_mma": (("egnn_tile.cuh", r"(void mma_tf32\(.*?\) \{\n).*?\n\}", r"\1}"),),
-    # 3xTF32's two small-term passes (big * big only; the splits stay)
-    "one_pass_products": (("egnn_tile.cuh",
-                           r"if constexpr \(PASSES == 3\) \{\n#pragma unroll\n"
-                           r"        for \(int nt = 0; nt < NT; \+\+nt\) mma_tf32\(d\[nt\], al",
-                           "if constexpr (false) {\n#pragma unroll\n"
-                           "        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], al"),),
-    # the operands' split (small = big: one subtraction and rounding less a value)
-    "no_split": (("egnn_tile.cuh", r"small = rna_tf32\(x - __uint_as_float\(big\)\);",
-                  "small = big;"),),
-    # the accurate exponentials and divisions of silu / silu'
-    "no_silu": (("egnn_tile.cuh",
-                 r"sigmoid\(float x\) \{ return 1\.0f / \(1\.0f \+ expf\(-x\)\); \}",
-                 "sigmoid(float x) { return 0.5f + 0.125f * x; }"),
-                ("egnn_tile.cuh", r"silu\(float x\) \{ return x / \(1\.0f \+ expf\(-x\)\); \}",
-                 "silu(float x) { return 0.5f * x; }")),
-    # kernel 1's round-to-nearest sum of each k8 step
-    "no_step_sum": (("egnn_band_fwd.cu", r"MODE, MODE == 3>\(w, A, ring, acc, threadIdx\.x\)",
-                     "MODE, false>(w, A, ring, acc, threadIdx.x)"),),
-    # the weight chunks' cp.async copies (commits and waits stay)
-    "no_weight_copies": (("egnn_tile.cuh", r"(void load_chunk\(.*?\) \{\n).*?\n\}", r"\1}"),),
+    # every product of the edge passes (the weight-grad pass keeps its own)
+    "no_wgmma": tuple(("egnn_sm90_wide.cuh", pat, ";") for pat in (
+        r"Wgmma<NW>::mma\(acc, desc\(a \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), \(kc \| k8\) != 0\);",
+        r"Wgmma<NW>::mma\(sml, desc\(a \+ 8 \* k8\), desc\(ws \+ 8 \* k8\), \(kc \| k8\) != 0\);",
+        r"Wgmma<NW>::mma\(t, desc\(a \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), k8 != 0\);",
+        r"Wgmma<NW>::mma\(sml, desc\(as \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), 1\);")),
+    # 3xTF32's small terms Xt.Ws and Xs.Wb: the big pass alone (still
+    # streaming the weights' small parts and splitting the A chunks)
+    "no_small_terms": tuple(("egnn_sm90_wide.cuh", pat, ";") for pat in (
+        r"Wgmma<NW>::mma\(sml, desc\(a \+ 8 \* k8\), desc\(ws \+ 8 \* k8\), \(kc \| k8\) != 0\);",
+        r"Wgmma<NW>::mma\(sml, desc\(as \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), 1\);")),
+    # the activation's bulk copies (the A stream): the stages bring the
+    # weight chunks only
+    "no_a_stream": (("egnn_sm90_wide.cuh", _WIDE_EXPECT,
+                     "mbar_expect_tx(&full[rp.stage], C::PARTS * C::WCHUNK * 4);"),
+                    ("egnn_sm90_wide.cuh",
+                     r"bulk_load\(st, x \+ \(size_t\)kc \* ACHUNK, ACHUNK \* 4, &full\[rp\.stage\]\);",
+                     "")),
+    # 3xTF32: the split of each A chunk in shared memory (the products read
+    # whatever the split buffers hold)
+    "no_a_split": (("egnn_sm90_wide.cuh",
+                    r"reinterpret_cast<float4\*>\(as\)\[i\] =\s+make_float4\(tf32_lo\(v\.x\), "
+                    r"tf32_lo\(v\.y\), tf32_lo\(v\.z\), tf32_lo\(v\.w\)\);", ""),),
+    # the weight chunks' bulk copies
+    "no_weight_copies": (("egnn_sm90_wide.cuh", _WIDE_EXPECT,
+                          "mbar_expect_tx(&full[rp.stage], ACHUNK * 4);"),
+                         ("egnn_sm90_wide.cuh",
+                          r"bulk_load\(st \+ C::W_BIG, img_big \+ wq, C::WCHUNK \* 4, "
+                          r"&full\[rp\.stage\]\);", ""),
+                         ("egnn_sm90_wide.cuh",   # an empty statement: it is an if's body
+                          r"bulk_load\(st \+ C::W_SMALL, img_small \+ wq, C::WCHUNK \* 4, "
+                          r"&full\[rp\.stage\]\);", ";")),
+    # kernel 1's agg sums from the ring stages, kernel 2's copies into the
+    # weight-grad layout (the side work of each product's first column pass)
+    "no_side": (("egnn_sm90_wide.cuh", r"if \(p == 0\) side\(kc, st\);", ""),),
+    # kernel 2's per-edge scratch written with plain stores, not evict-first
+    "no_stcs": (("egnn_band_bwd_sm90_wide.cu", r'#include "egnn_sm90_wide.cuh"\n',
+                 '#include "egnn_sm90_wide.cuh"\n#define __stcs(p, v) (*(p) = (v))\n'),),
+    # the weight grads' step sums over each k8 step in both modes
+    "wgrad_span_8": (("egnn_band_bwd_sm90_wide.cu", r"WGRAD_SPAN = PASSES == 3 \? 32 : 8;",
+                      "WGRAD_SPAN = 8;"),),
+    # the epilogues' stores of the activations to the stream rows (the
+    # fill's stay)
+    "no_epilogue_stores": (("egnn_sm90_wide.cuh",
+                            r"(__device__ __forceinline__ void put2\(.*?\) \{\n).*?\n\}", r"\1}"),),
 }
 
 
-def _variant_dir(workdir: str, name: str, csrc: str, variants: dict, prefix: str = "") -> str:
-    """csrc copied to workdir/<prefix><name> with the variant's substitutions."""
-    out = os.path.join(workdir, prefix + name)
+def _variant_dir(workdir: str, name: str, csrc: str, variants: dict) -> str:
+    """csrc copied to workdir/<name> with the variant's substitutions."""
+    out = os.path.join(workdir, name)
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     for fname, pattern, repl in variants[name]:
@@ -242,16 +266,6 @@ def _build_all(workdir: str, variants: dict, sources: tuple) -> dict:
     return libs
 
 
-def _build_mma(workdir: str, variants: dict, base_dir: str) -> dict:
-    """Every variant of the mma.sync sources in ``base_dir``, built all at
-    once and bound as band_kernels_ab's baseline; returns name -> binding."""
-    procs = {}
-    for name in variants:
-        d = _variant_dir(workdir, name, base_dir, variants, prefix="mma_")
-        procs[name] = (d, ab._start_baseline(d))
-    return {name: ab._bind_baseline(d, p) for name, (d, p) in procs.items()}
-
-
 def _drift(fwd_of, a, hd: int) -> dict:
     """Kernel 1's error against its plain version as a fraction of the GPU
     tests' tolerance (rtol 1e-4, atol 1e-4: ``tests/test_torch_gpu.py``'s
@@ -282,6 +296,7 @@ def _use(libs: dict) -> None:
     build.load_library = lambda name: loaded[name] if name in loaded else orig(name)
     egnn_band._SM90_FN = egnn_band._SM90_BWD_FN = None
     egnn_band._HD512_FN = egnn_band._HD512_BWD_FN = None
+    egnn_band._WIDE_FN = egnn_band._WIDE_BWD_FN = None
     egnn_band._PER_SM.clear()
 
 
@@ -293,9 +308,8 @@ def main(argv=None) -> None:
                     help="the width-512 kernels, both fp32-chain modes")
     ap.add_argument("--x3", action="store_true",
                     help="the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS), at X3_SHAPES")
-    ap.add_argument("--baseline", default=None, metavar="DIR",
-                    help="with --x3: ablate the mma.sync kernels in DIR "
-                         "(MMA_X3_VARIANTS) instead of the package's")
+    ap.add_argument("--wide", action="store_true",
+                    help="the kernels above 512 at Hd 1024 (WIDE_VARIANTS), both modes")
     ap.add_argument("--variants", default=None, metavar="A,B,...",
                     help="only these variants (\"full\" is always run)")
     ap.add_argument("--out", default=None, metavar="FILE.json")
@@ -309,10 +323,10 @@ def main(argv=None) -> None:
     device = cs.phase_device()
     workdir = os.path.abspath(args.workdir or os.path.join(build.DEFAULT_BUILD_DIR, "ablation"))
     os.makedirs(workdir, exist_ok=True)
-    hd = args.hd or cs.HD
-    if args.x3 and args.baseline:
-        variants, sources, shapes = MMA_X3_VARIANTS, (), X3_SHAPES
-        modes = ((torch.float32, "highest"),)
+    hd = WIDE_HD if args.wide else args.hd or cs.HD
+    if args.wide:
+        variants, sources, shapes = WIDE_VARIANTS, WIDE_SOURCES, WIDE_SHAPES
+        modes = ((torch.float32, "highest"), (torch.bfloat16, "default"))
     elif args.x3:
         variants, sources, shapes = X3_VARIANTS, HD512_SOURCES, X3_SHAPES
         modes = ((torch.float32, "highest"),)
@@ -325,10 +339,7 @@ def main(argv=None) -> None:
     if args.variants:
         keep = {"full", *args.variants.split(",")}
         variants = {k: v for k, v in variants.items() if k in keep}
-    mma = args.x3 and args.baseline
-    libs = (_build_mma(workdir, variants, os.path.abspath(args.baseline)) if mma
-            else _build_all(workdir, variants, sources))
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    libs = _build_all(workdir, variants, sources)
     rows = []
     for k, (B, L) in enumerate(shapes):
         a0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)
@@ -338,20 +349,16 @@ def main(argv=None) -> None:
         for dtype, precision in modes:
             a = [a0[0].to(dtype).contiguous(), a0[1].to(dtype).contiguous()] + a0[2:]
             for name in variants:
-                if name.endswith("split") and precision != "highest":
-                    continue   # the splits run in 3xTF32 only
-                if mma:
-                    mode = (dtype, precision, torch.float32)
-                    fwd_of = lambda x: ab._baseline_fwd(libs[name], x, cs.W, mode, n_sm)  # noqa: E731
-                    bwd = lambda: ab._baseline_bwd(libs[name], a, g_agg, g_delta,  # noqa: E731
-                                                   cs.W, mode, n_sm)
-                else:
-                    _use(libs[name])
-                    fwd_of = lambda x: egnn_band_fwd(*x, cs.W, precision)  # noqa: E731
-                    bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision)  # noqa: E731
+                if ((name.endswith("split") or name == "no_small_terms")
+                        and precision != "highest"):
+                    continue   # the splits and small terms run in 3xTF32 only
+                _use(libs[name])
+                fwd_of = lambda x: egnn_band_fwd(*x, cs.W, precision)  # noqa: E731
+                bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision)  # noqa: E731
                 fwd = lambda: fwd_of(a)  # noqa: E731
+                kw = dict(reps=3, min_launches=3) if args.wide else {}
                 row = dict(variant=name, precision=precision, Hd=hd, B=B, L=L,
-                           fwd_ms=cs._median_ms(fwd), bwd_ms=cs._median_ms(bwd),
+                           fwd_ms=cs._median_ms(fwd, **kw), bwd_ms=cs._median_ms(bwd, **kw),
                            fwd_passes_ms=ab._pass_split(fwd),
                            bwd_passes_ms=ab._pass_split(bwd))
                 if args.x3 and k == 0:   # the variant's accumulation drift

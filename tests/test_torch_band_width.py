@@ -7,8 +7,9 @@ to the next of these (``native_width``, ``pad_band_width``), launch, and
 slice the results back (``unpad_band_grads`` for the gradients). Here the same padding and
 slicing run around the kernels' plain version: the padded function, sliced
 back, must be the unpadded one to fp32 rounding, values and gradients, and
-at Hd 8, 16 and 48 it must match the JAX package's ``egnn_band_fused``
-(Pallas interpret mode) at the JAX package's own tolerances. Then the
+at Hd 8, 16 and 48, and above 512 at Hd 768 and at 640 (padded to 768),
+it must match the JAX package's ``egnn_band_fused`` (Pallas interpret
+mode) at the JAX package's own tolerances. Then the
 train CLI builds and trains a model at the reference CLI's default decoder
 width, 512. The kernels at these widths run on the card
 (tests/test_torch_gpu.py, chip_smoke.py)."""
@@ -34,14 +35,16 @@ PARAM_ORDER = ("w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
 DIFF_NAMES = ("a", "bs", "x") + PARAM_ORDER
 
 
-def _inputs(seed, B=2, L=64, Hd=8):
-    """tests/test_torch_egnn_band.py's inputs (a masked tail on row 0)."""
+def _inputs(seed, B=2, L=64, Hd=8, wscale=1.0):
+    """tests/test_torch_egnn_band.py's inputs (a masked tail on row 0), the
+    weights' spread times ``wscale``."""
     rng = np.random.default_rng(seed)
     f = lambda s, sd=1.0: rng.normal(0, sd, s).astype(np.float32)  # noqa: E731
     cmask = np.ones((B, L), np.float32)
     cmask[0, -10:] = 0.0
-    params = (f((1, Hd), 0.5), f((Hd, Hd), 0.3), f((Hd,), 0.1), f((Hd, Hd), 0.3),
-              f((Hd,), 0.1), f((Hd, 1), 0.3), f((1,), 0.1))
+    w = float(wscale)
+    params = (f((1, Hd), 0.5 * w), f((Hd, Hd), 0.3 * w), f((Hd,), 0.1 * w),
+              f((Hd, Hd), 0.3 * w), f((Hd,), 0.1 * w), f((Hd, 1), 0.3 * w), f((1,), 0.1 * w))
     arrays = (f((B, L, Hd)), f((B, L, Hd)), f((B, L, 3)), cmask) + params
     return arrays, f((B, L, Hd)), f((B, L, 3))
 
@@ -169,9 +172,16 @@ RTOL, ATOL = 1e-4, 1e-5
 G_RTOL, G_ATOL = 2e-3, 1e-4
 
 
-@pytest.mark.parametrize("Hd", [8, 16, 48])
+@pytest.mark.parametrize("Hd", [8, 16, 48, 768, 640])
 def test_padded_path_matches_pallas_interpret(Hd):
-    arrays, g_agg, g_delta = _inputs(seed=70 + Hd, Hd=Hd)
+    """The padded plain path against JAX's Pallas kernel in interpret mode,
+    forward and gradients; above 512 (768 as it is, 640 padded to 768, the
+    widths of the kernels above 512) at B1 / L64, the weights' spread
+    scaled with the fan-in as at Hd 8 (sqrt(8 / Hd): a fixed spread would
+    grow the activations with the width, as no initialised model does)."""
+    wide = Hd > MAX_NATIVE
+    arrays, g_agg, g_delta = _inputs(seed=70 + Hd, B=1 if wide else 2, Hd=Hd,
+                                     wscale=(8 / Hd) ** 0.5 if wide else 1.0)
     W = 4
     want = jax_egnn_band_fused(*(jnp.asarray(v) for v in arrays), W,
                                jax.lax.Precision.HIGHEST)

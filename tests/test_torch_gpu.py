@@ -33,6 +33,8 @@ RTOL = ATOL = 1e-4
 # The kernels of the fp32 model's mode (3xTF32) at the widths up to 256:
 # the shared-tile Hopper kernels, counted under their own names.
 X3_FWD, X3_BWD = "egnn_band_fwd_sm90_x3", "egnn_band_bwd_sm90_x3"
+# Both fp32-chain modes above width 512: the Hopper kernels above 512.
+WIDE_FWD, WIDE_BWD = "egnn_band_fwd_sm90_wide", "egnn_band_bwd_sm90_wide"
 
 
 @pytest.fixture()
@@ -112,11 +114,11 @@ def test_routing_and_checks_on_cuda(cuda):
 
 @pytest.mark.parametrize("Hd", [513, 1024])
 def test_width_above_the_limit_raises(cuda, Hd):
-    """Above 512 (once the limit, where both wrappers raised) the wide
-    variants run: 513 zero-padded to 768, 1024 at its own width. Both
-    wrappers and the routed entry launch their kernel once each and match
-    the plain versions (forward at rtol 1e-4 / atol 1e-4 x max|plain|, the
-    gradients as the other widths')."""
+    """Above 512 (once the limit, where both wrappers raised) the kernels
+    above 512 run (``egnn_band_{fwd,bwd}_sm90_wide``): 513 zero-padded to
+    768, 1024 at its own width. Both wrappers and the routed entry launch
+    their kernel once each and match the plain versions (forward at rtol
+    1e-4 / atol 1e-4 x max|plain|, the gradients as the other widths')."""
     args = _inputs(1, 16, Hd, cuda)
     before = dict(LAUNCHES)
     out = egnn_band_fwd(*args, 4)
@@ -126,8 +128,8 @@ def test_width_above_the_limit_raises(cuda, Hd):
     grads = egnn_band_bwd(*args, g_agg, g_delta, 4)
     routed = egnn_band_fused(*args, 4, "highest")
     torch.cuda.synchronize()
-    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + 2
-    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 1
+    assert LAUNCHES[WIDE_FWD] == before[WIDE_FWD] + 2
+    assert LAUNCHES[WIDE_BWD] == before[WIDE_BWD] + 1
     want = egnn_band_reference(*args, 4)
     for got in (out, routed):
         for a, b in zip(got, want):
@@ -138,13 +140,14 @@ def test_width_above_the_limit_raises(cuda, Hd):
         _close_scaled(a, b, name)
 
 
-# Widths above 512: the wide variants of kernels 1-2 (Hd a multiple of 256
-# at run time; any other width zero-padded up: 640 -> 768, 1100 -> 1280) in
-# every mode, against the plain versions at the tolerances of the other
-# widths: 3xTF32 at rtol 1e-4 / atol 1e-4 x max|plain| (values) and
-# _close_scaled (gradients); the bf16-model mode (bf16 a / bs, one TF32
-# pass) at BF16_VALUE_FRAC / BF16_GRAD_FRAC; the bf16 chain through
-# _check_chain.
+# Widths above 512 (Hd a multiple of 256 at run time; any other width
+# zero-padded up: 640 -> 768, 1100 -> 1280): both fp32-chain modes on the
+# Hopper kernels above 512 (csrc/egnn_band_{fwd,bwd}_sm90_wide.cu), the bf16
+# chain on the wide variants of kernels 1-2; every mode against the plain
+# versions at the tolerances of the other widths: 3xTF32 at rtol 1e-4 /
+# atol 1e-4 x max|plain| (values) and _close_scaled (gradients); the
+# bf16-model mode (bf16 a / bs, one TF32 pass) at BF16_VALUE_FRAC /
+# BF16_GRAD_FRAC; the bf16 chain through _check_chain.
 WIDE_HD = [640, 1024, 1100, 2048]
 
 
@@ -161,7 +164,9 @@ def test_wide_widths_match_plain_versions(cuda, Hd, mode):
         return
     if mode == "default":
         args = _bf16_args(args)
-    keys = [mode_key(k, args[0].dtype, mode) for k in ("egnn_band_fwd", "egnn_band_bwd")]
+    keys = [mode_key(band_kernel(k, Hd, mode), args[0].dtype, mode)
+            for k in ("egnn_band_fwd", "egnn_band_bwd")]
+    assert keys[0].startswith(WIDE_FWD + ":") and keys[1].startswith(WIDE_BWD + ":")
     before = [BAND_MODE_LAUNCHES.get(k, 0) for k in keys]
     out = egnn_band_fwd(*args, W, mode)
     g = torch.Generator(device="cpu").manual_seed(Hd)
@@ -188,10 +193,11 @@ def test_wide_widths_match_plain_versions(cuda, Hd, mode):
 
 @pytest.mark.parametrize("Hd", [1024, 2048])
 def test_wide_widths_two_launches_are_bitwise_identical(cuda, Hd):
-    """The wide variants sum in a fixed order (the lane that owns a column,
-    then the groups, then the persistent blocks' partials): two launches at
-    B2/L256/W40 give bitwise-identical outputs, and a masked tail stays
-    exactly zero."""
+    """The kernels above 512 sum in a fixed order (a column's owner thread
+    over the steps, the column passes and consumers in turn, the persistent
+    blocks' partials in block order, the weight-grad slices in slice order):
+    two launches at B2/L256/W40 give bitwise-identical outputs, and a
+    masked tail stays exactly zero."""
     B, L = 2, 256
     args = _inputs(B, L, Hd, cuda, seed=Hd + 17)
     g = torch.Generator(device="cpu").manual_seed(L)
@@ -202,6 +208,91 @@ def test_wide_widths_two_launches_are_bitwise_identical(cuda, Hd):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     assert float(first[0][0, L - L // 5:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Hd", [768, 1100])
+def test_wide_fp32_chain_ticks_the_hopper_kernels(cuda, Hd):
+    """Above 512 both fp32-chain modes (3xTF32 with fp32 a / bs, one pass
+    with bf16 a / bs) launch egnn_band_{fwd,bwd}_sm90_wide, once a call,
+    and no other kernel; the bf16 chain launches the wide variants of
+    egnn_band_fwd / egnn_band_bwd."""
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
+
+    B, L, W = 1, 24, 4
+    args = _inputs(B, L, Hd, cuda, seed=Hd)
+    g = torch.Generator(device="cpu").manual_seed(Hd)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    cases = ((args, "highest", torch.float32, (WIDE_FWD, WIDE_BWD)),
+             (_bf16_args(args), "default", torch.float32, (WIDE_FWD, WIDE_BWD)),
+             (_bf16_args(args), "default", torch.bfloat16, ("egnn_band_fwd", "egnn_band_bwd")))
+    for xin, precision, chain, names in cases:
+        before, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+        egnn_band_fwd(*xin, W, precision, chain)
+        egnn_band_bwd(*xin, g_agg, g_delta, W, precision, chain)
+        torch.cuda.synchronize()
+        ticked = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert ticked == {names[0]: 1, names[1]: 1}, (precision, chain, ticked)
+        assert tuple(band_kernel(k, Hd, precision, chain)
+                     for k in ("egnn_band_fwd", "egnn_band_bwd")) == names
+        new_modes = {k for k in BAND_MODE_LAUNCHES if BAND_MODE_LAUNCHES[k] != modes.get(k, 0)}
+        assert {k.split(":")[0] for k in new_modes} == set(names)
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_wide_kernel_failure_raises(cuda, monkeypatch, failure):
+    """A kernel above 512 that does not build, or whose launch fails, makes
+    the wrapper raise; nothing gives way to the wide variants of
+    egnn_band_fwd / egnn_band_bwd or to the plain versions, and no launch
+    is counted."""
+    from protein_ensemble_vae_torch.ops.kernels import build
+    from protein_ensemble_vae_torch.ops.kernels import egnn_band as eb
+
+    args = _inputs(1, 16, 768, cuda, seed=7)
+    g_agg = torch.ones(1, 16, 768, device=cuda)
+    g_delta = torch.ones(1, 16, 3, device=cuda)
+    if failure == "build":
+        def no_build(name):
+            raise RuntimeError(f"nvcc failed for {name}")
+        monkeypatch.setattr(eb, "_WIDE_FN", None)
+        monkeypatch.setattr(eb, "_WIDE_BWD_FN", None)
+        monkeypatch.setattr(build, "load_library", no_build)
+        match = "nvcc failed"
+    else:
+        for attr, load in (("_WIDE_FN", eb._wide_fn), ("_WIDE_BWD_FN", eb._wide_bwd_fn)):
+            fn, lib = load()
+            monkeypatch.setattr(eb, attr, (lambda *_: 1, lib))   # cudaErrorInvalidValue
+        match = "launch failed"
+    monkeypatch.setattr(eb, "egnn_band_reference", None)        # no plain version either
+    monkeypatch.setattr(eb, "egnn_band_bwd_reference", None)
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match=match):
+        egnn_band_fwd(*args, 4, "highest")
+    with pytest.raises(RuntimeError, match=match):
+        egnn_band_bwd(*args, g_agg, g_delta, 4, "default")
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+def test_wide_weight_images_match_numpy_mirror(cuda, passes):
+    """The layout kernel of the kernels above 512 writes each weight's images
+    (chunks of 2 x WIDE_NW rows of the mode, big and small parts, both
+    orientations) as the wrapper's numpy mirror (``weight_image_wide``)
+    does, bit for bit, at Hd 768."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (IMG_N, IMG_T, WIDE_NW,
+                                                                  weight_image_wide,
+                                                                  wide_weight_images)
+
+    w = torch.randn(768, 768, generator=torch.Generator().manual_seed(passes)) / 20
+    kinds = [(IMG_T, 0), (IMG_T, 1), (IMG_N, 0), (IMG_N, 1)]
+    nc = 2 * WIDE_NW[passes]
+    got = wide_weight_images([w.to(cuda)] * 4, [k for k, _ in kinds], [p for _, p in kinds],
+                             nc).cpu().numpy()
+    for q, (orient, part) in enumerate(kinds):
+        want = weight_image_wide(w.numpy(), orient, part, nc)
+        assert np.array_equal(got[q].view(np.uint32), want.view(np.uint32)), (orient, part)
 
 
 @pytest.mark.parametrize("hidden", [16, 48, 384, 512])
@@ -1165,7 +1256,7 @@ def test_dp2_step_on_one_card_launches_kernels_and_matches(cuda, tmp_path):
                    store_dir=str(tmp_path))
     want = {"egnn_band_fwd": 0, "egnn_band_bwd": 0, "egnn_band_fwd_sm90": 0,
             "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0,
-            "egnn_band_bwd_sm90_hd512": 0, X3_FWD: 2, X3_BWD: 2,
+            "egnn_band_bwd_sm90_hd512": 0, X3_FWD: 2, X3_BWD: 2, WIDE_FWD: 0, WIDE_BWD: 0,
             "clash_fwd": 1, "clash_bwd": 1}   # fp32: 3xTF32
     assert ref["launches"] == want
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
@@ -1206,7 +1297,7 @@ def test_watch_gradient_kernel_path_matches_plain_path(cuda):
     assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
         "egnn_band_fwd": 0, "egnn_band_bwd": 0, "egnn_band_fwd_sm90": 0,
         "egnn_band_bwd_sm90": 0, "egnn_band_fwd_sm90_hd512": 0, "egnn_band_bwd_sm90_hd512": 0,
-        X3_FWD: 2, X3_BWD: 2, "clash_fwd": 1, "clash_bwd": 1}
+        X3_FWD: 2, X3_BWD: 2, WIDE_FWD: 0, WIDE_BWD: 0, "clash_fwd": 1, "clash_bwd": 1}
     assert all(torch.isfinite(g).all() for g in grads.values())
     smooth = LossWeights(w_pair=0.0, w_dihedral=0.0, w_rama=0.0, w_bond=0.0,
                          w_angle=0.0, w_clash=0.0)

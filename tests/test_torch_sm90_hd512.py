@@ -170,9 +170,10 @@ def test_weight_image_reads_back_through_the_descriptor(nw, hmajor, orient, part
 
 def test_routing_names_the_kernel_of_each_mode_and_width():
     """Both fp32-chain modes at widths 257 to 512 go to the width-512
-    kernels; the bf16 chain at 512 and the widths above 512 keep their
-    kernels; up to 256, 3xTF32 goes to the shared-tile kernels under their
-    own counters and the one-pass mode to the one-pass Hopper kernels."""
+    kernels; the bf16 chain at 512 keeps its kernels; above 512 both
+    fp32-chain modes go to the Hopper kernels above 512; up to 256, 3xTF32
+    goes to the shared-tile kernels under their own counters and the
+    one-pass mode to the one-pass Hopper kernels."""
     for hd in (257, 300, 384, 511, 512):
         for precision in ("highest", "default"):
             assert band_kernel("egnn_band_fwd", hd, precision) == HD512_KERNEL
@@ -181,8 +182,8 @@ def test_routing_names_the_kernel_of_each_mode_and_width():
         assert band_kernel("egnn_band_bwd", hd, "highest", torch.bfloat16) == "egnn_band_bwd"
     for hd in (513, 640, 1024):
         for precision in ("highest", "default"):
-            assert band_kernel("egnn_band_fwd", hd, precision) == "egnn_band_fwd"
-            assert band_kernel("egnn_band_bwd", hd, precision) == "egnn_band_bwd"
+            assert band_kernel("egnn_band_fwd", hd, precision) == "egnn_band_fwd_sm90_wide"
+            assert band_kernel("egnn_band_bwd", hd, precision) == "egnn_band_bwd_sm90_wide"
     for hd in (16, 200, 256):
         assert band_kernel("egnn_band_fwd", hd, "highest") == X3_KERNEL
         assert band_kernel("egnn_band_bwd", hd, "default") == "egnn_band_bwd_sm90"
