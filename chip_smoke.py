@@ -46,19 +46,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    B4/L256 and B2/L640 with bf16 ``a`` / ``bs``, and at B4/L256 with fp32
    ``a`` / ``bs``; device ms beside the one-pass fp32-chain ms and the
    3xTF32 ms of the same shape in the same call, plain ms, host us, the
-   bound (the FLOP at the bf16 tensor-core peak, or the bytes) and the
-   fp32-core time; ``shapes`` rows with ``mode`` "<dtype>/bfloat16_chain".
-   Then kernels 1-2 at Hd 512 (``phase_wide_kernels``: in 3xTF32 and one
-   pass the width-512 Hopper kernels ``egnn_band_{fwd,bwd}_sm90_hd512``
-   with their weight-stream and scratch floors, in the bf16 chain one
-   512-thread ``Tile<512>`` block per SM) in the three modes, kernel 1 at B4/L256 and B10/L640,
+   bound (the FLOP at the bf16 tensor-core peak, or the bytes), the
+   fp32-core time and the bf16 weight-stream and scratch floors; rows of
+   the one-pass Hopper kernels (``egnn_band_{fwd,bwd}_sm90``, which serve
+   the bf16 chain up to Hd 256) with ``mode`` "<dtype>/bfloat16_chain".
+   Then kernels 1-2 at Hd 512 (``phase_wide_kernels``: in every mode the
+   width-512 Hopper kernels ``egnn_band_{fwd,bwd}_sm90_hd512`` with their
+   weight-stream and scratch floors) in the three modes, kernel 1 at B4/L256 and B10/L640,
    kernel 2 at B4/L256 and B2/L640, and at widths the wrappers zero-pad to
    a native one: Hd 384 (-> 512) in the three modes, Hd 8 and 48 (-> 32,
    64) in fp32, at B4/L256; and above 512 (``WIDER_ROWS``: a run-time
-   width, a multiple of 256, any other padded up), both fp32-chain modes on
-   the Hopper kernels above 512 (``egnn_band_{fwd,bwd}_sm90_wide``, with
-   their weight- and A-stream floors), the bf16 chain on the wide variants:
-   Hd 1024 at B4/L256 and Hd 640 (-> 768), 1100 (-> 1280) and 2048
+   width, a multiple of 256, any other padded up), every mode on the
+   Hopper kernels above 512 (``egnn_band_{fwd,bwd}_sm90_wide``, with their
+   weight- and A-stream floors): Hd 1024 at B4/L256 and Hd 640 (-> 768), 1100 (-> 1280) and 2048
    at B1/L256, in the three modes, both kernels; each row at its mode's
    Hd-256 tolerance, two launches bitwise identical, its bound counted at
    the real width; ``shapes`` rows with ``Hd`` and ``padded_to``. Then the
@@ -67,8 +67,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    at B4/L128 and B20/L128 (generation), at their modes' tolerances; kernels
    3-4 at B4/L128, B8/L128 and B8/L192 join CLASH_SHAPES. Its path follows:
    ``scripts/chain_dtype_ab.py``'s ``run()`` (the bf16 chain against the
-   fp32 chain at B16/L256: value gaps and fwd + bwd ms), counts reset just
-   before and read just after.
+   fp32 chain at B16/L256: value gaps and fwd + bwd ms; then at B4/L256 at
+   Hd 512 and 1024), counts reset just before and read just after: each
+   Hopper family's kernels must launch in the bf16 chain, the mma.sync
+   kernels (``egnn_band_fwd`` / ``egnn_band_bwd``) not at all.
 4. generation main path: ``generate_ensembles`` with a fresh seeded
    ``HierCVAE`` at the default ``ModelConfig`` widths on two synthetic NeRF
    proteins (buckets 256 and 640), ``num_samples=10``. Launch counts are
@@ -224,7 +226,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    run, dumps included), train_dp (both dp ranks' steps;
    every kernel must launch in each rank), wide_decoder (phase 6b: every
    kernel must launch), flagship (phase 10: every kernel must launch),
-   and chain_dtype_ab's bf16-chain launches; kernels
+   and chain_dtype_ab's bf16-chain launches; the mma.sync kernels'
+   counters must stay at 0 on every path; kernels
    1-2 also
    by mode on the two bf16 paths, chain_dtype_ab's fp32-chain launches
    there only; each kernel must have launched on its REQUIRED_PATHS: the
@@ -241,9 +244,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    generation, their line's rows the fp32 headline shapes; the Hopper
    kernels above 512 (``egnn_band_{fwd,bwd}_sm90_wide``), which serve both
    fp32-chain modes there, on wide_decoder (its width-1024 CLI epoch),
-   their line's row the fp32 B4/L256 one at Hd 1024; the first ones the
-   bf16 chain (chain_dtype_ab), their line's rows the bf16 chain's at the
-   headline shapes), then, as the last line, ``{"ok": true, "device":
+   their line's row the fp32 B4/L256 one at Hd 1024; the three families
+   also on chain_dtype_ab, the bf16 chain's path, whose rows join their
+   lines' shapes), then, as the last line, ``{"ok": true, "device":
    {...}}``.
 
 Kernels 1-2 at Hd 256 in the fp32 model's 3xTF32 mode (phase 3's fp32
@@ -338,7 +341,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # Kernel timing windows: at least MIN_LAUNCHES back-to-back calls and at
 # least WINDOW_MS of device time between one pair of CUDA events.
 MIN_LAUNCHES, WINDOW_MS = 50, 1.0
-PROFILER_MARKERS = 8   # empty kernels that open a profiled window (_device_kernels)
+# empty kernels that open a profiled window (_device_kernels): CUPTI has
+# dropped a window's first 9 records or more (all 8 markers and the first
+# clash kernel, in three profiled calls of cli.refine in a row)
+PROFILER_MARKERS = 64
 # Kernels 3-4 at the training shapes and at refinement's: B = num_samples
 # over the padded buckets (600 Adam steps of one forward and one backward),
 # and over the 230 residues of the ensemble file that cli.refine reads back
@@ -372,7 +378,8 @@ BF16_BWD_SHAPES = TRAIN_SHAPES
 # cotangents, bf16 tensor-core products, fp32 sums; a mode no model path of
 # either package routes to), both kernels at the JAX package's A/B shape
 # (scripts/chain_dtype_onchip.py: B16/L256), HEADLINE_SHAPE and the training
-# shapes, with bf16 a / bs, and with fp32 a / bs at CHAIN_FP32_INPUTS; held
+# shapes, with bf16 a / bs, and with fp32 a / bs at CHAIN_FP32_INPUTS, on the
+# one-pass Hopper kernels (bf16 wgmma); held
 # against the plain version (the JAX kernel's rounding op by op): values
 # within CHAIN_VALUE_FRAC of max |plain|, gradients within BF16_GRAD_FRAC,
 # and closer to the plain bf16 chain than to the one-pass fp32-chain kernel.
@@ -523,7 +530,8 @@ def phase_build() -> None:
     from protein_ensemble_vae_torch.ops.kernels import SOURCES, build
 
     t0 = time.perf_counter()
-    report = build.build(sorted(set(SOURCES.values())), verbose=True)
+    # the sources of the kernels on the path (KERNEL_INFO), one nvcc each
+    report = build.build(sorted({SOURCES[name] for name in KERNEL_INFO}), verbose=True)
     log(f"[build] {len(report)} source(s) in "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -663,7 +671,7 @@ def _l2_rate() -> dict:
 
 
 def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
-                 precision: str = "default") -> dict:
+                 precision: str = "default", chain_bf16: bool = False) -> dict:
     """The Hopper band kernels' floors on this run's inputs beside the TF32
     bound: the weight stream (the steps with a valid edge, each streaming
     two weights (kernel 1) or four (kernel 2) of n^2 fp32 from L2 once per
@@ -680,11 +688,15 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     once per image (one in one pass, Wb and Ws in 3xTF32), and each of its
     products (two, or four in kernel 2) re-reads its A operand, 64 x n
     fp32, once per column pass of 2 x WIDE_NW columns: the A-stream floor,
-    at the same L2 rate."""
+    at the same L2 rate. In the bf16 chain (``chain_bf16``) each image,
+    A chunk and scratch row holds bf16, two bytes a value (the images'
+    K padded to 64 at Hd 32), streamed as in the one-pass mode."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (OPS, PASSES, TILE, WIDE_NW,
-                                                                  band_indices, native_width)
+                                                                  band_indices,
+                                                                  bf16_image_words,
+                                                                  native_width)
 
     idx, in_range = band_indices(L, W, cmask.device)
     cm = cmask > 0.5
@@ -701,21 +713,23 @@ def _sm90_floors(kernel: str, B: int, L: int, cmask, hd: int = HD,
     n = native_width(hd)   # the width the kernel streams (a padded width runs at its native one)
     l2 = READ_RATE["l2_shared_512KiB"]["gb_per_s"] * 1e9
     out = {}
+    vb = 2 if chain_bf16 else 4                                    # bytes a value
+    image = 4 * bf16_image_words(n) if chain_bf16 else 4 * n * n   # bytes of an image
     if kernel.endswith("_sm90_wide"):
-        p = PASSES[precision]
+        p = 1 if chain_bf16 else PASSES[precision]
         passes = items * (2 if p == 3 else 1)
         products = 2 if kernel.startswith("egnn_band_fwd") else 4
         col_passes = n // (2 * WIDE_NW[p])
-        out["a_stream_floor_ms"] = 1e3 * items * products * col_passes * 64 * n * 4 / l2
+        out["a_stream_floor_ms"] = 1e3 * items * products * col_passes * 64 * n * vb / l2
     elif kernel.endswith("_hd512") or n == 512:
-        passes = items * (3 if precision == "highest" else 1)
+        passes = items * (3 if precision == "highest" and not chain_bf16 else 1)
     elif kernel.endswith("_x3"):
         passes = items * 2
     else:
         passes = pairs
-    out.update(weight_floor_ms=1e3 * passes * weights * n * n * 4 / l2, weight_passes=passes)
+    out.update(weight_floor_ms=1e3 * passes * weights * image / l2, weight_passes=passes)
     if kernel.startswith("egnn_band_bwd"):
-        out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * n * 4 / PEAK_BYTES_PER_S
+        out["scratch_floor_ms"] = 1e3 * 2 * 5 * items * 64 * n * vb / PEAK_BYTES_PER_S
     return out
 
 
@@ -1192,17 +1206,20 @@ def phase_chain_kernels() -> dict[str, list[dict]]:
     launches bitwise identical; device ms beside the same inputs' one-pass
     fp32-chain ms and the fp32 inputs' 3xTF32 ms in this call, plain ms,
     host us, the bound (bf16 tensor-core products: the FLOP at
-    PEAK_BF16_FLOPS, or the bytes) and the fp32-core time. Rows of mode
-    ``<dtype>/bfloat16_chain``."""
+    PEAK_BF16_FLOPS, or the bytes), the fp32-core time and the Hopper
+    floors of the bf16 chain (``_sm90_floors``). Rows of mode
+    ``<dtype>/bfloat16_chain``, under the kernel that serves the chain at
+    HD (``band_kernel``: the one-pass Hopper kernels)."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
-        egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd, egnn_band_reference,
-        mode_key)
+        band_kernel, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        egnn_band_reference, mode_key)
 
     chain = torch.bfloat16
     names = GRAD_NAMES
-    rows = {"egnn_band_fwd": [], "egnn_band_bwd": []}
+    served = {k: band_kernel(k, HD, "default", chain) for k in ("egnn_band_fwd", "egnn_band_bwd")}
+    rows = {served[k]: [] for k in served}
     cases = [(B, L, torch.bfloat16) for B, L in CHAIN_SHAPES] + [(*CHAIN_FP32_INPUTS, torch.float32)]
     for k, (B, L, in_dtype) in enumerate(cases):
         args = _egnn_inputs(B, L, SEED + 60 + k)
@@ -1242,26 +1259,36 @@ def phase_chain_kernels() -> dict[str, list[dict]]:
             bound = _egnn_bound if name == "egnn_band_fwd" else _band_bwd_bound
             bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, 1,
                                                            PEAK_BF16_FLOPS)
-            log(f"[kernels] {tag}: {ms:.3f} ms (one-pass fp32 chain {onepass_ms:.3f} ms, "
-                f"3xTF32 with fp32 inputs {tf32x3_ms:.3f} ms in this call, plain "
-                f"{plain_ms:.3f} ms), host {host_us:.1f} us per call; bound {bound_ms:.4f} ms "
-                f"by {bound_by} (bf16 tensor-core products, {100 * bound_ms / ms:.1f}% of it), "
-                f"fp32-core time {core_ms:.3f} ms; bitwise identical over two launches")
-            rows[name].append(dict(
+            floors = _sm90_floors(served[name], B, L, args[3], HD, "default", True)
+            log(f"[kernels] {tag} ({served[name]}): {ms:.3f} ms (one-pass fp32 chain "
+                f"{onepass_ms:.3f} ms, 3xTF32 with fp32 inputs {tf32x3_ms:.3f} ms in this call, "
+                f"plain {plain_ms:.3f} ms), host {host_us:.1f} us per call; bound "
+                f"{bound_ms:.4f} ms by {bound_by} (bf16 tensor-core products, "
+                f"{100 * bound_ms / ms:.1f}% of it){_floor_text(floors)}, fp32-core time "
+                f"{core_ms:.3f} ms; bitwise identical over two launches")
+            rows[served[name]].append(dict(
                 mode=mode, B=B, L=L, ms=ms, onepass_fp32_chain_ms=onepass_ms,
                 fp32_ms=tf32x3_ms, host_us=host_us, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, tc_bound_ms=tc_ms, fp32_core_ms=core_ms,
-                max_abs_err=err, max_rel_err=rel, max_rel_err_to_fp32_chain=rel_fp32))
+                max_abs_err=err, max_rel_err=rel, max_rel_err_to_fp32_chain=rel_fp32, **floors))
         del args, xin, g_agg, g_delta
         torch.cuda.empty_cache()
     return rows
 
 
+# The kernels of the bf16 chain on its path: the one-pass Hopper kernels
+# (Hd 256), the shared-tile ones (512) and those above 512 (1024).
+CHAIN_KERNELS = ("egnn_band_fwd_sm90", "egnn_band_bwd_sm90", "egnn_band_fwd_sm90_hd512",
+                 "egnn_band_bwd_sm90_hd512", "egnn_band_fwd_sm90_wide",
+                 "egnn_band_bwd_sm90_wide")
+
+
 def phase_chain_path() -> dict:
     """The bf16 chain's path: ``scripts/chain_dtype_ab.py``'s ``run()`` (the
-    counterpart of the JAX package's A/B of the knob), counts reset just
-    before and read just after; both kernels must have launched in the bf16
-    chain."""
+    counterpart of the JAX package's A/B of the knob, at Hd 256 and, at
+    B4/L256, at Hd 512 and 1024), counts reset just before and read just
+    after; each Hopper family's kernels (CHAIN_KERNELS) must have launched
+    in the bf16 chain, and the mma.sync kernels not at all."""
     import importlib.util
 
     from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES,
@@ -1278,9 +1305,10 @@ def phase_chain_path() -> dict:
     secs = time.perf_counter() - t0
     launches, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
     chain = {k: v for k, v in modes.items() if k.endswith("/bfloat16_chain")}
-    if not (any(k.startswith("egnn_band_fwd:") for k in chain)
-            and any(k.startswith("egnn_band_bwd:") for k in chain)):
-        raise RuntimeError(f"chain_dtype_ab launched no bf16-chain kernel: {modes}")
+    missing = [n for n in CHAIN_KERNELS if not any(k.startswith(n + ":") for k in chain)]
+    if missing or launches["egnn_band_fwd"] or launches["egnn_band_bwd"]:
+        raise RuntimeError(f"chain_dtype_ab: no bf16-chain launch of {missing}, or an mma.sync "
+                           f"kernel ran: {launches}, by mode {modes}")
     log(f"[chain_ab] {json.dumps(result)}")
     log(f"[chain_ab] {secs:.1f}s; launches {launches}, by mode {modes}")
     return dict(launches=launches, modes=modes, result=result, seconds=secs)
@@ -1295,8 +1323,8 @@ def phase_chain_path() -> dict:
 # ---------------------------------------------------------------------------
 
 # Hd 512, the reference CLI's --decoder_hidden default (the width-512 Hopper
-# kernels in 3xTF32 and one pass, Tile<512> in the bf16 chain), in the three
-# modes of the Hd-256 rows, at the shapes a model of
+# kernels in every mode), in the three modes of the Hd-256 rows, at the
+# shapes a model of
 # that width gives the kernels: kernel 1 at B4/L256 (training) and
 # B10/L640 (generation), kernel 2 at the training shapes. Widths outside
 # NATIVE_HIDDEN run zero-padded to the next native width: 384 (-> 512) in
@@ -1398,7 +1426,7 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
     bound = _egnn_bound if kernel == "egnn_band_fwd" else _band_bwd_bound
     bound_ms, bound_by, *_, tc_ms, core_ms = bound(B, L, args[3], in_bytes, passes, peak, hd)
     served = band_kernel(kernel, hd, precision, chain)
-    floors = _sm90_floors(served, B, L, args[3], hd, precision) if served != kernel else {}
+    floors = _sm90_floors(served, B, L, args[3], hd, precision, chain == torch.bfloat16)
     log(f"[kernels] {tag} ({served}): {ms:.3f} ms (plain {plain_ms:.3f} ms), host "
         f"{host_us:.1f} us per call; bound {bound_ms:.4f} ms by {bound_by} at Hd {hd}, "
         f"{100 * bound_ms / ms:.1f}% of it{_floor_text(floors)}; tensor-core time "
@@ -1414,9 +1442,9 @@ def _band_row(kernel: str, mode: str, hd: int, B: int, L: int, seed: int) -> dic
 
 
 # Widths above 512 run a multiple of 256 given at run time (any other width
-# zero-padded up: 640 -> 768, 1100 -> 1280): both fp32-chain modes on the
-# Hopper kernels above 512 (csrc/egnn_band_{fwd,bwd}_sm90_wide.cu), the bf16
-# chain on the wide variants (csrc/egnn_tile.cuh), in the three modes: Hd
+# zero-padded up: 640 -> 768, 1100 -> 1280): every mode on the Hopper
+# kernels above 512 (csrc/egnn_band_{fwd,bwd}_sm90_wide.cu), in the three
+# modes: Hd
 # 1024 at B4/L256, the shape
 # of the `cli.train --decoder_hidden 1024` epoch (phase 6b), and 640, 1100
 # and 2048 at B1/L256. Each row is held at its mode's Hd-256 tolerance; a
@@ -4015,10 +4043,6 @@ def profile_generation(model, views, out_dir: str, trace_path: str) -> None:
 
 
 KERNEL_INFO = {
-    "egnn_band_fwd": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd.cu",
-                      "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
-    "egnn_band_bwd": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd.cu",
-                      "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:235"),
     "egnn_band_fwd_sm90": ("protein_ensemble_vae_torch/csrc/egnn_band_fwd_sm90.cu",
                            "protein_ensemble_vae_tpu/ops/pallas/egnn_band.py:107"),
     "egnn_band_bwd_sm90": ("protein_ensemble_vae_torch/csrc/egnn_band_bwd_sm90.cu",
@@ -4041,43 +4065,41 @@ KERNEL_INFO = {
                   "protein_ensemble_vae_tpu/ops/pallas/clash.py:79"),
 }
 
-# The paths on which each kernel must have launched: the first band
-# kernels serve the bf16 chain (chain_dtype_ab); the Hopper ones above 512
-# both fp32-chain modes (the wide_decoder path's width-1024 CLI epoch);
-# the other Hopper ones the bf16 model's one-pass
-# mode up to Hd 256 (train_bf16, the flagship's training), the fp32
-# model's 3xTF32 mode up to Hd 256 (the _x3 counters of the shared-tile
-# kernels: generation, dataprep, refine, the fp32 training paths, the
-# flagship's generation and the wide_decoder path's width-16 CLI epoch),
-# and at Hd 512 both fp32-chain modes (the wide_decoder path: its
-# generation, fp32 and bf16 steps and its width-384 CLI epoch, each checked
-# there); kernels 3-4 every path with a loss.
+# The paths on which each kernel must have launched: the Hopper kernels above
+# 512 both fp32-chain modes (the wide_decoder path's width-1024 CLI epoch)
+# and the bf16 chain at 1024 (chain_dtype_ab); the one-pass Hopper kernels
+# the bf16 model's one-pass mode up to Hd 256 (train_bf16, the flagship's
+# training) and the bf16 chain at 256 (chain_dtype_ab); the fp32 model's
+# 3xTF32 mode up to Hd 256 (the _x3 counters of the shared-tile kernels:
+# generation, dataprep, refine, the fp32 training paths, the flagship's
+# generation and the wide_decoder path's width-16 CLI epoch); at Hd 512
+# both fp32-chain modes (the wide_decoder path: its generation, fp32 and
+# bf16 steps and its width-384 CLI epoch, each checked there) and the bf16
+# chain (chain_dtype_ab); kernels 3-4 every path with a loss. The mma.sync
+# kernels (egnn_band_fwd / egnn_band_bwd) serve no mode: their counters must
+# stay at 0 on every path (MMA_SYNC_KERNELS).
 REQUIRED_PATHS = {
-    "egnn_band_fwd": ("chain_dtype_ab",),
-    "egnn_band_bwd": ("chain_dtype_ab",),
-    "egnn_band_fwd_sm90": ("train_bf16", "flagship"),
-    "egnn_band_bwd_sm90": ("train_bf16", "flagship"),
-    "egnn_band_fwd_sm90_hd512": ("wide_decoder",),
-    "egnn_band_bwd_sm90_hd512": ("wide_decoder",),
+    "egnn_band_fwd_sm90": ("train_bf16", "flagship", "chain_dtype_ab"),
+    "egnn_band_bwd_sm90": ("train_bf16", "flagship", "chain_dtype_ab"),
+    "egnn_band_fwd_sm90_hd512": ("wide_decoder", "chain_dtype_ab"),
+    "egnn_band_bwd_sm90_hd512": ("wide_decoder", "chain_dtype_ab"),
     "egnn_band_fwd_sm90_x3": ("generate", "dataprep", "refine", "train", "train_watch",
                               "train_dp", "wide_decoder", "flagship"),
     "egnn_band_bwd_sm90_x3": ("train", "train_watch", "train_dp", "wide_decoder"),
-    "egnn_band_fwd_sm90_wide": ("wide_decoder",),
-    "egnn_band_bwd_sm90_wide": ("wide_decoder",),
+    "egnn_band_fwd_sm90_wide": ("wide_decoder", "chain_dtype_ab"),
+    "egnn_band_bwd_sm90_wide": ("wide_decoder", "chain_dtype_ab"),
     "clash_fwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
     "clash_bwd": ("refine", "train", "train_bf16", "train_watch", "train_dp", "wide_decoder",
                   "flagship"),
 }
-# the row each kernel's line reports (shape, mode, width): the first band
-# kernels' bf16-chain rows at the headline shapes, the flagship's B8/L128
-# in the bf16 model's mode for the one-pass Hopper kernels, the train
-# step's B4/L256 in fp32 at Hd 512 for those of width 512 and at
+MMA_SYNC_KERNELS = ("egnn_band_fwd", "egnn_band_bwd")
+# the row each kernel's line reports (shape, mode, width): the flagship's
+# B8/L128 in the bf16 model's mode for the one-pass Hopper kernels, the
+# train step's B4/L256 in fp32 at Hd 512 for those of width 512 and at
 # WIDER_CLI_HD for those above it, the fp32 headline shapes for the 3xTF32
-# ones
-KERNEL_HEAD = {"egnn_band_fwd": (HEADLINE_SHAPE, "bfloat16/bfloat16_chain", HD),
-               "egnn_band_bwd": (TRAIN_HEADLINE, "bfloat16/bfloat16_chain", HD),
-               "egnn_band_fwd_sm90_x3": (HEADLINE_SHAPE, FP32_MODE, HD),
+# ones (each line's shapes list the bf16 chain's rows too)
+KERNEL_HEAD = {"egnn_band_fwd_sm90_x3": (HEADLINE_SHAPE, FP32_MODE, HD),
                "egnn_band_bwd_sm90_x3": (TRAIN_HEADLINE, FP32_MODE, HD),
                "egnn_band_fwd_sm90": ((8, 128), BF16_MODE, HD),
                "egnn_band_bwd_sm90": ((8, 128), BF16_MODE, HD),
@@ -4194,6 +4216,14 @@ def main(argv=None) -> None:
         flagship = phase_flagship(out_dir)
 
     kernels = []
+    for name in MMA_SYNC_KERNELS:
+        ran = {"generate": gen["launches"][name], "refine": refine["launches"][name],
+               "train": train["launches"][name], "train_bf16": train_bf16["launches"][name],
+               "train_watch": watch["launches"][name], "train_dp": parallel["launches"][name],
+               "dataprep": dataprep["launches"][name], "chain_dtype_ab": chain_ab["launches"][name],
+               "wide_decoder": wide["launches"][name], "flagship": flagship["launches"][name]}
+        if any(ran.values()):
+            raise RuntimeError(f"{name} (mma.sync) ran on a path: {ran}")
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = shapes[name]
         want, want_mode, want_hd = KERNEL_HEAD[name]

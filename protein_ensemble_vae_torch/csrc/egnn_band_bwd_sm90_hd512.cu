@@ -1,10 +1,10 @@
 // EGNN band backward on Hopper (sm_90a), the shared-tile kernel: the
 // gradient of egnn_band_fwd_sm90_hd512.cu's function at the native width
 // 512 (decoder widths 257 to 512, zero-padded to it) in the fp32 model's
-// 3xTF32 mode (PASSES = 3) and the bf16 model's one-pass mode (PASSES = 1),
-// and at the native widths 32 to 256 (and the widths padded to them) in
-// 3xTF32; fp32 or bf16 a / bs. The one-pass mode up to 256 runs on
-// egnn_band_bwd_sm90.cu, the bf16 chain on egnn_band_bwd.cu.
+// 3xTF32 mode (PASSES = 3), the bf16 model's one-pass mode (PASSES = 1) and
+// the bf16 chain (CB: one bf16 pass), and at the native widths 32 to 256
+// (and the widths padded to them) in 3xTF32; fp32 or bf16 a / bs. The
+// one-pass mode and the bf16 chain up to 256 run on egnn_band_bwd_sm90.cu.
 //
 // Replaces the TPU kernel `_bwd_merged_kernel` (egnn_band.py:235, with
 // `_edge_chain_cotangents`) of the JAX package's ops/pallas/egnn_band.py.
@@ -64,6 +64,11 @@
 //   4. reduce pass (egnn_passes.cuh): the slices' and blocks' partials
 //      summed in index order.
 // No atomics: two launches give bitwise-identical outputs.
+// The bf16 chain at 512: the one-pass design with a bf16 tile, bf16 images
+// and bf16 scratch rows, m64nNk16 products, and the rounding of
+// egnn_band_bwd_sm90.cu's bf16 chain; a step's weight-grad operands are one
+// bf16 K block per feature ([Hd][64 rows], egnn_sm90.cuh: wgrad_copy_bf16),
+// one chunk a valid step in the weight-grad pass, each k16 step its own sum.
 //
 // Shared memory of the edge pass (bytes; + 1 KiB alignment slack):
 //   Hd  | tile(s)            | rings (2 x STAGES x NW x 128) | rows, dot products, flags, barriers | total
@@ -72,6 +77,8 @@
 //   128 |  65,536            | 81,920 (NW 64)                | 2,480 | 150,960
 //    64 |  32,768            | 40,960 (NW 32)                | 2,480 |  77,232
 //    32 |  16,384            | 20,480 (NW 16)                | 2,480 |  40,368
+// and in the bf16 chain:
+//   512 |  65,536 (one, bf16) | 81,920 (NW 64)               | 2,480 | 150,960  (bf16)
 // and of the weight-grad pass: WSTAGES x (8 KiB + TN x 128) + (3xTF32) two
 // split stages + barriers and the slice's step list, at TN 64:
 // 50,224 / 82,992 + 4 x steps, two blocks per SM.
@@ -99,8 +106,8 @@ constexpr int WGRAD_SPAN = HD == 512 ? 8 : 32;
 // output columns per product of the edge pass: 64, or a consumer's Hd / 2 below 128
 template <int HD>
 constexpr int NW_OF = HD / 2 < 64 ? HD / 2 : 64;
-template <int HD>
-using HalfOf = s9::Half<HD, NW_OF<HD>>;
+template <int HD, bool CB = false>
+using HalfOf = s9::Half<HD, NW_OF<HD>, CB>;
 // the split tile beside the activation tile (3xTF32 up to 256)
 template <int HD>
 constexpr bool SPLIT = HD < 512;
@@ -121,10 +128,11 @@ struct Scratch {
 // the eight warps' column sums of a block (each over its consumer's Hd / 2)
 __host__ __device__ constexpr int cols_per_block(int hd) { return 4 * NVEC * hd; }
 
+// passes 0: the bf16 chain (activations and images in bf16, two to a word)
 inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, int passes,
                              Scratch* s, float* base) {
     const size_t R = (size_t)n_items(B, L, W) * M;
-    const size_t act = R * hd;
+    const size_t act = passes == 0 ? R * hd / 2 : R * hd;
     size_t off = 0;
     auto take = [&](size_t n) {
         float* p = base ? base + off : nullptr;
@@ -139,17 +147,17 @@ inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, int
     s->drel = take(R * 3);
     s->flags = reinterpret_cast<int*>(take((size_t)n_items(B, L, W)));
     s->vpart = take((size_t)G * vpart_stride(hd));
-    s->img = take((size_t)4 * (passes == 3 ? 2 : 1) * hd * hd);
+    s->img = take(4 * (passes == 0 ? s9::image_words_bf16(hd) : (size_t)(passes == 3 ? 2 : 1) * hd * hd));
     s->cols = take((size_t)G * cols_per_block(hd));
     const size_t n_wpart = (size_t)2 * nsplit * hd * hd;
     s->wpart = n_wpart <= act ? s->cotpre : take(n_wpart);
     return off;
 }
 
-template <int HD>
+template <int HD, bool CB = false>
 struct EdgeLayout {
-    using H = HalfOf<HD>;
-    static constexpr int TILE = M * HD * 4;
+    using H = HalfOf<HD, CB>;
+    static constexpr int TILE = M * H::KW * 4;
     static constexpr int A = 0;                                     // [64][HD]
     static constexpr int AS = A + TILE;                             // [64][HD] (SPLIT)
     static constexpr int RING = AS + (SPLIT<HD> ? TILE : 0);        // [2][STAGES][CHUNK]
@@ -213,12 +221,28 @@ __device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (
     if ((k >> 1) < pairs) atomicAdd(col + 8 * (k >> 1) + (k & 1), sum);
 }
 
+// Part q (< 8) of the bf16 chain's copy of the step's bf16 tile (A: [64][Hd
+// / 2] words) into dst in its weight-grad layout ([Hd][32] words): task tid
+// + 256 q of the Hd / 64 x 32 x 8 tasks (K block, word column fp, 8-row
+// group c) of egnn_sm90.cuh's wgrad_copy_bf16, in wgrad_task_bf16's order
+// within a K block.
+template <int HD>
+__device__ __forceinline__ void tile_to_scratch_bf16(const float* A, float* __restrict__ dst,
+                                                     int tid, int q) {
+    static_assert(HD / 64 * s9::KB * 8 == 8 * CT, "eight parts of one task a thread");
+    if (q >= 8) return;
+    const int task = tid + q * CT, kb = task / (s9::KB * 8);
+    int fp, c;
+    s9::wgrad_task_bf16(task % (s9::KB * 8), s9::KB, fp, c);
+    s9::wgrad_copy_bf16(A + kb * M * s9::KB, dst, 64 * kb, fp, c);
+}
+
 template <int PASSES>
 __device__ __forceinline__ float2 act2(float v0, float v1) {
     return PASSES == 1 ? make_float2(s9::tf32(v0), s9::tf32(v1)) : make_float2(v0, v1);
 }
 
-template <int HD, int PASSES, class In>
+template <int HD, int PASSES, class In, bool CB>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                           const float* __restrict__ x, const float* __restrict__ cmask,
@@ -227,9 +251,11 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                           const float* __restrict__ b_x2, const float* __restrict__ g_agg,
                           const float* __restrict__ g_delta, Scratch s, int B, int L, int W) {
     static_assert(PASSES == 3 || !SPLIT<HD>, "one pass up to 256 runs on egnn_band_bwd_sm90.cu");
-    using LY = EdgeLayout<HD>;
-    using H = HalfOf<HD>;
+    static_assert(!CB || (PASSES == 1 && HD == 512), "the bf16 chain here: one pass at 512");
+    using LY = EdgeLayout<HD, CB>;
+    using H = HalfOf<HD, CB>;
     constexpr int NW = H::NW, NH = H::NH;
+    using Act = typename std::conditional<CB, __nv_bfloat16, float>::type;   // scratch rows
     // column pairs of a column-sum flush: four (32 columns), or a group's NW / 8
     constexpr int PAIRS = NW / 8 < 4 ? NW / 8 : 4;
     extern __shared__ char smem_raw[];
@@ -276,9 +302,9 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                                 big + off, big + H::IMG + off, ring, full + half * STAGES,
                                 empty + half * STAGES, rp);
                         } else {
-                            s9::produce_half<PASSES, NW, STAGES>(big, big + H::IMG, half, ring,
-                                                                 full + half * STAGES,
-                                                                 empty + half * STAGES, rp);
+                            s9::produce_half<PASSES, NW, STAGES, CB>(big, big + H::IMG, half, ring,
+                                                                     full + half * STAGES,
+                                                                     empty + half * STAGES, rp);
                         }
                     }
                 __syncwarp();
@@ -299,7 +325,7 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         const int t = tid % s9::WG, warp = t / 32, g = lane / 4, tq = lane % 4;
         const int col0 = wg * H::N;
         const int rw = 16 * warp + g;   // the lane's rows: rw, rw + 8
-        const float bx2 = b_x2[0];
+        const float bx2 = CB ? rbf(b_x2[0]) : b_x2[0];
         s9::RingPos rp;
         float acc[NH][H::ACC];
         float tmp[2][H::ACC];     // unused: the kc-major products need no step sums
@@ -310,17 +336,26 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         // one product of the tile into acc, in the mode's passes; side(q)
         // copies part q of the tile to the scratch
         auto product = [&](float* dst) {
-            auto side = [&](int q) { tile_to_scratch<HD>(A, dst, tid, q); };
+            auto side = [&](int q) {
+                if constexpr (CB) tile_to_scratch_bf16<HD>(A, dst, tid, q);
+                else tile_to_scratch<HD>(A, dst, tid, q);
+            };
             if constexpr (SPLIT<HD>)
                 s9::product_split<HD, NW, NH, STAGES, 0, false>(A, As, ring, my_full, my_empty,
                                                                rp, acc, tmp, sml, lane, side);
             else
-                s9::product_half<PASSES, NW, STAGES>(A, ring, my_full, my_empty, rp, acc, tmp[0],
-                                                     lane, tid, BAR_ALL, side);
+                s9::product_half<PASSES, NW, STAGES, false, CB>(A, ring, my_full, my_empty, rp,
+                                                                acc, tmp[0], lane, tid, BAR_ALL,
+                                                                side);
         };
         // the activation (v0, v1) at columns (col, col + 1) of row r: rounded to
-        // TF32 in one pass, exact in 3xTF32 with its small part in As up to 256
+        // TF32 in one pass, exact in 3xTF32 with its small part in As up to 256,
+        // bf16 in the bf16 chain
         auto put2 = [&](int r, int col, float v0, float v1) {
+            if constexpr (CB) {
+                s9::put2_bf16(A, r, col, s9::bf2r(v0, v1));
+                return;
+            }
             *reinterpret_cast<float2*>(A + s9::sw_off(r, col, M)) = act2<PASSES>(v0, v1);
             if constexpr (SPLIT<HD>)
                 *reinterpret_cast<float2*>(As + s9::sw_off(r, col, M)) =
@@ -363,17 +398,26 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             const bool any = flags[0] | flags[1];
             if (tid == 0) s.flags[item] = any;
             if (!any) continue;   // no valid edge in the step: skipped by all
-            float* m1_i = s.m1 + erow * HD;
-            float* mm_i = s.mm + erow * HD;
-            float* cotu_i = s.cotu + erow * HD;
-            float* cotv_i = s.cotv + erow * HD;
-            float* cotpre_i = s.cotpre + erow * HD;
+            const size_t ework = CB ? erow * HD / 2 : erow * HD;   // the step's scratch rows (words)
+            float* m1_i = s.m1 + ework;
+            float* mm_i = s.mm + ework;
+            float* cotu_i = s.cotu + ework;
+            float* cotv_i = s.cotv + ework;
+            float* cotpre_i = s.cotpre + ework;
+            // row r's columns (col, col + 1) of a row-major [64][HD] scratch array in Act
+            auto at2 = [&](float* rows, int r, int col) {
+                return reinterpret_cast<Act*>(rows) + (size_t)r * HD + col;
+            };
             const float vr[2] = {row_valid[rw], row_valid[rw + 8]};
 
             // m1 = silu(pre) into A; silu'(pre) waits in the cot_pre rows
-            s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
-                A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, cotpre_i,
-                SPLIT<HD> ? As : nullptr);
+            if constexpr (CB)
+                s9::fill_pre_bf16<In, CT>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, HD, tid,
+                                          cotpre_i);
+            else
+                s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
+                    A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, cotpre_i,
+                    SPLIT<HD> ? As : nullptr);
             s9::fence_async_smem();
             s9::named_sync(BAR_ALL, CT);
 
@@ -388,12 +432,19 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        const float u0 = acc[h][4 * jj + 2 * hh] + be.x;
-                        const float u1 = acc[h][4 * jj + 2 * hh + 1] + be.y;
-                        const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
-                        *reinterpret_cast<float2*>(cotu_i + (size_t)(rw + 8 * hh) * HD + col) =
-                            make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
-                        put2(rw + 8 * hh, col, u0 * s0, u1 * s1);
+                        const float a0 = acc[h][4 * jj + 2 * hh], a1 = acc[h][4 * jj + 2 * hh + 1];
+                        if constexpr (CB) {   // the column pair in bf16x2
+                            const s9::bf2 u = s9::bias2(a0, a1, s9::bf2r(be.x, be.y));
+                            const s9::bf2 sg = s9::sigmoid2(u);
+                            *reinterpret_cast<s9::bf2*>(at2(cotu_i, rw + 8 * hh, col)) = s9::dsilu2(u, sg);
+                            s9::put2_bf16(A, rw + 8 * hh, col, s9::silu2(u, sg));
+                        } else {
+                            const float u0 = a0 + be.x, u1 = a1 + be.y;
+                            const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
+                            *reinterpret_cast<float2*>(at2(cotu_i, rw + 8 * hh, col)) =
+                                make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
+                            put2(rw + 8 * hh, col, u0 * s0, u1 * s1);
+                        }
                     }
                 }
             s9::fence_async_smem();
@@ -402,7 +453,9 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
             // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 per row; cot_v -> A
             product(mm_i);
             s9::named_sync(BAR_ALL, CT);
-            const float cw[2] = {row_cw[rw], row_cw[rw + 8]};
+            // cot_wsc: cast to bf16 in the bf16 chain
+            const float cw[2] = {CB ? rbf(row_cw[rw]) : row_cw[rw],
+                                 CB ? rbf(row_cw[rw + 8]) : row_cw[rw + 8]};
             float sw[2] = {0.f, 0.f};
 #pragma unroll
             for (int h = 0; h < NH; ++h) {
@@ -411,22 +464,47 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 for (int jj = 0; jj < NW / 8; ++jj) {
                     const int col = col0 + h * NW + 8 * jj + 2 * tq;
                     const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + col));
-                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
+                    float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
                     float cot[2][2], gw[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
+                    if constexpr (CB) {   // the column pair in bf16x2
+                        const s9::bf2 wx2 = s9::bf2r(wx.x, wx.y);
+                        wx = s9::f2(wx2);
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const s9::bf2 v = s9::bias2(acc[h][4 * jj + 2 * hh],
+                                                        acc[h][4 * jj + 2 * hh + 1],
+                                                        s9::bf2r(bx.x, bx.y));
+                            const s9::bf2 sg = s9::sigmoid2(v);
+                            const float2 w1 = s9::f2(s9::silu2(v, sg));
+                            const s9::bf2 ct = s9::mul2(s9::mul2(s9::bf2r(cw[hh], cw[hh]), wx2),
+                                                       s9::dsilu2(v, sg));
+                            s9::put2_bf16(A, rw + 8 * hh, col, ct);
+                            const float2 cf = s9::f2(ct);
+                            cot[hh][0] = cf.x;
+                            cot[hh][1] = cf.y;
+                            sw[hh] = fmaf(w1.y, wx.y, fmaf(w1.x, wx.x, sw[hh]));
+                            gw[0] += w1.x * cw[hh];   // w_x2 grad
+                            gw[1] += w1.y * cw[hh];
+                        }
+                    } else {
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const float wx2 = c ? wx.y : wx.x;
+                                const float vv = acc[h][4 * jj + 2 * hh + c] + (c ? bx.y : bx.x);
+                                const float sg = s9::sigmoid_fast(vv), w1 = vv * sg;
+                                cot[hh][c] = cw[hh] * wx2 * s9::dsilu_of(vv, sg);
+                                sw[hh] = fmaf(w1, wx2, sw[hh]);
+                                gw[c] += w1 * cw[hh];    // w_x2 grad
+                            }
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) put2(rw + 8 * hh, col, cot[hh][0], cot[hh][1]);
+                    }
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-                        for (int c = 0; c < 2; ++c) {
-                            const float wx2 = c ? wx.y : wx.x;
-                            const float vv = acc[h][4 * jj + 2 * hh + c] + (c ? bx.y : bx.x);
-                            const float sg = s9::sigmoid_fast(vv), w1 = vv * sg;
-                            cot[hh][c] = cw[hh] * wx2 * s9::dsilu_of(vv, sg);
-                            sw[hh] = fmaf(w1, wx2, sw[hh]);
-                            gw[c] += w1 * cw[hh];    // w_x2 grad
-                            gb[c] += cot[hh][c];     // b_x1 grad
-                        }
-#pragma unroll
-                    for (int hh = 0; hh < 2; ++hh) put2(rw + 8 * hh, col, cot[hh][0], cot[hh][1]);
+                        for (int c = 0; c < 2; ++c) gb[c] += cot[hh][c];   // b_x1 grad
 #pragma unroll
                     for (int c = 0; c < 2; ++c) {
                         gw8[2 * (jj & 3) + c] = gw[c];
@@ -458,14 +536,24 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     const int col = col0 + h * NW + 8 * jj + 2 * tq;
                     const float2 gv = my_i < L
                         ? __ldg(reinterpret_cast<const float2*>(g_agg + (row0 + my_i) * HD + col))
-                        : make_float2(0.f, 0.f);
+                        : make_float2(0.f, 0.f);   // the bf16 chain rounds it to bf16 (bf2r)
                     float gb[2] = {0.f, 0.f};
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        const float2 ds =
-                            *reinterpret_cast<const float2*>(cotu_i + (size_t)(rw + 8 * hh) * HD + col);
-                        const float cu0 = (vr[hh] * gv.x + acc[h][4 * jj + 2 * hh]) * ds.x;
-                        const float cu1 = (vr[hh] * gv.y + acc[h][4 * jj + 2 * hh + 1]) * ds.y;
+                        const float a0 = acc[h][4 * jj + 2 * hh], a1 = acc[h][4 * jj + 2 * hh + 1];
+                        float cu0, cu1;
+                        if constexpr (CB) {   // the column pair in bf16x2
+                            const s9::bf2 ds = *reinterpret_cast<const s9::bf2*>(at2(cotu_i, rw + 8 * hh, col));
+                            const s9::bf2 ct = s9::mul2(s9::add2(s9::bf2r(vr[hh] * gv.x, vr[hh] * gv.y),
+                                                               s9::bf2r(a0, a1)), ds);
+                            const float2 cf = s9::f2(ct);
+                            cu0 = cf.x;
+                            cu1 = cf.y;
+                        } else {
+                            const float2 ds = *reinterpret_cast<const float2*>(at2(cotu_i, rw + 8 * hh, col));
+                            cu0 = (vr[hh] * gv.x + a0) * ds.x;
+                            cu1 = (vr[hh] * gv.y + a1) * ds.y;
+                        }
                         gb[0] += cu0;   // b_e2 grad
                         gb[1] += cu1;
                         put2(rw + 8 * hh, col, cu0, cu1);
@@ -493,19 +581,34 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     float gd[2] = {0.f, 0.f};
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        float2* p = reinterpret_cast<float2*>(cotpre_i + (size_t)(rw + 8 * hh) * HD + col);
+                        Act* p = at2(cotpre_i, rw + 8 * hh, col);
                         float cp[2] = {0.f, 0.f};
                         if (vr[hh] > 0.f) {
-                            const float2 ds = *p;   // silu'(pre), from the fill
+                            if constexpr (CB) {   // silu'(pre) from the fill; the pair in bf16x2
+                                const s9::bf2 c2 = s9::mul2(s9::bf2r(acc[h][4 * jj + 2 * hh],
+                                                                    acc[h][4 * jj + 2 * hh + 1]),
+                                                           *reinterpret_cast<const s9::bf2*>(p));
+                                // cot_d2: an fp32 sum of the bf16 products cot_pre w_d
+                                const float2 cf = s9::f2(c2), pd = s9::f2(s9::mul2(c2, s9::bf2r(wd.x, wd.y)));
+                                cp[0] = cf.x;
+                                cp[1] = cf.y;
+                                sd[hh] += pd.x;
+                                sd[hh] += pd.y;
+                            } else {
+                                const float2 ds = *reinterpret_cast<const float2*>(p);   // silu'(pre), from the fill
 #pragma unroll
-                            for (int c = 0; c < 2; ++c) {
-                                const float wdc = c ? wd.y : wd.x;
-                                cp[c] = acc[h][4 * jj + 2 * hh + c] * (c ? ds.y : ds.x);
-                                sd[hh] = fmaf(cp[c], wdc, sd[hh]);
-                                gd[c] += cp[c] * d2r[hh];   // w_d grad
+                                for (int c = 0; c < 2; ++c) {
+                                    cp[c] = acc[h][4 * jj + 2 * hh + c] * (c ? ds.y : ds.x);
+                                    sd[hh] = fmaf(cp[c], c ? wd.y : wd.x, sd[hh]);
+                                }
                             }
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) gd[c] += cp[c] * d2r[hh];   // w_d grad
                         }
-                        *p = make_float2(cp[0], cp[1]);
+                        if constexpr (CB)
+                            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(cp[0], cp[1]);
+                        else
+                            *reinterpret_cast<float2*>(p) = make_float2(cp[0], cp[1]);
                     }
                     gd8[2 * (jj & 3)] = gd[0];
                     gd8[2 * (jj & 3) + 1] = gd[1];
@@ -524,14 +627,15 @@ egnn_bwd_edges_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
                     const int row = rw + 8 * hh;
-                    const float vw = vr[hh] * (wsc[hh] + part_wsc[row] + bx2);
+                    const float vw = vr[hh] * (CB ? rbf(rbf(wsc[hh] + part_wsc[row]) + bx2)
+                                                  : wsc[hh] + part_wsc[row] + bx2);
                     const float c2 = cd2[hh] + part_cd2[row];
 #pragma unroll
                     for (int c = 0; c < 3; ++c) {
                         const float gdc = vr[hh] > 0.f ? g_delta[(row0 + my_i) * 3 + c] : 0.f;
                         s.drel[(erow + row) * 3 + c] = vw * gdc + 2.f * row_rel[row * 3 + c] * c2;
                     }
-                    cw_sum += cw[hh];   // b_x2 grad
+                    cw_sum += row_cw[row];   // b_x2 grad (fp32 cot_wsc)
                 }
             }
         }
@@ -586,7 +690,7 @@ struct WgradLayout {
     }
 };
 
-template <int HD, int PASSES>
+template <int HD, int PASSES, bool CB>
 __global__ void __launch_bounds__(WGRAD_THREADS, 2)
 egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0,
                       const float* __restrict__ x1, const float* __restrict__ y1,
@@ -612,13 +716,16 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
         }
         s9::fence_mbar_init();
     }
-    const int nchunk = 2 * valid_items(flags, items, nsplit, sl, list);   // synchronises the block
+    // chunks of a valid step: two 32-row K blocks, or one bf16 K block of 64 rows
+    constexpr int PER_STEP = CB ? 1 : 2;
+    const int nchunk = PER_STEP * valid_items(flags, items, nsplit, sl, list);   // synchronises the block
 
     if (warp == s9::WG / 32) {   // the producer warp
         if (lane == 0) {
             s9::RingPos rp;
             for (int q = 0; q < nchunk; ++q) {
-                const size_t base = (size_t)list[q / 2] * M * HD + (size_t)(q % 2) * s9::KB * HD;
+                const size_t base = CB ? (size_t)list[q] * M * HD / 2
+                                       : (size_t)list[q / 2] * M * HD + (size_t)(q % 2) * s9::KB * HD;
                 float* st = reinterpret_cast<float*>(sm + rp.stage * LY::STAGE);
                 s9::mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
                 s9::mbar_expect_tx(&full[rp.stage], LY::LOADED);
@@ -673,8 +780,8 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
                 s9::Wgmma<TN>::mma(st, s9::desc(xs + 8 * k8), dy, first ? 0 : 1);
                 s9::Wgmma<TN>::mma(st, dx, s9::desc(ys + 8 * k8), 1);
                 s9::Wgmma<TN>::mma(st, dx, dy, 1);
-            } else {
-                s9::Wgmma<TN>::mma(st, dx, dy, first ? 0 : 1);
+            } else {   // one TF32 pass, or a k16 step of 16 rows in the bf16 chain
+                s9::Wgmma<TN, CB>::mma(st, dx, dy, first ? 0 : 1);
             }
         }
         s9::wg_commit();
@@ -709,43 +816,52 @@ egnn_wgrad_sm90_hd512(const float* __restrict__ x0, const float* __restrict__ y0
         }
 }
 
-template <int HD, int PASSES, class In>
+template <int HD, int PASSES, class In, bool CB>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, const float* g_agg, const float* g_delta, In* da,
                    In* dbs, float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
                    int B, int L, int W, int G, int nsplit, cudaStream_t stream) {
+    using Act = typename std::conditional<CB, __nv_bfloat16, float>::type;
     if (G < 1 || nsplit < 1 || !scratch) return cudaErrorInvalidValue;
     Scratch s;
-    scratch_floats(B, L, HD, W, G, nsplit, PASSES, &s, scratch);
+    scratch_floats(B, L, HD, W, G, nsplit, CB ? 0 : PASSES, &s, scratch);
     const int items = n_items(B, L, W);
     // x @ W_e2, x @ W_x1 (the recomputed products), x @ W_x1^T, x @ W_e2^T
-    // (the cotangents), each as Wb (and Ws)
+    // (the cotangents), each as Wb (and Ws), or as its bf16 image
     const float* srcs[4] = {w[1], w[3], w[3], w[1]};
     const int orients[4] = {s9::IMG_T, s9::IMG_T, s9::IMG_N, s9::IMG_N};
-    s9::HalfImageSet set{};
-    for (int q = 0; q < 4; ++q)
-        for (int p = 0; p < PARTS<PASSES>; ++p) {
-            set.src[set.n] = srcs[q];
-            set.orient[set.n] = orients[q];
-            set.part[set.n++] = p;
-        }
-    cudaError_t err = s9::launch_images_half<HD, NW_OF<HD>>(set, s.img, stream);
+    cudaError_t err;
+    if constexpr (CB) {
+        const s9::Bf16ImageSet set{{srcs[0], srcs[1], srcs[2], srcs[3]},
+                                   {orients[0], orients[1], orients[2], orients[3]}, 4, HD,
+                                   NW_OF<HD>, 2, 0};
+        err = s9::launch_images_bf16(set, s.img, stream);
+    } else {
+        s9::HalfImageSet set{};
+        for (int q = 0; q < 4; ++q)
+            for (int p = 0; p < PARTS<PASSES>; ++p) {
+                set.src[set.n] = srcs[q];
+                set.orient[set.n] = orients[q];
+                set.part[set.n++] = p;
+            }
+        err = s9::launch_images_half<HD, NW_OF<HD>>(set, s.img, stream);
+    }
     if (err != cudaSuccess) return err;
     err = cudaMemsetAsync(s.cols, 0, sizeof(float) * G * cols_per_block(HD), stream);
     if (err != cudaSuccess) return err;
-    auto edges = egnn_bwd_edges_sm90_hd512<HD, PASSES, In>;
-    err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               EdgeLayout<HD>::SMEM);
+    auto edges = egnn_bwd_edges_sm90_hd512<HD, PASSES, In, CB>;
+    constexpr int SMEM = EdgeLayout<HD, CB>::SMEM;
+    err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
-    edges<<<G, s9::THREADS, EdgeLayout<HD>::SMEM, stream>>>(a, bs, x, cmask, w[0], w[2], w[4],
-                                                           w[5], w[6], g_agg, g_delta, s, B, L, W);
+    edges<<<G, s9::THREADS, SMEM, stream>>>(a, bs, x, cmask, w[0], w[2], w[4], w[5], w[6], g_agg,
+                                            g_delta, s, B, L, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    egnn_bwd_nodes<In, float><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
-        s.cotpre, s.drel, s.flags, da, dbs, dx, L, HD, W);
+    egnn_bwd_nodes<In, Act><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+        reinterpret_cast<const Act*>(s.cotpre), s.drel, s.flags, da, dbs, dx, L, HD, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int per = (items + nsplit - 1) / nsplit;
     const size_t wsmem = WgradLayout<HD>::template smem<PASSES>(per);
-    auto wgrad = egnn_wgrad_sm90_hd512<HD, PASSES>;
+    auto wgrad = egnn_wgrad_sm90_hd512<HD, PASSES, CB>;
     err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
     if (err != cudaSuccess) return err;
     const dim3 wgrid(WgradLayout<HD>::TILES, nsplit, 2);
@@ -758,21 +874,24 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
-// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}) for the modes this kernel takes:
-// width 512 in 1 or 3 passes, the widths 32 to 256 in 3; the input type.
+// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}, std::bool_constant<CB>{}) for the
+// modes this kernel takes: width 512 in 1 or 3 passes or in the bf16 chain
+// (passes 0: one bf16 pass, CB), the widths 32 to 256 in 3; the input type.
 template <class F>
 cudaError_t dispatch(int hd, int passes, int bf16_in, F&& f) {
-    auto by_in = [&](auto h, auto p) -> cudaError_t {
-        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}) : f(h, p, Type<float>{});
+    auto by_in = [&](auto h, auto p, auto cb) -> cudaError_t {
+        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}, cb) : f(h, p, Type<float>{}, cb);
     };
-    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{});
+    const std::false_type fp32_chain{};
+    if (hd == 512 && passes == 0) return by_in(Int<512>{}, Int<1>{}, std::true_type{});
+    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{}, fp32_chain);
     if (passes != 3) return cudaErrorInvalidValue;
     switch (hd) {
-        case 32:  return by_in(Int<32>{}, Int<3>{});
-        case 64:  return by_in(Int<64>{}, Int<3>{});
-        case 128: return by_in(Int<128>{}, Int<3>{});
-        case 256: return by_in(Int<256>{}, Int<3>{});
-        case 512: return by_in(Int<512>{}, Int<3>{});
+        case 32:  return by_in(Int<32>{}, Int<3>{}, fp32_chain);
+        case 64:  return by_in(Int<64>{}, Int<3>{}, fp32_chain);
+        case 128: return by_in(Int<128>{}, Int<3>{}, fp32_chain);
+        case 256: return by_in(Int<256>{}, Int<3>{}, fp32_chain);
+        case 512: return by_in(Int<512>{}, Int<3>{}, fp32_chain);
         default:  return cudaErrorInvalidValue;
     }
 }
@@ -792,22 +911,25 @@ size_t egnn_band_bwd_sm90_hd512_scratch_floats(int B, int L, int hd, int W, int 
 // Edge-pass blocks that one SM holds, or a negative CUDA error code.
 int egnn_band_bwd_sm90_hd512_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+    const cudaError_t err = dispatch(hd, passes, bf16_in,
+                                     [&](auto h_c, auto p_c, auto in_c, auto cb_c) {
         constexpr int HD = decltype(h_c)::value;
+        constexpr bool CB = decltype(cb_c)::value;
         auto kernel = egnn_bwd_edges_sm90_hd512<HD, decltype(p_c)::value,
-                                                typename decltype(in_c)::type>;
+                                                typename decltype(in_c)::type, CB>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             EdgeLayout<HD>::SMEM);
+                                             EdgeLayout<HD, CB>::SMEM);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
-                                                             EdgeLayout<HD>::SMEM);
+                                                             EdgeLayout<HD, CB>::SMEM);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch the four passes on `stream`; returns the CUDA error code (0 =
 // success). As egnn_band_bwd_sm90_launch, at hd 512 with passes 1 or 3 (TF32
-// passes per product), at hd 32..256 with passes 3; scratch as sized above.
+// passes per product) or 0 (the bf16 chain), at hd 32..256 with passes 3;
+// scratch as sized above.
 int egnn_band_bwd_sm90_hd512_launch(const void* a, const void* bs, const float* x,
                                     const float* cmask, const float* w_d, const float* w_e2,
                                     const float* b_e2, const float* w_x1, const float* b_x1,
@@ -818,9 +940,9 @@ int egnn_band_bwd_sm90_hd512_launch(const void* a, const void* bs, const float* 
                                     int passes, void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c, auto cb_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(h_c)::value, decltype(p_c)::value, In>(
+        return launch<decltype(h_c)::value, decltype(p_c)::value, In, decltype(cb_c)::value>(
             static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, g_agg, g_delta,
             static_cast<In*>(da), static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec, scratch, B, L, W,
             G, nsplit, s);

@@ -1,9 +1,8 @@
 // EGNN band backward on Hopper (sm_90a) above decoder width 512: the
 // gradient of egnn_band_fwd_sm90_wide.cu's function in both fp32-chain
 // modes (3xTF32, PASSES = 3, the fp32 model; one TF32 pass, PASSES = 1, the
-// bf16 model), fp32 or bf16 a / bs, at a width hd given at run time (a
-// multiple of 256 above 512). The bf16 chain above 512 runs on
-// egnn_band_bwd.cu's wide variant.
+// bf16 model) and in the bf16 chain (CB: one bf16 pass), fp32 or bf16 a /
+// bs, at a width hd given at run time (a multiple of 256 above 512).
 //
 // Replaces the TPU kernel `_bwd_merged_kernel` (egnn_band.py:235, with
 // `_edge_chain_cotangents`) of the JAX package's ops/pallas/egnn_band.py.
@@ -50,11 +49,17 @@
 //   4. reduce pass (egnn_passes.cuh): the slices' and blocks' partials
 //      summed in index order.
 // No atomics on an output: two launches give bitwise-identical outputs.
+// The bf16 chain: the one-pass configuration on bf16 stream rows, images and
+// scratch rows (egnn_sm90_wide.cuh), the rounding of egnn_band_bwd_sm90.cu's
+// bf16 chain; each K block of 64 features goes to the weight-grad layout of
+// one bf16 K block per feature ([hd][64 rows], egnn_sm90.cuh:
+// wgrad_copy_bf16), one chunk a valid step in the weight-grad pass.
 //
 // Shared memory of the edge pass (bytes; + 1 KiB alignment slack), any width:
 //   passes | ring (STAGES x stage), split buffers | rows, parts, flags, barriers | total
 //   1      | 204,800 (5 x 40,960)                 | 2,400 | 208,224  (of 232,448)
 //   3      | 163,840 (4 x 40,960) + 24,576        | 2,384 | 191,824  (of 232,448)
+// and the bf16 chain as one pass;
 // and of the weight-grad pass: WSTAGES x 16 KiB + (3xTF32) two split stages
 // + barriers and the slice's step list: 50,224 / 82,992 + 4 x steps.
 
@@ -91,10 +96,11 @@ __host__ __device__ constexpr size_t cols_per_block(int hd) { return (size_t)4 *
 // a block's stream buffers: two, each 64 x hd
 __host__ __device__ constexpr size_t stream_floats(int hd) { return (size_t)2 * M * hd; }
 
+// passes 0: the bf16 chain (activations and images in bf16, two to a word)
 inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, int passes,
                              Scratch* s, float* base) {
     const size_t R = (size_t)n_items(B, L, W) * M;
-    const size_t act = R * hd;
+    const size_t act = passes == 0 ? R * hd / 2 : R * hd;
     size_t off = 0;
     auto take = [&](size_t n) {
         float* p = base ? base + off : nullptr;
@@ -109,7 +115,7 @@ inline size_t scratch_floats(int B, int L, int hd, int W, int G, int nsplit, int
     s->drel = take(R * 3);
     s->flags = reinterpret_cast<int*>(take((size_t)n_items(B, L, W)));
     s->vpart = take((size_t)G * vpart_stride(hd));
-    s->img = take((size_t)4 * (passes == 3 ? 2 : 1) * hd * hd);
+    s->img = take(4 * (passes == 0 ? s9::image_words_bf16(hd) : (size_t)(passes == 3 ? 2 : 1) * hd * hd));
     s->cols = take((size_t)G * cols_per_block(hd));
     s->stream = take((size_t)G * stream_floats(hd));
     const size_t n_wpart = (size_t)2 * nsplit * hd * hd;
@@ -159,6 +165,21 @@ __device__ __forceinline__ void chunk_to_scratch(const float* st, float* __restr
     }
 }
 
+// The bf16 chain's chunk_to_scratch: K block kc of a step's bf16 activation
+// in ring stage `st` ([64 rows][32 words], 64 features) into dst (the step's
+// rows in the bf16 weight-grad layout [hd][32 words]), by the first
+// consumer's threads on even K blocks and the second's on odd ones, two of
+// egnn_sm90.cuh's wgrad_copy_bf16 tasks each (8-row groups c and c + 4).
+__device__ __forceinline__ void chunk_to_scratch_bf16(const float* st, float* __restrict__ dst,
+                                                      int kc, int tid) {
+    if ((tid / s9::WG) != (kc & 1)) return;
+    for (int task = tid % s9::WG; task < s9::KB * 8; task += s9::WG) {
+        int fp, c;
+        s9::wgrad_task_bf16(task, s9::KB, fp, c);
+        s9::wgrad_copy_bf16(st, dst, 64 * kc, fp, c);
+    }
+}
+
 // egnn_band_bwd_sm90_hd512.cu's add_cols8: eight column values (four column
 // pairs, 8 apart) summed over the warp's rows, lane g adding one of them to
 // the warp's sums in device memory (a red.global: the warp is their only
@@ -177,7 +198,7 @@ __device__ __forceinline__ void add_cols8(float* __restrict__ col, const float (
     atomicAdd(col + 8 * (k >> 1) + (k & 1), sum);
 }
 
-template <int PASSES, class In>
+template <int PASSES, class In, bool CB>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
                          const float* __restrict__ x, const float* __restrict__ cmask,
@@ -190,6 +211,7 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
     using C = wd::Cfg<PASSES>;
     constexpr int NW = C::NW, ACC = C::ACC;
     constexpr bool ROUND = PASSES == 1;   // activations rounded to TF32 in one pass
+    using Act = typename std::conditional<CB, __nv_bfloat16, float>::type;   // scratch rows
     extern __shared__ char smem_raw[];
     char* sm = s9::smem_base(smem_raw);
     float* ring = reinterpret_cast<float*>(sm + LY::RING);
@@ -211,7 +233,7 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
 
     const int n_steps = (2 * W + OPS - 1) / OPS, n_tiles = (L + T - 1) / T;
     const int items = B * n_tiles * n_steps;
-    const size_t img_floats = (size_t)hd * hd;
+    const size_t img_floats = CB ? s9::image_words_bf16(hd) : (size_t)hd * hd;
     // this block's stream buffers: b0 (m1, cot_v), b1 (m, cot_u)
     float* b0 = s.stream + (size_t)blockIdx.x * stream_floats(hd);
     float* b1 = b0 + (size_t)M * hd;
@@ -228,8 +250,8 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
                 if (lane == 0)
                     for (int q = 0; q < 4; ++q) {   // e2 (T), x1 (T), x1 (N), e2 (N)
                         const float* big = s.img + (size_t)q * PARTS<PASSES> * img_floats;
-                        wd::produce<PASSES>(q & 1 ? b1 : b0, big, big + img_floats, hd, ring,
-                                            full, empty, act, act_phase, rp);
+                        wd::produce<PASSES, CB>(q & 1 ? b1 : b0, big, big + img_floats, hd, ring,
+                                                full, empty, act, act_phase, rp);
                     }
                 __syncwarp();
             }
@@ -246,7 +268,7 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
         const int t = tid % s9::WG, warp = t / 32, g = lane / 4, tq = lane % 4;
         const int rw = 16 * warp + g;   // the lane's rows: rw, rw + 8 (receiver g)
         const int half = hd / 2;
-        const float bx2 = b_x2[0];
+        const float bx2 = CB ? rbf(b_x2[0]) : b_x2[0];
         s9::RingPos rp;
         int sq = 0;   // split buffer of the next K block (3xTF32)
         float acc[ACC], tmp0[ACC], tmp1[ACC], sml[ACC];
@@ -272,18 +294,28 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
             const bool any = flags[0] | flags[1];
             if (tid == 0) s.flags[item] = any;
             if (!any) continue;   // no valid edge in the step: skipped by all
-            float* m1_i = s.m1 + erow * hd;
-            float* mm_i = s.mm + erow * hd;
-            float* cotu_i = s.cotu + erow * hd;
-            float* cotv_i = s.cotv + erow * hd;
-            float* cotpre_i = s.cotpre + erow * hd;
+            const size_t ework = CB ? erow * hd / 2 : erow * hd;   // the step's scratch rows (words)
+            float* m1_i = s.m1 + ework;
+            float* mm_i = s.mm + ework;
+            float* cotu_i = s.cotu + ework;
+            float* cotv_i = s.cotv + ework;
+            float* cotpre_i = s.cotpre + ework;
+            // row r's columns (col, col + 1) of a row-major [64][hd] scratch array in Act
+            auto at2 = [&](float* rows, int r, int col) {
+                return reinterpret_cast<Act*>(rows) + (size_t)r * hd + col;
+            };
             const float vr[2] = {row_valid[rw], row_valid[rw + 8]};
-            const float cw[2] = {row_cw[rw], row_cw[rw + 8]};
+            // cot_wsc: cast to bf16 in the bf16 chain
+            const float cw[2] = {CB ? rbf(row_cw[rw]) : row_cw[rw],
+                                 CB ? rbf(row_cw[rw + 8]) : row_cw[rw + 8]};
             const float d2r[2] = {row_d2[rw], row_d2[rw + 8]};
             const int my_i = i0 + g;
             // side(kc, stage): K block kc of the product's A into dst's weight-grad rows
             auto copy_to = [&](float* dst) {
-                return [=](int kc, const float* st) { chunk_to_scratch(st, dst, hd, kc, tid); };
+                return [=](int kc, const float* st) {
+                    if constexpr (CB) chunk_to_scratch_bf16(st, dst, kc, tid);
+                    else chunk_to_scratch(st, dst, hd, kc, tid);
+                };
             };
             // pass p's column of jj, tq and its entry in the warp's column sums
             auto col_of = [&](int p, int jj) { return p * C::NC + wg * NW + 8 * jj + 2 * tq; };
@@ -292,26 +324,37 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
             };
 
             // m1 = silu(pre) into b0; silu'(pre) waits in the cot_pre rows
-            wd::fill<PASSES, PASSES == 3>(b0, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, hd, tid,
-                                          cotpre_i);
+            if constexpr (CB)
+                s9::fill_pre_bf16<In, wd::CT>(b0, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, hd,
+                                              tid, cotpre_i);
+            else
+                wd::fill<PASSES, PASSES == 3>(b0, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, hd,
+                                              tid, cotpre_i);
             wd::publish(act, tid);
 
             // u = m1 @ W_e2 + b_e2: silu'(u) waits in the cot_u rows; m = silu(u) -> b1
-            wd::consume<PASSES>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
-                                tmp1, sml,
-                                copy_to(m1_i), [&](int p, float (&ac)[ACC]) {
+            wd::consume<PASSES, CB>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
+                                    tmp1, sml,
+                                    copy_to(m1_i), [&](int p, float (&ac)[ACC]) {
 #pragma unroll
                 for (int jj = 0; jj < NW / 8; ++jj) {
                     const int col = col_of(p, jj);
                     const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        const float u0 = ac[4 * jj + 2 * hh] + be.x;
-                        const float u1 = ac[4 * jj + 2 * hh + 1] + be.y;
-                        const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
-                        *reinterpret_cast<float2*>(cotu_i + (size_t)(rw + 8 * hh) * hd + col) =
-                            make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
-                        wd::put2<ROUND>(b1, rw + 8 * hh, col, u0 * s0, u1 * s1);
+                        const float a0 = ac[4 * jj + 2 * hh], a1 = ac[4 * jj + 2 * hh + 1];
+                        if constexpr (CB) {   // the column pair in bf16x2
+                            const s9::bf2 u = s9::bias2(a0, a1, s9::bf2r(be.x, be.y));
+                            const s9::bf2 sg = s9::sigmoid2(u);
+                            *reinterpret_cast<s9::bf2*>(at2(cotu_i, rw + 8 * hh, col)) = s9::dsilu2(u, sg);
+                            s9::put2_bf16(b1, rw + 8 * hh, col, s9::silu2(u, sg));
+                        } else {
+                            const float u0 = a0 + be.x, u1 = a1 + be.y;
+                            const float s0 = s9::sigmoid_fast(u0), s1 = s9::sigmoid_fast(u1);
+                            *reinterpret_cast<float2*>(at2(cotu_i, rw + 8 * hh, col)) =
+                                make_float2(s9::dsilu_of(u0, s0), s9::dsilu_of(u1, s1));
+                            wd::put2<ROUND>(b1, rw + 8 * hh, col, u0 * s0, u1 * s1);
+                        }
                     }
                 }
             });
@@ -319,31 +362,55 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
 
             // v = m @ W_x1 + b_x1; wsc = silu(v) . w_x2 + b_x2 per row; cot_v -> b0
             float sw[2] = {0.f, 0.f};
-            wd::consume<PASSES>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
-                                tmp1, sml,
-                                copy_to(mm_i), [&](int p, float (&ac)[ACC]) {
+            wd::consume<PASSES, CB>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
+                                    tmp1, sml,
+                                    copy_to(mm_i), [&](int p, float (&ac)[ACC]) {
                 float gw8[8], gb8[8];   // four column pairs' sums over the lane's rows
 #pragma unroll
                 for (int jj = 0; jj < NW / 8; ++jj) {
                     const int col = col_of(p, jj);
                     const float2 bx = __ldg(reinterpret_cast<const float2*>(b_x1 + col));
-                    const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
+                    float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
                     float cot[2][2], gw[2] = {0.f, 0.f}, gb[2] = {0.f, 0.f};
+                    if constexpr (CB) {   // the column pair in bf16x2
+                        const s9::bf2 wx2 = s9::bf2r(wx.x, wx.y);
+                        wx = s9::f2(wx2);
 #pragma unroll
-                    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-                        for (int c = 0; c < 2; ++c) {
-                            const float wx2 = c ? wx.y : wx.x;
-                            const float vv = ac[4 * jj + 2 * hh + c] + (c ? bx.y : bx.x);
-                            const float sg = s9::sigmoid_fast(vv), w1 = vv * sg;
-                            cot[hh][c] = cw[hh] * wx2 * s9::dsilu_of(vv, sg);
-                            sw[hh] = fmaf(w1, wx2, sw[hh]);
-                            gw[c] += w1 * cw[hh];    // w_x2 grad
-                            gb[c] += cot[hh][c];     // b_x1 grad
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const s9::bf2 v = s9::bias2(ac[4 * jj + 2 * hh], ac[4 * jj + 2 * hh + 1],
+                                                        s9::bf2r(bx.x, bx.y));
+                            const s9::bf2 sg = s9::sigmoid2(v);
+                            const float2 w1 = s9::f2(s9::silu2(v, sg));
+                            const s9::bf2 ct = s9::mul2(s9::mul2(s9::bf2r(cw[hh], cw[hh]), wx2),
+                                                       s9::dsilu2(v, sg));
+                            s9::put2_bf16(b0, rw + 8 * hh, col, ct);
+                            const float2 cf = s9::f2(ct);
+                            cot[hh][0] = cf.x;
+                            cot[hh][1] = cf.y;
+                            sw[hh] = fmaf(w1.y, wx.y, fmaf(w1.x, wx.x, sw[hh]));
+                            gw[0] += w1.x * cw[hh];   // w_x2 grad
+                            gw[1] += w1.y * cw[hh];
                         }
+                    } else {
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                const float wx2 = c ? wx.y : wx.x;
+                                const float vv = ac[4 * jj + 2 * hh + c] + (c ? bx.y : bx.x);
+                                const float sg = s9::sigmoid_fast(vv), w1 = vv * sg;
+                                cot[hh][c] = cw[hh] * wx2 * s9::dsilu_of(vv, sg);
+                                sw[hh] = fmaf(w1, wx2, sw[hh]);
+                                gw[c] += w1 * cw[hh];    // w_x2 grad
+                            }
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh)
+                            wd::put2<ROUND>(b0, rw + 8 * hh, col, cot[hh][0], cot[hh][1]);
+                    }
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh)
-                        wd::put2<ROUND>(b0, rw + 8 * hh, col, cot[hh][0], cot[hh][1]);
+#pragma unroll
+                        for (int c = 0; c < 2; ++c) gb[c] += cot[hh][c];   // b_x1 grad
 #pragma unroll
                     for (int c = 0; c < 2; ++c) {
                         gw8[2 * (jj & 3) + c] = gw[c];
@@ -363,26 +430,36 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
             wd::publish(act, tid);   // also: part_wsc is written
 
             // cot_m = valid * g_agg + cot_v @ W_x1^T; cot_u = cot_m * silu'(u) -> b1
-            wd::consume<PASSES>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
-                                tmp1, sml,
-                                copy_to(cotv_i), [&](int p, float (&ac)[ACC]) {
+            wd::consume<PASSES, CB>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
+                                    tmp1, sml,
+                                    copy_to(cotv_i), [&](int p, float (&ac)[ACC]) {
                 float gb8[8];
 #pragma unroll
                 for (int jj = 0; jj < NW / 8; ++jj) {
                     const int col = col_of(p, jj);
                     const float2 gv = my_i < L
                         ? __ldg(reinterpret_cast<const float2*>(g_agg + (row0 + my_i) * hd + col))
-                        : make_float2(0.f, 0.f);
+                        : make_float2(0.f, 0.f);   // the bf16 chain rounds it to bf16 (bf2r)
                     float gb[2] = {0.f, 0.f};
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        const float2 ds = *reinterpret_cast<const float2*>(
-                            cotu_i + (size_t)(rw + 8 * hh) * hd + col);
-                        const float cu0 = (vr[hh] * gv.x + ac[4 * jj + 2 * hh]) * ds.x;
-                        const float cu1 = (vr[hh] * gv.y + ac[4 * jj + 2 * hh + 1]) * ds.y;
+                        const float a0 = ac[4 * jj + 2 * hh], a1 = ac[4 * jj + 2 * hh + 1];
+                        float cu0, cu1;
+                        if constexpr (CB) {   // the column pair in bf16x2
+                            const s9::bf2 ds = *reinterpret_cast<const s9::bf2*>(at2(cotu_i, rw + 8 * hh, col));
+                            const s9::bf2 ct = s9::mul2(s9::add2(s9::bf2r(vr[hh] * gv.x, vr[hh] * gv.y),
+                                                               s9::bf2r(a0, a1)), ds);
+                            const float2 cf = s9::f2(ct);
+                            cu0 = cf.x;
+                            cu1 = cf.y;
+                        } else {
+                            const float2 ds = *reinterpret_cast<const float2*>(at2(cotu_i, rw + 8 * hh, col));
+                            cu0 = (vr[hh] * gv.x + a0) * ds.x;
+                            cu1 = (vr[hh] * gv.y + a1) * ds.y;
+                        }
                         gb[0] += cu0;   // b_e2 grad
                         gb[1] += cu1;
-                        wd::put2<ROUND>(b1, rw + 8 * hh, col, cu0, cu1);
+                        wd::put2<ROUND, CB>(b1, rw + 8 * hh, col, cu0, cu1);
                     }
                     gb8[2 * (jj & 3)] = gb[0];
                     gb8[2 * (jj & 3) + 1] = gb[1];
@@ -393,9 +470,9 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
 
             // cot_pre = (cot_u @ W_e2^T) * silu'(pre); cot_d2 = cot_pre . w_d per row
             float sd[2] = {0.f, 0.f};
-            wd::consume<PASSES>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
-                                tmp1, sml,
-                                copy_to(cotu_i), [&](int p, float (&ac)[ACC]) {
+            wd::consume<PASSES, CB>(ring, split, sq, full, empty, rp, hd, wg, tid, lane, acc, tmp0,
+                                    tmp1, sml,
+                                    copy_to(cotu_i), [&](int p, float (&ac)[ACC]) {
                 float gd8[8];
 #pragma unroll
                 for (int jj = 0; jj < NW / 8; ++jj) {
@@ -404,18 +481,34 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
                     float gd[2] = {0.f, 0.f};
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
-                        float2* q = reinterpret_cast<float2*>(cotpre_i + (size_t)(rw + 8 * hh) * hd + col);
+                        Act* q = at2(cotpre_i, rw + 8 * hh, col);
                         float cp[2] = {0.f, 0.f};
                         if (vr[hh] > 0.f) {
-                            const float2 ds = *q;   // silu'(pre), from the fill
+                            if constexpr (CB) {   // silu'(pre) from the fill; the pair in bf16x2
+                                const s9::bf2 c2 = s9::mul2(s9::bf2r(ac[4 * jj + 2 * hh],
+                                                                    ac[4 * jj + 2 * hh + 1]),
+                                                           *reinterpret_cast<const s9::bf2*>(q));
+                                // cot_d2: an fp32 sum of the bf16 products cot_pre w_d
+                                const float2 cf = s9::f2(c2), pd = s9::f2(s9::mul2(c2, s9::bf2r(wdv.x, wdv.y)));
+                                cp[0] = cf.x;
+                                cp[1] = cf.y;
+                                sd[hh] += pd.x;
+                                sd[hh] += pd.y;
+                            } else {
+                                const float2 ds = *reinterpret_cast<const float2*>(q);   // silu'(pre), from the fill
 #pragma unroll
-                            for (int c = 0; c < 2; ++c) {
-                                cp[c] = ac[4 * jj + 2 * hh + c] * (c ? ds.y : ds.x);
-                                sd[hh] = fmaf(cp[c], c ? wdv.y : wdv.x, sd[hh]);
-                                gd[c] += cp[c] * d2r[hh];   // w_d grad
+                                for (int c = 0; c < 2; ++c) {
+                                    cp[c] = ac[4 * jj + 2 * hh + c] * (c ? ds.y : ds.x);
+                                    sd[hh] = fmaf(cp[c], c ? wdv.y : wdv.x, sd[hh]);
+                                }
                             }
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) gd[c] += cp[c] * d2r[hh];   // w_d grad
                         }
-                        __stcs(q, make_float2(cp[0], cp[1]));   // read by the node pass
+                        if constexpr (CB)   // read by the node pass
+                            *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(cp[0], cp[1]);
+                        else
+                            __stcs(reinterpret_cast<float2*>(q), make_float2(cp[0], cp[1]));
                     }
                     gd8[2 * (jj & 3)] = gd[0];
                     gd8[2 * (jj & 3) + 1] = gd[1];
@@ -433,14 +526,15 @@ egnn_bwd_edges_sm90_wide(const In* __restrict__ a, const In* __restrict__ bs,
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
                     const int row = rw + 8 * hh;
-                    const float vw = vr[hh] * (wsc[hh] + part_wsc[row] + bx2);
+                    const float vw = vr[hh] * (CB ? rbf(rbf(wsc[hh] + part_wsc[row]) + bx2)
+                                                  : wsc[hh] + part_wsc[row] + bx2);
                     const float c2 = cd2[hh] + part_cd2[row];
 #pragma unroll
                     for (int c = 0; c < 3; ++c) {
                         const float gdc = vr[hh] > 0.f ? g_delta[(row0 + my_i) * 3 + c] : 0.f;
                         s.drel[(erow + row) * 3 + c] = vw * gdc + 2.f * row_rel[row * 3 + c] * c2;
                     }
-                    cw_sum += cw[hh];   // b_x2 grad
+                    cw_sum += row_cw[row];   // b_x2 grad (fp32 cot_wsc)
                 }
             }
         }
@@ -490,7 +584,7 @@ struct WgradLayout {
     }
 };
 
-template <int PASSES>
+template <int PASSES, bool CB>
 __global__ void __launch_bounds__(WGRAD_THREADS, 2)
 egnn_wgrad_sm90_wide(const float* __restrict__ x0, const float* __restrict__ y0,
                      const float* __restrict__ x1, const float* __restrict__ y1,
@@ -517,13 +611,16 @@ egnn_wgrad_sm90_wide(const float* __restrict__ x0, const float* __restrict__ y0,
         }
         s9::fence_mbar_init();
     }
-    const int nchunk = 2 * valid_items(flags, items, nsplit, sl, list);   // synchronises the block
+    // chunks of a valid step: two 32-row K blocks, or one bf16 K block of 64 rows
+    constexpr int PER_STEP = CB ? 1 : 2;
+    const int nchunk = PER_STEP * valid_items(flags, items, nsplit, sl, list);   // synchronises the block
 
     if (warp == s9::WG / 32) {   // the producer warp
         if (lane == 0) {
             s9::RingPos rp;
             for (int q = 0; q < nchunk; ++q) {
-                const size_t base = (size_t)list[q / 2] * M * hd + (size_t)(q % 2) * s9::KB * hd;
+                const size_t base = CB ? (size_t)list[q] * M * hd / 2
+                                       : (size_t)list[q / 2] * M * hd + (size_t)(q % 2) * s9::KB * hd;
                 float* st = reinterpret_cast<float*>(sm + rp.stage * LY::STAGE);
                 s9::mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
                 s9::mbar_expect_tx(&full[rp.stage], LY::STAGE);
@@ -577,8 +674,8 @@ egnn_wgrad_sm90_wide(const float* __restrict__ x0, const float* __restrict__ y0,
                 s9::Wgmma<TN>::mma(st, s9::desc(xs + 8 * k8), dy, first ? 0 : 1);
                 s9::Wgmma<TN>::mma(st, dx, s9::desc(ys + 8 * k8), 1);
                 s9::Wgmma<TN>::mma(st, dx, dy, 1);
-            } else {
-                s9::Wgmma<TN>::mma(st, dx, dy, first ? 0 : 1);
+            } else {   // one TF32 pass, or a k16 step of 16 rows in the bf16 chain
+                s9::Wgmma<TN, CB>::mma(st, dx, dy, first ? 0 : 1);
             }
         }
         s9::wg_commit();
@@ -612,45 +709,54 @@ egnn_wgrad_sm90_wide(const float* __restrict__ x0, const float* __restrict__ y0,
         }
 }
 
-template <int PASSES, class In>
+template <int PASSES, class In, bool CB>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, const float* g_agg, const float* g_delta, In* da,
                    In* dbs, float* dx, float* dw_e2, float* dw_x1, float* dvec, float* scratch,
                    int B, int L, int hd, int W, int G, int nsplit, cudaStream_t stream) {
     using C = wd::Cfg<PASSES>;
+    using Act = typename std::conditional<CB, __nv_bfloat16, float>::type;
     if (hd <= 512 || hd % WIDE_GROUP || G < 1 || nsplit < 1 || !scratch)
         return cudaErrorInvalidValue;
     Scratch s;
-    scratch_floats(B, L, hd, W, G, nsplit, PASSES, &s, scratch);
+    scratch_floats(B, L, hd, W, G, nsplit, CB ? 0 : PASSES, &s, scratch);
     const int items = n_items(B, L, W);
     // x @ W_e2, x @ W_x1 (the recomputed products), x @ W_x1^T, x @ W_e2^T
-    // (the cotangents), each as Wb (and Ws)
+    // (the cotangents), each as Wb (and Ws), or as its bf16 image
     const float* srcs[4] = {w[1], w[3], w[3], w[1]};
     const int orients[4] = {s9::IMG_T, s9::IMG_T, s9::IMG_N, s9::IMG_N};
-    wd::WideImageSet set{};
-    for (int q = 0; q < 4; ++q)
-        for (int p = 0; p < C::PARTS; ++p) {
-            set.src[set.n] = srcs[q];
-            set.orient[set.n] = orients[q];
-            set.part[set.n++] = p;
-        }
-    cudaError_t err = wd::launch_images_wide(set, hd, C::NC, s.img, stream);
+    cudaError_t err;
+    if constexpr (CB) {
+        const s9::Bf16ImageSet set{{srcs[0], srcs[1], srcs[2], srcs[3]},
+                                   {orients[0], orients[1], orients[2], orients[3]}, 4, hd, C::NC,
+                                   1, 1};
+        err = s9::launch_images_bf16(set, s.img, stream);
+    } else {
+        wd::WideImageSet set{};
+        for (int q = 0; q < 4; ++q)
+            for (int p = 0; p < C::PARTS; ++p) {
+                set.src[set.n] = srcs[q];
+                set.orient[set.n] = orients[q];
+                set.part[set.n++] = p;
+            }
+        err = wd::launch_images_wide(set, hd, C::NC, s.img, stream);
+    }
     if (err != cudaSuccess) return err;
     err = cudaMemsetAsync(s.cols, 0, sizeof(float) * G * cols_per_block(hd), stream);
     if (err != cudaSuccess) return err;
-    auto edges = egnn_bwd_edges_sm90_wide<PASSES, In>;
+    auto edges = egnn_bwd_edges_sm90_wide<PASSES, In, CB>;
     err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                EdgeLayout<PASSES>::SMEM);
     if (err != cudaSuccess) return err;
     edges<<<G, s9::THREADS, EdgeLayout<PASSES>::SMEM, stream>>>(
         a, bs, x, cmask, w[0], w[2], w[4], w[5], w[6], g_agg, g_delta, s, B, L, hd, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    egnn_bwd_nodes<In, float><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
-        s.cotpre, s.drel, s.flags, da, dbs, dx, L, hd, W);
+    egnn_bwd_nodes<In, Act><<<dim3(L, B), egnn::THREADS, 2 * 2 * W * sizeof(int), stream>>>(
+        reinterpret_cast<const Act*>(s.cotpre), s.drel, s.flags, da, dbs, dx, L, hd, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int per = (items + nsplit - 1) / nsplit;
     const size_t wsmem = WgradLayout::smem<PASSES>(per);
-    auto wgrad = egnn_wgrad_sm90_wide<PASSES>;
+    auto wgrad = egnn_wgrad_sm90_wide<PASSES, CB>;
     err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsmem);
     if (err != cudaSuccess) return err;
     const dim3 wgrid((hd / 64) * (hd / WGRAD_TN), nsplit, 2);
@@ -663,14 +769,16 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
-// f(Int<PASSES>{}, Type<In>{}) for 1 or 3 passes and the input type.
+// f(Int<PASSES>{}, Type<In>{}, std::bool_constant<CB>{}) for 1 or 3 passes,
+// or 0 (the bf16 chain: one bf16 pass, CB), and the input type.
 template <class F>
 cudaError_t dispatch(int passes, int bf16_in, F&& f) {
-    auto by_in = [&](auto p) -> cudaError_t {
-        return bf16_in ? f(p, Type<__nv_bfloat16>{}) : f(p, Type<float>{});
+    auto by_in = [&](auto p, auto cb) -> cudaError_t {
+        return bf16_in ? f(p, Type<__nv_bfloat16>{}, cb) : f(p, Type<float>{}, cb);
     };
-    if (passes == 1) return by_in(Int<1>{});
-    if (passes == 3) return by_in(Int<3>{});
+    if (passes == 0) return by_in(Int<1>{}, std::true_type{});
+    if (passes == 1) return by_in(Int<1>{}, std::false_type{});
+    if (passes == 3) return by_in(Int<3>{}, std::false_type{});
     return cudaErrorInvalidValue;
 }
 
@@ -689,9 +797,10 @@ size_t egnn_band_bwd_sm90_wide_scratch_floats(int B, int L, int hd, int W, int G
 // Edge-pass blocks that one SM holds, or a negative CUDA error code.
 int egnn_band_bwd_sm90_wide_blocks_per_sm(int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+    const cudaError_t err = dispatch(passes, bf16_in, [&](auto p_c, auto in_c, auto cb_c) {
         constexpr int PASSES = decltype(p_c)::value;
-        auto kernel = egnn_bwd_edges_sm90_wide<PASSES, typename decltype(in_c)::type>;
+        auto kernel = egnn_bwd_edges_sm90_wide<PASSES, typename decltype(in_c)::type,
+                                               decltype(cb_c)::value>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              EdgeLayout<PASSES>::SMEM);
         if (e != cudaSuccess) return e;
@@ -703,7 +812,7 @@ int egnn_band_bwd_sm90_wide_blocks_per_sm(int bf16_in, int passes) {
 
 // Launch the four passes on `stream`; returns the CUDA error code (0 =
 // success). As egnn_band_bwd_sm90_hd512_launch, at hd > 512 a multiple of
-// 256, passes 1 or 3; scratch as sized above.
+// 256, passes 1 or 3, or 0 (the bf16 chain); scratch as sized above.
 int egnn_band_bwd_sm90_wide_launch(const void* a, const void* bs, const float* x,
                                    const float* cmask, const float* w_d, const float* w_e2,
                                    const float* b_e2, const float* w_x1, const float* b_x1,
@@ -714,9 +823,9 @@ int egnn_band_bwd_sm90_wide_launch(const void* a, const void* bs, const float* x
                                    int passes, void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(passes, bf16_in, [&](auto p_c, auto in_c) {
+    return dispatch(passes, bf16_in, [&](auto p_c, auto in_c, auto cb_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(p_c)::value, In>(
+        return launch<decltype(p_c)::value, In, decltype(cb_c)::value>(
             static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, g_agg, g_delta,
             static_cast<In*>(da), static_cast<In*>(dbs), dx, dw_e2, dw_x1, dvec, scratch, B, L,
             hd, W, G, nsplit, s);

@@ -72,8 +72,10 @@
 // The fp32 chain at the native widths runs on wgmma instead: the one-pass
 // mode at widths 32 to 256 in egnn_band_fwd_sm90.cu, 3xTF32 at 32 to 256
 // and both modes at Hd 512 in egnn_band_fwd_sm90_hd512.cu; this file no
-// longer builds them (Tile<HD> runs the bf16 chain only). Left for later:
-// wgmma for the bf16 chain and the wide variants.
+// longer builds them (Tile<HD> runs the bf16 chain only). The bf16 chain
+// too runs on wgmma at every width (egnn_band_fwd_sm90*.cu), so no mode
+// launches this file's kernels: they remain as the baseline the A/B scripts
+// time (scripts/band_kernels_ab.py).
 
 #include "egnn_passes.cuh"
 

@@ -1,7 +1,8 @@
-// EGNN band forward on Hopper (sm_90a) in the one-pass fp32-chain mode:
-// the JAX side's precision=None (a bf16 model; bf16 or fp32 a / bs), at
-// the native widths 32 to 256. The other modes and widths stay on
-// egnn_band_fwd.cu.
+// EGNN band forward on Hopper (sm_90a) at the native widths 32 to 256 in
+// the one-pass fp32-chain mode (the JAX side's precision=None, a bf16
+// model) and in the bf16 chain (chain_dtype=bfloat16, CB); bf16 or fp32
+// a / bs. 3xTF32 at these widths runs on egnn_band_fwd_sm90_hd512.cu, the
+// widths above on it and on egnn_band_fwd_sm90_wide.cu.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/egnn_band.py (egnn_band.py:107, entered through
@@ -12,11 +13,16 @@
 //     agg_i       = sum_d valid * m
 //     raw_delta_i = sum_d valid * (silu(m @ W_x1 + b_x1) . w_x2 + b_x2) * (x_i - x_j)
 // with each product's operands rounded to TF32 (cvt.rna's rounding) and
-// summed in fp32, as egnn_band_fwd.cu's one-pass mode.
+// summed in fp32, as egnn_band_fwd.cu's one-pass mode. In the bf16 chain
+// the chain rounds where the JAX kernel does (egnn_sm90.cuh: "the bf16
+// chain"): bf16 tile, bf16 weight images, bf16 wgmma (m64nNk16), each
+// product's fp32 sum rounded once, every elementwise result rounded to
+// bf16, agg and raw_delta summed in fp32.
 //
 // What bounds it: operations. Two Hd x Hd products per valid edge, 4 Hd^2
 // FLOP, at the TF32 tensor-core rate (495 TFLOP/s): 0.036 ms at the
-// flagship's B8/L128. The weights are the other floor: 512 KiB of W_e2 and
+// flagship's B8/L128; at the bf16 rate (989 TFLOP/s) half that in the bf16
+// chain, whose weight images are half the bytes. The weights are the other floor: 512 KiB of W_e2 and
 // W_x1 (Hd 256) cannot stay in shared memory, so each weight pass streams
 // them from L2. egnn_band_fwd.cu streamed them once per 64-row step through
 // 8-row cp.async chunks with a block barrier before each (640 MiB of L2
@@ -57,12 +63,28 @@
 //   weight_images from this file's C entry, into scratch the wrapper
 //   allocates.
 //
+// - The bf16 chain: the same block, ring and protocol; the tiles hold bf16
+//   (egnn_sm90.cuh: "the bf16 chain"; at Hd 32 a 128-byte row is half used
+//   and two k16 steps of four run), the fill and the epilogues round
+//   as the JAX kernel on column pairs (bf16x2 add / mul, exp and the
+//   reciprocal in fp32: an epilogue's work about the one-pass mode's, where
+//   ~26 scalar fp32 <-> bf16 conversions an element had made kernel 1 2.6x
+//   slower, PERF.md), and the unit's sums, which need the fp32 [8][T][Hd +
+//   3], get an A region of that size where the bf16 tiles are smaller.
+//
 // Shared memory per block (bytes; + 1 KiB alignment slack):
 //   Hd | A tiles (2 x 64 x Hd x 4) | ring (STAGES x NW x 128) | rows, flags, barriers | total
 //   32 |  16,384 |  20,480 | 3,184 |  41,072
 //   64 |  32,768 |  40,960 | 3,184 |  77,936
 //  128 |  65,536 |  81,920 | 3,184 | 151,664
 //  256 | 131,072 |  81,920 | 3,184 | 217,200  (of 232,448)
+// and in the bf16 chain (A region: the bf16 tiles, 2 x 64 x max(Hd / 2, 32)
+// x 4, or the unit's sums, 8 x T x (Hd + 3) x 4, 1 KiB-aligned):
+//   Hd | A region | ring | rows, flags, barriers | total
+//   32 |  16,384 |  20,480 | 3,184 |  41,072  (bf16)
+//   64 |  17,408 |  40,960 | 3,184 |  62,576  (bf16)
+//  128 |  33,792 |  81,920 | 3,184 | 119,920  (bf16)
+//  256 |  66,560 |  81,920 | 3,184 | 152,688  (bf16)
 
 #include "egnn_passes.cuh"
 #include "egnn_sm90.cuh"
@@ -74,22 +96,27 @@ namespace s9 = egnn::sm90;
 
 constexpr int STAGES = 5;    // ring depth (chunks)
 
-template <int HD>
+template <int HD, bool CB = false>
 struct FwdLayout {
-    using C = s9::Cols<HD>;
-    static constexpr int A_BYTES = M * HD * 4;                 // one consumer's tile
-    static constexpr int A = 0;                                // [2][64][HD]
-    static constexpr int RING = A + 2 * A_BYTES;               // [STAGES][CHUNK]
+    using C = s9::Cols<HD, CB>;
+    static constexpr int A_BYTES = M * C::KW * 4;              // one consumer's tile
+    static constexpr int RED_BYTES = (8 * T * (HD + 3) * 4 + 1023) / 1024 * 1024;   // the unit's sums
+    static constexpr int A = 0;                                // [2][64][KW]
+    static constexpr int RING = A + (2 * A_BYTES > RED_BYTES ? 2 * A_BYTES : RED_BYTES);
     static constexpr int ROW_FLOATS = 6 * M;                   // valid, d2, j, rel[3]
     static constexpr int ROWS = RING + STAGES * C::CHUNK * 4;  // [2][ROW_FLOATS]
     static constexpr int FLAGS = ROWS + 2 * ROW_FLOATS * 4;    // int [2][4]
     static constexpr int BARS = FLAGS + 2 * 4 * 4;             // full[STAGES], empty[STAGES]
     static constexpr int SMEM = BARS + 2 * STAGES * 8 + 1024;
     static_assert(SMEM <= 232448, "shared memory of one block");
-    static_assert(8 * T * (HD + 3) * 4 <= 2 * A_BYTES, "the unit's sums fit in the A tiles");
+    static_assert(CB || 8 * T * (HD + 3) * 4 <= 2 * A_BYTES, "the unit's sums fit in the A tiles");
 };
 
-template <int HD, class In>
+// Words of one weight image in the mode.
+template <int HD, bool CB>
+constexpr size_t IMG_WORDS = CB ? s9::image_words_bf16(HD) : (size_t)HD * HD;
+
+template <int HD, class In, bool CB>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* __restrict__ x,
               const float* __restrict__ cmask, const float* __restrict__ w_d,
@@ -98,7 +125,7 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
               const float* __restrict__ img, float* __restrict__ agg, float* __restrict__ delta,
               int B, int L, int W, int S, int pairs_per_slice) {
     using C = s9::Cols<HD>;
-    using LY = FwdLayout<HD>;
+    using LY = FwdLayout<HD, CB>;
     extern __shared__ char smem_raw[];
     char* sm = s9::smem_base(smem_raw);
     float* ring = reinterpret_cast<float*>(sm + LY::RING);
@@ -134,8 +161,8 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
                     }
                     if (!__any_sync(0xffffffffu, v)) continue;   // the consumers skip it too
                     if (lane == 0) {
-                        s9::produce<HD, STAGES>(img, ring, full, empty, rp);
-                        s9::produce<HD, STAGES>(img + HD * HD, ring, full, empty, rp);
+                        s9::produce<HD, STAGES, CB>(img, ring, full, empty, rp);
+                        s9::produce<HD, STAGES, CB>(img + IMG_WORDS<HD, CB>, ring, full, empty, rp);
                     }
                     __syncwarp();
                 }
@@ -151,7 +178,7 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
         const int t = tid % s9::WG, warp = t / 32, g = lane / 4, tq = lane % 4;
         const int bar = 1 + wg;                 // this warpgroup's named barrier
         constexpr int BAR_ALL = 3;              // both consumer warpgroups
-        const float bx2 = b_x2[0];
+        const float bx2 = CB ? rbf(b_x2[0]) : b_x2[0];
         s9::RingPos rp;
         float acc[C::NH][C::ACC];
         float agg_r[C::NH][C::NW / 8][2];   // receiver g, the lane's columns
@@ -196,18 +223,23 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
                 const bool v0 = fl[0] | fl[1], v1 = fl[2] | fl[3];
                 if (!v0 && !v1) continue;            // no valid edge in the pair: skipped by all
                 if (!(wg ? v1 : v0)) {               // none in this step: release the chunks unread
-                    s9::pass_product<HD, STAGES>(full, empty, rp, lane);
-                    s9::pass_product<HD, STAGES>(full, empty, rp, lane);
+                    s9::pass_product<HD, STAGES, CB>(full, empty, rp, lane);
+                    s9::pass_product<HD, STAGES, CB>(full, empty, rp, lane);
                     continue;
                 }
 
-                // A = silu(a_i + bs_j + d2 * w_d) in TF32; rows of invalid edges 0
-            s9::fill_pre<HD>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, t);
-            s9::fence_async_smem();
+                // A = silu(a_i + bs_j + d2 * w_d) in TF32 (or the bf16 chain's
+                // rounding); rows of invalid edges 0
+                if constexpr (CB)
+                    s9::fill_pre_bf16<In, s9::WG>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0,
+                                                  HD, t);
+                else
+                    s9::fill_pre<HD>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, t);
+                s9::fence_async_smem();
                 s9::named_sync(bar, s9::WG);
 
                 // m = silu(A @ W_e2 + b_e2); agg += valid * m; A = m
-                s9::product<HD, STAGES>(A, ring, full, empty, rp, acc, lane);
+                s9::product<HD, STAGES, CB>(A, ring, full, empty, rp, acc, lane);
                 s9::named_sync(bar, s9::WG);   // every warp's products have read A
                 const float vr[2] = {row_valid[16 * warp + g], row_valid[16 * warp + 8 + g]};
 #pragma unroll
@@ -218,21 +250,35 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
                         const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
 #pragma unroll
                         for (int hh = 0; hh < 2; ++hh) {
-                            const float m0 = s9::silu_fast(acc[h][4 * jj + 2 * hh] + be.x);
-                            const float m1 = s9::silu_fast(acc[h][4 * jj + 2 * hh + 1] + be.y);
+                            const int row = 16 * warp + g + 8 * hh;
+                            float m0, m1;
+                            if constexpr (CB) {   // the column pair in bf16x2
+                                const s9::bf2 u = s9::bias2(acc[h][4 * jj + 2 * hh],
+                                                            acc[h][4 * jj + 2 * hh + 1],
+                                                            s9::bf2r(be.x, be.y));
+                                const s9::bf2 m = s9::silu2(u, s9::sigmoid2(u));
+                                s9::put2_bf16(A, row, col, m);
+                                const float2 mf = s9::f2(m);
+                                m0 = mf.x;
+                                m1 = mf.y;
+                            } else {
+                                m0 = s9::silu_fast(acc[h][4 * jj + 2 * hh] + be.x);
+                                m1 = s9::silu_fast(acc[h][4 * jj + 2 * hh + 1] + be.y);
+                                *reinterpret_cast<float2*>(A + s9::sw_off(row, col, M)) =
+                                    make_float2(s9::tf32(m0), s9::tf32(m1));
+                            }
                             if (vr[hh] > 0.f) {
                                 agg_r[h][jj][0] += m0;
                                 agg_r[h][jj][1] += m1;
                             }
-                            *reinterpret_cast<float2*>(A + s9::sw_off(16 * warp + g + 8 * hh, col, M)) =
-                                make_float2(s9::tf32(m0), s9::tf32(m1));
                         }
                     }
                 s9::fence_async_smem();
                 s9::named_sync(bar, s9::WG);
 
-                // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2 per row; delta_i += valid * wsc * rel
-                s9::product<HD, STAGES>(A, ring, full, empty, rp, acc, lane);
+                // wsc = silu(m @ W_x1 + b_x1) . w_x2 + b_x2 per row (in the bf16
+                // chain the dot product's fp32 sum rounded once); delta_i += valid * wsc * rel
+                s9::product<HD, STAGES, CB>(A, ring, full, empty, rp, acc, lane);
                 float sw[2] = {0.f, 0.f};
 #pragma unroll
                 for (int h = 0; h < C::NH; ++h)
@@ -243,17 +289,26 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
                         const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
 #pragma unroll
                         for (int hh = 0; hh < 2; ++hh) {
-                            sw[hh] = fmaf(s9::silu_fast(acc[h][4 * jj + 2 * hh] + bx.x), wx.x, sw[hh]);
-                            sw[hh] = fmaf(s9::silu_fast(acc[h][4 * jj + 2 * hh + 1] + bx.y), wx.y, sw[hh]);
+                            const float v0 = acc[h][4 * jj + 2 * hh], v1 = acc[h][4 * jj + 2 * hh + 1];
+                            if constexpr (CB) {   // the column pair in bf16x2
+                                const s9::bf2 v = s9::bias2(v0, v1, s9::bf2r(bx.x, bx.y));
+                                const float2 w1 = s9::f2(s9::silu2(v, s9::sigmoid2(v)));
+                                const float2 w2 = s9::f2(s9::bf2r(wx.x, wx.y));
+                                sw[hh] = fmaf(w1.y, w2.y, fmaf(w1.x, w2.x, sw[hh]));
+                            } else {
+                                sw[hh] = fmaf(s9::silu_fast(v0 + bx.x), wx.x, sw[hh]);
+                                sw[hh] = fmaf(s9::silu_fast(v1 + bx.y), wx.y, sw[hh]);
+                            }
                         }
                     }
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
                     const float s = quad_sum(sw[hh]);
+                    const float wsc = CB ? rbf(rbf(s) + bx2) : s + bx2;
                     const int row = 16 * warp + g + 8 * hh;
                     if (tq == 0 && vr[hh] > 0.f) {
 #pragma unroll
-                        for (int c = 0; c < 3; ++c) delta_r[c] += (s + bx2) * row_rel[row * 3 + c];
+                        for (int c = 0; c < 3; ++c) delta_r[c] += wsc * row_rel[row * 3 + c];
                     }
                 }
             }
@@ -297,19 +352,25 @@ egnn_fwd_sm90(const In* __restrict__ a, const In* __restrict__ bs, const float* 
     }
 }
 
-template <int HD, class In>
+template <int HD, class In, bool CB>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, float* img, float* agg, float* delta, float* part_agg,
                    float* part_delta, int B, int L, int W, int S, int G, cudaStream_t stream) {
-    using LY = FwdLayout<HD>;
+    using LY = FwdLayout<HD, CB>;
     const int n_pairs = ((2 * W + OPS - 1) / OPS + 1) / 2;
     const int per = (n_pairs + S - 1) / S;
     if (S < 1 || G < 1 || (S - 1) * per >= n_pairs || !img || (S > 1 && (!part_agg || !part_delta)))
         return cudaErrorInvalidValue;   // every slice must own at least one pair
-    const s9::ImageSet set{{w[1], w[3], nullptr, nullptr}, {s9::IMG_T, s9::IMG_T, 0, 0}, 2};
-    cudaError_t err = s9::launch_images<HD>(set, img, stream);
+    cudaError_t err;
+    if constexpr (CB) {
+        const s9::Bf16ImageSet set{{w[1], w[3]}, {s9::IMG_T, s9::IMG_T}, 2, HD, s9::Cols<HD>::NW, 1, 0};
+        err = s9::launch_images_bf16(set, img, stream);
+    } else {
+        const s9::ImageSet set{{w[1], w[3], nullptr, nullptr}, {s9::IMG_T, s9::IMG_T, 0, 0}, 2};
+        err = s9::launch_images<HD>(set, img, stream);
+    }
     if (err != cudaSuccess) return err;
-    auto kernel = egnn_fwd_sm90<HD, In>;
+    auto kernel = egnn_fwd_sm90<HD, In, CB>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LY::SMEM);
     if (err != cudaSuccess) return err;
     kernel<<<G, s9::THREADS, LY::SMEM, stream>>>(
@@ -323,22 +384,34 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
+// f(Int<HD>{}, Type<In>{}, std::bool_constant<CB>{}) for a width of 32 to 256, the input
+// type and the mode: passes 1 (the one-pass fp32 chain) or 0 (the bf16
+// chain); cudaErrorInvalidValue otherwise.
+template <class F>
+cudaError_t dispatch(int hd, int bf16_in, int passes, F&& f) {
+    if (passes != 0 && passes != 1) return cudaErrorInvalidValue;
+    return s9::dispatch(hd, bf16_in, [&](auto hd_c, auto in_c) {
+        return passes ? f(hd_c, in_c, std::false_type{}) : f(hd_c, in_c, std::true_type{});
+    });
+}
+
 }  // namespace
 
 extern "C" {
 
-// Blocks of the kernel at width hd (32..256) that one SM holds, or a
-// negative CUDA error code.
-int egnn_band_fwd_sm90_blocks_per_sm(int hd, int bf16_in) {
+// Blocks of the kernel at width hd (32..256) in the mode (passes 1, or 0 =
+// the bf16 chain) that one SM holds, or a negative CUDA error code.
+int egnn_band_fwd_sm90_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = s9::dispatch(hd, bf16_in, [&](auto hd_c, auto in_c) {
+    const cudaError_t err = dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto cb_c) {
         constexpr int HD = decltype(hd_c)::value;
-        auto kernel = egnn_fwd_sm90<HD, typename decltype(in_c)::type>;
+        constexpr bool CB = decltype(cb_c)::value;
+        auto kernel = egnn_fwd_sm90<HD, typename decltype(in_c)::type, CB>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             FwdLayout<HD>::SMEM);
+                                             FwdLayout<HD, CB>::SMEM);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
-                                                             FwdLayout<HD>::SMEM);
+                                                             FwdLayout<HD, CB>::SMEM);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
@@ -347,25 +420,47 @@ int egnn_band_fwd_sm90_blocks_per_sm(int hd, int bf16_in) {
 // pointers to contiguous arrays, 16-byte aligned: a, bs [B, L, hd] (bf16
 // when bf16_in, else fp32); x [B, L, 3], cmask [B, L]; the fp32 weights
 // w_d, b_e2, b_x1, w_x2 [hd], w_e2, w_x1 [hd, hd] (in, out), b_x2 [1];
-// img: 2 hd^2 floats of scratch for the weight images; agg [B, L, hd],
-// delta [B, L, 3] fp32. S: slices of the band's step pairs; S > 1 needs
-// part_agg [S, B, L, hd] and part_delta [S, B, L, 3], summed in slice order
-// by a second kernel. G: blocks of the persistent grid.
+// img: 2 hd^2 floats of scratch for the weight images (2 x max(hd / 2, 32)
+// x hd in the bf16 chain); agg [B, L, hd], delta
+// [B, L, 3] fp32. S: slices of the band's step pairs; S > 1 needs part_agg
+// [S, B, L, hd] and part_delta [S, B, L, 3], summed in slice order by a
+// second kernel. G: blocks of the persistent grid. passes: 1 (the one-pass
+// fp32 chain) or 0 (the bf16 chain).
 int egnn_band_fwd_sm90_launch(const void* a, const void* bs, const float* x, const float* cmask,
                               const float* w_d, const float* w_e2, const float* b_e2,
                               const float* w_x1, const float* b_x1, const float* w_x2,
                               const float* b_x2, float* img, float* agg, float* delta,
                               float* part_agg, float* part_delta, int B, int L, int hd, int W,
-                              int S, int G, int bf16_in, void* stream) {
+                              int S, int G, int bf16_in, int passes, void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return s9::dispatch(hd, bf16_in, [&](auto hd_c, auto in_c) {
+    return dispatch(hd, bf16_in, passes, [&](auto hd_c, auto in_c, auto cb_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(hd_c)::value, In>(static_cast<const In*>(a),
-                                                 static_cast<const In*>(bs), x, cmask, w, img,
-                                                 agg, delta, part_agg, part_delta, B, L, W, S, G,
-                                                 s);
+        return launch<decltype(hd_c)::value, In, decltype(cb_c)::value>(
+            static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, img, agg, delta,
+            part_agg, part_delta, B, L, W, S, G, s);
     });
+}
+
+// The bf16 weight images alone (the layout kernel of the bf16 chain), for a
+// test against the wrapper's numpy mirror: n (1..4) images of the hd x hd
+// srcs[q] in orientation orient[q] (0 = IMG_T, 1 = IMG_N), in chunks of nw
+// rows x 64 K values, `halves` column parts, the chunk order hmajor, into
+// img [n][max(hd / 2, 32) x hd] (4-byte words of two bf16).
+int egnn_bf16_weight_images(const float* const* srcs, const int* orient, int n, int hd, int nw,
+                            int halves, int hmajor, float* img, void* stream) {
+    if (n < 1 || n > 4) return cudaErrorInvalidValue;
+    s9::Bf16ImageSet set{};
+    for (int q = 0; q < n; ++q) {
+        set.src[q] = srcs[q];
+        set.orient[q] = orient[q];
+    }
+    set.n = n;
+    set.hd = hd;
+    set.nw = nw;
+    set.halves = halves;
+    set.hmajor = hmajor;
+    return s9::launch_images_bf16(set, img, static_cast<cudaStream_t>(stream));
 }
 
 // The weight images alone (the layout kernel), for a test against the

@@ -1,11 +1,12 @@
 // EGNN band forward on Hopper (sm_90a), the shared-tile kernel: at the
 // native width 512 (every decoder width from 257 to 512 runs here,
 // zero-padded to it) in the fp32 model's mode (precision="highest": 3xTF32
-// products, the fp32 chain) and the bf16 model's one-pass mode
-// (precision="default"), and at the native widths 32 to 256 (and the widths
-// padded to them) in the fp32 model's 3xTF32 mode; fp32 or bf16 a / bs.
-// The one-pass mode up to 256 runs on egnn_band_fwd_sm90.cu, the bf16 chain
-// on egnn_band_fwd.cu, the widths above 512 on its wide variant.
+// products, the fp32 chain), the bf16 model's one-pass mode
+// (precision="default") and the bf16 chain (chain_dtype=bfloat16, CB), and
+// at the native widths 32 to 256 (and the widths padded to them) in the fp32
+// model's 3xTF32 mode; fp32 or bf16 a / bs. The one-pass mode and the bf16
+// chain up to 256 run on egnn_band_fwd_sm90.cu, the widths above 512 on
+// egnn_band_fwd_sm90_wide.cu.
 //
 // Replaces the TPU kernel `_fwd_kernel` of the JAX package's
 // ops/pallas/egnn_band.py (egnn_band.py:107): the function of
@@ -77,6 +78,11 @@
 // - Weight images (egnn_sm90.cuh: Half, image_value_half) are written per
 //   call by weight_images_half from this file's C entry, into scratch the
 //   wrapper allocates: Wb of W_e2 and W_x1, and in 3xTF32 also their Ws.
+// - The bf16 chain at 512: the one-pass design with a bf16 tile (64 KiB),
+//   bf16 images (weight_images_bf16, h-major halves), m64n128k16 products
+//   and the JAX kernel's rounding in the fill and the epilogues
+//   (egnn_sm90.cuh: "the bf16 chain"); the half-size tile leaves room for
+//   BF16_STAGES chunks a ring.
 //
 // Shared memory per block (bytes; + 1 KiB alignment slack):
 //   Hd  | A tile(s)          | rings (2 x STAGES x NW x 128)  | rows, part, flags, barriers | total
@@ -85,6 +91,8 @@
 //   128 |  65,536            | 98,304 (6 stages, NW 64)       | 2,000 | 166,864
 //    64 |  32,768            | 49,152 (6 stages, NW 32)       | 2,000 |  84,944
 //    32 |  16,384            | 24,576 (6 stages, NW 16)       | 2,000 |  43,984
+// and in the bf16 chain:
+//   512 |  65,536 (one, bf16) | 163,840 (5 stages, NW 128)    | 1,968 | 232,368  (bf16)
 
 #include "egnn_passes.cuh"
 #include "egnn_sm90.cuh"
@@ -110,8 +118,10 @@ constexpr int STAGES_OF = HD == 512 ? 3 : 6;
 // raw_delta element that cancels to ~0.2 left it at 1.24x with 64, PERF.md)
 template <int HD>
 constexpr int GROUP_OF = HD == 512 ? 128 : 32;
-template <int HD>
-using HalfOf = s9::Half<HD, NW_OF<HD>>;
+template <int HD, bool CB = false>
+using HalfOf = s9::Half<HD, NW_OF<HD>, CB>;
+// chunks of each consumer's ring in the bf16 chain at 512
+constexpr int BF16_STAGES = 5;
 // the split tile beside the activation tile (3xTF32 up to 256)
 template <int HD>
 constexpr bool SPLIT = HD < 512;
@@ -120,11 +130,11 @@ constexpr bool SPLIT = HD < 512;
 template <int HD, int PASSES>
 constexpr bool FAST_SILU = PASSES == 1 || SPLIT<HD>;
 
-template <int HD>
+template <int HD, bool CB = false>
 struct FwdLayout {
-    using H = HalfOf<HD>;
-    static constexpr int STAGES = STAGES_OF<HD>;
-    static constexpr int TILE = M * HD * 4;
+    using H = HalfOf<HD, CB>;
+    static constexpr int STAGES = CB ? BF16_STAGES : STAGES_OF<HD>;
+    static constexpr int TILE = M * H::KW * 4;
     static constexpr int A = 0;                                     // [64][HD]
     static constexpr int AS = A + TILE;                             // [64][HD] (SPLIT)
     static constexpr int RING = AS + (SPLIT<HD> ? TILE : 0);        // [2][STAGES][CHUNK]
@@ -141,7 +151,7 @@ struct FwdLayout {
 template <int PASSES>
 constexpr int PARTS = PASSES == 3 ? 2 : 1;
 
-template <int HD, int PASSES, class In>
+template <int HD, int PASSES, class In, bool CB>
 __global__ void __launch_bounds__(s9::THREADS, 1)
 egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     const float* __restrict__ x, const float* __restrict__ cmask,
@@ -151,9 +161,10 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     float* __restrict__ agg, float* __restrict__ delta, int B, int L, int W,
                     int S, int steps_per_slice) {
     static_assert(PASSES == 3 || !SPLIT<HD>, "one pass up to 256 runs on egnn_band_fwd_sm90.cu");
-    using LY = FwdLayout<HD>;
-    using H = HalfOf<HD>;
-    constexpr int NW = H::NW, STAGES = STAGES_OF<HD>;
+    static_assert(!CB || (PASSES == 1 && HD == 512), "the bf16 chain here: one pass at 512");
+    using LY = FwdLayout<HD, CB>;
+    using H = HalfOf<HD, CB>;
+    constexpr int NW = H::NW, STAGES = LY::STAGES;
     // agg columns of a consumer thread: 2 at 512, else 1 (the first Hd threads)
     constexpr int CPT = HD / CT > 1 ? HD / CT : 1;
     extern __shared__ char smem_raw[];
@@ -202,7 +213,7 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                                     big + off, big + H::IMG + off, ring, full + half * STAGES,
                                     empty + half * STAGES, rp);
                             } else {
-                                s9::produce_half<PASSES, NW, STAGES>(
+                                s9::produce_half<PASSES, NW, STAGES, CB>(
                                     big, big + H::IMG, half, ring, full + half * STAGES,
                                     empty + half * STAGES, rp);
                             }
@@ -224,7 +235,7 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
         const int t = tid % s9::WG, warp = t / 32, g = lane / 4, tq = lane % 4;
         const int col0 = wg * H::N;   // this consumer's output columns
         const int rw = 16 * warp + g;  // the lane's rows: rw, rw + 8
-        const float bx2 = b_x2[0];
+        const float bx2 = CB ? rbf(b_x2[0]) : b_x2[0];
         s9::RingPos rp;
         float acc[H::NH][H::ACC];
         float tmp[2][H::ACC];            // 3xTF32: step sums (at 512 tmp[0])
@@ -242,7 +253,12 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 for (int o = 0; o < OPS; ++o) {
                     const int r = o * T + i;
                     if (row_valid[r] > 0.f) {
-                        if constexpr (CPT == 2) {
+                        if constexpr (CB) {   // the word of columns 2 tid, 2 tid + 1
+                            const float2 v = s9::f2(s9::bf2_of_bits(
+                                reinterpret_cast<const uint32_t*>(A)[s9::sw_off(r, tid, M)]));
+                            agg_t[i][0] += v.x;
+                            agg_t[i][1] += v.y;
+                        } else if constexpr (CPT == 2) {
                             const float2 v = *reinterpret_cast<const float2*>(A + s9::sw_off(r, 2 * tid, M));
                             agg_t[i][0] += v.x;
                             agg_t[i][1] += v.y;
@@ -258,12 +274,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 s9::product_split<HD, NW, H::NH, STAGES, GROUP_OF<HD>, true>(
                     A, As, ring, my_full, my_empty, rp, acc, tmp, sml, lane, side);
             else
-                s9::product_half<PASSES, NW, STAGES, true>(A, ring, my_full, my_empty, rp, acc,
-                                                           tmp[0], lane, tid, BAR_ALL, side);
+                s9::product_half<PASSES, NW, STAGES, true, CB>(A, ring, my_full, my_empty, rp, acc,
+                                                               tmp[0], lane, tid, BAR_ALL, side);
         };
         // the activation (v0, v1) at columns (col, col + 1) of row r: exact
         // in 3xTF32 (wgmma reads it truncated), with its small part in As
         auto put2 = [&](int r, int col, float v0, float v1) {
+            if constexpr (CB) {
+                s9::put2_bf16(A, r, col, s9::bf2r(v0, v1));
+                return;
+            }
             *reinterpret_cast<float2*>(A + s9::sw_off(r, col, M)) = make_float2(v0, v1);
             if constexpr (SPLIT<HD>)
                 *reinterpret_cast<float2*>(As + s9::sw_off(r, col, M)) =
@@ -304,10 +324,15 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                 s9::named_sync(BAR_ALL, CT);
                 if (!(flags[0] | flags[1])) continue;   // no valid edge: skipped by all
 
-                // A = silu(a_i + bs_j + d2 * w_d) (in TF32 in one pass); rows of invalid edges 0
-                s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
-                    A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, nullptr,
-                    SPLIT<HD> ? As : nullptr);
+                // A = silu(a_i + bs_j + d2 * w_d) (in TF32 in one pass, the bf16
+                // chain's rounding in it); rows of invalid edges 0
+                if constexpr (CB)
+                    s9::fill_pre_bf16<In, CT>(A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, HD,
+                                              tid);
+                else
+                    s9::fill_pre<HD, In, CT, PASSES == 1, FAST_SILU<HD, PASSES>>(
+                        A, a_b, bs_b, w_d, row_valid, row_d2, row_j, i0, tid, nullptr,
+                        SPLIT<HD> ? As : nullptr);
                 s9::fence_async_smem();
                 s9::named_sync(BAR_ALL, CT);
 
@@ -323,10 +348,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const int col = col0 + h * NW + 8 * jj + 2 * tq;
                         const float2 be = __ldg(reinterpret_cast<const float2*>(b_e2 + col));
 #pragma unroll
-                        for (int hh = 0; hh < 2; ++hh)
-                            put2(rw + 8 * hh, col,
-                                 s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh] + be.x),
-                                 s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh + 1] + be.y));
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const float a0 = acc[h][4 * jj + 2 * hh], a1 = acc[h][4 * jj + 2 * hh + 1];
+                            if constexpr (CB) {   // the column pair in bf16x2
+                                const s9::bf2 u = s9::bias2(a0, a1, s9::bf2r(be.x, be.y));
+                                s9::put2_bf16(A, rw + 8 * hh, col, s9::silu2(u, s9::sigmoid2(u)));
+                            } else {
+                                put2(rw + 8 * hh, col, s9::silu_m<FAST_SILU<HD, PASSES>>(a0 + be.x),
+                                     s9::silu_m<FAST_SILU<HD, PASSES>>(a1 + be.y));
+                            }
+                        }
                     }
                 s9::fence_async_smem();
                 s9::named_sync(BAR_ALL, CT);
@@ -344,8 +375,16 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                         const float2 wx = __ldg(reinterpret_cast<const float2*>(w_x2 + col));
 #pragma unroll
                         for (int hh = 0; hh < 2; ++hh) {
-                            sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh] + bx.x), wx.x, sw[hh]);
-                            sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(acc[h][4 * jj + 2 * hh + 1] + bx.y), wx.y, sw[hh]);
+                            const float v0 = acc[h][4 * jj + 2 * hh], v1 = acc[h][4 * jj + 2 * hh + 1];
+                            if constexpr (CB) {   // the column pair in bf16x2
+                                const s9::bf2 v = s9::bias2(v0, v1, s9::bf2r(bx.x, bx.y));
+                                const float2 w1 = s9::f2(s9::silu2(v, s9::sigmoid2(v)));
+                                const float2 w2 = s9::f2(s9::bf2r(wx.x, wx.y));
+                                sw[hh] = fmaf(w1.y, w2.y, fmaf(w1.x, w2.x, sw[hh]));
+                            } else {
+                                sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(v0 + bx.x), wx.x, sw[hh]);
+                                sw[hh] = fmaf(s9::silu_m<FAST_SILU<HD, PASSES>>(v1 + bx.y), wx.y, sw[hh]);
+                            }
                         }
                     }
                 const float s_own[2] = {quad_sum(sw[0]), quad_sum(sw[1])};
@@ -359,7 +398,9 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
                     for (int hh = 0; hh < 2; ++hh) {
                         const int row = rw + 8 * hh;
                         if (vr[hh] > 0.f) {
-                            const float wsc = s_own[hh] + part[row] + bx2;
+                            // the bf16 chain: the dot product's fp32 sum rounded once
+                            const float wsc = CB ? rbf(rbf(s_own[hh] + part[row]) + bx2)
+                                                 : s_own[hh] + part[row] + bx2;
 #pragma unroll
                             for (int c = 0; c < 3; ++c) delta_r[c] += wsc * row_rel[row * 3 + c];
                         }
@@ -398,7 +439,7 @@ egnn_fwd_sm90_hd512(const In* __restrict__ a, const In* __restrict__ bs,
     }
 }
 
-template <int HD, int PASSES, class In>
+template <int HD, int PASSES, class In, bool CB>
 cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask,
                    const float* const* w, float* img, float* agg, float* delta, float* part_agg,
                    float* part_delta, int B, int L, int W, int S, int G, cudaStream_t stream) {
@@ -408,21 +449,28 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
         (S > 1 && (!part_agg || !part_delta)))
         return cudaErrorInvalidValue;   // every slice must own at least one step
     // Wb (and Ws) of W_e2, then of W_x1, as x @ W, in the h-major chunk order
-    s9::HalfImageSet set{};
-    set.hmajor = 1;
-    for (int wi = 0; wi < 2; ++wi)
-        for (int p = 0; p < PARTS<PASSES>; ++p) {
-            set.src[set.n] = w[1 + 2 * wi];
-            set.orient[set.n] = s9::IMG_T;
-            set.part[set.n++] = p;
-        }
-    cudaError_t err = s9::launch_images_half<HD, NW_OF<HD>>(set, img, stream);
+    // (their bf16 images in the bf16 chain)
+    cudaError_t err;
+    if constexpr (CB) {
+        const s9::Bf16ImageSet set{{w[1], w[3]}, {s9::IMG_T, s9::IMG_T}, 2, HD, NW_OF<HD>, 2, 1};
+        err = s9::launch_images_bf16(set, img, stream);
+    } else {
+        s9::HalfImageSet set{};
+        set.hmajor = 1;
+        for (int wi = 0; wi < 2; ++wi)
+            for (int p = 0; p < PARTS<PASSES>; ++p) {
+                set.src[set.n] = w[1 + 2 * wi];
+                set.orient[set.n] = s9::IMG_T;
+                set.part[set.n++] = p;
+            }
+        err = s9::launch_images_half<HD, NW_OF<HD>>(set, img, stream);
+    }
     if (err != cudaSuccess) return err;
-    auto kernel = egnn_fwd_sm90_hd512<HD, PASSES, In>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               FwdLayout<HD>::SMEM);
+    auto kernel = egnn_fwd_sm90_hd512<HD, PASSES, In, CB>;
+    constexpr int SMEM = FwdLayout<HD, CB>::SMEM;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
-    kernel<<<G, s9::THREADS, FwdLayout<HD>::SMEM, stream>>>(
+    kernel<<<G, s9::THREADS, SMEM, stream>>>(
         a, bs, x, cmask, w[0], w[2], w[4], w[5], w[6], img, S > 1 ? part_agg : agg,
         S > 1 ? part_delta : delta, B, L, W, S, per);
     if ((err = cudaGetLastError()) != cudaSuccess || S == 1) return err;
@@ -433,21 +481,24 @@ cudaError_t launch(const In* a, const In* bs, const float* x, const float* cmask
     return cudaGetLastError();
 }
 
-// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}) for the modes this kernel takes:
-// width 512 in 1 or 3 passes, the widths 32 to 256 in 3; the input type.
+// f(Int<HD>{}, Int<PASSES>{}, Type<In>{}, std::bool_constant<CB>{}) for the
+// modes this kernel takes: width 512 in 1 or 3 passes or in the bf16 chain
+// (passes 0: one bf16 pass, CB), the widths 32 to 256 in 3; the input type.
 template <class F>
 cudaError_t dispatch(int hd, int passes, int bf16_in, F&& f) {
-    auto by_in = [&](auto h, auto p) -> cudaError_t {
-        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}) : f(h, p, Type<float>{});
+    auto by_in = [&](auto h, auto p, auto cb) -> cudaError_t {
+        return bf16_in ? f(h, p, Type<__nv_bfloat16>{}, cb) : f(h, p, Type<float>{}, cb);
     };
-    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{});
+    const std::false_type fp32_chain{};
+    if (hd == 512 && passes == 0) return by_in(Int<512>{}, Int<1>{}, std::true_type{});
+    if (hd == 512 && passes == 1) return by_in(Int<512>{}, Int<1>{}, fp32_chain);
     if (passes != 3) return cudaErrorInvalidValue;
     switch (hd) {
-        case 32:  return by_in(Int<32>{}, Int<3>{});
-        case 64:  return by_in(Int<64>{}, Int<3>{});
-        case 128: return by_in(Int<128>{}, Int<3>{});
-        case 256: return by_in(Int<256>{}, Int<3>{});
-        case 512: return by_in(Int<512>{}, Int<3>{});
+        case 32:  return by_in(Int<32>{}, Int<3>{}, fp32_chain);
+        case 64:  return by_in(Int<64>{}, Int<3>{}, fp32_chain);
+        case 128: return by_in(Int<128>{}, Int<3>{}, fp32_chain);
+        case 256: return by_in(Int<256>{}, Int<3>{}, fp32_chain);
+        case 512: return by_in(Int<512>{}, Int<3>{}, fp32_chain);
         default:  return cudaErrorInvalidValue;
     }
 }
@@ -459,22 +510,25 @@ extern "C" {
 // Blocks of the kernel that one SM holds, or a negative CUDA error code.
 int egnn_band_fwd_sm90_hd512_blocks_per_sm(int hd, int bf16_in, int passes) {
     int n = 0;
-    const cudaError_t err = dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+    const cudaError_t err = dispatch(hd, passes, bf16_in,
+                                     [&](auto h_c, auto p_c, auto in_c, auto cb_c) {
         constexpr int HD = decltype(h_c)::value;
-        auto kernel = egnn_fwd_sm90_hd512<HD, decltype(p_c)::value, typename decltype(in_c)::type>;
+        constexpr bool CB = decltype(cb_c)::value;
+        auto kernel = egnn_fwd_sm90_hd512<HD, decltype(p_c)::value, typename decltype(in_c)::type,
+                                          CB>;
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             FwdLayout<HD>::SMEM);
+                                             FwdLayout<HD, CB>::SMEM);
         if (e != cudaSuccess) return e;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, s9::THREADS,
-                                                             FwdLayout<HD>::SMEM);
+                                                             FwdLayout<HD, CB>::SMEM);
     });
     return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Launch on `stream`; returns the CUDA error code (0 = success). As
 // egnn_band_fwd_sm90_launch, at hd 512 with passes 1 or 3 (TF32 passes per
-// product), at hd 32..256 with passes 3; img: 2 x hd^2 floats of scratch in
-// one pass, 4 x hd^2 in three.
+// product) or 0 (the bf16 chain), at hd 32..256 with passes 3; img: 2 x hd^2
+// floats of scratch in one pass, 4 x hd^2 in three, hd^2 in the bf16 chain.
 int egnn_band_fwd_sm90_hd512_launch(const void* a, const void* bs, const float* x,
                                     const float* cmask, const float* w_d, const float* w_e2,
                                     const float* b_e2, const float* w_x1, const float* b_x1,
@@ -484,9 +538,9 @@ int egnn_band_fwd_sm90_hd512_launch(const void* a, const void* bs, const float* 
                                     void* stream) {
     const float* w[7] = {w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c) {
+    return dispatch(hd, passes, bf16_in, [&](auto h_c, auto p_c, auto in_c, auto cb_c) {
         using In = typename decltype(in_c)::type;
-        return launch<decltype(h_c)::value, decltype(p_c)::value, In>(
+        return launch<decltype(h_c)::value, decltype(p_c)::value, In, decltype(cb_c)::value>(
             static_cast<const In*>(a), static_cast<const In*>(bs), x, cmask, w, img, agg, delta,
             part_agg, part_delta, B, L, W, S, G, s);
     });

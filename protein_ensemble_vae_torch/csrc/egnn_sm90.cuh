@@ -55,13 +55,19 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int EMPTY_ARRIVALS = CONSUMERS * WG / 32;
 
 // Output columns per product (m64nNWk8) and column groups at width HD.
-template <int HD>
+// With BF (the bf16 chain) the operands are bf16, two to a 4-byte word:
+// a 128-byte row of a K block holds 64 K values, the K extent is HD / 2
+// words (32 at HD 32, whose K block is half used: two k16 steps, KS, of
+// its four), and the ring chunks and accumulators are as in TF32.
+template <int HD, bool BF = false>
 struct Cols {
     static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256, "a width of 32 to 256");
     static constexpr int NW = HD < 128 ? HD : 128;
     static constexpr int NH = HD / NW;
-    static constexpr int CHUNK = NW * KB;            // floats of a ring chunk
-    static constexpr int NQ = (HD / KB) * NH;        // chunks of one product
+    static constexpr int KW = BF ? (HD / 2 < KB ? KB : HD / 2) : HD;   // words of K
+    static constexpr int KS = BF && HD < 64 ? 2 : KB / 8;             // 32-byte k steps a K block
+    static constexpr int CHUNK = NW * KB;            // floats (words) of a ring chunk
+    static constexpr int NQ = (KW / KB) * NH;        // chunks of one product
     static constexpr int ACC = NW / 2;               // accumulator floats per thread and group
 };
 
@@ -176,72 +182,57 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (m64nN, fp32) = A (64 x 8, TF32) * B (N x 8, TF32) + (scale_d ? d : 0)
-template <int N>
+// d (m64nN, fp32) = A (64 x 8, TF32) * B (N x 8, TF32) + (scale_d ? d : 0),
+// or with BF (the bf16 chain) A (64 x 16, bf16) * B (N x 16, bf16): the same
+// 32 bytes of a K-major 128-byte row a step, the same accumulator layout;
+// both operands K-major (imm-trans-a / imm-trans-b 0).
+template <int N, bool BF = false>
 struct Wgmma;
 
-template <>
-struct Wgmma<16> {
-    __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db,
-                                               int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-            : "l"(da), "l"(db), "r"(scale_d));
-    }
-};
+#define EGNN_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define EGNN_F8(d, i) EGNN_F4(d, i), EGNN_F4(d, i + 4)
+#define EGNN_F16(d, i) EGNN_F8(d, i), EGNN_F8(d, i + 8)
+#define EGNN_F32(d, i) EGNN_F16(d, i), EGNN_F16(d, i + 16)
+#define EGNN_F64(d, i) EGNN_F32(d, i), EGNN_F32(d, i + 32)
+// REGS: the accumulator operands' list; IA, IB, IS: the descriptors' and
+// scale_d's operand numbers; the rest: the accumulator constraints
+#define EGNN_WGMMA(N, REGS, IA, IB, IS, ...)                                                   \
+    template <bool BF>                                                                         \
+    struct Wgmma<N, BF> {                                                                      \
+        __device__ __forceinline__ static void mma(float (&d)[N / 2], uint64_t da, uint64_t db, \
+                                                   int scale_d) {                               \
+            if constexpr (BF)                                                                  \
+                asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IS ", 0;\n"                   \
+                             "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " REGS   \
+                             ", " IA ", " IB ", p, 1, 1, 0, 0;\n}\n"                          \
+                             : __VA_ARGS__ : "l"(da), "l"(db), "r"(scale_d));                  \
+            else                                                                               \
+                asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " IS ", 0;\n"                   \
+                             "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " REGS    \
+                             ", " IA ", " IB ", p, 1, 1;\n}\n"                                \
+                             : __VA_ARGS__ : "l"(da), "l"(db), "r"(scale_d));                  \
+        }                                                                                      \
+    };
 
-template <>
-struct Wgmma<32> {
-    __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db,
-                                               int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-            : "l"(da), "l"(db), "r"(scale_d));
-    }
-};
-
-template <>
-struct Wgmma<64> {
-    __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
-                                               int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-            : "l"(da), "l"(db), "r"(scale_d));
-    }
-};
-
-template <>
-struct Wgmma<128> {
-    __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da, uint64_t db,
-                                               int scale_d) {
-        asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-              "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-              "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-              "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-              "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-            : "l"(da), "l"(db), "r"(scale_d));
-    }
-};
+EGNN_WGMMA(16, "{%0, %1, %2, %3, %4, %5, %6, %7}", "%8", "%9", "%10", EGNN_F8(d, 0))
+EGNN_WGMMA(32, "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}", "%16",
+           "%17", "%18", EGNN_F16(d, 0))
+EGNN_WGMMA(64,
+           "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+           "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}",
+           "%32", "%33", "%34", EGNN_F32(d, 0))
+EGNN_WGMMA(128,
+           "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+           "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+           "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+           "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}",
+           "%64", "%65", "%66", EGNN_F64(d, 0))
+#undef EGNN_WGMMA
+#undef EGNN_F64
+#undef EGNN_F32
+#undef EGNN_F16
+#undef EGNN_F8
+#undef EGNN_F4
 
 // ---- the weight ring ---------------------------------------------------------
 
@@ -271,10 +262,10 @@ __device__ __forceinline__ void produce_chunks(const float* __restrict__ img, fl
     }
 }
 
-template <int HD, int STAGES>
+template <int HD, int STAGES, bool BF = false>
 __device__ __forceinline__ void produce(const float* __restrict__ img, float* ring,
                                         uint64_t* full, uint64_t* empty, RingPos& rp) {
-    produce_chunks<Cols<HD>::NQ, Cols<HD>::CHUNK, STAGES>(img, ring, full, empty, rp);
+    produce_chunks<Cols<HD, BF>::NQ, Cols<HD, BF>::CHUNK, STAGES>(img, ring, full, empty, rp);
 }
 
 // Consumer warpgroup: acc[h] = A @ (column group h of the streamed weight),
@@ -289,8 +280,10 @@ struct NoSide {
 
 // The general form: A [64][KD], NH column groups of NW (chunks of NW x 32,
 // in the order (K block, group)); with `accumulate` the products add to acc
-// instead of starting from zero.
-template <int KD, int NW, int NH, int STAGES, class Side = NoSide>
+// instead of starting from zero. BF: bf16 operands, KD in 4-byte words (two
+// K values each), KS of a K block's four 32-byte k steps read.
+template <int KD, int NW, int NH, int STAGES, bool BF = false, int KS = KB / 8,
+          class Side = NoSide>
 __device__ __forceinline__ void product_k(const float* A, const float* ring, uint64_t* full,
                                           uint64_t* empty, RingPos& rp, float (&acc)[NH][NW / 2],
                                           int lane, bool accumulate, Side side = Side()) {
@@ -307,9 +300,9 @@ __device__ __forceinline__ void product_k(const float* A, const float* ring, uin
             const float* a = A + kc * 64 * KB;
             wg_fence();
 #pragma unroll
-            for (int k8 = 0; k8 < KB / 8; ++k8)
-                Wgmma<NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
-                               accumulate || (kc | k8) != 0);
+            for (int k8 = 0; k8 < KS; ++k8)
+                Wgmma<NW, BF>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
+                                   accumulate || (kc | k8) != 0);
             wg_commit();
             side(kc * NH + h);
             wg_wait<1>();
@@ -324,21 +317,22 @@ __device__ __forceinline__ void product_k(const float* A, const float* ring, uin
     if (lane == 0) mbar_arrive(&empty[prev]);
 }
 
-template <int HD, int STAGES, class Side = NoSide>
+template <int HD, int STAGES, bool BF = false, class Side = NoSide>
 __device__ __forceinline__ void product(const float* A, const float* ring, uint64_t* full,
                                         uint64_t* empty, RingPos& rp,
                                         float (&acc)[Cols<HD>::NH][Cols<HD>::ACC], int lane,
                                         Side side = Side()) {
-    using C = Cols<HD>;
-    product_k<HD, C::NW, C::NH, STAGES>(A, ring, full, empty, rp, acc, lane, false, side);
+    using C = Cols<HD, BF>;
+    product_k<C::KW, C::NW, C::NH, STAGES, BF, C::KS>(A, ring, full, empty, rp, acc, lane, false,
+                                                      side);
 }
 
 // Consumer warpgroup with no valid edge in its step: walk one product's
 // chunks in step with the other warpgroup, releasing each unread.
-template <int HD, int STAGES>
+template <int HD, int STAGES, bool BF = false>
 __device__ __forceinline__ void pass_product(uint64_t* full, uint64_t* empty, RingPos& rp,
                                              int lane) {
-    for (int q = 0; q < Cols<HD>::NQ; ++q) {
+    for (int q = 0; q < Cols<HD, BF>::NQ; ++q) {
         mbar_wait(&full[rp.stage], rp.phase);
         if (lane == 0) mbar_arrive(&empty[rp.stage]);
         rp.next<STAGES>();
@@ -500,16 +494,19 @@ __device__ __forceinline__ void fill_pre(float* A, const In* __restrict__ a_b,
 // are kept apart from the small terms' (product_split) and, in kernel 1,
 // summed 128 K (at 512) or 32 K at a time in round-to-nearest fp32
 // (product_hmajor, product_split's GROUP).
-template <int HD_, int NW_>
+// BF (the bf16 chain, at 512): bf16 operands two to a word (Cols), one
+// bf16 image per weight (weight_images_bf16).
+template <int HD_, int NW_, bool BF = false>
 struct Half {
     static constexpr int HD = HD_, N = HD_ / 2;  // width; output columns per consumer
     static constexpr int NW = NW_;               // columns per product (m64nNWk8)
     static constexpr int NH = N / NW;            // column groups per consumer
-    static constexpr int CHUNK = NW * KB;        // floats of a ring chunk
-    static constexpr int NQ = (HD / KB) * NH;    // chunks of one half image
+    static constexpr int KW = BF ? HD / 2 : HD;  // words of K
+    static constexpr int CHUNK = NW * KB;        // floats (words) of a ring chunk
+    static constexpr int NQ = (KW / KB) * NH;    // chunks of one half image
     static constexpr int ACC = NW / 2;           // accumulator floats per thread and group
-    static constexpr int IMG = HD * HD;          // floats of an image
-    static_assert(N % NW == 0 && HD % KB == 0, "whole column groups and K blocks");
+    static constexpr int IMG = KW * HD;          // floats (words) of an image
+    static_assert(N % NW == 0 && KW % KB == 0, "whole column groups and K blocks");
 };
 
 // Image element e of an HD x HD weight w in orientation `orient`, part 0
@@ -582,7 +579,7 @@ __device__ __forceinline__ void split_tile(float* A, int t) {
 // cut every partial sum toward zero (3xTF32 drifted ~2x past rtol 1e-4 at
 // Hd 512 that way); a 128-K step sum holds the drift to a quarter of the
 // tolerance (PERF.md). GROUP 0: no step sums, acc[h] accumulates directly.
-template <int KD, int NW, int NH, int STAGES, int GROUP, class Side = NoSide>
+template <int KD, int NW, int NH, int STAGES, int GROUP, bool BF = false, class Side = NoSide>
 __device__ __forceinline__ void product_hmajor(const float* A, const float* ring, uint64_t* full,
                                                uint64_t* empty, RingPos& rp,
                                                float (&acc)[NH][NW / 2], float (&tmp)[NW / 2],
@@ -609,8 +606,8 @@ __device__ __forceinline__ void product_hmajor(const float* A, const float* ring
                         Wgmma<NW>::mma(tmp, desc(a + 8 * k8), desc(b + 8 * k8),
                                        (kc - kg) | k8);
                     else
-                        Wgmma<NW>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
-                                       accumulate || (kc | k8) != 0);
+                        Wgmma<NW, BF>::mma(acc[h], desc(a + 8 * k8), desc(b + 8 * k8),
+                                           accumulate || (kc | k8) != 0);
                 }
                 wg_commit();
                 side(h * NKC + kc);
@@ -642,22 +639,25 @@ __device__ __forceinline__ void product_hmajor(const float* A, const float* ring
 // chunk order and product_hmajor runs, in 3xTF32 with 128-K step sums into
 // `tmp`. Every thread of both consumer warpgroups calls it; bar_all names
 // their barrier. side(q) runs during the first pass (it may read the tile).
-template <int PASSES, int NW, int STAGES, bool HMAJOR = false, class Side = NoSide>
+// BF: the bf16 chain's one pass, the tile and the image in bf16.
+template <int PASSES, int NW, int STAGES, bool HMAJOR = false, bool BF = false,
+          class Side = NoSide>
 __device__ __forceinline__ void product_half(float* A, const float* ring, uint64_t* full,
                                              uint64_t* empty, RingPos& rp,
                                              float (&acc)[Half<512, NW>::NH][NW / 2],
                                              float (&tmp)[NW / 2], int lane, int tid, int bar_all,
                                              Side side = Side()) {
     static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
-    using H = Half<512, NW>;
+    static_assert(PASSES == 1 || !BF, "the bf16 chain takes one pass");
+    using H = Half<512, NW, BF>;
     constexpr int GROUP = PASSES == 3 ? 128 : 0;
     auto pass = [&](bool accumulate, auto sd) {
         if constexpr (HMAJOR)
-            product_hmajor<H::HD, NW, H::NH, STAGES, GROUP>(A, ring, full, empty, rp, acc, tmp,
-                                                           lane, accumulate, sd);
+            product_hmajor<H::KW, NW, H::NH, STAGES, GROUP, BF>(A, ring, full, empty, rp, acc,
+                                                               tmp, lane, accumulate, sd);
         else
-            product_k<H::HD, NW, H::NH, STAGES>(A, ring, full, empty, rp, acc, lane, accumulate,
-                                                sd);
+            product_k<H::KW, NW, H::NH, STAGES, BF>(A, ring, full, empty, rp, acc, lane,
+                                                    accumulate, sd);
     };
     pass(false, side);
     if constexpr (PASSES == 3) {
@@ -673,11 +673,11 @@ __device__ __forceinline__ void product_half(float* A, const float* ring, uint64
 // Producer side of product_half: the chunks of one weight's images for
 // the consumer of half `half`, in the order product_half reads them.
 // img_big / img_small: the weight's two images (img_small unread in one pass).
-template <int PASSES, int NW, int STAGES>
+template <int PASSES, int NW, int STAGES, bool BF = false>
 __device__ __forceinline__ void produce_half(const float* img_big, const float* img_small,
                                              int half, float* ring, uint64_t* full,
                                              uint64_t* empty, RingPos& rp) {
-    using H = Half<512, NW>;
+    using H = Half<512, NW, BF>;
     const size_t off = (size_t)half * (H::IMG / 2);
     if constexpr (PASSES == 3) {
         produce_chunks<H::NQ, H::CHUNK, STAGES>(img_small + off, ring, full, empty, rp);
@@ -814,6 +814,250 @@ __device__ __forceinline__ void produce_split(const float* img_big, const float*
         produce_chunks<1, CHUNK, STAGES>(img_small + (size_t)q * CHUNK, ring, full, empty, rp);
         produce_chunks<1, CHUNK, STAGES>(img_big + (size_t)q * CHUNK, ring, full, empty, rp);
     }
+}
+
+// ---- the bf16 chain -----------------------------------------------------------
+//
+// The bf16 chain (chain_dtype=bfloat16; egnn_tile.cuh's CHAIN_BF16) runs on
+// the same designs with bf16 operands: wgmma m64nNk16.f32.bf16.bf16 (Wgmma
+// with BF), fp32 accumulators, each product's fp32 sum rounded once to bf16
+// in the epilogue, as the JAX kernel's `_mm` rounds it. Its tiles, images and
+// stream rows keep the K-major 128-byte-swizzled layout in 4-byte words:
+// word w of a row holds K values 2w (low half) and 2w + 1, sw_off(row, w,
+// rows) places it, a 128-byte row of a K block holds 64 K values, and a
+// descriptor and its 32-byte k steps are those of TF32. Every value the chain
+// writes is a bf16 value already (egnn_tile.cuh: rbf), so packing keeps it
+// exactly; the weight images round the fp32 parameters to nearest even, as
+// torch's cast (and JAX's `_param_tuple`) does.
+
+// The chain's elementwise ops on column pairs (bf16x2), as the JAX kernel
+// computes them on bf16 arrays: each op's result rounded to bf16. A sum or
+// product of two bf16 values is exact in fp32 (unless their exponents lie
+// more than 16 apart), so the bf16x2 instructions' one rounding gives what
+// the reference's fp32 op and cast give (egnn_tile.cuh: rbf); exp and the
+// reciprocal run in fp32 on the bf16 values and are rounded as their
+// results. The pair (lo, hi) is two adjacent columns, lo in the low half.
+// add2 / sub2 / mul2 name their rounding (.rn): a bf16x2 mul or add whose
+// rounding PTX leaves unnamed may be folded into one fma with its neighbour,
+// one rounding where the chain has two (that read 1-4e-3 of max |agg| off
+// the plain version on the card, against 2e-4 with every op rounded).
+using bf2 = __nv_bfloat162;
+// (lo, hi) rounded to bf16 (to nearest even)
+__device__ __forceinline__ bf2 bf2r(float lo, float hi) { return __floats2bfloat162_rn(lo, hi); }
+__device__ __forceinline__ float2 f2(bf2 v) { return __bfloat1622float2(v); }
+__device__ __forceinline__ uint32_t bits(bf2 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+__device__ __forceinline__ bf2 bf2_of_bits(uint32_t u) { return *reinterpret_cast<const bf2*>(&u); }
+__device__ __forceinline__ bf2 one2() { return bf2_of_bits(0x3F803F80u); }   // (1, 1)
+// the bf16 pair v at columns (col, col + 1), col even, of row r of a bf16
+// tile of `rows` rows
+__device__ __forceinline__ void put2_bf16(float* A, int r, int col, bf2 v, int rows = M) {
+    *reinterpret_cast<bf2*>(A + sw_off(r, col / 2, rows)) = v;
+}
+__device__ __forceinline__ bf2 add2(bf2 a, bf2 b) {
+    uint32_t d;
+    asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return bf2_of_bits(d);
+}
+__device__ __forceinline__ bf2 sub2(bf2 a, bf2 b) {
+    uint32_t d;
+    asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return bf2_of_bits(d);
+}
+__device__ __forceinline__ bf2 mul2(bf2 a, bf2 b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
+    return bf2_of_bits(d);
+}
+// `_sigmoid`: 1 / (1 + exp(-x)), with the fast exponential and reciprocal
+// (__expf, __fdividef: a few fp32 ulp, which move a bf16 result only where
+// the exact one lies within them of a rounding boundary)
+__device__ __forceinline__ bf2 sigmoid2(bf2 x) {
+    const float2 v = f2(x);
+    const float2 d = f2(add2(one2(), bf2r(__expf(-v.x), __expf(-v.y))));
+    return bf2r(__fdividef(1.0f, d.x), __fdividef(1.0f, d.y));
+}
+// `_silu` and `_dsilu` from s = sigmoid(x), which both share
+__device__ __forceinline__ bf2 silu2(bf2 x, bf2 s) { return mul2(x, s); }
+__device__ __forceinline__ bf2 dsilu2(bf2 x, bf2 s) {
+    return mul2(s, add2(one2(), mul2(x, sub2(one2(), s))));
+}
+// a product's fp32 sums (a0, a1) rounded once, plus the bf16 bias b
+__device__ __forceinline__ bf2 bias2(float a0, float a1, bf2 b) { return add2(bf2r(a0, a1), b); }
+// the bf16 pair of two fp32 parameters p[0], p[1] (read-only data)
+__device__ __forceinline__ bf2 param2(const float* p) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    return bf2r(v.x, v.y);
+}
+// The NV / 2 column pairs of NV values of a or bs at p (16-byte aligned)
+// as bf16: bf16 inputs as they lie, fp32 inputs rounded.
+template <int NV>
+__device__ __forceinline__ void load_pairs(const __nv_bfloat16* p, bf2 (&out)[NV / 2]) {
+    static_assert(NV == 8, "8 bf16 values a 16-byte load");
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    out[0] = bf2_of_bits(q.x); out[1] = bf2_of_bits(q.y);
+    out[2] = bf2_of_bits(q.z); out[3] = bf2_of_bits(q.w);
+}
+template <int NV>
+__device__ __forceinline__ void load_pairs(const float* p, bf2 (&out)[NV / 2]) {
+    static_assert(NV == 4, "4 fp32 values a 16-byte load");
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    out[0] = bf2r(q.x, q.y);
+    out[1] = bf2r(q.z, q.w);
+}
+
+// Words of K of the bf16 chain's operands at width hd: hd / 2, at least one
+// K block (hd 32 uses half of it).
+__host__ __device__ constexpr int kwords_bf16(int hd) { return hd / 2 < KB ? KB : hd / 2; }
+// Words of one bf16 weight image.
+__host__ __device__ constexpr size_t image_words_bf16(int hd) {
+    return (size_t)kwords_bf16(hd) * hd;
+}
+
+// Word e of the bf16 image of an hd x hd weight w in orientation `orient`:
+// `halves` consecutive parts of hd / halves output columns each (the two
+// consumers' halves of the shared-tile kernel, else one), each of chunks of
+// nw output rows x one K block (32 words, 64 K values), in the order (K
+// block, column group), or with `hmajor` (column group, K block); each chunk
+// in the swizzled word order. K beyond hd (hd 32) is 0.
+__device__ __forceinline__ uint32_t image_word_bf16(const float* __restrict__ w, int orient,
+                                                    int hd, int nw, int halves, int hmajor,
+                                                    size_t e) {
+    const int nkc = kwords_bf16(hd) / KB, cols = hd / halves, nh = cols / nw;
+    const size_t per_half = (size_t)kwords_bf16(hd) * cols;
+    const int half = (int)(e / per_half);
+    const int eh = (int)(e % per_half);
+    const int q = eh / (nw * KB), r = eh % (nw * KB);
+    const int nl = r / KB, pos = r % KB;
+    const int kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3);
+    const int h = hmajor ? q / nkc : q % nh, kc = hmajor ? q % nkc : q / nh;
+    const int n = half * cols + h * nw + nl, k = 2 * (kc * KB + kl);
+    auto at = [&](int kk) {
+        return kk >= hd ? 0.f : orient == IMG_T ? w[(size_t)kk * hd + n] : w[(size_t)n * hd + kk];
+    };
+    return bits(bf2r(at(k), at(k + 1)));
+}
+
+// img[q] = bf16 image of (src[q], orient[q]) for q < n (at most 4), each
+// image_words_bf16(hd) words, in the chunk order (nw, halves, hmajor).
+struct Bf16ImageSet {
+    const float* src[4];
+    int orient[4];
+    int n, hd, nw, halves, hmajor;
+};
+
+__global__ void __launch_bounds__(256) weight_images_bf16(Bf16ImageSet set,
+                                                          uint32_t* __restrict__ img) {
+    const size_t per = image_words_bf16(set.hd);
+    for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < set.n * per;
+         idx += (size_t)gridDim.x * blockDim.x) {
+        const int q = (int)(idx / per);
+        img[idx] = image_word_bf16(set.src[q], set.orient[q], set.hd, set.nw, set.halves,
+                                   set.hmajor, idx % per);
+    }
+}
+
+inline cudaError_t launch_images_bf16(const Bf16ImageSet& set, float* img, cudaStream_t stream) {
+    if (set.n < 1 || set.n > 4 || set.nw < 1 || set.halves < 1 || set.hd % (set.halves * set.nw) ||
+        set.hd % 32)
+        return cudaErrorInvalidValue;
+    const size_t blocks = (set.n * image_words_bf16(set.hd) + 255) / 256;
+    weight_images_bf16<<<(unsigned)(blocks < 2048 ? blocks : 2048), 256, 0, stream>>>(
+        set, reinterpret_cast<uint32_t*>(img));
+    return cudaGetLastError();
+}
+
+// The bf16 chain's fill: A = silu(pre) of a step's 64 edge rows (row r:
+// receiver i0 + r % T, sender row_j[r]) as the JAX kernel rounds it
+// (egnn_tile.cuh: pre_bf16 with a, bs and w_d cast to bf16 and d2 summed in
+// fp32, then cast; `_silu` op by op) into the bf16 tile or stream rows A
+// (sw_off of words, 64 rows); with dpre also silu'(pre) (`_dsilu`) into
+// dpre, row-major [64][hd] bf16. Rows of invalid edges are 0. Thread t of
+// the NT that fill it reads 16 bytes of a_i and of bs_j at a time; hd is the
+// width (a constant, or the run-time width above 512).
+template <class In, int NT>
+__device__ __forceinline__ void fill_pre_bf16(float* A, const In* __restrict__ a_b,
+                                              const In* __restrict__ bs_b,
+                                              const float* __restrict__ w_d,
+                                              const float* row_valid, const float* row_d2,
+                                              const int* row_j, int i0, int hd, int t,
+                                              float* __restrict__ dpre = nullptr) {
+    constexpr int NV = Vec<In>::N, NP = NV / 2;
+    const int hdv = hd / NV;
+#pragma unroll 2
+    for (int idx = t; idx < M * hdv; idx += NT) {
+        const int r = idx / hdv, c = NV * (idx % hdv);
+        uint32_t pw[NP], dw[NP];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) pw[q] = dw[q] = 0u;
+        if (row_valid[r] > 0.f) {
+            bf2 av[NP], bv[NP];
+            load_pairs<NV>(a_b + (size_t)(i0 + r % T) * hd + c, av);
+            load_pairs<NV>(bs_b + (size_t)row_j[r] * hd + c, bv);
+            const float d2 = rbf(row_d2[r]);
+            const bf2 d2b = bf2r(d2, d2);
+#pragma unroll
+            for (int q = 0; q < NP; ++q) {
+                // pre = (a + bs_j) + bf16(d2) * w_d, each op rounded
+                const bf2 pre = add2(add2(av[q], bv[q]), mul2(d2b, param2(w_d + c + 2 * q)));
+                const bf2 s = sigmoid2(pre);
+                pw[q] = bits(silu2(pre, s));
+                dw[q] = bits(dsilu2(pre, s));
+            }
+        }
+        float* at = A + sw_off(r, c / 2, M);
+        float* dp = dpre + ((size_t)r * hd + c) / 2;
+        if constexpr (NP == 4) {
+            *reinterpret_cast<uint4*>(at) = make_uint4(pw[0], pw[1], pw[2], pw[3]);
+            if (dpre) *reinterpret_cast<uint4*>(dp) = make_uint4(dw[0], dw[1], dw[2], dw[3]);
+        } else {
+            *reinterpret_cast<uint2*>(at) = make_uint2(pw[0], pw[1]);
+            if (dpre) *reinterpret_cast<uint2*>(dp) = make_uint2(dw[0], dw[1]);
+        }
+    }
+}
+
+// One task of the bf16 weight-grad copy: of a K block `blk` ([64 rows][32
+// words], swizzled) of a step's bf16 tile, the word column fp (features
+// 2 fp, 2 fp + 1 of the block) at rows 8c .. 8c + 7, written as one 16-byte
+// chunk of each feature's row in the weight-grad layout dst ([hd features][32
+// words]: a feature's 64 edge rows in one K block, swizzled; k0 = the
+// block's first feature). Lanes take (fp, c) with c = lane / 4 and four fp
+// a warp (wgrad_task_bf16), so the eight lanes of one fp write a feature's
+// whole 128-byte row; each lane reads its rows starting at 8c + c % 8, which
+// puts the warp's 32 reads of one iteration in 32 distinct banks, and turns
+// the words back into row order in registers.
+__device__ __forceinline__ void wgrad_copy_bf16(const float* blk, float* __restrict__ dst,
+                                                int k0, int fp, int c) {
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {   // v[i]: row 8c + (i + c) % 8
+        const int r = 8 * c + ((i + c) & 7);
+        v[i] = reinterpret_cast<const uint32_t*>(blk)[r * KB + ((((fp >> 2) ^ (r & 7)) & 7) << 2) +
+                                                      (fp & 3)];
+    }
+    // rotate by c: v[j] = row 8c + j
+#pragma unroll
+    for (int b = 1; b < 8; b <<= 1) {
+        uint32_t w[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) w[j] = (c & b) ? v[(j - b) & 7] : v[j];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = w[j];
+    }
+    const int k = k0 + 2 * fp;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+        const uint32_t sel = f ? 0x7632u : 0x5410u;   // the high or the low halves
+        *reinterpret_cast<uint4*>(dst + (size_t)(k + f) * KB + ((c ^ ((k + f) & 7)) << 2)) =
+            make_uint4(__byte_perm(v[0], v[1], sel), __byte_perm(v[2], v[3], sel),
+                       __byte_perm(v[4], v[5], sel), __byte_perm(v[6], v[7], sel));
+    }
+}
+// Task `task` of a K block's FP x 8 copy tasks (FP: the word columns in use,
+// a multiple of 4): its (fp, c), four fp a warp of 32 consecutive tasks.
+__device__ __forceinline__ void wgrad_task_bf16(int task, int FP, int& fp, int& c) {
+    c = (task >> 2) & 7;
+    fp = 4 * ((task >> 5) % (FP >> 2)) + (task & 3);
 }
 
 // 1024-byte aligned start of dynamic shared memory (the swizzled tiles'

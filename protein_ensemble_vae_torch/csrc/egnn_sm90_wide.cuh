@@ -1,6 +1,7 @@
 // Hopper building blocks of the EGNN band kernels above decoder width 512
-// (egnn_band_{fwd,bwd}_sm90_wide.cu), in both fp32-chain modes, at a width
-// hd given at run time (a multiple of WIDE_GROUP = 256 above 512).
+// (egnn_band_{fwd,bwd}_sm90_wide.cu), in both fp32-chain modes and the bf16
+// chain, at a width hd given at run time (a multiple of WIDE_GROUP = 256
+// above 512).
 //
 // Why the activations stream. The shared-tile kernels keep a step's [64][Hd]
 // fp32 activation tile in shared memory; at Hd 1024 it would take 256 KiB,
@@ -35,6 +36,12 @@
 // into one of three split buffers and meet at a named barrier before its
 // products (a buffer is rewritten three chunks later, once both consumer
 // warpgroups have waited for the products that read it).
+//
+// The bf16 chain (CB) runs the one-pass configuration (Cfg<1>) on bf16
+// operands (egnn_sm90.cuh: "the bf16 chain"): stream rows, A chunks and
+// images in bf16, two K values a word, so a K block of 128 bytes holds 64
+// K values (hd / 64 K blocks a column pass: half the A stream's bytes of one
+// pass), and the products are m64n128k16.
 //
 // Ordering of the stream buffers. The consumers write an activation with
 // generic stores; the producer reads it through the async proxy. Each
@@ -136,7 +143,7 @@ __device__ __forceinline__ void publish(uint64_t* act, int tid) {
 // One thread: wait for the product's activation (`act` phase), then stream
 // its chunks, (column pass p, K block kc): A chunk kc of the activation
 // rows `x`, and weight chunk (p, kc) of the image (and of its small part).
-template <int PASSES>
+template <int PASSES, bool CB = false>
 __device__ __forceinline__ void produce(const float* x, const float* img_big,
                                         const float* img_small, int hd, float* ring,
                                         uint64_t* full, uint64_t* empty, uint64_t* act,
@@ -145,7 +152,7 @@ __device__ __forceinline__ void produce(const float* x, const float* img_big,
     mbar_wait(act, act_phase);
     act_phase ^= 1u;
     fence_async_global();
-    const int nkc = hd / KB, np = hd / C::NC;
+    const int nkc = (CB ? hd / 2 : hd) / KB, np = hd / C::NC;
     for (int p = 0; p < np; ++p)
         for (int kc = 0; kc < nkc; ++kc) {
             mbar_wait(&empty[rp.stage], rp.phase ^ 1u);
@@ -175,7 +182,7 @@ __device__ __forceinline__ void produce(const float* x, const float* img_big,
 // each step sum (32 K) is added to acc in round-to-nearest fp32 once the
 // next K block's products are issued and it has completed, the small terms
 // at the pass's end. One pass: acc accumulates on the tensor cores.
-template <int PASSES, class Side, class Epi>
+template <int PASSES, bool CB, class Side, class Epi>
 __device__ __forceinline__ void consume(const float* ring, float* split, int& sq,
                                         uint64_t* full, uint64_t* empty,
                                         RingPos& rp, int hd, int wg, int tid, int lane,
@@ -184,8 +191,9 @@ __device__ __forceinline__ void consume(const float* ring, float* split, int& sq
                                         float (&tmp1)[Cfg<PASSES>::ACC],
                                         float (&sml)[Cfg<PASSES>::ACC], Side side, Epi epi) {
     using C = Cfg<PASSES>;
+    static_assert(PASSES == 1 || !CB, "the bf16 chain takes one pass");
     constexpr int NW = C::NW, ACC = C::ACC;
-    const int nkc = hd / KB, np = hd / C::NC;
+    const int nkc = (CB ? hd / 2 : hd) / KB, np = hd / C::NC;
     for (int p = 0; p < np; ++p) {
         int prev = -1;
         pin(acc);
@@ -204,7 +212,7 @@ __device__ __forceinline__ void consume(const float* ring, float* split, int& sq
             if constexpr (PASSES == 1) {
 #pragma unroll
                 for (int k8 = 0; k8 < KB / 8; ++k8)
-                    Wgmma<NW>::mma(acc, desc(a + 8 * k8), desc(wb + 8 * k8), (kc | k8) != 0);
+                    Wgmma<NW, CB>::mma(acc, desc(a + 8 * k8), desc(wb + 8 * k8), (kc | k8) != 0);
             } else {
                 float* as = split + sq * ACHUNK;   // free: its last readers, three chunks
                                                    // back, are complete (see Cfg)
@@ -241,7 +249,7 @@ __device__ __forceinline__ void consume(const float* ring, float* split, int& sq
             for (int i = 0; i < ACC; ++i) acc[i] = first ? t[i] : acc[i] + t[i];
         };
 #pragma unroll 1
-        for (int kc = 0; kc < nkc; kc += 2) {   // nkc is even: hd is a multiple of 256
+        for (int kc = 0; kc < nkc; kc += 2) {   // nkc is even: hd is a multiple of 256 (128 in bf16)
             chunk(kc, tmp0);
             if constexpr (PASSES == 3)
                 if (kc > 0) add(tmp1, false);
@@ -307,11 +315,15 @@ __device__ __forceinline__ void fill(float* __restrict__ x,
 }
 
 // Store the activation (v0, v1) at columns (col, col + 1) of row r into the
-// stream rows x: rounded to TF32 if ROUND, else exact.
-template <bool ROUND>
+// stream rows x: rounded to TF32 if ROUND, else exact; in the bf16 chain
+// (CB) the bf16 values as one word.
+template <bool ROUND, bool CB = false>
 __device__ __forceinline__ void put2(float* x, int r, int col, float v0, float v1) {
-    *reinterpret_cast<float2*>(x + sw_off(r, col, M)) =
-        ROUND ? make_float2(tf32(v0), tf32(v1)) : make_float2(v0, v1);
+    if constexpr (CB)
+        put2_bf16(x, r, col, bf2r(v0, v1));
+    else
+        *reinterpret_cast<float2*>(x + sw_off(r, col, M)) =
+            ROUND ? make_float2(tf32(v0), tf32(v1)) : make_float2(v0, v1);
 }
 
 // ---- rows of a step -------------------------------------------------------------------

@@ -19,8 +19,8 @@
 //     fp32 operands (XLA:GPU's TF32); the JAX side's bf16 model asks for it
 //     because its projections a, bs are bf16 already.
 //   mma.sync takes its fragments from registers, so the split costs no
-//   shared memory. Here that serves only the wide variants (above 512):
-//   at the native widths both fp32-chain modes run on wgmma
+//   shared memory. No mode runs these tiles any more (the A/B scripts'
+//   baseline does): every mode and width runs on wgmma
 //   (egnn_band_{fwd,bwd}_sm90*.cu), where the weights' split is written
 //   once per call into their images and the activation's split into a
 //   second tile (up to 256) or over the tile in place (512).

@@ -1,6 +1,7 @@
-"""EGNN band message passing: the CUDA kernels ``csrc/egnn_band_fwd.cu`` and
-``csrc/egnn_band_bwd.cu``, their wrappers, their plain PyTorch versions, and
-``EGNNBandFunction``, the autograd function that joins them.
+"""EGNN band message passing: the Hopper CUDA kernels 1 (forward) and 2
+(backward) (``csrc/egnn_band_{fwd,bwd}_sm90*.cu``), their wrappers, their
+plain PyTorch versions, and ``EGNNBandFunction``, the autograd function
+that joins them.
 
 Counterpart of the JAX package's ``ops/pallas/egnn_band.py``
 (``egnn_band_fused`` with its custom VJP). Algebra, for receiver i and
@@ -36,17 +37,17 @@ Modes, as the JAX function's arguments:
   op (``_bf16_chain_edges``, ``_bf16_chain_backward``); no JAX model path
   uses this mode, and the port's decoder does not either.
 
-Kernels by mode. Both fp32-chain modes run on Hopper kernels (``wgmma``
-products fed by ``mbarrier`` rings) at every width, and for a CUDA tensor
-only there:
+Kernels by mode. Every mode runs on Hopper kernels (``wgmma`` products fed
+by ``mbarrier`` rings) at every width, and for a CUDA tensor only there
+(``band_kernel`` names the kernel, and counter, of a call):
 - the one-pass mode (``precision="default"``; ``a`` / ``bs`` in bf16, the
-  bf16 model's mode, or in fp32) at the native widths SM90_HIDDEN (32 to
-  256, and the widths padded to them) on ``csrc/egnn_band_fwd_sm90.cu`` /
-  ``csrc/egnn_band_bwd_sm90.cu`` (two consumer warpgroups on a step each,
-  sharing one weight ring; counters ``egnn_band_fwd_sm90`` /
-  ``egnn_band_bwd_sm90``);
-- 3xTF32 (``"highest"``, the fp32 model's mode) at SM90_HIDDEN, and both
-  modes at the native width 512 (and the widths 257 to 511 padded to it),
+  bf16 model's mode, or in fp32) and the bf16 chain at the native widths
+  SM90_HIDDEN (32 to 256, and the widths padded to them) on
+  ``csrc/egnn_band_fwd_sm90.cu`` / ``csrc/egnn_band_bwd_sm90.cu`` (two
+  consumer warpgroups on a step each, sharing one weight ring; counters
+  ``egnn_band_fwd_sm90`` / ``egnn_band_bwd_sm90``);
+- 3xTF32 (``"highest"``, the fp32 model's mode) at SM90_HIDDEN, and every
+  mode at the native width 512 (and the widths 257 to 511 padded to it),
   on the shared-tile kernels ``csrc/egnn_band_fwd_sm90_hd512.cu`` /
   ``csrc/egnn_band_bwd_sm90_hd512.cu`` (the two consumer warpgroups
   sharing one activation tile and splitting the output columns, each fed
@@ -55,23 +56,28 @@ only there:
   tile in place at 512; counters ``egnn_band_fwd_sm90_x3`` /
   ``egnn_band_bwd_sm90_x3`` up to 256, ``egnn_band_fwd_sm90_hd512`` /
   ``egnn_band_bwd_sm90_hd512`` at 512);
-- both modes above 512 (any multiple of WIDE_GROUP, given at run time; the
+- every mode above 512 (any multiple of WIDE_GROUP, given at run time; the
   widths between padded up) on ``csrc/egnn_band_fwd_sm90_wide.cu`` /
   ``csrc/egnn_band_bwd_sm90_wide.cu`` (``csrc/egnn_sm90_wide.cuh``: the
   activation tile, too large for shared memory, streams from the block's
   device-memory rows beside the weight chunks through one ring; the two
   consumer warpgroups split each column pass; counters
   ``egnn_band_fwd_sm90_wide`` / ``egnn_band_bwd_sm90_wide``).
-The bf16 chain (at every width) stays on ``csrc/egnn_band_fwd.cu`` /
-``csrc/egnn_band_bwd.cu``, above 512 on their wide variants
-(``band_kernel`` names the kernel that serves a call).
+In the bf16 chain each family runs bf16 tiles, images and scratch (two
+values a 4-byte word in the same swizzled layout) on bf16 ``wgmma``
+(m64nNk16), the C entries' ``passes`` BF16_CHAIN (``kernel_passes``).
+The ``mma.sync`` kernels ``csrc/egnn_band_fwd.cu`` / ``csrc/egnn_band_bwd.cu``
+(and their wide variants) serve no mode any more; their launch plans
+(``fwd_slices``, ``bwd_grid``, ``fwd_plan``, ``bwd_plan``) and C bindings
+(``_kernel_fn``, ``_bwd_kernel_fn``) stay for the scripts that time them
+as a baseline.
 
 Widths: any width from 1 up. The kernels are instantiated at the native
 widths NATIVE_HIDDEN (32 to 512), with the step's activation tile in
 shared memory; above MAX_NATIVE that tile, 64 x Hd x 4 bytes, would
 outgrow the 227 KB of shared memory a block may have, so the kernels
 above it take every width that WIDE_GROUP divides, given at run time,
-with the activations in the block's device-memory scratch. For CUDA
+with the activations streamed from the block's device-memory rows. For CUDA
 tensors of any other width the wrappers zero-pad to the next width the
 kernels take (``native_width``, ``pad_band_width``), launch, and slice the
 results back, which is exact up to summation order (``pad_band_width``
@@ -94,18 +100,21 @@ from protein_ensemble_vae_torch.parallel.shard import copy_to_tp, reduce_from_tp
 
 Tensor = torch.Tensor
 
+# the kernels' generic names (band_kernel's argument; the mma.sync kernels'
+# counters, which no mode launches any more)
 KERNEL = "egnn_band_fwd"
 BWD_KERNEL = "egnn_band_bwd"
-# widths the kernels are instantiated at (csrc/egnn_tile.cuh: Tile); above
-# MAX_NATIVE the wide variants take the multiples of WIDE_GROUP; the
+# widths the kernels are instantiated at (SM90_HIDDEN and HD512); above
+# MAX_NATIVE the kernels above 512 take the multiples of WIDE_GROUP; the
 # wrappers zero-pad any other width up to the next of these (pad_band_width)
 NATIVE_HIDDEN = (32, 64, 128, 256, 512)
 MAX_NATIVE = NATIVE_HIDDEN[-1]
-WIDE_GROUP = 256          # widths above 512 are its multiples (the wide variants' column
-                          # groups, csrc/egnn_tile.cuh; the Hopper kernels above 512 too)
+WIDE_GROUP = 256          # widths above 512 are its multiples (the Hopper kernels above
+                          # 512: two consumers' column passes of WIDE_NW[1] columns)
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # of a and bs
 CHAIN_DTYPES = (torch.float32, torch.bfloat16)   # of the edge chain
 PASSES = {"highest": 3, "default": 1}   # precision -> TF32 passes per product (fp32 chain)
+BF16_CHAIN = 0            # the Hopper C entries' `passes` of the bf16 chain (egnn_tile.cuh: CHAIN_BF16)
 TILE = 8                  # receivers per tile (csrc/egnn_tile.cuh: T)
 OPS = 8                   # band offsets per step (csrc/egnn_tile.cuh: OPS)
 WGRAD_TILE = 128          # weight-grad output tile edge (csrc/egnn_band_bwd.cu)
@@ -136,6 +145,7 @@ HD512_HALF = 256          # output columns of each consumer warpgroup at 512 (Hd
 HD512_FWD_NW = 128        # columns per wgmma of kernel 1 at 512 (egnn_band_fwd_sm90_hd512.cu: NW_OF)
 HD512_BWD_NW = 64         # of kernel 2's edge pass, and of kernel 1 up to 256, at most
 HD512_FWD_STAGES = 3      # chunks of each consumer's ring, kernel 1 at 512
+HD512_BF16_STAGES = 5     # and in the bf16 chain, whose tile is half the bytes (BF16_STAGES)
 X3_FWD_STAGES = 6         # and up to 256 (egnn_band_fwd_sm90_hd512.cu: STAGES_OF)
 HD512_BWD_STAGES = 5      # of kernel 2's edge pass
 HD512_WGRAD_STAGES = 3    # stages of its weight-grad pass (WSTAGES)
@@ -207,7 +217,8 @@ def bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
 
 
 def wide_fwd_grid(B: int, L: int, n_sm: int, per_sm: int) -> int:
-    """Blocks of kernel 1's wide variant (the bf16 chain above 512): one
+    """Blocks of the mma.sync kernel 1's wide variant (the A/B scripts'
+    baseline; no mode launches it): one
     persistent block per resident slot (``per_sm`` on each of ``n_sm`` SMs), each walking (batch row,
     tile) items g, g + G, ... with every band step of each; no more blocks
     than items."""
@@ -217,23 +228,37 @@ def wide_fwd_grid(B: int, L: int, n_sm: int, per_sm: int) -> int:
 
 def takes_sm90(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
     """Whether the Hopper kernels take a call at native width Hd in this
-    mode: the one-pass fp32 chain at a width of SM90_HIDDEN."""
-    return precision == "default" and not _chain_bf16(chain_dtype) and Hd in SM90_HIDDEN
+    mode: the one-pass fp32 chain or the bf16 chain at a width of
+    SM90_HIDDEN."""
+    return Hd in SM90_HIDDEN and (precision == "default" or bool(_chain_bf16(chain_dtype)))
 
 
 def takes_hd512(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
     """Whether the shared-tile Hopper kernels take a call at native width Hd
-    in this mode: either fp32-chain mode (3xTF32 or one pass) at 512, or
+    in this mode: every mode (3xTF32, one pass, the bf16 chain) at 512, and
     3xTF32 at a width of SM90_HIDDEN."""
     if _chain_bf16(chain_dtype):
-        return False
+        return Hd == HD512
     return Hd == HD512 or (precision == "highest" and Hd in SM90_HIDDEN)
 
 
 def takes_wide(Hd: int, precision: str, chain_dtype=torch.float32) -> bool:
     """Whether the Hopper kernels above width 512 take a call at native
-    width Hd in this mode: either fp32-chain mode above MAX_NATIVE."""
-    return Hd > MAX_NATIVE and not _chain_bf16(chain_dtype)
+    width Hd in this mode: every mode above MAX_NATIVE."""
+    return Hd > MAX_NATIVE
+
+
+def kernel_passes(precision: str, chain_dtype=torch.float32) -> int:
+    """The Hopper C entries' ``passes`` of a mode: the TF32 passes of
+    ``precision`` in the fp32 chain, BF16_CHAIN in the bf16 chain."""
+    return BF16_CHAIN if _chain_bf16(chain_dtype) else PASSES[precision]
+
+
+def bf16_image_words(Hd: int) -> int:
+    """4-byte words of one bf16 weight image at native width Hd (two bf16
+    a word; K padded to one 64-value block at Hd 32; egnn_sm90.cuh:
+    image_words_bf16)."""
+    return max(Hd // 2, SM90_KB) * Hd
 
 
 def band_kernel(kernel: str, Hd: int, precision: str = "highest",
@@ -323,8 +348,12 @@ def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> in
     HD512_BWD_KERNEL / X3_BWD_KERNEL or its weight-grad pass
     ``"wgrad_hd512"``; the kernels above 512, WIDE_KERNEL, the edge pass
     WIDE_BWD_KERNEL or its weight-grad pass ``"wgrad_wide"`` (the same at
-    every width) (``passes``: 3xTF32's split stages; ``steps``: the
-    slice's step list)."""
+    every width) (``passes``: 1, 3 (3xTF32's split stages) or BF16_CHAIN,
+    whose tiles hold bf16; ``steps``: the slice's step list)."""
+    bf16 = passes == BF16_CHAIN
+    if bf16 and kernel in (WIDE_KERNEL, WIDE_BWD_KERNEL, "wgrad_wide", "wgrad_hd512", "wgrad"):
+        # the one-pass layouts: bf16 operands fill the same 128-byte rows
+        return sm90_smem_bytes(kernel, Hd, 1, steps)
     if kernel in (WIDE_KERNEL, WIDE_BWD_KERNEL):
         # the ring (an A chunk and a weight chunk of 2 x NW rows a stage, the
         # weight's small part too in 3xTF32), three split buffers of an A
@@ -342,9 +371,14 @@ def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> in
         return sm90_smem_bytes("wgrad_hd512", HD512, passes, steps)
     nw, _ = sm90_cols(Hd)
     chunk = nw * SM90_KB * 4
-    a_tiles = 2 * 64 * Hd * 4
+    # two activation tiles of 64 rows: Hd fp32 words a row, or the bf16
+    # chain's max(Hd / 2, 32)
+    a_tiles = 2 * 64 * (max(Hd // 2, SM90_KB) if bf16 else Hd) * 4
     if kernel == SM90_KERNEL:
-        return a_tiles + SM90_FWD_STAGES * chunk + 2 * 6 * 64 * 4 + 32 + 2 * SM90_FWD_STAGES * 8 + 1024
+        # the unit's sums, 8 x TILE x (Hd + 3) fp32, live in the A region
+        red = -(-8 * TILE * (Hd + 3) * 4 // 1024) * 1024
+        return (max(a_tiles, red) + SM90_FWD_STAGES * chunk + 2 * 6 * 64 * 4 + 32
+                + 2 * SM90_FWD_STAGES * 8 + 1024)
     if kernel == SM90_BWD_KERNEL:
         # A tiles, ring, the eight warps' vector-grad column sums, rows, flags, barriers
         return (a_tiles + SM90_BWD_STAGES * chunk + 8 * 4 * Hd * 4 + 2 * 7 * 64 * 4 + 32
@@ -352,12 +386,13 @@ def sm90_smem_bytes(kernel: str, Hd: int, passes: int = 1, steps: int = 0) -> in
     if kernel == "wgrad":
         stage = SM90_WGRAD_M * SM90_KB * 4 + nw * SM90_KB * 4
         return SM90_WGRAD_STAGES * stage + 2 * SM90_WGRAD_STAGES * 8 + 1024
-    # the shared-tile kernels: the activation tile, and up to 256 its split
-    tile = 64 * Hd * 4 * (2 if Hd < HD512 else 1)
+    # the shared-tile kernels: the activation tile (bf16 in the bf16 chain),
+    # and up to 256 its split
+    tile = 64 * Hd * (2 if bf16 else 4 * (2 if Hd < HD512 else 1))
     if kernel in (HD512_KERNEL, X3_KERNEL):
         # tile(s), the consumers' rings, rows (valid, d2, j, rel[3]), the
         # second consumer's dot products, flags, barriers
-        stages = HD512_FWD_STAGES if Hd == HD512 else X3_FWD_STAGES
+        stages = (HD512_BF16_STAGES if bf16 else HD512_FWD_STAGES) if Hd == HD512 else X3_FWD_STAGES
         ring = 2 * stages * shared_tile_nw(kernel, Hd) * SM90_KB * 4
         return tile + ring + 6 * 64 * 4 + 64 * 4 + 16 + 4 * stages * 8 + 1024
     if kernel in (HD512_BWD_KERNEL, X3_BWD_KERNEL):
@@ -492,7 +527,7 @@ def _chain_bf16(chain_dtype) -> int:
 def native_width(Hd: int) -> int:
     """The width the kernels run a band layer of hidden width Hd at: the
     narrowest native width (NATIVE_HIDDEN) that holds Hd, or above
-    MAX_NATIVE the next multiple of WIDE_GROUP (the wide variants). Raises
+    MAX_NATIVE the next multiple of WIDE_GROUP (the kernels above 512). Raises
     for Hd < 1."""
     if Hd < 1:
         raise ValueError(f"hidden width {Hd}: the band kernels take widths of at least 1")
@@ -821,42 +856,17 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
                                                    b_x1, w_x2, b_x2, n),
                                    W, precision, chain_dtype)
         return agg[..., :Hd], delta
-    bf16, passes, cb = int(a.dtype == torch.bfloat16), PASSES[precision], _chain_bf16(chain_dtype)
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
     if B == 0 or L == 0:
         return agg, delta
+    weights = (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
     if takes_wide(Hd, precision, chain_dtype):
-        return _fwd_sm90_wide(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
-                              delta, W, precision)
+        return _fwd_sm90_wide(a, bs, x, cmask, weights, agg, delta, W, precision, chain_dtype)
     if takes_hd512(Hd, precision, chain_dtype):
-        return _fwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
-                          delta, W, precision)
-    if takes_sm90(Hd, precision, chain_dtype):
-        return _fwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), agg,
-                         delta, W, precision)
-    wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
-    fn, lib = _kernel_fn()
-    if Hd > MAX_NATIVE:
-        return _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
-                         chain_dtype)
-    S = fwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
-    # S > 1: each slice's partial outputs, summed in slice order by the
-    # kernel's second pass
-    parts = ((torch.empty((S, B, L, Hd), dtype=torch.float32, device=dev),
-              torch.empty((S, B, L, 3), dtype=torch.float32, device=dev))
-             if S > 1 else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
-                 *(t.data_ptr() for t in wts), agg.data_ptr(), delta.data_ptr(),
-                 *((p.data_ptr() for p in parts) if parts else (None, None)),
-                 B, L, Hd, W, S, bf16, passes, cb, stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
-                           f"({lib.egnn_band_fwd_error_string(err).decode()})")
-    _count(KERNEL, a.dtype, precision, chain_dtype)
-    return agg, delta
+        return _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision, chain_dtype)
+    # the rest of the native widths (SM90_HIDDEN) in one pass or the bf16 chain
+    return _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision, chain_dtype)
 
 
 def _sm90_fn():
@@ -866,10 +876,13 @@ def _sm90_fn():
 
         lib = load_library(SM90_KERNEL)
         fn = lib.egnn_band_fwd_sm90_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.egnn_band_fwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_fwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_fwd_sm90_blocks_per_sm.restype = ctypes.c_int
+        lib.egnn_bf16_weight_images.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                                                + [ctypes.c_void_p] * 2)
+        lib.egnn_bf16_weight_images.restype = ctypes.c_int
         lib.egnn_band_fwd_sm90_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_fwd_sm90_error_string.restype = ctypes.c_char_p
         lib.egnn_sm90_weight_images.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
@@ -880,33 +893,43 @@ def _sm90_fn():
 
 
 def sm90_fwd_plan(B: int, L: int, W: int, Hd: int, dev,
-                  dtype: torch.dtype = torch.bfloat16,
-                  precision: str = "default") -> tuple[int, int, int]:
+                  dtype: torch.dtype = torch.bfloat16, precision: str = "default",
+                  chain_dtype=torch.float32) -> tuple[int, int, int]:
     """``sm90_fwd_plan_of`` (``hd512_fwd_plan_of`` for the shared-tile
     kernel: width 512, or 3xTF32) on CUDA device ``dev``: its SM count and
-    the blocks of the Hopper kernel 1 that one SM holds."""
-    if takes_hd512(Hd, precision):
+    the blocks of the Hopper kernel 1 of the mode that one SM holds."""
+    if takes_hd512(Hd, precision, chain_dtype):
         lib = _hd512_fn()[1]
-        per_sm = _blocks_per_sm(HD512_KERNEL, lambda hd, b16, passes, _: (
-            lib.egnn_band_fwd_sm90_hd512_blocks_per_sm(hd, b16, passes)), Hd, dev, dtype,
-            precision, torch.float32)
+        per_sm = _blocks_per_sm(HD512_KERNEL, lambda hd, b16, passes, cb: (
+            lib.egnn_band_fwd_sm90_hd512_blocks_per_sm(hd, b16, BF16_CHAIN if cb else passes)),
+            Hd, dev, dtype, precision, chain_dtype)
         return hd512_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
     lib = _sm90_fn()[1]
-    per_sm = _blocks_per_sm(SM90_KERNEL, lambda hd, b16, *_: lib.egnn_band_fwd_sm90_blocks_per_sm(
-        hd, b16), Hd, dev, dtype, "default", torch.float32)
+    per_sm = _blocks_per_sm(SM90_KERNEL, lambda hd, b16, passes, cb: (
+        lib.egnn_band_fwd_sm90_blocks_per_sm(hd, b16, BF16_CHAIN if cb else 1)),
+        Hd, dev, dtype, "default", chain_dtype)
     return sm90_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
 
 
-def _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tensor, Tensor]:
-    """Kernel 1 on Hopper (the one-pass fp32 chain at a width of
-    SM90_HIDDEN): one C call writes the weight images, runs the kernel on
-    the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums their partials.
-    The images and the partials share one scratch allocation."""
+def _image_words(Hd: int, passes: int) -> int:
+    """Words of one weight's images in a mode of the Hopper kernels: Wb
+    (and Ws in 3xTF32) in fp32, or its bf16 image in the bf16 chain."""
+    return bf16_image_words(Hd) if passes == BF16_CHAIN else (2 if passes == 3 else 1) * Hd * Hd
+
+
+def _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision,
+              chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """Kernel 1 on Hopper (the one-pass fp32 chain or the bf16 chain at a
+    width of SM90_HIDDEN): one C call writes the weight images, runs the
+    kernel on the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums their
+    partials. The images and the partials share one scratch allocation."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _sm90_fn()
-    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype)
-    n_img, n_part = 2 * Hd * Hd, (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
+    passes = kernel_passes(precision, chain_dtype)
+    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
+    n_img = 2 * _image_words(Hd, passes)
+    n_part = (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
     scratch = torch.empty((n_img + sum(n_part),), dtype=torch.float32, device=dev)
     base = scratch.data_ptr()
     parts = (base + 4 * n_img, base + 4 * (n_img + n_part[0])) if S > 1 else (None, None)
@@ -914,11 +937,11 @@ def _fwd_sm90(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tenso
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
                  *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
-                 *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), stream)
+                 *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
     if err != 0:
         raise RuntimeError(f"{SM90_KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_sm90_error_string(err).decode()})")
-    _count(SM90_KERNEL, a.dtype, precision, torch.float32)
+    _count(SM90_KERNEL, a.dtype, precision, chain_dtype)
     return agg, delta
 
 
@@ -942,19 +965,20 @@ def _hd512_fn():
     return _HD512_FN
 
 
-def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tensor, Tensor]:
-    """Kernel 1 on the shared-tile Hopper kernel (width 512 in both
-    fp32-chain modes, 3xTF32 at SM90_HIDDEN): one C call writes the weight
-    images (Wb, and Ws in 3xTF32, of W_e2 and W_x1), runs the kernel on the
-    ``sm90_fwd_plan`` grid and, with S > 1 slices, sums their partials. The
-    images and the partials share one scratch allocation; the launch counts
-    under ``band_kernel``'s name."""
+def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision,
+               chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """Kernel 1 on the shared-tile Hopper kernel (width 512 in every mode,
+    3xTF32 at SM90_HIDDEN): one C call writes the weight images (Wb, and Ws
+    in 3xTF32, of W_e2 and W_x1; their bf16 images in the bf16 chain), runs
+    the kernel on the ``sm90_fwd_plan`` grid and, with S > 1 slices, sums
+    their partials. The images and the partials share one scratch
+    allocation; the launch counts under ``band_kernel``'s name."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _hd512_fn()
-    passes = PASSES[precision]
-    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype, precision)
-    n_img = 2 * (2 if passes == 3 else 1) * Hd * Hd
+    passes = kernel_passes(precision, chain_dtype)
+    S, _, G = sm90_fwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
+    n_img = 2 * _image_words(Hd, passes)
     n_part = (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
     scratch = torch.empty((n_img + sum(n_part),), dtype=torch.float32, device=dev)
     base = scratch.data_ptr()
@@ -964,11 +988,11 @@ def _fwd_hd512(a, bs, x, cmask, weights, agg, delta, W, precision) -> tuple[Tens
         err = fn(a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
                  *(t.data_ptr() for t in weights), base, agg.data_ptr(), delta.data_ptr(),
                  *parts, B, L, Hd, W, S, G, int(a.dtype == torch.bfloat16), passes, stream)
-    name = band_kernel(KERNEL, Hd, precision)
+    name = band_kernel(KERNEL, Hd, precision, chain_dtype)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_sm90_hd512_error_string(err).decode()})")
-    _count(name, a.dtype, precision, torch.float32)
+    _count(name, a.dtype, precision, chain_dtype)
     return agg, delta
 
 
@@ -992,6 +1016,64 @@ def hd512_weight_images(ws, orients, parts, nw: int, hmajor: bool) -> Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"egnn_hd512_weight_images failed: CUDA error {err}")
+    return out
+
+
+def weight_image_bf16(w, orient: int, nw: int, halves: int = 1, hmajor: bool = False):
+    """numpy mirror of the bf16 chain's layout kernel (egnn_sm90.cuh:
+    weight_images_bf16): the Hd x Hd fp32 weight ``w`` rounded to bf16 (to
+    nearest even) as the Hopper kernels stream it in the bf16 chain:
+    ``halves`` parts of Hd / halves output columns (2: the shared-tile
+    kernel's consumers), each of chunks of ``nw`` output rows x one K block
+    of 64 K values (32 words of two bf16, K padded with zeros to one block
+    at Hd 32), in the order (K block, column group), or with ``hmajor``
+    (column group, K block), each chunk's words in the 128-byte swizzle.
+    ``orient`` as ``weight_image``. Returns the flat image as uint16 bf16
+    bit patterns, 2 x ``bf16_image_words(Hd)`` of them (word w's K value 2w
+    first)."""
+    w = np.asarray(w, dtype=np.float32)
+    Hd = w.shape[0]
+    kw = max(Hd // 2, SM90_KB)
+    nkc, cols = kw // SM90_KB, Hd // halves
+    nh = cols // nw
+    e = np.arange(kw * Hd)
+    half, eh = e // (kw * cols), e % (kw * cols)
+    q, r = eh // (nw * SM90_KB), eh % (nw * SM90_KB)
+    nl, pos = r // SM90_KB, r % SM90_KB
+    kl = ((((pos >> 2) ^ (nl & 7)) & 7) << 2) | (pos & 3)
+    h, kc = (q // nkc, q % nkc) if hmajor else (q % nh, q // nh)
+    n = half * cols + h * nw + nl
+    k = np.stack([2 * (kc * SM90_KB + kl), 2 * (kc * SM90_KB + kl) + 1], axis=-1)
+    kk = np.minimum(k, Hd - 1)
+    v = w[kk, n[:, None]] if orient == IMG_T else w[n[:, None], kk]
+    return bf16_bits(np.where(k < Hd, v, np.float32(0)).reshape(-1))
+
+
+def bf16_bits(v):
+    """numpy float32 values rounded to bf16 (to nearest, ties to even, as
+    torch's cast), as uint16 bit patterns."""
+    u = np.asarray(v, dtype=np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + np.uint64(0x7FFF) + ((u >> np.uint64(16)) & np.uint64(1))) >> np.uint64(16)
+    return u.astype(np.uint16)
+
+
+def bf16_weight_images(ws, orients, nw: int, halves: int = 1, hmajor: bool = False) -> Tensor:
+    """The bf16 chain's layout kernel alone: the bf16 images of the CUDA
+    fp32 [Hd, Hd] weights ``ws`` in orientations ``orients``, chunk order
+    (``nw``, ``halves``, ``hmajor``), [len(ws), 2 * bf16_image_words(Hd)]
+    bf16, as the C entries of every Hopper family write them (for tests
+    against ``weight_image_bf16``)."""
+    Hd, dev = ws[0].shape[0], ws[0].device
+    lib = _sm90_fn()[1]
+    out = torch.empty((len(ws), 2 * bf16_image_words(Hd)), dtype=torch.bfloat16, device=dev)
+    srcs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
+    kinds = (ctypes.c_int * len(ws))(*orients)
+    with torch.cuda.device(dev):
+        err = lib.egnn_bf16_weight_images(
+            ctypes.cast(srcs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p), len(ws), Hd,
+            nw, halves, int(hmajor), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"egnn_bf16_weight_images failed: CUDA error {err}")
     return out
 
 
@@ -1037,29 +1119,30 @@ def _wide_fn():
 
 
 def wide_fwd_plan(B: int, L: int, W: int, dev, dtype: torch.dtype = torch.float32,
-                  precision: str = "highest") -> tuple[int, int, int]:
+                  precision: str = "highest", chain_dtype=torch.float32) -> tuple[int, int, int]:
     """``hd512_fwd_plan_of`` on CUDA device ``dev`` for kernel 1 above width
     512: its SM count and the blocks of that kernel one SM holds in the
     mode."""
     lib = _wide_fn()[1]
-    per_sm = _blocks_per_sm(WIDE_KERNEL, lambda _, b16, passes, __: (
-        lib.egnn_band_fwd_sm90_wide_blocks_per_sm(b16, passes)), 0, dev, dtype, precision,
-        torch.float32)
+    per_sm = _blocks_per_sm(WIDE_KERNEL, lambda _, b16, passes, cb: (
+        lib.egnn_band_fwd_sm90_wide_blocks_per_sm(b16, BF16_CHAIN if cb else passes)), 0, dev,
+        dtype, precision, chain_dtype)
     return hd512_fwd_plan_of(B, L, W, _sm_count(dev), per_sm)
 
 
-def _fwd_sm90_wide(a, bs, x, cmask, weights, agg, delta, W,
-                   precision) -> tuple[Tensor, Tensor]:
-    """Kernel 1 above width 512 in either fp32-chain mode: one C call writes
-    the weight images (Wb, and Ws in 3xTF32, of W_e2 and W_x1) into the
-    scratch, runs the kernel on the ``wide_fwd_plan`` grid (each block with
-    its stream buffers in the scratch) and, with S > 1 slices, sums their
-    partials, which share the allocation."""
+def _fwd_sm90_wide(a, bs, x, cmask, weights, agg, delta, W, precision,
+                   chain_dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """Kernel 1 above width 512 in every mode: one C call writes the weight
+    images (Wb, and Ws in 3xTF32, of W_e2 and W_x1; their bf16 images in
+    the bf16 chain) into the scratch, runs the kernel on the
+    ``wide_fwd_plan`` grid (each block with its stream buffers in the
+    scratch) and, with S > 1 slices, sums their partials, which share the
+    allocation."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _wide_fn()
-    passes = PASSES[precision]
-    S, _, G = wide_fwd_plan(B, L, W, dev, a.dtype, precision)
+    passes = kernel_passes(precision, chain_dtype)
+    S, _, G = wide_fwd_plan(B, L, W, dev, a.dtype, precision, chain_dtype)
     n_own = lib.egnn_band_fwd_sm90_wide_scratch_floats(Hd, G, passes)
     n_part = (S * B * L * Hd, S * B * L * 3) if S > 1 else (0, 0)
     scratch = torch.empty((n_own + sum(n_part),), dtype=torch.float32, device=dev)
@@ -1073,7 +1156,7 @@ def _fwd_sm90_wide(a, bs, x, cmask, weights, agg, delta, W,
     if err != 0:
         raise RuntimeError(f"{WIDE_KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_fwd_sm90_wide_error_string(err).decode()})")
-    _count(WIDE_KERNEL, a.dtype, precision, torch.float32)
+    _count(WIDE_KERNEL, a.dtype, precision, chain_dtype)
     return agg, delta
 
 
@@ -1097,50 +1180,6 @@ def wide_weight_images(ws, orients, parts, nc: int) -> Tensor:
     if err != 0:
         raise RuntimeError(f"egnn_wide_weight_images failed: CUDA error {err}")
     return out
-
-
-def _fwd_wide(a, bs, x, cmask, wts, agg, delta, W, bf16, passes, cb, precision,
-              chain_dtype) -> tuple[Tensor, Tensor]:
-    """Kernel 1's wide variant (Hd > MAX_NATIVE, a multiple of WIDE_GROUP),
-    the bf16 chain's above width 512: ``wide_fwd_grid`` blocks, each with
-    two [64, Hd] activation buffers of scratch."""
-    B, L, Hd = a.shape
-    dev = a.device
-    fn, lib = _kernel_fn()
-    per_sm = _blocks_per_sm(KERNEL, lib.egnn_band_fwd_blocks_per_sm, Hd, dev, a.dtype,
-                            precision, chain_dtype)
-    G = wide_fwd_grid(B, L, _sm_count(dev), per_sm)
-    scratch = torch.empty((lib.egnn_band_fwd_wide_scratch_floats(Hd, G, cb),),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.egnn_band_fwd_wide_launch(
-            a.data_ptr(), bs.data_ptr(), x.data_ptr(), cmask.data_ptr(),
-            *(t.data_ptr() for t in wts), agg.data_ptr(), delta.data_ptr(),
-            scratch.data_ptr(), B, L, Hd, W, G, bf16, passes, cb, stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err} "
-                           f"({lib.egnn_band_fwd_error_string(err).decode()})")
-    _count(KERNEL, a.dtype, precision, chain_dtype)
-    return agg, delta
-
-
-def _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                   transposed: bool = False) -> tuple[Tensor, ...]:
-    """The weights as the kernels read them, (w_d, w_e2, b_e2, w_x1, b_x1,
-    w_x2, b_x2) and with ``transposed`` also (W_e2^T, W_x1^T) row-major,
-    which the backward's cotangent products stream. The fp32 chain reads
-    them as given. The bf16 chain casts them to bf16 once per call (as
-    JAX's `_param_tuple` does) into one buffer, in two device kernels (four
-    with the transposes) rather than one per weight; each piece starts
-    16-byte aligned, as Hd is a multiple of 8 and b_x2 comes last."""
-    trans = (w_e2.t(), w_x1.t()) if transposed else ()
-    if not _chain_bf16(chain_dtype):
-        return (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2) + tuple(t.contiguous() for t in trans)
-    parts = (w_d, w_e2, b_e2, w_x1, b_x1, w_x2) + trans + (b_x2,)
-    flat = torch.cat([t.reshape(-1) for t in parts]).to(torch.bfloat16)
-    *pieces, b16 = flat.split([t.numel() for t in parts])
-    return tuple(pieces[:6]) + (b16,) + tuple(pieces[6:])
 
 
 def egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1,
@@ -1253,33 +1292,14 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     dw_e2 = alloc((Hd, Hd), **f32)
     dw_x1 = alloc((Hd, Hd), **f32)
     dvec = alloc((4 * Hd + 1,), **f32)
+    weights = (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
+    outs = (da, dbs, dx, dw_e2, dw_x1, dvec)
     if B and L and takes_wide(Hd, precision, chain_dtype):
-        _bwd_sm90_wide(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg,
-                       g_delta, (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
+        _bwd_sm90_wide(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision, chain_dtype)
     elif B and L and takes_hd512(Hd, precision, chain_dtype):
-        _bwd_hd512(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
-                   (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
-    elif B and L and takes_sm90(Hd, precision, chain_dtype):
-        _bwd_sm90(a, bs, x, cmask, (w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2), g_agg, g_delta,
-                  (da, dbs, dx, dw_e2, dw_x1, dvec), W, precision)
-    elif B and L:
-        fn, lib = _bwd_kernel_fn()
-        cb = _chain_bf16(chain_dtype)
-        G, nsplit = bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
-        scratch = torch.empty(
-            (lib.egnn_band_bwd_scratch_floats(B, L, Hd, W, G, nsplit, cb),), **f32)
-        wts = _chain_weights(chain_dtype, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
-                             transposed=True)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*(t.data_ptr() for t in (
-                a, bs, x, cmask, *wts, g_agg, g_delta, da, dbs, dx, dw_e2, dw_x1, dvec,
-                scratch)), B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16),
-                PASSES[precision], cb, stream)
-        if err != 0:
-            raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err} "
-                               f"({lib.egnn_band_bwd_error_string(err).decode()})")
-        _count(BWD_KERNEL, a.dtype, precision, chain_dtype)
+        _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision, chain_dtype)
+    elif B and L:   # the rest of the native widths in one pass or the bf16 chain
+        _bwd_sm90(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision, chain_dtype)
     dw_d, db_e2, db_x1, dw_x2 = dvec[:4 * Hd].view(4, Hd)
     return (da, dbs, dx, dw_d.reshape(w_d.shape), dw_e2,
             db_e2.reshape(b_e2.shape), dw_x1, db_x1.reshape(b_x1.shape),
@@ -1293,11 +1313,11 @@ def _sm90_bwd_fn():
 
         lib = load_library(SM90_BWD_KERNEL)
         fn = lib.egnn_band_bwd_sm90_launch
-        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.egnn_band_bwd_sm90_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.egnn_band_bwd_sm90_scratch_floats.argtypes = [ctypes.c_int] * 7
         lib.egnn_band_bwd_sm90_scratch_floats.restype = ctypes.c_size_t
-        lib.egnn_band_bwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.egnn_band_bwd_sm90_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.egnn_band_bwd_sm90_blocks_per_sm.restype = ctypes.c_int
         lib.egnn_band_bwd_sm90_error_string.argtypes = [ctypes.c_int]
         lib.egnn_band_bwd_sm90_error_string.restype = ctypes.c_char_p
@@ -1330,43 +1350,48 @@ def sm90_bwd_grid(B: int, L: int, W: int, Hd: int, n_sm: int,
 
 
 def sm90_bwd_plan(B: int, L: int, W: int, Hd: int, dev,
-                  dtype: torch.dtype = torch.bfloat16,
-                  precision: str = "default") -> tuple[int, int]:
+                  dtype: torch.dtype = torch.bfloat16, precision: str = "default",
+                  chain_dtype=torch.float32) -> tuple[int, int]:
     """``sm90_bwd_grid`` on CUDA device ``dev``: its SM count and the
     edge-pass blocks of the Hopper kernel 2 (the shared-tile one at width
-    512 or in 3xTF32, in the mode of ``precision``) that one SM holds."""
-    if takes_hd512(Hd, precision):
+    512 or in 3xTF32) in the mode that one SM holds."""
+    if takes_hd512(Hd, precision, chain_dtype):
         lib = _hd512_bwd_fn()[1]
-        per_sm = _blocks_per_sm(HD512_BWD_KERNEL, lambda hd, b16, passes, _: (
-            lib.egnn_band_bwd_sm90_hd512_blocks_per_sm(hd, b16, passes)), Hd, dev, dtype,
-            precision, torch.float32)
+        per_sm = _blocks_per_sm(HD512_BWD_KERNEL, lambda hd, b16, passes, cb: (
+            lib.egnn_band_bwd_sm90_hd512_blocks_per_sm(hd, b16, BF16_CHAIN if cb else passes)),
+            Hd, dev, dtype, precision, chain_dtype)
         return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm, shared=True)
     lib = _sm90_bwd_fn()[1]
-    per_sm = _blocks_per_sm(SM90_BWD_KERNEL, lambda hd, b16, *_: lib.egnn_band_bwd_sm90_blocks_per_sm(
-        hd, b16), Hd, dev, dtype, "default", torch.float32)
+    per_sm = _blocks_per_sm(SM90_BWD_KERNEL, lambda hd, b16, passes, cb: (
+        lib.egnn_band_bwd_sm90_blocks_per_sm(hd, b16, BF16_CHAIN if cb else 1)),
+        Hd, dev, dtype, "default", chain_dtype)
     return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm)
 
 
-def _bwd_sm90(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
-    """Kernel 2 on Hopper (the one-pass fp32 chain at a width of
-    SM90_HIDDEN) into ``outs`` = (da, dbs, dx, dw_e2, dw_x1, dvec): one C
-    call writes the four weight images into the scratch and runs the edge,
-    node, weight-grad and reduce passes on the ``sm90_bwd_plan`` grid."""
+def _bwd_sm90(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision,
+              chain_dtype=torch.float32) -> None:
+    """Kernel 2 on Hopper (the one-pass fp32 chain or the bf16 chain at a
+    width of SM90_HIDDEN) into ``outs`` = (da, dbs, dx, dw_e2, dw_x1, dvec):
+    one C call writes the four weight images into the scratch and runs the
+    edge, node, weight-grad and reduce passes on the ``sm90_bwd_plan``
+    grid."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _sm90_bwd_fn()
-    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype)
-    scratch = torch.empty((lib.egnn_band_bwd_sm90_scratch_floats(B, L, Hd, W, G, nsplit),),
-                          dtype=torch.float32, device=dev)
+    passes = kernel_passes(precision, chain_dtype)
+    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
+    scratch = torch.empty(
+        (lib.egnn_band_bwd_sm90_scratch_floats(B, L, Hd, W, G, nsplit, passes),),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
                                           scratch)),
-                 B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), stream)
+                 B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
     if err != 0:
         raise RuntimeError(f"{SM90_BWD_KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_error_string(err).decode()})")
-    _count(SM90_BWD_KERNEL, a.dtype, precision, torch.float32)
+    _count(SM90_BWD_KERNEL, a.dtype, precision, chain_dtype)
 
 
 def _hd512_bwd_fn():
@@ -1388,18 +1413,20 @@ def _hd512_bwd_fn():
     return _HD512_BWD_FN
 
 
-def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
-    """Kernel 2 on the shared-tile Hopper kernel (width 512 in both
-    fp32-chain modes, 3xTF32 at SM90_HIDDEN) into ``outs`` = (da, dbs, dx,
-    dw_e2, dw_x1, dvec): one C call writes the weight images (four
-    orientations, each Wb and in 3xTF32 Ws) into the scratch and runs the
-    edge, node, weight-grad and reduce passes on the ``sm90_bwd_plan`` grid;
-    the launch counts under ``band_kernel``'s name."""
+def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision,
+               chain_dtype=torch.float32) -> None:
+    """Kernel 2 on the shared-tile Hopper kernel (width 512 in every mode,
+    3xTF32 at SM90_HIDDEN) into ``outs`` = (da, dbs, dx, dw_e2, dw_x1,
+    dvec): one C call writes the weight images (four orientations, each Wb
+    and in 3xTF32 Ws, or in the bf16 chain its bf16 image) into the scratch
+    and runs the edge, node, weight-grad and reduce passes on the
+    ``sm90_bwd_plan`` grid; the launch counts under ``band_kernel``'s
+    name."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _hd512_bwd_fn()
-    passes = PASSES[precision]
-    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    passes = kernel_passes(precision, chain_dtype)
+    G, nsplit = sm90_bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
     scratch = torch.empty(
         (lib.egnn_band_bwd_sm90_hd512_scratch_floats(B, L, Hd, W, G, nsplit, passes),),
         dtype=torch.float32, device=dev)
@@ -1408,11 +1435,11 @@ def _bwd_hd512(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> 
         err = fn(*(t.data_ptr() for t in (a, bs, x, cmask, *weights, g_agg, g_delta, *outs,
                                           scratch)),
                  B, L, Hd, W, G, nsplit, int(a.dtype == torch.bfloat16), passes, stream)
-    name = band_kernel(BWD_KERNEL, Hd, precision)
+    name = band_kernel(BWD_KERNEL, Hd, precision, chain_dtype)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_hd512_error_string(err).decode()})")
-    _count(name, a.dtype, precision, torch.float32)
+    _count(name, a.dtype, precision, chain_dtype)
 
 
 def _wide_bwd_fn():
@@ -1435,29 +1462,30 @@ def _wide_bwd_fn():
 
 
 def wide_bwd_plan(B: int, L: int, W: int, Hd: int, dev, dtype: torch.dtype = torch.float32,
-                  precision: str = "highest") -> tuple[int, int]:
+                  precision: str = "highest", chain_dtype=torch.float32) -> tuple[int, int]:
     """Kernel 2's plan above width 512 on CUDA device ``dev``: as the
     shared-tile kernel's (``sm90_bwd_grid`` with ``shared``: a persistent
     edge pass over single steps, weight-grad tiles of 64 x 64), with the
     edge-pass blocks one SM holds in the mode."""
     lib = _wide_bwd_fn()[1]
-    per_sm = _blocks_per_sm(WIDE_BWD_KERNEL, lambda _, b16, passes, __: (
-        lib.egnn_band_bwd_sm90_wide_blocks_per_sm(b16, passes)), 0, dev, dtype, precision,
-        torch.float32)
+    per_sm = _blocks_per_sm(WIDE_BWD_KERNEL, lambda _, b16, passes, cb: (
+        lib.egnn_band_bwd_sm90_wide_blocks_per_sm(b16, BF16_CHAIN if cb else passes)), 0, dev,
+        dtype, precision, chain_dtype)
     return sm90_bwd_grid(B, L, W, Hd, _sm_count(dev), per_sm, shared=True)
 
 
-def _bwd_sm90_wide(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision) -> None:
-    """Kernel 2 above width 512 in either fp32-chain mode into ``outs`` =
-    (da, dbs, dx, dw_e2, dw_x1, dvec): one C call writes the weight images
-    (four orientations, each Wb and in 3xTF32 Ws) into the scratch and runs
-    the edge, node, weight-grad and reduce passes on the ``wide_bwd_plan``
-    grid."""
+def _bwd_sm90_wide(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision,
+                   chain_dtype=torch.float32) -> None:
+    """Kernel 2 above width 512 in every mode into ``outs`` = (da, dbs, dx,
+    dw_e2, dw_x1, dvec): one C call writes the weight images (four
+    orientations, each Wb and in 3xTF32 Ws, or in the bf16 chain its bf16
+    image) into the scratch and runs the edge, node, weight-grad and reduce
+    passes on the ``wide_bwd_plan`` grid."""
     B, L, Hd = a.shape
     dev = a.device
     fn, lib = _wide_bwd_fn()
-    passes = PASSES[precision]
-    G, nsplit = wide_bwd_plan(B, L, W, Hd, dev, a.dtype, precision)
+    passes = kernel_passes(precision, chain_dtype)
+    G, nsplit = wide_bwd_plan(B, L, W, Hd, dev, a.dtype, precision, chain_dtype)
     scratch = torch.empty(
         (lib.egnn_band_bwd_sm90_wide_scratch_floats(B, L, Hd, W, G, nsplit, passes),),
         dtype=torch.float32, device=dev)
@@ -1469,7 +1497,7 @@ def _bwd_sm90_wide(a, bs, x, cmask, weights, g_agg, g_delta, outs, W, precision)
     if err != 0:
         raise RuntimeError(f"{WIDE_BWD_KERNEL} launch failed: CUDA error {err} "
                            f"({lib.egnn_band_bwd_sm90_wide_error_string(err).decode()})")
-    _count(WIDE_BWD_KERNEL, a.dtype, precision, torch.float32)
+    _count(WIDE_BWD_KERNEL, a.dtype, precision, chain_dtype)
 
 
 class EGNNBandFunction(torch.autograd.Function):

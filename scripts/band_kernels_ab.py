@@ -54,6 +54,17 @@ memory traffic), the ceiling of kernels 1-2's products without wgmma.
 variants, ``egnn_band_fwd_wide_launch`` with ``wide_fwd_grid``) at
 WIDE_SHAPES: Hd 1024 at B4/L256, and Hd 768, 1280, 2048 at B1/L256; with
 ``--l2-rate`` its rows give the weight- and A-stream floors.
+``--chain`` times only the bf16 chain (bf16 ``a`` / ``bs``,
+``chain_dtype=bfloat16``) at CHAIN_SHAPES, the current Hopper kernels of
+each width's family against a baseline that runs the chain on ``mma.sync``
+(an earlier commit's ``egnn_band_fwd.cu`` / ``egnn_band_bwd.cu`` /
+``egnn_tile.cuh``, its wide variants above 512): Hd 256 at B16/L256 and
+B4/L256, Hd 512 and 1024 at B4/L256, and chip_smoke.py's WIDER_ROWS widths
+640, 1100 and 2048 at B1/L256, both kernels, each held against the plain
+version at chip_smoke.py's bf16-chain tolerances; beside each row the
+one-pass fp32-chain kernel's time on the same inputs in the same call, the
+plain version's time, the bf16 bounds and (with ``--l2-rate``) the bf16
+chain's floors.
 Needs a GPU; imports no JAX.
 """
 
@@ -92,6 +103,9 @@ WIDTH_PASS_SPLIT_SHAPES = ((4, 256),)
 # epoch's train step, then the reconstruction decode's B1 over the widths
 WIDE_SHAPES = ((1024, 4, 256), (768, 1, 256), (1280, 1, 256), (2048, 1, 256))
 WIDE_REPS = 3
+# --chain: (Hd, B, L) of both kernels in the bf16 chain
+CHAIN_SHAPES = ((256, 16, 256), (256, 4, 256), (512, 4, 256), (1024, 4, 256), (640, 1, 256),
+                (1100, 1, 256), (2048, 1, 256))
 
 
 # Each warp issues ITERS x 16 m16n8k8 TF32 products into 16 independent
@@ -319,8 +333,9 @@ def _check(label, names, got, want, mode):
                     raise RuntimeError(f"{label} {n} disagrees with its plain version")
             else:
                 cs._close_scaled(f"{label} {n}", g, w)
-        else:
-            frac = cs.BF16_VALUE_FRAC if len(names) == 2 else cs.BF16_GRAD_FRAC
+        else:   # values of the bf16 chain at its own tolerance
+            value_frac = cs.CHAIN_VALUE_FRAC if mode[2] == torch.bfloat16 else cs.BF16_VALUE_FRAC
+            frac = value_frac if len(names) == 2 else cs.BF16_GRAD_FRAC
             cs._bf16_err(f"{label} {n}", g, w, frac)
 
 
@@ -398,6 +413,88 @@ def _wide_rows(base, n_sm: int, W: int) -> list:
     return rows
 
 
+def _chain_rows(base, n_sm: int, W: int) -> list:
+    """--chain: kernels 1-2 in the bf16 chain at CHAIN_SHAPES, the current
+    Hopper kernels against the baseline's mma.sync ones in turns (above 512
+    WIDE_REPS windows of 3 calls), each held against the plain version
+    first; beside them the one-pass fp32-chain kernel on the same inputs,
+    the plain version's time, the bf16 bounds, the plan and (with the L2
+    rate measured) the bf16 chain's floors."""
+    import torch
+
+    import torch.nn.functional as F
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (
+        MAX_NATIVE, band_kernel, egnn_band_bwd, egnn_band_bwd_reference, egnn_band_fwd,
+        egnn_band_reference, native_width, pad_band_width, unpad_band_grads)
+
+    b16 = torch.bfloat16
+
+    # the baseline at a width it does not take: zero-padded to the native
+    # width and sliced back, as the parent's wrappers did (the pad copies
+    # timed with it)
+    def old_fwd(args, n):
+        if n == args[0].shape[-1]:
+            return _baseline_fwd(base, args, W, mode, n_sm)
+        agg, delta = _baseline_fwd(base, list(pad_band_width(*args, n)), W, mode, n_sm)
+        return agg[..., :args[0].shape[-1]], delta
+
+    def old_bwd(args, g_agg, g_delta, n):
+        hd_ = args[0].shape[-1]
+        if n == hd_:
+            return _baseline_bwd(base, args, g_agg, g_delta, W, mode, n_sm)
+        grads = _baseline_bwd(base, list(pad_band_width(*args, n)), F.pad(g_agg, (0, n - hd_)),
+                              g_delta, W, mode, n_sm)
+        return unpad_band_grads(grads, *args)
+
+    mode = (b16, "default", b16)
+    names = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
+    rows = []
+    for k, (hd, B, L) in enumerate(CHAIN_SHAPES):
+        args0 = cs._egnn_inputs(B, L, cs.SEED + 70 + k, hd)
+        args = [args0[0].to(b16), args0[1].to(b16)] + args0[2:]
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 70 + k)
+        g_agg = torch.randn(B, L, hd, generator=g, device="cuda")
+        g_delta = torch.randn(B, L, 3, generator=g, device="cuda")
+        kw = dict(reps=WIDE_REPS, min_launches=3) if native_width(hd) > MAX_NATIVE else {}
+        for kernel in ("egnn_band_fwd", "egnn_band_bwd"):
+            fwd = kernel == "egnn_band_fwd"
+            if fwd:
+                cur = lambda: egnn_band_fwd(*args, W, "default", b16)  # noqa: E731
+                onepass = lambda: egnn_band_fwd(*args, W, "default")  # noqa: E731
+                old = lambda: old_fwd(args, native_width(hd))  # noqa: E731
+                plain = lambda: egnn_band_reference(*args, W, b16)  # noqa: E731
+                outs = ("agg", "raw_delta")
+            else:
+                cur = lambda: egnn_band_bwd(*args, g_agg, g_delta, W, "default", b16)  # noqa: E731
+                onepass = lambda: egnn_band_bwd(*args, g_agg, g_delta, W, "default")  # noqa: E731
+                old = lambda: old_bwd(args, g_agg, g_delta, native_width(hd))  # noqa: E731
+                plain = lambda: egnn_band_bwd_reference(*args, g_agg, g_delta, W, b16)  # noqa: E731
+                outs = names
+            served = band_kernel(kernel, hd, "default", b16)
+            tag = f"{served}:bfloat16/bfloat16_chain Hd{hd} B{B}/L{L}"
+            ref = plain()
+            for label, fn in (("baseline", old), ("current", cur)):
+                _check(f"{label} {tag}", outs, fn(), ref, mode)
+            del ref
+            bound_fn = cs._egnn_bound if fwd else cs._band_bwd_bound
+            bound, by, *_, tc, _ = bound_fn(B, L, args[3], 2, 1, cs.PEAK_BF16_FLOPS, hd)
+            floors = (cs._sm90_floors(served, B, L, args[3], hd, "default", True)
+                      if cs.READ_RATE else {})
+            turns = _turns(old, cur, **kw)
+            row = dict(kernel=served, mode="bfloat16/bfloat16_chain", Hd=hd,
+                       padded_to=native_width(hd), B=B, L=L, **turns,
+                       ratio=min(turns["current_ms"]) / min(turns["baseline_ms"]),
+                       onepass_fp32_chain_ms=cs._median_ms(onepass, **kw),
+                       plain_ms=cs._median_ms(plain, **(kw or dict(reps=3))),
+                       bound_ms=bound, bound_by=by, tc_bound_ms=tc, **floors)
+            rows.append(row)
+            cs.log(f"[ab] {json.dumps(row)}")
+        del args, args0, g_agg, g_delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True, metavar="DIR",
@@ -420,6 +517,8 @@ def main(argv=None) -> None:
                     help="also measure the card's L2 and HBM read rates")
     ap.add_argument("--wide", action="store_true",
                     help="only both fp32-chain modes above width 512, at WIDE_SHAPES")
+    ap.add_argument("--chain", action="store_true",
+                    help="only the bf16 chain, at CHAIN_SHAPES (the baseline on mma.sync)")
     ap.add_argument("--hd", type=int, default=None, metavar="N",
                     help="decoder width (default chip_smoke.py's HD); another width "
                          "times the 3xTF32 and one-pass modes at WIDTH_*_SHAPES")
@@ -486,6 +585,11 @@ def main(argv=None) -> None:
     if args_ns.wide:
         fwd_shapes = bwd_shapes = ()
         rows += _wide_rows(base, n_sm, W)
+    if args_ns.chain:
+        if not base["chain"]:
+            raise RuntimeError("--chain: the baseline has no bf16 chain (chain_bf16)")
+        fwd_shapes = bwd_shapes = ()
+        rows += _chain_rows(base, n_sm, W)
 
     for k, (B, L) in enumerate(fwd_shapes):
         args0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)
@@ -504,9 +608,10 @@ def main(argv=None) -> None:
                                                  passes, peak, hd)
             served = band_kernel("egnn_band_fwd", hd, precision, chain)
             if served != "egnn_band_fwd":
-                S, _, G = sm90_fwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision)
+                S, _, G = sm90_fwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision,
+                                        chain)
                 plan = dict(slices=S, units=B * band_work(B, L, W)[0] * S, blocks=G,
-                            **(cs._sm90_floors(served, B, L, args[3], hd, precision)
+                            **(cs._sm90_floors(served, B, L, args[3], hd, precision, chain == b16)
                                if cs.READ_RATE else {}))
             else:
                 S = fwd_plan(B, L, W, hd, args[0].device, *mode)
@@ -546,8 +651,9 @@ def main(argv=None) -> None:
                                                   passes, peak, hd)
             served = band_kernel("egnn_band_bwd", hd, precision, chain)
             if served != "egnn_band_bwd":
-                G, nsplit = sm90_bwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision)
-                floors = (cs._sm90_floors(served, B, L, args[3], hd, precision)
+                G, nsplit = sm90_bwd_plan(B, L, W, hd, args[0].device, args[0].dtype, precision,
+                                          chain)
+                floors = (cs._sm90_floors(served, B, L, args[3], hd, precision, chain == b16)
                           if cs.READ_RATE else {})
             else:
                 G, nsplit = bwd_plan(B, L, W, hd, args[0].device, *mode)

@@ -6,9 +6,12 @@ work removed at a time, on one NVIDIA GPU. ``--x3`` ablates the
 shared-tile kernels in the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS,
 at X3_SHAPES); ``--wide`` the kernels above 512 in both fp32-chain modes
 (``csrc/egnn_band_{fwd,bwd}_sm90_wide.cu``, WIDE_VARIANTS) at Hd 1024,
-B4/L256.
+B4/L256. ``--chain`` ablates the bf16 chain (bf16 ``a`` / ``bs``,
+``chain_dtype=bfloat16``) instead, on the family of the width: the one-pass
+kernels at Hd 256 (CHAIN_SHAPES), with ``--hd 512`` the shared-tile kernels,
+with ``--wide`` those above 512 at Hd 1024 (CHAIN_VARIANTS of each).
 
-    python scripts/band_sm90_ablation.py [--hd 512 | --x3 | --wide]
+    python scripts/band_sm90_ablation.py [--hd 512 | --x3 | --wide] [--chain]
         [--workdir DIR] [--out FILE.json]
 
 Each variant is a copy of ``protein_ensemble_vae_torch/csrc/`` in DIR (a
@@ -20,9 +23,11 @@ libraries swapped in) at the flagship's training shapes in the bf16 model's
 mode (at width 512: the train step's B4/L256 in the 3xTF32 and one-pass
 modes, fp32 ``a`` / ``bs`` in 3xTF32 as the fp32 model has them), kernel 1
 and kernel 2 (CUDA events, chip_smoke.py's ``_median_ms``),
-and both kernels by pass (torch.profiler, ``band_kernels_ab._pass_split``). The
-difference between the full kernels and a variant bounds what that part
-costs where it does not overlap the rest. Needs a GPU; imports no JAX.
+and both kernels by pass (torch.profiler, ``band_kernels_ab._pass_split``),
+with ptxas's stack frame and spills of each variant's band kernels (in
+its first row). The difference between the full kernels and a variant
+bounds what that part costs where it does not overlap the rest. Needs a
+GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ VARIANTS = {
     "full": (),
     # the tensor-core products (acc keeps whatever it held)
     "no_wgmma": (("egnn_sm90.cuh",
-                  r"Wgmma<NW>::mma\(acc\[h\], desc\(a \+ 8 \* k8\), desc\(b \+ 8 \* k8\),\s*"
+                  r"Wgmma<NW(?:, BF)?>::mma\(acc\[h\], desc\(a \+ 8 \* k8\), desc\(b \+ 8 \* k8\),\s*"
                   r"accumulate \|\| \(kc \| k8\) != 0\);", ";"),
                  ("egnn_sm90.cuh",
                   r"Wgmma<NW>::mma\(tmp, desc\(a \+ 8 \* k8\), desc\(b \+ 8 \* k8\),\s*"
@@ -70,7 +75,7 @@ VARIANTS = {
                           r"CHUNK, CHUNK \* 4, &full\[rp\.stage\]\);",
                           "mbar_arrive(&full[rp.stage]);"),),
     # kernel 2: the four copies of a step's tile to the weight-grad scratch
-    "no_scratch_copies": (("egnn_band_bwd_sm90.cu", r"tile_to_scratch<HD>\(A, \w+, t, q\);", ""),),
+    "no_scratch_copies": (("egnn_band_bwd_sm90.cu", r"tile_to_scratch<HD>\(A, \w+, t, q\);", ";"),),
     # kernel 2: the vector grads' column sums
     "no_column_sums": (("egnn_band_bwd_sm90.cu",
                         r"(__device__ __forceinline__ void add_cols8\(.*?\) \{\n).*?\n\}",
@@ -82,8 +87,8 @@ HD512_VARIANTS = {
     "no_silu": VARIANTS["no_silu"],
     "no_weight_copies": VARIANTS["no_weight_copies"],
     "no_scratch_copies": (("egnn_band_bwd_sm90_hd512.cu",
-                           r"auto side = \[&\]\(int q\) \{ tile_to_scratch<HD>\(A, dst, tid, q\); \};",
-                           "auto side = [&](int) {};"),),
+                           r"if constexpr \(CB\) tile_to_scratch_bf16<HD>\(A, dst, tid, q\);\s*"
+                           r"else tile_to_scratch<HD>\(A, dst, tid, q\);", ";"),),
     "no_column_sums": (("egnn_band_bwd_sm90_hd512.cu",
                         r"(__device__ __forceinline__ void add_cols8\(.*?\) \{\n).*?\n\}",
                         r"\1}"),),
@@ -181,7 +186,8 @@ WIDE_VARIANTS = {
     "full": (),
     # every product of the edge passes (the weight-grad pass keeps its own)
     "no_wgmma": tuple(("egnn_sm90_wide.cuh", pat, ";") for pat in (
-        r"Wgmma<NW>::mma\(acc, desc\(a \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), \(kc \| k8\) != 0\);",
+        r"Wgmma<NW(?:, CB)?>::mma\(acc, desc\(a \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), "
+        r"\(kc \| k8\) != 0\);",
         r"Wgmma<NW>::mma\(sml, desc\(a \+ 8 \* k8\), desc\(ws \+ 8 \* k8\), \(kc \| k8\) != 0\);",
         r"Wgmma<NW>::mma\(t, desc\(a \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), k8 != 0\);",
         r"Wgmma<NW>::mma\(sml, desc\(as \+ 8 \* k8\), desc\(wb \+ 8 \* k8\), 1\);")),
@@ -227,6 +233,35 @@ WIDE_VARIANTS = {
 }
 
 
+# --chain: the bf16 chain. Its sigmoid's exponentials and reciprocals in
+# fp32 (egnn_sm90.cuh: sigmoid2) are its own part; the products, the
+# streams and the side work are the families' variants.
+CHAIN_SHAPES = ((16, 256), (4, 256))
+_CHAIN_OWN = {
+    # the bf16 sigmoid's exponentials and reciprocals (its bf16x2 ops stay)
+    "no_sigmoid_bf16": (("egnn_sm90.cuh",
+                         r"const float2 d = f2\(add2\(one2\(\), bf2r\(__expf\(-v\.x\), "
+                         r"__expf\(-v\.y\)\)\)\);\s*return bf2r\(__fdividef\(1\.0f, d\.x\), "
+                         r"__fdividef\(1\.0f, d\.y\)\);",
+                         "return bf2r(0.5f + 0.125f * v.x, 0.5f + 0.125f * v.y);"),),
+}
+CHAIN_VARIANTS = {
+    "one_pass": {"full": (), "no_wgmma": VARIANTS["no_wgmma"], **_CHAIN_OWN,
+                 "no_weight_copies": VARIANTS["no_weight_copies"],
+                 "no_scratch_copies": (("egnn_band_bwd_sm90.cu",
+                                        r"if constexpr \(CB\) tile_to_scratch_bf16<HD>\(A, dst, t, q\);",
+                                        "if constexpr (CB) {}"),),
+                 "no_column_sums": VARIANTS["no_column_sums"]},
+    "hd512": {"full": (), "no_wgmma": VARIANTS["no_wgmma"], **_CHAIN_OWN,
+              "no_weight_copies": VARIANTS["no_weight_copies"],
+              "no_scratch_copies": HD512_VARIANTS["no_scratch_copies"],
+              "no_column_sums": HD512_VARIANTS["no_column_sums"]},
+    "wide": {"full": (), "no_wgmma": WIDE_VARIANTS["no_wgmma"][:1], **_CHAIN_OWN,
+             **{k: WIDE_VARIANTS[k] for k in ("no_a_stream", "no_weight_copies", "no_side",
+                                               "no_epilogue_stores")}},
+}
+
+
 def _variant_dir(workdir: str, name: str, csrc: str, variants: dict) -> str:
     """csrc copied to workdir/<name> with the variant's substitutions."""
     out = os.path.join(workdir, name)
@@ -244,9 +279,21 @@ def _variant_dir(workdir: str, name: str, csrc: str, variants: dict) -> str:
     return out
 
 
-def _build_all(workdir: str, variants: dict, sources: tuple) -> dict:
+def _spills(log: str) -> dict:
+    """The band kernels' entries in an nvcc -Xptxas -v log: their mangled
+    names' readable part -> ptxas's stack frame and spill line."""
+    lines, out = log.splitlines(), {}
+    for i, line in enumerate(lines[:-1]):
+        m = re.search(r"Function properties for \S*?(egnn_(?:fwd|bwd_edges)\w*?)Ev", line)
+        if m:
+            out[m.group(1)] = lines[i + 1].strip()
+    return out
+
+
+def _build_all(workdir: str, variants: dict, sources: tuple) -> tuple[dict, dict]:
     """nvcc every variant's two sources, all at once; returns name ->
-    {source: library path}."""
+    {source: library path}, and name -> its band kernels' ptxas stack frame
+    and spill lines (``_spills``)."""
     from protein_ensemble_vae_torch.ops.kernels.build import CSRC_DIR, NVCC_FLAGS, nvcc_path
 
     procs, libs = [], {}
@@ -259,11 +306,13 @@ def _build_all(workdir: str, variants: dict, sources: tuple) -> dict:
             procs.append((name, src, subprocess.Popen(
                 [nvcc_path(), *NVCC_FLAGS, "-o", lib, os.path.join(d, src + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    spills = {name: {} for name in variants}
     for name, src, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"variant {name} {src} failed to build:\n{log}")
-    return libs
+        spills[name].update(_spills(log))
+    return libs, spills
 
 
 def _drift(fwd_of, a, hd: int) -> dict:
@@ -310,6 +359,8 @@ def main(argv=None) -> None:
                     help="the fp32 model's 3xTF32 mode at Hd 256 (X3_VARIANTS), at X3_SHAPES")
     ap.add_argument("--wide", action="store_true",
                     help="the kernels above 512 at Hd 1024 (WIDE_VARIANTS), both modes")
+    ap.add_argument("--chain", action="store_true",
+                    help="the bf16 chain (CHAIN_VARIANTS) on the family of the width")
     ap.add_argument("--variants", default=None, metavar="A,B,...",
                     help="only these variants (\"full\" is always run)")
     ap.add_argument("--out", default=None, metavar="FILE.json")
@@ -324,7 +375,14 @@ def main(argv=None) -> None:
     workdir = os.path.abspath(args.workdir or os.path.join(build.DEFAULT_BUILD_DIR, "ablation"))
     os.makedirs(workdir, exist_ok=True)
     hd = WIDE_HD if args.wide else args.hd or cs.HD
-    if args.wide:
+    chain = torch.bfloat16 if args.chain else torch.float32
+    if args.chain:
+        family = "wide" if args.wide else "hd512" if args.hd else "one_pass"
+        variants = CHAIN_VARIANTS[family]
+        sources = {"wide": WIDE_SOURCES, "hd512": HD512_SOURCES, "one_pass": SOURCES}[family]
+        shapes = CHAIN_SHAPES if family == "one_pass" else ((4, 256),)
+        modes = ((torch.bfloat16, "default"),)
+    elif args.wide:
         variants, sources, shapes = WIDE_VARIANTS, WIDE_SOURCES, WIDE_SHAPES
         modes = ((torch.float32, "highest"), (torch.bfloat16, "default"))
     elif args.x3:
@@ -339,7 +397,7 @@ def main(argv=None) -> None:
     if args.variants:
         keep = {"full", *args.variants.split(",")}
         variants = {k: v for k, v in variants.items() if k in keep}
-    libs = _build_all(workdir, variants, sources)
+    libs, spills = _build_all(workdir, variants, sources)
     rows = []
     for k, (B, L) in enumerate(shapes):
         a0 = cs._egnn_inputs(B, L, cs.SEED + k, hd)
@@ -353,16 +411,20 @@ def main(argv=None) -> None:
                         and precision != "highest"):
                     continue   # the splits and small terms run in 3xTF32 only
                 _use(libs[name])
-                fwd_of = lambda x: egnn_band_fwd(*x, cs.W, precision)  # noqa: E731
-                bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision)  # noqa: E731
+                fwd_of = lambda x: egnn_band_fwd(*x, cs.W, precision, chain)  # noqa: E731
+                bwd = lambda: egnn_band_bwd(*a, g_agg, g_delta, cs.W, precision,  # noqa: E731
+                                            chain)
                 fwd = lambda: fwd_of(a)  # noqa: E731
                 kw = dict(reps=3, min_launches=3) if args.wide else {}
                 row = dict(variant=name, precision=precision, Hd=hd, B=B, L=L,
+                           chain=str(chain)[6:],
                            fwd_ms=cs._median_ms(fwd, **kw), bwd_ms=cs._median_ms(bwd, **kw),
                            fwd_passes_ms=ab._pass_split(fwd),
                            bwd_passes_ms=ab._pass_split(bwd))
                 if args.x3 and k == 0:   # the variant's accumulation drift
                     row["drift"] = _drift(fwd_of, a, hd)
+                if k == 0 and dtype == modes[0][0]:   # its kernels' registers spilled
+                    row["ptxas"] = spills[name]
                 rows.append(row)
                 cs.log(f"[ablation] {json.dumps(row)}")
     result = dict(device=device, rows=rows)

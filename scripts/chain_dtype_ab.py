@@ -21,8 +21,15 @@ seeded torch generator), through ``egnn_band_fused`` on CUDA tensors
   (``chip_smoke._median_ms``), in turns (fp32, bf16, bf16, fp32 for each
   fp32 precision) in this one process.
 
+Then the same at B4/L256/W40 at Hd 512 and 1024 (WIDER: the widths whose
+bf16 chain runs on the shared-tile and the wide Hopper kernels; the edge
+weights' scales divided by sqrt(Hd / 256), so the activations keep the
+reference shape's scale), the times over fewer windows (WIDER_REPS of at
+least WIDER_LAUNCHES calls), under ``wider``.
+
 Prints one JSON line with the card's name and power limit. ``run()`` is the
-mode's path in ``chip_smoke.py``. Needs a GPU; imports no JAX.
+mode's path in ``chip_smoke.py``: at Hd 256, 512 and 1024 it launches each
+Hopper family in the bf16 chain. Needs a GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,22 +45,26 @@ import chip_smoke as cs  # noqa: E402
 
 B, L, HD, W = 16, 256, 256, 40
 SEED = 0
+WIDER = ((4, 256, 512), (4, 256, 1024))   # (B, L, Hd) after the reference shape
+WIDER_REPS, WIDER_LAUNCHES = 3, 5
 NAMES = ("a", "bs", "x", "w_d", "w_e2", "b_e2", "w_x1", "b_x1", "w_x2", "b_x2")
 
 
-def make_inputs(seed: int = SEED) -> list:
+def make_inputs(seed: int = SEED, b: int = B, l: int = L, hd: int = HD) -> list:
     """The JAX script's inputs and scales (``make_inputs``), from a seeded
     torch generator: (a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2,
-    b_x2), fp32, on the card."""
+    b_x2), fp32, on the card; at another width the [hd, hd] and [hd, 1]
+    weights' scales divided by sqrt(hd / HD)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     n = lambda shape, sd: torch.randn(shape, generator=g) * sd  # noqa: E731
-    a, bs = n((B, L, HD), 0.3), n((B, L, HD), 0.3)
-    x = n((B, L, 3), 3.0)
-    cm = (torch.rand((B, L), generator=g) > 0.1).float()
-    params = (n((1, HD), 0.05), n((HD, HD), 0.06), n((HD,), 0.05), n((HD, HD), 0.06),
-              n((HD,), 0.05), n((HD, 1), 0.06), n((1,), 0.05))
+    a, bs = n((b, l, hd), 0.3), n((b, l, hd), 0.3)
+    x = n((b, l, 3), 3.0)
+    cm = (torch.rand((b, l), generator=g) > 0.1).float()
+    sw = 0.06 * (HD / hd) ** 0.5
+    params = (n((1, hd), 0.05), n((hd, hd), sw), n((hd,), 0.05), n((hd, hd), sw),
+              n((hd,), 0.05), n((hd, 1), sw), n((1,), 0.05))
     return [t.cuda().contiguous() for t in (a, bs, x, cm) + params]
 
 
@@ -62,13 +73,22 @@ def _rel(got, want) -> float:
 
 
 def run(seed: int = SEED) -> dict:
-    """The A/B at B16/L256/Hd256/W40: value gaps of the bf16 chain against
-    the fp32 chain and fwd+bwd ms per call of each (module docstring)."""
+    """The A/B at B16/L256/Hd256/W40, then at WIDER: value gaps of the bf16
+    chain against the fp32 chain and fwd+bwd ms per call of each (module
+    docstring)."""
+    out = _ab(seed, B, L, HD)
+    out["wider"] = [_ab(seed, b, l, hd, dict(reps=WIDER_REPS, min_launches=WIDER_LAUNCHES))
+                    for b, l, hd in WIDER]
+    return out
+
+
+def _ab(seed: int, b: int, l: int, hd: int, timing: dict | None = None) -> dict:
+    """One shape's A/B; ``timing``: ``_median_ms``'s windows."""
     import torch
 
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import egnn_band_fused
 
-    args = make_inputs(seed)
+    args = make_inputs(seed, b, l, hd)
     cm = args[3]
     diff = [t.clone().requires_grad_(True) for t in args[:3] + args[4:]]
 
@@ -90,14 +110,14 @@ def run(seed: int = SEED) -> dict:
             raise RuntimeError("chain_dtype_ab: the bf16 chain gave a non-finite value")
     grad_gaps = {n: _rel(a, b) for n, a, b in zip(NAMES, g16, g32)}
     worst = max(grad_gaps, key=grad_gaps.get)
-    out = dict(shape=f"B{B}/L{L}/Hd{HD}/W{W}", seed=seed,
+    out = dict(shape=f"B{b}/L{l}/Hd{hd}/W{W}", seed=seed,
                fwd_agg_rel_max=_rel(agg16, agg32), fwd_delta_rel_max=_rel(d16, d32),
                bwd_worst_grad_rel_max=grad_gaps[worst], bwd_worst_grad=worst,
                grad_rel_max=grad_gaps)
     bf16 = lambda: step("default", torch.bfloat16)  # noqa: E731
     for precision in ("default", "highest"):
         fp32 = lambda p=precision: step(p, torch.float32)  # noqa: E731
-        t = [cs._median_ms(f) for f in (fp32, bf16, bf16, fp32)]
+        t = [cs._median_ms(f, **(timing or {})) for f in (fp32, bf16, bf16, fp32)]
         out[f"fp32_chain_{precision}_ms"] = [t[0], t[3]]
         out[f"bf16_chain_ms_vs_{precision}"] = [t[1], t[2]]
     fp32_ms = min(out["fp32_chain_default_ms"])

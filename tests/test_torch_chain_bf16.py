@@ -68,7 +68,7 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.parametrize("seed", [13, 0])
-@pytest.mark.parametrize("Hd,W", [(8, 4), (32, 8)])
+@pytest.mark.parametrize("Hd,W", [(8, 4), (32, 8), (128, 8)])
 def test_plain_bf16_chain_matches_pallas_interpret(Hd, W, seed):
     """Values and the gradients of sum(agg * g_agg) + sum(delta * g_delta)
     against JAX's interpret-mode bf16 chain, through every CPU entry."""

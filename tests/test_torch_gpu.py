@@ -213,9 +213,8 @@ def test_wide_widths_two_launches_are_bitwise_identical(cuda, Hd):
 @pytest.mark.parametrize("Hd", [768, 1100])
 def test_wide_fp32_chain_ticks_the_hopper_kernels(cuda, Hd):
     """Above 512 both fp32-chain modes (3xTF32 with fp32 a / bs, one pass
-    with bf16 a / bs) launch egnn_band_{fwd,bwd}_sm90_wide, once a call,
-    and no other kernel; the bf16 chain launches the wide variants of
-    egnn_band_fwd / egnn_band_bwd."""
+    with bf16 a / bs) and the bf16 chain launch
+    egnn_band_{fwd,bwd}_sm90_wide, once a call, and no other kernel."""
     from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
 
     B, L, W = 1, 24, 4
@@ -225,7 +224,7 @@ def test_wide_fp32_chain_ticks_the_hopper_kernels(cuda, Hd):
     g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
     cases = ((args, "highest", torch.float32, (WIDE_FWD, WIDE_BWD)),
              (_bf16_args(args), "default", torch.float32, (WIDE_FWD, WIDE_BWD)),
-             (_bf16_args(args), "default", torch.bfloat16, ("egnn_band_fwd", "egnn_band_bwd")))
+             (_bf16_args(args), "default", torch.bfloat16, (WIDE_FWD, WIDE_BWD)))
     for xin, precision, chain, names in cases:
         before, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
         egnn_band_fwd(*xin, W, precision, chain)
@@ -703,7 +702,7 @@ def _check_chain(args, W, seed):
     from protein_ensemble_vae_torch.ops.kernels.egnn_band import mode_key
 
     B, L, Hd = args[0].shape
-    keys = [mode_key(k, args[0].dtype, "default", CHAIN)
+    keys = [mode_key(band_kernel(k, Hd, "default", CHAIN), args[0].dtype, "default", CHAIN)
             for k in ("egnn_band_fwd", "egnn_band_bwd")]
     before = [BAND_MODE_LAUNCHES.get(k, 0) for k in keys]
     out = egnn_band_fwd(*args, W, "default", CHAIN)
@@ -782,8 +781,9 @@ def test_chain_bf16_two_launches_are_bitwise_identical(cuda, B, L):
 
 def test_chain_bf16_never_runs_the_plain_version_on_cuda(cuda, monkeypatch):
     """A CUDA call in the bf16 chain launches its kernel (one count per
-    call) and never falls back: with the plain versions made to raise,
-    EGNNBandFunction's forward and backward still run."""
+    call, on the one-pass Hopper kernels at Hd 64) and never falls back:
+    with the plain versions made to raise, EGNNBandFunction's forward and
+    backward still run."""
     from protein_ensemble_vae_torch.ops.kernels import egnn_band
 
     def refuse(*_, **__):
@@ -799,9 +799,126 @@ def test_chain_bf16_never_runs_the_plain_version_on_cuda(cuda, monkeypatch):
                                  "default", CHAIN)
     (agg.square().sum() + delta.square().sum()).backward()
     torch.cuda.synchronize()
-    assert LAUNCHES["egnn_band_fwd"] == before["egnn_band_fwd"] + 1
-    assert LAUNCHES["egnn_band_bwd"] == before["egnn_band_bwd"] + 1
+    assert LAUNCHES["egnn_band_fwd_sm90"] == before["egnn_band_fwd_sm90"] + 1
+    assert LAUNCHES["egnn_band_bwd_sm90"] == before["egnn_band_bwd_sm90"] + 1
     assert all(t.grad is not None for t in diff)
+
+
+# The bf16 chain on the Hopper families: the one-pass kernels up to 256, the
+# shared-tile kernels at 512 (and the padded widths below), the wide
+# kernels above 512.
+CHAIN_FAMILIES = {256: ("egnn_band_fwd_sm90", "egnn_band_bwd_sm90"),
+                  512: ("egnn_band_fwd_sm90_hd512", "egnn_band_bwd_sm90_hd512"),
+                  768: (WIDE_FWD, WIDE_BWD)}
+
+
+@pytest.mark.parametrize("Hd", sorted(CHAIN_FAMILIES))
+def test_chain_bf16_ticks_each_hopper_family(cuda, Hd):
+    """The bf16 chain at Hd 256, 512 and 768 launches its family's kernels
+    once a call and no other kernel (none of egnn_band_fwd / egnn_band_bwd),
+    counted under the bfloat16_chain key, with bf16 and fp32 a / bs."""
+    from protein_ensemble_vae_torch.ops.kernels import BAND_MODE_LAUNCHES
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import mode_key
+
+    B, L, W = 1, 40, 8
+    args = _inputs(B, L, Hd, cuda, seed=Hd + 1)
+    g = torch.Generator(device="cpu").manual_seed(Hd)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+    names = CHAIN_FAMILIES[Hd]
+    for xin in (_bf16_args(args), args):
+        before, modes = dict(LAUNCHES), dict(BAND_MODE_LAUNCHES)
+        egnn_band_fwd(*xin, W, "highest", CHAIN)
+        egnn_band_bwd(*xin, g_agg, g_delta, W, "default", CHAIN)
+        torch.cuda.synchronize()
+        ticked = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert ticked == {names[0]: 1, names[1]: 1}, ticked
+        keys = {mode_key(n, xin[0].dtype, "default", CHAIN) for n in names}
+        assert {k for k in BAND_MODE_LAUNCHES
+                if BAND_MODE_LAUNCHES[k] != modes.get(k, 0)} == keys
+
+
+@pytest.mark.parametrize("Hd", [512, 1024])
+def test_chain_bf16_two_launches_are_bitwise_identical_above_256(cuda, Hd):
+    """The shared-tile (512) and wide (1024) kernels in the bf16 chain sum
+    in a fixed order: two launches at B2/L256/W40 are bitwise identical,
+    and a masked tail stays exactly zero."""
+    B, L = 2, 256
+    args = _bf16_args(_inputs(B, L, Hd, cuda, seed=Hd + 23))
+    g = torch.Generator(device="cpu").manual_seed(L + Hd)
+    g_agg = torch.randn(B, L, Hd, generator=g).to(cuda)
+    g_delta = torch.randn(B, L, 3, generator=g).to(cuda)
+
+    def run():
+        return (egnn_band_fwd(*args, 40, "default", CHAIN)
+                + egnn_band_bwd(*args, g_agg, g_delta, 40, "default", CHAIN))
+
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert float(first[0][0, L - L // 5:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Hd", sorted(CHAIN_FAMILIES))
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_chain_bf16_kernel_failure_raises(cuda, monkeypatch, failure, Hd):
+    """A Hopper kernel of the bf16 chain that does not build, or whose
+    launch fails, makes the wrapper raise; nothing gives way to the mma.sync
+    kernels or to the plain versions, and no launch is counted."""
+    from protein_ensemble_vae_torch.ops.kernels import build
+    from protein_ensemble_vae_torch.ops.kernels import egnn_band as eb
+
+    slots = {256: (("_SM90_FN", eb._sm90_fn), ("_SM90_BWD_FN", eb._sm90_bwd_fn)),
+             512: (("_HD512_FN", eb._hd512_fn), ("_HD512_BWD_FN", eb._hd512_bwd_fn)),
+             768: (("_WIDE_FN", eb._wide_fn), ("_WIDE_BWD_FN", eb._wide_bwd_fn))}[Hd]
+    args = _bf16_args(_inputs(1, 16, Hd, cuda, seed=5))
+    g_agg = torch.ones(1, 16, Hd, device=cuda)
+    g_delta = torch.ones(1, 16, 3, device=cuda)
+    if failure == "build":
+        def no_build(name):
+            raise RuntimeError(f"nvcc failed for {name}")
+        for attr, _ in slots:
+            monkeypatch.setattr(eb, attr, None)
+        monkeypatch.setattr(eb, "_PER_SM", {})
+        monkeypatch.setattr(build, "load_library", no_build)
+        match = "nvcc failed"
+    else:
+        for attr, load in slots:
+            fn, lib = load()
+            monkeypatch.setattr(eb, attr, (lambda *_: 1, lib))   # cudaErrorInvalidValue
+        match = "launch failed"
+    for name in ("egnn_band_reference", "egnn_band_bwd_reference", "_kernel_fn",
+                 "_bwd_kernel_fn"):
+        monkeypatch.setattr(eb, name, None)   # no plain version, no mma.sync kernel either
+    before = dict(LAUNCHES)
+    with pytest.raises(RuntimeError, match=match):
+        egnn_band_fwd(*args, 4, "default", CHAIN)
+    with pytest.raises(RuntimeError, match=match):
+        egnn_band_bwd(*args, g_agg, g_delta, 4, "default", CHAIN)
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("Hd,nw,halves,hmajor", [
+    (32, 32, 1, False), (128, 128, 1, False), (256, 128, 1, False),
+    (512, 128, 2, True), (512, 64, 2, False), (768, 256, 1, True)])
+def test_bf16_weight_images_match_numpy_mirror(cuda, Hd, nw, halves, hmajor):
+    """The bf16 chain's layout kernel writes each weight's bf16 image (both
+    orientations, every family's chunk order: the one-pass kernels' up to
+    256, the shared-tile consumers' halves at 512, the wide kernels' column
+    passes) as the wrapper's numpy mirror (``weight_image_bf16``) does, bit
+    for bit."""
+    import numpy as np
+
+    from protein_ensemble_vae_torch.ops.kernels.egnn_band import (IMG_N, IMG_T,
+                                                                  bf16_weight_images,
+                                                                  weight_image_bf16)
+
+    w = torch.randn(Hd, Hd, generator=torch.Generator().manual_seed(Hd + nw)) / 20
+    got = bf16_weight_images([w.to(cuda)] * 2, [IMG_T, IMG_N], nw, halves, hmajor)
+    got = got.cpu().view(torch.int16).numpy().view(np.uint16)
+    for q, orient in enumerate((IMG_T, IMG_N)):
+        want = weight_image_bf16(w.numpy(), orient, nw, halves, hmajor)
+        assert np.array_equal(got[q], want), orient
 
 
 def test_chain_bf16_function_gradients_on_cuda(cuda):

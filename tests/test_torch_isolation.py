@@ -24,7 +24,7 @@ _IMPORT = re.compile(
 
 # the port's own scripts beside the package
 PORT_SCRIPTS = ("scripts/flagship_run_torch.py", "scripts/generate_and_analyze_torch.sh",
-                "scripts/battery_paths.py")
+                "scripts/battery_paths.py", "scripts/chain_dtype_ab.py")
 
 
 def _sources():

@@ -35,8 +35,8 @@ SHAPES = [(4, 256), (2, 640), (1, 256), (10, 256), (10, 640), (3, 77)]
 def test_routing_of_highest_at_every_width_up_to_256(lo, hi):
     """Every width from 1 to 256 runs at its native width, and in 3xTF32
     (fp32 chain) on the shared-tile kernels under the ``_x3`` counters;
-    the one-pass mode there stays on the one-pass Hopper kernels and the
-    bf16 chain on the mma.sync kernels."""
+    the one-pass mode and the bf16 chain there run on the one-pass Hopper
+    kernels."""
     for hd in range(lo, hi + 1):
         assert native_width(hd) == hi
         assert band_kernel("egnn_band_fwd", hd, "highest") == X3_KERNEL
@@ -44,8 +44,8 @@ def test_routing_of_highest_at_every_width_up_to_256(lo, hi):
         assert band_kernel("egnn_band_fwd", hd, "default") == "egnn_band_fwd_sm90"
         assert band_kernel("egnn_band_bwd", hd, "default") == "egnn_band_bwd_sm90"
         for precision in ("highest", "default"):
-            assert band_kernel("egnn_band_fwd", hd, precision, torch.bfloat16) == "egnn_band_fwd"
-            assert band_kernel("egnn_band_bwd", hd, precision, torch.bfloat16) == "egnn_band_bwd"
+            assert band_kernel("egnn_band_fwd", hd, precision, torch.bfloat16) == "egnn_band_fwd_sm90"
+            assert band_kernel("egnn_band_bwd", hd, precision, torch.bfloat16) == "egnn_band_bwd_sm90"
 
 
 @pytest.mark.parametrize("kernel", [X3_KERNEL, X3_BWD_KERNEL, "wgrad_hd512"])

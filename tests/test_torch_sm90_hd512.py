@@ -169,17 +169,17 @@ def test_weight_image_reads_back_through_the_descriptor(nw, hmajor, orient, part
 
 
 def test_routing_names_the_kernel_of_each_mode_and_width():
-    """Both fp32-chain modes at widths 257 to 512 go to the width-512
-    kernels; the bf16 chain at 512 keeps its kernels; above 512 both
-    fp32-chain modes go to the Hopper kernels above 512; up to 256, 3xTF32
+    """Both fp32-chain modes and the bf16 chain at widths 257 to 512 go to
+    the width-512 kernels; above 512 both fp32-chain modes go to the Hopper
+    kernels above 512; up to 256, 3xTF32
     goes to the shared-tile kernels under their own counters and the
     one-pass mode to the one-pass Hopper kernels."""
     for hd in (257, 300, 384, 511, 512):
         for precision in ("highest", "default"):
             assert band_kernel("egnn_band_fwd", hd, precision) == HD512_KERNEL
             assert band_kernel("egnn_band_bwd", hd, precision) == HD512_BWD_KERNEL
-        assert band_kernel("egnn_band_fwd", hd, "default", torch.bfloat16) == "egnn_band_fwd"
-        assert band_kernel("egnn_band_bwd", hd, "highest", torch.bfloat16) == "egnn_band_bwd"
+        assert band_kernel("egnn_band_fwd", hd, "default", torch.bfloat16) == HD512_KERNEL
+        assert band_kernel("egnn_band_bwd", hd, "highest", torch.bfloat16) == HD512_BWD_KERNEL
     for hd in (513, 640, 1024):
         for precision in ("highest", "default"):
             assert band_kernel("egnn_band_fwd", hd, precision) == "egnn_band_fwd_sm90_wide"

@@ -196,16 +196,16 @@ def test_wrapper_constants_match_the_sources():
 
 
 def test_routing_names_the_kernel_of_each_mode():
-    """The one-pass fp32 chain at widths up to 256 (padded ones included)
-    goes to the Hopper kernels; 3xTF32 there to the shared-tile kernels
-    under their own counters, the bf16 chain to neither; at Hd 512 (and
+    """The one-pass fp32 chain and the bf16 chain at widths up to 256
+    (padded ones included) go to the one-pass Hopper kernels; 3xTF32 there
+    to the shared-tile kernels under their own counters; at Hd 512 (and
     384, padded to it) the one-pass mode goes to the width-512 Hopper
     kernels (tests/test_torch_sm90_hd512.py and
     tests/test_torch_sm90_3xtf32.py route every mode and width)."""
     assert band_kernel("egnn_band_fwd", 256, "default") == "egnn_band_fwd_sm90"
     assert band_kernel("egnn_band_bwd", 48, "default") == "egnn_band_bwd_sm90"
     assert band_kernel("egnn_band_fwd", 256, "highest") == "egnn_band_fwd_sm90_x3"
-    assert band_kernel("egnn_band_fwd", 256, "default", torch.bfloat16) == "egnn_band_fwd"
+    assert band_kernel("egnn_band_fwd", 256, "default", torch.bfloat16) == "egnn_band_fwd_sm90"
     assert band_kernel("egnn_band_bwd", 512, "default") == "egnn_band_bwd_sm90_hd512"
     assert band_kernel("egnn_band_bwd", 384, "default") == "egnn_band_bwd_sm90_hd512"
 

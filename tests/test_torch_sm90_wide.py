@@ -46,8 +46,8 @@ def _src(name: str) -> str:
 def test_routing_names_the_hopper_kernels_above_512():
     """Every width from 513 to 2048 in both fp32-chain modes, with fp32 or
     bf16 a / bs, is served (and counted) by egnn_band_{fwd,bwd}_sm90_wide at
-    the next multiple of WIDE_GROUP; the bf16 chain there keeps the wide
-    variants of egnn_band_fwd / egnn_band_bwd; 512 keeps its own kernels."""
+    the next multiple of WIDE_GROUP, and so is the bf16 chain there; 512
+    keeps its own kernels."""
     for hd in range(MAX_NATIVE + 1, 2049, 37):
         assert native_width(hd) % WIDE_GROUP == 0 and native_width(hd) - hd < WIDE_GROUP
         for precision in ("highest", "default"):
@@ -56,7 +56,7 @@ def test_routing_names_the_hopper_kernels_above_512():
                 for dtype in (torch.float32, torch.bfloat16):
                     key = mode_key(band_kernel(kernel, hd, precision), dtype, precision)
                     assert key == f"{want}:{str(dtype)[6:]}/{precision}"
-                assert band_kernel(kernel, hd, precision, torch.bfloat16) == kernel
+                assert band_kernel(kernel, hd, precision, torch.bfloat16) == want
     for precision in ("highest", "default"):
         assert band_kernel("egnn_band_fwd", MAX_NATIVE, precision) == "egnn_band_fwd_sm90_hd512"
     for name in (WIDE_KERNEL, WIDE_BWD_KERNEL):
