@@ -31,6 +31,7 @@ from protein_ensemble_vae_torch.infer.torsion_refine import refine_torsions
 from protein_ensemble_vae_torch.models.vae import HierCVAE
 from protein_ensemble_vae_torch.ops.geometry import kabsch_rmsd, pairwise_kabsch_rmsd
 from protein_ensemble_vae_torch.ops.routing import set_full_fp32
+from protein_ensemble_vae_torch.utils.profiling import span
 
 
 def _pad(x: np.ndarray, L_pad: int) -> np.ndarray:
@@ -38,14 +39,16 @@ def _pad(x: np.ndarray, L_pad: int) -> np.ndarray:
     return np.pad(x, pad)
 
 
-def _timed(seconds: dict, stage: str, fn, *args, **kwargs):
+def _timed(seconds: dict, stage: str, request: Optional[int], fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its host-clock seconds (after the device
-    has finished it) stored under ``seconds[stage]``."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    if out[0].is_cuda:
-        torch.cuda.synchronize(out[0].device)
-    seconds[stage] = time.perf_counter() - t0
+    has finished it) stored under ``seconds[stage]``, inside the span
+    ``refine.<stage>`` of structure ``request``."""
+    with span("refine." + stage, request):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if out[0].is_cuda:
+            torch.cuda.synchronize(out[0].device)
+        seconds[stage] = time.perf_counter() - t0
     return out
 
 
@@ -59,10 +62,11 @@ POLISH_CARTESIAN = dict(steps=600, lr=0.05, anchor_weight=0.003, w_bond=4.0,
 
 def _refine_ensemble(n, ca, c, mask, seconds: dict, *, mode: str, steps: int,
                      lr: float, anchor: float, w_rama: float,
-                     kwargs: Optional[dict]):
+                     kwargs: Optional[dict], request: Optional[int] = None):
     """Generation-time refinement of the decoded ensemble, dispatched as
     the JAX package's ``generate_ensembles`` does; each stage's seconds go
-    into ``seconds`` ("cartesian", "torsion")."""
+    into ``seconds`` ("cartesian", "torsion"), its span carries the
+    structure index ``request``."""
     if mode in ("torsion", "polish"):
         # NeRF-manifold refinement: exact covalent geometry by construction;
         # the Cartesian kwargs (w_angle/w_bond/...) don't apply on the
@@ -70,16 +74,16 @@ def _refine_ensemble(n, ca, c, mask, seconds: dict, *, mode: str, steps: int,
         # (runs/refine_sweep_polish.json): the Cartesian vdW relaxation
         # first, then the manifold stage.
         if mode == "polish":
-            n, ca, c = _timed(seconds, "cartesian", refine_backbone, n, ca, c, mask,
-                              **POLISH_CARTESIAN)
+            n, ca, c = _timed(seconds, "cartesian", request, refine_backbone, n, ca, c,
+                              mask, **POLISH_CARTESIAN)
         # As the reference has it: the generate CLI's defaults
         # (w_clash_vdw 0.0, lr_decay False) are forwarded here too.
         kw = {k: v for k, v in (kwargs or {}).items()
               if k in ("w_clash_vdw", "lr_decay")}
-        return _timed(seconds, "torsion", refine_torsions, n, ca, c, mask,
+        return _timed(seconds, "torsion", request, refine_torsions, n, ca, c, mask,
                       steps=steps, lr=lr, anchor_weight=anchor, w_rama=w_rama,
                       w_omega=w_rama / 2.0, vdw_include_o=(mode == "polish"), **kw)
-    return _timed(seconds, "cartesian", refine_backbone, n, ca, c, mask,
+    return _timed(seconds, "cartesian", request, refine_backbone, n, ca, c, mask,
                   steps=steps, lr=lr, anchor_weight=anchor, w_rama=w_rama,
                   w_omega=w_rama, **(kwargs or {}))
 
@@ -184,7 +188,7 @@ def generate_ensembles(model: HierCVAE, view, output_dir: str,
                 ens_n_t, ens_ca_t, ens_c_t, mask_rep, refine_seconds,
                 mode=refine_mode, steps=refine_steps, lr=refine_lr,
                 anchor=refine_anchor, w_rama=refine_w_rama,
-                kwargs=refine_kwargs)
+                kwargs=refine_kwargs, request=idx)
         ens_n, ens_ca, ens_c = (a.cpu().numpy()
                                 for a in (ens_n_t, ens_ca_t, ens_c_t))
 

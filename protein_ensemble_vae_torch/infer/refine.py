@@ -23,7 +23,9 @@ the counterpart of the JAX package's one jitted ``lax.scan``. Graphs are
 cached per static key (shapes, ``steps``, ``lr_decay``, the energy and its
 on/off terms, device); weight values and ``lr`` are copied into the
 graph's input buffers, so changing them never captures again. A failed
-capture raises. On the CPU the same step runs eagerly in a Python loop.
+capture raises. The spans ``refine.capture`` (a capture, on a cache miss)
+and ``refine.replay`` (a call's whole replay loop) mark both. On the CPU
+the same step runs eagerly in a Python loop.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from protein_ensemble_vae_torch.ops.geometry import dihedrals_from_coords
 from protein_ensemble_vae_torch.ops.kernels import LAUNCHES
 from protein_ensemble_vae_torch.ops.kernels.clash import clash_loss_kernel
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
+from protein_ensemble_vae_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 Energy = Callable[[Tensor, dict], Tensor]
@@ -168,13 +171,15 @@ def adam_descent(energy: Energy, x0: Tensor, consts: dict, lr: float, *,
                 tuple((k, tuple(t.shape), t.dtype) for k, t in sorted(consts.items())))
     entry = _GRAPHS.get(full_key)
     if entry is None:
-        entry = _StepGraph(energy, x0, consts, steps, lr_decay)
+        with span("refine.capture"):
+            entry = _StepGraph(energy, x0, consts, steps, lr_decay)
         _GRAPHS[full_key] = entry
         while len(_GRAPHS) > MAX_GRAPHS:
             _GRAPHS.popitem(last=False)
     else:
         _GRAPHS.move_to_end(full_key)
-    return entry.run(x0, consts, lr)
+    with span("refine.replay"):
+        return entry.run(x0, consts, lr)
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,7 @@ from protein_ensemble_vae_torch.ops.kernels import (BAND_MODE_LAUNCHES, LAUNCHES
                                                    check_outputs)
 from protein_ensemble_vae_torch.ops.routing import pallas_policy
 from protein_ensemble_vae_torch.parallel.shard import copy_to_tp, reduce_from_tp
+from protein_ensemble_vae_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -847,14 +848,23 @@ def egnn_band_fwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     if not a.is_cuda:
         return egnn_band_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                    b_x1, w_x2, b_x2, W, chain_dtype)
+    with span("band.fwd"):
+        return _fwd_cuda(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                         W, precision, chain_dtype)
+
+
+def _fwd_cuda(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W: int,
+              precision: str, chain_dtype) -> tuple[Tensor, Tensor]:
+    """``egnn_band_fwd``'s host work for CUDA tensors: checks, padding,
+    outputs, planning, scratch, weight images and the launch."""
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
     n = native_width(Hd)
     if n != Hd:
-        agg, delta = egnn_band_fwd(*pad_band_width(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
-                                                   b_x1, w_x2, b_x2, n),
-                                   W, precision, chain_dtype)
+        agg, delta = _fwd_cuda(*pad_band_width(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
+                                               b_x1, w_x2, b_x2, n),
+                               W, precision, chain_dtype)
         return agg[..., :Hd], delta
     agg = torch.empty((B, L, Hd), dtype=torch.float32, device=dev)
     delta = torch.empty((B, L, 3), dtype=torch.float32, device=dev)
@@ -1273,6 +1283,14 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     if not a.is_cuda:
         return egnn_band_bwd_reference(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1,
                                        b_x1, w_x2, b_x2, g_agg, g_delta, W, chain_dtype)
+    with span("band.bwd"):
+        return _bwd_cuda(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
+                         g_agg, g_delta, W, precision, chain_dtype)
+
+
+def _bwd_cuda(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, g_agg, g_delta,
+              W: int, precision: str, chain_dtype) -> tuple[Tensor, ...]:
+    """``egnn_band_bwd``'s host work for CUDA tensors, as ``_fwd_cuda``."""
     B, L, Hd = a.shape
     dev = a.device
     _check_inputs(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2, W)
@@ -1282,8 +1300,8 @@ def egnn_band_bwd(a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2,
     if n != Hd:
         args = (a, bs, x, cmask, w_d, w_e2, b_e2, w_x1, b_x1, w_x2, b_x2)
         return unpad_band_grads(
-            egnn_band_bwd(*pad_band_width(*args, n), F.pad(g_agg, (0, n - Hd)), g_delta,
-                          W, precision, chain_dtype), *args)
+            _bwd_cuda(*pad_band_width(*args, n), F.pad(g_agg, (0, n - Hd)), g_delta,
+                      W, precision, chain_dtype), *args)
     f32 = dict(dtype=torch.float32, device=dev)
     alloc = torch.empty if B and L else torch.zeros
     da = alloc((B, L, Hd), dtype=a.dtype, device=dev)

@@ -18,6 +18,10 @@
 - Randomness: reparameterisation noise and dropout come from torch's
   generators on the device, seeded per step from ``TrainConfig.seed``, the
   epoch, the batch index and the step count. Their bits differ from JAX's.
+- Spans (``utils/profiling.span``, off unless turned on): ``train.fetch``
+  and ``train.step`` in ``run_epoch``, ``train.forward``,
+  ``train.backward`` and ``train.optimizer`` in the step, each with the
+  state's step count as its request.
 - Parallelism (``parallel/mesh.py``): with a ``mesh`` a step is one rank's
   part of the dp x tp step. Its draws are the global batch's, cut to its
   rows; the loss normalisers are summed over the dp group, so its loss is
@@ -29,6 +33,7 @@
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Callable, Iterable, Optional
 
@@ -43,6 +48,7 @@ from protein_ensemble_vae_torch.losses import (batch_denominators,
 from protein_ensemble_vae_torch.parallel.shard import draw_rows, tp_param_dim
 from protein_ensemble_vae_torch.train.kl_schedulers import create_kl_scheduler
 from protein_ensemble_vae_torch.train.lr_schedule import ReduceLROnPlateau
+from protein_ensemble_vae_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -442,19 +448,22 @@ def make_train_step(model: nn.Module, weights: LossWeights, train: bool,
             if train:
                 for p in state.params:
                     p.grad = None
-                total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l, eps)
-                total.backward()
+                with span("train.forward", state.step):
+                    total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l, eps)
+                with span("train.backward", state.step):
+                    total.backward()
             else:
-                with torch.no_grad():
+                with torch.no_grad(), span("train.forward", state.step):
                     total, (loss_dict, seq_acc) = loss_fn(batch, klw_g, klw_l, eps)
         metrics = step_metrics(loss_dict, seq_acc)
         if train:
-            g = state.flat_grad()
-            if dp_sum is not None:
-                g, metrics = _dp_sum_with(g, metrics, dp_sum)
-            metrics["grad_norm"] = opt.apply(state, g, lr, tp_sum)
-            for p in state.params:
-                p.grad = None
+            with span("train.optimizer", state.step):
+                g = state.flat_grad()
+                if dp_sum is not None:
+                    g, metrics = _dp_sum_with(g, metrics, dp_sum)
+                metrics["grad_norm"] = opt.apply(state, g, lr, tp_sum)
+                for p in state.params:
+                    p.grad = None
             state.step += 1
         else:
             if dp_sum is not None:
@@ -486,13 +495,19 @@ def run_epoch(state: TrainState, step_fn: Callable, batches: Iterable,
     weight_sum = None
     n = 0
     converted = (batch_to_arrays(pb, seqemb_dim) for pb in batches)
-    for batch_idx, batch in enumerate(prefetch_to_device(converted, dev)):
+    on_device = prefetch_to_device(converted, dev)
+    for batch_idx in itertools.count():
+        with span("train.fetch", state.step):
+            batch = next(on_device, None)
+        if batch is None:
+            break
         bs = batch["tgt"]["ca"].shape[0]
         fn = step_fn
         if dp > 1 and bs % dp != 0 and fallback_step_fn is not None:
             fn = fallback_step_fn
-        state, metrics = fn(state, batch, fold_seed(rng, batch_idx),
-                            klw_g, klw_l, lr)
+        with span("train.step", state.step):
+            state, metrics = fn(state, batch, fold_seed(rng, batch_idx),
+                                klw_g, klw_l, lr)
         w = torch.isfinite(metrics["loss"]).to(torch.float32) * bs
         weighted = {k: torch.where(torch.isfinite(m), m, torch.zeros_like(m)) * w
                     for k, m in metrics.items()}

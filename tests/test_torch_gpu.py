@@ -1135,9 +1135,30 @@ def test_clash_function_gradients_on_cuda(cuda):
         _close_scaled(a.grad, b.grad, "clash loss grad")
 
 
-def test_train_step_has_no_host_sync(cuda):
+@pytest.fixture(params=[False, True], ids=["spans_off", "spans_on"])
+def spans(request):
+    """Spans off (the default) or on (``utils/profiling.span``), nothing
+    recorded yet: ``on``, and the registry's ``span``, ``spans`` and
+    ``reset_spans``."""
+    import types
+
+    from protein_ensemble_vae_torch.utils import profiling
+
+    was = profiling.enable_spans(request.param)
+    profiling.reset_spans()
+    try:
+        yield types.SimpleNamespace(on=request.param, span=profiling.span,
+                                    spans=profiling.spans, reset_spans=profiling.reset_spans)
+    finally:
+        profiling.enable_spans(was)
+        profiling.reset_spans()
+
+
+def test_train_step_has_no_host_sync(cuda, spans):
     """A B4/L256 train step at small widths under sync-debug "error": any
-    host synchronisation inside the step raises."""
+    host synchronisation inside the step raises, spans off or on (on, the
+    step records its forward, backward and optimizer spans and one
+    ``band.fwd`` / ``band.bwd`` per launch of kernels 1-2)."""
     from protein_ensemble_vae_torch.config import LossWeights
     from protein_ensemble_vae_torch.train.training import (TrainState,
                                                            make_train_step)
@@ -1153,6 +1174,7 @@ def test_train_step_has_no_host_sync(cuda):
     consts = [torch.tensor(v, device=cuda) for v in (0.5, 0.25, 1e-4)]
     step(state, batch, 0, *consts)          # warm-up: kernel builds, handles
     torch.cuda.synchronize()
+    spans.reset_spans()
     before = dict(LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1163,6 +1185,14 @@ def test_train_step_has_no_host_sync(cuda):
     assert LAUNCHES[X3_BWD] == before[X3_BWD] + 2
     assert LAUNCHES["clash_bwd"] == before["clash_bwd"] + 1
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    names = [s.name for s in spans.spans()]
+    if spans.on:
+        for name in ("train.forward", "train.backward", "train.optimizer"):
+            assert [s.request for s in spans.spans() if s.name == name] == [1], name
+        assert names.count("band.fwd") == LAUNCHES[X3_FWD] - before[X3_FWD] == 2
+        assert names.count("band.bwd") == 2
+    else:
+        assert names == []
 
 
 def _train_batch(B, L, seqemb_dim, device, seed=0):
@@ -1256,10 +1286,10 @@ def test_refine_loops_from_a_graph_match_eager(cuda, monkeypatch):
     R.clear_graphs()
 
 
-def test_refine_step_has_no_host_sync(cuda, monkeypatch):
+def test_refine_step_has_no_host_sync(cuda, monkeypatch, spans):
     """One Adam step of each refinement energy (energy, gradient, update)
     under sync-debug "error": a host synchronisation, which a CUDA graph
-    cannot capture, raises."""
+    cannot capture, raises; spans off or on (the step inside a span)."""
     from protein_ensemble_vae_torch.infer import refine as R
     from protein_ensemble_vae_torch.infer import torsion_refine as T
 
@@ -1271,7 +1301,8 @@ def test_refine_step_has_no_host_sync(cuda, monkeypatch):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            R._adam_step(energy, x, consts, m, v, count, lr_t, steps, lr_decay)
+            with spans.span("refine.replay"):
+                R._adam_step(energy, x, consts, m, v, count, lr_t, steps, lr_decay)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         return x
@@ -1283,6 +1314,38 @@ def test_refine_step_has_no_host_sync(cuda, monkeypatch):
     R.refine_backbone(n, ca, c, mask, steps=2, lr_decay=True, **_POLISH_W)
     T.refine_torsions(n, ca, c, mask, steps=2, vdw_include_o=True)
     assert LAUNCHES["clash_fwd"] == before + 2
+    assert len(spans.spans()) == (2 if spans.on else 0)
+
+
+def test_adam_descent_spans_capture_once_and_replay_each_call(cuda):
+    """Two calls with one key: one ``refine.capture`` (the cache miss) and a
+    ``refine.replay`` around each call's replay loop, the capture inside
+    the first call's time; the results match the eager loop."""
+    from protein_ensemble_vae_torch.infer.refine import adam_descent, clear_graphs
+    from protein_ensemble_vae_torch.utils import profiling
+
+    def energy(x, c):
+        return ((x - c["t"]) ** 2).sum()
+
+    consts = {"t": torch.linspace(-1.0, 1.0, 64, device=cuda)}
+    x0 = torch.zeros(64, device=cuda)
+    clear_graphs()
+    was = profiling.enable_spans(True)
+    profiling.reset_spans()
+    try:
+        outs = [adam_descent(energy, x0, consts, 0.1, steps=5, lr_decay=True,
+                             key=("spans-test",)) for _ in range(2)]
+        got = profiling.spans()
+    finally:
+        profiling.enable_spans(was)
+        profiling.reset_spans()
+        clear_graphs()
+    assert [s.name for s in got] == ["refine.capture", "refine.replay", "refine.replay"]
+    assert got[0].end <= got[1].start and got[1].end <= got[2].start
+    eager = adam_descent(energy, x0, consts, 0.1, steps=5, lr_decay=True,
+                         key=("spans-test",), graph=False)
+    for x in outs:
+        torch.testing.assert_close(x, eager)
 
 
 def _esm2_small(seed=0):

@@ -1,6 +1,6 @@
 """Timing and profiling harnesses of the port
 (``protein_ensemble_vae_torch.utils.profiling``) against the JAX package's
-``utils/profiling.py``: ``time_fn``, ``scan_step_time`` and ``step_timer``
+``utils/profiling.py``: ``time_fn`` and ``scan_step_time``
 on an injected clock (``time.perf_counter`` replaced, so no assertion rests
 on wall time), each beside the JAX function on the same clock; ``trace``
 writes a Chrome trace; ``enable_debug_mode`` raises at the op that first
@@ -72,14 +72,6 @@ def test_scan_step_time_differences_two_run_lengths(clock):
     assert detail["method"] == "scan-diff" and len(detail["repeats"]) == 3
     assert set(detail["repeats"][0]) == {"t_n1_s", "t_n2_s", "per_step_ms"}
     assert TP.scan_step_time(make_run, n1=2, n2=10, repeats=2) == pytest.approx(0.01)
-
-
-def test_step_timer(clock):
-    with TP.step_timer() as t:
-        clock.t += 0.0125
-    with JP.step_timer() as j:
-        clock.t += 0.0125
-    assert t.ms == j.ms == pytest.approx(12.5)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -139,6 +139,9 @@ DIFFERENCES = {
     "train/training.py:train_model()":
         "no jit_wrapper (eager torch); mesh and local_batches for dp / tp",
     "utils/watch.py:histogram_summaries()": "named (name, tensor) pairs for a pytree",
+    "utils/profiling.py:step_timer":
+        "timed the enqueue of a block, not its work, and nothing read it; the port's "
+        "host timing is utils/profiling.span, on the profiler's clock",
     "utils/profiling.py:trace()":
         "logdir defaults to a directory under the temporary directory, not a fixed /tmp path",
     # Not a name or a signature, so no entry: the port's H5 files go through
